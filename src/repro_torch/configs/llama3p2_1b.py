@@ -1,0 +1,24 @@
+"""llama3.2-1b [dense] — hf:meta-llama/Llama-3.2-1B.
+
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256, tied embeddings.
+"""
+from repro_torch.configs import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-1b",
+        family="dense",
+        num_layers=16,
+        d_model=2048,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        d_ff=8192,
+        vocab_size=128256,
+        mlp_act="swiglu",
+        norm="rmsnorm",
+        rope_theta=500000.0,
+        tie_embeddings=True,
+        attn_impl="ulysses",  # 32 heads % 16 == 0
+    )
