@@ -1,30 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU and hold its kernel to account.
+"""Drive the PyTorch port on one NVIDIA GPU and hold its kernels to account.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi) and torch's name;
-  2. build    — nvcc builds the hand-written CUDA flash_fwd for sm_90a from
-                the checkout's sources;
+  2. build    — nvcc builds the hand-written CUDA kernels for sm_90a from the
+                checkout's sources, one nvcc per source, started together:
+                flash_fwd (csrc/flash_fwd.cu), flash_bwd_dq and flash_bwd_dkv
+                (csrc/flash_bwd.cu);
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
                 on the card: fp32 and bf16, head_dim 16/64/128, GQA, ragged
                 lengths, carry-in with offsets, windows, fully masked rows,
                 the serve shapes and every (i, j <= i) chunk pair of a 2048
                 prompt at u = 4;
-  4. serve    — llama3.2-1b at full width with random weights from a seeded
+  4. backward — flash_bwd_dq and flash_bwd_dkv against their plain versions
+                (ref.chunk_bwd_dq / chunk_bwd_dkv) on the same kinds of cases,
+                and at the training path's shapes: every (i, j <= i) pair of an
+                8192 prompt at u = 4 (2048 x 2048, b1 hq32 hkv8 d64) and the
+                8192 x 8192 pair of u = 1 (held at b1 hq4 hkv1 so that the
+                plain version's [sq, sk] fp32 matrices fit); flash_fwd is held
+                against its plain version at those same pairs, with carry and
+                offsets;
+  5. serve    — llama3.2-1b at full width with random weights from a seeded
                 generator, through the CLI's own function (serve_batch):
-                batch 4, prompt 64, gen 32, greedy; the launch count is reset
+                batch 4, prompt 64, gen 32, greedy; the launch counts are reset
                 just before and read just after.  Decode's first step against a
                 prefill of one more token, in fp32 weights.  Then a 2048 prompt
                 whose prefill logits at fpdt_chunks=4 must equal fpdt_chunks=1;
-  5. timing   — flash_fwd at the serve shapes beside its bound, the plain
-                version and scaled_dot_product_attention (timed as a yardstick
-                only: the port never calls it), each as device time from a CUDA
-                graph of repeated calls; the kernel's wrapper also launched from
-                the host back to back (wrapper_ms: host dispatch included);
-  6. kernels  — one JSON line per the kernel contract;
-  7. last line: {"ok": true, "device": {...}}.
+  6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
+                generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
+                fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
+                through the CLI's own function (train_steps), the launch
+                counts read around each step; then one step each with
+                offload on and off under torch.profiler: device time by
+                kernel group, idle share, and the share of the offload
+                copies that ran under a compute kernel.  Offload on and off give the
+                same loss and gradients bit for bit; the offloaded chunks are
+                pinned host tensors; in fp32 weights the loss and every
+                gradient leaf at u = 4 are within 5e-4 of u = 1;
+  7. timing   — each kernel beside its bound, its plain version and a
+                library call of PyTorch (scaled_dot_product_attention and the
+                flash-attention backward behind it, timed as yardsticks only:
+                the port never calls them), all as device time from a CUDA
+                graph of repeated calls; the wrappers also launched from the
+                host back to back (wrapper_ms: host dispatch included);
+  8. kernels  — one JSON line per the kernel contract;
+  9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
 library, and stops if there is no card or no port beside it.
@@ -48,6 +70,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:34
+# kernel gradients: tests/test_kernels_flash.py:54.  dq elementwise (abs +
+# rel); dk and dv sum over g * sq rows, so their error is held relative to
+# (1 + max |reference|), as acc is held relative to (1 + l).
+TOL_BWD = 1e-4
+# FPDT gradients at u = 4 vs u = 1, relative to each leaf's largest
+# magnitude: tests/test_fpdt.py:50.
+FPDT_GRAD_RTOL = 5e-4
 # fp32 logits of decode vs prefill, relative to the logits' largest magnitude:
 # other matmul shapes and another softmax order, fp32 rounding through 16 layers.
 FP32_LOGIT_RTOL = 1e-4
@@ -88,12 +117,13 @@ def phase_device(torch):
 
 def phase_build(K):
     t0 = time.perf_counter()
-    lib = K.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log = lib.with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    libs = K.build_all()
+    print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc per source, in parallel)")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {lib.stem.split('_')[1]}:", line.strip())
 
 
 def _max_violation(got, want, tol):
@@ -102,18 +132,10 @@ def _max_violation(got, want, tol):
     return float(diff.max()), bool((diff > tol + tol * want.float().abs()).any())
 
 
-def phase_kernel(torch, K, R, SoftmaxState, finalize):
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    acc_errs = dict(errs)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev)
-
-    def carry_of(b, hq, sq, d):
-        return SoftmaxState(rnd(b, hq, sq, d), rnd(b, hq, sq), torch.rand(
-            (b, hq, sq), generator=g, device=dev) + 0.5)
+def _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs):
+    """check(label, dtype, q, k, v, carry, **kw): flash_fwd against
+    ref.attend_chunk on the same inputs and carry; records the largest
+    errors in ``errs`` / ``acc_errs`` by dtype and returns the plain state."""
 
     def check(label, dtype, q, k, v, carry, **kw):
         got = K.flash_fwd(q, k, v, None if carry is None else tuple(carry), **kw)
@@ -138,9 +160,26 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
         acc_rel = float(((got[0] - want.acc).abs() / (1.0 + want.l[..., None])).max())
         if acc_rel > tol:
             raise AssertionError(f"{label}: acc err / (1 + l) {acc_rel:.3e} beyond tol {tol}")
-        errs[tname] = max(errs[tname], worst)
-        acc_errs[tname] = max(acc_errs[tname], acc_rel)
+        errs[tname] = max(errs.get(tname, 0.0), worst)
+        acc_errs[tname] = max(acc_errs.get(tname, 0.0), acc_rel)
         return want
+
+    return check
+
+
+def phase_kernel(torch, K, R, SoftmaxState, finalize):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    acc_errs = dict(errs)
+    check = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def carry_of(b, hq, sq, d):
+        return SoftmaxState(rnd(b, hq, sq, d), rnd(b, hq, sq), torch.rand(
+            (b, hq, sq), generator=g, device=dev) + 0.5)
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -186,6 +225,127 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     return errs
 
 
+def _reset_counts(K):
+    K.launches = K.dq_launches = K.dkv_launches = 0
+
+
+def _counts(K):
+    return {"flash_fwd": K.launches, "flash_bwd_dq": K.dq_launches,
+            "flash_bwd_dkv": K.dkv_launches}
+
+
+def _bwd_inputs(torch, R, lse, finalize, q, k, v, g, states=None, **kw):
+    """do, L and delta for q's rows: L and o from ``states`` (the plain
+    forward over every key the rows see) or from this pair's forward."""
+    st = states if states is not None else R.attend_chunk(q, k, v, **kw)
+    do = torch.randn(q.shape, generator=g, device=q.device)
+    return do, lse(st), (do * finalize(st)).sum(-1)
+
+
+def phase_kernel_bwd(torch, K, R, SoftmaxState, lse, finalize):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # dq: max abs err; dk, dv: err / (1 + max|ref|)
+    worst_abs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    # flash_fwd at the training path's pairs, continuing the plain carry
+    fwd_errs, fwd_acc = {}, {}
+    fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, fwd_errs, fwd_acc)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def check(label, q, k, v, do, L, delta, **kw):
+        dq = K.flash_bwd_dq(q, k, v, do, L, delta, **kw)
+        dk, dv = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
+        want_dq = R.chunk_bwd_dq(q, k, v, do, L, delta, **kw)
+        want_dk, want_dv = R.chunk_bwd_dkv(q, k, v, do, L, delta, **kw)
+        torch.cuda.synchronize()
+        for part, a in (("dq", dq), ("dk", dk), ("dv", dv)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{label}: non-finite {part}")
+        err, bad = _max_violation(dq, want_dq, TOL_BWD)
+        if bad:
+            raise AssertionError(f"{label}: dq max err {err:.3e} beyond tol {TOL_BWD}")
+        out = {"dq": err}
+        worst_abs["dq"] = max(worst_abs["dq"], err)
+        for part, a, b in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+            abs_err = float((a - b).abs().max())
+            worst_abs[part] = max(worst_abs[part], abs_err)
+            rel = abs_err / (1.0 + float(b.abs().max()))
+            if rel > TOL_BWD:
+                raise AssertionError(f"{label}: {part} err / (1 + max|ref|) {rel:.3e} "
+                                     f"beyond tol {TOL_BWD}")
+            out[part] = rel
+        for part in worst:
+            worst[part] = max(worst[part], out[part])
+        return out
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 128):
+            cases = [
+                # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off
+                ("ragged-diag", 2, 4, 4, 100, 100, True, 0, 0, 0),
+                ("gqa4-window-offsets", 2, 8, 2, 100, 70, True, 33, 90, 40),
+                ("future-keys-all-masked", 1, 4, 1, 64, 64, True, 33, 0, 200),
+                ("noncausal-gqa2", 1, 4, 2, 37, 100, False, 0, 0, 0),
+            ]
+            for label, b, hq, hkv, sq, sk, causal, window, qo, ko in cases:
+                q = rnd(b, hq, sq, d).to(dtype)
+                k, v = rnd(b, hkv, sk, d).to(dtype), rnd(b, hkv, sk, d).to(dtype)
+                kw = dict(causal=causal, window=window, q_offset=qo, k_offset=ko)
+                do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, k, v, g, **kw)
+                check(f"{label} d={d} {dtype}", q, k, v, do, L, delta, **kw)
+                n += 1
+    # the training path: every (i, j <= i) pair of an 8192 prompt at u=4,
+    # each row's L and delta from the plain forward over all keys it sees;
+    # flash_fwd is held against that plain forward at each pair, fed the
+    # plain running state as its carry
+    cq, u = 2048, 4
+    qs = [rnd(1, 32, cq, 64).to(torch.bfloat16) for _ in range(u)]
+    ks = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
+    vs = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
+    pair_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i in range(u):
+        st = None
+        for j in range(i + 1):
+            st = fwd_check(f"flash_fwd u=4 pair ({i},{j})", torch.bfloat16, qs[i], ks[j], vs[j],
+                           st, causal=True, q_offset=i * cq, k_offset=j * cq)
+        do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
+        for j in range(i + 1):
+            out = check(f"u=4 pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, causal=True,
+                        q_offset=i * cq, k_offset=j * cq)
+            pair_worst = {p: max(pair_worst[p], out[p]) for p in out}
+            n += 1
+        del st, do, L, delta
+    print(f"flash_fwd at the u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, "
+          f"carry and offsets, all 10): max abs err of out, m, l {fwd_errs['bfloat16']:.3e} "
+          f"(tol {TOL['bfloat16']}); acc err / (1 + l) {fwd_acc['bfloat16']:.3e}")
+    print(f"u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, all 10): dq max "
+          f"abs err {pair_worst['dq']:.3e}; dk, dv err / (1 + max|ref|) {pair_worst['dk']:.3e}, "
+          f"{pair_worst['dv']:.3e}")
+    del qs, ks, vs
+    # the u=1 pair, at b1 hq4 hkv1 so the plain version's [sq, sk] fp32
+    # matrices (1 GiB each) fit beside the kernel's inputs
+    q, k, v = (rnd(1, 4, 8192, 64).to(torch.bfloat16), rnd(1, 1, 8192, 64).to(torch.bfloat16),
+               rnd(1, 1, 8192, 64).to(torch.bfloat16))
+    st = fwd_check("flash_fwd u=1 pair 8192 x 8192", torch.bfloat16, q, k, v, None, causal=True)
+    do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, None, None, g, states=st)
+    del st
+    out = check("u=1 pair 8192 x 8192", q, k, v, do, L, delta, causal=True)
+    n += 1
+    print(f"u=1 pair 8192 x 8192 (held at b1 hq4 hkv1 d64 bf16 so the plain version's fp32 "
+          f"[sq, sk] matrices fit; the path runs hq32 hkv8): flash_fwd within tol; dq max abs err "
+          f"{out['dq']:.3e}; dk, dv err / (1 + max|ref|) {out['dk']:.3e}, {out['dv']:.3e}")
+    del q, k, v, do, L, delta
+    torch.cuda.empty_cache()
+    print(f"backward kernels vs plain: {n} cases within tolerance {TOL_BWD}; max dq abs err "
+          f"{worst['dq']:.3e}; max dk, dv err / (1 + max|ref|) {worst['dk']:.3e}, "
+          f"{worst['dv']:.3e} (abs {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e})")
+    return {"abs": worst_abs, "rel": worst, "fwd": fwd_errs["bfloat16"],
+            "fwd_acc": fwd_acc["bfloat16"]}
+
+
 def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
     dev = torch.device("cuda")
     cfg = cfg_mod.get_config("llama3.2-1b")
@@ -200,9 +360,10 @@ def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
     CLI.serve_batch(cfg, params, tokens, gen=new)  # warm-up: cuBLAS and allocator set-up
 
     torch.cuda.reset_peak_memory_stats()
-    K.launches = 0
+    _reset_counts(K)
     out = CLI.serve_batch(cfg, params, tokens, gen=new)
-    launches = K.launches
+    counts = _counts(K)
+    launches = counts["flash_fwd"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     logits, toks = out["prefill_logits"], out["tokens"]
     if launches <= 0:
@@ -212,7 +373,7 @@ def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
     if tuple(toks.shape) != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     steps = out["steps"]
-    print(f"serve {cfg.name} b={b} prompt={s} gen={new}: flash_fwd launches {launches}; "
+    print(f"serve {cfg.name} b={b} prompt={s} gen={new}: launches {counts}; "
           f"prefill {out['prefill_ms']:.2f} ms; decode {out['decode_ms'] / steps:.3f} ms/step, "
           f"{steps * b / (out['decode_ms'] / 1e3):.1f} tok/s; peak {peak_gib:.2f} GiB "
           f"[{card}]")
@@ -269,7 +430,237 @@ def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
     print(f"u=4 vs u=1 prefill logits: max |diff| = {diff:.3e} (must be 0)")
     if diff != 0.0:
         raise AssertionError("u=4 prefill differs from u=1")
-    return launches
+    return counts
+
+
+def _model_flops(cfg, b, s):
+    """Model FLOPs of one training step: 6 N per token for the weights, plus
+    causal attention at 12 d per live (q, k) pair and q-head (4 d forward,
+    8 d backward), per layer."""
+    live = s * (s + 1) // 2
+    return 6 * cfg.num_params() * b * s + 12 * cfg.head_dim * cfg.num_heads * live * b \
+        * cfg.num_layers
+
+
+def _tree_max_rel(TR, got, want):
+    """Largest |got - want| over each leaf, relative to that leaf's largest
+    magnitude: (worst ratio, leaf index)."""
+    worst = (0.0, -1)
+    for n, (a, b) in enumerate(zip(TR.tree_leaves(got), TR.tree_leaves(want))):
+        rel = float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+        worst = max(worst, (rel, n))
+    return worst
+
+
+PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("copy", ("memcpy", "memset")),
+)
+
+
+def _group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in PROFILE_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def _merged(intervals):
+    """The union of [start, end) intervals, as sorted disjoint intervals."""
+    out = []
+    for s0, e0 in sorted(intervals):
+        if out and s0 <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e0)
+        else:
+            out.append([s0, e0])
+    return out
+
+
+def _length(merged) -> float:
+    return sum(e - s for s, e in merged)
+
+
+def _overlap(a, b) -> float:
+    """Length of the intersection of two merged interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, off, card):
+    """One more training step under torch.profiler: device ms by kernel
+    group, the device's idle share of the step's wall time, and how much of
+    the offload copies' time (pinned <-> device, on the copy stream) ran
+    while a compute kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    off.reset_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        TRAIN.train_steps(cfg, params, oc, TL.TrainConfig(steps=1, log_every=2), batch_fn, dev,
+                          opt_state=opt_state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    by_group = {}
+    for e in kernels:
+        g = _group_of(e.name)
+        by_group[g] = by_group.get(g, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    compute = _merged([(e.time_range.start, e.time_range.end) for e in kernels
+                       if _group_of(e.name) != "copy"])
+    copies = _merged([(e.time_range.start, e.time_range.end) for e in kernels
+                      if "memcpy" in e.name.lower() and "pinned" in e.name.lower()])
+    api = {}  # CUDA runtime calls on the host: name -> (count, ms)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
+            n, ms = api.get(e.name, (0, 0.0))
+            api[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    top_api = sorted(api.items(), key=lambda kv: -kv[1][1])[:5]
+    copy_us = _length(copies)
+    hidden = _overlap(copies, compute) / copy_us if copy_us else float("nan")
+    busy = _length(compute) / wall_us
+    offload = "on" if cfg.fpdt_offload else "off"
+    groups = {g: round(ms, 3) for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1])}
+    print(f"profiled step (offload {offload}): wall {wall_us / 1e3:.1f} ms; device ms by group "
+          + json.dumps(groups)
+          + f"; compute kernels busy {busy:.4f} of the wall time, idle {1 - busy:.4f}; "
+          f"pinned<->device copies {copy_us / 1e3:.3f} ms, {hidden:.4f} of it under a compute "
+          f"kernel; moved {off.to_host_bytes / 2**20:.1f} MiB to the host and "
+          f"{off.to_device_bytes / 2**20:.1f} MiB back; host time in CUDA runtime calls "
+          + ", ".join(f"{k} {n}x {ms:.1f} ms" for k, (n, ms) in top_api) + f" [{card}]")
+    return {"wall_ms": wall_us / 1e3, "groups": by_group, "idle": 1 - busy,
+            "copy_ms": copy_us / 1e3, "copy_hidden": hidden}
+
+
+def phase_train(torch, K, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
+    dev = torch.device("cuda")
+    seq, batch, u, steps = 8192, 1, 4, 3
+    base = cfg_mod.get_config("llama3.2-1b")
+    cfg = dataclasses.replace(base, fpdt_chunks=u, mlp_chunks=2 * u, remat="full",
+                              fpdt_offload=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    print(f"init_params {cfg.name} ({cfg.num_params() / 1e9:.3f} B params, {cfg.param_dtype}) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    batch_fn = DP.make_batch_fn(cfg, cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+
+    # offload on vs off: the loss and gradients of step 1's batch at step 1's
+    # parameters, bit for bit (the same kernels in the same order)
+    l_on, _, g_on = TL.value_and_grad(cfg, None, params, b0)
+    l_off, _, g_off = TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
+                                        params, b0)
+    torch.cuda.synchronize()
+    differ = [n for n, (a, b) in enumerate(zip(TR.tree_leaves(g_on), TR.tree_leaves(g_off)))
+              if not torch.equal(a, b)]
+    print(f"offload on vs off, step 1: loss {float(l_on):.6f} vs {float(l_off):.6f}; "
+          f"gradient leaves that differ: {len(differ)} of {len(TR.tree_leaves(g_on))}")
+    if not torch.equal(l_on, l_off) or differ:
+        raise AssertionError("offload on and off give different losses or gradients")
+    del g_on, g_off
+
+    # the chunks offload stores are pinned host tensors: one layer's
+    # attention at the training shape, its saved tensors seen as they are saved
+    attn_p = T.cycle(params["cycles"], 0)["pos0"]["attn"]
+    x = (0.02 * torch.randn((batch, seq, cfg.d_model), device=dev)).to(torch.bfloat16)
+    x.requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        o = F.fpdt_attention(cfg, None, attn_p, x)
+    host = [t for t in saved if t.device.type == "cpu"]
+    pinned = sum(t.numel() * t.element_size() for t in host if t.is_pinned())
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    print(f"offloaded residuals of one layer: {len(host)} host tensors (q, k, v of {u} "
+          f"chunks), {pinned / 2**20:.1f} MiB pinned; x.grad finite: "
+          f"{bool(torch.isfinite(x.grad).all())}")
+    if len(host) != 3 * u or not all(t.is_pinned() for t in host) or pinned <= 0:
+        raise AssertionError("offloaded chunks are not pinned host tensors")
+    del saved, host, o, x
+
+    # three AdamW steps through the CLI's function, launch counts per step
+    oc = TRAIN.opt_config(cfg, 3e-4, steps)
+    tc = TL.TrainConfig(steps=steps, log_every=steps + 1)
+    off = PL.host_offload(dev)
+    records = []
+
+    def on_step(rec):
+        rec["launches"] = _counts(K)
+        records.append(rec)
+        _reset_counts(K)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    off.reset_counts()
+    _reset_counts(K)
+    params, opt_state, history = TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
+                                                   on_step=on_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    flops = _model_flops(cfg, batch, seq)
+    want = {"flash_fwd": 2 * 10 * cfg.num_layers, "flash_bwd_dq": 10 * cfg.num_layers,
+            "flash_bwd_dkv": 10 * cfg.num_layers}  # u=4: 10 pairs; forward + recompute
+    for rec in records:
+        mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
+        rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
+        print(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+              f"{rec['dt'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s, MFU {mfu:.4f}; "
+              f"launches {rec['launches']} [{card}]")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"step {rec['step']}: non-finite loss or grad norm")
+        if rec["launches"] != want:
+            raise AssertionError(f"step {rec['step']}: launches {rec['launches']}, expected {want}")
+    if len(records) != steps:
+        raise AssertionError(f"{len(records)} steps taken, {steps} asked")
+    print(f"train {cfg.name} b={batch} seq={seq} u={u} mlp_chunks={cfg.mlp_chunks} remat=full "
+          f"offload=on: peak device memory {peak_gib:.2f} GiB; host offload moved "
+          f"{off.to_host_bytes / 2**30:.2f} GiB to pinned host memory and "
+          f"{off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model FLOPs/step "
+          f"{flops:.4e} [{card}]")
+    if off.to_host_bytes <= 0 or off.to_device_bytes <= 0:
+        raise AssertionError("offload on moved no bytes through pinned host memory")
+    totals = {k: sum(r["launches"][k] for r in records) for k in want}
+    to_host_bytes = off.to_host_bytes
+    # where a step's time goes, offload off and then on (one step each; the
+    # first profiled step also pays the profiler's own start-up)
+    prof = {flag: _profile_step(torch, TRAIN, TL, dataclasses.replace(cfg, fpdt_offload=flag),
+                                params, oc, batch_fn, dev, opt_state, off, card)
+            for flag in (False, True)}
+    if not prof[True]["copy_ms"] > 0:
+        raise AssertionError("the profiled step with offload on shows no pinned copies")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
+    p32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    l4, _, g4 = TL.value_and_grad(cfg32, None, p32, b0)
+    l1, _, g1 = TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
+    grad_rel, leaf = _tree_max_rel(TR, g4, g1)
+    print(f"fp32 weights, u=4 vs u=1: loss {float(l4):.6f} vs {float(l1):.6f} (rel {loss_rel:.3e}); "
+          f"largest gradient-leaf error / leaf max {grad_rel:.3e} (leaf {leaf}); "
+          f"tolerance {FPDT_GRAD_RTOL}")
+    if loss_rel > FPDT_GRAD_RTOL or grad_rel > FPDT_GRAD_RTOL:
+        raise AssertionError("u=4 training gradients differ from u=1")
+    del p32, g4, g1
+    torch.cuda.empty_cache()
+    return {"launches": totals, "steps": records, "peak_gib": peak_gib,
+            "grad_rel_u4_u1": grad_rel, "pinned_layer_bytes": pinned,
+            "to_host_bytes": to_host_bytes, "profile": prof}
 
 
 def _eager_ms(torch, fn, iters=200, warmup=20):
@@ -331,19 +722,41 @@ def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(torch, K, R, card):
+def _live_pairs(sq, sk, q_offset, k_offset):
+    """Causal (q, k) pairs these offsets leave live."""
+    return sum(max(0, min(sk, q_offset + r - k_offset + 1)) for r in range(sq))
+
+
+def _bwd_bound(which, b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset):
+    """Least time of flash_bwd_dq ("dq") or flash_bwd_dkv ("dkv") on the card:
+    (ms, "bytes"|"operations").  Operations: 6 d (dq) or 8 d (dkv) per live
+    causal pair and q-head; bytes: q, k, v, do, L, delta read once, the
+    outputs written once."""
+    live = _live_pairs(sq, sk, q_offset, k_offset)
+    flops = (6 if which == "dq" else 8) * d * live * b * hq
+    nbytes = in_bytes * (b * hq * sq * d + 2 * b * hkv * sk * d) + 4 * b * hq * sq * (d + 2)
+    nbytes += 4 * (b * hq * sq * d if which == "dq" else 2 * b * hkv * sk * d)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_timing(torch, K, R, lse, finalize, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    rows = []
+    rows = {}
     shapes = [
-        # label, b, hq, hkv, sq, sk, q_off, k_off, carry
-        ("serve prefill b4 s64 (u=1)", 4, 32, 8, 64, 64, 0, 0, False),
-        ("2048 prompt u=4 off-diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 0, True),
-        ("2048 prompt u=4 diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 512, True),
+        # key, label, b, hq, hkv, sq, sk, q_off, k_off, carry
+        ("flash_fwd", "serve prefill b4 s64 (u=1)", 4, 32, 8, 64, 64, 0, 0, False),
+        (None, "2048 prompt u=4 off-diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 0, True),
+        (None, "2048 prompt u=4 diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 512, True),
+        ("flash_fwd_train", "train 8192 u=4 off-diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048,
+         2048, 0, True),
+        (None, "train 8192 u=4 diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048, 2048, 2048,
+         True),
     ]
-    for label, b, hq, hkv, sq, sk, qo, ko, carry in shapes:
+    for key, label, b, hq, hkv, sq, sk, qo, ko, carry in shapes:
         q = torch.randn((b, hq, sq, 64), generator=g, device=dev).to(torch.bfloat16)
         k = torch.randn((b, hkv, sk, 64), generator=g, device=dev).to(torch.bfloat16)
         v = torch.randn((b, hkv, sk, 64), generator=g, device=dev).to(torch.bfloat16)
@@ -367,14 +780,72 @@ def phase_timing(torch, K, R, card):
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
         bound_ms, bound_by = _bound(b, hq, hkv, sq, sk, 64, 2, qo, ko, carry)
-        row = {"shape": label, "ms": _device_ms(torch, kern),
+        row = {"kernel": "flash_fwd", "shape": label, "ms": _device_ms(torch, kern),
                "plain_ms": _device_ms(torch, plain), "bound_ms": bound_ms,
                "bound_by": bound_by,
                "library_ms": _device_ms(torch, library) if qo == ko else None,
                "wrapper_ms": _eager_ms(torch, kern), "card": card}
         print("timing " + json.dumps(row))
-        rows.append(row)
-    return rows[0]
+        if key:
+            rows[key] = row
+        del q, k, v, st
+
+    # the backward kernels at the training path's pair shape: bf16 q/k/v,
+    # fp32 do, L and delta from the plain forward of the pair
+    for label, qo, ko in (("train 8192 u=4 off-diagonal pair cq=2048 b1", 2048, 0),
+                          ("train 8192 u=4 diagonal pair cq=2048 b1", 2048, 2048)):
+        b, hq, hkv, s_ = 1, 32, 8, 2048
+        q = torch.randn((b, hq, s_, 64), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, hkv, s_, 64), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s_, 64), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(causal=True, q_offset=qo, k_offset=ko)
+        st = R.attend_chunk(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=g, device=dev)
+        L, delta = lse(st), (do * finalize(st)).sum(-1)
+        del st
+        # yardstick: the flash-attention backward behind SDPA on the same
+        # pair (dq, dk and dv together, GQA in the op; it recomputes its own
+        # softmax from its forward's out and logsumexp), called directly so
+        # that it is timed as device time from a CUDA graph like the
+        # kernels; the port never calls it
+        causal = qo == ko
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+        do16 = do.to(torch.bfloat16)
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do16, q, k, v, fwd[0], fwd[1], fwd[2], fwd[3], fwd[4], fwd[5], 0.0, causal,
+                fwd[6], fwd[7])
+
+        lib_dq, lib_dk, lib_dv = library()
+        if tuple(lib_dk.shape) != tuple(k.shape) or not all(
+                torch.isfinite(t).all() for t in (lib_dq, lib_dk, lib_dv)):
+            raise AssertionError(f"sdpa flash backward gave dk {tuple(lib_dk.shape)} or "
+                                 "non-finite grads")
+        library_ms = _device_ms(torch, library)
+        del lib_dq, lib_dk, lib_dv
+        for name, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+            wrap = K.flash_bwd_dq if which == "dq" else K.flash_bwd_dkv
+            ref = R.chunk_bwd_dq if which == "dq" else R.chunk_bwd_dkv
+
+            def kern():
+                return wrap(q, k, v, do, L, delta, **kw)
+
+            def plain():
+                return ref(q, k, v, do, L, delta, **kw)
+
+            bound_ms, bound_by = _bwd_bound(which, b, hq, hkv, s_, s_, 64, 2, qo, ko)
+            row = {"kernel": name, "shape": label, "ms": _device_ms(torch, kern),
+                   "plain_ms": _device_ms(torch, plain, per_graph=5, replays=4),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms,
+                   "library": "aten flash-attention backward: dq, dk and dv together",
+                   "wrapper_ms": _eager_ms(torch, kern, iters=20, warmup=3), "card": card}
+            print("timing " + json.dumps(row))
+            rows.setdefault(name, row)  # the off-diagonal pair goes in the kernels line
+        del q, k, v, do, L, delta, fwd
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -388,36 +859,54 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
 
     from repro_torch import configs as cfg_mod
-    from repro_torch.core.online_softmax import SoftmaxState, finalize
+    from repro_torch import tree as TR
+    from repro_torch.core import fpdt as F
+    from repro_torch.core.online_softmax import SoftmaxState, finalize, lse
+    from repro_torch.data import pipeline as DP
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     from repro_torch.launch import serve as CLI
+    from repro_torch.launch import train as TRAIN
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
+    from repro_torch.runtime import placement as PL
+    from repro_torch.runtime import train_loop as TL
 
     card, name = phase("device", phase_device, torch)
     phase("build", phase_build, K)
     errs = phase("kernel vs plain", phase_kernel, torch, K, R, SoftmaxState, finalize)
-    launches = phase("serve llama3.2-1b", phase_serve, torch, K, cfg_mod, T, SV, CLI, card)
-    timing = phase("timing", phase_timing, torch, K, R, card)
-    kernels = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:134",
-        "launches": launches,
-        "max_abs_err": max(errs.values()),
-        "max_err_fp32": errs["float32"],
-        "max_err_bf16": errs["bfloat16"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "wrapper_ms": timing["wrapper_ms"],
-    }]}
-    if not all(math.isfinite(x) for x in (timing["ms"], timing["plain_ms"])):
-        fail("non-finite timing")
+    bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, SoftmaxState, lse,
+                finalize)
+    serve = phase("serve llama3.2-1b", phase_serve, torch, K, cfg_mod, T, SV, CLI, card)
+    train = phase("train llama3.2-1b", phase_train, torch, K, cfg_mod, T, F, TR, TL, PL, DP,
+                  TRAIN, card)
+    timing = phase("timing", phase_timing, torch, K, R, lse, finalize, card)
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    replaces = "src/repro/kernels/flash_attention/kernel.py:"
+    entries = [
+        ("flash_fwd", "flash_fwd.cu", "134", max(*errs.values(), bwd["fwd"]),
+         {"max_err_fp32": errs["float32"], "max_err_bf16": errs["bfloat16"],
+          "max_err_train_pairs": bwd["fwd"], "max_acc_rel_err_train_pairs": bwd["fwd_acc"],
+          "ms_train_pair": timing["flash_fwd_train"]["ms"],
+          "bound_ms_train_pair": timing["flash_fwd_train"]["bound_ms"],
+          "plain_ms_train_pair": timing["flash_fwd_train"]["plain_ms"]}),
+        ("flash_bwd_dq", "flash_bwd.cu", "273", bwd["abs"]["dq"], {}),
+        ("flash_bwd_dkv", "flash_bwd.cu", "367", max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
+         {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"]}),
+    ]
+    kernels = {"kernels": []}
+    for kname, src, line, err, extra in entries:
+        row = timing[kname]
+        if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
+            fail(f"non-finite timing of {kname}")
+        kernels["kernels"].append({
+            "name": kname, "route": "cuda", "source": csrc + src, "replaces": replaces + line,
+            "launches": train["launches"][kname],
+            "launches_by_path": {"serve": serve[kname], "train": train["launches"][kname]},
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],
+            "timed_shape": row["shape"], **extra})
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,9 @@
 """Model configs and the registry of ported architectures.
 
-A copy of the JAX package's ``ModelConfig``/``get_config``/``reduced``
-(the port imports nothing from it).  Only architectures whose whole serve
-path is ported are registered; ``get_config`` raises for every other one.
+A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
+``reduced`` (the port imports nothing from it).  Only architectures whose
+whole serve and train path is ported are registered; ``get_config`` raises
+for every other one.
 """
 from __future__ import annotations
 
@@ -108,6 +109,14 @@ class ModelConfig:
     def num_active_params(self) -> int:
         """Params touched per token (MoE: only routed experts)."""
         return _count_params(self, active_only=True)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
 
 
 def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:

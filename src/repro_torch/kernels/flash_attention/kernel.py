@@ -1,17 +1,20 @@
-"""ctypes binding of the hand-written CUDA ``flash_fwd`` (csrc/flash_fwd.cu).
+"""ctypes bindings of the hand-written CUDA flash-attention kernels.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py::
-flash_fwd``.  The source is compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, under ``build/``
-next to this file, named by a hash of the source and flags so an edit never
-reuses a stale build.  Importing this module needs neither ``nvcc`` nor a
-card.
+``csrc/flash_fwd.cu`` holds ``flash_fwd`` and replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention/kernel.py::flash_fwd``; ``csrc/flash_bwd.cu``
+holds ``flash_bwd_dq`` and ``flash_bwd_dkv`` and replaces the Pallas kernels
+of the same names there.  Each source is compiled at first use with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, under
+``build/`` next to this file, named by a hash of the source and flags so an
+edit never reuses a stale build; ``build_all`` starts one ``nvcc`` per source
+at once.  Importing this module needs neither ``nvcc`` nor a card.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-outputs with ``torch.empty``, launches on the current CUDA stream, raises
-if the launch was refused, and adds one to ``launches`` per launch.  It
-takes CUDA tensors only: the device dispatch (plain version for CPU
-tensors) lives in ``ops.chunk_fwd``.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current CUDA stream, raises if
+the launch was refused, and adds one to its launch count (``launches`` for
+flash_fwd, ``dq_launches``, ``dkv_launches``).  They take CUDA tensors
+only: the device dispatch (plain version for CPU tensors) lives in
+``ops.py``.
 """
 from __future__ import annotations
 
@@ -25,15 +28,22 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_fwd.cu"
+BWD_SOURCE = CSRC / "flash_bwd.cu"
+SOURCES = (SOURCE, BWD_SOURCE)
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
-_lib = None
+# kernel launches since the last reset (chip_smoke.py reads them)
+launches = 0  # flash_fwd
+dq_launches = 0  # flash_bwd_dq
+dkv_launches = 0  # flash_bwd_dkv
+_lib = None  # flash_fwd.cu
+_bwd_lib = None  # flash_bwd.cu
 
 
 def _nvcc() -> str:
@@ -43,33 +53,47 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA flash_fwd kernel is built on a "
+    raise RuntimeError("nvcc not found: the CUDA flash-attention kernels are built on a "
                        "machine with the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_fwd.cu`` unless this exact source was built
-    already; returns the shared library's path.  ptxas' register and
-    shared-memory report lands beside it as ``<name>.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_fwd_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
+def library_path(source: Path) -> Path:
+    """Where ``source`` is built: ``build/lib<stem>_<hash of source and flags>.so``."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+
+
+def build_all(sources=SOURCES) -> list:
+    """Compile every source not built yet, one ``nvcc`` each, all started
+    together; returns the shared libraries' paths in ``sources``' order.
+    ptxas' register and shared-memory report lands beside each as ``.log``."""
+    libs = [library_path(src) for src in sources]
+    running = []
+    for src, lib in zip(sources, libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in running:  # wait for every nvcc, even after a failure
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src.name}:\n{out}")
+            continue
+        lib.with_suffix(".log").write_text(out)
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build_all((SOURCE,))[0]))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_launch.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, i32, i32, i32, i32,
@@ -81,15 +105,57 @@ def _load():
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device):
+def _load_bwd():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(build_all((BWD_SOURCE,))[0]))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ints = [i32] * 9  # b, hq, hkv, sq, sk, causal, window, q_offset, k_offset
+        lib.flash_bwd_dq_launch.argtypes = [i32, i32, *[ptr] * 7, *ints, ctypes.c_float, ptr]
+        lib.flash_bwd_dq_launch.restype = i32
+        lib.flash_bwd_dkv_launch.argtypes = [i32, i32, *[ptr] * 8, *ints, ctypes.c_float, ptr]
+        lib.flash_bwd_dkv_launch.restype = i32
+        lib.flash_bwd_error_string.argtypes = [i32]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device, kname: str = "flash_fwd"):
     if t.device != device:
-        raise ValueError(f"flash_fwd: {name} is on {t.device}, q on {device}")
+        raise ValueError(f"{kname}: {name} is on {t.device}, q on {device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"flash_fwd: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{kname}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype != dtype:
-        raise ValueError(f"flash_fwd: {name} is {t.dtype}, expected {dtype}")
+        raise ValueError(f"{kname}: {name} is {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"flash_fwd: {name} must be contiguous")
+        raise ValueError(f"{kname}: {name} must be contiguous")
+
+
+def _check_qkv(kname: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
+    """Validate what every kernel takes; returns (b, hq, hkv, sq, sk, d)."""
+    if not q.is_cuda:
+        raise ValueError(f"{kname} launches the CUDA kernel; q is on {q.device} "
+                         "(ops.py runs the plain version for CPU tensors)")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{kname}: q/k/v must be [b, h, s, d], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{kname} takes float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{kname}: head_dim {d} not in {HEAD_DIMS}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{kname}: q heads {hq} not a multiple of kv heads {hkv}")
+    if min(b, hq, sq, sk) <= 0 or hq > 65535 or b > 65535:
+        raise ValueError(f"{kname}: unsupported sizes b={b} hq={hq} sq={sq} sk={sk}")
+    if window < 0:
+        raise ValueError(f"{kname}: window must be >= 0, got {window}")
+    _check("q", q, (b, hq, sq, d), q.dtype, q.device, kname)
+    _check("k", k, (b, hkv, sk, d), q.dtype, q.device, kname)
+    _check("v", v, (b, hkv, sk, d), q.dtype, q.device, kname)
+    return b, hq, hkv, sq, sk, d
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,28 +166,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d in {16, 32, 64, 128}; carry = (acc [b, hq, sq, d], m, l [b, hq, sq])
     fp32 or None.  Returns the fp32 (acc, m, l) continuing ``carry``."""
     global launches
-    if not q.is_cuda:
-        raise ValueError(f"flash_fwd launches the CUDA kernel; q is on {q.device} "
-                         "(ops.chunk_fwd runs the plain version for CPU tensors)")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"flash_fwd: q/k/v must be [b, h, s, d], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}")
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim {d} not in {HEAD_DIMS}")
-    if hkv == 0 or hq % hkv:
-        raise ValueError(f"flash_fwd: q heads {hq} not a multiple of kv heads {hkv}")
-    if min(b, hq, sq, sk) <= 0 or hq > 65535 or b > 65535:
-        raise ValueError(f"flash_fwd: unsupported sizes b={b} hq={hq} sq={sq} sk={sk}")
-    if window < 0:
-        raise ValueError(f"flash_fwd: window must be >= 0, got {window}")
+    b, hq, hkv, sq, sk, d = _check_qkv("flash_fwd", q, k, v, window)
     dev = q.device
-    _check("q", q, (b, hq, sq, d), q.dtype, dev)
-    _check("k", k, (b, hkv, sk, d), q.dtype, dev)
-    _check("v", v, (b, hkv, sk, d), q.dtype, dev)
     if carry is not None:
         acc_in, m_in, l_in = carry
         _check("carry acc", acc_in, (b, hq, sq, d), torch.float32, dev)
@@ -145,3 +191,65 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd launch failed: {lib.flash_fwd_error_string(err).decode()}")
     launches += 1
     return acc, m, l
+
+
+def _check_bwd(kname, q, k, v, do, L, delta, window):
+    dims = _check_qkv(kname, q, k, v, window)
+    b, hq, _, sq, _, d = dims
+    _check("do", do, (b, hq, sq, d), torch.float32, q.device, kname)
+    _check("L", L, (b, hq, sq), torch.float32, q.device, kname)
+    _check("delta", delta, (b, hq, sq), torch.float32, q.device, kname)
+    return dims
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                 L: torch.Tensor, delta: torch.Tensor, *, causal: bool = True, window: int = 0,
+                 q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
+    """dq [b, hq, sq, d] fp32 of one (q-chunk, kv-chunk) pair on the card.
+    q/k/v as for flash_fwd; do [b, hq, sq, d], L (row log-sum-exp) and
+    delta = sum(do * o) [b, hq, sq], all fp32."""
+    global dq_launches
+    b, hq, hkv, sq, sk, d = _check_bwd("flash_bwd_dq", q, k, v, do, L, delta, window)
+    dev = q.device
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lib = _load_bwd()
+    dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_bwd_dq_launch(
+            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            L.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, hq, hkv, sq, sk,
+            int(bool(causal)), int(window), int(q_offset), int(k_offset), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: "
+                           f"{lib.flash_bwd_error_string(err).decode()}")
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                  L: torch.Tensor, delta: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
+    """(dk, dv) [b, hkv, sk, d] fp32 of one pair on the card, summed over the
+    g q-heads of each kv group inside the kernel (no atomics).  Inputs as
+    flash_bwd_dq."""
+    global dkv_launches
+    b, hq, hkv, sq, sk, d = _check_bwd("flash_bwd_dkv", q, k, v, do, L, delta, window)
+    if hkv > 65535:
+        raise ValueError(f"flash_bwd_dkv: unsupported kv heads {hkv}")
+    dev = q.device
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lib = _load_bwd()
+    dk = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_bwd_dkv_launch(
+            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk,
+            int(bool(causal)), int(window), int(q_offset), int(k_offset), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: "
+                           f"{lib.flash_bwd_error_string(err).decode()}")
+    dkv_launches += 1
+    return dk, dv

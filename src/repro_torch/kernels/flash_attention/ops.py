@@ -1,45 +1,100 @@
-"""Chunk-level flash-attention primitive that FPDT schedules.
+"""Chunk-level flash-attention primitives that FPDT schedules.
 
-``chunk_fwd (q_i, kv_j, carry) -> running (acc, m, l)`` with two
-implementations of one function:
+  chunk_fwd      (q_i, kv_j, carry) -> running (acc, m, l)
+  chunk_bwd_dq   one pair's dq, given the final row LSE and delta
+  chunk_bwd_dkv  one pair's (dk, dv), GQA-summed
+plus ``flash_attention``, a single-call attention whose backward runs the
+two backward ops (the JAX package's ``custom_vjp`` as a
+``torch.autograd.Function``).
 
-  * ``impl="cuda"``  — the hand-written Hopper kernel (``kernel.py``), for
-    CUDA tensors;
-  * ``impl="torch"`` — the plain PyTorch version (``ref.py``), for CPU
-    tensors.
-
-``impl=None`` picks by the tensors' device; any other pairing raises, so a
-CUDA tensor never silently takes the plain path.  ``block_q``/``block_k``
-keep the JAX signature: the Pallas kernel tiles by them, the CUDA kernel
-tiles by its own compile-time 64 x 64 and masks ragged tails, and the
-plain version does not tile — all compute the same function.
+Each op is picked by the tensors' device alone: the hand-written CUDA
+kernel (``kernel.py``) for CUDA tensors, the plain PyTorch version
+(``ref.py``) for CPU tensors.  Tensors on mixed devices, or on any other
+device, raise, so a CUDA tensor never silently takes the plain path.  The
+CUDA kernels tile by their own compile-time 64 x 64 and mask ragged tails;
+the plain versions do not tile; all compute the same function.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.online_softmax import SoftmaxState
+import torch
+
+from repro_torch.core.online_softmax import SoftmaxState, finalize, lse
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
-IMPLS = ("cuda", "torch")
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"flash-attention inputs on mixed devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash-attention runs CUDA tensors (kernel) or CPU tensors "
+                         f"(plain version), not {device}")
+    return device.type == "cuda"
 
 
 def chunk_fwd(q, k, v, carry=None, *, causal=True, window=0, q_offset=0, k_offset=0,
-              sm_scale=None, block_q=512, block_k=512, impl: Optional[str] = None):
+              sm_scale=None):
     """Online-softmax state ``(acc, m, l)`` of q (at q_offset) over k/v (at
     k_offset), continuing ``carry``.  q [b, hq, sq, d], k/v [b, hkv, sk, d]."""
-    want = "cuda" if q.is_cuda else "torch"
-    impl = want if impl is None else impl
-    if impl not in IMPLS:
-        raise ValueError(f"unknown chunk_fwd impl {impl!r}; expected one of {IMPLS}")
-    if impl != want:
-        raise ValueError(f"chunk_fwd impl={impl!r} cannot run on {q.device} tensors "
-                         f"(cuda runs CUDA tensors, torch runs CPU tensors)")
-    if impl == "cuda":
-        return _k.flash_fwd(q, k, v, carry, causal=causal, window=window,
-                            q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
-    st = _ref.attend_chunk(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                           k_offset=k_offset, sm_scale=sm_scale,
-                           carry=SoftmaxState(*carry) if carry is not None else None)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
+              sm_scale=sm_scale)
+    if _on_card(q, k, v, *(carry or ())):
+        return _k.flash_fwd(q, k, v, carry, **kw)
+    st = _ref.attend_chunk(q, k, v, carry=SoftmaxState(*carry) if carry is not None else None,
+                           **kw)
     return tuple(st)
+
+
+def chunk_bwd_dq(q, k, v, do, L, delta, *, causal=True, window=0, q_offset=0, k_offset=0,
+                 sm_scale=None):
+    """dq [b, hq, sq, d] fp32 of one pair; do fp32 [b, hq, sq, d], L and
+    delta fp32 [b, hq, sq]."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
+              sm_scale=sm_scale)
+    if _on_card(q, k, v, do, L, delta):
+        return _k.flash_bwd_dq(q, k, v, do, L, delta, **kw)
+    return _ref.chunk_bwd_dq(q, k, v, do, L, delta, **kw)
+
+
+def chunk_bwd_dkv(q, k, v, do, L, delta, *, causal=True, window=0, q_offset=0, k_offset=0,
+                  sm_scale=None):
+    """(dk, dv) [b, hkv, sk, d] fp32 of one pair, summed over each kv group."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
+              sm_scale=sm_scale)
+    if _on_card(q, k, v, do, L, delta):
+        return _k.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
+    return _ref.chunk_bwd_dkv(q, k, v, do, L, delta, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through chunk_fwd; backward through chunk_bwd_dq/dkv from the
+    saved (q, k, v, o, L), as the JAX package's ``_make_flash``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        st = SoftmaxState(*chunk_fwd(q, k, v, **kw))
+        o = finalize(st)  # fp32
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, o, lse(st))
+        return o.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, L = ctx.saved_tensors
+        dof = do.float().contiguous()
+        delta = (dof * o).sum(-1)
+        dq = chunk_bwd_dq(q, k, v, dof, L, delta, **ctx.kw)
+        dk, dv = chunk_bwd_dkv(q, k, v, dof, L, delta, **ctx.kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, sm_scale: Optional[float] = None):
+    """Attention [b, h, s, d] (GQA-aware) in q's dtype, differentiable
+    through the backward kernels."""
+    return _FlashAttention.apply(q, k, v, dict(causal=causal, window=window,
+                                               sm_scale=sm_scale))

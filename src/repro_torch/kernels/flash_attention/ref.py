@@ -1,10 +1,13 @@
-"""Plain PyTorch version of the flash-attention chunk forward.
+"""Plain PyTorch versions of the flash-attention chunk kernels.
 
 Exact fp32 attention over one (q-chunk, kv-chunk) pair with global position
-offsets (for FPDT chunk scheduling) and optional carry-in state, returning
-the same ``(acc, m, l)`` unnormalized online-softmax state as the CUDA
-kernel in ``kernel.py``.  The CPU path runs it, and ``chip_smoke.py`` holds
-the kernel against it on the card.
+offsets (for FPDT chunk scheduling): the forward continues an optional
+carry-in state and returns the same ``(acc, m, l)`` unnormalized
+online-softmax state as the CUDA ``flash_fwd`` in ``kernel.py``; the two
+backward functions give the pair's ``dq`` and its GQA-summed ``(dk, dv)``
+from the final row log-sum-exp ``L`` and ``delta = sum(do * o)``, as the
+CUDA ``flash_bwd_dq`` / ``flash_bwd_dkv`` do.  The CPU path runs them, and
+``chip_smoke.py`` holds the kernels against them on the card.
 
 Layout: q [b, hq, sq, d], k/v [b, hkv, sk, d]; GQA via head-group mapping
 (kv head = q head // (hq // hkv)).  The window applies only under
@@ -28,6 +31,20 @@ def _expand_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
     return torch.repeat_interleave(x, hq // hkv, dim=1)
 
 
+def _live(sq: int, sk: int, *, causal: bool, window: int, q_offset: int, k_offset: int,
+          device) -> Optional[torch.Tensor]:
+    """[sq, sk] mask of the (q, k) pairs attended at global positions, or
+    None when every pair is (no causal mask)."""
+    if not causal:
+        return None
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = k_offset + torch.arange(sk, device=device)[None, :]
+    ok = qpos >= kpos
+    if window:
+        ok = ok & (qpos - kpos < window)
+    return ok
+
+
 def attend_chunk(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -46,12 +63,9 @@ def attend_chunk(
     v = _expand_kv(v, hq)
     scale = sm_scale if sm_scale is not None else d ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-        kpos = k_offset + torch.arange(k.shape[2], device=q.device)[None, :]
-        ok = qpos >= kpos
-        if window:
-            ok = ok & (qpos - kpos < window)
+    ok = _live(sq, k.shape[2], causal=causal, window=window, q_offset=q_offset,
+               k_offset=k_offset, device=q.device)
+    if ok is not None:
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1)
     # fully-masked rows: keep identity state
@@ -82,3 +96,48 @@ def mha(
     st = attend_chunk(q, k, v, causal=causal, window=window, q_offset=q_offset,
                       k_offset=k_offset, sm_scale=sm_scale)
     return finalize(st).to(q.dtype)
+
+
+def _bwd_terms(q, k, v, do, L, delta, *, causal, window, q_offset, k_offset, sm_scale):
+    """(p, ds, k, q) of one pair in fp32 with kv heads expanded to q heads:
+    p = exp(s - L), set to 0 where the mask cuts; ds = p (do v^T - delta) scale."""
+    b, hq, sq, d = q.shape
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    ke = _expand_kv(k, hq).float()
+    ve = _expand_kv(v, hq).float()
+    qf = q.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, ke) * scale
+    p = torch.exp(s - L[..., None])
+    ok = _live(sq, k.shape[2], causal=causal, window=window, q_offset=q_offset,
+               k_offset=k_offset, device=q.device)
+    if ok is not None:
+        p = torch.where(ok, p, torch.zeros_like(p))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), ve)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, ke, qf
+
+
+def chunk_bwd_dq(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,
+                 q_offset: int = 0, k_offset: int = 0,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """dq [b, hq, sq, d] fp32 of one (q-chunk, kv-chunk) pair: sum over keys
+    of ds * k.  do [b, hq, sq, d]; L, delta [b, hq, sq] fp32."""
+    _, ds, ke, _ = _bwd_terms(q, k, v, do, L, delta, causal=causal, window=window,
+                              q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, ke)
+
+
+def chunk_bwd_dkv(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,
+                  q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
+    """(dk, dv) [b, hkv, sk, d] fp32 of one pair: dv = p^T do and dk = ds^T q,
+    summed over the g q-heads of each kv group."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    p, ds, _, qf = _bwd_terms(q, k, v, do, L, delta, causal=causal, window=window,
+                              q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    if hq != hkv:  # GQA: sum the q-head group
+        dk = dk.reshape(b, hkv, hq // hkv, sk, d).sum(2)
+        dv = dv.reshape(b, hkv, hq // hkv, sk, d).sum(2)
+    return dk, dv

@@ -11,6 +11,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 
@@ -131,9 +132,15 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_chunked(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int) -> torch.Tensor:
-    """Token-wise MLP over ``n_chunks`` sequence chunks, so the d_ff-wide
-    intermediate is bounded by one chunk.  Serving runs under no_grad, so
-    there is nothing to recompute and no checkpointing."""
+    """Paper §5.4: the token-wise MLP over ``n_chunks`` sequence chunks, so
+    the d_ff-wide intermediate is bounded by one chunk.  When grad is
+    enabled each chunk is checkpointed (non-reentrant) and recomputed in the
+    backward, as the JAX package's ``jax.checkpoint`` scan does; under
+    no_grad (serving) there is nothing to recompute."""
     if n_chunks <= 1 or x.shape[1] % n_chunks != 0:
         return mlp_block(cfg, p, x)
-    return torch.cat([mlp_block(cfg, p, xc) for xc in x.chunk(n_chunks, dim=1)], dim=1)
+    if not torch.is_grad_enabled():
+        return torch.cat([mlp_block(cfg, p, xc) for xc in x.chunk(n_chunks, dim=1)], dim=1)
+    return torch.cat([checkpoint(mlp_block, cfg, p, xc, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      for xc in x.chunk(n_chunks, dim=1)], dim=1)

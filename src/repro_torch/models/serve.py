@@ -193,8 +193,7 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
     def prefill_block(kind, p, h, bc):
         window = cfg.window if kind == "local_attn" else 0
         hn = L.apply_norm(cfg, p["norm1"], h)
-        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, kind=T.attn_kind(cfg, par),
-                                window=window)
+        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
         h = h + o @ p["attn"]["wo"]
         # cache: recompute roped k/v (cheap vs attention)
         _, k, v = L.qkv_proj(cfg, p["attn"], hn)

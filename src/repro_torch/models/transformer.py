@@ -4,18 +4,28 @@ Layers are grouped into repeating *cycles* of the arch's block pattern
 (dense: a 1-layer cycle) and each cycle's parameters are stacked along a
 leading axis, so ``params["cycles"]["pos0"]["attn"]["wq"]`` is
 ``[n_cycles, d, q_dim]`` exactly like the JAX pytree; remainder layers live
-in ``params["tail"]``.  Only the attention families with the token
-frontend are ported.
+in ``params["tail"]``.  The training forward (``hidden_forward``,
+``loss_fn``) runs the cycles as a Python loop over views of the stacks, so
+the gradients of ``params["cycles"]`` come out stacked with the JAX
+pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
+``torch.utils.checkpoint`` whose first pass offloads nothing.  Only the
+attention families with the token frontend are ported.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core import fpdt
+from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
+from repro_torch.runtime.placement import no_offload
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -57,15 +67,6 @@ def layout_of(cfg: ModelConfig):
     return pat, n_cycles, tail
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _stack(trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -76,6 +77,13 @@ def _stack(trees):
 def cycle(tree, c: int):
     """The parameters (or cache) of layer cycle ``c``: views into the stacks."""
     return tree_map(lambda x: x[c], tree)
+
+
+def unstack(tree, n: int):
+    """The ``n`` per-cycle trees of a stacked tree, as views: one ``unbind``
+    per leaf, whose backward stacks the cycles' gradients once."""
+    parts = [x.unbind(0) for x in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[c] for p in parts]) for c in range(n)]
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> Params:
@@ -106,13 +114,76 @@ def head_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["head"]
 
 
-def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
-    """Single device: always ``local`` (meshes are not yet ported)."""
-    return "local"
-
-
 def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Token embeddings of ``batch["tokens"] [b, s]``."""
     if cfg.frontend != "none":
         raise NotImplementedError(f"the {cfg.frontend} frontend is not yet ported")
     return params["embed"][batch["tokens"]]
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
+                p: Params, h: torch.Tensor) -> torch.Tensor:
+    """One attention block (attn or local_attn)."""
+    if kind not in ("attn", "local_attn"):
+        raise NotImplementedError(f"{kind!r} blocks are not yet ported")
+    window = cfg.window if kind == "local_attn" else 0
+    hn = L.apply_norm(cfg, p["norm1"], h)
+    o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
+    h = h + o @ p["attn"]["wo"]
+    hn2 = L.apply_norm(cfg, p["norm2"], h)
+    return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
+
+
+def _cycle(cfg, par, pat, cyc_p, h):
+    for i, kind in enumerate(pat):
+        h = block_apply(cfg, par, kind, cyc_p[f"pos{i}"], h)
+    return h
+
+
+def _remat_contexts():
+    """A per-cycle checkpoint's first pass keeps none of its saved tensors,
+    so it offloads no FPDT chunk; the recompute in the backward does.  The
+    two passes then save the chunks on different devices, which is why the
+    checkpoint's metadata check is off (``determinism_check="none"``)."""
+    return no_offload(), contextlib.nullcontext()
+
+
+def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
+                   h: torch.Tensor):
+    """Run the full layer stack. h: [b, S, d].  Returns (h, aux); aux is the
+    MoE load-balancing loss in the JAX package, and no ported block has one."""
+    if cfg.remat == "offload":
+        raise NotImplementedError("remat='offload' is not yet ported; use 'full' or 'none'")
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    pat, n_cycles, tail = layout_of(cfg)
+    for cyc_p in unstack(params["cycles"], n_cycles):
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            h = checkpoint(_cycle, cfg, par, pat, cyc_p, h, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=_remat_contexts,
+                           determinism_check="none")
+        else:
+            h = _cycle(cfg, par, pat, cyc_p, h)
+    for i, kind in enumerate(tail):
+        h = block_apply(cfg, par, kind, params["tail"][i], h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
+            batch: Dict[str, torch.Tensor]):
+    """Mean next-token xent (labels pre-shifted; IGNORE masked).  Returns
+    (loss, metrics)."""
+    _check_ported(cfg)
+    h = embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
+    h, aux = hidden_forward(cfg, par, params, h)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1])
+    loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params), batch["labels"],
+                                           n_chunks)
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    return loss, {"loss": loss, "aux": aux, "tokens": count}

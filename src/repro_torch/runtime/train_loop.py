@@ -1,0 +1,182 @@
+"""Training runtime: the step builder and the loop.
+
+``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
+opt_state, metrics)``: the loss and its gradient through
+``models/transformer.py::loss_fn`` (FPDT attention with its Fig. 7
+backward inside), optionally accumulated over ``grad_accum`` micro-batches
+in a Python loop with fp32 gradient sums, then one AdamW update (in place).
+Nothing in a step reads a device value on the host; ``TrainLoop``
+synchronises the card once after each step, then reads the loss.
+
+``TrainLoop`` keeps the JAX package's signal handling (SIGTERM/SIGINT end
+the loop after the current step), ``history`` and straggler monitor.
+Checkpointing, gradient compression and telemetry are not yet ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.core.parallel import ParallelContext
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps: int = 100
+    log_every: int = 10
+    grad_accum: int = 1
+    straggler_zscore: float = 4.0
+    straggler_patience: int = 3
+
+
+class StragglerAlert(RuntimeError):
+    pass
+
+
+# ---------------------------------------------------------------------------
+# step builder
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
+                   batch: Dict[str, torch.Tensor]):
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``: grads is a tree
+    shaped like ``params``, each leaf in its parameter's dtype."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    total, metrics = T.loss_fn(cfg, par, tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(total, leaves)
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
+                    oc: adamw.OptConfig, tc: Optional[TrainConfig] = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+    tc = tc or TrainConfig()
+
+    def step(params, opt_state, batch):
+        if tc.grad_accum > 1:
+            n = tc.grad_accum
+            gsum, lsum = None, None
+            for i in range(n):
+                mb = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                      for k, v in batch.items()}
+                lval, _, g = value_and_grad(cfg, par, params, mb)
+                gsum = (tree_map(lambda x: x.float(), g) if gsum is None
+                        else tree_map(lambda s, x: s.add_(x.float()), gsum, g))
+                lsum = lval if lsum is None else lsum + lval
+            grads = tree_map(lambda s: s / n, gsum)
+            metrics = {"loss": lsum / n}
+        else:
+            lval, metrics, grads = value_and_grad(cfg, par, params, batch)
+        params, opt_state, om = adamw.apply(oc, params, grads, opt_state)
+        metrics = dict(metrics)
+        metrics.update(om)
+        return params, opt_state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the loop
+# ---------------------------------------------------------------------------
+
+
+class HeartbeatMonitor:
+    """Detects persistent stragglers from per-step wall time."""
+
+    def __init__(self, zscore: float, patience: int):
+        self.times: list = []
+        self.z = zscore
+        self.patience = patience
+        self.bad = 0
+
+    def record(self, dt: float) -> None:
+        self.times.append(dt)
+        hist = self.times[:-1][-100:]
+        if len(hist) >= 10:
+            mu, sd = float(np.mean(hist)), float(np.std(hist)) + 1e-9
+            if (dt - mu) / sd > self.z:
+                self.bad += 1
+            else:
+                self.bad = 0
+        if self.bad >= self.patience:
+            raise StragglerAlert(
+                f"step time {dt:.3f}s is a persistent outlier (mu={np.mean(hist):.3f})")
+
+
+class TrainLoop:
+    """Runs ``step_fn`` over ``data_iter``; ``on_step(record)`` (optional)
+    is called after each step, once the card is synchronised."""
+
+    def __init__(self, cfg, par, oc, tc, step_fn, data_iter,
+                 on_step: Optional[Callable[[dict], None]] = None):
+        self.cfg, self.par, self.oc, self.tc = cfg, par, oc, tc
+        self.step_fn = step_fn
+        self.data = data_iter
+        self.on_step = on_step
+        self.monitor = HeartbeatMonitor(tc.straggler_zscore, tc.straggler_patience)
+        self._stop = False
+        self.history: list = []
+
+    def _install_signals(self) -> dict:
+        """Route SIGTERM/SIGINT to a stop flag; returns the handlers replaced."""
+        def handler(signum, frame):
+            self._stop = True
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:
+                pass  # not main thread
+        return previous
+
+    def run(self, params, opt_state, start_step: int = 0,
+            put_batch: Optional[Callable] = None):
+        """``put_batch`` turns a numpy batch into tensors on the device (the
+        default: CPU tensors)."""
+        if put_batch is None:
+            put_batch = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}  # noqa: E731
+        previous = self._install_signals()
+        try:
+            return self._run(params, opt_state, start_step, put_batch)
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+
+    def _run(self, params, opt_state, start_step, put_batch):
+        step = start_step
+        self.data.restore(start_step)
+        while step < self.tc.steps and not self._stop:
+            t0 = time.perf_counter()
+            batch = put_batch(next(self.data))
+            params, opt_state, metrics = self.step_fn(params, opt_state, batch)
+            device = metrics["loss"].device
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            step += 1
+            rec = {"step": step, "loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]), "dt": dt}
+            self.history.append(rec)
+            if step % self.tc.log_every == 0:
+                print(f"step {step:6d} loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
+                      f"{dt * 1000:.0f}ms", flush=True)
+            if self.on_step is not None:
+                self.on_step(rec)
+            try:
+                self.monitor.record(dt)
+            except StragglerAlert as e:
+                print(f"[ft] straggler detected: {e}; stopping")
+                break
+        return params, opt_state, step

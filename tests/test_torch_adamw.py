@@ -1,0 +1,68 @@
+"""repro_torch AdamW against the JAX package's: three ``apply`` steps on the
+same numpy gradients from the same parameters, in fp32 and bf16 parameters,
+comparing parameters, both moments, the learning rate and the gradient norm
+after every step; and the schedule ``lr_at`` over warmup and decay."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.optim import adamw as JA
+from repro_torch.convert import from_jax_params
+from repro_torch.optim import adamw as A
+from repro_torch.tree import tree_leaves
+
+SHAPES = {"embed": (40, 8), "cycles": {"w": (3, 8, 8), "b": (3, 8)}, "tail": [(8,), (4, 8)]}
+
+
+def _tree(rng, shapes, scale=1.0):
+    if isinstance(shapes, dict):
+        return {k: _tree(rng, v, scale) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_tree(rng, v, scale) for v in shapes]
+    return (rng.standard_normal(shapes) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_steps_match_jax(dtype):
+    rng = np.random.default_rng(0)
+    oc = dict(lr=1e-2, warmup_steps=2, total_steps=5)
+    joc, toc = JA.OptConfig(**oc), A.OptConfig(**oc)
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, dtype), _tree(rng, SHAPES))
+    tparams = from_jax_params(jax.device_get(jparams), "cpu")
+    jstate, tstate = JA.init(joc, jparams), A.init(toc, tparams)
+    for step in range(3):
+        # gradients large enough that clipping engages on the first step
+        grads = _tree(rng, SHAPES, scale=0.3 if step else 3.0)
+        jg = jax.tree.map(lambda a: jnp.asarray(a, dtype), grads)
+        jparams, jstate, jm = JA.apply(joc, jparams, jg, jstate)
+        tparams, tstate, tm = A.apply(toc, tparams, from_jax_params(jax.device_get(jg), "cpu"),
+                                      tstate)
+        assert int(tstate.step) == int(jstate.step) == step + 1
+        np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-5)
+        for t, j in zip(tree_leaves(tstate.m) + tree_leaves(tstate.v),
+                        jax.tree.leaves(jstate.m) + jax.tree.leaves(jstate.v)):
+            assert t.dtype == torch.float32
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-7)
+        for t, j in zip(tree_leaves(tparams), jax.tree.leaves(jparams)):
+            assert str(t.dtype) == f"torch.{dtype}"
+            np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                                       rtol=1e-6, atol=1e-7)
+
+
+def test_lr_schedule_matches_jax():
+    oc = dict(lr=3e-4, warmup_steps=10, total_steps=50, min_lr_frac=0.1)
+    for step in (0, 1, 5, 10, 11, 30, 50, 70):
+        np.testing.assert_allclose(float(A.lr_at(A.OptConfig(**oc), step)),
+                                   float(JA.lr_at(JA.OptConfig(**oc), step)), rtol=1e-6)
+
+
+def test_apply_updates_in_place():
+    params = {"w": torch.ones(4, 4)}
+    oc = A.OptConfig(lr=0.1, warmup_steps=0)
+    state = A.init(oc, params)
+    w = params["w"]
+    new, state, _ = A.apply(oc, params, {"w": torch.full((4, 4), 0.5)}, state)
+    assert new["w"] is w and not torch.equal(w, torch.ones(4, 4))

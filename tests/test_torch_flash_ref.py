@@ -1,7 +1,8 @@
-"""repro_torch chunk_fwd (plain version, impl="torch") against the JAX
-package's chunk_fwd with the Pallas kernel in interpret mode: the shape
-sweep of tests/test_kernels_flash.py, carry continuation, windows and
-causality; plus the device/impl pairing rules of the port's dispatcher."""
+"""repro_torch chunk_fwd (the plain version, which CPU tensors take) against
+the JAX package's chunk_fwd with the Pallas kernel in interpret mode: the
+shape sweep of tests/test_kernels_flash.py, carry continuation, windows and
+causality; plus the port's routing by device (CPU tensors never reach the
+CUDA binding, mixed devices raise)."""
 import os
 import subprocess
 import sys
@@ -53,7 +54,7 @@ def _assert_state(t_state, j_state, tol):
 def test_chunk_fwd_matches_pallas(rng, b, hq, hkv, sq, sk, d, blk, dtype):
     (jq, jk, jv), (tq, tk, tv) = _mk(rng, b, hq, hkv, sq, sk, d, dtype)
     want = JO.chunk_fwd(jq, jk, jv, impl="pallas", block_q=blk, block_k=blk)
-    got = O.chunk_fwd(tq, tk, tv, impl="torch", block_q=blk, block_k=blk)
+    got = O.chunk_fwd(tq, tk, tv)
     _assert_state(got, want, _tol(dtype))
 
 
@@ -67,12 +68,13 @@ def test_carry_continues_softmax(rng):
     jc = tc = None
     for j in range(2):
         sl = slice(j * half, (j + 1) * half)
-        kw = dict(causal=True, q_offset=q_off, k_offset=j * half, block_q=blk, block_k=blk)
-        jc = JO.chunk_fwd(jq[:, :, :half], jk[:, :, sl], jv[:, :, sl], jc, impl="pallas", **kw)
+        kw = dict(causal=True, q_offset=q_off, k_offset=j * half)
+        jc = JO.chunk_fwd(jq[:, :, :half], jk[:, :, sl], jv[:, :, sl], jc, impl="pallas",
+                          block_q=blk, block_k=blk, **kw)
         tc = O.chunk_fwd(tq[:, :, :half], tk[:, :, sl].contiguous(), tv[:, :, sl].contiguous(),
-                         tc, impl="torch", **kw)
+                         tc, **kw)
     _assert_state(tc, jc, 1e-5)
-    whole = O.chunk_fwd(tq[:, :, :half], tk, tv, causal=True, q_offset=q_off, impl="torch")
+    whole = O.chunk_fwd(tq[:, :, :half], tk, tv, causal=True, q_offset=q_off)
     np.testing.assert_allclose(finalize(SoftmaxState(*tc)).numpy(),
                                finalize(SoftmaxState(*whole)).numpy(), rtol=1e-5, atol=1e-5)
 
@@ -83,9 +85,9 @@ def test_window_matches_pallas(rng, window):
     (jq, jk, jv), (tq, tk, tv) = _mk(rng, b, hq, hkv, sq, sk, d, jnp.float32)
     # q after the keys, overlapping their tail: some rows see keys, early
     # tiles are window-dead, and (window=4) some rows see nothing
-    kw = dict(causal=True, window=window, q_offset=40, k_offset=0, block_q=blk, block_k=blk)
-    want = JO.chunk_fwd(jq, jk, jv, impl="pallas", **kw)
-    got = O.chunk_fwd(tq, tk, tv, impl="torch", **kw)
+    kw = dict(causal=True, window=window, q_offset=40, k_offset=0)
+    want = JO.chunk_fwd(jq, jk, jv, impl="pallas", block_q=blk, block_k=blk, **kw)
+    got = O.chunk_fwd(tq, tk, tv, **kw)
     _assert_state(got, want, 1e-5)
 
 
@@ -94,27 +96,47 @@ def test_causality(rng):
     kernel's non-causal mode."""
     b, h, s, d = 1, 2, 32, 16
     (jq, jk, jv), (tq, tk, tv) = _mk(rng, b, h, h, s, s, d, jnp.float32)
-    base = finalize(SoftmaxState(*O.chunk_fwd(tq, tk, tv, impl="torch")))
+    base = finalize(SoftmaxState(*O.chunk_fwd(tq, tk, tv)))
     tk2, tv2 = tk.clone(), tv.clone()
     tk2[:, :, 20:] += 5.0
     tv2[:, :, 20:] -= 3.0
-    moved = finalize(SoftmaxState(*O.chunk_fwd(tq, tk2, tv2, impl="torch")))
+    moved = finalize(SoftmaxState(*O.chunk_fwd(tq, tk2, tv2)))
     torch.testing.assert_close(moved[:, :, :20], base[:, :, :20], rtol=0, atol=0)
     assert not torch.allclose(moved[:, :, 20:], base[:, :, 20:])
     want = JO.chunk_fwd(jq, jk, jv, causal=False, impl="pallas", block_q=16, block_k=16)
-    _assert_state(O.chunk_fwd(tq, tk, tv, causal=False, impl="torch"), want, 1e-5)
+    _assert_state(O.chunk_fwd(tq, tk, tv, causal=False), want, 1e-5)
 
 
-def test_impl_device_pairing_raises(rng):
+def test_impl_device_pairing_raises(rng, monkeypatch):
+    """The op is picked by the tensors' device alone: CPU tensors never reach
+    the CUDA binding (every launch there is made to raise), and tensors on
+    mixed devices raise."""
     _, (tq, tk, tv) = _mk(rng, 1, 2, 2, 16, 16, 16, jnp.float32)
-    with pytest.raises(ValueError, match="cannot run"):
-        O.chunk_fwd(tq, tk, tv, impl="cuda")
-    with pytest.raises(ValueError, match="unknown"):
-        O.chunk_fwd(tq, tk, tv, impl="pallas")
+    st = O.chunk_fwd(tq, tk, tv)
+    L, delta = st[1], st[2]
+    # the bindings themselves take CUDA tensors only
     with pytest.raises(ValueError, match="CUDA kernel"):
         K.flash_fwd(tq, tk, tv)
-    # the default picks the plain version for CPU tensors
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        K.flash_bwd_dq(tq, tk, tv, tq, L, delta)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        K.flash_bwd_dkv(tq, tk, tv, tq, L, delta)
+
+    def no_launch(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA binding")
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(K, name, no_launch)
     assert len(O.chunk_fwd(tq, tk, tv)) == 3
+    assert O.chunk_bwd_dq(tq, tk, tv, tq, L, delta).shape == tq.shape
+    assert all(t.shape == tk.shape for t in O.chunk_bwd_dkv(tq, tk, tv, tq, L, delta))
+    meta = torch.empty(tk.shape, device="meta")
+    with pytest.raises(ValueError, match="mixed devices"):
+        O.chunk_fwd(tq, meta, tv)
+    with pytest.raises(ValueError, match="mixed devices"):
+        O.chunk_bwd_dq(tq, tk, tv, tq, L, delta.to("meta"))
+    with pytest.raises(ValueError, match="not meta"):
+        O.chunk_fwd(*(t.to("meta") for t in (tq, tk, tv)))
 
 
 def test_wrapper_imports_without_nvcc():

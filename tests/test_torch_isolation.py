@@ -37,9 +37,13 @@ def _imported_roots(path):
 def test_port_has_modules():
     names = {os.path.relpath(p, PORT) for p in _port_files()}
     for want in ("core/fpdt.py", "kernels/flash_attention/kernel.py",
-                 "models/serve.py", "launch/serve.py", "convert.py"):
+                 "models/serve.py", "launch/serve.py", "convert.py",
+                 "core/chunked_loss.py", "optim/adamw.py", "data/pipeline.py",
+                 "runtime/placement.py", "runtime/train_loop.py", "launch/train.py"):
         assert want in names
     assert os.path.exists(SMOKE)
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert os.path.exists(os.path.join(PORT, "kernels", "flash_attention", "csrc", src))
 
 
 def test_no_jax_or_repro_imports():
