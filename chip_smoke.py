@@ -7,21 +7,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. device   — the card's name and power limit (nvidia-smi) and torch's name;
   2. build    — nvcc builds the hand-written CUDA kernels for sm_90a from the
                 checkout's sources, one nvcc per source, started together:
-                flash_fwd (csrc/flash_fwd.cu), flash_bwd_dq and flash_bwd_dkv
-                (csrc/flash_bwd.cu);
+                flash_fwd (flash_attention/csrc/flash_fwd.cu), flash_bwd_dq
+                and flash_bwd_dkv (flash_attention/csrc/flash_bwd.cu),
+                linear_scan (linear_scan/csrc/linear_scan.cu);
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
-                on the card: fp32 and bf16, head_dim 16/64/128, GQA, ragged
-                lengths, carry-in with offsets, windows, fully masked rows,
-                the serve shapes and every (i, j <= i) chunk pair of a 2048
-                prompt at u = 4;
+                on the card: fp32 and bf16, head_dim 16/64/128/256, GQA and
+                MQA, ragged lengths, carry-in with offsets, windows, fully
+                masked rows, the serve shapes and every (i, j <= i) chunk pair
+                of a 2048 prompt at u = 4;
   4. backward — flash_bwd_dq and flash_bwd_dkv against their plain versions
                 (ref.chunk_bwd_dq / chunk_bwd_dkv) on the same kinds of cases,
-                and at the training path's shapes: every (i, j <= i) pair of an
-                8192 prompt at u = 4 (2048 x 2048, b1 hq32 hkv8 d64) and the
-                8192 x 8192 pair of u = 1 (held at b1 hq4 hkv1 so that the
-                plain version's [sq, sk] fp32 matrices fit); flash_fwd is held
-                against its plain version at those same pairs, with carry and
-                offsets;
+                and at the training paths' shapes: every (i, j <= i) pair of an
+                8192 prompt at u = 4 for llama3.2-1b (2048 x 2048, b1 hq32 hkv8
+                d64), the 7 live pairs of recurrentgemma-9b's (b1 hq16 hkv1
+                d256, window 2048) and the 8192 x 8192 pair of u = 1 (held at
+                b1 hq4 hkv1 so that the plain version's [sq, sk] fp32 matrices
+                fit); flash_fwd is held against its plain version at those
+                same pairs, with carry and offsets;
+  4b. scan    — linear_scan against its plain version (ref.linear_scan):
+                fp32 and bf16, h0 given and absent, ragged seq and chan, b > 1,
+                a near +1 and -1, seq 1, forward and reverse, the training
+                shape [1, 8192, 4096]; the op's backward (the reverse scan)
+                against autograd of the plain version at a reduced length;
   5. serve    — llama3.2-1b at full width with random weights from a seeded
                 generator, through the CLI's own function (serve_batch):
                 batch 4, prompt 64, gen 32, greedy; the launch counts are reset
@@ -39,12 +46,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 same loss and gradients bit for bit; the offloaded chunks are
                 pinned host tensors; in fp32 weights the loss and every
                 gradient leaf at u = 4 are within 5e-4 of u = 1;
+  6b. hybrid  — recurrentgemma-9b at full width and 8 layers (two stacked
+                (rglru, rglru, local_attn) cycles and a 2-layer rglru tail;
+                random bf16 weights from a seeded generator): the same as 6 —
+                offload on vs off bit for bit, 3 steps through train_steps with
+                the launches of all four kernels read around each step, peak
+                memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention and the
                 flash-attention backward behind it, timed as yardsticks only:
-                the port never calls them), all as device time from a CUDA
-                graph of repeated calls; the wrappers also launched from the
-                host back to back (wrapper_ms: host dispatch included);
+                the port never calls them; no PyTorch call computes a linear
+                recurrence), all as device time from a CUDA graph of repeated
+                calls, at the serve shape, the llama3.2-1b training pairs, the
+                recurrentgemma-9b pairs and the RG-LRU scan shape; the wrappers
+                also launched from the host back to back (wrapper_ms: host
+                dispatch included);
   8. kernels  — one JSON line per the kernel contract;
   9. last line: {"ok": true, "device": {...}}.
 
@@ -67,6 +83,7 @@ SRC = ROOT / "src"
 
 # published dense peaks of one H100 SXM at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:34
@@ -74,6 +91,12 @@ TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:34
 # rel); dk and dv sum over g * sq rows, so their error is held relative to
 # (1 + max |reference|), as acc is held relative to (1 + l).
 TOL_BWD = 1e-4
+# linear scan: tests/test_kernels_linear_scan.py's 1e-5 forward and 1e-4
+# gradients.  Elementwise (atol + rtol) where |a| <= 0.99 or the input is
+# RG-LRU-scaled; with a near +-1 and raw inputs h is a random walk whose
+# fp32 rounding accumulates with the walk's size, so there the error is held
+# relative to (1 + max |h|), as dk/dv are.
+TOL_SCAN, TOL_SCAN_GRAD = 1e-5, 1e-4
 # FPDT gradients at u = 4 vs u = 1, relative to each leaf's largest
 # magnitude: tests/test_fpdt.py:50.
 FPDT_GRAD_RTOL = 5e-4
@@ -115,15 +138,15 @@ def phase_device(torch):
     return card, name
 
 
-def phase_build(K):
+def phase_build(B, sources):
     t0 = time.perf_counter()
-    libs = K.build_all()
+    libs = B.build_all(sources)
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {lib.stem.split('_')[1]}:", line.strip())
+                print(f"  ptxas {lib.stem.rsplit('_', 1)[0][3:]}:", line.strip())
 
 
 def _max_violation(got, want, tol):
@@ -183,11 +206,12 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (16, 64, 128):
+        for d in (16, 64, 128, 256):
             cases = [
                 # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off, carry
                 ("ragged-diag", 2, 4, 4, 100, 100, True, 0, 0, 0, False),
                 ("gqa4-window-carry", 2, 8, 2, 100, 70, True, 33, 90, 40, True),
+                ("mqa16-window-carry", 1, 16, 1, 130, 150, True, 64, 200, 60, True),
                 ("future-keys-all-masked", 1, 4, 1, 64, 64, True, 33, 0, 200, True),
                 ("noncausal-carry", 1, 4, 2, 37, 100, False, 0, 0, 0, True),
             ]
@@ -225,13 +249,13 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     return errs
 
 
-def _reset_counts(K):
-    K.launches = K.dq_launches = K.dkv_launches = 0
+def _reset_counts(K, SK):
+    K.launches = K.dq_launches = K.dkv_launches = SK.launches = 0
 
 
-def _counts(K):
+def _counts(K, SK):
     return {"flash_fwd": K.launches, "flash_bwd_dq": K.dq_launches,
-            "flash_bwd_dkv": K.dkv_launches}
+            "flash_bwd_dkv": K.dkv_launches, "linear_scan": SK.launches}
 
 
 def _bwd_inputs(torch, R, lse, finalize, q, k, v, g, states=None, **kw):
@@ -242,7 +266,7 @@ def _bwd_inputs(torch, R, lse, finalize, q, k, v, g, states=None, **kw):
     return do, lse(st), (do * finalize(st)).sum(-1)
 
 
-def phase_kernel_bwd(torch, K, R, SoftmaxState, lse, finalize):
+def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # dq: max abs err; dk, dv: err / (1 + max|ref|)
@@ -282,11 +306,12 @@ def phase_kernel_bwd(torch, K, R, SoftmaxState, lse, finalize):
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (16, 64, 128):
+        for d in (16, 64, 128, 256):
             cases = [
                 # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off
                 ("ragged-diag", 2, 4, 4, 100, 100, True, 0, 0, 0),
                 ("gqa4-window-offsets", 2, 8, 2, 100, 70, True, 33, 90, 40),
+                ("mqa16-window-offsets", 1, 16, 1, 130, 150, True, 64, 200, 60),
                 ("future-keys-all-masked", 1, 4, 1, 64, 64, True, 33, 0, 200),
                 ("noncausal-gqa2", 1, 4, 2, 37, 100, False, 0, 0, 0),
             ]
@@ -325,6 +350,42 @@ def phase_kernel_bwd(torch, K, R, SoftmaxState, lse, finalize):
           f"abs err {pair_worst['dq']:.3e}; dk, dv err / (1 + max|ref|) {pair_worst['dk']:.3e}, "
           f"{pair_worst['dv']:.3e}")
     del qs, ks, vs
+    # recurrentgemma-9b's attention at u=4 of an 8192 prompt: b1 hq16 hkv1
+    # d256 bf16, window 2048, so pair (i, j) lives only for i - j <= 1 (7
+    # pairs); the same checks as above
+    hyb_fwd_errs, hyb_fwd_acc = {}, {}
+    hyb_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, hyb_fwd_errs, hyb_fwd_acc)
+    qs = [rnd(1, 16, cq, 256).to(torch.bfloat16) for _ in range(u)]
+    ks = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
+    vs = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
+    hyb_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    dq_scale, hyb_pairs = 0.0, 0
+    for i in range(u):
+        live = [j for j in range(i + 1) if F.pair_live(i, j, cq=cq, window=2048, sparsity=0.0)]
+        st = None
+        for j in live:
+            st = hyb_check(f"flash_fwd hybrid pair ({i},{j})", torch.bfloat16, qs[i], ks[j],
+                           vs[j], st, causal=True, window=2048, q_offset=i * cq,
+                           k_offset=j * cq)
+        do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
+        for j in live:
+            kw = dict(causal=True, window=2048, q_offset=i * cq, k_offset=j * cq)
+            out = check(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, **kw)
+            dq_scale = max(dq_scale, float(R.chunk_bwd_dq(qs[i], ks[j], vs[j], do, L, delta,
+                                                          **kw).abs().max()))
+            hyb_worst = {p: max(hyb_worst[p], out[p]) for p in out}
+            hyb_pairs += 1
+            n += 1
+        del st, do, L, delta
+    if hyb_pairs != 7:
+        raise AssertionError(f"{hyb_pairs} live pairs at u=4 with window 2048, expected 7")
+    print(f"recurrentgemma-9b pairs of an 8192 prompt at u=4 (2048 x 2048, b1 hq16 hkv1 d256 "
+          f"bf16, window 2048, all 7 live): flash_fwd max abs err of out, m, l "
+          f"{hyb_fwd_errs['bfloat16']:.3e} (tol {TOL['bfloat16']}), acc err / (1 + l) "
+          f"{hyb_fwd_acc['bfloat16']:.3e}; dq max abs err {hyb_worst['dq']:.3e} (max |dq| "
+          f"{dq_scale:.3e}); dk, dv err / (1 + max|ref|) {hyb_worst['dk']:.3e}, "
+          f"{hyb_worst['dv']:.3e}")
+    del qs, ks, vs
     # the u=1 pair, at b1 hq4 hkv1 so the plain version's [sq, sk] fp32
     # matrices (1 GiB each) fit beside the kernel's inputs
     q, k, v = (rnd(1, 4, 8192, 64).to(torch.bfloat16), rnd(1, 1, 8192, 64).to(torch.bfloat16),
@@ -343,10 +404,83 @@ def phase_kernel_bwd(torch, K, R, SoftmaxState, lse, finalize):
           f"{worst['dq']:.3e}; max dk, dv err / (1 + max|ref|) {worst['dk']:.3e}, "
           f"{worst['dv']:.3e} (abs {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e})")
     return {"abs": worst_abs, "rel": worst, "fwd": fwd_errs["bfloat16"],
-            "fwd_acc": fwd_acc["bfloat16"]}
+            "fwd_acc": fwd_acc["bfloat16"], "fwd_hybrid": hyb_fwd_errs["bfloat16"],
+            "fwd_acc_hybrid": hyb_fwd_acc["bfloat16"], "hybrid": hyb_worst}
 
 
-def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
+def phase_scan(torch, SK, SR, SO):
+    """linear_scan against its plain version; the op's backward against
+    autograd of the plain version."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst = {"elementwise": 0.0, "scaled": 0.0}
+    n = 0
+
+    def inputs(b, s, c, dtype, lo, hi, with_h0, rglru):
+        a = lo + (hi - lo) * torch.rand((b, s, c), generator=g, device=dev)
+        x = torch.randn((b, s, c), generator=g, device=dev)
+        if rglru:  # RG-LRU's input scaling: h stays O(1)
+            x = torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) * x
+        h0 = torch.randn((b, c), generator=g, device=dev) if with_h0 else None
+        return a.to(dtype), x.to(dtype), h0
+
+    cases = [
+        # label, b, seq, chan, dtype, a range, h0, RG-LRU-scaled input, elementwise
+        ("grid", 1, 8, 4, torch.float32, (-0.99, 0.99), True, False, True),
+        ("grid-b2", 2, 32, 8, torch.float32, (-0.99, 0.99), True, False, True),
+        ("ragged", 3, 77, 129, torch.float32, (-0.99, 0.99), False, False, True),
+        ("ragged-bf16", 2, 1000, 300, torch.bfloat16, (-0.99, 0.99), True, False, True),
+        ("seq1", 2, 1, 5, torch.float32, (-1.0, 1.0), True, False, True),
+        ("near+1", 2, 4096, 257, torch.float32, (0.999, 1.0), True, False, False),
+        ("near-1", 2, 4096, 257, torch.float32, (-1.0, -0.999), True, False, False),
+        ("near+1-rglru", 1, 8192, 515, torch.float32, (0.99, 1.0), True, True, True),
+        ("train-shape", 1, 8192, 4096, torch.float32, (0.0, 1.0), False, True, True),
+        ("train-shape-bf16", 1, 8192, 4096, torch.bfloat16, (0.0, 1.0), True, True, True),
+    ]
+    for label, b, s, c, dtype, (lo, hi), with_h0, rglru, elementwise in cases:
+        a, x, h0 = inputs(b, s, c, dtype, lo, hi, with_h0, rglru)
+        for reverse in (False, True):
+            got = SK.linear_scan(a, x, h0, reverse=reverse)
+            want = (SR.linear_scan(a.flip(1), x.flip(1), h0).flip(1) if reverse
+                    else SR.linear_scan(a, x, h0))
+            torch.cuda.synchronize()
+            tag = f"{label} [{b}, {s}, {c}] {str(dtype).split('.')[-1]} h0={with_h0} " \
+                  f"reverse={reverse}"
+            if not torch.isfinite(got).all() or got.dtype != torch.float32:
+                raise AssertionError(f"{tag}: non-finite or non-fp32 output")
+            err = float((got - want).abs().max())
+            if elementwise:
+                _, bad = _max_violation(got, want, TOL_SCAN)
+                worst["elementwise"] = max(worst["elementwise"], err)
+            else:
+                bad = err > TOL_SCAN * (1 + float(want.abs().max()))
+                worst["scaled"] = max(worst["scaled"], err / (1 + float(want.abs().max())))
+            if bad:
+                raise AssertionError(f"{tag}: max err {err:.3e} beyond tol {TOL_SCAN}")
+            n += 1
+        del a, x, h0, got, want
+    # the op's backward (the kernel's reverse scan) at a reduced length
+    a, x, h0 = inputs(2, 512, 300, torch.float32, 0.2, 0.999, True, False)
+    w = torch.randn(a.shape, generator=g, device=dev)
+    leaves = [t.requires_grad_(True) for t in (a, x, h0)]
+    got = torch.autograd.grad((SO.linear_scan(*leaves) * w).sum(), leaves)
+    want = torch.autograd.grad((SR.linear_scan(*leaves) * w).sum(), leaves)
+    grad_err = {}
+    for name, gv, wv in zip(("da", "db", "dh0"), got, want):
+        err, bad = _max_violation(gv, wv, TOL_SCAN_GRAD)
+        if bad or not torch.isfinite(gv).all():
+            raise AssertionError(f"op backward: {name} max err {err:.3e} beyond {TOL_SCAN_GRAD}")
+        grad_err[name] = err
+    print(f"linear_scan vs plain: {n} cases within tolerance {TOL_SCAN}; max abs err "
+          f"(elementwise cases) {worst['elementwise']:.3e}; max err / (1 + max|h|) (a near "
+          f"+-1, raw input) {worst['scaled']:.3e}; op backward [2, 512, 300] vs autograd of the "
+          f"plain version: max abs err da {grad_err['da']:.3e} db {grad_err['db']:.3e} dh0 "
+          f"{grad_err['dh0']:.3e} (tol {TOL_SCAN_GRAD})")
+    return {"max_abs_err": worst["elementwise"], "max_rel_err_near_unit": worst["scaled"],
+            "grad": grad_err}
+
+
+def phase_serve(torch, K, SK, cfg_mod, T, SV, CLI, card):
     dev = torch.device("cuda")
     cfg = cfg_mod.get_config("llama3.2-1b")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -360,9 +494,9 @@ def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
     CLI.serve_batch(cfg, params, tokens, gen=new)  # warm-up: cuBLAS and allocator set-up
 
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(K)
+    _reset_counts(K, SK)
     out = CLI.serve_batch(cfg, params, tokens, gen=new)
-    counts = _counts(K)
+    counts = _counts(K, SK)
     launches = counts["flash_fwd"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     logits, toks = out["prefill_logits"], out["tokens"]
@@ -434,12 +568,17 @@ def phase_serve(torch, K, cfg_mod, T, SV, CLI, card):
 
 
 def _model_flops(cfg, b, s):
-    """Model FLOPs of one training step: 6 N per token for the weights, plus
-    causal attention at 12 d per live (q, k) pair and q-head (4 d forward,
-    8 d backward), per layer."""
-    live = s * (s + 1) // 2
-    return 6 * cfg.num_params() * b * s + 12 * cfg.head_dim * cfg.num_heads * live * b \
-        * cfg.num_layers
+    """Model FLOPs of one training step: 6 N per token for the weights, plus,
+    in each attention layer, 12 d per live (q, k) pair and q-head (4 d
+    forward, 8 d backward) under that layer's causal mask and window (none
+    for attn, ``cfg.window`` for local_attn).  RG-LRU layers have no pairs:
+    their weights are in N."""
+    attn = 0
+    for kind in cfg.layer_kinds():
+        if kind in ("attn", "local_attn"):
+            window = cfg.window if kind == "local_attn" else 0
+            attn += 12 * cfg.head_dim * cfg.num_heads * _live_pairs(s, s, 0, 0, window) * b
+    return 6 * cfg.num_params() * b * s + attn
 
 
 def _tree_max_rel(TR, got, want):
@@ -456,6 +595,7 @@ PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel n
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("linear_scan", ("linear_scan_",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("copy", ("memcpy", "memset")),
 )
@@ -514,10 +654,15 @@ def _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, o
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiler recorded no device time")
-    by_group = {}
+    by_group, other = {}, {}  # group -> ms; kernel name -> (count, ms) within "other"
     for e in kernels:
         g = _group_of(e.name)
-        by_group[g] = by_group.get(g, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_group[g] = by_group.get(g, 0.0) + ms
+        if g == "other":
+            n, total = other.get(e.name, (0, 0.0))
+            other[e.name] = (n + 1, total + ms)
+    top_other = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
     compute = _merged([(e.time_range.start, e.time_range.end) for e in kernels
                        if _group_of(e.name) != "copy"])
     copies = _merged([(e.time_range.start, e.time_range.end) for e in kernels
@@ -540,11 +685,13 @@ def _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, o
           f"kernel; moved {off.to_host_bytes / 2**20:.1f} MiB to the host and "
           f"{off.to_device_bytes / 2**20:.1f} MiB back; host time in CUDA runtime calls "
           + ", ".join(f"{k} {n}x {ms:.1f} ms" for k, (n, ms) in top_api) + f" [{card}]")
+    print("  largest kernels in 'other': " + "; ".join(
+        f"{ms:.1f} ms in {n}x {name[:90]}" for name, (n, ms) in top_other))
     return {"wall_ms": wall_us / 1e3, "groups": by_group, "idle": 1 - busy,
             "copy_ms": copy_us / 1e3, "copy_hidden": hidden}
 
 
-def phase_train(torch, K, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
+def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
     dev = torch.device("cuda")
     seq, batch, u, steps = 8192, 1, 4, 3
     base = cfg_mod.get_config("llama3.2-1b")
@@ -598,20 +745,19 @@ def phase_train(torch, K, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
     records = []
 
     def on_step(rec):
-        rec["launches"] = _counts(K)
+        rec["launches"] = _counts(K, SK)
         records.append(rec)
-        _reset_counts(K)
+        _reset_counts(K, SK)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     off.reset_counts()
-    _reset_counts(K)
+    _reset_counts(K, SK)
     params, opt_state, history = TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
                                                    on_step=on_step)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     flops = _model_flops(cfg, batch, seq)
-    want = {"flash_fwd": 2 * 10 * cfg.num_layers, "flash_bwd_dq": 10 * cfg.num_layers,
-            "flash_bwd_dkv": 10 * cfg.num_layers}  # u=4: 10 pairs; forward + recompute
+    want = _launches_per_step(cfg, F, T, seq)  # u=4: 10 pairs; forward + recompute
     for rec in records:
         mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
         rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
@@ -663,6 +809,117 @@ def phase_train(torch, K, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
             "to_host_bytes": to_host_bytes, "profile": prof}
 
 
+def _launches_per_step(cfg, F, T, seq):
+    """Launches per training step of each kernel under remat full: a layer
+    in the per-cycle checkpoint runs its forward twice (and flash_fwd once
+    per live pair each time), a tail layer once; the backward once."""
+    pat, n_cycles, tail = T.layout_of(cfg)
+    u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0}
+    for kind, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
+        if kind == "rglru":
+            want["linear_scan"] += passes + 1
+        else:
+            window = cfg.window if kind == "local_attn" else 0
+            pairs = sum(F.pair_live(i, j, cq=cq, window=window, sparsity=cfg.attn_sparsity)
+                        for i in range(u) for j in range(i + 1))
+            want["flash_fwd"] += passes * pairs
+            want["flash_bwd_dq"] += pairs
+            want["flash_bwd_dkv"] += pairs
+    return want
+
+
+def phase_train_hybrid(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
+    """recurrentgemma-9b at full width, 8 layers: the slice's main path."""
+    dev = torch.device("cuda")
+    seq, batch, u, steps = 8192, 1, 4, 3
+    base = cfg_mod.get_config("recurrentgemma-9b", num_layers=8)
+    cfg = dataclasses.replace(base, fpdt_chunks=u, mlp_chunks=2 * u, remat="full",
+                              fpdt_offload=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for t in TR.tree_leaves(params))
+    print(f"init_params {cfg.name} ({cfg.num_layers} layers: {T.layout_of(cfg)[1]} cycles of "
+          f"{T.layout_of(cfg)[0]} + tail {T.layout_of(cfg)[2]}; {cfg.num_params() / 1e9:.3f} B "
+          f"params, {pbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+    batch_fn = DP.make_batch_fn(cfg, cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+
+    l_on, _, g_on = TL.value_and_grad(cfg, None, params, b0)
+    l_off, _, g_off = TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
+                                        params, b0)
+    torch.cuda.synchronize()
+    differ = [n for n, (a, b) in enumerate(zip(TR.tree_leaves(g_on), TR.tree_leaves(g_off)))
+              if not torch.equal(a, b)]
+    print(f"offload on vs off, step 1: loss {float(l_on):.6f} vs {float(l_off):.6f}; "
+          f"gradient leaves that differ: {len(differ)} of {len(TR.tree_leaves(g_on))}")
+    if not torch.equal(l_on, l_off) or differ:
+        raise AssertionError("offload on and off give different losses or gradients")
+    del g_on, g_off
+    torch.cuda.empty_cache()
+
+    oc = TRAIN.opt_config(cfg, 3e-4, steps)
+    tc = TL.TrainConfig(steps=steps, log_every=steps + 1)
+    off = PL.host_offload(dev)
+    records = []
+
+    def on_step(rec):
+        rec["launches"] = _counts(K, SK)
+        records.append(rec)
+        _reset_counts(K, SK)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    off.reset_counts()
+    _reset_counts(K, SK)
+    params, opt_state, _ = TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev, on_step=on_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    flops = _model_flops(cfg, batch, seq)
+    want = _launches_per_step(cfg, F, T, seq)
+    for rec in records:
+        mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
+        rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
+        print(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+              f"{rec['dt'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s, MFU {mfu:.4f}; "
+              f"launches {rec['launches']} [{card}]")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"step {rec['step']}: non-finite loss or grad norm")
+        if rec["launches"] != want:
+            raise AssertionError(f"step {rec['step']}: launches {rec['launches']}, expected {want}")
+    if len(records) != steps:
+        raise AssertionError(f"{len(records)} steps taken, {steps} asked")
+    print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={u} "
+          f"mlp_chunks={cfg.mlp_chunks} remat=full offload=on: peak device memory "
+          f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
+          f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
+          f"FLOPs/step {flops:.4e} [{card}]")
+    if off.to_host_bytes <= 0 or off.to_device_bytes <= 0:
+        raise AssertionError("offload on moved no bytes through pinned host memory")
+    totals = {k: sum(r["launches"][k] for r in records) for k in want}
+    prof = _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, off, card)
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
+    p32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    l4, _, g4 = TL.value_and_grad(cfg32, None, p32, b0)
+    l1, _, g1 = TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
+    grad_rel, leaf = _tree_max_rel(TR, g4, g1)
+    print(f"fp32 weights, u=4 vs u=1 at seq {seq}: loss {float(l4):.6f} vs {float(l1):.6f} "
+          f"(rel {loss_rel:.3e}); largest gradient-leaf error / leaf max {grad_rel:.3e} "
+          f"(leaf {leaf} of {len(TR.tree_leaves(g4))}); tolerance {FPDT_GRAD_RTOL}")
+    if loss_rel > FPDT_GRAD_RTOL or grad_rel > FPDT_GRAD_RTOL:
+        raise AssertionError("u=4 training gradients differ from u=1")
+    del p32, g4, g1
+    torch.cuda.empty_cache()
+    return {"launches": totals, "per_step": want, "steps": records, "peak_gib": peak_gib,
+            "grad_rel_u4_u1": grad_rel, "profile": prof}
+
+
 def _eager_ms(torch, fn, iters=200, warmup=20):
     """Per call, launched back to back from the host (CUDA events): at small
     shapes this is the host's dispatch time, wrapper included."""
@@ -706,14 +963,11 @@ def _device_ms(torch, fn, per_graph=20, replays=10):
     return ms
 
 
-def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry):
+def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry, window=0):
     """Least time on the card: (ms, "bytes"|"operations").  Operations count
-    4*d per live causal (q, k) pair (q.k and p.v); bytes count q, k, v (and a
-    carry) read once and (acc, m, l) written once."""
-    live = 0
-    for r in range(sq):
-        qpos = q_offset + r
-        live += max(0, min(sk, qpos - k_offset + 1))
+    4*d per live causal (q, k) pair (q.k and p.v) under the window; bytes
+    count q, k, v (and a carry) read once and (acc, m, l) written once."""
+    live = _live_pairs(sq, sk, q_offset, k_offset, window)
     flops = 4 * d * live * b * hq
     nbytes = in_bytes * (b * hq * sq * d + 2 * b * hkv * sk * d) + 4 * (b * hq * sq * (d + 2))
     if carry:
@@ -722,17 +976,24 @@ def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _live_pairs(sq, sk, q_offset, k_offset):
-    """Causal (q, k) pairs these offsets leave live."""
-    return sum(max(0, min(sk, q_offset + r - k_offset + 1)) for r in range(sq))
+def _live_pairs(sq, sk, q_offset, k_offset, window=0):
+    """Causal (q, k) pairs these offsets leave live; with window > 0 only
+    keys with qpos - kpos < window."""
+    live = 0
+    for r in range(sq):
+        qpos = q_offset + r
+        hi = min(sk - 1, qpos - k_offset)  # last key index the row sees
+        lo = max(0, qpos - window + 1 - k_offset) if window > 0 else 0
+        live += max(0, hi - lo + 1)
+    return live
 
 
-def _bwd_bound(which, b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset):
+def _bwd_bound(which, b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, window=0):
     """Least time of flash_bwd_dq ("dq") or flash_bwd_dkv ("dkv") on the card:
     (ms, "bytes"|"operations").  Operations: 6 d (dq) or 8 d (dkv) per live
     causal pair and q-head; bytes: q, k, v, do, L, delta read once, the
     outputs written once."""
-    live = _live_pairs(sq, sk, q_offset, k_offset)
+    live = _live_pairs(sq, sk, q_offset, k_offset, window)
     flops = (6 if which == "dq" else 8) * d * live * b * hq
     nbytes = in_bytes * (b * hq * sq * d + 2 * b * hkv * sk * d) + 4 * b * hq * sq * (d + 2)
     nbytes += 4 * (b * hq * sq * d if which == "dq" else 2 * b * hkv * sk * d)
@@ -740,32 +1001,64 @@ def _bwd_bound(which, b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(torch, K, R, lse, finalize, card):
+def _sdpa_flash_bwd(torch, q, k, v, do, causal):
+    """The flash-attention backward behind SDPA on one pair (dq, dk and dv
+    together, GQA in the op; it recomputes its own softmax from its
+    forward's out and logsumexp), called directly so that it is timed as
+    device time from a CUDA graph like the kernels: (fn, None) or (None,
+    the reason it cannot run these inputs).  The port never calls it."""
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+        do16 = do.to(q.dtype)
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do16, q, k, v, fwd[0], fwd[1], fwd[2], fwd[3], fwd[4], fwd[5], 0.0, causal,
+                fwd[6], fwd[7])
+
+        grads = library()
+    except RuntimeError as e:  # a yardstick only: the kernels do not depend on it
+        return None, str(e).splitlines()[0]
+    if tuple(grads[1].shape) != tuple(k.shape) or not all(torch.isfinite(t).all()
+                                                          for t in grads):
+        raise AssertionError(f"sdpa flash backward gave dk {tuple(grads[1].shape)} or "
+                             "non-finite grads")
+    return library, None
+
+
+def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     rows = {}
+    hyb = "recurrentgemma-9b 8192 u=4 {} pair cq=2048 b1 hq16 hkv1 d256 window 2048"
     shapes = [
-        # key, label, b, hq, hkv, sq, sk, q_off, k_off, carry
-        ("flash_fwd", "serve prefill b4 s64 (u=1)", 4, 32, 8, 64, 64, 0, 0, False),
-        (None, "2048 prompt u=4 off-diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 0, True),
-        (None, "2048 prompt u=4 diagonal pair cq=512", 4, 32, 8, 512, 512, 512, 512, True),
-        ("flash_fwd_train", "train 8192 u=4 off-diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048,
-         2048, 0, True),
-        (None, "train 8192 u=4 diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048, 2048, 2048,
+        # key, label, b, hq, hkv, sq, sk, d, window, q_off, k_off, carry
+        ("flash_fwd_serve", "serve prefill b4 s64 (u=1)", 4, 32, 8, 64, 64, 64, 0, 0, 0, False),
+        (None, "2048 prompt u=4 off-diagonal pair cq=512", 4, 32, 8, 512, 512, 64, 0, 512, 0,
          True),
+        (None, "2048 prompt u=4 diagonal pair cq=512", 4, 32, 8, 512, 512, 64, 0, 512, 512,
+         True),
+        ("flash_fwd_train", "train 8192 u=4 off-diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048,
+         64, 0, 2048, 0, True),
+        (None, "train 8192 u=4 diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048, 64, 0, 2048,
+         2048, True),
+        # the off-diagonal pair opens its rows' softmax (no carry), the diagonal continues it
+        ("flash_fwd", hyb.format("off-diagonal"), 1, 16, 1, 2048, 2048, 256, 2048, 2048, 0,
+         False),
+        (None, hyb.format("diagonal"), 1, 16, 1, 2048, 2048, 256, 2048, 2048, 2048, True),
     ]
-    for key, label, b, hq, hkv, sq, sk, qo, ko, carry in shapes:
-        q = torch.randn((b, hq, sq, 64), generator=g, device=dev).to(torch.bfloat16)
-        k = torch.randn((b, hkv, sk, 64), generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn((b, hkv, sk, 64), generator=g, device=dev).to(torch.bfloat16)
+    for key, label, b, hq, hkv, sq, sk, d, window, qo, ko, carry in shapes:
+        q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(torch.bfloat16)
         st = None
         if carry:
-            st = (torch.randn((b, hq, sq, 64), generator=g, device=dev),
+            st = (torch.randn((b, hq, sq, d), generator=g, device=dev),
                   torch.randn((b, hq, sq), generator=g, device=dev),
                   torch.rand((b, hq, sq), generator=g, device=dev) + 0.5)
-        kw = dict(causal=True, q_offset=qo, k_offset=ko)
+        kw = dict(causal=True, window=window, q_offset=qo, k_offset=ko)
 
         def kern():
             return K.flash_fwd(q, k, v, st, **kw)
@@ -776,10 +1069,11 @@ def phase_timing(torch, K, R, lse, finalize, card):
 
         # yardstick: one library call of (normalized) causal GQA attention on
         # the same q/k/v; only meaningful where the causal diagonal matches
+        # (on the diagonal pairs a window of the chunk's length never binds)
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-        bound_ms, bound_by = _bound(b, hq, hkv, sq, sk, 64, 2, qo, ko, carry)
+        bound_ms, bound_by = _bound(b, hq, hkv, sq, sk, d, 2, qo, ko, carry, window)
         row = {"kernel": "flash_fwd", "shape": label, "ms": _device_ms(torch, kern),
                "plain_ms": _device_ms(torch, plain), "bound_ms": bound_ms,
                "bound_by": bound_by,
@@ -790,40 +1084,29 @@ def phase_timing(torch, K, R, lse, finalize, card):
             rows[key] = row
         del q, k, v, st
 
-    # the backward kernels at the training path's pair shape: bf16 q/k/v,
+    # the backward kernels at the training paths' pair shapes: bf16 q/k/v,
     # fp32 do, L and delta from the plain forward of the pair
-    for label, qo, ko in (("train 8192 u=4 off-diagonal pair cq=2048 b1", 2048, 0),
-                          ("train 8192 u=4 diagonal pair cq=2048 b1", 2048, 2048)):
-        b, hq, hkv, s_ = 1, 32, 8, 2048
-        q = torch.randn((b, hq, s_, 64), generator=g, device=dev).to(torch.bfloat16)
-        k = torch.randn((b, hkv, s_, 64), generator=g, device=dev).to(torch.bfloat16)
-        v = torch.randn((b, hkv, s_, 64), generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(causal=True, q_offset=qo, k_offset=ko)
+    pairs = [
+        # key suffix, label, hq, hkv, d, window, q_off, k_off
+        ("_train", "train 8192 u=4 off-diagonal pair cq=2048 b1", 32, 8, 64, 0, 2048, 0),
+        (None, "train 8192 u=4 diagonal pair cq=2048 b1", 32, 8, 64, 0, 2048, 2048),
+        ("", hyb.format("off-diagonal"), 16, 1, 256, 2048, 2048, 0),
+        (None, hyb.format("diagonal"), 16, 1, 256, 2048, 2048, 2048),
+    ]
+    for suffix, label, hq, hkv, d, window, qo, ko in pairs:
+        b, s_ = 1, 2048
+        q = torch.randn((b, hq, s_, d), generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, hkv, s_, d), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s_, d), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(causal=True, window=window, q_offset=qo, k_offset=ko)
         st = R.attend_chunk(q, k, v, **kw)
         do = torch.randn(q.shape, generator=g, device=dev)
         L, delta = lse(st), (do * finalize(st)).sum(-1)
         del st
-        # yardstick: the flash-attention backward behind SDPA on the same
-        # pair (dq, dk and dv together, GQA in the op; it recomputes its own
-        # softmax from its forward's out and logsumexp), called directly so
-        # that it is timed as device time from a CUDA graph like the
-        # kernels; the port never calls it
-        causal = qo == ko
-        fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
-        do16 = do.to(torch.bfloat16)
-
-        def library():
-            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                do16, q, k, v, fwd[0], fwd[1], fwd[2], fwd[3], fwd[4], fwd[5], 0.0, causal,
-                fwd[6], fwd[7])
-
-        lib_dq, lib_dk, lib_dv = library()
-        if tuple(lib_dk.shape) != tuple(k.shape) or not all(
-                torch.isfinite(t).all() for t in (lib_dq, lib_dk, lib_dv)):
-            raise AssertionError(f"sdpa flash backward gave dk {tuple(lib_dk.shape)} or "
-                                 "non-finite grads")
-        library_ms = _device_ms(torch, library)
-        del lib_dq, lib_dk, lib_dv
+        library, why = _sdpa_flash_bwd(torch, q, k, v, do, causal=qo == ko)
+        library_ms = _device_ms(torch, library) if library is not None else None
+        if why:
+            print(f"timing: no library backward at {label}: {why}")
         for name, which in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
             wrap = K.flash_bwd_dq if which == "dq" else K.flash_bwd_dkv
             ref = R.chunk_bwd_dq if which == "dq" else R.chunk_bwd_dkv
@@ -834,17 +1117,45 @@ def phase_timing(torch, K, R, lse, finalize, card):
             def plain():
                 return ref(q, k, v, do, L, delta, **kw)
 
-            bound_ms, bound_by = _bwd_bound(which, b, hq, hkv, s_, s_, 64, 2, qo, ko)
+            bound_ms, bound_by = _bwd_bound(which, b, hq, hkv, s_, s_, d, 2, qo, ko, window)
             row = {"kernel": name, "shape": label, "ms": _device_ms(torch, kern),
                    "plain_ms": _device_ms(torch, plain, per_graph=5, replays=4),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms,
-                   "library": "aten flash-attention backward: dq, dk and dv together",
+                   "library": "aten flash-attention backward: dq, dk and dv together"
+                   + ("" if qo == ko else ", unmasked: twice this pair's live work"),
                    "wrapper_ms": _eager_ms(torch, kern, iters=20, warmup=3), "card": card}
             print("timing " + json.dumps(row))
-            rows.setdefault(name, row)  # the off-diagonal pair goes in the kernels line
-        del q, k, v, do, L, delta, fwd
+            if suffix is not None:
+                rows[name + suffix] = row
+        del q, k, v, do, L, delta, library
         torch.cuda.empty_cache()
+
+    # linear_scan at the RG-LRU training shape: fp32 a and gated input
+    # [1, 8192, 4096], no h0 (a layer's scan starts from zeros)
+    a = torch.rand((1, 8192, 4096), generator=g, device=dev)
+    x = torch.randn((1, 8192, 4096), generator=g, device=dev)
+
+    def kern():
+        return SK.linear_scan(a, x)
+
+    def plain():
+        return SR.linear_scan(a, x)
+
+    n_el = a.numel()
+    t_bytes = 3 * 4 * n_el / PEAK_BYTES  # a, b read once, h written once
+    t_ops = 2 * n_el / PEAK_FP32_FLOPS  # one multiply and one add per element, fp32
+    row = {"kernel": "linear_scan", "shape": "RG-LRU scan [1, 8192, 4096] fp32, no h0",
+           "ms": _device_ms(torch, kern),
+           "plain_ms": _device_ms(torch, plain, per_graph=1, replays=3),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "library": "none: no PyTorch call computes a linear recurrence",
+           "wrapper_ms": _eager_ms(torch, kern, iters=50, warmup=5), "card": card}
+    print("timing " + json.dumps(row))
+    rows["linear_scan"] = row
+    del a, x
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -863,8 +1174,12 @@ def main():
     from repro_torch.core import fpdt as F
     from repro_torch.core.online_softmax import SoftmaxState, finalize, lse
     from repro_torch.data import pipeline as DP
+    from repro_torch.kernels import build as B
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
+    from repro_torch.kernels.linear_scan import kernel as SK
+    from repro_torch.kernels.linear_scan import ops as SO
+    from repro_torch.kernels.linear_scan import ref as SR
     from repro_torch.launch import serve as CLI
     from repro_torch.launch import train as TRAIN
     from repro_torch.models import serve as SV
@@ -873,36 +1188,59 @@ def main():
     from repro_torch.runtime import train_loop as TL
 
     card, name = phase("device", phase_device, torch)
-    phase("build", phase_build, K)
+    phase("build", phase_build, B, K.SOURCES + SK.SOURCES)
     errs = phase("kernel vs plain", phase_kernel, torch, K, R, SoftmaxState, finalize)
-    bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, SoftmaxState, lse,
+    bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, F, SoftmaxState, lse,
                 finalize)
-    serve = phase("serve llama3.2-1b", phase_serve, torch, K, cfg_mod, T, SV, CLI, card)
-    train = phase("train llama3.2-1b", phase_train, torch, K, cfg_mod, T, F, TR, TL, PL, DP,
+    scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
+    serve = phase("serve llama3.2-1b", phase_serve, torch, K, SK, cfg_mod, T, SV, CLI, card)
+    train = phase("train llama3.2-1b", phase_train, torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP,
                   TRAIN, card)
-    timing = phase("timing", phase_timing, torch, K, R, lse, finalize, card)
-    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, K, SK,
+                   cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card)
+    timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
+
+    def at(key, tag):  # another timed shape's figures, as extra keys
+        row = timing[key]
+        return {f"{k}_{tag}": row[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+
+    flash = "src/repro_torch/kernels/flash_attention/csrc/"
     replaces = "src/repro/kernels/flash_attention/kernel.py:"
     entries = [
-        ("flash_fwd", "flash_fwd.cu", "134", max(*errs.values(), bwd["fwd"]),
+        ("flash_fwd", flash + "flash_fwd.cu", replaces + "134",
+         max(*errs.values(), bwd["fwd"], bwd["fwd_hybrid"]),
          {"max_err_fp32": errs["float32"], "max_err_bf16": errs["bfloat16"],
           "max_err_train_pairs": bwd["fwd"], "max_acc_rel_err_train_pairs": bwd["fwd_acc"],
-          "ms_train_pair": timing["flash_fwd_train"]["ms"],
-          "bound_ms_train_pair": timing["flash_fwd_train"]["bound_ms"],
-          "plain_ms_train_pair": timing["flash_fwd_train"]["plain_ms"]}),
-        ("flash_bwd_dq", "flash_bwd.cu", "273", bwd["abs"]["dq"], {}),
-        ("flash_bwd_dkv", "flash_bwd.cu", "367", max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
-         {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"]}),
+          "max_err_hybrid_pairs": bwd["fwd_hybrid"],
+          "max_acc_rel_err_hybrid_pairs": bwd["fwd_acc_hybrid"],
+          **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_serve", "serve")}),
+        ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
+         {"max_abs_err_hybrid_pairs": bwd["hybrid"]["dq"],
+          **at("flash_bwd_dq_train", "llama_train_pair")}),
+        ("flash_bwd_dkv", flash + "flash_bwd.cu", replaces + "367",
+         max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
+         {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"],
+          "max_rel_err_dk_hybrid_pairs": bwd["hybrid"]["dk"],
+          "max_rel_err_dv_hybrid_pairs": bwd["hybrid"]["dv"],
+          **at("flash_bwd_dkv_train", "llama_train_pair")}),
+        ("linear_scan", "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+         "src/repro/kernels/linear_scan/kernel.py:67", scan["max_abs_err"],
+         {"max_rel_err_near_unit": scan["max_rel_err_near_unit"],
+          "max_abs_err_grad": max(scan["grad"].values())}),
     ]
     kernels = {"kernels": []}
-    for kname, src, line, err, extra in entries:
+    for kname, src, repl, err, extra in entries:
         row = timing[kname]
         if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
             fail(f"non-finite timing of {kname}")
+        if hybrid["launches"][kname] <= 0:
+            fail(f"the recurrentgemma-9b training path launched {kname} no time")
         kernels["kernels"].append({
-            "name": kname, "route": "cuda", "source": csrc + src, "replaces": replaces + line,
-            "launches": train["launches"][kname],
-            "launches_by_path": {"serve": serve[kname], "train": train["launches"][kname]},
+            "name": kname, "route": "cuda", "source": src, "replaces": repl,
+            "launches": hybrid["launches"][kname],
+            "launches_by_path": {"serve llama3.2-1b": serve[kname],
+                                 "train llama3.2-1b": train["launches"][kname],
+                                 "train recurrentgemma-9b": hybrid["launches"][kname]},
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],

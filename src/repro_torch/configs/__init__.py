@@ -1,9 +1,9 @@
 """Model configs and the registry of ported architectures.
 
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
-``reduced`` (the port imports nothing from it).  Only architectures whose
-whole serve and train path is ported are registered; ``get_config`` raises
-for every other one.
+``reduced`` (the port imports nothing from it).  Only architectures the
+port trains are registered; ``get_config`` raises for every other one.
+Serving raises for the block kinds it does not port yet (rglru).
 """
 from __future__ import annotations
 
@@ -160,11 +160,12 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 # --------------------------------------------------------------------------
-# Registry: only the architectures whose serve path is ported
+# Registry: only the architectures the port trains
 # --------------------------------------------------------------------------
 
 _MODULE_FOR = {
     "llama3.2-1b": "llama3p2_1b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

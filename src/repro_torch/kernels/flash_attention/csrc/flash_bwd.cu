@@ -21,8 +21,13 @@
 //     hk * g + t / nq).  dk and dv accumulate inside the block with no
 //     atomics and are written once, so the GQA sum is exact in the sense of
 //     being deterministic: the same order on every run.
-//   * tiles are fixed at 64 x 64 with ragged tails masked; q_offset and
-//     k_offset are runtime arguments; a tile wholly above the diagonal or
+//   * tiles are 64 x 64 with ragged tails masked, except at head_dim 256,
+//     where flash_bwd_dq takes 32-row q tiles and flash_bwd_dkv 32-row key
+//     tiles (tile_rows below) so that the fp32 tiles fit the 227 KB of
+//     shared memory a block may have (205,952 and 214,528 bytes) and the
+//     per-thread accumulators stay at 32 (dq) and 64 (dk + dv) floats;
+//     the d <= 128 instantiations are the 64 x 64 ones, unchanged; q_offset
+//     and k_offset are runtime arguments; a tile wholly above the diagonal or
 //     left of the window band is skipped (kernel.py:240-242, :331-333);
 //     the window applies only under causal, as in ref.py.
 //   * a masked (q, k) pair gets p = 0 without any exp, so a row that saw no
@@ -34,18 +39,26 @@
 // What bounds them on this card: per live (q, k) pair dq does 6 * d and dkv
 // 8 * d flops against O(d) bytes per row, so at FPDT's chunk sizes the
 // operations bound both (989 TFLOP/s on the tensor cores).  This first
-// version runs on the CUDA cores in fp32 (each thread a 4 x 4 micro-tile of
-// s and a 4 x d/16 micro-tile of its accumulators), so it is far from that
-// bound; mma/wgmma tensor-core products and TMA pipelining are later work.
+// version runs on the CUDA cores in fp32 (each thread a (rows / 16) x 4
+// micro-tile of s and a (rows / 16) x d/16 micro-tile of its accumulators),
+// so it is far from that bound; mma/wgmma tensor-core products and TMA
+// pipelining are later work.  Under MQA (one kv head) flash_bwd_dkv has only
+// sk / 32 blocks at d = 256 (64 for a 2048-key chunk, on 132 SMs), each
+// looping over every q head: right, and slow.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;   // q rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads: 16 x 16, each a 4 x 4 micro-tile
+constexpr int BQ = 64;   // q rows per tile (flash_bwd_dq: TQ, below)
+constexpr int BK = 64;   // keys per tile (flash_bwd_dkv: TK, below)
+constexpr int NT = 256;  // threads: 16 x 16, each a (rows / 16) x 4 micro-tile
+
+// rows of the tile a block keeps for its whole life (dq: q rows; dkv: key
+// rows): 64, or 32 at head_dim 256 so the fp32 tiles fit shared memory
+template <int D>
+__host__ __device__ constexpr int tile_rows() { return D > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -60,11 +73,11 @@ __device__ __forceinline__ bool live_pair(int causal, int window, int qpos, int 
   return !causal || (qpos >= kpos && (window <= 0 || qpos - kpos < window));
 }
 
-// rows [0, n) of a [rows, D] tile from global memory into a padded shared tile
-template <int D, typename T>
+// rows [0, n) of a [ROWS, D] tile from global memory into a padded shared tile
+template <int D, int ROWS, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int n, int tid) {
   constexpr int DP = D + 1;
-  for (int i = tid; i < 64 * D; i += NT) {
+  for (int i = tid; i < ROWS * D; i += NT) {
     const int r = i / D, c = i % D;
     dst[r * DP + c] = r < n ? to_f32(src[(size_t)r * D + c]) : 0.f;
   }
@@ -72,14 +85,17 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int n, int t
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // sQ, sDO, sK, sV [64][D+1]; sDS [BQ][BK+1]; sL, sDelta [BQ]
-  return sizeof(float) * (4 * size_t(64) * (D + 1) + size_t(BQ) * (BK + 1) + 2 * BQ);
+  // sQ, sDO [TQ][D+1]; sK, sV [BK][D+1]; sDS [TQ][BK+1]; sL, sDelta [TQ]
+  constexpr size_t TQ = tile_rows<D>();
+  return sizeof(float) * (2 * TQ * (D + 1) + 2 * size_t(BK) * (D + 1) + TQ * (BK + 1) + 2 * TQ);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // sK, sV, sQ, sDO [64][D+1]; sP, sDS [BK][BQ+1]; sL, sDelta [BQ]
-  return sizeof(float) * (4 * size_t(64) * (D + 1) + 2 * size_t(BK) * (BQ + 1) + 2 * BQ);
+  // sK, sV [TK][D+1]; sQ, sDO [BQ][D+1]; sP, sDS [TK][BQ+1]; sL, sDelta [BQ]
+  constexpr size_t TK = tile_rows<D>();
+  return sizeof(float) * (2 * TK * (D + 1) + 2 * size_t(BQ) * (D + 1) + 2 * TK * (BQ + 1) +
+                          2 * BQ);
 }
 
 template <int D, typename T>
@@ -89,37 +105,39 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ delta, float* __restrict__ dq, int hq, int hkv,
                     int sq, int sk, int causal, int window, int q_offset, int k_offset,
                     float scale) {
+  constexpr int TQ = tile_rows<D>();
+  constexpr int MI = TQ / 16;  // q rows per thread
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int DC = D / 16;  // dq columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sDO = sQ + BQ * DP;
-  float* sK = sDO + BQ * DP;
+  float* sDO = sQ + TQ * DP;
+  float* sK = sDO + TQ * DP;
   float* sV = sK + BK * DP;
   float* sDS = sV + BK * DP;
-  float* sL = sDS + BQ * SP;
-  float* sDelta = sL + BQ;
+  float* sL = sDS + TQ * SP;
+  float* sDelta = sL + TQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TQ;
   const int h = blockIdx.y;
   const int hk = h / (hq / hkv);
-  const int nq = min(BQ, sq - q0);
+  const int nq = min(TQ, sq - q0);
 
   const size_t row0 = ((size_t)blockIdx.z * hq + h) * sq + q0;
   const size_t kv0 = ((size_t)blockIdx.z * hkv + hk) * sk;
-  load_tile<D>(sQ, q + row0 * D, nq, tid);
-  load_tile<D>(sDO, dout + row0 * D, nq, tid);
-  for (int i = tid; i < BQ; i += NT) {
+  load_tile<D, TQ>(sQ, q + row0 * D, nq, tid);
+  load_tile<D, TQ>(sDO, dout + row0 * D, nq, tid);
+  for (int i = tid; i < TQ; i += NT) {
     sL[i] = i < nq ? lse[row0 + i] : 0.f;
     sDelta[i] = i < nq ? delta[row0 + i] : 0.f;
   }
 
-  float acc[4][DC];
+  float acc[MI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
 
@@ -133,21 +151,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (dead_tile(causal, window, q_first, q_last, k_first, k_first + nk - 1)) continue;
 
     __syncthreads();  // the previous tile's readers are done with sK/sV/sDS
-    load_tile<D>(sK, k + (kv0 + k0) * D, nk, tid);
-    load_tile<D>(sV, v + (kv0 + k0) * D, nk, tid);
+    load_tile<D, BK>(sK, k + (kv0 + k0) * D, nk, tid);
+    load_tile<D, BK>(sV, v + (kv0 + k0) * D, nk, tid);
     __syncthreads();
 
     // s = q k^T and dp = do v^T on the same micro-tile
-    float s[4][4], dp[4][4];
+    float s[MI][4], dp[MI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], o[4], b[4], w[4];
+      float a[MI], o[MI], b[4], w[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         a[i] = sQ[(ty + 16 * i) * DP + d];
         o[i] = sDO[(ty + 16 * i) * DP + d];
       }
@@ -157,7 +175,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         w[j] = sV[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
@@ -165,7 +183,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int r = ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -183,20 +201,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     // dq += ds k
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
-      float g[4];
+      float g[MI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) g[i] = sDS[(ty + 16 * i) * SP + c];
+      for (int i = 0; i < MI; ++i) g[i] = sDS[(ty + 16 * i) * SP + c];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
         const float kk = sK[c * DP + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(g[i], kk, acc[i][j]);
+        for (int i = 0; i < MI; ++i) acc[i][j] = fmaf(g[i], kk, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i;
     if (r < nq) {
 #pragma unroll
@@ -212,34 +230,36 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int hq, int hkv, int sq, int sk, int causal,
                      int window, int q_offset, int k_offset, float scale) {
+  constexpr int TK = tile_rows<D>();
+  constexpr int MI = TK / 16;  // key rows per thread
   constexpr int DP = D + 1;
   constexpr int PP = BQ + 1;
   constexpr int DC = D / 16;  // dk / dv columns per thread
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * DP;
-  float* sQ = sV + BK * DP;
+  float* sV = sK + TK * DP;
+  float* sQ = sV + TK * DP;
   float* sDO = sQ + BQ * DP;
   float* sP = sDO + BQ * DP;   // [key][query]
-  float* sDS = sP + BK * PP;   // [key][query]
-  float* sL = sDS + BK * PP;
+  float* sDS = sP + TK * PP;   // [key][query]
+  float* sL = sDS + TK * PP;
   float* sDelta = sL + BQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;  // rows: keys ty + 16 i; columns: queries tx + 16 j
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * TK;
   const int hk = blockIdx.y;
   const int g = hq / hkv;
-  const int nk = min(BK, sk - k0);
+  const int nk = min(TK, sk - k0);
   const int nqt = (sq + BQ - 1) / BQ;
 
   const size_t kv0 = ((size_t)blockIdx.z * hkv + hk) * sk + k0;
-  load_tile<D>(sK, k + kv0 * D, nk, tid);
-  load_tile<D>(sV, v + kv0 * D, nk, tid);
+  load_tile<D, TK>(sK, k + kv0 * D, nk, tid);
+  load_tile<D, TK>(sV, v + kv0 * D, nk, tid);
 
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[MI][DC], dv_acc[MI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
@@ -254,8 +274,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
     __syncthreads();  // the previous tile's readers are done with sQ/sDO/sP/sDS
     const size_t row0 = ((size_t)blockIdx.z * hq + h) * sq + q0;
-    load_tile<D>(sQ, q + row0 * D, nq, tid);
-    load_tile<D>(sDO, dout + row0 * D, nq, tid);
+    load_tile<D, BQ>(sQ, q + row0 * D, nq, tid);
+    load_tile<D, BQ>(sDO, dout + row0 * D, nq, tid);
     for (int i = tid; i < BQ; i += NT) {
       sL[i] = i < nq ? lse[row0 + i] : 0.f;
       sDelta[i] = i < nq ? delta[row0 + i] : 0.f;
@@ -263,16 +283,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
 
     // s^T = k q^T and dp^T = v do^T on the same micro-tile
-    float s[4][4], dp[4][4];
+    float s[MI][4], dp[MI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[4], o[4];
+      float a[MI], w[MI], b[4], o[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         a[i] = sK[(ty + 16 * i) * DP + d];
         w[i] = sV[(ty + 16 * i) * DP + d];
       }
@@ -282,7 +302,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         o[j] = sDO[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(b[j], a[i], s[i][j]);
@@ -290,7 +310,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int r = ty + 16 * i;  // key
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -309,9 +329,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     // dv += p^T do, dk += ds^T q
 #pragma unroll 4
     for (int c = 0; c < BQ; ++c) {
-      float pp[4], gg[4];
+      float pp[MI], gg[MI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         pp[i] = sP[(ty + 16 * i) * PP + c];
         gg[i] = sDS[(ty + 16 * i) * PP + c];
       }
@@ -320,7 +340,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const float o = sDO[c * DP + tx + 16 * j];
         const float qq = sQ[c * DP + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < MI; ++i) {
           dv_acc[i][j] = fmaf(pp[i], o, dv_acc[i][j]);
           dk_acc[i][j] = fmaf(gg[i], qq, dk_acc[i][j]);
         }
@@ -329,7 +349,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i;
     if (r < nk) {
 #pragma unroll
@@ -373,7 +393,8 @@ cudaError_t launch_dq(const Args& a) {
   auto kern = flash_bwd_dq_kernel<D, T>;
   cudaError_t err = configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + BQ - 1) / BQ, a.hq, a.b);
+  constexpr int TQ = tile_rows<D>();
+  const dim3 grid((a.sq + TQ - 1) / TQ, a.hq, a.b);
   kern<<<grid, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                                      static_cast<const T*>(a.v), a.dout, a.lse, a.delta, a.dq,
                                      a.hq, a.hkv, a.sq, a.sk, a.causal, a.window, a.q_offset,
@@ -388,7 +409,8 @@ cudaError_t launch_dkv(const Args& a) {
   auto kern = flash_bwd_dkv_kernel<D, T>;
   cudaError_t err = configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sk + BK - 1) / BK, a.hkv, a.b);
+  constexpr int TK = tile_rows<D>();
+  const dim3 grid((a.sk + TK - 1) / TK, a.hkv, a.b);
   kern<<<grid, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                                      static_cast<const T*>(a.v), a.dout, a.lse, a.delta, a.dk,
                                      a.dv, a.hq, a.hkv, a.sq, a.sk, a.causal, a.window,
@@ -403,6 +425,7 @@ cudaError_t dispatch_d(int d, const Args& a) {
     case 32: return DQ ? launch_dq<32, T>(a) : launch_dkv<32, T>(a);
     case 64: return DQ ? launch_dq<64, T>(a) : launch_dkv<64, T>(a);
     case 128: return DQ ? launch_dq<128, T>(a) : launch_dkv<128, T>(a);
+    case 256: return DQ ? launch_dq<256, T>(a) : launch_dkv<256, T>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,11 +3,9 @@
 ``csrc/flash_fwd.cu`` holds ``flash_fwd`` and replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_fwd``; ``csrc/flash_bwd.cu``
 holds ``flash_bwd_dq`` and ``flash_bwd_dkv`` and replaces the Pallas kernels
-of the same names there.  Each source is compiled at first use with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface, under
-``build/`` next to this file, named by a hash of the source and flags so an
-edit never reuses a stale build; ``build_all`` starts one ``nvcc`` per source
-at once.  Importing this module needs neither ``nvcc`` nor a card.
+of the same names there.  Each source is compiled at first use by
+``kernels/build.py`` (``nvcc`` for ``sm_90a``, a shared library with a plain
+C interface).  Importing this module needs neither ``nvcc`` nor a card.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if
@@ -19,23 +17,18 @@ only: the device dispatch (plain version for CPU tensors) lives in
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import load
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 SOURCES = (SOURCE, BWD_SOURCE)
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads them)
@@ -46,54 +39,10 @@ _lib = None  # flash_fwd.cu
 _bwd_lib = None  # flash_bwd.cu
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA flash-attention kernels are built on a "
-                       "machine with the CUDA toolkit")
-
-
-def library_path(source: Path) -> Path:
-    """Where ``source`` is built: ``build/lib<stem>_<hash of source and flags>.so``."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
-
-
-def build_all(sources=SOURCES) -> list:
-    """Compile every source not built yet, one ``nvcc`` each, all started
-    together; returns the shared libraries' paths in ``sources``' order.
-    ptxas' register and shared-memory report lands beside each as ``.log``."""
-    libs = [library_path(src) for src in sources]
-    running = []
-    for src, lib in zip(sources, libs):
-        if lib.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((src, lib, tmp, proc))
-    failed = []
-    for src, lib, tmp, proc in running:  # wait for every nvcc, even after a failure
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {src.name}:\n{out}")
-            continue
-        lib.with_suffix(".log").write_text(out)
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return libs
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_all((SOURCE,))[0]))
+        lib = load(SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd_launch.argtypes = [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, i32, i32, i32, i32,
@@ -108,7 +57,7 @@ def _load():
 def _load_bwd():
     global _bwd_lib
     if _bwd_lib is None:
-        lib = ctypes.CDLL(str(build_all((BWD_SOURCE,))[0]))
+        lib = load(BWD_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         ints = [i32] * 9  # b, hq, hkv, sq, sk, causal, window, q_offset, k_offset
         lib.flash_bwd_dq_launch.argtypes = [i32, i32, *[ptr] * 7, *ints, ctypes.c_float, ptr]
@@ -163,7 +112,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
     """Unnormalized online attention of q (at q_offset) over k/v (at k_offset)
     on the card.  q [b, hq, sq, d], k/v [b, hkv, sk, d] in fp32 or bf16,
-    d in {16, 32, 64, 128}; carry = (acc [b, hq, sq, d], m, l [b, hq, sq])
+    d in HEAD_DIMS; carry = (acc [b, hq, sq, d], m, l [b, hq, sq])
     fp32 or None.  Returns the fp32 (acc, m, l) continuing ``carry``."""
     global launches
     b, hq, hkv, sq, sk, d = _check_qkv("flash_fwd", q, k, v, window)

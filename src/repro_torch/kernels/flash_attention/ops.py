@@ -21,20 +21,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.online_softmax import SoftmaxState, finalize, lse
+from repro_torch.kernels import on_card
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
-
-
-def _on_card(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"flash-attention inputs on mixed devices: {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash-attention runs CUDA tensors (kernel) or CPU tensors "
-                         f"(plain version), not {device}")
-    return device.type == "cuda"
 
 
 def chunk_fwd(q, k, v, carry=None, *, causal=True, window=0, q_offset=0, k_offset=0,
@@ -43,7 +32,7 @@ def chunk_fwd(q, k, v, carry=None, *, causal=True, window=0, q_offset=0, k_offse
     k_offset), continuing ``carry``.  q [b, hq, sq, d], k/v [b, hkv, sk, d]."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
               sm_scale=sm_scale)
-    if _on_card(q, k, v, *(carry or ())):
+    if on_card("flash-attention", q, k, v, *(carry or ())):
         return _k.flash_fwd(q, k, v, carry, **kw)
     st = _ref.attend_chunk(q, k, v, carry=SoftmaxState(*carry) if carry is not None else None,
                            **kw)
@@ -56,7 +45,7 @@ def chunk_bwd_dq(q, k, v, do, L, delta, *, causal=True, window=0, q_offset=0, k_
     delta fp32 [b, hq, sq]."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
               sm_scale=sm_scale)
-    if _on_card(q, k, v, do, L, delta):
+    if on_card("flash-attention", q, k, v, do, L, delta):
         return _k.flash_bwd_dq(q, k, v, do, L, delta, **kw)
     return _ref.chunk_bwd_dq(q, k, v, do, L, delta, **kw)
 
@@ -66,7 +55,7 @@ def chunk_bwd_dkv(q, k, v, do, L, delta, *, causal=True, window=0, q_offset=0, k
     """(dk, dv) [b, hkv, sk, d] fp32 of one pair, summed over each kv group."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
               sm_scale=sm_scale)
-    if _on_card(q, k, v, do, L, delta):
+    if on_card("flash-attention", q, k, v, do, L, delta):
         return _k.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
     return _ref.chunk_bwd_dkv(q, k, v, do, L, delta, **kw)
 

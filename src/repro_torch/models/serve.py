@@ -15,7 +15,8 @@ through the hand-written CUDA ``flash_fwd`` on the card.  Decode attention
 is gather-then-dense PyTorch, as the JAX package's is jnp.  Unlike the JAX
 functions, ``decode_step`` writes the new token's K/V into the cache
 tensors in place (no copy of the cache per step) and returns the same
-cache dict.  Host-streamed KV chunks and the paged pool are not yet
+cache dict.  Host-streamed KV chunks, the paged pool and the recurrent
+blocks' state (hybrid serving: ``check_servable`` refuses them) are not yet
 ported.
 """
 from __future__ import annotations
@@ -32,6 +33,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
+
+SERVE_KINDS = ("attn", "local_attn")
+
+
+def check_servable(cfg: ModelConfig):
+    """Raise NotImplementedError for what serving does not port yet: block
+    kinds other than attention (rglru's chunk and decode steps come with
+    hybrid serving), and whatever the model itself does not port."""
+    T._check_ported(cfg)
+    pat, _, tail = T.layout_of(cfg)
+    bad = sorted({k for k in (*pat, *tail) if k not in SERVE_KINDS})
+    if bad:
+        raise NotImplementedError(f"{cfg.name}: serving {bad} blocks is not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +186,7 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
 
     Returns (logits [b, padded_vocab] fp32 at each row's last real token, cache).
     """
-    T._check_ported(cfg)
+    check_servable(cfg)
     h = T.embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
     b, s, _ = h.shape
     device = h.device

@@ -8,8 +8,9 @@ in ``params["tail"]``.  The training forward (``hidden_forward``,
 ``loss_fn``) runs the cycles as a Python loop over views of the stacks, so
 the gradients of ``params["cycles"]`` come out stacked with the JAX
 pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
-``torch.utils.checkpoint`` whose first pass offloads nothing.  Only the
-attention families with the token frontend are ported.
+``torch.utils.checkpoint`` whose first pass offloads nothing.  The ported
+block kinds are attention (attn, local_attn) and RG-LRU (rglru), with the
+token frontend.
 """
 from __future__ import annotations
 
@@ -24,12 +25,13 @@ from repro_torch.core import fpdt
 from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.runtime.placement import no_offload
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
-PORTED_KINDS = ("attn", "local_attn")
+PORTED_KINDS = ("attn", "local_attn", "rglru")
 
 
 def _check_ported(cfg: ModelConfig):
@@ -43,11 +45,16 @@ def _check_ported(cfg: ModelConfig):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not yet ported")
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
-    """An attention block (attn or local_attn: the same parameters)."""
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype, device) -> Params:
+    """A block of ``kind``: attention (attn and local_attn have the same
+    parameters) or rglru, each with its MLP."""
+    if kind == "rglru":
+        mixer = {"mixer": R.init_rglru(cfg, gen, dtype, device)}
+    else:
+        mixer = {"attn": L.init_attn(cfg, gen, dtype, device)}
     return {
         "norm1": L.init_norm(cfg, dtype, device),
-        "attn": L.init_attn(cfg, gen, dtype, device),
+        **mixer,
         "norm2": L.init_norm(cfg, dtype, device),
         "mlp": L.init_mlp(cfg, gen, dtype, device),
     }
@@ -97,11 +104,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> Params
                                      device=device)).to(dtype),
     }
     params["cycles"] = _stack([
-        {f"pos{i}": _init_block(cfg, gen, dtype, device) for i in range(len(pat))}
+        {f"pos{i}": _init_block(cfg, kind, gen, dtype, device) for i, kind in enumerate(pat)}
         for _ in range(n_cycles)
     ])
     if tail:
-        params["tail"] = [_init_block(cfg, gen, dtype, device) for _ in tail]
+        params["tail"] = [_init_block(cfg, kind, gen, dtype, device) for kind in tail]
     params["final_norm"] = L.init_norm(cfg, dtype, device)
     if not cfg.tie_embeddings:
         params["head"] = L._dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype, device)
@@ -128,13 +135,18 @@ def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 
 def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
                 p: Params, h: torch.Tensor) -> torch.Tensor:
-    """One attention block (attn or local_attn)."""
-    if kind not in ("attn", "local_attn"):
+    """One block: norm1 -> mixer (FPDT attention or RG-LRU) -> residual ->
+    norm2 -> chunked MLP -> residual."""
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not yet ported")
-    window = cfg.window if kind == "local_attn" else 0
     hn = L.apply_norm(cfg, p["norm1"], h)
-    o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
-    h = h + o @ p["attn"]["wo"]
+    if kind == "rglru":
+        y, _ = R.rglru_mixer(cfg, p["mixer"], hn)
+        h = h + y
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
+        h = h + o @ p["attn"]["wo"]
     hn2 = L.apply_norm(cfg, p["norm2"], h)
     return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
 

@@ -4,10 +4,13 @@ Parameters keep their own dtype and are updated from fp32 arithmetic; the
 moments are kept in ``state_dtype`` (fp32 by default).  Unlike the JAX
 function, ``apply`` writes the new parameters and moments into the given
 tensors in place, so a step holds no second copy of the model or of its
-state, and returns the same trees.  The scalars (step, learning rate, norm,
-clip scale, bias corrections) are 0-dim fp32 tensors on the parameters'
-device, computed in the JAX function's order, so a step never waits on a
-host read.
+state, and returns the same trees; a large leaf is updated in slices of
+its leading axis, so the fp32 temporaries of its update stay small (a
+[256000, 4096] table would otherwise take ~30 GB of them).  Each leaf
+keeps its own dtype (fp32 gate biases in a bf16 model stay fp32).  The
+scalars (step, learning rate, norm, clip scale, bias corrections) are 0-dim
+fp32 tensors on the parameters' device, computed in the JAX function's
+order, so a step never waits on a host read.
 """
 from __future__ import annotations
 
@@ -38,6 +41,19 @@ class OptState(NamedTuple):
     step: torch.Tensor  # 0-dim int32
     m: Any
     v: Any
+
+
+UPDATE_SLICE = 1 << 26  # elements of a leaf updated at once (256 MiB in fp32)
+
+
+def _slices(*leaves):
+    """Matching views of ``leaves`` (one shape) along the leading axis, each
+    of at most about UPDATE_SLICE elements."""
+    t = leaves[0]
+    if t.dim() == 0 or t.numel() <= UPDATE_SLICE:
+        return [leaves]
+    rows = max(1, UPDATE_SLICE // (t.numel() // t.shape[0]))
+    return zip(*(x.split(rows) for x in leaves))
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -96,7 +112,8 @@ def apply(oc: OptConfig, params, grads, state: OptState):
         m.copy_(m1.to(dt))
         v.copy_(v1.to(dt))
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
-                          tree_leaves(state.v)):
-        upd(p, g, m, v)
+    for leaves in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
+                      tree_leaves(state.v)):
+        for p, g, m, v in _slices(*leaves):
+            upd(p, g, m, v)
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

@@ -52,6 +52,54 @@ def test_three_steps_match_jax(dtype):
                                        rtol=1e-6, atol=1e-7)
 
 
+def test_mixed_dtype_hybrid_params_match_jax():
+    """recurrentgemma's bf16 model keeps Lambda and the gate biases in fp32:
+    conversion keeps every leaf's dtype, and AdamW updates each leaf in its
+    own dtype, as the JAX optimizer does."""
+    from repro.configs import get_config as j_get_config, reduced as j_reduced
+    from repro.models import transformer as JT
+
+    jc = j_reduced(j_get_config("recurrentgemma-9b"))
+    jparams = JT.init_params(jc, jax.random.PRNGKey(0))
+    tparams = from_jax_params(jax.device_get(jparams), "cpu")
+    jdt = [str(j.dtype) for j in jax.tree.leaves(jparams)]
+    assert [str(t.dtype).split(".")[1] for t in tree_leaves(tparams)] == jdt
+    assert {"float32", "bfloat16"} == set(jdt)
+    rng = np.random.default_rng(1)
+    jg = jax.tree.map(lambda p: jnp.asarray(rng.standard_normal(p.shape) * 0.1, p.dtype),
+                      jparams)
+    oc = dict(lr=1e-2, warmup_steps=1, total_steps=5)
+    jnew, _, _ = JA.apply(JA.OptConfig(**oc), jparams, jg, JA.init(JA.OptConfig(**oc), jparams))
+    tnew, _, _ = A.apply(A.OptConfig(**oc), tparams, from_jax_params(jax.device_get(jg), "cpu"),
+                         A.init(A.OptConfig(**oc), tparams))
+    for t, j in zip(tree_leaves(tnew), jax.tree.leaves(jnew)):
+        assert str(t.dtype).split(".")[1] == str(j.dtype)
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_update_in_slices_is_the_whole_update(monkeypatch):
+    """A leaf above UPDATE_SLICE elements is updated slice by slice along
+    its leading axis, bit for bit as in one piece."""
+    rng = np.random.default_rng(2)
+    p0 = {"w": torch.from_numpy(rng.standard_normal((7, 5)).astype(np.float32)).to(torch.bfloat16),
+          "b": torch.from_numpy(rng.standard_normal((9,)).astype(np.float32))}
+    g = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32)).to(v.dtype)
+         for k, v in p0.items()}
+    oc = A.OptConfig(lr=1e-2, warmup_steps=1)
+    outs = []
+    for limit in (A.UPDATE_SLICE, 6):
+        monkeypatch.setattr(A, "UPDATE_SLICE", limit)
+        params = {k: v.clone() for k, v in p0.items()}
+        state = A.init(oc, params)
+        for _ in range(2):
+            params, state, _ = A.apply(oc, params, g, state)
+        outs.append(tree_leaves(params) + tree_leaves(state.m) + tree_leaves(state.v))
+    assert len(list(A._slices(torch.zeros(7, 5)))) == 7 and len(list(A._slices(torch.zeros(9)))) == 2
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_lr_schedule_matches_jax():
     oc = dict(lr=3e-4, warmup_steps=10, total_steps=50, min_lr_frac=0.1)
     for step in (0, 1, 5, 10, 11, 30, 50, 70):

@@ -27,6 +27,8 @@ CASES = [
     (1, 4, 2, 32, 48, 16, 16, True, 16, 40, 0),   # window: early tiles dead
     (1, 2, 2, 16, 16, 16, 8, True, 0, 0, 32),     # keys in the future: every row masked
     (2, 4, 2, 40, 24, 16, 8, False, 0, 0, 0),     # non-causal
+    (1, 4, 1, 48, 48, 256, 16, True, 40, 0, 0),   # head_dim 256, MQA, window: diagonal
+    (1, 4, 1, 48, 48, 256, 16, True, 40, 48, 0),  # ... and the next chunk pair
 ]
 
 

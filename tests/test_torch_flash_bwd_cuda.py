@@ -34,6 +34,8 @@ CASES = [
     (1, 4, 1, 64, 128, 128, torch.float32, True, 0, 128, 0),
     (2, 4, 2, 37, 100, 64, torch.bfloat16, False, 0, 0, 0),
     (1, 2, 2, 64, 64, 64, torch.float32, True, 33, 0, 200),  # every row masked
+    (1, 16, 1, 100, 70, 256, torch.bfloat16, True, 33, 90, 40),  # d 256, MQA, window
+    (1, 4, 1, 64, 100, 256, torch.float32, True, 40, 64, 0),
 ]
 
 

@@ -16,6 +16,7 @@ from repro.core.online_softmax import SoftmaxState as JState, finalize as j_fina
 from repro.kernels.flash_attention import ops as JO
 from repro_torch.convert import from_jax_params
 from repro_torch.core.online_softmax import SoftmaxState, finalize
+from repro_torch.kernels import build as B
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as O
 
@@ -56,6 +57,18 @@ def test_chunk_fwd_matches_pallas(rng, b, hq, hkv, sq, sk, d, blk, dtype):
     want = JO.chunk_fwd(jq, jk, jv, impl="pallas", block_q=blk, block_k=blk)
     got = O.chunk_fwd(tq, tk, tv)
     _assert_state(got, want, _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 0), (48, 0), (48, 24)])
+def test_head_dim_256_mqa_window_matches_pallas(rng, dtype, q_offset, k_offset):
+    """recurrentgemma-9b's attention: head_dim 256, one kv head for all q
+    heads, a sliding window, chunk pairs at their global offsets."""
+    b, hq, hkv, s, d, window, blk = 1, 4, 1, 48, 256, 40, 16
+    (jq, jk, jv), (tq, tk, tv) = _mk(rng, b, hq, hkv, s, s, d, dtype)
+    kw = dict(causal=True, window=window, q_offset=q_offset, k_offset=k_offset)
+    want = JO.chunk_fwd(jq, jk, jv, impl="pallas", block_q=blk, block_k=blk, **kw)
+    _assert_state(O.chunk_fwd(tq, tk, tv, **kw), want, _tol(dtype))
 
 
 def test_carry_continues_softmax(rng):
@@ -144,12 +157,13 @@ def test_wrapper_imports_without_nvcc():
     PATH: the kernel is compiled at its first launch, on the card's machine."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
     code = ("import repro_torch.kernels.flash_attention.kernel as K, sys; "
+            "import repro_torch.kernels.build as B; "
             "assert K._lib is None and K.launches == 0; "
-            "assert not (K.BUILD_DIR.exists() and any(K.BUILD_DIR.glob('*.tmp'))); "
+            "assert not (B.BUILD_DIR.exists() and any(B.BUILD_DIR.glob('*.tmp'))); "
             "print('ok')")
     env = dict(os.environ, PATH="/nonexistent", PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     assert K.SOURCE.exists() and K.SOURCE.suffix == ".cu"
-    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in B.NVCC_FLAGS

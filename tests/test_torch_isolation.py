@@ -39,11 +39,15 @@ def test_port_has_modules():
     for want in ("core/fpdt.py", "kernels/flash_attention/kernel.py",
                  "models/serve.py", "launch/serve.py", "convert.py",
                  "core/chunked_loss.py", "optim/adamw.py", "data/pipeline.py",
-                 "runtime/placement.py", "runtime/train_loop.py", "launch/train.py"):
+                 "runtime/placement.py", "runtime/train_loop.py", "launch/train.py",
+                 "kernels/build.py", "kernels/linear_scan/ref.py",
+                 "kernels/linear_scan/kernel.py", "kernels/linear_scan/ops.py",
+                 "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py"):
         assert want in names
     assert os.path.exists(SMOKE)
-    for src in ("flash_fwd.cu", "flash_bwd.cu"):
-        assert os.path.exists(os.path.join(PORT, "kernels", "flash_attention", "csrc", src))
+    for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),
+                        ("linear_scan", "linear_scan.cu")):
+        assert os.path.exists(os.path.join(PORT, "kernels", kernel, "csrc", src))
 
 
 def test_no_jax_or_repro_imports():

@@ -177,6 +177,15 @@ def test_cli_refuses_unported(capsys, flag):
     assert "not yet ported" in capsys.readouterr().err
 
 
+def test_cli_refuses_the_hybrid_arch(capsys):
+    """recurrentgemma-9b trains in the port but its RG-LRU blocks do not
+    serve yet: exit 2 with "not yet ported", before any weight is made."""
+    with pytest.raises(SystemExit) as ex:
+        CLI.main(["--arch", "recurrentgemma-9b", "--reduced", "--device", "cpu"])
+    assert ex.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
 def test_windowed_layout_matches_jax():
     """An (attn, local_attn) cycle: the ring cache keeps slot = pos % window
     through prefill and decode, as the JAX package does."""

@@ -9,7 +9,12 @@ kernels (tests/test_kernels_flash.py), with host offload off.  Tolerances:
 loss 2e-4 and gradients 5e-4 (tests/test_fpdt.py); the trajectory's losses
 and gradient norms 1e-4 relative, since AdamW's first steps move each
 weight by about lr * sign(g) and a near-zero gradient may take either sign
-in the two implementations."""
+in the two implementations.
+
+Reduced recurrentgemma-9b (rglru, rglru, local_attn: the RG-LRU blocks and
+a windowed MQA attention block) is held the same way against JAX
+``loss_fn`` with ``par=None``, the JAX trainer's own single-device path,
+which runs the Pallas linear-scan and flash kernels in interpret mode."""
 import dataclasses
 
 import jax
@@ -36,18 +41,30 @@ B, S = 2, 32
 JPAR = JPar(mesh=None, attn_impl="xla_flash", offload_to_host=False)
 
 
-def _cfgs(**kw):
+HYBRID = "recurrentgemma-9b"
+
+
+def _cfgs(arch="llama3.2-1b", **kw):
     kw = dict(param_dtype="float32", **kw)
-    return (dataclasses.replace(j_reduced(j_get_config("llama3.2-1b")), **kw),
-            dataclasses.replace(reduced(get_config("llama3.2-1b")), **kw))
+    return (dataclasses.replace(j_reduced(j_get_config(arch)), **kw),
+            dataclasses.replace(reduced(get_config(arch)), **kw))
+
+
+def _model(arch):
+    jc, _ = _cfgs(arch)
+    jparams = JT.init_params(jc, jax.random.PRNGKey(0))
+    batches = [j_make_batch_fn(jc, JShape("t", S, B, "train"))(step) for step in range(3)]
+    return jparams, batches
 
 
 @pytest.fixture(scope="module")
 def model():
-    jc, _ = _cfgs()
-    jparams = JT.init_params(jc, jax.random.PRNGKey(0))
-    batches = [j_make_batch_fn(jc, JShape("t", S, B, "train"))(step) for step in range(3)]
-    return jparams, batches
+    return _model("llama3.2-1b")
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    return _model(HYBRID)
 
 
 def _torch(tree):
@@ -74,11 +91,11 @@ def test_loss_and_grads_match_jax(model, u, remat):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=5e-4, atol=5e-4)
 
 
-def _trajectories(model, steps, grad_accum):
+def _trajectories(model, steps, grad_accum, arch="llama3.2-1b", jpar=JPAR):
     jparams, batches = model
-    jc, tc = _cfgs(fpdt_chunks=4, mlp_chunks=8, remat="full")
+    jc, tc = _cfgs(arch, fpdt_chunks=4, mlp_chunks=8, remat="full")
     oc = dict(lr=1e-3, warmup_steps=2, total_steps=steps)
-    jstep = jax.jit(JTL.make_train_step(jc, JPAR, JA.OptConfig(**oc),
+    jstep = jax.jit(JTL.make_train_step(jc, jpar, JA.OptConfig(**oc),
                                         JTL.TrainConfig(grad_accum=grad_accum)))
     tstep = TL.make_train_step(tc, None, A.OptConfig(**oc), TL.TrainConfig(grad_accum=grad_accum))
     jp, js = jparams, JA.init(JA.OptConfig(**oc), jparams)
@@ -104,6 +121,31 @@ def test_grad_accum_step_matches_jax(model):
         np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("u", [1, 4])
+def test_hybrid_loss_and_grads_match_jax(hybrid, u):
+    """Every gradient leaf, stacked cycle leaves and the fp32 gate
+    parameters included, against JAX loss_fn(par=None) with remat full."""
+    jparams, batches = hybrid
+    jc, tc = _cfgs(HYBRID, fpdt_chunks=u, mlp_chunks=2 * u, remat="full")
+    jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.loss_fn(jc, None, p, b), has_aux=True))(jparams, jb)
+    tl, tm, tg = TL.value_and_grad(tc, None, _torch(jparams), _tbatch(batches[0]))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-4, atol=2e-4)
+    assert float(tm["tokens"]) == float(jm["tokens"]) == B * S
+    jleaves, tleaves = jax.tree.leaves(jg), tree_leaves(tg)
+    assert [tuple(t.shape) for t in tleaves] == [j.shape for j in jleaves]
+    for t, j in zip(tleaves, jleaves):
+        j = np.asarray(j)
+        assert np.abs(t.numpy() - j).max() <= 5e-4 * max(np.abs(j).max(), 1e-30)
+
+
+def test_hybrid_three_step_trajectory_matches_jax(hybrid):
+    for rec in _trajectories(hybrid, 3, 1, HYBRID, None):
+        for k, (got, want) in rec.items():
+            np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
+
+
 def test_remat_offload_not_yet_ported(model):
     _, tc = _cfgs(remat="offload")
     params = T.init_params(tc, torch.Generator().manual_seed(0), "cpu")
@@ -113,6 +155,16 @@ def test_remat_offload_not_yet_ported(model):
 
 def test_cli_on_cpu(capsys):
     history = CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--steps", "2",
+                        "--batch", "2", "--seq", "32", "--chunks", "4", "--offload",
+                        "--remat", "full", "--log-every", "1"])
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in history)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "tokens/s" in ln]
+    assert len(lines) == 2 and all(ln.endswith("on cpu") for ln in lines)
+
+
+def test_hybrid_cli_on_cpu(capsys):
+    history = CLI.main(["--arch", HYBRID, "--reduced", "--device", "cpu", "--steps", "2",
                         "--batch", "2", "--seq", "32", "--chunks", "4", "--offload",
                         "--remat", "full", "--log-every", "1"])
     assert [r["step"] for r in history] == [1, 2]
