@@ -9,21 +9,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 checkout's sources, one nvcc per source, started together:
                 flash_fwd (flash_attention/csrc/flash_fwd.cu), flash_bwd_dq
                 and flash_bwd_dkv (flash_attention/csrc/flash_bwd.cu),
-                linear_scan (linear_scan/csrc/linear_scan.cu);
+                linear_scan (linear_scan/csrc/linear_scan.cu); ptxas' registers
+                and spills, and the count of tensor-core instructions
+                (HMMA/HGMMA in cuobjdump -sass) of every flash kernel: each
+                bf16 (tensor-core) instantiation must have some and spill
+                nothing;
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
                 on the card: fp32 and bf16, head_dim 16/64/128/256, GQA and
                 MQA, ragged lengths, carry-in with offsets, windows, fully
                 masked rows, the serve shapes and every (i, j <= i) chunk pair
-                of a 2048 prompt at u = 4;
+                of a 2048 prompt at u = 4, those pairs also against the plain
+                version rounded where the bf16 kernel rounds (TOL_TC);
   4. backward — flash_bwd_dq and flash_bwd_dkv against their plain versions
-                (ref.chunk_bwd_dq / chunk_bwd_dkv) on the same kinds of cases,
+                (ref.chunk_bwd_dq / chunk_bwd_dkv) on the same kinds of cases
+                (bf16 dk/dv from the tensor-core kernel at the bf16 tolerance),
                 and at the training paths' shapes: every (i, j <= i) pair of an
                 8192 prompt at u = 4 for llama3.2-1b (2048 x 2048, b1 hq32 hkv8
                 d64), the 7 live pairs of recurrentgemma-9b's (b1 hq16 hkv1
                 d256, window 2048) and the 8192 x 8192 pair of u = 1 (held at
                 b1 hq4 hkv1 so that the plain version's [sq, sk] fp32 matrices
                 fit); flash_fwd is held against its plain version at those
-                same pairs, with carry and offsets;
+                same pairs, with carry and offsets; at the u = 4 pairs the
+                bf16 flash_fwd and flash_bwd_dkv are also held against the
+                plain version rounded where they round (TOL_TC); two launches
+                of the bf16 flash_bwd_dkv at the training pairs give the same
+                bits;
   4b. scan    — linear_scan against its plain version (ref.linear_scan):
                 fp32 and bf16, h0 given and absent, ragged seq and chan, b > 1,
                 a near +1 and -1, seq 1, forward and reverse, the training
@@ -52,6 +62,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 offload on vs off bit for bit, 3 steps through train_steps with
                 the launches of all four kernels read around each step, peak
                 memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
+                both trainings' losses are held to those of the CUDA-core
+                kernels this design replaced (EARLIER_LOSSES);
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention and the
                 flash-attention backward behind it, timed as yardsticks only:
@@ -60,7 +72,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 calls, at the serve shape, the llama3.2-1b training pairs, the
                 recurrentgemma-9b pairs and the RG-LRU scan shape; the wrappers
                 also launched from the host back to back (wrapper_ms: host
-                dispatch included);
+                dispatch included); flash_fwd and flash_bwd_dkv beside the
+                CUDA-core kernels' times (EARLIER_MS);
   8. kernels  — one JSON line per the kernel contract;
   9. last line: {"ok": true, "device": {...}}.
 
@@ -72,6 +85,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,6 +106,19 @@ TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:34
 # rel); dk and dv sum over g * sq rows, so their error is held relative to
 # (1 + max |reference|), as acc is held relative to (1 + l).
 TOL_BWD = 1e-4
+# bf16 flash_bwd_dkv runs on the tensor cores with dO, P^T and dS^T rounded
+# to bf16, which fp32 FMAs did not do: its dk and dv are held at the repo's
+# bf16 kernel tolerance (tests/test_kernels_flash.py:34), relative to
+# (1 + max |reference|); dq and fp32 dk/dv stay at TOL_BWD.
+TOL_DKV_BF16 = 3e-2
+# That tolerance is loose beside the values it holds at the main path's
+# pairs (the phase prints their rms), so there the bf16 kernels are also
+# held to the plain version rounded where they round (ref.attend_chunk_tc,
+# ref.chunk_bwd_dkv_tc): only the fp32 accumulation order and a rare bf16
+# rounding of P or dS to its other neighbour differ, so the relative error
+# ||got - emulation|| / ||emulation|| of acc, l, dk and dv is held at
+# TOL_TC, 4.5x the largest reading on the H100 (6.7e-5, PERF.md section 6).
+TOL_TC = 3e-4
 # linear scan: tests/test_kernels_linear_scan.py's 1e-5 forward and 1e-4
 # gradients.  Elementwise (atol + rtol) where |a| <= 0.99 or the input is
 # RG-LRU-scaled; with a near +-1 and raw inputs h is a random walk whose
@@ -103,6 +131,31 @@ FPDT_GRAD_RTOL = 5e-4
 # fp32 logits of decode vs prefill, relative to the logits' largest magnitude:
 # other matmul shapes and another softmax order, fp32 rounding through 16 layers.
 FP32_LOGIT_RTOL = 1e-4
+# Training losses of the three steps from seed 0 with the CUDA-core bf16
+# flash_fwd and flash_bwd_dkv that the tensor-core kernels replaced: this
+# script at commit d46ed49 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6); each step is held within LOSS_RTOL of them.
+EARLIER_LOSSES = {"llama3.2-1b": (12.1218, 10.8310, 14.2324),
+                  "recurrentgemma-9b": (12.8539, 10.5882, 9.7212)}
+LOSS_RTOL = 0.02
+# Device ms of those CUDA-core kernels at the timed shapes (same card, same
+# script; the "was" figures of PERF.md section 6), printed beside this run's
+# by the timing phase and nowhere else.
+EARLIER_MS = {
+    ("flash_fwd", "serve prefill b4 s64 (u=1)"): 0.01118,
+    ("flash_fwd", "train 8192 u=4 off-diagonal pair cq=2048 b1"): 1.588,
+    ("flash_fwd", "train 8192 u=4 diagonal pair cq=2048 b1"): 1.040,
+    ("flash_fwd", "recurrentgemma-9b 8192 u=4 off-diagonal pair cq=2048 b1 hq16 hkv1 d256 "
+                  "window 2048"): 2.025,
+    ("flash_fwd", "recurrentgemma-9b 8192 u=4 diagonal pair cq=2048 b1 hq16 hkv1 d256 "
+                  "window 2048"): 2.116,
+    ("flash_bwd_dkv", "train 8192 u=4 off-diagonal pair cq=2048 b1"): 2.890,
+    ("flash_bwd_dkv", "train 8192 u=4 diagonal pair cq=2048 b1"): 2.829,
+    ("flash_bwd_dkv", "recurrentgemma-9b 8192 u=4 off-diagonal pair cq=2048 b1 hq16 hkv1 "
+                      "d256 window 2048"): 16.363,
+    ("flash_bwd_dkv", "recurrentgemma-9b 8192 u=4 diagonal pair cq=2048 b1 hq16 hkv1 d256 "
+                      "window 2048"): 16.092,
+}
 # Prefill at fpdt_chunks=4 vs 1 is held to bit equality (measured so on the
 # H100): 512 is a multiple of the kernel's 64-key tile, so each row meets the
 # same tiles in the same order and its fp32 carry passes through memory
@@ -138,15 +191,59 @@ def phase_device(torch):
     return card, name
 
 
+def _ptxas_report(log: str) -> dict:
+    """kernel -> (registers, spill store bytes, spill load bytes) from ptxas -v."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *spill)
+            cur, spill = None, (0, 0)
+    return out
+
+
+def _mma_counts(lib) -> dict:
+    """kernel -> count of HMMA/HGMMA instructions in ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = 0
+        elif cur and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    return counts
+
+
 def phase_build(B, sources):
     t0 = time.perf_counter()
     libs = B.build_all(sources)
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
+    bad = []
     for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {lib.stem.rsplit('_', 1)[0][3:]}:", line.strip())
+        ptxas = _ptxas_report(lib.with_suffix(".log").read_text())
+        mma = _mma_counts(lib) if lib.stem.startswith("libflash") else {}
+        for name in sorted(ptxas):  # mangled names; a tensor-core kernel's holds "_tc_"
+            regs, st, ld = ptxas[name]
+            line = f"  {lib.stem.rsplit('_', 1)[0][3:]}: {name}: {regs} registers, spill " \
+                   f"stores {st} B, loads {ld} B"
+            if name in mma:
+                line += f", HMMA/HGMMA {mma[name]}"
+            print(line)
+            if "_tc_" in name and (st or ld or not mma.get(name)):
+                bad.append(name)
+    if bad:
+        raise AssertionError(f"tensor-core kernels that spill or run no HMMA: {bad}")
 
 
 def _max_violation(got, want, tol):
@@ -155,10 +252,22 @@ def _max_violation(got, want, tol):
     return float(diff.max()), bool((diff > tol + tol * want.float().abs()).any())
 
 
-def _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs):
+def _rel(torch, got, want):
+    """||got - want|| / ||want|| over every element."""
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def _rms(torch, x):
+    return float(x.float().pow(2).mean().sqrt())
+
+
+def _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs, tc=None):
     """check(label, dtype, q, k, v, carry, **kw): flash_fwd against
     ref.attend_chunk on the same inputs and carry; records the largest
-    errors in ``errs`` / ``acc_errs`` by dtype and returns the plain state."""
+    errors in ``errs`` / ``acc_errs`` by dtype and returns the plain state.
+    With ``tc`` (a dict) bf16 cases are also held against
+    ref.attend_chunk_tc at TOL_TC, and ``tc`` records the largest relative
+    errors of acc and l and the least rms of the plain out."""
 
     def check(label, dtype, q, k, v, carry, **kw):
         got = K.flash_fwd(q, k, v, None if carry is None else tuple(carry), **kw)
@@ -185,6 +294,15 @@ def _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs):
             raise AssertionError(f"{label}: acc err / (1 + l) {acc_rel:.3e} beyond tol {tol}")
         errs[tname] = max(errs.get(tname, 0.0), worst)
         acc_errs[tname] = max(acc_errs.get(tname, 0.0), acc_rel)
+        if tc is not None and dtype == torch.bfloat16:
+            emu = R.attend_chunk_tc(q, k, v, carry=carry, **kw)
+            for part, a, b in (("acc", got[0], emu.acc), ("l", got[2], emu.l)):
+                rel = _rel(torch, a, b)
+                if rel > TOL_TC:
+                    raise AssertionError(f"{label}: {part} relative error {rel:.3e} against "
+                                         f"the bf16 rounding emulation beyond {TOL_TC}")
+                tc[part] = max(tc.get(part, 0.0), rel)
+            tc["rms_out"] = min(tc.get("rms_out", math.inf), _rms(torch, finalize(want)))
         return want
 
     return check
@@ -196,6 +314,8 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     errs = {"float32": 0.0, "bfloat16": 0.0}
     acc_errs = dict(errs)
     check = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs)
+    tc = {}
+    check_tc = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs, tc)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -240,12 +360,15 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     for i in range(u):
         st = None
         for j in range(i + 1):
-            st = check(f"fpdt pair ({i},{j})", torch.bfloat16, qs[i], ks[j], vs[j], st,
-                       causal=True, q_offset=i * cq, k_offset=j * cq)
+            st = check_tc(f"fpdt pair ({i},{j})", torch.bfloat16, qs[i], ks[j], vs[j], st,
+                          causal=True, q_offset=i * cq, k_offset=j * cq)
             n += 1
     print(f"kernel vs plain: {n} cases within tolerance; max abs err of out, m, l: "
           f"fp32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; acc err / (1 + l): "
-          f"fp32 {acc_errs['float32']:.3e} bf16 {acc_errs['bfloat16']:.3e}")
+          f"fp32 {acc_errs['float32']:.3e} bf16 {acc_errs['bfloat16']:.3e}; at the u=4 pairs "
+          f"of the 2048 prompt, against the bf16 rounding emulation: acc, l relative error "
+          f"{tc['acc']:.3e}, {tc['l']:.3e} (limit {TOL_TC}); least rms of plain out "
+          f"{tc['rms_out']:.3e}")
     return errs
 
 
@@ -271,14 +394,18 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     g = torch.Generator(device=dev).manual_seed(3)
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # dq: max abs err; dk, dv: err / (1 + max|ref|)
     worst_abs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    by_dtype = {"fp32": {"dk": 0.0, "dv": 0.0}, "bf16": {"dk": 0.0, "dv": 0.0}}
     # flash_fwd at the training path's pairs, continuing the plain carry
-    fwd_errs, fwd_acc = {}, {}
-    fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, fwd_errs, fwd_acc)
+    fwd_errs, fwd_acc, fwd_tc = {}, {}, {}
+    fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, fwd_errs, fwd_acc, fwd_tc)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    def check(label, q, k, v, do, L, delta, **kw):
+    def check(label, q, k, v, do, L, delta, tc=None, **kw):
+        """dq, dk, dv against the plain version; with ``tc`` (a dict) bf16
+        dk, dv also against ref.chunk_bwd_dkv_tc at TOL_TC, recording the
+        largest relative errors and the least rms of the plain dk, dv."""
         dq = K.flash_bwd_dq(q, k, v, do, L, delta, **kw)
         dk, dv = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
         want_dq = R.chunk_bwd_dq(q, k, v, do, L, delta, **kw)
@@ -292,17 +419,46 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
             raise AssertionError(f"{label}: dq max err {err:.3e} beyond tol {TOL_BWD}")
         out = {"dq": err}
         worst_abs["dq"] = max(worst_abs["dq"], err)
+        tol_dkv = TOL_DKV_BF16 if q.dtype == torch.bfloat16 else TOL_BWD
         for part, a, b in (("dk", dk, want_dk), ("dv", dv, want_dv)):
             abs_err = float((a - b).abs().max())
             worst_abs[part] = max(worst_abs[part], abs_err)
             rel = abs_err / (1.0 + float(b.abs().max()))
-            if rel > TOL_BWD:
+            if rel > tol_dkv:
                 raise AssertionError(f"{label}: {part} err / (1 + max|ref|) {rel:.3e} "
-                                     f"beyond tol {TOL_BWD}")
+                                     f"beyond tol {tol_dkv}")
             out[part] = rel
+            key = "fp32" if q.dtype == torch.float32 else "bf16"
+            by_dtype[key][part] = max(by_dtype[key][part], rel)
         for part in worst:
             worst[part] = max(worst[part], out[part])
+        if tc is not None and q.dtype == torch.bfloat16:
+            emu = R.chunk_bwd_dkv_tc(q, k, v, do, L, delta, **kw)
+            for part, a, b, ref in (("dk", dk, emu[0], want_dk), ("dv", dv, emu[1], want_dv)):
+                rel = _rel(torch, a, b)
+                if rel > TOL_TC:
+                    raise AssertionError(f"{label}: {part} relative error {rel:.3e} against "
+                                         f"the bf16 rounding emulation beyond {TOL_TC}")
+                tc[part] = max(tc.get(part, 0.0), rel)
+                tc["rms_" + part] = min(tc.get("rms_" + part, math.inf), _rms(torch, ref))
+                tc["abs_" + part] = max(tc.get("abs_" + part, 0.0),
+                                        float((a - ref).abs().max()))
+                tc["limit_" + part] = max(tc.get("limit_" + part, 0.0),
+                                          tol_dkv * (1.0 + float(ref.abs().max())))
         return out
+
+    n_det = 0
+
+    def deterministic(label, q, k, v, do, L, delta, **kw):
+        """Two launches of flash_bwd_dkv on the same inputs: the same bits
+        (the q-head splits are summed in split order, without atomics)."""
+        nonlocal n_det
+        first = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
+        second = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{label}: two flash_bwd_dkv launches differ")
+        n_det += 1
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -331,6 +487,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     ks = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
     vs = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
     pair_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    pair_tc = {}
     for i in range(u):
         st = None
         for j in range(i + 1):
@@ -338,23 +495,32 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
                            st, causal=True, q_offset=i * cq, k_offset=j * cq)
         do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
         for j in range(i + 1):
-            out = check(f"u=4 pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, causal=True,
-                        q_offset=i * cq, k_offset=j * cq)
+            out = check(f"u=4 pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, pair_tc,
+                        causal=True, q_offset=i * cq, k_offset=j * cq)
             pair_worst = {p: max(pair_worst[p], out[p]) for p in out}
             n += 1
+        deterministic(f"llama pair ({i},0)", qs[i], ks[0], vs[0], do, L, delta, causal=True,
+                      q_offset=i * cq, k_offset=0)
         del st, do, L, delta
     print(f"flash_fwd at the u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, "
           f"carry and offsets, all 10): max abs err of out, m, l {fwd_errs['bfloat16']:.3e} "
-          f"(tol {TOL['bfloat16']}); acc err / (1 + l) {fwd_acc['bfloat16']:.3e}")
+          f"(tol {TOL['bfloat16']}); acc err / (1 + l) {fwd_acc['bfloat16']:.3e}; least rms "
+          f"of plain out {fwd_tc['rms_out']:.3e}; against the bf16 rounding emulation: acc, l "
+          f"relative error {fwd_tc['acc']:.3e}, {fwd_tc['l']:.3e} (limit {TOL_TC})")
     print(f"u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, all 10): dq max "
           f"abs err {pair_worst['dq']:.3e}; dk, dv err / (1 + max|ref|) {pair_worst['dk']:.3e}, "
-          f"{pair_worst['dv']:.3e}")
+          f"{pair_worst['dv']:.3e} (abs {pair_tc['abs_dk']:.3e}, {pair_tc['abs_dv']:.3e} "
+          f"within {pair_tc['limit_dk']:.3e}, {pair_tc['limit_dv']:.3e}; least rms of plain "
+          f"dk, dv {pair_tc['rms_dk']:.3e}, {pair_tc['rms_dv']:.3e}); against the "
+          f"bf16 rounding emulation: dk, dv relative error {pair_tc['dk']:.3e}, "
+          f"{pair_tc['dv']:.3e} (limit {TOL_TC})")
     del qs, ks, vs
     # recurrentgemma-9b's attention at u=4 of an 8192 prompt: b1 hq16 hkv1
     # d256 bf16, window 2048, so pair (i, j) lives only for i - j <= 1 (7
     # pairs); the same checks as above
-    hyb_fwd_errs, hyb_fwd_acc = {}, {}
-    hyb_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, hyb_fwd_errs, hyb_fwd_acc)
+    hyb_fwd_errs, hyb_fwd_acc, hyb_fwd_tc, hyb_tc = {}, {}, {}, {}
+    hyb_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, hyb_fwd_errs, hyb_fwd_acc,
+                             hyb_fwd_tc)
     qs = [rnd(1, 16, cq, 256).to(torch.bfloat16) for _ in range(u)]
     ks = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
     vs = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
@@ -370,21 +536,30 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
         do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
         for j in live:
             kw = dict(causal=True, window=2048, q_offset=i * cq, k_offset=j * cq)
-            out = check(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, **kw)
+            out = check(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, hyb_tc,
+                        **kw)
             dq_scale = max(dq_scale, float(R.chunk_bwd_dq(qs[i], ks[j], vs[j], do, L, delta,
                                                           **kw).abs().max()))
             hyb_worst = {p: max(hyb_worst[p], out[p]) for p in out}
             hyb_pairs += 1
             n += 1
+            deterministic(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, **kw)
         del st, do, L, delta
     if hyb_pairs != 7:
         raise AssertionError(f"{hyb_pairs} live pairs at u=4 with window 2048, expected 7")
     print(f"recurrentgemma-9b pairs of an 8192 prompt at u=4 (2048 x 2048, b1 hq16 hkv1 d256 "
           f"bf16, window 2048, all 7 live): flash_fwd max abs err of out, m, l "
           f"{hyb_fwd_errs['bfloat16']:.3e} (tol {TOL['bfloat16']}), acc err / (1 + l) "
-          f"{hyb_fwd_acc['bfloat16']:.3e}; dq max abs err {hyb_worst['dq']:.3e} (max |dq| "
-          f"{dq_scale:.3e}); dk, dv err / (1 + max|ref|) {hyb_worst['dk']:.3e}, "
-          f"{hyb_worst['dv']:.3e}")
+          f"{hyb_fwd_acc['bfloat16']:.3e}, least rms of plain out {hyb_fwd_tc['rms_out']:.3e}, "
+          f"against the bf16 rounding emulation: acc, l relative error "
+          f"{hyb_fwd_tc['acc']:.3e}, {hyb_fwd_tc['l']:.3e} (limit {TOL_TC}); dq max abs err "
+          f"{hyb_worst['dq']:.3e} (max |dq| {dq_scale:.3e}); dk, dv err / (1 + max|ref|) "
+          f"{hyb_worst['dk']:.3e}, {hyb_worst['dv']:.3e} (abs {hyb_tc['abs_dk']:.3e}, "
+          f"{hyb_tc['abs_dv']:.3e} within {hyb_tc['limit_dk']:.3e}, {hyb_tc['limit_dv']:.3e}; "
+          f"least rms of plain dk, dv "
+          f"{hyb_tc['rms_dk']:.3e}, {hyb_tc['rms_dv']:.3e}); against the bf16 rounding "
+          f"emulation: dk, dv relative error {hyb_tc['dk']:.3e}, {hyb_tc['dv']:.3e} "
+          f"(limit {TOL_TC})")
     del qs, ks, vs
     # the u=1 pair, at b1 hq4 hkv1 so the plain version's [sq, sk] fp32
     # matrices (1 GiB each) fit beside the kernel's inputs
@@ -400,9 +575,13 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"{out['dq']:.3e}; dk, dv err / (1 + max|ref|) {out['dk']:.3e}, {out['dv']:.3e}")
     del q, k, v, do, L, delta
     torch.cuda.empty_cache()
-    print(f"backward kernels vs plain: {n} cases within tolerance {TOL_BWD}; max dq abs err "
-          f"{worst['dq']:.3e}; max dk, dv err / (1 + max|ref|) {worst['dk']:.3e}, "
-          f"{worst['dv']:.3e} (abs {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e})")
+    print(f"backward kernels vs plain: {n} cases within tolerance (dq {TOL_BWD}; dk, dv "
+          f"{TOL_BWD} fp32, {TOL_DKV_BF16} bf16 on the tensor cores); max dq abs err "
+          f"{worst['dq']:.3e}; max dk, dv err / (1 + max|ref|) fp32 "
+          f"{by_dtype['fp32']['dk']:.3e}, {by_dtype['fp32']['dv']:.3e}, bf16 "
+          f"{by_dtype['bf16']['dk']:.3e}, {by_dtype['bf16']['dv']:.3e} (abs "
+          f"{worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); flash_bwd_dkv deterministic "
+          f"(two launches, same bits) at {n_det} training pairs")
     return {"abs": worst_abs, "rel": worst, "fwd": fwd_errs["bfloat16"],
             "fwd_acc": fwd_acc["bfloat16"], "fwd_hybrid": hyb_fwd_errs["bfloat16"],
             "fwd_acc_hybrid": hyb_fwd_acc["bfloat16"], "hybrid": hyb_worst}
@@ -592,9 +771,9 @@ def _tree_max_rel(TR, got, want):
 
 
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv", "flash_bwd_round_do")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd",)),
     ("linear_scan", ("linear_scan_",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("copy", ("memcpy", "memset")),
@@ -770,6 +949,7 @@ def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
             raise AssertionError(f"step {rec['step']}: launches {rec['launches']}, expected {want}")
     if len(records) != steps:
         raise AssertionError(f"{len(records)} steps taken, {steps} asked")
+    _check_losses(cfg.name, records, card)
     print(f"train {cfg.name} b={batch} seq={seq} u={u} mlp_chunks={cfg.mlp_chunks} remat=full "
           f"offload=on: peak device memory {peak_gib:.2f} GiB; host offload moved "
           f"{off.to_host_bytes / 2**30:.2f} GiB to pinned host memory and "
@@ -807,6 +987,17 @@ def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
     return {"launches": totals, "steps": records, "peak_gib": peak_gib,
             "grad_rel_u4_u1": grad_rel, "pinned_layer_bytes": pinned,
             "to_host_bytes": to_host_bytes, "profile": prof}
+
+
+def _check_losses(name, records, card):
+    """Each step's loss against the CUDA-core kernels' (EARLIER_LOSSES)."""
+    earlier = EARLIER_LOSSES[name]
+    pairs = [(rec["loss"], e) for rec, e in zip(records, earlier)]
+    print(f"{name} losses, this run vs the CUDA-core kernels' from the same seed: "
+          + ", ".join(f"step {n + 1} {a:.4f} vs {e:.4f}" for n, (a, e) in enumerate(pairs))
+          + f" (limit {LOSS_RTOL:.0%}) [{card}]")
+    if len(pairs) != len(earlier) or any(abs(a - e) > LOSS_RTOL * abs(e) for a, e in pairs):
+        raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the earlier run's")
 
 
 def _launches_per_step(cfg, F, T, seq):
@@ -889,6 +1080,7 @@ def phase_train_hybrid(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card)
             raise AssertionError(f"step {rec['step']}: launches {rec['launches']}, expected {want}")
     if len(records) != steps:
         raise AssertionError(f"{len(records)} steps taken, {steps} asked")
+    _check_losses(cfg.name, records, card)
     print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={u} "
           f"mlp_chunks={cfg.mlp_chunks} remat=full offload=on: peak device memory "
           f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
@@ -1031,7 +1223,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    rows = {}
+    rows, seen = {}, []  # rows by key; every timed row
     hyb = "recurrentgemma-9b 8192 u=4 {} pair cq=2048 b1 hq16 hkv1 d256 window 2048"
     shapes = [
         # key, label, b, hq, hkv, sq, sk, d, window, q_off, k_off, carry
@@ -1080,6 +1272,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
                "library_ms": _device_ms(torch, library) if qo == ko else None,
                "wrapper_ms": _eager_ms(torch, kern), "card": card}
         print("timing " + json.dumps(row))
+        seen.append(row)
         if key:
             rows[key] = row
         del q, k, v, st
@@ -1126,6 +1319,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
                    + ("" if qo == ko else ", unmasked: twice this pair's live work"),
                    "wrapper_ms": _eager_ms(torch, kern, iters=20, warmup=3), "card": card}
             print("timing " + json.dumps(row))
+            seen.append(row)
             if suffix is not None:
                 rows[name + suffix] = row
         del q, k, v, do, L, delta, library
@@ -1156,6 +1350,10 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     rows["linear_scan"] = row
     del a, x
     torch.cuda.empty_cache()
+    print("redesigned kernels, device ms now vs the CUDA-core kernels they replaced "
+          "(EARLIER_MS): " + "; ".join(
+              f"{r['kernel']} {r['shape']}: {r['ms']:.4f} vs {EARLIER_MS[r['kernel'], r['shape']]}"
+              for r in seen if (r["kernel"], r["shape"]) in EARLIER_MS) + f" [{card}]")
     return rows
 
 

@@ -2,10 +2,10 @@
 
 Each source (``*/csrc/*.cu``, plain C interface) is compiled at first use
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/`` next to
-this file, named by a hash of the source and flags so an edit never reuses
-a stale build.  ``build_all`` starts one ``nvcc`` per source at once, and
-``load`` opens one library with ``ctypes``.  Importing this module needs
-neither ``nvcc`` nor a card.
+this file, named by a hash of the source, the headers beside it and the
+flags, so an edit never reuses a stale build.  ``build_all`` starts one
+``nvcc`` per source at once, and ``load`` opens one library with
+``ctypes``.  Importing this module needs neither ``nvcc`` nor a card.
 """
 from __future__ import annotations
 
@@ -33,8 +33,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where ``source`` is built: ``build/lib<stem>_<hash of source and flags>.so``."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``source`` is built: ``build/lib<stem>_<hash>.so``, the hash
+    over the source, the headers beside it (``*.cuh``) and the flags."""
+    text = source.read_bytes() + b"".join(h.read_bytes()
+                                          for h in sorted(source.parent.glob("*.cuh")))
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 

@@ -11,45 +11,85 @@
 //   dq = sum_k ds * k                       (flash_bwd_dq)
 //   dv = sum_q p * do, dk = sum_q ds * q    (flash_bwd_dkv, summed over the
 //                                            g q-heads of each kv group)
-// Design (the rules of flash_fwd.cu):
+// Shared rules (those of flash_fwd.cu): q_offset and k_offset are runtime
+// arguments; ragged tails are masked; a tile wholly above the diagonal or
+// left of the window band is skipped (kernel.py:240-242, :331-333); the
+// window applies only under causal, as in ref.py; a masked (q, k) pair gets
+// p = 0 without any exp, so a row that saw no key (its L is the forward's
+// NEG_INF, -1e30) contributes nothing; no atomics anywhere, so every result
+// is the same bits on every run (training's offload on == off check relies
+// on it).
+//
+// flash_bwd_dq (both dtypes) and flash_bwd_dkv in fp32 run on the CUDA
+// cores: fp32 FMAs out of shared memory, bf16 inputs widened on load, so
+// they match the fp32 plain versions (ref.chunk_bwd_dq / chunk_bwd_dkv).
 //   * flash_bwd_dq: one block per (q-tile, q-head, batch row); q, do, L and
 //     delta of the tile are loaded once, the loop runs over 64-key tiles,
 //     and dq stays in registers and is written once.
-//   * flash_bwd_dkv: one block per (k-tile, kv-head, batch row), mirroring
-//     the Pallas grid (b, hkv, nk, g * nq): k and v are loaded once and the
-//     loop runs over the group's g q-heads times the q tiles (q-head
-//     hk * g + t / nq).  dk and dv accumulate inside the block with no
-//     atomics and are written once, so the GQA sum is exact in the sense of
-//     being deterministic: the same order on every run.
-//   * tiles are 64 x 64 with ragged tails masked, except at head_dim 256,
-//     where flash_bwd_dq takes 32-row q tiles and flash_bwd_dkv 32-row key
-//     tiles (tile_rows below) so that the fp32 tiles fit the 227 KB of
-//     shared memory a block may have (205,952 and 214,528 bytes) and the
-//     per-thread accumulators stay at 32 (dq) and 64 (dk + dv) floats;
-//     the d <= 128 instantiations are the 64 x 64 ones, unchanged; q_offset
-//     and k_offset are runtime arguments; a tile wholly above the diagonal or
-//     left of the window band is skipped (kernel.py:240-242, :331-333);
-//     the window applies only under causal, as in ref.py.
-//   * a masked (q, k) pair gets p = 0 without any exp, so a row that saw no
-//     key (its L is the forward's NEG_INF, -1e30) contributes nothing.
-//   * all products are fp32 FMAs out of shared memory (bf16 inputs are
-//     widened on load), so the kernels match the fp32 plain versions
-//     (ref.chunk_bwd_dq / chunk_bwd_dkv) for both input types.
+//   * flash_bwd_dkv (fp32): one block per (k-tile, kv-head, batch row),
+//     mirroring the Pallas grid (b, hkv, nk, g * nq): k and v are loaded
+//     once and the loop runs over the group's g q-heads times the q tiles.
+//   * tiles are 64 x 64, except at head_dim 256, where flash_bwd_dq takes
+//     32-row q tiles and flash_bwd_dkv 32-row key tiles (tile_rows below) so
+//     that the fp32 tiles fit the 227 KB of shared memory a block may have.
+//
+// flash_bwd_dkv in bf16 (the training path's dtype; chosen by the dtype
+// alone, never as a fallback) runs on the tensor cores: mma.sync m16n8k16,
+// bf16 operands, fp32 accumulation (flash_bwd_dkv_tc_kernel).
+//   * A first small kernel rounds dO (fp32, the op's input) to bf16 once,
+//     so that the blocks that all read it copy half the bytes and convert
+//     nothing (flash_bwd_round_do_kernel; the wrapper allocates the bf16
+//     copy).
+//   * One block per (64-key tile, kv head x q-head split, batch row), 256
+//     threads, 8 warps of 16 keys x half the columns.  K and V of the tile
+//     stay in shared memory for the block's life; dK and dV accumulate in
+//     fp32 registers.  The block walks (its q heads) x (the q tiles live for
+//     its keys); each 64-row q tile's Q, dO, L and delta come by cp.async
+//     into one of two buffers while the previous tile is computed, then
+//       1. S^T = K Q^T and dP^T = V dO^T on the tensor cores, each warp 16
+//          keys x 32 queries (16 at a time up to head_dim 64, which keeps a
+//          thread within 128 registers so that two blocks share an SM);
+//          P^T = exp(S^T scale - L) (as 2^(S^T scale log2 e - L log2 e),
+//          one MUFU.EX2) and dS^T = P^T (dP^T - delta) scale, masked, both
+//          rounded to bf16 into shared memory;
+//       2. dV += P^T dO and dK += dS^T Q, each warp 16 keys x d/2 columns,
+//          so that at head_dim 256 a thread holds 128 accumulator floats.
+//     The rounding points beyond fp32 accumulation order are dO, P^T and
+//     dS^T to bf16 (tests/test_torch_flash_tc_numerics.py emulates them).
+//     Tiles in shared memory are padded rows (flash_tc.cuh toff): 214 KB a
+//     block at head_dim 256, 66 KB at 64.
+//   * The g q-heads of a group are split across n_split blocks (the grid's
+//     y axis is hkv * n_split): under a window every head sees the same
+//     band of live q tiles, so head splits carry equal work where q-tile
+//     splits would give some blocks only dead tiles.  n_split is a function
+//     of the shapes and the SM count (kernel.py dkv_splits): 1 where the
+//     unsplit grid already fills the card (llama3.2-1b's pairs, 256 blocks),
+//     8 for recurrentgemma-9b's single kv head (32 blocks -> 256).  With
+//     n_split > 1 each split writes its partial dK and dV into a workspace
+//     [n_split, b, hkv, sk, d] and flash_bwd_dkv_split_sum_kernel adds the
+//     splits in index order: deterministic, no atomics.
 //
 // What bounds them on this card: per live (q, k) pair dq does 6 * d and dkv
 // 8 * d flops against O(d) bytes per row, so at FPDT's chunk sizes the
-// operations bound both (989 TFLOP/s on the tensor cores).  This first
-// version runs on the CUDA cores in fp32 (each thread a (rows / 16) x 4
-// micro-tile of s and a (rows / 16) x d/16 micro-tile of its accumulators),
-// so it is far from that bound; mma/wgmma tensor-core products and TMA
-// pipelining are later work.  Under MQA (one kv head) flash_bwd_dkv has only
-// sk / 32 blocks at d = 256 (64 for a 2048-key chunk, on 132 SMs), each
-// looping over every q head: right, and slow.
+// operations bound both (989 TFLOP/s dense bf16 on the tensor cores).  The
+// CUDA-core kernels sit far above that bound.  The tensor-core dkv is set
+// by latency more than by its products: each q tile's exp, copies and two
+// phases of products run between barriers, so at head_dim 64 a thread is
+// held to 128 registers and two blocks share an SM, one computing while
+// the other waits.  wgmma with warp-specialised TMA loads, and a fused dq
+// pass, are what remains.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
+
+using flash::bf16;
+using flash::dead_tile;
+using flash::live_pair;
 
 constexpr int BQ = 64;   // q rows per tile (flash_bwd_dq: TQ, below)
 constexpr int BK = 64;   // keys per tile (flash_bwd_dkv: TK, below)
@@ -62,16 +102,6 @@ __host__ __device__ constexpr int tile_rows() { return D > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// a tile that no (q, k) pair of it can see (block-uniform)
-__device__ __forceinline__ bool dead_tile(int causal, int window, int q_first, int q_last,
-                                          int k_first, int k_last) {
-  return causal && (q_last < k_first || (window > 0 && k_last < q_first - window + 1));
-}
-
-__device__ __forceinline__ bool live_pair(int causal, int window, int qpos, int kpos) {
-  return !causal || (qpos >= kpos && (window <= 0 || qpos - kpos < window));
-}
 
 // rows [0, n) of a [ROWS, D] tile from global memory into a padded shared tile
 template <int D, int ROWS, typename T>
@@ -361,26 +391,273 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-// The shared-memory opt-in is set once per instantiation and device, not per
-// launch (a repeat from a racing thread is harmless).
-template <typename K>
-cudaError_t configure_once(K kern, size_t smem, bool* configured) {
-  constexpr int kMaxDevices = 64;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) configured[dev] = true;
+// ---------------------------------------------------------------------------
+// flash_bwd_dkv in bf16: tensor cores, q heads split across blocks
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcDkv {
+  static constexpr int TK = 64;               // keys a block keeps for its life
+  static constexpr int TQ = 64;               // q rows a tile
+  static constexpr int WR = TK / 16;          // warp rows: 16 keys each
+  static constexpr int WC = D >= 32 ? 2 : 1;  // warp columns
+  static constexpr int NT = 32 * WR * WC;
+  static constexpr int QW = TQ / WC;          // queries of S^T, dP^T a warp computes
+  static constexpr int DW = D / WC;           // dK, dV columns a warp accumulates
+  // phase 1 takes a warp's queries QB at a time: 16 up to head_dim 64, which
+  // halves the registers S^T and dP^T hold, at the price of reloading the K
+  // and V fragments; all QW at once above, where those reloads cost more
+  static constexpr int QB = D <= 64 ? 16 : QW;
+  // up to head_dim 64 two blocks share an SM (128 registers a thread), so
+  // one block's products run while the other waits at a barrier
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static constexpr int P = D + flash::PAD;    // pitch of a [.][D] tile row
+  static constexpr int PQ = TQ + flash::PAD;  // pitch of a [.][TQ] tile row
+  // bf16 sK, sV [TK][P], two buffers of sQ, sDO [TQ][P], sP, sDS [TK][PQ];
+  // fp32 two buffers of sL, sDelta [TQ]
+  static constexpr size_t smem =
+      sizeof(bf16) * ((2 * size_t(TK) + 4 * size_t(TQ)) * P + 2 * size_t(TK) * PQ) +
+      sizeof(float) * 4 * TQ;
+};
+
+// The q tile `it` of a dkv block's walk over (q head of its split) x (live
+// q tile): its first row in [b, hq, sq] and its live rows.
+struct QTile {
+  size_t row0;
+  int q0, nq;
+};
+
+__device__ __forceinline__ QTile q_tile(int it, int n_q, int qt_lo, int h_begin, int hq, int sq,
+                                        int rows) {
+  const int h = h_begin + it / n_q;
+  const int q0 = (qt_lo + it % n_q) * rows;
+  return {((size_t)blockIdx.z * hq + h) * sq + q0, q0, min(rows, sq - q0)};
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcDkv<D>::NT, TcDkv<D>::MIN_BLOCKS)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv, int sq,
+                        int sk, int causal, int window, int q_offset, int k_offset, float scale,
+                        int n_split) {
+  using namespace flash;
+  using C = TcDkv<D>;
+  constexpr int TK = C::TK, TQ = C::TQ, NTH = C::NT, QW = C::QW, DW = C::DW, P = C::P;
+  constexpr int QB = C::QB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TK * P;
+  bf16* sQb = sV + TK * P;        // buffer u at sQb + u * TQ * P
+  bf16* sDOb = sQb + 2 * TQ * P;  // buffer u at sDOb + u * TQ * P
+  bf16* sP = sDOb + 2 * TQ * P;   // P^T [key][query]
+  bf16* sDS = sP + TK * C::PQ;    // dS^T [key][query]
+  float* sLb = reinterpret_cast<float*>(sDS + TK * C::PQ);  // buffer u at sLb + u * TQ
+  float* sDeltab = sLb + 2 * TQ;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int wr = warp % C::WR, wc = warp / C::WR;
+  const int k0 = blockIdx.x * TK;
+  const int nk = min(TK, sk - k0);
+  const int hk = blockIdx.y / n_split, split = blockIdx.y % n_split;
+  const int g = hq / hkv, per_split = g / n_split;
+  const int h_begin = hk * g + split * per_split;  // heads h_begin .. + per_split
+  const size_t kv0 = ((size_t)blockIdx.z * hkv + hk) * sk + k0;
+  load_rows_async<TK, D, NTH>(sK, k + kv0 * D, nk, tid);
+  load_rows_async<TK, D, NTH>(sV, v + kv0 * D, nk, tid);
+  cp_async_commit();
+
+  float dk_acc[DW / 8][4], dv_acc[DW / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  // the live q tiles of this key tile are one contiguous run; the block
+  // walks (its q heads) x (that run)
+  const int k_first = k_offset + k0, k_last = k_first + nk - 1;
+  const int nqt = (sq + TQ - 1) / TQ;
+  int qt_lo = nqt, qt_hi = -1;
+  for (int qt = 0; qt < nqt; ++qt) {
+    const int q_first = q_offset + qt * TQ;
+    if (!dead_tile(causal, window, q_first, q_first + min(TQ, sq - qt * TQ) - 1, k_first,
+                   k_last)) {
+      qt_lo = min(qt_lo, qt);
+      qt_hi = qt;
+    }
   }
-  return cudaSuccess;
+  const int n_q = qt_hi - qt_lo + 1;
+  const int n_iter = n_q > 0 ? per_split * n_q : 0;
+
+  // a q tile's Q, dO (bf16, 16-byte copies), L and delta (fp32, 4-byte
+  // copies: a row of them need not start 16-byte aligned) into buffer u,
+  // as one cp.async group
+  auto stage = [&](int it, int u) {
+    const QTile tl = q_tile(it, n_q, qt_lo, h_begin, hq, sq, TQ);
+    load_rows_async<TQ, D, NTH>(sQb + u * TQ * P, q + tl.row0 * D, tl.nq, tid);
+    load_rows_async<TQ, D, NTH>(sDOb + u * TQ * P, dout + tl.row0 * D, tl.nq, tid);
+    if (tid < TQ) {
+      const bool ok = tid < tl.nq;
+      cp_async4(sLb + u * TQ + tid, ok ? lse + tl.row0 + tid : lse, ok);
+      cp_async4(sDeltab + u * TQ + tid, ok ? delta + tl.row0 + tid : delta, ok);
+    }
+    cp_async_commit();
+  };
+  if (n_iter > 0) stage(0, 0);
+
+  const float scale_log2 = scale * LOG2E;
+  for (int it = 0; it < n_iter; ++it) {
+    const int u = it & 1;
+    const bf16* sQ = sQb + u * TQ * P;
+    const bf16* sDO = sDOb + u * TQ * P;
+    const float* sL = sLb + u * TQ;
+    const float* sDelta = sDeltab + u * TQ;
+    const QTile tq = q_tile(it, n_q, qt_lo, h_begin, hq, sq, TQ);
+    if (it + 1 < n_iter) {  // the next tile's copies fly while this one is computed
+      stage(it + 1, u ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q_first = q_offset + tq.q0, q_last = q_first + tq.nq - 1, nq = tq.nq;
+
+    // phase 1, QB queries at a time: S^T = K Q^T and dP^T = V dO^T for the
+    // warp's 16 keys, then P^T = exp(S^T scale - L) (as 2^(S^T scale log2 e
+    // - L log2 e)) and dS^T = P^T (dP^T - delta) scale, masked, rounded to
+    // bf16 into shared memory
+    const bool full = nk == TK && nq == TQ &&
+                      full_tile(causal, window, q_first, q_last, k_first, k_last);
+#pragma unroll
+    for (int qb = 0; qb < QW / QB; ++qb) {
+      float s[QB / 8][4], dp[QB / 8][4];
+#pragma unroll
+      for (int j = 0; j < QB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, sK + toff<D>(wr * 16 + a_row(lane), ks * 16 + a_col(lane)));
+        ldsm_x4(av, sV + toff<D>(wr * 16 + a_row(lane), ks * 16 + a_col(lane)));
+#pragma unroll
+        for (int qn = 0; qn < QB / 16; ++qn) {
+          uint32_t bq[4], bo[4];
+          const int r = wc * QW + qb * QB + qn * 16 + b_row(lane), c = ks * 16 + b_col(lane);
+          ldsm_x4(bq, sQ + toff<D>(r, c));
+          ldsm_x4(bo, sDO + toff<D>(r, c));
+          mma(s[2 * qn], ak, bq[0], bq[1]);
+          mma(s[2 * qn + 1], ak, bq[2], bq[3]);
+          mma(dp[2 * qn], av, bo[0], bo[1]);
+          mma(dp[2 * qn + 1], av, bo[2], bo[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QB / 8; ++j) {
+        // query of e = 0 and 2; c + 1 that of e = 1 and 3
+        const int c = wc * QW + qb * QB + 8 * j + 2 * t;
+        const float l2[2] = {sL[c] * LOG2E, sL[c + 1] * LOG2E};
+        const float dl[2] = {sDelta[c], sDelta[c + 1]};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = wr * 16 + (lane >> 2) + 8 * hh;  // this lane's key rows
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = c + e;
+            const bool live = full || (key < nk && qc < nq &&
+                                       live_pair(causal, window, q_first + qc, k_first + key));
+            p[e] = live ? exp2f(s[j][2 * hh + e] * scale_log2 - l2[e]) : 0.f;
+            ds[e] = live ? p[e] * (dp[j][2 * hh + e] - dl[e]) * scale : 0.f;
+          }
+          *reinterpret_cast<uint32_t*>(sP + toff<TQ>(key, c)) = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<uint32_t*>(sDS + toff<TQ>(key, c)) = pack_bf16(ds[0], ds[1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // phase 2: dV += P^T dO and dK += dS^T Q, 16 keys x DW columns a warp
+#pragma unroll
+    for (int kq = 0; kq < TQ / 16; ++kq) {
+      uint32_t ap[4], ads[4];
+      ldsm_x4(ap, sP + toff<TQ>(wr * 16 + a_row(lane), kq * 16 + a_col(lane)));
+      ldsm_x4(ads, sDS + toff<TQ>(wr * 16 + a_row(lane), kq * 16 + a_col(lane)));
+#pragma unroll
+      for (int dn = 0; dn < DW / 16; ++dn) {
+        uint32_t bo[4], bq[4];
+        const int r = kq * 16 + a_row(lane), c = wc * DW + dn * 16 + a_col(lane);
+        ldsm_x4_t(bo, sDO + toff<D>(r, c));
+        ldsm_x4_t(bq, sQ + toff<D>(r, c));
+        mma(dv_acc[2 * dn], ap, bo[0], bo[1]);
+        mma(dv_acc[2 * dn + 1], ap, bo[2], bo[3]);
+        mma(dk_acc[2 * dn], ads, bq[0], bq[1]);
+        mma(dk_acc[2 * dn + 1], ads, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this tile's buffers and sP, sDS
+  }
+  cp_async_wait<0>();  // no copy outlives the block (no live tile: K/V's group)
+
+  // this split's dK and dV: the outputs (n_split 1) or its workspace slice
+  const size_t split_off = (size_t)split * gridDim.z * hkv * sk * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = wr * 16 + (lane >> 2) + 8 * hh;
+    if (key >= nk) continue;
+    const size_t base = split_off + (kv0 + key) * D + wc * DW + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DW / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + base + 8 * j) =
+          make_float2(dk_acc[j][2 * hh], dk_acc[j][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dv + base + 8 * j) =
+          make_float2(dv_acc[j][2 * hh], dv_acc[j][2 * hh + 1]);
+    }
+  }
+}
+
+// dO, fp32, rounded to bf16 once for all the blocks that read it (n4
+// float4s)
+__global__ void __launch_bounds__(256)
+flash_bwd_round_do_kernel(const float4* __restrict__ x, uint2* __restrict__ y, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 a = x[i];
+    y[i] = make_uint2(flash::pack_bf16(a.x, a.y), flash::pack_bf16(a.z, a.w));
+  }
+}
+
+// out = sum over s = 0 .. n_split - 1 of part[s], in that order (blockIdx.y:
+// 0 for dk, 1 for dv); n4 float4s a split
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_split_sum_kernel(const float4* __restrict__ part_dk,
+                               const float4* __restrict__ part_dv, float4* __restrict__ dk,
+                               float4* __restrict__ dv, int n_split, size_t n4) {
+  const float4* part = blockIdx.y == 0 ? part_dk : part_dv;
+  float4* out = blockIdx.y == 0 ? dk : dv;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 acc = part[i];
+    for (int s = 1; s < n_split; ++s) {
+      const float4 x = part[s * n4 + i];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    out[i] = acc;
+  }
 }
 
 struct Args {
   const void *q, *k, *v;
   const float *dout, *lse, *delta;
   float *dq, *dk, *dv;
+  void* dout16;  // bf16 dkv: dO rounded to bf16, b x hq x sq x d
+  float* ws;     // bf16 dkv with n_split > 1: partial dk, then dv, n_split x b x hkv x sk x d each
+  int n_split;   // bf16 dkv: q-head splits of a group (1 for fp32)
   int b, hq, hkv, sq, sk, causal, window, q_offset, k_offset;
   float scale;
   cudaStream_t stream;
@@ -391,7 +668,7 @@ cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured[64] = {};
   auto kern = flash_bwd_dq_kernel<D, T>;
-  cudaError_t err = configure_once(kern, smem, configured);
+  cudaError_t err = flash::configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
   constexpr int TQ = tile_rows<D>();
   const dim3 grid((a.sq + TQ - 1) / TQ, a.hq, a.b);
@@ -407,7 +684,7 @@ cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured[64] = {};
   auto kern = flash_bwd_dkv_kernel<D, T>;
-  cudaError_t err = configure_once(kern, smem, configured);
+  cudaError_t err = flash::configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
   constexpr int TK = tile_rows<D>();
   const dim3 grid((a.sk + TK - 1) / TK, a.hkv, a.b);
@@ -418,23 +695,67 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool DQ, typename T>
-cudaError_t dispatch_d(int d, const Args& a) {
-  switch (d) {
-    case 16: return DQ ? launch_dq<16, T>(a) : launch_dkv<16, T>(a);
-    case 32: return DQ ? launch_dq<32, T>(a) : launch_dkv<32, T>(a);
-    case 64: return DQ ? launch_dq<64, T>(a) : launch_dkv<64, T>(a);
-    case 128: return DQ ? launch_dq<128, T>(a) : launch_dkv<128, T>(a);
-    case 256: return DQ ? launch_dq<256, T>(a) : launch_dkv<256, T>(a);
-    default: return cudaErrorInvalidValue;
-  }
+// blocks of 256 threads for a grid-stride loop over n items
+unsigned grid_stride_blocks(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
-template <bool DQ>
-int dispatch(int dtype, int d, const Args& a) {
-  if (dtype == 0) return dispatch_d<DQ, float>(d, a);
-  if (dtype == 1) return dispatch_d<DQ, __nv_bfloat16>(d, a);
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  using C = TcDkv<D>;
+  static bool configured[64] = {};
+  auto kern = flash_bwd_dkv_tc_kernel<D>;
+  cudaError_t err = flash::configure_once(kern, C::smem, configured);
+  if (err != cudaSuccess) return err;
+  if (a.n_split < 1 || (a.hq / a.hkv) % a.n_split != 0 || (a.n_split > 1 && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  if (a.dout16 == nullptr) return cudaErrorInvalidValue;
+  const size_t n_do4 = (size_t)a.b * a.hq * a.sq * D / 4;  // float4s of dO
+  flash_bwd_round_do_kernel<<<grid_stride_blocks(n_do4), 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(a.dout), reinterpret_cast<uint2*>(a.dout16), n_do4);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)a.b * a.hkv * a.sk * D;  // elements of dk (and of dv)
+  float* dk = a.n_split > 1 ? a.ws : a.dk;
+  float* dv = a.n_split > 1 ? a.ws + a.n_split * n : a.dv;
+  const dim3 grid((a.sk + C::TK - 1) / C::TK, a.hkv * a.n_split, a.b);
+  kern<<<grid, C::NT, C::smem, a.stream>>>(static_cast<const bf16*>(a.q),
+                                           static_cast<const bf16*>(a.k),
+                                           static_cast<const bf16*>(a.v),
+                                           static_cast<const bf16*>(a.dout16), a.lse, a.delta,
+                                           dk, dv, a.hq, a.hkv, a.sq, a.sk, a.causal, a.window,
+                                           a.q_offset, a.k_offset, a.scale, a.n_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  const size_t n4 = n / 4;  // d is a multiple of 16
+  const dim3 sum_grid(grid_stride_blocks(n4), 2);
+  flash_bwd_dkv_split_sum_kernel<<<sum_grid, 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(dk), reinterpret_cast<const float4*>(dv),
+      reinterpret_cast<float4*>(a.dk), reinterpret_cast<float4*>(a.dv), a.n_split, n4);
+  return cudaGetLastError();
+}
+
+// dq: the CUDA-core kernel for both dtypes; dkv: the CUDA-core kernel for
+// fp32, the tensor-core kernel for bf16
+template <int D>
+cudaError_t launch(bool dq, bool bf, const Args& a) {
+  if (dq) return bf ? launch_dq<D, bf16>(a) : launch_dq<D, float>(a);
+  return bf ? launch_dkv_tc<D>(a) : launch_dkv<D, float>(a);
+}
+
+int dispatch(bool dq, int dtype, int d, const Args& a) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (!dq && dtype == 0 && a.n_split != 1) return cudaErrorInvalidValue;
+  const bool bf = dtype == 1;
+  switch (d) {
+    case 16: return launch<16>(dq, bf, a);
+    case 32: return launch<32>(dq, bf, a);
+    case 64: return launch<64>(dq, bf, a);
+    case 128: return launch<128>(dq, bf, a);
+    case 256: return launch<256>(dq, bf, a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -446,19 +767,25 @@ extern "C" int flash_bwd_dq_launch(int dtype, int d, const void* q, const void* 
                                    const float* delta, float* dq, int b, int hq, int hkv, int sq,
                                    int sk, int causal, int window, int q_offset, int k_offset,
                                    float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, hq, hkv, sq, sk,
-               causal, window, q_offset, k_offset, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, d, a);
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, nullptr, 1,
+               b, hq, hkv, sq, sk, causal, window, q_offset, k_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(true, dtype, d, a);
 }
 
+// bf16 only (null / 1 for fp32): dout16, b * hq * sq * d bf16 of workspace
+// for dO rounded to bf16; n_split, the q-head splits of each kv group; with
+// n_split > 1, ws, 2 * n_split * b * hkv * sk * d floats of workspace.
 extern "C" int flash_bwd_dkv_launch(int dtype, int d, const void* q, const void* k,
                                     const void* v, const float* dout, const float* lse,
-                                    const float* delta, float* dk, float* dv, int b, int hq,
-                                    int hkv, int sq, int sk, int causal, int window,
-                                    int q_offset, int k_offset, float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, hq, hkv, sq, sk,
-               causal, window, q_offset, k_offset, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, d, a);
+                                    const float* delta, float* dk, float* dv, void* dout16,
+                                    float* ws, int n_split, int b, int hq, int hkv, int sq,
+                                    int sk, int causal, int window, int q_offset, int k_offset,
+                                    float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, dout16, ws, n_split,
+               b, hq, hkv, sq, sk, causal, window, q_offset, k_offset, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(false, dtype, d, a);
 }
 
 extern "C" const char* flash_bwd_error_string(int err) {

@@ -7,43 +7,77 @@
 //   * one thread block per (q-tile, q-head, batch row); the Pallas grid's
 //     sequential fourth axis (k blocks) is the loop inside the block;
 //   * the carry is read once at the start and (acc, m, l) written once at
-//     the end, all fp32, unnormalized;
+//     the end, all fp32, unnormalized, with m in the natural-log domain of
+//     ref.attend_chunk;
 //   * q_offset / k_offset are plain runtime arguments (the FPDT loop moves
 //     them on every call), causal + sliding-window masks act on global
 //     positions, and the window applies only under causal (as the plain
 //     version, ref.py, does);
-//   * tiles are fixed at 64 x 64 and ragged tails are masked here, where
-//     Pallas shrinks its tiles to a divisor (_fit_block): the result is the
-//     same function;
+//   * tiles are fixed (64 q rows; 64 keys, 32 at head_dim 256 in bf16) and
+//     ragged tails are masked here, where Pallas shrinks its tiles to a
+//     divisor (_fit_block): the result is the same function.  Key tiles
+//     start at multiples of the tile from the chunk's first key, so at
+//     chunk sizes that are multiples of 64 a row meets the same tiles in
+//     the same order whether its keys come in one launch or several, and
+//     the fp32 carry passes through memory unchanged between launches;
 //   * a tile that no (q, k) pair of it can see is skipped (kernel.py:93-96);
 //   * a masked logit gets p = 0 explicitly, never by exp underflow, and
 //     NEG_INF is the finite -1e30, so alpha = exp(m_prev - m_new) stays
 //     finite for a row that has seen no live key yet.
 //
-// What bounds it on this card: at the serve shapes (d = 64, bf16 in, fp32
-// state) a pair does 4*d multiply-adds per live (q, k) pair against 2*d
-// input bytes per key row, so at large chunks the operations bound it (the
-// tensor cores' 989 TFLOP/s) and at the 64-token serve prompt the bytes and
-// the launch do.  This first version runs the products as fp32 FMAs on the
-// CUDA cores out of shared-memory tiles (each thread a 4 x 4 micro-tile of
-// S and a 4 x d/16 micro-tile of acc), which keeps it exact against the
-// fp32 plain version for both input types; tensor cores (mma/wgmma) and
-// TMA pipelining are later work.  At d = 256 (recurrentgemma's heads)
-// a block takes 214,016 of the 232,448 bytes of shared memory a block may
-// have, so one block runs per SM, and each thread a 4 x 16 acc micro-tile.
+// Two kernels, chosen by the input dtype alone (neither is ever the other's
+// fallback; a build or launch failure raises in the wrapper):
+//   * bf16 (the training and serving path: param_dtype is bfloat16) runs on
+//     the tensor cores: mma.sync m16n8k16, bf16 operands, fp32
+//     accumulation.  128 threads, 4 warps of 16 q rows.  Q is copied to
+//     shared memory once; K and V tiles stream through two cp.async stages,
+//     the next tile's copy in flight while this one is computed.  Each warp
+//     computes S = Q K^T from ldmatrix fragments into registers, masks it,
+//     runs the online softmax in registers (row max and sum over the quad
+//     of lanes that share a row, by shuffles), rounds P to bf16 in
+//     registers and uses it as the A operand of P V (V read with
+//     ldmatrix.trans); acc stays in fp32 registers.  l sums the fp32 p
+//     before rounding, so the one rounding beyond fp32 accumulation order
+//     is P to bf16 before P V (tests/test_torch_flash_tc_numerics.py
+//     emulates it).  exp(x) is taken as 2^(x log2 e), one MUFU.EX2, with m
+//     kept in the natural-log domain (the scaling is applied to x - m, never
+//     stored).  At head_dim 256 acc is 128 registers a thread, so Q
+//     fragments are re-read from shared memory for every key tile and key
+//     tiles are 32 wide (101 KB of shared memory a block).
+//   * fp32 runs the first version on the CUDA cores: fp32 FMAs out of
+//     shared-memory tiles (each thread a 4 x 4 micro-tile of S and a
+//     4 x d/16 micro-tile of acc), exact against the fp32 plain version;
+//     chip_smoke.py's fp32 checks (1e-5, u=4 vs u=1 training, decode vs
+//     prefill) run it.
+//
+// What bounds it on this card: a pair does 4*d flops per live (q, k) pair
+// against 2*d input bytes per key row, so at FPDT's chunk sizes the
+// operations bound it (989 TFLOP/s dense bf16) and at the 64-token serve
+// prompt the bytes and the launch do.  The bf16 kernel's products run on
+// the tensor cores through mma.sync, which reaches a fraction of that peak;
+// wgmma with TMA-fed, warp-specialised pipelines is what remains, and the
+// softmax's exp and the fragment loads from shared memory are the next
+// limits after the products.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using flash::bf16;
+using flash::NEG_INF;
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;   // q rows per block
 constexpr int BK = 64;   // keys per inner tile
 constexpr int NT = 256;  // threads: 16 x 16 for the products, 4 per row for the softmax
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -217,72 +251,278 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* acc_in,
-                   const float* m_in, const float* l_in, float* acc_out, float* m_out,
-                   float* l_out, int b, int hq, int hkv, int sq, int sk, int causal, int window,
-                   int q_offset, int k_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd_kernel<D, T>;
-  // the shared-memory opt-in is set once per instantiation and device, not
-  // per launch (a repeat from a racing thread is harmless)
-  constexpr int kMaxDevices = 64;
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) configured[dev] = true;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcFwd {
+  static constexpr int BQ = 64;                 // q rows a block: 16 a warp
+  static constexpr int BK = D > 128 ? 32 : 64;  // keys a tile
+  static constexpr int NT = 128;                // 4 warps
+  static constexpr int P = D + flash::PAD;     // a tile row's pitch
+  // sQ [BQ][P]; two stages of sK [BK][P] and of sV [BK][P]; all bf16
+  static constexpr size_t smem = sizeof(bf16) * (size_t(BQ) + 4 * size_t(BK)) * P;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TcFwd<D>::NT, 1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ acc_in,
+                    const float* __restrict__ m_in, const float* __restrict__ l_in,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int hq, int hkv, int sq, int sk, int causal,
+                    int window, int q_offset, int k_offset, float scale) {
+  using namespace flash;
+  constexpr int TQ = TcFwd<D>::BQ, TK = TcFwd<D>::BK, NTH = TcFwd<D>::NT, P = TcFwd<D>::P;
+  constexpr int NS = TK / 8;  // 8-key column blocks of S a warp holds
+  constexpr int NA = D / 8;   // 8-column blocks of acc
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + TQ * P;      // stage s at sK + s * TK * P
+  bf16* sV = sK + 2 * TK * P;  // stage s at sV + s * TK * P
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int hk = h / (hq / hkv);  // GQA: kv head = q head // group
+  const int nq = min(TQ, sq - q0);
+  const size_t row0 = ((size_t)blockIdx.z * hq + h) * sq + q0;
+  const size_t kv0 = ((size_t)blockIdx.z * hkv + hk) * sk;
+  const bf16* kp = k + kv0 * D;
+  const bf16* vp = v + kv0 * D;
+
+  // the live key tiles are one contiguous run: dead ones lie above the
+  // diagonal (at the end) or left of the window band (at the start)
+  const int q_first = q_offset + q0, q_last = q_first + nq - 1;
+  const int n_tiles = (sk + TK - 1) / TK;
+  int kt_lo = n_tiles, kt_hi = -1;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k_first = k_offset + kt * TK;
+    if (!dead_tile(causal, window, q_first, q_last, k_first,
+                   k_first + min(TK, sk - kt * TK) - 1)) {
+      kt_lo = min(kt_lo, kt);
+      kt_hi = kt;
+    }
   }
-  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), acc_in, m_in, l_in, acc_out, m_out,
-                                   l_out, hq, hkv, sq, sk, causal, window, q_offset, k_offset,
-                                   scale);
+
+  // Q, then the first live K/V tile: one cp.async group
+  load_rows_async<TQ, D, NTH>(sQ, q + row0 * D, nq, tid);
+  if (kt_lo <= kt_hi) {
+    const int k0 = kt_lo * TK, nk = min(TK, sk - k0);
+    load_rows_async<TK, D, NTH>(sK, kp + (size_t)k0 * D, nk, tid);
+    load_rows_async<TK, D, NTH>(sV, vp + (size_t)k0 * D, nk, tid);
+  }
+  cp_async_commit();
+
+  // this lane's two rows of the warp's 16, and the carry-in of both
+  int rows[2];
+  rows[0] = warp * 16 + (lane >> 2);
+  rows[1] = rows[0] + 8;
+  float m_run[2], l_run[2];
+  float acc[NA][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = rows[i] < nq;
+    m_run[i] = (m_in != nullptr && live) ? m_in[row0 + rows[i]] : NEG_INF;
+    l_run[i] = (l_in != nullptr && live) ? l_in[row0 + rows[i]] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      float2 a = make_float2(0.f, 0.f);
+      if (acc_in != nullptr && live)
+        a = *reinterpret_cast<const float2*>(acc_in + (row0 + rows[i]) * D + 8 * j + 2 * t);
+      acc[j][2 * i] = a.x;
+      acc[j][2 * i + 1] = a.y;
+    }
+  }
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    if (kt < kt_hi) {  // the next tile's copy flies while this one is computed
+      const int k0n = (kt + 1) * TK, nkn = min(TK, sk - k0n);
+      load_rows_async<TK, D, NTH>(sK + (st ^ 1) * TK * P, kp + (size_t)k0n * D, nkn, tid);
+      load_rows_async<TK, D, NTH>(sV + (st ^ 1) * TK * P, vp + (size_t)k0n * D, nkn, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tK = sK + st * TK * P;
+    const bf16* tV = sV + st * TK * P;
+
+    // S = Q K^T for the warp's 16 rows x TK keys, fp32 in registers
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, sQ + toff<D>(warp * 16 + a_row(lane), ks * 16 + a_col(lane)));
+#pragma unroll
+      for (int nb = 0; nb < TK / 16; ++nb) {
+        uint32_t b[4];
+        ldsm_x4(b, tK + toff<D>(nb * 16 + b_row(lane), ks * 16 + b_col(lane)));
+        mma(s[2 * nb], a, b[0], b[1]);
+        mma(s[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale, and mask on global positions and the ragged tail
+    const int k0 = kt * TK, nk = min(TK, sk - k0), k_first = k_offset + k0;
+    const bool full = nk == TK && full_tile(causal, window, q_first, q_last, k_first,
+                                            k_first + TK - 1);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const bool live = full || (c < nk && live_pair(causal, window,
+                                                       q_first + rows[e >> 1], k_first + c));
+        s[j][e] = live ? s[j][e] * scale : NEG_INF;
+      }
+
+    // online softmax in registers: the 4 lanes of a quad share a row
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_new[i] = fmaxf(m_run[i], mx[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = x <= 0.5f * NEG_INF ? 0.f : exp2f((x - m_new[e >> 1]) * LOG2E);
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      const float alpha = exp2f((m_run[i] - m_new[i]) * LOG2E);
+      l_run[i] = l_run[i] * alpha + sum[i];
+      m_run[i] = m_new[i];
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        acc[j][2 * i] *= alpha;
+        acc[j][2 * i + 1] *= alpha;
+      }
+    }
+
+    // acc += P V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int db = 0; db < D / 16; ++db) {
+        uint32_t b[4];
+        ldsm_x4_t(b, tV + toff<D>(kk * 16 + a_row(lane), db * 16 + a_col(lane)));
+        mma(acc[2 * db], a, b[0], b[1]);
+        mma(acc[2 * db + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block (no live tile: Q's group)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+      *reinterpret_cast<float2*>(acc_out + (row0 + rows[i]) * D + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+    if (t == 0) {
+      m_out[row0 + rows[i]] = m_run[i];
+      l_out[row0 + rows[i]] = l_run[i];
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const float *acc_in, *m_in, *l_in;
+  float *acc_out, *m_out, *l_out;
+  int b, hq, hkv, sq, sk, causal, window, q_offset, k_offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_simt(const Args& a) {
+  constexpr size_t smem = smem_bytes<D>();
+  static bool configured[64] = {};
+  auto kern = flash_fwd_kernel<D, float>;
+  cudaError_t err = flash::configure_once(kern, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + BQ - 1) / BQ, a.hq, a.b);
+  kern<<<grid, NT, smem, a.stream>>>(static_cast<const float*>(a.q),
+                                     static_cast<const float*>(a.k),
+                                     static_cast<const float*>(a.v), a.acc_in, a.m_in, a.l_in,
+                                     a.acc_out, a.m_out, a.l_out, a.hq, a.hkv, a.sq, a.sk,
+                                     a.causal, a.window, a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const float* acc_in,
-                       const float* m_in, const float* l_in, float* acc_out, float* m_out,
-                       float* l_out, int b, int hq, int hkv, int sq, int sk, int causal,
-                       int window, int q_offset, int k_offset, float scale,
-                       cudaStream_t stream) {
-#define FLASH_FWD_CASE(DIM)                                                                  \
-  case DIM:                                                                                  \
-    return launch<DIM, T>(q, k, v, acc_in, m_in, l_in, acc_out, m_out, l_out, b, hq, hkv, sq, \
-                          sk, causal, window, q_offset, k_offset, scale, stream);
+template <int D>
+cudaError_t launch_tc(const Args& a) {
+  using C = TcFwd<D>;
+  static bool configured[64] = {};
+  auto kern = flash_fwd_tc_kernel<D>;
+  cudaError_t err = flash::configure_once(kern, C::smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + C::BQ - 1) / C::BQ, a.hq, a.b);
+  kern<<<grid, C::NT, C::smem, a.stream>>>(static_cast<const bf16*>(a.q),
+                                           static_cast<const bf16*>(a.k),
+                                           static_cast<const bf16*>(a.v), a.acc_in, a.m_in,
+                                           a.l_in, a.acc_out, a.m_out, a.l_out, a.hq, a.hkv,
+                                           a.sq, a.sk, a.causal, a.window, a.q_offset,
+                                           a.k_offset, a.scale);
+  return cudaGetLastError();
+}
+
+template <bool TC>
+cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    FLASH_FWD_CASE(16)
-    FLASH_FWD_CASE(32)
-    FLASH_FWD_CASE(64)
-    FLASH_FWD_CASE(128)
-    FLASH_FWD_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return TC ? launch_tc<16>(a) : launch_simt<16>(a);
+    case 32: return TC ? launch_tc<32>(a) : launch_simt<32>(a);
+    case 64: return TC ? launch_tc<64>(a) : launch_simt<64>(a);
+    case 128: return TC ? launch_tc<128>(a) : launch_simt<128>(a);
+    case 256: return TC ? launch_tc<256>(a) : launch_simt<256>(a);
+    default: return cudaErrorInvalidValue;
   }
-#undef FLASH_FWD_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  acc_in/m_in/l_in may all be null (no
-// carry).  Returns the launch's cudaError_t (0 = launched).
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
+// acc_in/m_in/l_in may all be null (no carry).  Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int flash_fwd_launch(int dtype, int d, const void* q, const void* k, const void* v,
                                 const float* acc_in, const float* m_in, const float* l_in,
                                 float* acc_out, float* m_out, float* l_out, int b, int hq,
                                 int hkv, int sq, int sk, int causal, int window, int q_offset,
                                 int k_offset, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, acc_in, m_in, l_in, acc_out, m_out, l_out, b, hq, hkv,
-                             sq, sk, causal, window, q_offset, k_offset, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, acc_in, m_in, l_in, acc_out, m_out, l_out, b,
-                                     hq, hkv, sq, sk, causal, window, q_offset, k_offset, scale,
-                                     st);
+  const Args a{q, k, v, acc_in, m_in, l_in, acc_out, m_out, l_out, b, hq, hkv, sq, sk,
+               causal, window, q_offset, k_offset, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_d<false>(d, a);
+  if (dtype == 1) return dispatch_d<true>(d, a);
   return cudaErrorInvalidValue;
 }
 

@@ -3,16 +3,24 @@
 ``csrc/flash_fwd.cu`` holds ``flash_fwd`` and replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_fwd``; ``csrc/flash_bwd.cu``
 holds ``flash_bwd_dq`` and ``flash_bwd_dkv`` and replaces the Pallas kernels
-of the same names there.  Each source is compiled at first use by
-``kernels/build.py`` (``nvcc`` for ``sm_90a``, a shared library with a plain
-C interface).  Importing this module needs neither ``nvcc`` nor a card.
+of the same names there; ``csrc/flash_tc.cuh`` holds the tile helpers both
+share.  Each source is compiled at first use by ``kernels/build.py``
+(``nvcc`` for ``sm_90a``, a shared library with a plain C interface).
+Importing this module needs neither ``nvcc`` nor a card.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current CUDA stream, raises if
-the launch was refused, and adds one to its launch count (``launches`` for
-flash_fwd, ``dq_launches``, ``dkv_launches``).  They take CUDA tensors
-only: the device dispatch (plain version for CPU tensors) lives in
-``ops.py``.
+The dtype picks the kernel, inside the library: bf16 ``flash_fwd`` and
+``flash_bwd_dkv`` run on the tensor cores (``mma.sync``, fp32
+accumulation), fp32 ones and ``flash_bwd_dq`` on the CUDA cores.  Neither
+kernel stands in for the other: a build or launch failure raises.
+
+Each wrapper checks device, dtype, shape and contiguity (and, for a
+tensor-core kernel, the alignment of the tensors it reads in vectors),
+allocates its outputs (and ``flash_bwd_dkv``'s workspace: dO in bf16, the
+q-head splits' partials) with ``torch.empty``, launches on the current CUDA
+stream, raises if the launch was refused, and adds one to its launch count
+(``launches`` for flash_fwd, ``dq_launches``, ``dkv_launches``).  They take
+CUDA tensors only: the device dispatch (plain version for CPU tensors)
+lives in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 SOURCES = (SOURCE, BWD_SOURCE)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+DKV_TILE_KEYS = 64  # keys a block of the bf16 flash_bwd_dkv keeps (TcDkv::TK)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads them)
@@ -37,6 +46,25 @@ dq_launches = 0  # flash_bwd_dq
 dkv_launches = 0  # flash_bwd_dkv
 _lib = None  # flash_fwd.cu
 _bwd_lib = None  # flash_bwd.cu
+_sm_counts = {}  # device index -> SM count
+
+
+def dkv_splits(b: int, hq: int, hkv: int, sk: int, sm_count: int) -> int:
+    """How many blocks share the q heads of one kv group in the bf16
+    ``flash_bwd_dkv``: the least divisor n of the group size g = hq // hkv
+    for which the grid's ceil(sk / 64) * hkv * b * n blocks reach one wave
+    of ``sm_count`` SMs (g if none does).  1 where the unsplit grid already
+    fills the card."""
+    g = hq // hkv
+    blocks = -(-sk // DKV_TILE_KEYS) * hkv * b
+    return next((n for n in range(1, g + 1) if g % n == 0 and blocks * n >= sm_count), g)
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def _load():
@@ -62,7 +90,8 @@ def _load_bwd():
         ints = [i32] * 9  # b, hq, hkv, sq, sk, causal, window, q_offset, k_offset
         lib.flash_bwd_dq_launch.argtypes = [i32, i32, *[ptr] * 7, *ints, ctypes.c_float, ptr]
         lib.flash_bwd_dq_launch.restype = i32
-        lib.flash_bwd_dkv_launch.argtypes = [i32, i32, *[ptr] * 8, *ints, ctypes.c_float, ptr]
+        lib.flash_bwd_dkv_launch.argtypes = [i32, i32, *[ptr] * 10, i32, *ints, ctypes.c_float,
+                                             ptr]
         lib.flash_bwd_dkv_launch.restype = i32
         lib.flash_bwd_error_string.argtypes = [i32]
         lib.flash_bwd_error_string.restype = ctypes.c_char_p
@@ -79,6 +108,13 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device, kname: str = "flash
         raise ValueError(f"{kname}: {name} is {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{kname}: {name} must be contiguous")
+
+
+def _check_aligned(kname: str, align: int, **tensors):
+    """The tensor-core kernels read these tensors in ``align``-byte vectors."""
+    for name, t in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{kname}: {name} must be {align}-byte aligned for the bf16 kernel")
 
 
 def _check_qkv(kname: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int):
@@ -125,6 +161,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         carry_ptrs = (acc_in.data_ptr(), m_in.data_ptr(), l_in.data_ptr())
     else:
         carry_ptrs = (None, None, None)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_fwd", 16, q=q, k=k, v=v)
+        if carry is not None:
+            _check_aligned("flash_fwd", 8, carry_acc=carry[0])
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _load()
     acc = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
@@ -180,21 +220,34 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
                   L: torch.Tensor, delta: torch.Tensor, *, causal: bool = True, window: int = 0,
                   q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
     """(dk, dv) [b, hkv, sk, d] fp32 of one pair on the card, summed over the
-    g q-heads of each kv group inside the kernel (no atomics).  Inputs as
+    g q-heads of each kv group without atomics: inside the block, and for
+    bf16 also across the ``dkv_splits`` blocks that share a group, whose
+    partials a second kernel adds in split order.  Inputs as
     flash_bwd_dq."""
     global dkv_launches
     b, hq, hkv, sq, sk, d = _check_bwd("flash_bwd_dkv", q, k, v, do, L, delta, window)
-    if hkv > 65535:
-        raise ValueError(f"flash_bwd_dkv: unsupported kv heads {hkv}")
     dev = q.device
+    # bf16: dO rounded to bf16 once, the group's q heads split across blocks,
+    # partials summed in split order
+    bf = q.dtype == torch.bfloat16
+    if bf:
+        _check_aligned("flash_bwd_dkv", 16, q=q, k=k, v=v, do=do)
+    n_split = dkv_splits(b, hq, hkv, sk, _sm_count(dev)) if bf else 1
+    if hkv * n_split > 65535:
+        raise ValueError(f"flash_bwd_dkv: unsupported kv heads {hkv}")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _load_bwd()
     dk = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=dev)
     dv = torch.empty((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    do16 = torch.empty(do.shape, dtype=torch.bfloat16, device=dev) if bf else None
+    ws = (torch.empty((2, n_split, b, hkv, sk, d), dtype=torch.float32, device=dev)
+          if n_split > 1 else None)
     with torch.cuda.device(dev):
         err = lib.flash_bwd_dkv_launch(
             _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk,
+            L.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if do16 is None else do16.data_ptr(), None if ws is None else ws.data_ptr(),
+            n_split, b, hq, hkv, sq, sk,
             int(bool(causal)), int(window), int(q_offset), int(k_offset), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -9,6 +9,11 @@ from the final row log-sum-exp ``L`` and ``delta = sum(do * o)``, as the
 CUDA ``flash_bwd_dq`` / ``flash_bwd_dkv`` do.  The CPU path runs them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
 
+``attend_chunk_tc`` and ``chunk_bwd_dkv_tc`` are the same functions rounded
+where the bf16 tensor-core kernels round (P to bf16 before P V; dO, P^T and
+dS^T to bf16 before dV and dK), so that ``chip_smoke.py`` can hold those
+kernels to fp32 accumulation order alone; the CPU path never runs them.
+
 Layout: q [b, hq, sq, d], k/v [b, hkv, sk, d]; GQA via head-group mapping
 (kv head = q head // (hq // hkv)).  The window applies only under
 ``causal=True``.
@@ -81,6 +86,53 @@ def attend_chunk(
     return state
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def attend_chunk_tc(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    k_offset: int = 0,
+    sm_scale: Optional[float] = None,
+    carry: Optional[SoftmaxState] = None,
+) -> SoftmaxState:
+    """attend_chunk as the bf16 tensor-core flash_fwd rounds it: the online
+    softmax over key tiles (64 keys, 32 at head_dim > 128) from the chunk's
+    first key, P rounded to bf16 before P V, l summing the fp32 p."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    tile = 32 if d > 128 else 64
+    ke, ve = _expand_kv(k, hq).float(), _expand_kv(v, hq).float()
+    qf = q.float()
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    ok = _live(sq, sk, causal=causal, window=window, q_offset=q_offset, k_offset=k_offset,
+               device=q.device)
+    if carry is None:
+        acc = torch.zeros((b, hq, sq, d), device=q.device)
+        m = torch.full((b, hq, sq), NEG_INF, device=q.device)
+        l = torch.zeros((b, hq, sq), device=q.device)
+    else:
+        acc, m, l = carry
+    for k0 in range(0, sk, tile):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, ke[:, :, k0:k0 + tile]) * scale
+        if ok is not None:
+            s = torch.where(ok[:, k0:k0 + tile], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m_new[..., None]))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", _bf16(p),
+                                                    ve[:, :, k0:k0 + tile])
+        m = m_new
+    return SoftmaxState(acc=acc, m=m, l=l)
+
+
 def mha(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -131,13 +183,28 @@ def chunk_bwd_dkv(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0
                   q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
     """(dk, dv) [b, hkv, sk, d] fp32 of one pair: dv = p^T do and dk = ds^T q,
     summed over the g q-heads of each kv group."""
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
     p, ds, _, qf = _bwd_terms(q, k, v, do, L, delta, causal=causal, window=window,
                               q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return _dkv(p, ds, do.float(), qf, k.shape[1])
+
+
+def chunk_bwd_dkv_tc(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,
+                     q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
+    """chunk_bwd_dkv as the bf16 tensor-core flash_bwd_dkv rounds it: dO to
+    bf16 before both products that read it, P^T and dS^T (from the fp32 p)
+    to bf16 before dV and dK."""
+    do16 = _bf16(do)
+    p, ds, _, qf = _bwd_terms(q, k, v, do16, L, delta, causal=causal, window=window,
+                              q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
+    return _dkv(_bf16(p), _bf16(ds), do16, qf, k.shape[1])
+
+
+def _dkv(p, ds, do, q, hkv):
+    """dv = p^T do and dk = ds^T q, summed over each kv group's q heads."""
+    b, hq, _, d = q.shape
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
     if hq != hkv:  # GQA: sum the q-head group
-        dk = dk.reshape(b, hkv, hq // hkv, sk, d).sum(2)
-        dv = dv.reshape(b, hkv, hq // hkv, sk, d).sum(2)
+        dk = dk.reshape(b, hkv, hq // hkv, -1, d).sum(2)
+        dv = dv.reshape(b, hkv, hq // hkv, -1, d).sum(2)
     return dk, dv

@@ -2,7 +2,9 @@
 tensors take) against the JAX package's with the Pallas kernels in interpret
 mode, and the flash_attention Function's gradients against the JAX
 ``custom_vjp``'s.  Tolerance 1e-4, the kernel-gradient tolerance of
-tests/test_kernels_flash.py."""
+tests/test_kernels_flash.py.  Then the q-head split of the bf16
+flash_bwd_dkv: how many splits, which heads each covers, and that their
+partials sum to the unsplit result."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as JO
 from repro_torch.core.online_softmax import SoftmaxState, lse
+from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as O
 
 TOL = 1e-4
@@ -87,3 +90,62 @@ def test_flash_attention_grads_match_jax(b, hq, hkv, s, d, blk, window):
     np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
     for got, want in zip(tgrads, jgrads):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# The bf16 flash_bwd_dkv splits a kv group's q heads across blocks and sums
+# the splits' partial dk, dv in split order (kernel.py dkv_splits).  The
+# kernel runs only on the card; its partition and its sum are checked here
+# on the plain version.
+H100_SMS = 132
+
+
+def _split_heads(hk: int, g: int, n_split: int, split: int) -> range:
+    """The q heads that split ``split`` of kv head ``hk``'s group of ``g``
+    covers: flash_bwd.cu's h_begin .. h_begin + g / n_split."""
+    per = g // n_split
+    return range(hk * g + split * per, hk * g + (split + 1) * per)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sk,want", [
+    (1, 32, 8, 2048, 1),   # llama3.2-1b's training pair: 32 x 8 blocks fill the card
+    (1, 16, 1, 2048, 8),   # recurrentgemma-9b's: 32 blocks, split to 256
+    (4, 32, 8, 512, 1),
+    (1, 4, 1, 8192, 2),
+    (1, 16, 1, 100, 16),   # a small MQA pair: every head its own block
+])
+def test_dkv_splits(b, hq, hkv, sk, want):
+    n = K.dkv_splits(b, hq, hkv, sk, H100_SMS)
+    assert n == want and (hq // hkv) % n == 0
+
+
+@pytest.mark.parametrize("hq,hkv,n_split,sq", [(16, 1, 8, 2048), (32, 8, 1, 2048),
+                                               (8, 2, 2, 100), (16, 1, 16, 70)])
+def test_split_heads_cover_each_group_once(hq, hkv, n_split, sq):
+    """Every (q head, q tile) of a kv group falls in exactly one split."""
+    g, n_qt = hq // hkv, -(-sq // K.DKV_TILE_KEYS)
+    for hk in range(hkv):
+        seen = [(h, qt) for s in range(n_split) for h in _split_heads(hk, g, n_split, s)
+                for qt in range(n_qt)]
+        assert sorted(seen) == [(h, qt) for h in range(hk * g, (hk + 1) * g)
+                                for qt in range(n_qt)]
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[7], CASES[10], CASES[11],
+                                  (1, 8, 2, 40, 56, 16, 16, True, 0, 24, 0)])
+def test_split_sum_equals_the_unsplit_dkv(case):
+    """dk, dv summed over each split's heads in split order equal the
+    unsplit plain result within 1e-6."""
+    arrs, kw, _ = _case_inputs(case, seed=sum(case[:6]) + 7)
+    q, k, v, do, L, delta = map(torch.from_numpy, arrs)
+    hq, hkv = q.shape[1], k.shape[1]
+    g = hq // hkv
+    want = O.chunk_bwd_dkv(q, k, v, do, L, delta, **kw)
+    for n_split in (n for n in range(2, g + 1) if g % n == 0):
+        dk = dv = None
+        for s in range(n_split):
+            idx = [h for hk in range(hkv) for h in _split_heads(hk, g, n_split, s)]
+            part = O.chunk_bwd_dkv(q[:, idx], k, v, do[:, idx], L[:, idx], delta[:, idx], **kw)
+            dk = part[0] if dk is None else dk + part[0]
+            dv = part[1] if dv is None else dv + part[1]
+        np.testing.assert_allclose(dk.numpy(), want[0].numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(dv.numpy(), want[1].numpy(), rtol=1e-6, atol=1e-6)

@@ -26,6 +26,10 @@ from repro_torch.tree import tree_leaves
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4  # tests/test_kernels_flash.py's kernel-gradient tolerance
+# bf16 flash_bwd_dkv runs on the tensor cores with dO, P^T and dS^T rounded
+# to bf16: held at the bf16 kernel tolerance (tests/test_kernels_flash.py:34)
+# relative to (1 + max |ref|); dq and fp32 dk/dv stay at TOL
+TOL_DKV_BF16 = 3e-2
 
 CASES = [
     # b, hq, hkv, sq, sk, d, dtype, causal, window, q_offset, k_offset
@@ -36,6 +40,16 @@ CASES = [
     (1, 2, 2, 64, 64, 64, torch.float32, True, 33, 0, 200),  # every row masked
     (1, 16, 1, 100, 70, 256, torch.bfloat16, True, 33, 90, 40),  # d 256, MQA, window
     (1, 4, 1, 64, 100, 256, torch.float32, True, 40, 64, 0),
+    # bf16 dkv on the tensor cores with the q heads split across blocks
+    # (n_split > 1 at these sizes): d 64 and 256, GQA and MQA, ragged tails,
+    # windows, offsets, fully masked rows
+    (2, 8, 2, 130, 200, 64, torch.bfloat16, True, 0, 0, 0),
+    (1, 16, 1, 77, 150, 64, torch.bfloat16, True, 48, 300, 180),
+    (1, 16, 1, 200, 130, 256, torch.bfloat16, True, 0, 130, 0),
+    (2, 8, 2, 96, 96, 256, torch.bfloat16, True, 50, 0, 0),
+    (1, 4, 1, 70, 64, 256, torch.bfloat16, True, 33, 0, 200),  # every row masked
+    (1, 8, 2, 33, 257, 128, torch.bfloat16, False, 0, 0, 0),
+    (2, 4, 2, 40, 90, 16, torch.bfloat16, True, 20, 60, 0),
 ]
 
 
@@ -76,9 +90,42 @@ def test_bwd_kernels_match_plain(device, case):
     want_dq = R.chunk_bwd_dq(q, k, v, do, Lr, delta, **kw)
     want_dk, want_dv = R.chunk_bwd_dkv(q, k, v, do, Lr, delta, **kw)
     torch.testing.assert_close(dq, want_dq, rtol=TOL, atol=TOL)
-    assert _rel(dk, want_dk) <= TOL and _rel(dv, want_dv) <= TOL
+    tol = TOL_DKV_BF16 if q.dtype == torch.bfloat16 else TOL
+    assert _rel(dk, want_dk) <= tol and _rel(dv, want_dv) <= tol
     if kw["k_offset"] > kw["q_offset"] + q.shape[2]:  # keys wholly in the future
         assert not dq.any() and not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("hq,hkv,s,d", [(16, 1, 300, 256), (8, 2, 200, 64)])
+def test_bf16_dkv_is_deterministic(device, hq, hkv, s, d):
+    """Two launches on the same inputs give the same bits: the q-head
+    splits' partials are summed in split order, without atomics."""
+    case = (1, hq, hkv, s, s, d, torch.bfloat16, True, 0, 0, 0)
+    q, k, v, do, Lr, delta, kw = _pair(case, device)
+    assert K.dkv_splits(1, hq, hkv, s, K._sm_count(device)) > 1
+    first = K.flash_bwd_dkv(q, k, v, do, Lr, delta, **kw)
+    second = K.flash_bwd_dkv(q, k, v, do, Lr, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# chip_smoke.py's limit on ||kernel - emulation|| / ||emulation||
+TOL_TC = 3e-4
+
+
+@pytest.mark.parametrize("case", [
+    (1, 8, 2, 512, 512, 64, torch.bfloat16, True, 0, 512, 0),
+    (1, 16, 1, 256, 320, 256, torch.bfloat16, True, 200, 256, 64),
+])
+def test_bf16_dkv_matches_its_rounding(device, case):
+    """The tensor-core dkv against the plain version rounded where it rounds
+    (dO, P^T and dS^T to bf16, ref.chunk_bwd_dkv_tc): only the fp32
+    summation order and rare bf16 roundings to the other neighbour differ."""
+    q, k, v, do, Lr, delta, kw = _pair(case, device)
+    got = K.flash_bwd_dkv(q, k, v, do, Lr, delta, **kw)
+    want = R.chunk_bwd_dkv_tc(q, k, v, do, Lr, delta, **kw)
+    for a, b in zip(got, want):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= TOL_TC
 
 
 def test_flash_attention_function_grads(device):

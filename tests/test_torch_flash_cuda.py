@@ -24,6 +24,16 @@ CASES = [
     (1, 2, 2, 64, 64, 64, torch.float32, True, 33, 0, 200, True),  # every row masked
     (1, 16, 1, 100, 70, 256, torch.bfloat16, True, 33, 90, 40, True),  # d 256, MQA, window
     (1, 4, 1, 64, 64, 256, torch.float32, True, 40, 64, 0, True),
+    # bf16 runs the tensor-core kernel: d 64 and 256, GQA and MQA, ragged
+    # tails (sq, sk not multiples of 64), windows, offsets, masked rows
+    (2, 8, 2, 130, 200, 64, torch.bfloat16, True, 0, 0, 0, False),
+    (1, 16, 1, 77, 150, 64, torch.bfloat16, True, 48, 300, 180, True),
+    (1, 16, 1, 200, 130, 256, torch.bfloat16, True, 0, 130, 0, True),
+    (2, 8, 2, 96, 96, 256, torch.bfloat16, True, 50, 0, 0, False),
+    (1, 4, 1, 70, 64, 256, torch.bfloat16, True, 33, 0, 200, True),  # every row masked
+    (1, 4, 4, 64, 64, 64, torch.bfloat16, True, 0, 0, 100, False),  # every row masked, no carry
+    (1, 8, 2, 33, 257, 128, torch.bfloat16, False, 0, 0, 0, True),
+    (2, 4, 2, 40, 90, 16, torch.bfloat16, True, 20, 60, 0, False),
 ]
 
 
@@ -74,6 +84,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     q = torch.zeros((1, 2, 64, 16), device=device).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_fwd(q, q, q)
+    # the tensor-core kernel copies q, k, v in 16-byte vectors
+    q = torch.zeros(2 * 64 * 64 + 1, device=device, dtype=torch.bfloat16)[1:].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.flash_fwd(q, q, q)
+
+
+# chip_smoke.py's limit on ||kernel - emulation|| / ||emulation||
+TOL_TC = 3e-4
+
+
+@pytest.mark.parametrize("case", [
+    (1, 8, 2, 512, 512, 64, torch.bfloat16, True, 0, 512, 0, True),
+    (1, 16, 1, 256, 320, 256, torch.bfloat16, True, 200, 256, 64, True),
+])
+def test_bf16_kernel_matches_its_rounding(device, case):
+    """The tensor-core kernel against the plain version rounded where it
+    rounds (P to bf16 before P V, ref.attend_chunk_tc): only the fp32
+    summation order and rare bf16 roundings to the other neighbour differ."""
+    q, k, v, st, kw = _inputs(case, device)
+    got = K.flash_fwd(q, k, v, tuple(st), **kw)
+    want = R.attend_chunk_tc(q, k, v, carry=st, **kw)
+    for a, b in ((got[0], want.acc), (got[2], want.l)):
+        assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= TOL_TC
 
 
 def test_reduced_serve_runs_through_the_kernel(device):
