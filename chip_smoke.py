@@ -12,7 +12,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 linear_scan (linear_scan/csrc/linear_scan.cu); ptxas' registers
                 and spills, and the count of tensor-core instructions
                 (HMMA/HGMMA in cuobjdump -sass) of every flash kernel: each
-                bf16 (tensor-core) instantiation must have some and spill
+                bf16 (tensor-core) instantiation (flash_fwd_tc,
+                flash_bwd_dq_tc, flash_bwd_dkv_tc) must have some and spill
                 nothing;
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
                 on the card: fp32 and bf16, head_dim 16/64/128/256, GQA and
@@ -22,7 +23,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 version rounded where the bf16 kernel rounds (TOL_TC);
   4. backward — flash_bwd_dq and flash_bwd_dkv against their plain versions
                 (ref.chunk_bwd_dq / chunk_bwd_dkv) on the same kinds of cases
-                (bf16 dk/dv from the tensor-core kernel at the bf16 tolerance),
+                (bf16 dq, dk, dv from the tensor-core kernels at the bf16
+                tolerance),
                 and at the training paths' shapes: every (i, j <= i) pair of an
                 8192 prompt at u = 4 for llama3.2-1b (2048 x 2048, b1 hq32 hkv8
                 d64), the 7 live pairs of recurrentgemma-9b's (b1 hq16 hkv1
@@ -30,10 +32,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 b1 hq4 hkv1 so that the plain version's [sq, sk] fp32 matrices
                 fit); flash_fwd is held against its plain version at those
                 same pairs, with carry and offsets; at the u = 4 pairs the
-                bf16 flash_fwd and flash_bwd_dkv are also held against the
-                plain version rounded where they round (TOL_TC); two launches
-                of the bf16 flash_bwd_dkv at the training pairs give the same
-                bits;
+                bf16 flash_fwd, flash_bwd_dq and flash_bwd_dkv are also held
+                against the plain version rounded where they round (TOL_TC);
+                two launches of the bf16 flash_bwd_dq, and two of
+                flash_bwd_dkv, at the training pairs give the same bits;
   4b. scan    — linear_scan against its plain version (ref.linear_scan):
                 fp32 and bf16, h0 given and absent, ragged seq and chan, b > 1,
                 a near +1 and -1, seq 1, forward and reverse, the training
@@ -62,8 +64,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 offload on vs off bit for bit, 3 steps through train_steps with
                 the launches of all four kernels read around each step, peak
                 memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
-                both trainings' losses are held to those of the CUDA-core
-                kernels this design replaced (EARLIER_LOSSES);
+                both trainings' losses are held to those of the parent
+                commit (EARLIER_LOSSES);
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention and the
                 flash-attention backward behind it, timed as yardsticks only:
@@ -72,8 +74,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 calls, at the serve shape, the llama3.2-1b training pairs, the
                 recurrentgemma-9b pairs and the RG-LRU scan shape; the wrappers
                 also launched from the host back to back (wrapper_ms: host
-                dispatch included); flash_fwd and flash_bwd_dkv beside the
-                CUDA-core kernels' times (EARLIER_MS);
+                dispatch included); the bf16 flash kernels beside the
+                CUDA-core kernels' times (EARLIER_MS); the q-head splits of
+                flash_bwd_dkv at each timed pair (n_split);
   8. kernels  — one JSON line per the kernel contract;
   9. last line: {"ok": true, "device": {...}}.
 
@@ -106,18 +109,20 @@ TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # tests/test_kernels_flash.py:34
 # rel); dk and dv sum over g * sq rows, so their error is held relative to
 # (1 + max |reference|), as acc is held relative to (1 + l).
 TOL_BWD = 1e-4
-# bf16 flash_bwd_dkv runs on the tensor cores with dO, P^T and dS^T rounded
-# to bf16, which fp32 FMAs did not do: its dk and dv are held at the repo's
-# bf16 kernel tolerance (tests/test_kernels_flash.py:34), relative to
-# (1 + max |reference|); dq and fp32 dk/dv stay at TOL_BWD.
-TOL_DKV_BF16 = 3e-2
+# bf16 flash_bwd_dq and flash_bwd_dkv run on the tensor cores with dO and
+# dS (and for dkv P^T) rounded to bf16, which fp32 FMAs did not do: their
+# dq, dk and dv are held at the repo's bf16 kernel tolerance
+# (tests/test_kernels_flash.py:34), relative to (1 + max |reference|); fp32
+# stays at TOL_BWD (dq elementwise).
+TOL_BWD_BF16 = 3e-2
 # That tolerance is loose beside the values it holds at the main path's
 # pairs (the phase prints their rms), so there the bf16 kernels are also
 # held to the plain version rounded where they round (ref.attend_chunk_tc,
-# ref.chunk_bwd_dkv_tc): only the fp32 accumulation order and a rare bf16
-# rounding of P or dS to its other neighbour differ, so the relative error
-# ||got - emulation|| / ||emulation|| of acc, l, dk and dv is held at
-# TOL_TC, 4.5x the largest reading on the H100 (6.7e-5, PERF.md section 6).
+# ref.chunk_bwd_dq_tc, ref.chunk_bwd_dkv_tc): only the fp32 accumulation
+# order and a rare bf16 rounding of P or dS to its other neighbour differ,
+# so the relative error ||got - emulation|| / ||emulation|| of acc, l, dq,
+# dk and dv is held at TOL_TC, 4.5x the largest reading of flash_fwd and
+# flash_bwd_dkv on the H100 (6.7e-5, PERF.md section 6).
 TOL_TC = 3e-4
 # linear scan: tests/test_kernels_linear_scan.py's 1e-5 forward and 1e-4
 # gradients.  Elementwise (atol + rtol) where |a| <= 0.99 or the input is
@@ -131,16 +136,19 @@ FPDT_GRAD_RTOL = 5e-4
 # fp32 logits of decode vs prefill, relative to the logits' largest magnitude:
 # other matmul shapes and another softmax order, fp32 rounding through 16 layers.
 FP32_LOGIT_RTOL = 1e-4
-# Training losses of the three steps from seed 0 with the CUDA-core bf16
-# flash_fwd and flash_bwd_dkv that the tensor-core kernels replaced: this
-# script at commit d46ed49 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# section 6); each step is held within LOSS_RTOL of them.
-EARLIER_LOSSES = {"llama3.2-1b": (12.1218, 10.8310, 14.2324),
-                  "recurrentgemma-9b": (12.8539, 10.5882, 9.7212)}
+# Training losses of the three steps from seed 0 at the parent commit, whose
+# bf16 flash_bwd_dq still ran on the CUDA cores: this script at commit
+# 6a7ca09, run from a git archive in the same chip call as this tree, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6); each step is held
+# within LOSS_RTOL of them.
+EARLIER_LOSSES = {"llama3.2-1b": (12.1212, 10.8319, 14.2329),
+                  "recurrentgemma-9b": (12.8542, 10.5876, 9.7271)}
 LOSS_RTOL = 0.02
-# Device ms of those CUDA-core kernels at the timed shapes (same card, same
-# script; the "was" figures of PERF.md section 6), printed beside this run's
-# by the timing phase and nowhere else.
+# Device ms of the CUDA-core kernels that the tensor-core ones replaced, at
+# the timed shapes (same card, same script; the "was" figures of PERF.md
+# section 6): flash_fwd and flash_bwd_dkv at commit d46ed49, flash_bwd_dq
+# at 6a7ca09.  Printed beside this run's by the timing phase and nowhere
+# else.
 EARLIER_MS = {
     ("flash_fwd", "serve prefill b4 s64 (u=1)"): 0.01118,
     ("flash_fwd", "train 8192 u=4 off-diagonal pair cq=2048 b1"): 1.588,
@@ -155,6 +163,12 @@ EARLIER_MS = {
                       "d256 window 2048"): 16.363,
     ("flash_bwd_dkv", "recurrentgemma-9b 8192 u=4 diagonal pair cq=2048 b1 hq16 hkv1 d256 "
                       "window 2048"): 16.092,
+    ("flash_bwd_dq", "train 8192 u=4 off-diagonal pair cq=2048 b1"): 2.152,
+    ("flash_bwd_dq", "train 8192 u=4 diagonal pair cq=2048 b1"): 1.376,
+    ("flash_bwd_dq", "recurrentgemma-9b 8192 u=4 off-diagonal pair cq=2048 b1 hq16 hkv1 "
+                     "d256 window 2048"): 4.025,
+    ("flash_bwd_dq", "recurrentgemma-9b 8192 u=4 diagonal pair cq=2048 b1 hq16 hkv1 d256 "
+                     "window 2048"): 4.181,
 }
 # Prefill at fpdt_chunks=4 vs 1 is held to bit equality (measured so on the
 # H100): 512 is a multiple of the kernel's 64-key tile, so each row meets the
@@ -392,9 +406,9 @@ def _bwd_inputs(torch, R, lse, finalize, q, k, v, g, states=None, **kw):
 def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # dq: max abs err; dk, dv: err / (1 + max|ref|)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # err / (1 + max|ref|)
     worst_abs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    by_dtype = {"fp32": {"dk": 0.0, "dv": 0.0}, "bf16": {"dk": 0.0, "dv": 0.0}}
+    by_dtype = {"fp32": dict(worst), "bf16": dict(worst)}
     # flash_fwd at the training path's pairs, continuing the plain carry
     fwd_errs, fwd_acc, fwd_tc = {}, {}, {}
     fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, fwd_errs, fwd_acc, fwd_tc)
@@ -403,38 +417,41 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
         return torch.randn(shape, generator=g, device=dev)
 
     def check(label, q, k, v, do, L, delta, tc=None, **kw):
-        """dq, dk, dv against the plain version; with ``tc`` (a dict) bf16
-        dk, dv also against ref.chunk_bwd_dkv_tc at TOL_TC, recording the
-        largest relative errors and the least rms of the plain dk, dv."""
+        """dq, dk, dv against the plain version (fp32 dq elementwise at
+        TOL_BWD; bf16 dq and every dk, dv relative to 1 + max|ref|); with
+        ``tc`` (a dict) bf16 dq, dk, dv also against ref.chunk_bwd_dq_tc /
+        chunk_bwd_dkv_tc at TOL_TC, recording the largest relative errors
+        and the least rms of the plain dq, dk, dv."""
         dq = K.flash_bwd_dq(q, k, v, do, L, delta, **kw)
         dk, dv = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
         want_dq = R.chunk_bwd_dq(q, k, v, do, L, delta, **kw)
         want_dk, want_dv = R.chunk_bwd_dkv(q, k, v, do, L, delta, **kw)
         torch.cuda.synchronize()
-        for part, a in (("dq", dq), ("dk", dk), ("dv", dv)):
+        bf = q.dtype == torch.bfloat16
+        tol = TOL_BWD_BF16 if bf else TOL_BWD
+        key = "bf16" if bf else "fp32"
+        out = {}
+        for part, a, b in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{label}: non-finite {part}")
-        err, bad = _max_violation(dq, want_dq, TOL_BWD)
-        if bad:
-            raise AssertionError(f"{label}: dq max err {err:.3e} beyond tol {TOL_BWD}")
-        out = {"dq": err}
-        worst_abs["dq"] = max(worst_abs["dq"], err)
-        tol_dkv = TOL_DKV_BF16 if q.dtype == torch.bfloat16 else TOL_BWD
-        for part, a, b in (("dk", dk, want_dk), ("dv", dv, want_dv)):
             abs_err = float((a - b).abs().max())
             worst_abs[part] = max(worst_abs[part], abs_err)
             rel = abs_err / (1.0 + float(b.abs().max()))
-            if rel > tol_dkv:
+            if part == "dq" and not bf:
+                if _max_violation(a, b, TOL_BWD)[1]:
+                    raise AssertionError(f"{label}: dq max err {abs_err:.3e} beyond tol {TOL_BWD}")
+            elif rel > tol:
                 raise AssertionError(f"{label}: {part} err / (1 + max|ref|) {rel:.3e} "
-                                     f"beyond tol {tol_dkv}")
+                                     f"beyond tol {tol}")
             out[part] = rel
-            key = "fp32" if q.dtype == torch.float32 else "bf16"
             by_dtype[key][part] = max(by_dtype[key][part], rel)
         for part in worst:
             worst[part] = max(worst[part], out[part])
-        if tc is not None and q.dtype == torch.bfloat16:
-            emu = R.chunk_bwd_dkv_tc(q, k, v, do, L, delta, **kw)
-            for part, a, b, ref in (("dk", dk, emu[0], want_dk), ("dv", dv, emu[1], want_dv)):
+        if tc is not None and bf:
+            emu = (R.chunk_bwd_dq_tc(q, k, v, do, L, delta, **kw),
+                   *R.chunk_bwd_dkv_tc(q, k, v, do, L, delta, **kw))
+            for part, a, b, ref in (("dq", dq, emu[0], want_dq), ("dk", dk, emu[1], want_dk),
+                                    ("dv", dv, emu[2], want_dv)):
                 rel = _rel(torch, a, b)
                 if rel > TOL_TC:
                     raise AssertionError(f"{label}: {part} relative error {rel:.3e} against "
@@ -444,20 +461,22 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
                 tc["abs_" + part] = max(tc.get("abs_" + part, 0.0),
                                         float((a - ref).abs().max()))
                 tc["limit_" + part] = max(tc.get("limit_" + part, 0.0),
-                                          tol_dkv * (1.0 + float(ref.abs().max())))
+                                          tol * (1.0 + float(ref.abs().max())))
         return out
 
     n_det = 0
 
     def deterministic(label, q, k, v, do, L, delta, **kw):
-        """Two launches of flash_bwd_dkv on the same inputs: the same bits
-        (the q-head splits are summed in split order, without atomics)."""
+        """Two launches of flash_bwd_dq, and two of flash_bwd_dkv, on the
+        same inputs: the same bits (dq: each block owns its rows; dkv: the
+        q-head splits are summed in split order; no atomics)."""
         nonlocal n_det
-        first = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
-        second = K.flash_bwd_dkv(q, k, v, do, L, delta, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(first, second)):
-            raise AssertionError(f"{label}: two flash_bwd_dkv launches differ")
+        for name, fn in (("flash_bwd_dq", lambda: [K.flash_bwd_dq(q, k, v, do, L, delta, **kw)]),
+                         ("flash_bwd_dkv", lambda: K.flash_bwd_dkv(q, k, v, do, L, delta, **kw))):
+            first, second = fn(), fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"{label}: two {name} launches differ")
         n_det += 1
 
     n = 0
@@ -507,13 +526,8 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"(tol {TOL['bfloat16']}); acc err / (1 + l) {fwd_acc['bfloat16']:.3e}; least rms "
           f"of plain out {fwd_tc['rms_out']:.3e}; against the bf16 rounding emulation: acc, l "
           f"relative error {fwd_tc['acc']:.3e}, {fwd_tc['l']:.3e} (limit {TOL_TC})")
-    print(f"u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, all 10): dq max "
-          f"abs err {pair_worst['dq']:.3e}; dk, dv err / (1 + max|ref|) {pair_worst['dk']:.3e}, "
-          f"{pair_worst['dv']:.3e} (abs {pair_tc['abs_dk']:.3e}, {pair_tc['abs_dv']:.3e} "
-          f"within {pair_tc['limit_dk']:.3e}, {pair_tc['limit_dv']:.3e}; least rms of plain "
-          f"dk, dv {pair_tc['rms_dk']:.3e}, {pair_tc['rms_dv']:.3e}); against the "
-          f"bf16 rounding emulation: dk, dv relative error {pair_tc['dk']:.3e}, "
-          f"{pair_tc['dv']:.3e} (limit {TOL_TC})")
+    print(f"u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, all 10): "
+          + _bwd_summary(pair_worst, pair_tc))
     del qs, ks, vs
     # recurrentgemma-9b's attention at u=4 of an 8192 prompt: b1 hq16 hkv1
     # d256 bf16, window 2048, so pair (i, j) lives only for i - j <= 1 (7
@@ -525,7 +539,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     ks = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
     vs = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
     hyb_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    dq_scale, hyb_pairs = 0.0, 0
+    hyb_pairs = 0
     for i in range(u):
         live = [j for j in range(i + 1) if F.pair_live(i, j, cq=cq, window=2048, sparsity=0.0)]
         st = None
@@ -538,8 +552,6 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
             kw = dict(causal=True, window=2048, q_offset=i * cq, k_offset=j * cq)
             out = check(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, hyb_tc,
                         **kw)
-            dq_scale = max(dq_scale, float(R.chunk_bwd_dq(qs[i], ks[j], vs[j], do, L, delta,
-                                                          **kw).abs().max()))
             hyb_worst = {p: max(hyb_worst[p], out[p]) for p in out}
             hyb_pairs += 1
             n += 1
@@ -552,14 +564,8 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"{hyb_fwd_errs['bfloat16']:.3e} (tol {TOL['bfloat16']}), acc err / (1 + l) "
           f"{hyb_fwd_acc['bfloat16']:.3e}, least rms of plain out {hyb_fwd_tc['rms_out']:.3e}, "
           f"against the bf16 rounding emulation: acc, l relative error "
-          f"{hyb_fwd_tc['acc']:.3e}, {hyb_fwd_tc['l']:.3e} (limit {TOL_TC}); dq max abs err "
-          f"{hyb_worst['dq']:.3e} (max |dq| {dq_scale:.3e}); dk, dv err / (1 + max|ref|) "
-          f"{hyb_worst['dk']:.3e}, {hyb_worst['dv']:.3e} (abs {hyb_tc['abs_dk']:.3e}, "
-          f"{hyb_tc['abs_dv']:.3e} within {hyb_tc['limit_dk']:.3e}, {hyb_tc['limit_dv']:.3e}; "
-          f"least rms of plain dk, dv "
-          f"{hyb_tc['rms_dk']:.3e}, {hyb_tc['rms_dv']:.3e}); against the bf16 rounding "
-          f"emulation: dk, dv relative error {hyb_tc['dk']:.3e}, {hyb_tc['dv']:.3e} "
-          f"(limit {TOL_TC})")
+          f"{hyb_fwd_tc['acc']:.3e}, {hyb_fwd_tc['l']:.3e} (limit {TOL_TC}); "
+          + _bwd_summary(hyb_worst, hyb_tc))
     del qs, ks, vs
     # the u=1 pair, at b1 hq4 hkv1 so the plain version's [sq, sk] fp32
     # matrices (1 GiB each) fit beside the kernel's inputs
@@ -571,20 +577,32 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     out = check("u=1 pair 8192 x 8192", q, k, v, do, L, delta, causal=True)
     n += 1
     print(f"u=1 pair 8192 x 8192 (held at b1 hq4 hkv1 d64 bf16 so the plain version's fp32 "
-          f"[sq, sk] matrices fit; the path runs hq32 hkv8): flash_fwd within tol; dq max abs err "
-          f"{out['dq']:.3e}; dk, dv err / (1 + max|ref|) {out['dk']:.3e}, {out['dv']:.3e}")
+          f"[sq, sk] matrices fit; the path runs hq32 hkv8): flash_fwd within tol; dq, dk, dv "
+          f"err / (1 + max|ref|) {out['dq']:.3e}, {out['dk']:.3e}, {out['dv']:.3e}")
     del q, k, v, do, L, delta
     torch.cuda.empty_cache()
-    print(f"backward kernels vs plain: {n} cases within tolerance (dq {TOL_BWD}; dk, dv "
-          f"{TOL_BWD} fp32, {TOL_DKV_BF16} bf16 on the tensor cores); max dq abs err "
-          f"{worst['dq']:.3e}; max dk, dv err / (1 + max|ref|) fp32 "
-          f"{by_dtype['fp32']['dk']:.3e}, {by_dtype['fp32']['dv']:.3e}, bf16 "
+    print(f"backward kernels vs plain: {n} cases within tolerance ({TOL_BWD} fp32, dq "
+          f"elementwise; {TOL_BWD_BF16} bf16 on the tensor cores); max dq, dk, dv err / (1 + "
+          f"max|ref|) fp32 {by_dtype['fp32']['dq']:.3e}, {by_dtype['fp32']['dk']:.3e}, "
+          f"{by_dtype['fp32']['dv']:.3e}, bf16 {by_dtype['bf16']['dq']:.3e}, "
           f"{by_dtype['bf16']['dk']:.3e}, {by_dtype['bf16']['dv']:.3e} (abs "
-          f"{worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); flash_bwd_dkv deterministic "
-          f"(two launches, same bits) at {n_det} training pairs")
+          f"{worst_abs['dq']:.3e}, {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); "
+          f"flash_bwd_dq and flash_bwd_dkv deterministic (two launches each, same bits) at "
+          f"{n_det} training pairs")
     return {"abs": worst_abs, "rel": worst, "fwd": fwd_errs["bfloat16"],
             "fwd_acc": fwd_acc["bfloat16"], "fwd_hybrid": hyb_fwd_errs["bfloat16"],
-            "fwd_acc_hybrid": hyb_fwd_acc["bfloat16"], "hybrid": hyb_worst}
+            "fwd_acc_hybrid": hyb_fwd_acc["bfloat16"], "hybrid": hyb_worst,
+            "tc_llama": pair_tc, "tc_hybrid": hyb_tc}
+
+
+def _bwd_summary(worst, tc):
+    """One line of the backward readings at a training path's pairs."""
+    return (f"dq, dk, dv err / (1 + max|ref|) {worst['dq']:.3e}, {worst['dk']:.3e}, "
+            f"{worst['dv']:.3e} (abs {tc['abs_dq']:.3e}, {tc['abs_dk']:.3e}, {tc['abs_dv']:.3e} "
+            f"within {tc['limit_dq']:.3e}, {tc['limit_dk']:.3e}, {tc['limit_dv']:.3e}; least rms "
+            f"of plain dq, dk, dv {tc['rms_dq']:.3e}, {tc['rms_dk']:.3e}, {tc['rms_dv']:.3e}); "
+            f"against the bf16 rounding emulation: dq, dk, dv relative error {tc['dq']:.3e}, "
+            f"{tc['dk']:.3e}, {tc['dv']:.3e} (limit {TOL_TC})")
 
 
 def phase_scan(torch, SK, SR, SO):
@@ -772,7 +790,7 @@ def _tree_max_rel(TR, got, want):
 
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("flash_bwd_dkv", ("flash_bwd_dkv", "flash_bwd_round_do")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_fwd", ("flash_fwd",)),
     ("linear_scan", ("linear_scan_",)),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -990,14 +1008,14 @@ def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
 
 
 def _check_losses(name, records, card):
-    """Each step's loss against the CUDA-core kernels' (EARLIER_LOSSES)."""
+    """Each step's loss against the parent commit's (EARLIER_LOSSES)."""
     earlier = EARLIER_LOSSES[name]
     pairs = [(rec["loss"], e) for rec, e in zip(records, earlier)]
-    print(f"{name} losses, this run vs the CUDA-core kernels' from the same seed: "
+    print(f"{name} losses, this run vs the parent commit's from the same seed: "
           + ", ".join(f"step {n + 1} {a:.4f} vs {e:.4f}" for n, (a, e) in enumerate(pairs))
           + f" (limit {LOSS_RTOL:.0%}) [{card}]")
     if len(pairs) != len(earlier) or any(abs(a - e) > LOSS_RTOL * abs(e) for a, e in pairs):
-        raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the earlier run's")
+        raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the parent's")
 
 
 def _launches_per_step(cfg, F, T, seq):
@@ -1318,6 +1336,8 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
                    "library": "aten flash-attention backward: dq, dk and dv together"
                    + ("" if qo == ko else ", unmasked: twice this pair's live work"),
                    "wrapper_ms": _eager_ms(torch, kern, iters=20, warmup=3), "card": card}
+            if which == "dkv":
+                row["n_split"] = K.dkv_splits(b, hq, hkv, s_)
             print("timing " + json.dumps(row))
             seen.append(row)
             if suffix is not None:
@@ -1413,13 +1433,17 @@ def main():
           "max_acc_rel_err_hybrid_pairs": bwd["fwd_acc_hybrid"],
           **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_serve", "serve")}),
         ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
-         {"max_abs_err_hybrid_pairs": bwd["hybrid"]["dq"],
+         {"max_rel_err": bwd["rel"]["dq"], "max_rel_err_hybrid_pairs": bwd["hybrid"]["dq"],
+          "tc_rel_err_llama_pairs": bwd["tc_llama"]["dq"],
+          "tc_rel_err_hybrid_pairs": bwd["tc_hybrid"]["dq"],
           **at("flash_bwd_dq_train", "llama_train_pair")}),
         ("flash_bwd_dkv", flash + "flash_bwd.cu", replaces + "367",
          max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
          {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"],
           "max_rel_err_dk_hybrid_pairs": bwd["hybrid"]["dk"],
           "max_rel_err_dv_hybrid_pairs": bwd["hybrid"]["dv"],
+          "n_split": timing["flash_bwd_dkv"]["n_split"],
+          "n_split_llama_train_pair": timing["flash_bwd_dkv_train"]["n_split"],
           **at("flash_bwd_dkv_train", "llama_train_pair")}),
         ("linear_scan", "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
          "src/repro/kernels/linear_scan/kernel.py:67", scan["max_abs_err"],

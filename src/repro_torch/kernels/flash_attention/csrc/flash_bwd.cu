@@ -17,67 +17,92 @@
 // window applies only under causal, as in ref.py; a masked (q, k) pair gets
 // p = 0 without any exp, so a row that saw no key (its L is the forward's
 // NEG_INF, -1e30) contributes nothing; no atomics anywhere, so every result
-// is the same bits on every run (training's offload on == off check relies
-// on it).
+// is the same bits on every run and every card (training's offload on ==
+// off check relies on it).
 //
-// flash_bwd_dq (both dtypes) and flash_bwd_dkv in fp32 run on the CUDA
-// cores: fp32 FMAs out of shared memory, bf16 inputs widened on load, so
-// they match the fp32 plain versions (ref.chunk_bwd_dq / chunk_bwd_dkv).
-//   * flash_bwd_dq: one block per (q-tile, q-head, batch row); q, do, L and
-//     delta of the tile are loaded once, the loop runs over 64-key tiles,
-//     and dq stays in registers and is written once.
-//   * flash_bwd_dkv (fp32): one block per (k-tile, kv-head, batch row),
+// The input dtype alone picks the kernel, never as a fallback: fp32 runs
+// the CUDA-core kernels, bf16 (the training path's dtype) the tensor-core
+// kernels.
+//
+// fp32 (CUDA cores): fp32 FMAs out of shared memory, so they match the fp32
+// plain versions (ref.chunk_bwd_dq / chunk_bwd_dkv).
+//   * flash_bwd_dq_kernel: one block per (q-tile, q-head, batch row); q,
+//     do, L and delta of the tile are loaded once, the loop runs over
+//     64-key tiles, and dq stays in registers and is written once.
+//   * flash_bwd_dkv_kernel: one block per (k-tile, kv-head, batch row),
 //     mirroring the Pallas grid (b, hkv, nk, g * nq): k and v are loaded
 //     once and the loop runs over the group's g q-heads times the q tiles.
-//   * tiles are 64 x 64, except at head_dim 256, where flash_bwd_dq takes
-//     32-row q tiles and flash_bwd_dkv 32-row key tiles (tile_rows below) so
-//     that the fp32 tiles fit the 227 KB of shared memory a block may have.
+//   * tiles are 64 x 64, except at head_dim 256, where dq takes 32-row q
+//     tiles and dkv 32-row key tiles (tile_rows below) so that the fp32
+//     tiles fit the 227 KB of shared memory a block may have.
 //
-// flash_bwd_dkv in bf16 (the training path's dtype; chosen by the dtype
-// alone, never as a fallback) runs on the tensor cores: mma.sync m16n8k16,
-// bf16 operands, fp32 accumulation (flash_bwd_dkv_tc_kernel).
-//   * A first small kernel rounds dO (fp32, the op's input) to bf16 once,
-//     so that the blocks that all read it copy half the bytes and convert
-//     nothing (flash_bwd_round_do_kernel; the wrapper allocates the bf16
-//     copy).
-//   * One block per (64-key tile, kv head x q-head split, batch row), 256
-//     threads, 8 warps of 16 keys x half the columns.  K and V of the tile
-//     stay in shared memory for the block's life; dK and dV accumulate in
-//     fp32 registers.  The block walks (its q heads) x (the q tiles live for
-//     its keys); each 64-row q tile's Q, dO, L and delta come by cp.async
+// bf16 (tensor cores): mma.sync m16n8k16, bf16 operands, fp32 accumulation.
+//   * flash_bwd_dq_tc_kernel: one block per (64-row q tile, q head, batch
+//     row), 256 threads, 8 warps of 16 q rows x half the columns; the grid
+//     fills the card unsplit (1024 blocks at llama3.2-1b's pair, 512 at
+//     recurrentgemma-9b's), so dq needs no cross-block sum.  Q (bf16) and
+//     dO (fp32, rounded to bf16 on load, nearest even, as
+//     flash_bwd_round_do_kernel rounds it for dkv) stay in shared memory for
+//     the block's life, L and delta of a lane's two rows in registers, dQ
+//     in fp32 registers, written once.  The block walks the run of key
+//     tiles live for its rows; each 64-key tile's K and V come by cp.async
 //     into one of two buffers while the previous tile is computed, then
+//       1. S = Q K^T and dP = dO V^T, each warp 16 q rows x 32 keys;
+//          P = exp(S scale - L) (as 2^(S scale log2 e - L log2 e), one
+//          MUFU.EX2) and dS = P (dP - delta) scale in fp32, masked, dS
+//          rounded to bf16 into shared memory;
+//       2. dQ += dS K, each warp 16 q rows x d/2 columns, K read with
+//          ldmatrix.trans (64 accumulator floats a thread at head_dim 256).
+//     Two barriers a key tile: the next tile's copy is issued after the
+//     first, when every warp is done with the buffer it overwrites.  The
+//     rounding points beyond fp32 accumulation order are dO and dS to bf16
+//     (ref.chunk_bwd_dq_tc emulates them).  The q tiles run heaviest first:
+//     on a causal diagonal pair the last q tiles see the most keys, so the
+//     block order is reversed there, and kept where the first q tile sees
+//     more (a window's off-diagonal pair).  212 KB of shared memory a block
+//     at head_dim 256; 65 KB at 64, where two blocks share an SM (128
+//     registers a thread).
+//   * flash_bwd_dkv_tc_kernel: a first small kernel rounds dO (fp32, the
+//     op's input) to bf16 once, so that the blocks that all read it copy
+//     half the bytes and convert nothing (flash_bwd_round_do_kernel; the
+//     wrapper allocates the bf16 copy).  One block per (64-key tile, kv
+//     head x q-head split, batch row), 256 threads, 8 warps of 16 keys x
+//     half the columns.  K and V of the tile stay in shared memory for the
+//     block's life; dK and dV accumulate in fp32 registers.  The block walks
+//     (its q heads) x (the q tiles live for its keys); each 64-row q tile's
+//     Q, dO, L and delta come by cp.async into one of two buffers while the
+//     previous tile is computed, then
 //       1. S^T = K Q^T and dP^T = V dO^T on the tensor cores, each warp 16
 //          keys x 32 queries (16 at a time up to head_dim 64, which keeps a
 //          thread within 128 registers so that two blocks share an SM);
-//          P^T = exp(S^T scale - L) (as 2^(S^T scale log2 e - L log2 e),
-//          one MUFU.EX2) and dS^T = P^T (dP^T - delta) scale, masked, both
-//          rounded to bf16 into shared memory;
+//          P^T = exp(S^T scale - L) and dS^T = P^T (dP^T - delta) scale,
+//          masked, both rounded to bf16 into shared memory;
 //       2. dV += P^T dO and dK += dS^T Q, each warp 16 keys x d/2 columns,
 //          so that at head_dim 256 a thread holds 128 accumulator floats.
 //     The rounding points beyond fp32 accumulation order are dO, P^T and
-//     dS^T to bf16 (tests/test_torch_flash_tc_numerics.py emulates them).
-//     Tiles in shared memory are padded rows (flash_tc.cuh toff): 214 KB a
-//     block at head_dim 256, 66 KB at 64.
+//     dS^T to bf16 (ref.chunk_bwd_dkv_tc emulates them).  214 KB of shared
+//     memory a block at head_dim 256, 66 KB at 64.
 //   * The g q-heads of a group are split across n_split blocks (the grid's
 //     y axis is hkv * n_split): under a window every head sees the same
 //     band of live q tiles, so head splits carry equal work where q-tile
 //     splits would give some blocks only dead tiles.  n_split is a function
-//     of the shapes and the SM count (kernel.py dkv_splits): 1 where the
-//     unsplit grid already fills the card (llama3.2-1b's pairs, 256 blocks),
-//     8 for recurrentgemma-9b's single kv head (32 blocks -> 256).  With
-//     n_split > 1 each split writes its partial dK and dV into a workspace
-//     [n_split, b, hkv, sk, d] and flash_bwd_dkv_split_sum_kernel adds the
-//     splits in index order: deterministic, no atomics.
+//     of the shapes alone (kernel.py dkv_splits, reckoned against a fixed
+//     132 SMs, never the card's count), so the bits are the same on every
+//     card: 1 where the unsplit grid already fills an H100 (llama3.2-1b's
+//     pairs, 256 blocks), 8 for recurrentgemma-9b's single kv head (32
+//     blocks -> 256).  With n_split > 1 each split writes its partial dK and
+//     dV into a workspace [n_split, b, hkv, sk, d] and
+//     flash_bwd_dkv_split_sum_kernel adds the splits in index order.
 //
 // What bounds them on this card: per live (q, k) pair dq does 6 * d and dkv
 // 8 * d flops against O(d) bytes per row, so at FPDT's chunk sizes the
 // operations bound both (989 TFLOP/s dense bf16 on the tensor cores).  The
-// CUDA-core kernels sit far above that bound.  The tensor-core dkv is set
-// by latency more than by its products: each q tile's exp, copies and two
-// phases of products run between barriers, so at head_dim 64 a thread is
-// held to 128 registers and two blocks share an SM, one computing while
-// the other waits.  wgmma with warp-specialised TMA loads, and a fused dq
-// pass, are what remains.
+// CUDA-core kernels sit far above that bound.  The tensor-core kernels are
+// set by latency more than by their products: each tile's exp, copies and
+// two phases of products run between barriers, so at head_dim 64 a thread
+// is held to 128 registers and two blocks share an SM, one computing while
+// the other waits.  wgmma with warp-specialised TMA loads, and a fused
+// dq + dkv pass, are what remains.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -91,6 +116,10 @@ using flash::bf16;
 using flash::dead_tile;
 using flash::live_pair;
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;   // q rows per tile (flash_bwd_dq: TQ, below)
 constexpr int BK = 64;   // keys per tile (flash_bwd_dkv: TK, below)
 constexpr int NT = 256;  // threads: 16 x 16, each a (rows / 16) x 4 micro-tile
@@ -100,16 +129,13 @@ constexpr int NT = 256;  // threads: 16 x 16, each a (rows / 16) x 4 micro-tile
 template <int D>
 __host__ __device__ constexpr int tile_rows() { return D > 128 ? 32 : 64; }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // rows [0, n) of a [ROWS, D] tile from global memory into a padded shared tile
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int n, int tid) {
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int n, int tid) {
   constexpr int DP = D + 1;
   for (int i = tid; i < ROWS * D; i += NT) {
     const int r = i / D, c = i % D;
-    dst[r * DP + c] = r < n ? to_f32(src[(size_t)r * D + c]) : 0.f;
+    dst[r * DP + c] = r < n ? src[(size_t)r * D + c] : 0.f;
   }
 }
 
@@ -128,11 +154,12 @@ constexpr size_t dkv_smem_bytes() {
                           2 * BQ);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int hq, int hkv,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int hq, int hkv,
                     int sq, int sk, int causal, int window, int q_offset, int k_offset,
                     float scale) {
   constexpr int TQ = tile_rows<D>();
@@ -253,11 +280,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk,
                      float* __restrict__ dv, int hq, int hkv, int sq, int sk, int causal,
                      int window, int q_offset, int k_offset, float scale) {
   constexpr int TK = tile_rows<D>();
@@ -388,6 +416,205 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         dv[(kv0 + r) * D + tx + 16 * j] = dv_acc[i][j];
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq in bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct TcDq {
+  static constexpr int TQ = 64;               // q rows a block keeps for its life
+  static constexpr int TK = 64;               // keys a tile
+  static constexpr int WR = TQ / 16;          // warp rows: 16 q rows each
+  static constexpr int WC = D >= 32 ? 2 : 1;  // warp columns
+  static constexpr int NT = 32 * WR * WC;
+  static constexpr int KW = TK / WC;          // keys of S, dP a warp computes
+  static constexpr int DW = D / WC;           // dQ columns a warp accumulates
+  // up to head_dim 64 two blocks share an SM (128 registers a thread)
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static constexpr int P = D + flash::PAD;    // pitch of a [.][D] tile row
+  static constexpr int PK = TK + flash::PAD;  // pitch of a [.][TK] tile row
+  // bf16 sQ, sDO [TQ][P], two buffers of sK, sV [TK][P], sDS [TQ][PK]
+  static constexpr size_t smem =
+      sizeof(bf16) * ((2 * size_t(TQ) + 4 * size_t(TK)) * P + size_t(TQ) * PK);
+};
+
+// The key tiles (of `tk` keys from the chunk's first) that rows at global
+// positions [q_first, q_last] see: one contiguous run, x .. y (y < x: none).
+__device__ __forceinline__ int2 live_key_tiles(int causal, int window, int q_first, int q_last,
+                                               int k_offset, int sk, int tk) {
+  int lo = (sk + tk - 1) / tk, hi = -1;
+  for (int kt = 0; kt * tk < sk; ++kt) {
+    const int k_first = k_offset + kt * tk;
+    if (!flash::dead_tile(causal, window, q_first, q_last, k_first,
+                          k_first + min(tk, sk - kt * tk) - 1)) {
+      lo = min(lo, kt);
+      hi = kt;
+    }
+  }
+  return make_int2(lo, hi);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcDq<D>::NT, TcDq<D>::MIN_BLOCKS)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int hq, int hkv, int sq, int sk, int causal,
+                       int window, int q_offset, int k_offset, float scale) {
+  using namespace flash;
+  using C = TcDq<D>;
+  constexpr int TQ = C::TQ, TK = C::TK, NTH = C::NT, KW = C::KW, DW = C::DW, P = C::P;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sDO = sQ + TQ * P;
+  bf16* sKb = sDO + TQ * P;      // buffer u at sKb + u * TK * P
+  bf16* sVb = sKb + 2 * TK * P;  // buffer u at sVb + u * TK * P
+  bf16* sDS = sVb + 2 * TK * P;  // dS [q][key]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int wr = warp % C::WR, wc = warp / C::WR;
+
+  // heaviest q tiles first: reverse the block order where the last q tile
+  // sees more key tiles than the first (a causal diagonal pair)
+  const int nqt = gridDim.x;
+  const int2 first = live_key_tiles(causal, window, q_offset, q_offset + min(TQ, sq) - 1,
+                                    k_offset, sk, TK);
+  const int2 last = live_key_tiles(causal, window, q_offset + (nqt - 1) * TQ,
+                                   q_offset + sq - 1, k_offset, sk, TK);
+  const bool reverse = last.y - last.x > first.y - first.x;
+  const int q0 = (reverse ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x) * TQ;
+  const int nq = min(TQ, sq - q0);
+  const int h = blockIdx.y, hk = h / (hq / hkv);
+  const size_t row0 = ((size_t)blockIdx.z * hq + h) * sq + q0;
+  const size_t kv0 = ((size_t)blockIdx.z * hkv + hk) * sk;
+  const int q_first = q_offset + q0, q_last = q_first + nq - 1;
+
+  // Q by cp.async (its group completes with the first key tile's); dO fp32
+  // rounded to bf16 on the way in, rows past nq zero
+  load_rows_async<TQ, D, NTH>(sQ, q + row0 * D, nq, tid);
+  cp_async_commit();
+  {
+    constexpr int V4 = D / 4;  // float4s a row
+    const float4* src = reinterpret_cast<const float4*>(dout + row0 * D);
+    for (int i = tid; i < TQ * V4; i += NTH) {
+      const int r = i / V4, c = (i % V4) * 4;
+      const float4 x = r < nq ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<uint2*>(sDO + toff<D>(r, c)) =
+          make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+    }
+  }
+  // L log2 e and delta of this lane's two q rows (C fragment rows g, g + 8)
+  float l2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr * 16 + (lane >> 2) + 8 * hh;
+    l2[hh] = r < nq ? lse[row0 + r] * LOG2E : 0.f;
+    dl[hh] = r < nq ? delta[row0 + r] : 0.f;
+  }
+
+  float acc[DW / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int2 run = live_key_tiles(causal, window, q_first, q_last, k_offset, sk, TK);
+  const int n_iter = max(0, run.y - run.x + 1);
+  // key tile `it` of the run's K and V into buffer u, as one cp.async group
+  auto stage = [&](int it, int u) {
+    const int k0 = (run.x + it) * TK;
+    const int nk = min(TK, sk - k0);
+    load_rows_async<TK, D, NTH>(sKb + u * TK * P, k + (kv0 + k0) * D, nk, tid);
+    load_rows_async<TK, D, NTH>(sVb + u * TK * P, v + (kv0 + k0) * D, nk, tid);
+    cp_async_commit();
+  };
+  if (n_iter > 0) stage(0, 0);
+
+  const float scale_log2 = scale * LOG2E;
+  for (int it = 0; it < n_iter; ++it) {
+    const int u = it & 1;
+    const bf16* sK = sKb + u * TK * P;
+    const bf16* sV = sVb + u * TK * P;
+    cp_async_wait<0>();  // this tile's K and V (the first time, Q too) have landed
+    __syncthreads();     // for every thread; and every warp is done with the last tile
+    if (it + 1 < n_iter) stage(it + 1, u ^ 1);  // flies while this tile is computed
+    const int k0 = (run.x + it) * TK, nk = min(TK, sk - k0);
+    const int k_first = k_offset + k0, k_last = k_first + nk - 1;
+
+    // phase 1: S = Q K^T and dP = dO V^T for the warp's 16 q rows and KW
+    // keys, then P = exp(S scale - L) (as 2^(S scale log2 e - L log2 e)) and
+    // dS = P (dP - delta) scale, masked, rounded to bf16 into shared memory
+    float s[KW / 8][4], dp[KW / 8][4];
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, sQ + toff<D>(wr * 16 + a_row(lane), ks * 16 + a_col(lane)));
+      ldsm_x4(ao, sDO + toff<D>(wr * 16 + a_row(lane), ks * 16 + a_col(lane)));
+#pragma unroll
+      for (int kn = 0; kn < KW / 16; ++kn) {
+        uint32_t bk[4], bv[4];
+        const int r = wc * KW + kn * 16 + b_row(lane), c = ks * 16 + b_col(lane);
+        ldsm_x4(bk, sK + toff<D>(r, c));
+        ldsm_x4(bv, sV + toff<D>(r, c));
+        mma(s[2 * kn], aq, bk[0], bk[1]);
+        mma(s[2 * kn + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * kn], ao, bv[0], bv[1]);
+        mma(dp[2 * kn + 1], ao, bv[2], bv[3]);
+      }
+    }
+    const bool full = nk == TK && nq == TQ &&
+                      full_tile(causal, window, q_first, q_last, k_first, k_last);
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j) {
+      const int key = wc * KW + 8 * j + 2 * t;  // key of e = 0; key + 1 that of e = 1
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wr * 16 + (lane >> 2) + 8 * hh;  // this lane's q rows
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool live = full || (r < nq && key + e < nk &&
+                                     live_pair(causal, window, q_first + r, k_first + key + e));
+          const float p = live ? exp2f(s[j][2 * hh + e] * scale_log2 - l2[hh]) : 0.f;
+          ds[e] = live ? p * (dp[j][2 * hh + e] - dl[hh]) * scale : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(sDS + toff<TK>(r, key)) = pack_bf16(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();
+
+    // phase 2: dQ += dS K, 16 q rows x DW columns a warp
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t ads[4];
+      ldsm_x4(ads, sDS + toff<TK>(wr * 16 + a_row(lane), kk * 16 + a_col(lane)));
+#pragma unroll
+      for (int dn = 0; dn < DW / 16; ++dn) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, sK + toff<D>(kk * 16 + a_row(lane), wc * DW + dn * 16 + a_col(lane)));
+        mma(acc[2 * dn], ads, bk[0], bk[1]);
+        mma(acc[2 * dn + 1], ads, bk[2], bk[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (no live tile: Q's group)
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr * 16 + (lane >> 2) + 8 * hh;
+    if (r >= nq) continue;
+    float* out = dq + (row0 + r) * D + wc * DW + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DW / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
   }
 }
 
@@ -663,35 +890,53 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
+template <int D>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool configured[64] = {};
-  auto kern = flash_bwd_dq_kernel<D, T>;
+  auto kern = flash_bwd_dq_kernel<D>;
   cudaError_t err = flash::configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
   constexpr int TQ = tile_rows<D>();
   const dim3 grid((a.sq + TQ - 1) / TQ, a.hq, a.b);
-  kern<<<grid, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                                     static_cast<const T*>(a.v), a.dout, a.lse, a.delta, a.dq,
-                                     a.hq, a.hkv, a.sq, a.sk, a.causal, a.window, a.q_offset,
-                                     a.k_offset, a.scale);
+  kern<<<grid, NT, smem, a.stream>>>(static_cast<const float*>(a.q),
+                                     static_cast<const float*>(a.k),
+                                     static_cast<const float*>(a.v), a.dout, a.lse, a.delta,
+                                     a.dq, a.hq, a.hkv, a.sq, a.sk, a.causal, a.window,
+                                     a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   static bool configured[64] = {};
-  auto kern = flash_bwd_dkv_kernel<D, T>;
+  auto kern = flash_bwd_dkv_kernel<D>;
   cudaError_t err = flash::configure_once(kern, smem, configured);
   if (err != cudaSuccess) return err;
   constexpr int TK = tile_rows<D>();
   const dim3 grid((a.sk + TK - 1) / TK, a.hkv, a.b);
-  kern<<<grid, NT, smem, a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                                     static_cast<const T*>(a.v), a.dout, a.lse, a.delta, a.dk,
-                                     a.dv, a.hq, a.hkv, a.sq, a.sk, a.causal, a.window,
+  kern<<<grid, NT, smem, a.stream>>>(static_cast<const float*>(a.q),
+                                     static_cast<const float*>(a.k),
+                                     static_cast<const float*>(a.v), a.dout, a.lse, a.delta,
+                                     a.dk, a.dv, a.hq, a.hkv, a.sq, a.sk, a.causal, a.window,
                                      a.q_offset, a.k_offset, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  using C = TcDq<D>;
+  static bool configured[64] = {};
+  auto kern = flash_bwd_dq_tc_kernel<D>;
+  cudaError_t err = flash::configure_once(kern, C::smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + C::TQ - 1) / C::TQ, a.hq, a.b);
+  kern<<<grid, C::NT, C::smem, a.stream>>>(static_cast<const bf16*>(a.q),
+                                           static_cast<const bf16*>(a.k),
+                                           static_cast<const bf16*>(a.v), a.dout, a.lse,
+                                           a.delta, a.dq, a.hq, a.hkv, a.sq, a.sk, a.causal,
+                                           a.window, a.q_offset, a.k_offset, a.scale);
   return cudaGetLastError();
 }
 
@@ -736,12 +981,11 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// dq: the CUDA-core kernel for both dtypes; dkv: the CUDA-core kernel for
-// fp32, the tensor-core kernel for bf16
+// the CUDA-core kernels for fp32, the tensor-core kernels for bf16
 template <int D>
 cudaError_t launch(bool dq, bool bf, const Args& a) {
-  if (dq) return bf ? launch_dq<D, bf16>(a) : launch_dq<D, float>(a);
-  return bf ? launch_dkv_tc<D>(a) : launch_dkv<D, float>(a);
+  if (dq) return bf ? launch_dq_tc<D>(a) : launch_dq<D>(a);
+  return bf ? launch_dkv_tc<D>(a) : launch_dkv<D>(a);
 }
 
 int dispatch(bool dq, int dtype, int d, const Args& a) {

@@ -8,9 +8,9 @@ share.  Each source is compiled at first use by ``kernels/build.py``
 (``nvcc`` for ``sm_90a``, a shared library with a plain C interface).
 Importing this module needs neither ``nvcc`` nor a card.
 
-The dtype picks the kernel, inside the library: bf16 ``flash_fwd`` and
-``flash_bwd_dkv`` run on the tensor cores (``mma.sync``, fp32
-accumulation), fp32 ones and ``flash_bwd_dq`` on the CUDA cores.  Neither
+The dtype picks the kernel, inside the library: bf16 ``flash_fwd``,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` run on the tensor cores
+(``mma.sync``, fp32 accumulation), fp32 ones on the CUDA cores.  Neither
 kernel stands in for the other: a build or launch failure raises.
 
 Each wrapper checks device, dtype, shape and contiguity (and, for a
@@ -38,6 +38,10 @@ BWD_SOURCE = CSRC / "flash_bwd.cu"
 SOURCES = (SOURCE, BWD_SOURCE)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DKV_TILE_KEYS = 64  # keys a block of the bf16 flash_bwd_dkv keeps (TcDkv::TK)
+# the SMs dkv_splits reckons against on every card (an H100 SXM's): the
+# split count, and with it the order in which the partials are summed,
+# follows from the shapes alone, so dk and dv are the same bits on any card
+DKV_SPLIT_SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads them)
@@ -46,25 +50,17 @@ dq_launches = 0  # flash_bwd_dq
 dkv_launches = 0  # flash_bwd_dkv
 _lib = None  # flash_fwd.cu
 _bwd_lib = None  # flash_bwd.cu
-_sm_counts = {}  # device index -> SM count
 
 
-def dkv_splits(b: int, hq: int, hkv: int, sk: int, sm_count: int) -> int:
+def dkv_splits(b: int, hq: int, hkv: int, sk: int) -> int:
     """How many blocks share the q heads of one kv group in the bf16
     ``flash_bwd_dkv``: the least divisor n of the group size g = hq // hkv
     for which the grid's ceil(sk / 64) * hkv * b * n blocks reach one wave
-    of ``sm_count`` SMs (g if none does).  1 where the unsplit grid already
-    fills the card."""
+    of ``DKV_SPLIT_SMS`` SMs (g if none does).  1 where the unsplit grid
+    already fills an H100.  A function of the shapes alone."""
     g = hq // hkv
     blocks = -(-sk // DKV_TILE_KEYS) * hkv * b
-    return next((n for n in range(1, g + 1) if g % n == 0 and blocks * n >= sm_count), g)
-
-
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
+    return next((n for n in range(1, g + 1) if g % n == 0 and blocks * n >= DKV_SPLIT_SMS), g)
 
 
 def _load():
@@ -196,10 +192,13 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Te
                  q_offset: int = 0, k_offset: int = 0, sm_scale: Optional[float] = None):
     """dq [b, hq, sq, d] fp32 of one (q-chunk, kv-chunk) pair on the card.
     q/k/v as for flash_fwd; do [b, hq, sq, d], L (row log-sum-exp) and
-    delta = sum(do * o) [b, hq, sq], all fp32."""
+    delta = sum(do * o) [b, hq, sq], all fp32.  bf16 rounds dO and dS to
+    bf16 before their products (``ref.chunk_bwd_dq_tc``)."""
     global dq_launches
     b, hq, hkv, sq, sk, d = _check_bwd("flash_bwd_dq", q, k, v, do, L, delta, window)
     dev = q.device
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_bwd_dq", 16, q=q, k=k, v=v, do=do)
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _load_bwd()
     dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
@@ -232,7 +231,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     bf = q.dtype == torch.bfloat16
     if bf:
         _check_aligned("flash_bwd_dkv", 16, q=q, k=k, v=v, do=do)
-    n_split = dkv_splits(b, hq, hkv, sk, _sm_count(dev)) if bf else 1
+    n_split = dkv_splits(b, hq, hkv, sk) if bf else 1
     if hkv * n_split > 65535:
         raise ValueError(f"flash_bwd_dkv: unsupported kv heads {hkv}")
     scale = sm_scale if sm_scale is not None else d ** -0.5

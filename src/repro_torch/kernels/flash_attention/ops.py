@@ -11,11 +11,11 @@ Each op is picked by the tensors' device alone: the hand-written CUDA
 kernel (``kernel.py``) for CUDA tensors, the plain PyTorch version
 (``ref.py``) for CPU tensors.  Tensors on mixed devices, or on any other
 device, raise, so a CUDA tensor never silently takes the plain path.  On
-the card the input dtype alone picks the kernel: bf16 ``chunk_fwd`` and
-``chunk_bwd_dkv`` run tensor-core kernels (bf16 operands, fp32
-accumulation; P, dO and dS rounded to bf16 before their products), fp32
-inputs and ``chunk_bwd_dq`` run the CUDA-core kernels in fp32.  Neither is
-a fallback for the other: a kernel that fails to build or launch raises.
+the card the input dtype alone picks the kernel: bf16 inputs run
+tensor-core kernels (bf16 operands, fp32 accumulation; P, dO and dS
+rounded to bf16 before their products), fp32 inputs the CUDA-core kernels
+in fp32.  Neither is a fallback for the other: a kernel that fails to
+build or launch raises.
 The kernels tile by their own compile-time sizes (64 q rows and 64 keys;
 32-key tiles for bf16 ``chunk_fwd`` and 32-row tiles for fp32 at head_dim
 256) and mask ragged tails; the plain versions do not tile; all compute

@@ -9,10 +9,11 @@ from the final row log-sum-exp ``L`` and ``delta = sum(do * o)``, as the
 CUDA ``flash_bwd_dq`` / ``flash_bwd_dkv`` do.  The CPU path runs them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
 
-``attend_chunk_tc`` and ``chunk_bwd_dkv_tc`` are the same functions rounded
-where the bf16 tensor-core kernels round (P to bf16 before P V; dO, P^T and
-dS^T to bf16 before dV and dK), so that ``chip_smoke.py`` can hold those
-kernels to fp32 accumulation order alone; the CPU path never runs them.
+``attend_chunk_tc``, ``chunk_bwd_dq_tc`` and ``chunk_bwd_dkv_tc`` are the
+same functions rounded where the bf16 tensor-core kernels round (P to bf16
+before P V; dO and dS to bf16 before dP and dQ; dO, P^T and dS^T to bf16
+before dV and dK), so that ``chip_smoke.py`` can hold those kernels to fp32
+accumulation order alone; the CPU path never runs them.
 
 Layout: q [b, hq, sq, d], k/v [b, hkv, sk, d]; GQA via head-group mapping
 (kv head = q head // (hq // hkv)).  The window applies only under
@@ -177,6 +178,16 @@ def chunk_bwd_dq(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,
     _, ds, ke, _ = _bwd_terms(q, k, v, do, L, delta, causal=causal, window=window,
                               q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
     return torch.einsum("bhqk,bhkd->bhqd", ds, ke)
+
+
+def chunk_bwd_dq_tc(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, k_offset: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """chunk_bwd_dq as the bf16 tensor-core flash_bwd_dq rounds it: dO to
+    bf16 before dP = dO V^T, dS (from the fp32 p) to bf16 before dS K."""
+    _, ds, ke, _ = _bwd_terms(q, k, v, _bf16(do), L, delta, causal=causal, window=window,
+                              q_offset=q_offset, k_offset=k_offset, sm_scale=sm_scale)
+    return torch.einsum("bhqk,bhkd->bhqd", _bf16(ds), ke)
 
 
 def chunk_bwd_dkv(q, k, v, do, L, delta, *, causal: bool = True, window: int = 0,

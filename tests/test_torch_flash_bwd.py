@@ -93,10 +93,9 @@ def test_flash_attention_grads_match_jax(b, hq, hkv, s, d, blk, window):
 
 
 # The bf16 flash_bwd_dkv splits a kv group's q heads across blocks and sums
-# the splits' partial dk, dv in split order (kernel.py dkv_splits).  The
-# kernel runs only on the card; its partition and its sum are checked here
-# on the plain version.
-H100_SMS = 132
+# the splits' partial dk, dv in split order (kernel.py dkv_splits, a function
+# of the shapes alone).  The kernel runs only on the card; its partition and
+# its sum are checked here on the plain version.
 
 
 def _split_heads(hk: int, g: int, n_split: int, split: int) -> range:
@@ -114,7 +113,7 @@ def _split_heads(hk: int, g: int, n_split: int, split: int) -> range:
     (1, 16, 1, 100, 16),   # a small MQA pair: every head its own block
 ])
 def test_dkv_splits(b, hq, hkv, sk, want):
-    n = K.dkv_splits(b, hq, hkv, sk, H100_SMS)
+    n = K.dkv_splits(b, hq, hkv, sk)
     assert n == want and (hq // hkv) % n == 0
 
 

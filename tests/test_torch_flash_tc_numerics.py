@@ -1,14 +1,17 @@
 """Where the bf16 tensor-core flash kernels round, emulated on the CPU and
-held against the JAX package's chunk_fwd / chunk_bwd_dkv (Pallas kernels in
-interpret mode) at the bf16 kernel tolerance that the card check uses.
+held against the JAX package's chunk_fwd / chunk_bwd_dq / chunk_bwd_dkv
+(Pallas kernels in interpret mode) at the bf16 kernel tolerance that the
+card check uses.
 
 The kernels themselves run only on the card (tests/test_torch_flash_cuda.py,
 tests/test_torch_flash_bwd_cuda.py).  What they do beyond fp32 arithmetic in
 another summation order is round at these points, which the emulation below
-repeats in plain PyTorch (ref.attend_chunk_tc, ref.chunk_bwd_dkv_tc, which
-chip_smoke.py also holds the kernels against):
+repeats in plain PyTorch (ref.attend_chunk_tc, ref.chunk_bwd_dq_tc,
+ref.chunk_bwd_dkv_tc, which chip_smoke.py also holds the kernels against):
   * flash_fwd: P to bf16 before P V, tile by tile of the online softmax
     (64 keys, 32 at head_dim 256), with l summing the fp32 P;
+  * flash_bwd_dq: dO to bf16 on load, and dS (from the fp32 P) to bf16
+    before dQ = dS K;
   * flash_bwd_dkv: dO to bf16 on load, and P^T and dS^T to bf16 before
     dV = P^T dO and dK = dS^T Q.
 Inputs are bf16-representable q, k, v made from a seed with numpy.
@@ -99,3 +102,21 @@ def test_dkv_rounding_meets_the_bf16_tolerance(case):
     masked = ~_live(case[3], case[4], kw["window"], kw["q_offset"], kw["k_offset"]).any(-1)
     if masked.any():  # rows that see no key give nothing: their L is NEG_INF
         assert bool((L[..., masked] <= NEG_INF / 2).all())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_dq_rounding_meets_the_bf16_tolerance(case):
+    q, k, v, _, do, kw = _inputs(case, seed=sum(case[:6]) + 2)
+    st = SoftmaxState(*O.chunk_fwd(q, k, v, **kw))  # the pair's own L and o
+    L, delta = lse(st), (do * finalize(st)).sum(-1)
+    got = R.chunk_bwd_dq_tc(q, k, v, do, L, delta, **kw)
+    want = torch.from_numpy(np.array(JO.chunk_bwd_dq(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v, do, L, delta)), impl="pallas", **kw)))
+    err = float((got - want).abs().max()) / (1 + float(want.abs().max()))
+    print(f"dq {case}: err / (1 + max|ref|) {err:.2e} (tol {TOL})")
+    assert err <= TOL
+    masked = ~_live(case[3], case[4], kw["window"], kw["q_offset"], kw["k_offset"]).any(-1)
+    if masked.any():  # rows that see no key get dq = 0
+        assert not got[..., masked, :].any()
+    # the rounding is real: dO and dS in bf16 move dq off the fp32 plain version's
+    assert not torch.equal(got, O.chunk_bwd_dq(q, k, v, do, L, delta, **kw))
