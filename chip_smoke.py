@@ -9,7 +9,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 checkout's sources, one nvcc per source, started together:
                 flash_fwd (flash_attention/csrc/flash_fwd.cu), flash_bwd_dq
                 and flash_bwd_dkv (flash_attention/csrc/flash_bwd.cu),
-                linear_scan (linear_scan/csrc/linear_scan.cu); ptxas' registers
+                linear_scan and linear_scan_bwd (linear_scan/csrc/linear_scan.cu);
+                ptxas' registers
                 and spills, and the count of tensor-core instructions
                 (HMMA/HGMMA in cuobjdump -sass) of every flash kernel: each
                 bf16 (tensor-core) instantiation (flash_fwd_tc,
@@ -39,8 +40,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
   4b. scan    — linear_scan against its plain version (ref.linear_scan):
                 fp32 and bf16, h0 given and absent, ragged seq and chan, b > 1,
                 a near +1 and -1, seq 1, forward and reverse, the training
-                shape [1, 8192, 4096]; the op's backward (the reverse scan)
-                against autograd of the plain version at a reduced length;
+                shape [1, 8192, 4096]; the fused linear_scan_bwd against its
+                plain version (ref.linear_scan_bwd) at the training shape in
+                fp32 and bf16 and a ragged case, and bit for bit against the
+                unfused chain it replaces (the forward kernel in reverse mode
+                over a copied a_next, then torch's multiply and cast); two
+                launches of each kernel bit for bit, and again behind a side
+                stream that keeps the SMs busy; the op's backward against
+                autograd of the plain version at a reduced length;
   5. serve    — llama3.2-1b at full width with random weights from a seeded
                 generator, through the CLI's own function (serve_batch):
                 batch 4, prompt 64, gen 32, greedy; the launch counts are reset
@@ -62,21 +69,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (rglru, rglru, local_attn) cycles and a 2-layer rglru tail;
                 random bf16 weights from a seeded generator): the same as 6 —
                 offload on vs off bit for bit, 3 steps through train_steps with
-                the launches of all four kernels read around each step, peak
+                the launches of all five kernels read around each step, peak
                 memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
                 both trainings' losses are held to those of the parent
                 commit (EARLIER_LOSSES);
   7. timing   — each kernel beside its bound, its plain version and a
-                library call of PyTorch (scaled_dot_product_attention and the
+                library call of PyTorch (scaled_dot_product_attention, causal
+                on the diagonal pairs and unmasked off them, and the
                 flash-attention backward behind it, timed as yardsticks only:
                 the port never calls them; no PyTorch call computes a linear
                 recurrence), all as device time from a CUDA graph of repeated
                 calls, at the serve shape, the llama3.2-1b training pairs, the
-                recurrentgemma-9b pairs and the RG-LRU scan shape; the wrappers
-                also launched from the host back to back (wrapper_ms: host
-                dispatch included); the bf16 flash kernels beside the
-                CUDA-core kernels' times (EARLIER_MS); the q-head splits of
-                flash_bwd_dkv at each timed pair (n_split);
+                recurrentgemma-9b pairs and the RG-LRU scan shape (forward,
+                and the fused backward beside the unfused chain it replaced);
+                the wrappers also launched from the host back to back
+                (wrapper_ms: host dispatch included); the redesigned kernels
+                beside the earlier kernels' times (EARLIER_MS); the q-head
+                splits of flash_bwd_dkv at each timed pair (n_split);
   8. kernels  — one JSON line per the kernel contract;
   9. last line: {"ok": true, "device": {...}}.
 
@@ -144,11 +153,11 @@ FP32_LOGIT_RTOL = 1e-4
 EARLIER_LOSSES = {"llama3.2-1b": (12.1212, 10.8319, 14.2329),
                   "recurrentgemma-9b": (12.8542, 10.5876, 9.7271)}
 LOSS_RTOL = 0.02
-# Device ms of the CUDA-core kernels that the tensor-core ones replaced, at
-# the timed shapes (same card, same script; the "was" figures of PERF.md
-# section 6): flash_fwd and flash_bwd_dkv at commit d46ed49, flash_bwd_dq
-# at 6a7ca09.  Printed beside this run's by the timing phase and nowhere
-# else.
+# Device ms of the earlier kernels that the redesigned ones replaced, at the
+# timed shapes (same card, same script; the "was" figures of PERF.md
+# section 6): the CUDA-core flash_fwd and flash_bwd_dkv at commit d46ed49,
+# flash_bwd_dq at 6a7ca09, the three-pass linear_scan at 94fb42e.  Printed
+# beside this run's by the timing phase and nowhere else.
 EARLIER_MS = {
     ("flash_fwd", "serve prefill b4 s64 (u=1)"): 0.01118,
     ("flash_fwd", "train 8192 u=4 off-diagonal pair cq=2048 b1"): 1.588,
@@ -169,6 +178,7 @@ EARLIER_MS = {
                      "d256 window 2048"): 4.025,
     ("flash_bwd_dq", "recurrentgemma-9b 8192 u=4 diagonal pair cq=2048 b1 hq16 hkv1 d256 "
                      "window 2048"): 4.181,
+    ("linear_scan", "RG-LRU scan [1, 8192, 4096] fp32, no h0"): 0.2430,
 }
 # Prefill at fpdt_chunks=4 vs 1 is held to bit equality (measured so on the
 # H100): 512 is a multiple of the kernel's 64-key tile, so each row meets the
@@ -387,12 +397,13 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
 
 
 def _reset_counts(K, SK):
-    K.launches = K.dq_launches = K.dkv_launches = SK.launches = 0
+    K.launches = K.dq_launches = K.dkv_launches = SK.launches = SK.bwd_launches = 0
 
 
 def _counts(K, SK):
     return {"flash_fwd": K.launches, "flash_bwd_dq": K.dq_launches,
-            "flash_bwd_dkv": K.dkv_launches, "linear_scan": SK.launches}
+            "flash_bwd_dkv": K.dkv_launches, "linear_scan": SK.launches,
+            "linear_scan_bwd": SK.bwd_launches}
 
 
 def _bwd_inputs(torch, R, lse, finalize, q, k, v, g, states=None, **kw):
@@ -656,7 +667,8 @@ def phase_scan(torch, SK, SR, SO):
                 raise AssertionError(f"{tag}: max err {err:.3e} beyond tol {TOL_SCAN}")
             n += 1
         del a, x, h0, got, want
-    # the op's backward (the kernel's reverse scan) at a reduced length
+    bwd = _scan_bwd_checks(torch, SK, SR, inputs, g)
+    # the op's backward (the fused kernel) at a reduced length
     a, x, h0 = inputs(2, 512, 300, torch.float32, 0.2, 0.999, True, False)
     w = torch.randn(a.shape, generator=g, device=dev)
     leaves = [t.requires_grad_(True) for t in (a, x, h0)]
@@ -674,7 +686,99 @@ def phase_scan(torch, SK, SR, SO):
           f"plain version: max abs err da {grad_err['da']:.3e} db {grad_err['db']:.3e} dh0 "
           f"{grad_err['dh0']:.3e} (tol {TOL_SCAN_GRAD})")
     return {"max_abs_err": worst["elementwise"], "max_rel_err_near_unit": worst["scaled"],
-            "grad": grad_err}
+            "grad": grad_err, **bwd}
+
+
+def _scan_bwd_checks(torch, SK, SR, inputs, g):
+    """The fused backward against its plain version (ref.linear_scan_bwd) at
+    TOL_SCAN_GRAD and bit for bit against the unfused chain it replaces (the
+    forward kernel in reverse mode over a copied a_next, then torch's
+    multiply and cast); two launches of each kernel bit for bit, and again
+    while a side stream keeps the SMs busy."""
+    dev = torch.device("cuda")
+
+    def chain(a, h, h0, dout, b_dtype):
+        return SR.linear_scan_bwd(a, h, h0, dout, b_dtype,
+                                  reverse_scan=lambda a_, b_: SK.linear_scan(a_, b_, reverse=True))
+
+    worst, flips = 0.0, 0
+    cases = [
+        # label, b, seq, chan, dtype, a range, h0, RG-LRU-scaled input
+        ("train-shape", 1, 8192, 4096, torch.float32, (0.0, 1.0), False, True),
+        ("train-shape-bf16", 1, 8192, 4096, torch.bfloat16, (0.0, 1.0), True, True),
+        ("ragged", 3, 77, 129, torch.float32, (-0.99, 0.99), True, False),
+    ]
+    for label, b, s, c, dtype, (lo, hi), with_h0, rglru in cases:
+        a, x, h0 = inputs(b, s, c, dtype, lo, hi, with_h0, rglru)
+        h = SK.linear_scan(a, x, h0)
+        dout = torch.randn(h.shape, generator=g, device=dev)
+        got = SK.linear_scan_bwd(a, h, h0, dout, x.dtype)
+        want = SR.linear_scan_bwd(a, h, h0, dout, x.dtype)
+        unfused = chain(a, h, h0, dout, x.dtype)
+        torch.cuda.synchronize()
+        for name, gv, wv, uv in zip(("da", "db", "dh0"), got, want, unfused):
+            if gv is None and wv is None and uv is None:
+                continue
+            tag = f"linear_scan_bwd {label} [{b}, {s}, {c}] {name}"
+            if gv.dtype != wv.dtype or not torch.isfinite(gv).all():
+                raise AssertionError(f"{tag}: {gv.dtype} (plain {wv.dtype}) or non-finite")
+            if not torch.equal(gv, uv):
+                raise AssertionError(f"{tag}: differs from the unfused chain")
+            wf = wv.float()
+            diff, limit = (gv.float() - wf).abs(), TOL_SCAN_GRAD * (1 + wf.abs())
+            err = float(diff.max())
+            if gv.dtype == torch.bfloat16:
+                # both sides round fp32 values that differ in their last bits
+                # to bf16: one bf16 step (2^-7 of the value) apart at most
+                flips += int((diff > limit).sum())
+                limit = limit + wf.abs() * 2.0 ** -7
+            else:
+                worst = max(worst, err)
+            if bool((diff > limit).any()):
+                raise AssertionError(f"{tag}: max err {err:.3e} beyond {TOL_SCAN_GRAD}")
+        del a, x, h0, h, dout, got, want, unfused
+
+    # two launches of each kernel, then two more beside a busy side stream
+    a, x, _ = inputs(1, 8192, 4096, torch.float32, 0.0, 1.0, False, True)
+    h = SK.linear_scan(a, x)
+    dout = torch.randn(h.shape, generator=g, device=dev)
+    fwd0, bwd0 = SK.linear_scan(a, x), SK.linear_scan_bwd(a, h, None, dout, torch.float32)
+    same = torch.equal(SK.linear_scan(a, x), fwd0) and all(
+        torch.equal(u, v) for u, v in zip(SK.linear_scan_bwd(a, h, None, dout, torch.float32)[:2],
+                                          bwd0[:2]))
+    # elementwise kernels over 1 GiB fill every SM for ~0.6 ms each (a matmul
+    # would leave a cuBLAS workspace allocated for the side stream); the scans
+    # start once the first has ended, and must end before the last does
+    filler = torch.ones(2 ** 28, device=dev)
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    started, scans_end, side_end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        filler.mul_(1.0001)
+        started.record()
+        for _ in range(15):
+            filler.mul_(1.0001)
+        side_end.record()
+    main.wait_event(started)
+    fwd1 = SK.linear_scan(a, x)
+    bwd1 = SK.linear_scan_bwd(a, h, None, dout, torch.float32)
+    scans_end.record()
+    torch.cuda.synchronize()
+    del filler
+    # ms from the scans' end to the side stream's: > 0 when they ran beside it
+    margin = scans_end.elapsed_time(side_end)
+    busy = torch.equal(fwd1, fwd0) and all(torch.equal(u, v) for u, v in zip(bwd1[:2], bwd0[:2]))
+    print(f"linear_scan_bwd vs plain: 3 cases, max abs err (fp32 outputs) {worst:.3e} (tol "
+          f"{TOL_SCAN_GRAD}); bf16 outputs one rounding step apart at {flips} elements; bit for "
+          f"bit the unfused chain in every case; two launches of each kernel bit for bit: "
+          f"{same}; again beside a busy side stream: {busy} (the side stream ran on for "
+          f"{margin:.3f} ms after them)")
+    if not (same and busy):
+        raise AssertionError("two launches of linear_scan or linear_scan_bwd differ")
+    if margin <= 0:
+        raise AssertionError("the side stream ended before the scans: their launches beside "
+                             "it were not tested")
+    return {"bwd_max_abs_err": worst, "bwd_bf16_steps": flips}
 
 
 def phase_serve(torch, K, SK, cfg_mod, T, SV, CLI, card):
@@ -1024,10 +1128,12 @@ def _launches_per_step(cfg, F, T, seq):
     per live pair each time), a tail layer once; the backward once."""
     pat, n_cycles, tail = T.layout_of(cfg)
     u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
-    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0}
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0,
+            "linear_scan_bwd": 0}
     for kind, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
         if kind == "rglru":
-            want["linear_scan"] += passes + 1
+            want["linear_scan"] += passes
+            want["linear_scan_bwd"] += 1
         else:
             window = cfg.window if kind == "local_attn" else 0
             pairs = sum(F.pair_live(i, j, cq=cq, window=window, sparsity=cfg.attn_sparsity)
@@ -1277,17 +1383,21 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
             return R.attend_chunk(q, k, v, carry=None if st is None else R.SoftmaxState(*st),
                                   **kw)
 
-        # yardstick: one library call of (normalized) causal GQA attention on
-        # the same q/k/v; only meaningful where the causal diagonal matches
-        # (on the diagonal pairs a window of the chunk's length never binds)
+        # yardstick: one library call of (normalized) GQA attention on the
+        # same q/k/v: causal on the diagonal pairs (where a window of the
+        # chunk's length never binds), unmasked off the diagonal, as the
+        # backward's yardstick is
         def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=qo == ko, enable_gqa=True)
 
         bound_ms, bound_by = _bound(b, hq, hkv, sq, sk, d, 2, qo, ko, carry, window)
+        live = _live_pairs(sq, sk, qo, ko, window)
         row = {"kernel": "flash_fwd", "shape": label, "ms": _device_ms(torch, kern),
                "plain_ms": _device_ms(torch, plain), "bound_ms": bound_ms,
-               "bound_by": bound_by,
-               "library_ms": _device_ms(torch, library) if qo == ko else None,
+               "bound_by": bound_by, "library_ms": _device_ms(torch, library),
+               "library": "scaled_dot_product_attention forward"
+               + (", causal" if qo == ko else
+                  f", unmasked: {sq * sk / live:.2f}x this pair's live work"),
                "wrapper_ms": _eager_ms(torch, kern), "card": card}
         print("timing " + json.dumps(row))
         seen.append(row)
@@ -1368,9 +1478,40 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
            "wrapper_ms": _eager_ms(torch, kern, iters=50, warmup=5), "card": card}
     print("timing " + json.dumps(row))
     rows["linear_scan"] = row
-    del a, x
+    seen.append(row)
+
+    # the fused backward at the same shape, as the RG-LRU layer's backward
+    # gives it: fp32 a, h and dout, fp32 db, no h0; beside it the unfused
+    # chain it replaced (the forward kernel in reverse mode over a copied
+    # a_next, two cats, a multiply), in this call
+    h = SK.linear_scan(a, x)
+    dout = torch.randn(h.shape, generator=g, device=dev)
+
+    def kern_bwd():
+        return SK.linear_scan_bwd(a, h, None, dout, torch.float32)
+
+    def plain_bwd():
+        return SR.linear_scan_bwd(a, h, None, dout, torch.float32)
+
+    def unfused():
+        return SR.linear_scan_bwd(a, h, None, dout, torch.float32,
+                                  reverse_scan=lambda a_, b_: SK.linear_scan(a_, b_, reverse=True))
+
+    t_bytes = 5 * 4 * n_el / PEAK_BYTES  # a, dout, h read once; da, db written once
+    t_ops = 3 * n_el / PEAK_FP32_FLOPS  # a multiply-add and the da multiply per element
+    row = {"kernel": "linear_scan_bwd", "shape": "RG-LRU scan backward [1, 8192, 4096] fp32, "
+           "no h0", "ms": _device_ms(torch, kern_bwd),
+           "plain_ms": _device_ms(torch, plain_bwd, per_graph=1, replays=3),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "library": "none: no PyTorch call computes a linear recurrence",
+           "unfused_ms": _device_ms(torch, unfused),
+           "wrapper_ms": _eager_ms(torch, kern_bwd, iters=50, warmup=5), "card": card}
+    print("timing " + json.dumps(row))
+    rows["linear_scan_bwd"] = row
+    del a, x, h, dout
     torch.cuda.empty_cache()
-    print("redesigned kernels, device ms now vs the CUDA-core kernels they replaced "
+    print("redesigned kernels, device ms now vs the earlier kernels they replaced "
           "(EARLIER_MS): " + "; ".join(
               f"{r['kernel']} {r['shape']}: {r['ms']:.4f} vs {EARLIER_MS[r['kernel'], r['shape']]}"
               for r in seen if (r["kernel"], r["shape"]) in EARLIER_MS) + f" [{card}]")
@@ -1423,6 +1564,7 @@ def main():
         return {f"{k}_{tag}": row[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
 
     flash = "src/repro_torch/kernels/flash_attention/csrc/"
+    scan_src = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
     replaces = "src/repro/kernels/flash_attention/kernel.py:"
     entries = [
         ("flash_fwd", flash + "flash_fwd.cu", replaces + "134",
@@ -1431,6 +1573,7 @@ def main():
           "max_err_train_pairs": bwd["fwd"], "max_acc_rel_err_train_pairs": bwd["fwd_acc"],
           "max_err_hybrid_pairs": bwd["fwd_hybrid"],
           "max_acc_rel_err_hybrid_pairs": bwd["fwd_acc_hybrid"],
+          "library": timing["flash_fwd"]["library"],
           **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_serve", "serve")}),
         ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
          {"max_rel_err": bwd["rel"]["dq"], "max_rel_err_hybrid_pairs": bwd["hybrid"]["dq"],
@@ -1445,10 +1588,12 @@ def main():
           "n_split": timing["flash_bwd_dkv"]["n_split"],
           "n_split_llama_train_pair": timing["flash_bwd_dkv_train"]["n_split"],
           **at("flash_bwd_dkv_train", "llama_train_pair")}),
-        ("linear_scan", "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
-         "src/repro/kernels/linear_scan/kernel.py:67", scan["max_abs_err"],
-         {"max_rel_err_near_unit": scan["max_rel_err_near_unit"],
-          "max_abs_err_grad": max(scan["grad"].values())}),
+        ("linear_scan", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
+         scan["max_abs_err"], {"max_rel_err_near_unit": scan["max_rel_err_near_unit"]}),
+        ("linear_scan_bwd", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
+         scan["bwd_max_abs_err"], {"max_abs_err_op_grad": max(scan["grad"].values()),
+                                   "bf16_rounding_steps": scan["bwd_bf16_steps"],
+                                   "unfused_ms": timing["linear_scan_bwd"]["unfused_ms"]}),
     ]
     kernels = {"kernels": []}
     for kname, src, repl, err, extra in entries:

@@ -4,13 +4,14 @@
 ``custom_vjp``: the forward keeps (a, h, h0), and the adjoint of a linear
 scan is another linear scan run in reverse,
   g_t = dL/dh_t (total) = dout_t + a_{t+1} g_{t+1}
-  db_t = g_t;  da_t = g_t * h_{t-1};  dh0 = a_0 * g_0,
-so the backward runs the same kernel once more, from the last step to the
-first (its ``reverse`` argument), on a shifted left by one step.
+  db_t = g_t;  da_t = g_t * h_{t-1};  dh0 = a_0 * g_0.
+On the card the backward is one fused kernel (``kernel.linear_scan_bwd``),
+which reads a shifted and h_{t-1} by index; on the CPU it is the plain
+chain (``ref.linear_scan_bwd``).
 
 The implementation is picked by the tensors' device alone: the
-hand-written CUDA kernel (``kernel.py``) for CUDA tensors, the plain
-PyTorch loop (``ref.py``) for CPU tensors; mixed or other devices raise.
+hand-written CUDA kernels (``kernel.py``) for CUDA tensors, the plain
+PyTorch versions (``ref.py``) for CPU tensors; mixed or other devices raise.
 """
 from __future__ import annotations
 
@@ -45,15 +46,12 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         a, h, h0 = ctx.saved_tensors
-        af = a.float()
-        a_next = torch.cat([af[:, 1:], torch.ones_like(af[:, :1])], dim=1)
-        g = scan(a_next, dout.float(), reverse=True)
-        first = h0.float()[:, None] if h0 is not None else torch.zeros_like(h[:, :1])
-        h_prev = torch.cat([first, h[:, :-1]], dim=1)
-        da = (g * h_prev).to(a.dtype)
-        db = g.to(ctx.b_dtype)
-        dh0 = (af[:, 0] * g[:, 0]).to(h0.dtype) if h0 is not None else None
-        return da, db, dh0
+        if not on_card("linear-scan", a, h, h0, dout):
+            return _ref.linear_scan_bwd(a, h, h0, dout, ctx.b_dtype)
+        da, db, dh0 = _k.linear_scan_bwd(a.contiguous(), h,
+                                         None if h0 is None else h0.float().contiguous(),
+                                         dout.float().contiguous(), ctx.b_dtype)
+        return da, db, None if h0 is None else dh0.to(h0.dtype)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,

@@ -4,12 +4,13 @@ Elementwise over channels, with initial state h0.  Shapes: a, b
 [batch, seq, chan]; h0 [batch, chan] or None (zeros).  ``linear_scan``
 returns every inclusive state [batch, seq, chan] in fp32: a loop over the
 sequence, for the CPU path, the tests and ``chip_smoke.py``'s comparison
-with the CUDA kernel.  ``linear_scan_naive`` is the same recurrence in
-float64 numpy, for tiny tests.
+with the CUDA kernel.  ``linear_scan_bwd`` is the backward of it, the
+chain the fused CUDA backward replaces.  ``linear_scan_naive`` is the same
+recurrence in float64 numpy, for tiny tests.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,6 +27,30 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def _reverse_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return linear_scan(a.flip(1), b.flip(1)).flip(1)
+
+
+def linear_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: Optional[torch.Tensor],
+                    dout: torch.Tensor, b_dtype: torch.dtype,
+                    reverse_scan: Callable = _reverse_scan):
+    """(da, db, dh0) of h = linear_scan(a, b, h0) given dL/dh = dout: the
+    adjoint scan g_t = dout_t + a_{t+1} g_{t+1} (a_seq = 1) run from the
+    last step to the first by ``reverse_scan(a, b)`` (the plain loop; the
+    card's checks pass the CUDA kernel's reverse mode to build the unfused
+    chain), then db = g in ``b_dtype``, da = g h_{t-1} (h_{-1} = h0, or 0)
+    in a's dtype, dh0 = a_0 g_0 in h0's (None without h0)."""
+    af = a.float()
+    a_next = torch.cat([af[:, 1:], torch.ones_like(af[:, :1])], dim=1)
+    g = reverse_scan(a_next, dout.float())
+    first = h0.float()[:, None] if h0 is not None else torch.zeros_like(h[:, :1])
+    h_prev = torch.cat([first, h[:, :-1]], dim=1)
+    da = (g * h_prev).to(a.dtype)
+    db = g.to(b_dtype)
+    dh0 = (af[:, 0] * g[:, 0]).to(h0.dtype) if h0 is not None else None
+    return da, db, dh0
 
 
 def linear_scan_naive(a, b, h0=None) -> np.ndarray:

@@ -3,9 +3,10 @@ take) against the JAX package's: the forward of ``ops.linear_scan`` and
 ``ref.linear_scan`` against JAX ``ops.linear_scan(impl="pallas")`` (interpret
 mode) and ``ref.linear_scan_naive`` on the grid of
 tests/test_kernels_linear_scan.py, with h0 given and absent and bf16
-inputs; the op's gradients (da, db, dh0) against the JAX ``custom_vjp``'s;
-the reverse scan the backward runs; the segment plan of the CUDA wrapper;
-and the routing by device.  Tolerances are the JAX tests' own: forward
+inputs; the op's gradients (da, db, dh0) and the plain backward
+(``ref.linear_scan_bwd``, which the op runs for CPU tensors) against the JAX
+``custom_vjp``'s; the reverse scan; the segment plan of the CUDA wrapper,
+which reads no SM count; and the routing by device.  Tolerances are the JAX tests' own: forward
 rtol/atol 1e-5, gradients 1e-4."""
 import os
 import subprocess
@@ -118,17 +119,96 @@ def test_reverse_scan_is_the_flipped_scan(with_h0):
     torch.testing.assert_close(O.scan(ta, tx, th0, reverse=True), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("batch,seq,chan,sms", [
-    (1, 8192, 4096, 132), (1, 1, 5, 132), (2, 1000, 300, 132), (3, 77, 129, 132),
-    (8, 64, 1, 132), (1, 10 ** 7, 1, 132), (64, 8192, 4096, 132), (1, 33, 7, 1),
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("b,s,c,bs,bc", GRID)
+def test_plain_backward_matches_jax_vjp(b, s, c, bs, bc, with_h0):
+    """ref.linear_scan_bwd (the chain the fused CUDA backward replaces)
+    against jax.vjp of the Pallas kernel, interpret mode, at 1e-4."""
+    (a, x, h0), (ta, tx, th0) = _inputs(b * 13 + s + c, b, s, c, lo=0.2, hi=0.95)
+    dout = np.random.default_rng(s).standard_normal((b, s, c)).astype(np.float32)
+    if with_h0:
+        h, vjp = jax.vjp(lambda a, x, h0: JO.linear_scan(a, x, h0, impl="pallas", block_s=bs,
+                                                         block_c=bc), a, x, h0)
+    else:
+        h, vjp = jax.vjp(lambda a, x: JO.linear_scan(a, x, None, impl="pallas", block_s=bs,
+                                                     block_c=bc), a, x)
+    want = vjp(jnp.asarray(dout))
+    got = R.linear_scan_bwd(ta, torch.from_numpy(np.array(h)), th0 if with_h0 else None,
+                            torch.from_numpy(dout), tx.dtype)
+    assert (got[2] is None) == (not with_h0)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-4, atol=1e-4)
+
+
+def test_plain_backward_keeps_bf16_dtypes():
+    """bf16 a and b: da and db in their dtypes, dh0 in h0's, as the JAX
+    custom_vjp gives them."""
+    (a, x, h0), (ta, tx, th0) = _inputs(7, 2, 16, 8, jnp.bfloat16, lo=0.2, hi=0.95)
+    dout = np.random.default_rng(7).standard_normal((2, 16, 8)).astype(np.float32)
+    h, vjp = jax.vjp(lambda a, x, h0: JO.linear_scan(a, x, h0, impl="pallas", block_s=8,
+                                                     block_c=8), a, x, h0)
+    want = vjp(jnp.asarray(dout))
+    got = R.linear_scan_bwd(ta, torch.from_numpy(np.array(h)), th0, torch.from_numpy(dout),
+                            tx.dtype)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    assert [np.asarray(w).dtype for w in want] == [jnp.bfloat16, jnp.bfloat16, np.float32]
+    for g_, w_ in zip(got, want):
+        w_ = np.asarray(w_, np.float32)
+        np.testing.assert_allclose(g_.float().numpy(), w_, rtol=3e-2,
+                                   atol=3e-2 * np.abs(w_).max())
+
+
+def test_cpu_backward_runs_the_plain_chain(monkeypatch):
+    """The op's backward on CPU tensors is ref.linear_scan_bwd, and never
+    reaches the CUDA binding."""
+    _, (ta, tx, th0) = _inputs(9, 2, 12, 5)
+    calls = []
+    plain = R.linear_scan_bwd
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return plain(*args, **kw)
+
+    def no_launch(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA binding")
+
+    monkeypatch.setattr(R, "linear_scan_bwd", spy)
+    monkeypatch.setattr(K, "linear_scan", no_launch)
+    monkeypatch.setattr(K, "linear_scan_bwd", no_launch)
+    leaves = [t.requires_grad_(True) for t in (ta, tx, th0)]
+    got = torch.autograd.grad(O.linear_scan(*leaves).sum(), leaves)
+    assert len(calls) == 1 and all(torch.isfinite(g).all() for g in got)
+
+
+@pytest.mark.parametrize("batch,seq,chan", [
+    (1, 8192, 4096), (1, 1, 5), (2, 1000, 300), (3, 77, 129),
+    (8, 64, 1), (1, 10 ** 7, 1), (64, 8192, 4096), (1, 33, 7),
 ])
-def test_segment_plan_covers_the_sequence(batch, seq, chan, sms):
-    """The CUDA wrapper's segments tile [0, seq) with none empty, within the
-    grid's limit, none shorter than MIN_SEGMENT unless the sequence is."""
-    seg_len, nseg = K.segments(batch, seq, chan, sms)
-    assert 1 <= nseg <= K.MAX_GRID_YZ
-    assert seg_len * nseg >= seq and seg_len * (nseg - 1) < seq
-    assert seg_len >= min(seq, K.MIN_SEGMENT)
+def test_segment_plan_covers_the_sequence(batch, seq, chan):
+    """The CUDA wrapper's segments tile [0, seq) with none empty, each
+    SEGMENT steps but the last; one block per segment, batch row and block
+    of THREADS channels, within the grid's limit.  (The scratch's size is
+    the CUDA source's to reckon: test_torch_linear_scan_cuda.py holds it.)"""
+    p = K.plan(batch, seq, chan)
+    assert p.seg_len == K.SEGMENT and p.nseg >= 1
+    assert p.seg_len * p.nseg >= seq and p.seg_len * (p.nseg - 1) < seq
+    assert p.blocks == batch * -(-chan // K.THREADS) * p.nseg <= K.MAX_BLOCKS
+
+
+def test_plan_reads_no_sm_count(monkeypatch):
+    """The plan, and so the bits, is a function of the shapes alone: planning
+    the RG-LRU training shape asks nothing of the card, and no code on the
+    kernel's path reads an SM count."""
+    def no_card(*a, **k):
+        raise AssertionError("the plan asked the card for its properties")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_card)
+    monkeypatch.setattr(torch.cuda, "device_count", no_card)
+    assert K.plan(1, 8192, 4096) == K.Plan(K.SEGMENT, 256, 32 * 256)
+    for mod in (K, O):
+        assert "multi_processor_count" not in open(mod.__file__).read()
+    assert "multiProcessorCount" not in K.SOURCE.read_text()
 
 
 def test_routing_by_device(monkeypatch):
@@ -142,6 +222,7 @@ def test_routing_by_device(monkeypatch):
         raise AssertionError("a CPU tensor reached the CUDA binding")
 
     monkeypatch.setattr(K, "linear_scan", no_launch)
+    monkeypatch.setattr(K, "linear_scan_bwd", no_launch)
     assert O.linear_scan(ta, tx, th0).shape == ta.shape
     with pytest.raises(ValueError, match="mixed devices"):
         O.linear_scan(ta, tx, th0.to("meta"))
@@ -155,7 +236,7 @@ def test_binding_imports_without_nvcc():
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
     code = ("import repro_torch.kernels.linear_scan.ops as O, "
             "repro_torch.kernels.linear_scan.kernel as K; "
-            "assert K._lib is None and K.launches == 0; print('ok')")
+            "assert K._lib is None and K.launches == K.bwd_launches == 0; print('ok')")
     env = dict(os.environ, PATH="/nonexistent", PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -1,7 +1,9 @@
 """The hand-written CUDA linear scan against its plain PyTorch version on the
-card, the op's gradients against autograd of the plain version, and a
-reduced recurrentgemma-9b training step through every kernel with host
-offload on and off.  Marked ``cuda``: each test skips, inside its fixture,
+card, the fused backward bit for bit against the unfused chain (the forward
+kernel in reverse mode, then torch's multiply and cast), two launches of
+each kernel bit for bit, the op's gradients against autograd of the plain
+version, and a reduced recurrentgemma-9b training step through every kernel
+with host offload on and off.  Marked ``cuda``: each test skips, inside its fixture,
 where there is no NVIDIA GPU (a CUDA kernel has no CPU mode).  Run them on
 a machine with the card:  PYTHONPATH=src python -m pytest --noconftest \
     -m cuda tests/test_torch_linear_scan_cuda.py
@@ -65,13 +67,68 @@ def test_kernel_matches_plain(device, case, reverse):
     assert float((got - want).abs().max()) <= 1e-5 * (1 + float(want.abs().max()))
 
 
+def _chain(a, h, h0, dout, b_dtype):
+    """The unfused backward: the forward kernel in reverse mode over a
+    shifted copy of a, then torch's multiply and cast."""
+    return R.linear_scan_bwd(a, h, h0, dout, b_dtype,
+                             reverse_scan=lambda a_, b_: K.linear_scan(a_, b_, reverse=True))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_fused_backward_is_the_unfused_chain(device, case):
+    """g, da, db and dh0 of the one-pass backward equal, bit for bit, those of
+    the chain it replaces: the same plan and association, read by index."""
+    a, x, h0 = _inputs(case, device, seed=2)
+    h = K.linear_scan(a, x, h0)
+    dout = torch.randn(h.shape, device=device)
+    before = K.bwd_launches
+    got = K.linear_scan_bwd(a, h, h0, dout, x.dtype)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == before + 1
+    want = _chain(a, h, h0, dout, x.dtype)
+    assert [None if t is None else t.dtype for t in got] == \
+        [a.dtype, x.dtype, None if h0 is None else torch.float32]
+    for g_, w_ in zip(got, want):
+        assert (g_ is None) == (w_ is None)
+        if g_ is not None:
+            assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_two_launches_are_bit_identical(device, case):
+    """The look-back folds summaries into a state in a fixed order, so the
+    bits do not depend on which block ran when."""
+    a, x, h0 = _inputs(case, device, seed=3)
+    for reverse in (False, True):
+        assert torch.equal(K.linear_scan(a, x, h0, reverse=reverse),
+                           K.linear_scan(a, x, h0, reverse=reverse))
+    h = K.linear_scan(a, x, h0)
+    dout = torch.randn(h.shape, device=device)
+    first, second = (K.linear_scan_bwd(a, h, h0, dout, x.dtype) for _ in range(2))
+    assert all(u is v is None or torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.parametrize("batch,seq,chan", [
+    (1, 8192, 4096), (1, 1, 5), (2, 1000, 300), (3, 77, 129),
+    (8, 64, 1), (1, 10 ** 7, 1), (64, 8192, 4096), (1, 33, 7),
+])
+def test_scratch_holds_the_look_back(device, batch, seq, chan):
+    """The scratch the C side asks for holds a flag per block, the ticket and
+    sum_a, sum_b and the state of every (batch row, segment, channel)."""
+    p = K.plan(batch, seq, chan)
+    words = K._load().linear_scan_scratch_words(batch, seq, chan)
+    assert words >= p.blocks + 1 + 3 * batch * p.nseg * chan
+    assert K._load().linear_scan_scratch_words(0, seq, chan) == -1
+
+
 def test_op_grads_match_plain_autograd(device):
     a, x, h0 = _inputs((2, 300, 70, torch.float32, (0.2, 0.99), True), device, seed=1)
     w = torch.randn(a.shape, device=device)
     leaves = [t.requires_grad_(True) for t in (a, x, h0)]
-    before = K.launches
+    before = (K.launches, K.bwd_launches)
     got = torch.autograd.grad((O.linear_scan(*leaves) * w).sum(), leaves)
-    assert K.launches == before + 2  # forward, and the reverse scan of the backward
+    # one forward launch, and one of the fused backward
+    assert (K.launches, K.bwd_launches) == (before[0] + 1, before[1] + 1)
     want = torch.autograd.grad((R.linear_scan(*leaves) * w).sum(), leaves)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
@@ -85,6 +142,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         K.linear_scan(a, torch.zeros((1, 4, 8), device=device).transpose(1, 2))
     with pytest.raises(ValueError, match="shape"):
         K.linear_scan(a, a, torch.zeros((1, 5), device=device))
+    with pytest.raises(ValueError, match="expected one of"):
+        K.linear_scan_bwd(a, a, None, a.bfloat16(), torch.float32)
+    with pytest.raises(ValueError, match="b_dtype"):
+        K.linear_scan_bwd(a, a, None, a, torch.float16)
 
 
 def test_reduced_hybrid_train_step_runs_through_the_kernels(device):
@@ -97,12 +158,14 @@ def test_reduced_hybrid_train_step_runs_through_the_kernels(device):
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     batch = make_batch_fn(cfg, ShapeConfig("t", 64, 2, "train"))(0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    K.launches = FK.launches = FK.dq_launches = FK.dkv_launches = 0
+    K.launches = K.bwd_launches = FK.launches = FK.dq_launches = FK.dkv_launches = 0
     loss, _, grads = TL.value_and_grad(cfg, None, params, batch)
     torch.cuda.synchronize()
-    # cycle: 2 rglru x (forward, recompute, backward); tail: 2 rglru x 2.
-    # One local_attn layer, window 8 at chunk 16: 7 live pairs of u=4.
-    assert (K.launches, FK.launches, FK.dq_launches, FK.dkv_launches) == (10, 14, 7, 7)
+    # scan forward: cycle 2 rglru x (forward, recompute), tail 2 rglru x 1;
+    # the fused scan backward once a rglru layer.  One local_attn layer,
+    # window 8 at chunk 16: 7 live pairs of u=4.
+    assert (K.launches, K.bwd_launches, FK.launches, FK.dq_launches, FK.dkv_launches) == \
+        (6, 4, 14, 7, 7)
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in tree_leaves(grads))
     loss2, _, grads2 = TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
                                          params, batch)
