@@ -17,8 +17,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 flash_bwd_dq_tc, flash_bwd_dkv_tc) must have some and spill
                 nothing;
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
-                on the card: fp32 and bf16, head_dim 16/64/128/256, GQA and
-                MQA, ragged lengths, carry-in with offsets, windows, fully
+                on the card: fp32 and bf16, head_dim 16/64/80/128/256, GQA and
+                MQA (MHA at 80, gpt-2.7b's), ragged lengths, carry-in with
+                offsets, windows, fully
                 masked rows, the serve shapes and every (i, j <= i) chunk pair
                 of a 2048 prompt at u = 4, those pairs also against the plain
                 version rounded where the bf16 kernel rounds (TOL_TC);
@@ -28,15 +29,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 tolerance),
                 and at the training paths' shapes: every (i, j <= i) pair of an
                 8192 prompt at u = 4 for llama3.2-1b (2048 x 2048, b1 hq32 hkv8
-                d64), the 7 live pairs of recurrentgemma-9b's (b1 hq16 hkv1
-                d256, window 2048) and the 8192 x 8192 pair of u = 1 (held at
-                b1 hq4 hkv1 so that the plain version's [sq, sk] fp32 matrices
-                fit); flash_fwd is held against its plain version at those
-                same pairs, with carry and offsets; at the u = 4 pairs the
-                bf16 flash_fwd, flash_bwd_dq and flash_bwd_dkv are also held
-                against the plain version rounded where they round (TOL_TC);
-                two launches of the bf16 flash_bwd_dq, and two of
-                flash_bwd_dkv, at the training pairs give the same bits;
+                d64) and gpt-2.7b (b1 hq32 hkv32 d80), the 7 live pairs of
+                recurrentgemma-9b's (b1 hq16 hkv1 d256, window 2048) and the
+                8192 x 8192 pair of u = 1 (held at b1 hq4 hkv1 so that the
+                plain version's [sq, sk] fp32 matrices fit); flash_fwd is held
+                against its plain version at those same pairs, with carry and
+                offsets; at the u = 4 pairs the bf16 flash_fwd, flash_bwd_dq
+                and flash_bwd_dkv are also held against the plain version
+                rounded where they round (TOL_TC); two launches of the bf16
+                flash_bwd_dq, and two of flash_bwd_dkv, at every training
+                pair give the same bits;
   4b. scan    — linear_scan against its plain version (ref.linear_scan):
                 fp32 and bf16, h0 given and absent, ragged seq and chan, b > 1,
                 a near +1 and -1, seq 1, forward and reverse, the training
@@ -71,22 +73,38 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 offload on vs off bit for bit, 3 steps through train_steps with
                 the launches of all five kernels read around each step, peak
                 memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
-                both trainings' losses are held to those of the parent
+                both trainings' losses are held to those of an earlier
                 commit (EARLIER_LOSSES);
+  6c. gpt     — gpt-2.7b (the paper's GPT) at full width and depth, 32
+                layers, B1-B3 at head_dim 80: the same as 6b (u = 4 vs u = 1 at
+                all 32 layers); its losses are printed, having no earlier
+                figure yet;
+  6d. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
+                mlp_chunks 2u) at s = 16384 and 32768 under A (FPDT offload
+                off, remat full), B (offload on, remat full) and C (offload
+                on, remat offload): 2 AdamW steps each, the second's ms, peak
+                device memory, bytes to and from pinned host memory and the
+                pinned bytes held; C equals B bit for bit at 16384, moves
+                exactly the 32 cycle inputs more to the host and peaks lower;
+                each setting's device bytes a token and intercept from the
+                two lengths, and the longest context reckoned from them;
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
                 flash-attention backward behind it, timed as yardsticks only:
                 the port never calls them; no PyTorch call computes a linear
                 recurrence), all as device time from a CUDA graph of repeated
-                calls, at the serve shape, the llama3.2-1b training pairs, the
-                recurrentgemma-9b pairs and the RG-LRU scan shape (forward,
+                calls, at the serve shape, the llama3.2-1b, gpt-2.7b and
+                recurrentgemma-9b training pairs and the RG-LRU scan shape (forward,
                 and the fused backward beside the unfused chain it replaced);
                 the wrappers also launched from the host back to back
                 (wrapper_ms: host dispatch included); the redesigned kernels
                 beside the earlier kernels' times (EARLIER_MS); the q-head
                 splits of flash_bwd_dkv at each timed pair (n_split);
-  8. kernels  — one JSON line per the kernel contract;
+  8. kernels  — one JSON line per the kernel contract: the attention
+                kernels' top-level figures at gpt-2.7b's off-diagonal pair and
+                their launches on its training path, the scan kernels' on the
+                hybrid's;
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -97,12 +115,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -350,7 +370,7 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (16, 64, 128, 256):
+        for d in (16, 64, 80, 128, 256):
             cases = [
                 # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off, carry
                 ("ragged-diag", 2, 4, 4, 100, 100, True, 0, 0, 0, False),
@@ -358,7 +378,7 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
                 ("mqa16-window-carry", 1, 16, 1, 130, 150, True, 64, 200, 60, True),
                 ("future-keys-all-masked", 1, 4, 1, 64, 64, True, 33, 0, 200, True),
                 ("noncausal-carry", 1, 4, 2, 37, 100, False, 0, 0, 0, True),
-            ]
+            ] if d != 80 else MHA80_CASES
             for label, b, hq, hkv, sq, sk, causal, window, qo, ko, carry in cases:
                 q = rnd(b, hq, sq, d).to(dtype)
                 k = rnd(b, hkv, sk, d).to(dtype)
@@ -396,6 +416,18 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     return errs
 
 
+# head_dim 80 is gpt-2.7b's, whose attention is MHA: its cases keep hq = hkv
+# = 32, ragged, windowed and offset as the others are
+MHA80_CASES = [
+    # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off, carry
+    ("mha-ragged-diag", 2, 32, 32, 100, 100, True, 0, 0, 0, False),
+    ("mha-window-carry", 2, 32, 32, 100, 70, True, 33, 90, 40, True),
+    ("mha-window-carry-ragged", 1, 32, 32, 130, 150, True, 64, 200, 60, True),
+    ("mha-future-keys-all-masked", 1, 32, 32, 64, 64, True, 33, 0, 200, True),
+    ("mha-noncausal-carry", 1, 32, 32, 37, 100, False, 0, 0, 0, True),
+]
+
+
 def _reset_counts(K, SK):
     K.launches = K.dq_launches = K.dkv_launches = SK.launches = SK.bwd_launches = 0
 
@@ -420,9 +452,6 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}  # err / (1 + max|ref|)
     worst_abs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     by_dtype = {"fp32": dict(worst), "bf16": dict(worst)}
-    # flash_fwd at the training path's pairs, continuing the plain carry
-    fwd_errs, fwd_acc, fwd_tc = {}, {}, {}
-    fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, fwd_errs, fwd_acc, fwd_tc)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -492,7 +521,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
 
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (16, 64, 128, 256):
+        for d in (16, 64, 80, 128, 256):
             cases = [
                 # label, b, hq, hkv, sq, sk, causal, window, q_off, k_off
                 ("ragged-diag", 2, 4, 4, 100, 100, True, 0, 0, 0),
@@ -500,7 +529,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
                 ("mqa16-window-offsets", 1, 16, 1, 130, 150, True, 64, 200, 60),
                 ("future-keys-all-masked", 1, 4, 1, 64, 64, True, 33, 0, 200),
                 ("noncausal-gqa2", 1, 4, 2, 37, 100, False, 0, 0, 0),
-            ]
+            ] if d != 80 else [c[:-1] for c in MHA80_CASES]
             for label, b, hq, hkv, sq, sk, causal, window, qo, ko in cases:
                 q = rnd(b, hq, sq, d).to(dtype)
                 k, v = rnd(b, hkv, sk, d).to(dtype), rnd(b, hkv, sk, d).to(dtype)
@@ -508,76 +537,60 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
                 do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, k, v, g, **kw)
                 check(f"{label} d={d} {dtype}", q, k, v, do, L, delta, **kw)
                 n += 1
-    # the training path: every (i, j <= i) pair of an 8192 prompt at u=4,
-    # each row's L and delta from the plain forward over all keys it sees;
-    # flash_fwd is held against that plain forward at each pair, fed the
-    # plain running state as its carry
-    cq, u = 2048, 4
-    qs = [rnd(1, 32, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    ks = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    vs = [rnd(1, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    pair_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    pair_tc = {}
-    for i in range(u):
-        st = None
-        for j in range(i + 1):
-            st = fwd_check(f"flash_fwd u=4 pair ({i},{j})", torch.bfloat16, qs[i], ks[j], vs[j],
-                           st, causal=True, q_offset=i * cq, k_offset=j * cq)
-        do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
-        for j in range(i + 1):
-            out = check(f"u=4 pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, pair_tc,
-                        causal=True, q_offset=i * cq, k_offset=j * cq)
-            pair_worst = {p: max(pair_worst[p], out[p]) for p in out}
-            n += 1
-        deterministic(f"llama pair ({i},0)", qs[i], ks[0], vs[0], do, L, delta, causal=True,
-                      q_offset=i * cq, k_offset=0)
-        del st, do, L, delta
-    print(f"flash_fwd at the u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, "
-          f"carry and offsets, all 10): max abs err of out, m, l {fwd_errs['bfloat16']:.3e} "
-          f"(tol {TOL['bfloat16']}); acc err / (1 + l) {fwd_acc['bfloat16']:.3e}; least rms "
-          f"of plain out {fwd_tc['rms_out']:.3e}; against the bf16 rounding emulation: acc, l "
-          f"relative error {fwd_tc['acc']:.3e}, {fwd_tc['l']:.3e} (limit {TOL_TC})")
-    print(f"u=4 pairs of an 8192 prompt (2048 x 2048, b1 hq32 hkv8 d64 bf16, all 10): "
-          + _bwd_summary(pair_worst, pair_tc))
-    del qs, ks, vs
-    # recurrentgemma-9b's attention at u=4 of an 8192 prompt: b1 hq16 hkv1
-    # d256 bf16, window 2048, so pair (i, j) lives only for i - j <= 1 (7
-    # pairs); the same checks as above
-    hyb_fwd_errs, hyb_fwd_acc, hyb_fwd_tc, hyb_tc = {}, {}, {}, {}
-    hyb_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, hyb_fwd_errs, hyb_fwd_acc,
-                             hyb_fwd_tc)
-    qs = [rnd(1, 16, cq, 256).to(torch.bfloat16) for _ in range(u)]
-    ks = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
-    vs = [rnd(1, 1, cq, 256).to(torch.bfloat16) for _ in range(u)]
-    hyb_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    hyb_pairs = 0
-    for i in range(u):
-        live = [j for j in range(i + 1) if F.pair_live(i, j, cq=cq, window=2048, sparsity=0.0)]
-        st = None
-        for j in live:
-            st = hyb_check(f"flash_fwd hybrid pair ({i},{j})", torch.bfloat16, qs[i], ks[j],
-                           vs[j], st, causal=True, window=2048, q_offset=i * cq,
-                           k_offset=j * cq)
-        do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
-        for j in live:
-            kw = dict(causal=True, window=2048, q_offset=i * cq, k_offset=j * cq)
-            out = check(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, hyb_tc,
-                        **kw)
-            hyb_worst = {p: max(hyb_worst[p], out[p]) for p in out}
-            hyb_pairs += 1
-            n += 1
-            deterministic(f"hybrid pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, **kw)
-        del st, do, L, delta
-    if hyb_pairs != 7:
-        raise AssertionError(f"{hyb_pairs} live pairs at u=4 with window 2048, expected 7")
-    print(f"recurrentgemma-9b pairs of an 8192 prompt at u=4 (2048 x 2048, b1 hq16 hkv1 d256 "
-          f"bf16, window 2048, all 7 live): flash_fwd max abs err of out, m, l "
-          f"{hyb_fwd_errs['bfloat16']:.3e} (tol {TOL['bfloat16']}), acc err / (1 + l) "
-          f"{hyb_fwd_acc['bfloat16']:.3e}, least rms of plain out {hyb_fwd_tc['rms_out']:.3e}, "
-          f"against the bf16 rounding emulation: acc, l relative error "
-          f"{hyb_fwd_tc['acc']:.3e}, {hyb_fwd_tc['l']:.3e} (limit {TOL_TC}); "
-          + _bwd_summary(hyb_worst, hyb_tc))
-    del qs, ks, vs
+
+    def train_pairs(label, hq, hkv, d, window=0):
+        """The training path's pairs: every live (i, j <= i) pair of an 8192
+        prompt at u=4 (2048 x 2048, b1, bf16).  flash_fwd is held against
+        the plain forward at each pair, fed the plain running state as its
+        carry; each row's L and delta come from the plain forward over every
+        key it sees; dq, dk, dv against the plain versions and their bf16
+        rounding emulations; two launches of each backward kernel at every
+        pair give the same bits."""
+        nonlocal n
+        cq, u = 2048, 4
+        errs, acc, ftc, tc = {}, {}, {}, {}
+        fcheck = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc, ftc)
+        qs = [rnd(1, hq, cq, d).to(torch.bfloat16) for _ in range(u)]
+        ks = [rnd(1, hkv, cq, d).to(torch.bfloat16) for _ in range(u)]
+        vs = [rnd(1, hkv, cq, d).to(torch.bfloat16) for _ in range(u)]
+        pair_worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+        n_pairs = 0
+        for i in range(u):
+            live = [j for j in range(i + 1)
+                    if F.pair_live(i, j, cq=cq, window=window, sparsity=0.0)]
+            st = None
+            for j in live:
+                st = fcheck(f"flash_fwd {label} pair ({i},{j})", torch.bfloat16, qs[i], ks[j],
+                            vs[j], st, causal=True, window=window, q_offset=i * cq,
+                            k_offset=j * cq)
+            do, L, delta = _bwd_inputs(torch, R, lse, finalize, qs[i], None, None, g, states=st)
+            for j in live:
+                kw = dict(causal=True, window=window, q_offset=i * cq, k_offset=j * cq)
+                out = check(f"{label} pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, tc,
+                            **kw)
+                pair_worst = {p: max(pair_worst[p], out[p]) for p in out}
+                deterministic(f"{label} pair ({i},{j})", qs[i], ks[j], vs[j], do, L, delta, **kw)
+                n_pairs += 1
+                n += 1
+            del st, do, L, delta
+        print(f"{label} pairs of an 8192 prompt at u=4 (2048 x 2048, b1 hq{hq} hkv{hkv} d{d} "
+              f"bf16{f', window {window}' if window else ''}, all {n_pairs} live): flash_fwd "
+              f"with carry and offsets: max abs err of out, m, l {errs['bfloat16']:.3e} (tol "
+              f"{TOL['bfloat16']}), acc err / (1 + l) {acc['bfloat16']:.3e}, least rms of plain "
+              f"out {ftc['rms_out']:.3e}, against the bf16 rounding emulation: acc, l relative "
+              f"error {ftc['acc']:.3e}, {ftc['l']:.3e} (limit {TOL_TC}); "
+              + _bwd_summary(pair_worst, tc))
+        return {"fwd": errs["bfloat16"], "fwd_acc": acc["bfloat16"], "fwd_tc": ftc,
+                "worst": pair_worst, "tc": tc, "pairs": n_pairs}
+
+    pairs = {"llama": train_pairs("llama3.2-1b", 32, 8, 64),
+             "gpt": train_pairs("gpt-2.7b", 32, 32, 80),
+             # window 2048, so pair (i, j) lives only for i - j <= 1
+             "hybrid": train_pairs("recurrentgemma-9b", 16, 1, 256, window=2048)}
+    if pairs["hybrid"]["pairs"] != 7:
+        raise AssertionError(f"{pairs['hybrid']['pairs']} live pairs at u=4 with window 2048, "
+                             "expected 7")
+    fwd_check = _fwd_checker(torch, K, R, SoftmaxState, finalize, {}, {}, {})
     # the u=1 pair, at b1 hq4 hkv1 so the plain version's [sq, sk] fp32
     # matrices (1 GiB each) fit beside the kernel's inputs
     q, k, v = (rnd(1, 4, 8192, 64).to(torch.bfloat16), rnd(1, 1, 8192, 64).to(torch.bfloat16),
@@ -600,10 +613,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"{worst_abs['dq']:.3e}, {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); "
           f"flash_bwd_dq and flash_bwd_dkv deterministic (two launches each, same bits) at "
           f"{n_det} training pairs")
-    return {"abs": worst_abs, "rel": worst, "fwd": fwd_errs["bfloat16"],
-            "fwd_acc": fwd_acc["bfloat16"], "fwd_hybrid": hyb_fwd_errs["bfloat16"],
-            "fwd_acc_hybrid": hyb_fwd_acc["bfloat16"], "hybrid": hyb_worst,
-            "tc_llama": pair_tc, "tc_hybrid": hyb_tc}
+    return {"abs": worst_abs, "rel": worst, "pairs": pairs}
 
 
 def _bwd_summary(worst, tc):
@@ -992,73 +1002,88 @@ def _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, o
             "copy_ms": copy_us / 1e3, "copy_hidden": hidden}
 
 
-def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
-    dev = torch.device("cuda")
-    seq, batch, u, steps = 8192, 1, 4, 3
-    base = cfg_mod.get_config("llama3.2-1b")
-    cfg = dataclasses.replace(base, fpdt_chunks=u, mlp_chunks=2 * u, remat="full",
-                              fpdt_offload=True)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+def _offload_on_off(torch, M, cfg, params, b0):
+    """Offload on vs off: the loss and gradients of step 1's batch at step
+    1's parameters, bit for bit (the same kernels in the same order)."""
+    l_on, _, g_on = M.TL.value_and_grad(cfg, None, params, b0)
+    l_off, _, g_off = M.TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
+                                          params, b0)
     torch.cuda.synchronize()
-    print(f"init_params {cfg.name} ({cfg.num_params() / 1e9:.3f} B params, {cfg.param_dtype}) "
-          f"in {time.perf_counter() - t0:.1f} s")
-    batch_fn = DP.make_batch_fn(cfg, cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
-    b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
-
-    # offload on vs off: the loss and gradients of step 1's batch at step 1's
-    # parameters, bit for bit (the same kernels in the same order)
-    l_on, _, g_on = TL.value_and_grad(cfg, None, params, b0)
-    l_off, _, g_off = TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
-                                        params, b0)
-    torch.cuda.synchronize()
-    differ = [n for n, (a, b) in enumerate(zip(TR.tree_leaves(g_on), TR.tree_leaves(g_off)))
+    differ = [n for n, (a, b) in enumerate(zip(M.TR.tree_leaves(g_on), M.TR.tree_leaves(g_off)))
               if not torch.equal(a, b)]
     print(f"offload on vs off, step 1: loss {float(l_on):.6f} vs {float(l_off):.6f}; "
-          f"gradient leaves that differ: {len(differ)} of {len(TR.tree_leaves(g_on))}")
+          f"gradient leaves that differ: {len(differ)} of {len(M.TR.tree_leaves(g_on))}")
     if not torch.equal(l_on, l_off) or differ:
         raise AssertionError("offload on and off give different losses or gradients")
     del g_on, g_off
+    torch.cuda.empty_cache()
 
-    # the chunks offload stores are pinned host tensors: one layer's
-    # attention at the training shape, its saved tensors seen as they are saved
-    attn_p = T.cycle(params["cycles"], 0)["pos0"]["attn"]
+
+def _pinned_residuals(torch, M, cfg, params, seq, batch):
+    """The chunks offload stores are pinned host tensors: one layer's
+    attention at the training shape, its saved tensors seen as they are
+    saved."""
+    dev = torch.device("cuda")
+    attn_p = M.T.cycle(params["cycles"], 0)["pos0"]["attn"]
     x = (0.02 * torch.randn((batch, seq, cfg.d_model), device=dev)).to(torch.bfloat16)
     x.requires_grad_(True)
     saved = []
     with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
-        o = F.fpdt_attention(cfg, None, attn_p, x)
+        o = M.F.fpdt_attention(cfg, None, attn_p, x)
     host = [t for t in saved if t.device.type == "cpu"]
     pinned = sum(t.numel() * t.element_size() for t in host if t.is_pinned())
     o.float().square().sum().backward()
     torch.cuda.synchronize()
-    print(f"offloaded residuals of one layer: {len(host)} host tensors (q, k, v of {u} "
-          f"chunks), {pinned / 2**20:.1f} MiB pinned; x.grad finite: "
+    print(f"offloaded residuals of one layer: {len(host)} host tensors (q, k, v of "
+          f"{cfg.fpdt_chunks} chunks), {pinned / 2**20:.1f} MiB pinned; x.grad finite: "
           f"{bool(torch.isfinite(x.grad).all())}")
-    if len(host) != 3 * u or not all(t.is_pinned() for t in host) or pinned <= 0:
+    if len(host) != 3 * cfg.fpdt_chunks or not all(t.is_pinned() for t in host) or pinned <= 0:
         raise AssertionError("offloaded chunks are not pinned host tensors")
-    del saved, host, o, x
 
-    # three AdamW steps through the CLI's function, launch counts per step
-    oc = TRAIN.opt_config(cfg, 3e-4, steps)
-    tc = TL.TrainConfig(steps=steps, log_every=steps + 1)
-    off = PL.host_offload(dev)
+
+def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None):
+    """A model's training phase at b1, seq 8192, u=4, mlp_chunks 8, remat
+    full, offload on: offload on vs off bit for bit; ``extra_check(cfg,
+    params)``; 3 AdamW steps through the CLI's own function (train_steps),
+    the launch counts read around each step; step ms, tokens/s, MFU, peak
+    memory, offload bytes; the losses against EARLIER_LOSSES; one profiled
+    step per ``profile_offload`` flag; u=4 vs u=1 in fp32 weights at every
+    layer.  Returns each kernel's launches over the 3 steps."""
+    dev = torch.device("cuda")
+    seq, batch, steps = TRAIN_SEQ, 1, 3
+    t0 = time.perf_counter()
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for t in M.TR.tree_leaves(params))
+    pat, n_cycles, tail = M.T.layout_of(cfg)
+    print(f"init_params {cfg.name} ({cfg.num_layers} layers: {n_cycles} cycles of {pat} + tail "
+          f"{tail}; {cfg.num_params() / 1e9:.3f} B params, {cfg.param_dtype}, "
+          f"{pbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+    _offload_on_off(torch, M, cfg, params, b0)
+    if extra_check is not None:
+        extra_check(cfg, params)
+
+    oc = M.TRAIN.opt_config(cfg, 3e-4, steps)
+    tc = M.TL.TrainConfig(steps=steps, log_every=steps + 1)
+    off = M.PL.host_offload(dev)
     records = []
 
     def on_step(rec):
-        rec["launches"] = _counts(K, SK)
+        rec["launches"] = _counts(M.K, M.SK)
         records.append(rec)
-        _reset_counts(K, SK)
+        _reset_counts(M.K, M.SK)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     off.reset_counts()
-    _reset_counts(K, SK)
-    params, opt_state, history = TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
-                                                   on_step=on_step)
+    _reset_counts(M.K, M.SK)
+    params, opt_state, _ = M.TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
+                                               on_step=on_step)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     flops = _model_flops(cfg, batch, seq)
-    want = _launches_per_step(cfg, F, T, seq)  # u=4: 10 pairs; forward + recompute
+    want = _launches_per_step(cfg, M.F, M.T, seq)
     for rec in records:
         mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
         rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
@@ -1072,20 +1097,19 @@ def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
     if len(records) != steps:
         raise AssertionError(f"{len(records)} steps taken, {steps} asked")
     _check_losses(cfg.name, records, card)
-    print(f"train {cfg.name} b={batch} seq={seq} u={u} mlp_chunks={cfg.mlp_chunks} remat=full "
-          f"offload=on: peak device memory {peak_gib:.2f} GiB; host offload moved "
-          f"{off.to_host_bytes / 2**30:.2f} GiB to pinned host memory and "
-          f"{off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model FLOPs/step "
-          f"{flops:.4e} [{card}]")
+    print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={cfg.fpdt_chunks} "
+          f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload=on: peak device memory "
+          f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
+          f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
+          f"FLOPs/step {flops:.4e} [{card}]")
     if off.to_host_bytes <= 0 or off.to_device_bytes <= 0:
         raise AssertionError("offload on moved no bytes through pinned host memory")
     totals = {k: sum(r["launches"][k] for r in records) for k in want}
-    to_host_bytes = off.to_host_bytes
-    # where a step's time goes, offload off and then on (one step each; the
-    # first profiled step also pays the profiler's own start-up)
-    prof = {flag: _profile_step(torch, TRAIN, TL, dataclasses.replace(cfg, fpdt_offload=flag),
+    # where a step's time goes (the first profiled step also pays the
+    # profiler's own start-up)
+    prof = {flag: _profile_step(torch, M.TRAIN, M.TL, dataclasses.replace(cfg, fpdt_offload=flag),
                                 params, oc, batch_fn, dev, opt_state, off, card)
-            for flag in (False, True)}
+            for flag in profile_offload}
     if not prof[True]["copy_ms"] > 0:
         raise AssertionError("the profiled step with offload on shows no pinned copies")
     del params, opt_state
@@ -1093,39 +1117,74 @@ def phase_train(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
 
     # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
-    p32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    l4, _, g4 = TL.value_and_grad(cfg32, None, p32, b0)
-    l1, _, g1 = TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
+    p32 = M.T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    l4, _, g4 = M.TL.value_and_grad(cfg32, None, p32, b0)
+    l1, _, g1 = M.TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
     torch.cuda.synchronize()
     loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
-    grad_rel, leaf = _tree_max_rel(TR, g4, g1)
-    print(f"fp32 weights, u=4 vs u=1: loss {float(l4):.6f} vs {float(l1):.6f} (rel {loss_rel:.3e}); "
-          f"largest gradient-leaf error / leaf max {grad_rel:.3e} (leaf {leaf}); "
-          f"tolerance {FPDT_GRAD_RTOL}")
+    grad_rel, leaf = _tree_max_rel(M.TR, g4, g1)
+    print(f"fp32 weights, {cfg32.num_layers} layers, u=4 vs u=1 at seq {seq}: loss "
+          f"{float(l4):.6f} vs {float(l1):.6f} (rel {loss_rel:.3e}); largest gradient-leaf error "
+          f"/ leaf max {grad_rel:.3e} (leaf {leaf} of {len(M.TR.tree_leaves(g4))}); tolerance "
+          f"{FPDT_GRAD_RTOL}")
     if loss_rel > FPDT_GRAD_RTOL or grad_rel > FPDT_GRAD_RTOL:
         raise AssertionError("u=4 training gradients differ from u=1")
     del p32, g4, g1
     torch.cuda.empty_cache()
-    return {"launches": totals, "steps": records, "peak_gib": peak_gib,
-            "grad_rel_u4_u1": grad_rel, "pinned_layer_bytes": pinned,
-            "to_host_bytes": to_host_bytes, "profile": prof}
+    return totals
+
+
+TRAIN_SEQ = 8192  # the training phases' sequence length (b1, u=4: 2048-token chunks)
+
+
+def _train_cfg(M, name, **overrides):
+    """``name`` at the training phases' settings: u=4, mlp_chunks 8, remat
+    full, FPDT offload on."""
+    return dataclasses.replace(M.cfg_mod.get_config(name, **overrides), fpdt_chunks=4,
+                               mlp_chunks=8, remat="full", fpdt_offload=True)
+
+
+def phase_train(torch, M, card):
+    """llama3.2-1b at full width; profiled with offload off and on; the
+    offloaded chunks are pinned host tensors."""
+    return _train_run(torch, M, _train_cfg(M, "llama3.2-1b"), card, profile_offload=(False, True),
+                      extra_check=lambda cfg, params: _pinned_residuals(torch, M, cfg, params,
+                                                                        TRAIN_SEQ, 1))
+
+
+def phase_train_hybrid(torch, M, card):
+    """recurrentgemma-9b at full width, 8 layers."""
+    return _train_run(torch, M, _train_cfg(M, "recurrentgemma-9b", num_layers=8), card)
+
+
+def phase_train_gpt(torch, M, card):
+    """gpt-2.7b at full width and full depth (32 layers): this slice's main
+    path, B1-B3 at head_dim 80."""
+    return _train_run(torch, M, _train_cfg(M, "gpt-2.7b"), card)
 
 
 def _check_losses(name, records, card):
-    """Each step's loss against the parent commit's (EARLIER_LOSSES)."""
-    earlier = EARLIER_LOSSES[name]
-    pairs = [(rec["loss"], e) for rec, e in zip(records, earlier)]
-    print(f"{name} losses, this run vs the parent commit's from the same seed: "
+    """Each step's loss against an earlier commit's (EARLIER_LOSSES); a model
+    with no earlier figure prints its losses for the next change to hold."""
+    losses = [rec["loss"] for rec in records]
+    earlier = EARLIER_LOSSES.get(name)
+    if earlier is None:
+        print(f"{name} losses {', '.join(f'{x:.4f}' for x in losses)}: no earlier figure to "
+              f"hold them to [{card}]")
+        return
+    pairs = list(zip(losses, earlier))
+    print(f"{name} losses, this run vs the earlier commit's from the same seed: "
           + ", ".join(f"step {n + 1} {a:.4f} vs {e:.4f}" for n, (a, e) in enumerate(pairs))
           + f" (limit {LOSS_RTOL:.0%}) [{card}]")
     if len(pairs) != len(earlier) or any(abs(a - e) > LOSS_RTOL * abs(e) for a, e in pairs):
-        raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the parent's")
+        raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the earlier ones")
 
 
 def _launches_per_step(cfg, F, T, seq):
-    """Launches per training step of each kernel under remat full: a layer
-    in the per-cycle checkpoint runs its forward twice (and flash_fwd once
-    per live pair each time), a tail layer once; the backward once."""
+    """Launches per training step of each kernel under remat full or
+    offload: a layer in a recomputed cycle runs its forward twice (and
+    flash_fwd once per live pair each time), a tail layer once; the
+    backward once."""
     pat, n_cycles, tail = T.layout_of(cfg)
     u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0,
@@ -1144,96 +1203,121 @@ def _launches_per_step(cfg, F, T, seq):
     return want
 
 
-def phase_train_hybrid(torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card):
-    """recurrentgemma-9b at full width, 8 layers: the slice's main path."""
+LONG_SEQS = (16384, 32768)
+LONG_CHUNK = 4096  # tokens an FPDT chunk, as the paper fixes it
+LONG_SETTINGS = {  # the paper's two memory levers, added one at a time
+    "A": dict(fpdt_offload=False, remat="full"),
+    "B": dict(fpdt_offload=True, remat="full"),
+    "C": dict(fpdt_offload=True, remat="offload"),
+}
+
+
+def phase_long_context(torch, M, card):
+    """gpt-2.7b at full depth, b1, chunk 4096 (u = s / 4096, mlp_chunks 2u)
+    at s in LONG_SEQS under settings A (FPDT offload off, remat full), B
+    (offload on, remat full) and C (offload on, remat offload): 2 AdamW steps
+    each after a reset of the peak-memory count; the second step's ms, peak
+    device memory, offload bytes and the pinned bytes held at the peak.  C
+    must equal B bit for bit at the shorter length, move exactly the cycle
+    inputs more to the host, and peak lower.  From the two lengths, each
+    setting's device bytes per token and intercept, and the context it
+    would reach on this card, reckoned from them."""
     dev = torch.device("cuda")
-    seq, batch, u, steps = 8192, 1, 4, 3
-    base = cfg_mod.get_config("recurrentgemma-9b", num_layers=8)
-    cfg = dataclasses.replace(base, fpdt_chunks=u, mlp_chunks=2 * u, remat="full",
-                              fpdt_offload=True)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    pbytes = sum(t.numel() * t.element_size() for t in TR.tree_leaves(params))
-    print(f"init_params {cfg.name} ({cfg.num_layers} layers: {T.layout_of(cfg)[1]} cycles of "
-          f"{T.layout_of(cfg)[0]} + tail {T.layout_of(cfg)[2]}; {cfg.num_params() / 1e9:.3f} B "
-          f"params, {pbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
-    batch_fn = DP.make_batch_fn(cfg, cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
-    b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+    off = M.PL.host_offload(dev)
+    base = M.cfg_mod.get_config("gpt-2.7b")
+    _, n_cycles, _ = M.T.layout_of(base)
+    runs = {}
+    for seq in LONG_SEQS:
+        u = seq // LONG_CHUNK
+        cfgs = {k: dataclasses.replace(base, fpdt_chunks=u, mlp_chunks=2 * u, **kw)
+                for k, kw in LONG_SETTINGS.items()}
+        batch_fn = M.DP.make_batch_fn(base, M.cfg_mod.ShapeConfig("long", seq, 1, "train"))
+        if seq == LONG_SEQS[0]:  # remat offload == remat full, bit for bit
+            params = M.T.init_params(base, torch.Generator(device=dev).manual_seed(0), dev)
+            b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
+            l_b, _, g_b = M.TL.value_and_grad(cfgs["B"], None, params, b0)
+            l_c, _, g_c = M.TL.value_and_grad(cfgs["C"], None, params, b0)
+            torch.cuda.synchronize()
+            differ = sum(not torch.equal(a, b) for a, b in zip(M.TR.tree_leaves(g_b),
+                                                               M.TR.tree_leaves(g_c)))
+            print(f"seq {seq}: remat offload vs remat full (offload on): loss {float(l_c):.6f} "
+                  f"vs {float(l_b):.6f}; gradient leaves that differ: {differ} of "
+                  f"{len(M.TR.tree_leaves(g_b))}")
+            if not torch.equal(l_b, l_c) or differ:
+                raise AssertionError("remat offload and remat full give different losses or "
+                                     "gradients")
+            del params, g_b, g_c, b0
+            torch.cuda.empty_cache()
+        for name, cfg in cfgs.items():
+            params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            oc = M.TRAIN.opt_config(cfg, 3e-4, 2)
+            recs = []
 
-    l_on, _, g_on = TL.value_and_grad(cfg, None, params, b0)
-    l_off, _, g_off = TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
-                                        params, b0)
-    torch.cuda.synchronize()
-    differ = [n for n, (a, b) in enumerate(zip(TR.tree_leaves(g_on), TR.tree_leaves(g_off)))
-              if not torch.equal(a, b)]
-    print(f"offload on vs off, step 1: loss {float(l_on):.6f} vs {float(l_off):.6f}; "
-          f"gradient leaves that differ: {len(differ)} of {len(TR.tree_leaves(g_on))}")
-    if not torch.equal(l_on, l_off) or differ:
-        raise AssertionError("offload on and off give different losses or gradients")
-    del g_on, g_off
-    torch.cuda.empty_cache()
+            def on_step(rec):
+                torch.cuda.synchronize()
+                rec.update(peak=torch.cuda.max_memory_allocated(), to_host=off.to_host_bytes,
+                           to_device=off.to_device_bytes, held=off.peak_held_bytes)
+                recs.append(rec)
+                off.reset_counts()
 
-    oc = TRAIN.opt_config(cfg, 3e-4, steps)
-    tc = TL.TrainConfig(steps=steps, log_every=steps + 1)
-    off = PL.host_offload(dev)
-    records = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            off.reset_counts()
+            M.TRAIN.train_steps(cfg, params, oc, M.TL.TrainConfig(steps=2, log_every=3),
+                                batch_fn, dev, on_step=on_step)
+            rec = recs[-1]
+            rec["flops"] = _model_flops(cfg, 1, seq)
+            runs[name, seq] = rec
+            print(f"long context {name} ({'FPDT offload ' + ('on' if cfg.fpdt_offload else 'off')}"
+                  f", remat {cfg.remat}) gpt-2.7b b1 seq {seq} u={u} mlp_chunks={2 * u}: step 2 "
+                  f"{rec['dt'] * 1e3:.1f} ms ({seq / rec['dt']:.0f} tokens/s, MFU "
+                  f"{rec['flops'] / (rec['dt'] * PEAK_BF16_FLOPS):.4f}), loss {rec['loss']:.4f}; "
+                  f"peak device memory {rec['peak'] / 2**30:.3f} GiB; step 2 moved "
+                  f"{rec['to_host'] / 2**30:.3f} GiB to pinned host memory and "
+                  f"{rec['to_device'] / 2**30:.3f} GiB back; pinned bytes held at most "
+                  f"{rec['held'] / 2**30:.3f} GiB [{card}]")
+            if not math.isfinite(rec["loss"]):
+                raise AssertionError(f"{name} seq {seq}: non-finite loss")
+            del params, recs
+            torch.cuda.empty_cache()
+        extra = n_cycles * seq * base.d_model * 2  # bf16 cycle inputs of b1
+        got = runs["C", seq]["to_host"] - runs["B", seq]["to_host"]
+        print(f"seq {seq}: C moved {got} bytes more to the host than B in step 2, the cycle "
+              f"inputs are {extra} ({n_cycles} x {seq} x {base.d_model} x 2); C's peak "
+              f"{runs['C', seq]['peak'] / 2**30:.3f} GiB vs B's {runs['B', seq]['peak'] / 2**30:.3f}")
+        if got != extra:
+            raise AssertionError(f"seq {seq}: remat offload moved {got} extra bytes, not {extra}")
+        if not runs["C", seq]["peak"] < runs["B", seq]["peak"]:
+            raise AssertionError(f"seq {seq}: remat offload does not lower the peak")
 
-    def on_step(rec):
-        rec["launches"] = _counts(K, SK)
-        records.append(rec)
-        _reset_counts(K, SK)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    off.reset_counts()
-    _reset_counts(K, SK)
-    params, opt_state, _ = TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev, on_step=on_step)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    flops = _model_flops(cfg, batch, seq)
-    want = _launches_per_step(cfg, F, T, seq)
-    for rec in records:
-        mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
-        rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
-        print(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-              f"{rec['dt'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s, MFU {mfu:.4f}; "
-              f"launches {rec['launches']} [{card}]")
-        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
-            raise AssertionError(f"step {rec['step']}: non-finite loss or grad norm")
-        if rec["launches"] != want:
-            raise AssertionError(f"step {rec['step']}: launches {rec['launches']}, expected {want}")
-    if len(records) != steps:
-        raise AssertionError(f"{len(records)} steps taken, {steps} asked")
-    _check_losses(cfg.name, records, card)
-    print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={u} "
-          f"mlp_chunks={cfg.mlp_chunks} remat=full offload=on: peak device memory "
-          f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
-          f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
-          f"FLOPs/step {flops:.4e} [{card}]")
-    if off.to_host_bytes <= 0 or off.to_device_bytes <= 0:
-        raise AssertionError("offload on moved no bytes through pinned host memory")
-    totals = {k: sum(r["launches"][k] for r in records) for k in want}
-    prof = _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, off, card)
-    del params, opt_state
-    torch.cuda.empty_cache()
-
-    # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
-    p32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    l4, _, g4 = TL.value_and_grad(cfg32, None, p32, b0)
-    l1, _, g1 = TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
-    torch.cuda.synchronize()
-    loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
-    grad_rel, leaf = _tree_max_rel(TR, g4, g1)
-    print(f"fp32 weights, u=4 vs u=1 at seq {seq}: loss {float(l4):.6f} vs {float(l1):.6f} "
-          f"(rel {loss_rel:.3e}); largest gradient-leaf error / leaf max {grad_rel:.3e} "
-          f"(leaf {leaf} of {len(TR.tree_leaves(g4))}); tolerance {FPDT_GRAD_RTOL}")
-    if loss_rel > FPDT_GRAD_RTOL or grad_rel > FPDT_GRAD_RTOL:
-        raise AssertionError("u=4 training gradients differ from u=1")
-    del p32, g4, g1
-    torch.cuda.empty_cache()
-    return {"launches": totals, "per_step": want, "steps": records, "peak_gib": peak_gib,
-            "grad_rel_u4_u1": grad_rel, "profile": prof}
+    card_bytes = torch.cuda.mem_get_info(dev)[1]
+    host_bytes = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    s0, s1 = LONG_SEQS
+    fit = {}
+    for name in LONG_SETTINGS:
+        p0, p1 = runs[name, s0]["peak"], runs[name, s1]["peak"]
+        slope = (p1 - p0) / (s1 - s0)
+        intercept = p0 - slope * s0
+        longest = (card_bytes - intercept) / slope
+        h0, h1 = runs[name, s0]["held"], runs[name, s1]["held"]
+        host_slope = (h1 - h0) / (s1 - s0)
+        host_longest = (host_bytes - (h0 - host_slope * s0)) / host_slope if host_slope > 0 \
+            else math.inf
+        fit[name] = {"bytes_per_token": slope, "intercept_bytes": intercept,
+                     "reckoned_longest_tokens": longest,
+                     "pinned_bytes_per_token": host_slope,
+                     "reckoned_host_longest_tokens": host_longest}
+        print(f"long context {name}: {slope / 1e3:.2f} KB of device memory a token above an "
+              f"intercept of {intercept / 2**30:.3f} GiB; reckoned longest context on this card's "
+              f"{card_bytes / 2**30:.2f} GiB: {longest:.0f} tokens; pinned host bytes "
+              f"{host_slope / 1e3:.2f} KB a token, reckoned longest context in this host's "
+              f"{host_bytes / 2**30:.1f} GiB of RAM: {host_longest:.0f} tokens [{card}]")
+    print("long context " + json.dumps({
+        "runs": {f"{k}@{seq}": {"step_ms": r["dt"] * 1e3, "peak_bytes": r["peak"],
+                                "to_host_bytes": r["to_host"], "to_device_bytes": r["to_device"],
+                                "pinned_held_bytes": r["held"], "loss": r["loss"]}
+                 for (k, seq), r in runs.items()},
+        "fit": fit, "card_bytes": card_bytes, "host_bytes": host_bytes, "card": card}))
 
 
 def _eager_ms(torch, fn, iters=200, warmup=20):
@@ -1349,6 +1433,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     g = torch.Generator(device=dev).manual_seed(2)
     rows, seen = {}, []  # rows by key; every timed row
     hyb = "recurrentgemma-9b 8192 u=4 {} pair cq=2048 b1 hq16 hkv1 d256 window 2048"
+    gpt = "gpt-2.7b 8192 u=4 {} pair cq=2048 b1 hq32 hkv32 d80"
     shapes = [
         # key, label, b, hq, hkv, sq, sk, d, window, q_off, k_off, carry
         ("flash_fwd_serve", "serve prefill b4 s64 (u=1)", 4, 32, 8, 64, 64, 64, 0, 0, 0, False),
@@ -1361,9 +1446,13 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
         (None, "train 8192 u=4 diagonal pair cq=2048 b1", 1, 32, 8, 2048, 2048, 64, 0, 2048,
          2048, True),
         # the off-diagonal pair opens its rows' softmax (no carry), the diagonal continues it
-        ("flash_fwd", hyb.format("off-diagonal"), 1, 16, 1, 2048, 2048, 256, 2048, 2048, 0,
-         False),
+        ("flash_fwd_hybrid", hyb.format("off-diagonal"), 1, 16, 1, 2048, 2048, 256, 2048, 2048,
+         0, False),
         (None, hyb.format("diagonal"), 1, 16, 1, 2048, 2048, 256, 2048, 2048, 2048, True),
+        # this slice's main path: pair (1, 0) opens its rows' softmax, (1, 1) continues it
+        ("flash_fwd", gpt.format("off-diagonal"), 1, 32, 32, 2048, 2048, 80, 0, 2048, 0, False),
+        ("flash_fwd_gpt_diagonal", gpt.format("diagonal"), 1, 32, 32, 2048, 2048, 80, 0, 2048,
+         2048, True),
     ]
     for key, label, b, hq, hkv, sq, sk, d, window, qo, ko, carry in shapes:
         q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(torch.bfloat16)
@@ -1411,8 +1500,10 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
         # key suffix, label, hq, hkv, d, window, q_off, k_off
         ("_train", "train 8192 u=4 off-diagonal pair cq=2048 b1", 32, 8, 64, 0, 2048, 0),
         (None, "train 8192 u=4 diagonal pair cq=2048 b1", 32, 8, 64, 0, 2048, 2048),
-        ("", hyb.format("off-diagonal"), 16, 1, 256, 2048, 2048, 0),
+        ("_hybrid", hyb.format("off-diagonal"), 16, 1, 256, 2048, 2048, 0),
         (None, hyb.format("diagonal"), 16, 1, 256, 2048, 2048, 2048),
+        ("", gpt.format("off-diagonal"), 32, 32, 80, 0, 2048, 0),
+        ("_gpt_diagonal", gpt.format("diagonal"), 32, 32, 80, 0, 2048, 2048),
     ]
     for suffix, label, hq, hkv, d, window, qo, ko in pairs:
         b, s_ = 1, 2048
@@ -1553,10 +1644,12 @@ def main():
                 finalize)
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
     serve = phase("serve llama3.2-1b", phase_serve, torch, K, SK, cfg_mod, T, SV, CLI, card)
-    train = phase("train llama3.2-1b", phase_train, torch, K, SK, cfg_mod, T, F, TR, TL, PL, DP,
-                  TRAIN, card)
-    hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, K, SK,
-                   cfg_mod, T, F, TR, TL, PL, DP, TRAIN, card)
+    M = types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DP=DP,
+                              TRAIN=TRAIN)
+    train = phase("train llama3.2-1b", phase_train, torch, M, card)
+    hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, M, card)
+    gpt = phase("train gpt-2.7b", phase_train_gpt, torch, M, card)
+    phase("long context gpt-2.7b", phase_long_context, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
 
     def at(key, tag):  # another timed shape's figures, as extra keys
@@ -1566,28 +1659,37 @@ def main():
     flash = "src/repro_torch/kernels/flash_attention/csrc/"
     scan_src = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
     replaces = "src/repro/kernels/flash_attention/kernel.py:"
+    pairs = bwd["pairs"]
     entries = [
         ("flash_fwd", flash + "flash_fwd.cu", replaces + "134",
-         max(*errs.values(), bwd["fwd"], bwd["fwd_hybrid"]),
+         max(*errs.values(), *(p["fwd"] for p in pairs.values())),
          {"max_err_fp32": errs["float32"], "max_err_bf16": errs["bfloat16"],
-          "max_err_train_pairs": bwd["fwd"], "max_acc_rel_err_train_pairs": bwd["fwd_acc"],
-          "max_err_hybrid_pairs": bwd["fwd_hybrid"],
-          "max_acc_rel_err_hybrid_pairs": bwd["fwd_acc_hybrid"],
+          **{f"max_err_{m}_pairs": p["fwd"] for m, p in pairs.items()},
+          **{f"max_acc_rel_err_{m}_pairs": p["fwd_acc"] for m, p in pairs.items()},
+          **{f"tc_rel_err_acc_{m}_pairs": p["fwd_tc"]["acc"] for m, p in pairs.items()},
           "library": timing["flash_fwd"]["library"],
-          **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_serve", "serve")}),
+          **at("flash_fwd_gpt_diagonal", "gpt_diagonal_pair"),
+          **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_hybrid", "hybrid_pair"),
+          **at("flash_fwd_serve", "serve")}),
         ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
-         {"max_rel_err": bwd["rel"]["dq"], "max_rel_err_hybrid_pairs": bwd["hybrid"]["dq"],
-          "tc_rel_err_llama_pairs": bwd["tc_llama"]["dq"],
-          "tc_rel_err_hybrid_pairs": bwd["tc_hybrid"]["dq"],
-          **at("flash_bwd_dq_train", "llama_train_pair")}),
+         {"max_rel_err": bwd["rel"]["dq"],
+          **{f"max_rel_err_{m}_pairs": p["worst"]["dq"] for m, p in pairs.items()},
+          **{f"tc_rel_err_{m}_pairs": p["tc"]["dq"] for m, p in pairs.items()},
+          **at("flash_bwd_dq_gpt_diagonal", "gpt_diagonal_pair"),
+          **at("flash_bwd_dq_train", "llama_train_pair"),
+          **at("flash_bwd_dq_hybrid", "hybrid_pair")}),
         ("flash_bwd_dkv", flash + "flash_bwd.cu", replaces + "367",
          max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
          {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"],
-          "max_rel_err_dk_hybrid_pairs": bwd["hybrid"]["dk"],
-          "max_rel_err_dv_hybrid_pairs": bwd["hybrid"]["dv"],
+          **{f"max_rel_err_dk_{m}_pairs": p["worst"]["dk"] for m, p in pairs.items()},
+          **{f"max_rel_err_dv_{m}_pairs": p["worst"]["dv"] for m, p in pairs.items()},
+          **{f"tc_rel_err_dk_{m}_pairs": p["tc"]["dk"] for m, p in pairs.items()},
           "n_split": timing["flash_bwd_dkv"]["n_split"],
           "n_split_llama_train_pair": timing["flash_bwd_dkv_train"]["n_split"],
-          **at("flash_bwd_dkv_train", "llama_train_pair")}),
+          "n_split_hybrid_pair": timing["flash_bwd_dkv_hybrid"]["n_split"],
+          **at("flash_bwd_dkv_gpt_diagonal", "gpt_diagonal_pair"),
+          **at("flash_bwd_dkv_train", "llama_train_pair"),
+          **at("flash_bwd_dkv_hybrid", "hybrid_pair")}),
         ("linear_scan", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
          scan["max_abs_err"], {"max_rel_err_near_unit": scan["max_rel_err_near_unit"]}),
         ("linear_scan_bwd", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
@@ -1600,14 +1702,16 @@ def main():
         row = timing[kname]
         if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
             fail(f"non-finite timing of {kname}")
-        if hybrid["launches"][kname] <= 0:
-            fail(f"the recurrentgemma-9b training path launched {kname} no time")
+        by_path = {"serve llama3.2-1b": serve[kname], "train llama3.2-1b": train[kname],
+                   "train recurrentgemma-9b": hybrid[kname], "train gpt-2.7b": gpt[kname]}
+        # each kernel's own path: this slice's gpt-2.7b training for the
+        # attention kernels, the hybrid's for the scan (gpt runs none)
+        path = "train recurrentgemma-9b" if kname.startswith("linear_scan") else "train gpt-2.7b"
+        if by_path[path] <= 0:
+            fail(f"the {path} path launched {kname} no time")
         kernels["kernels"].append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": hybrid["launches"][kname],
-            "launches_by_path": {"serve llama3.2-1b": serve[kname],
-                                 "train llama3.2-1b": train["launches"][kname],
-                                 "train recurrentgemma-9b": hybrid["launches"][kname]},
+            "launches": by_path[path], "launches_path": path, "launches_by_path": by_path,
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
 ``reduced`` (the port imports nothing from it).  Only architectures the
-port trains are registered; ``get_config`` raises for every other one.
+port trains are registered: llama3.2-1b, recurrentgemma-9b and the paper's
+models (``PAPER_ARCHS``); ``get_config`` raises for every other one.
 Serving raises for the block kinds it does not port yet (rglru).
 """
 from __future__ import annotations
@@ -163,9 +164,24 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # Registry: only the architectures the port trains
 # --------------------------------------------------------------------------
 
+PAPER_ARCHS = (
+    "gpt-2.7b",
+    "gpt-6.7b",
+    "gpt-13b",
+    "gpt-30b",
+    "llama-8b",
+    "llama-70b",
+)
+
 _MODULE_FOR = {
     "llama3.2-1b": "llama3p2_1b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "gpt-2.7b": "gpt_paper",
+    "gpt-6.7b": "gpt_paper",
+    "gpt-13b": "gpt_paper",
+    "gpt-30b": "gpt_paper",
+    "llama-8b": "llama_paper",
+    "llama-70b": "llama_paper",
 }
 
 
@@ -178,7 +194,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported to repro_torch; ported: {list_configs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[name]}")
-    cfg = mod.config()
+    cfg = mod.config(name) if name in PAPER_ARCHS else mod.config()
     if overrides:
         cfg = replace(cfg, **overrides)
     return cfg

@@ -38,7 +38,8 @@
 //
 // bf16 (tensor cores): mma.sync m16n8k16, bf16 operands, fp32 accumulation.
 //   * flash_bwd_dq_tc_kernel: one block per (64-row q tile, q head, batch
-//     row), 256 threads, 8 warps of 16 q rows x half the columns; the grid
+//     row), 256 threads, 8 warps of 16 q rows x half the columns (at head_dim
+//     80 and 16: 128 threads, 4 warps of all the columns, warp_cols); the grid
 //     fills the card unsplit (1024 blocks at llama3.2-1b's pair, 512 at
 //     recurrentgemma-9b's), so dq needs no cross-block sum.  Q (bf16) and
 //     dO (fp32, rounded to bf16 on load, nearest even, as
@@ -67,7 +68,8 @@
 //     half the bytes and convert nothing (flash_bwd_round_do_kernel; the
 //     wrapper allocates the bf16 copy).  One block per (64-key tile, kv
 //     head x q-head split, batch row), 256 threads, 8 warps of 16 keys x
-//     half the columns.  K and V of the tile stay in shared memory for the
+//     half the columns (4 warps of all of them at head_dim 80 and 16).  K
+//     and V of the tile stay in shared memory for the
 //     block's life; dK and dV accumulate in fp32 registers.  The block walks
 //     (its q heads) x (the q tiles live for its keys); each 64-row q tile's
 //     Q, dO, L and delta come by cp.async into one of two buffers while the
@@ -167,6 +169,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int DC = D / 16;  // dq columns per thread
+  static_assert(D % 16 == 0, "16 threads share a row's d columns");
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sDO = sQ + TQ * DP;
@@ -293,6 +296,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int PP = BQ + 1;
   constexpr int DC = D / 16;  // dk / dv columns per thread
+  static_assert(D % 16 == 0, "16 threads share a row's d columns");
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + TK * DP;
@@ -423,15 +427,23 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // flash_bwd_dq in bf16: tensor cores
 // ---------------------------------------------------------------------------
 
+// Warp columns of the bf16 backward kernels: two where each half of d is
+// whole 16-column blocks (d 32, 64, 128, 256), else one (d 16, and d 80,
+// whose halves of 40 would leave 8 columns a warp outside its dn loop)
+template <int D>
+constexpr int warp_cols() { return D >= 32 && (D / 2) % 16 == 0 ? 2 : 1; }
+
 template <int D>
 struct TcDq {
   static constexpr int TQ = 64;               // q rows a block keeps for its life
   static constexpr int TK = 64;               // keys a tile
   static constexpr int WR = TQ / 16;          // warp rows: 16 q rows each
-  static constexpr int WC = D >= 32 ? 2 : 1;  // warp columns
+  static constexpr int WC = warp_cols<D>();   // warp columns
   static constexpr int NT = 32 * WR * WC;
   static constexpr int KW = TK / WC;          // keys of S, dP a warp computes
   static constexpr int DW = D / WC;           // dQ columns a warp accumulates
+  static_assert(D % 16 == 0 && DW % 16 == 0 && KW % 16 == 0,
+                "phase 1 steps d by 16; phase 2 covers a warp's DW columns in 16s");
   // up to head_dim 64 two blocks share an SM (128 registers a thread)
   static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
   static constexpr int P = D + flash::PAD;    // pitch of a [.][D] tile row
@@ -627,14 +639,18 @@ struct TcDkv {
   static constexpr int TK = 64;               // keys a block keeps for its life
   static constexpr int TQ = 64;               // q rows a tile
   static constexpr int WR = TK / 16;          // warp rows: 16 keys each
-  static constexpr int WC = D >= 32 ? 2 : 1;  // warp columns
+  static constexpr int WC = warp_cols<D>();   // warp columns
   static constexpr int NT = 32 * WR * WC;
   static constexpr int QW = TQ / WC;          // queries of S^T, dP^T a warp computes
   static constexpr int DW = D / WC;           // dK, dV columns a warp accumulates
   // phase 1 takes a warp's queries QB at a time: 16 up to head_dim 64, which
   // halves the registers S^T and dP^T hold, at the price of reloading the K
-  // and V fragments; all QW at once above, where those reloads cost more
-  static constexpr int QB = D <= 64 ? 16 : QW;
+  // and V fragments; at most 32 above, where those reloads cost more (all QW
+  // at d 128 and 256; half of them at d 80, whose one warp column holds 80
+  // accumulator floats of dK and dV a thread)
+  static constexpr int QB = D <= 64 ? 16 : (QW < 32 ? QW : 32);
+  static_assert(D % 16 == 0 && DW % 16 == 0 && QB % 16 == 0 && QW % QB == 0,
+                "phase 1 steps d by 16 over QB queries; phase 2 covers DW in 16s");
   // up to head_dim 64 two blocks share an SM (128 registers a thread), so
   // one block's products run while the other waits at a barrier
   static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
@@ -996,6 +1012,7 @@ int dispatch(bool dq, int dtype, int d, const Args& a) {
     case 16: return launch<16>(dq, bf, a);
     case 32: return launch<32>(dq, bf, a);
     case 64: return launch<64>(dq, bf, a);
+    case 80: return launch<80>(dq, bf, a);
     case 128: return launch<128>(dq, bf, a);
     case 256: return launch<256>(dq, bf, a);
     default: return cudaErrorInvalidValue;

@@ -41,7 +41,8 @@
 //     is P to bf16 before P V (tests/test_torch_flash_tc_numerics.py
 //     emulates it).  exp(x) is taken as 2^(x log2 e), one MUFU.EX2, with m
 //     kept in the natural-log domain (the scaling is applied to x - m, never
-//     stored).  At head_dim 256 acc is 128 registers a thread, so Q
+//     stored).  Head dims 16, 32, 64, 80 (gpt-2.7b), 128 and 256 are
+//     instantiated.  At head_dim 256 acc is 128 registers a thread, so Q
 //     fragments are re-read from shared memory for every key tile and key
 //     tiles are 32 wide (101 KB of shared memory a block).
 //   * fp32 runs the first version on the CUDA cores: fp32 FMAs out of
@@ -96,6 +97,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int DP = D + 1;   // padded stride: column walks hit distinct banks
   constexpr int SP = BK + 1;
   constexpr int DC = D / 16;  // acc columns per thread
+  static_assert(D % 16 == 0, "16 threads share a row's d columns");
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * DP;
@@ -264,6 +266,7 @@ struct TcFwd {
   static constexpr int P = D + flash::PAD;     // a tile row's pitch
   // sQ [BQ][P]; two stages of sK [BK][P] and of sV [BK][P]; all bf16
   static constexpr size_t smem = sizeof(bf16) * (size_t(BQ) + 4 * size_t(BK)) * P;
+  static_assert(D % 16 == 0, "S = Q K^T steps over d 16 at a time, P V covers d in 16s");
 };
 
 template <int D>
@@ -503,6 +506,7 @@ cudaError_t dispatch_d(int d, const Args& a) {
     case 16: return TC ? launch_tc<16>(a) : launch_simt<16>(a);
     case 32: return TC ? launch_tc<32>(a) : launch_simt<32>(a);
     case 64: return TC ? launch_tc<64>(a) : launch_simt<64>(a);
+    case 80: return TC ? launch_tc<80>(a) : launch_simt<80>(a);
     case 128: return TC ? launch_tc<128>(a) : launch_simt<128>(a);
     case 256: return TC ? launch_tc<256>(a) : launch_simt<256>(a);
     default: return cudaErrorInvalidValue;

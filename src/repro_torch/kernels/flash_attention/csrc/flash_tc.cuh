@@ -61,16 +61,17 @@ cudaError_t configure_once(K kern, size_t smem, bool* configured) {
   return cudaSuccess;
 }
 
-// bf16 tiles in shared memory are [rows][COLS + PAD], row-major: the pad
-// makes the row stride 16 bytes past a multiple of 128 (COLS of 16, 32 or a
-// multiple of 64: 48, 80 or 16 mod 128), so the eight 16-byte rows of one
-// ldmatrix phase fall in distinct banks, and a fragment's address is one
+// bf16 tiles in shared memory are [rows][COLS + PAD], row-major: a row's
+// pitch is (COLS + 8) * 2 bytes = 16 * (COLS / 8 + 1), an odd number of
+// 16-byte units whenever COLS % 16 == 0 (11 at COLS 80, 9 at 64, 17 at 128),
+// so the eight 16-byte rows of one ldmatrix phase fall in eight distinct
+// 16-byte slots of the 128-byte bank line, and a fragment's address is one
 // per-lane offset plus a compile-time constant.
 constexpr int PAD = 8;
 
 template <int COLS>
 __device__ __forceinline__ int toff(int row, int col) {
-  static_assert(COLS % 16 == 0 && (COLS <= 32 || COLS % 64 == 0), "tile width");
+  static_assert(COLS % 16 == 0, "tile width: a multiple of 16 (one k step of m16n8k16)");
   return row * (COLS + PAD) + col;
 }
 

@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_fwd.cu"
 BWD_SOURCE = CSRC / "flash_bwd.cu"
 SOURCES = (SOURCE, BWD_SOURCE)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DKV_TILE_KEYS = 64  # keys a block of the bf16 flash_bwd_dkv keeps (TcDkv::TK)
 # the SMs dkv_splits reckons against on every card (an H100 SXM's): the
 # split count, and with it the order in which the partials are summed,

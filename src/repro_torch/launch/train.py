@@ -10,7 +10,10 @@ are the JAX trainer's.  The run is on the card unless ``--device cpu`` asks
 for the CPU; with no card it stops instead of falling back.  Every time it
 prints names the device it was taken on.  ``--mesh``, checkpointing
 (``--ckpt-dir/--ckpt-every/--resume``), ``--compress-grads``, telemetry
-(``--trace-out/--metrics-out``) and ``--remat offload`` are not yet ported.
+(``--trace-out/--metrics-out``) are not yet ported.  ``--remat offload``
+keeps each layer cycle's input in pinned host memory until the backward
+recomputes the cycle (the paper's "OC."), as ``--offload`` keeps FPDT's
+idle chunks there.
 """
 from __future__ import annotations
 
@@ -96,8 +99,6 @@ def main(argv=None):
         val = getattr(args, name)
         if val not in (None, False) and not (name == "mesh" and val == "none"):
             ap.exit(2, f"{what} is not yet ported\n")
-    if args.remat == "offload":
-        ap.exit(2, "--remat offload: host-offloaded remat is not yet ported\n")
     if min(args.steps, args.batch, args.seq, args.grad_accum) < 1:
         ap.error("--steps, --batch, --seq and --grad-accum must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():

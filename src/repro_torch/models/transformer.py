@@ -8,9 +8,11 @@ in ``params["tail"]``.  The training forward (``hidden_forward``,
 ``loss_fn``) runs the cycles as a Python loop over views of the stacks, so
 the gradients of ``params["cycles"]`` come out stacked with the JAX
 pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
-``torch.utils.checkpoint`` whose first pass offloads nothing.  The ported
-block kinds are attention (attn, local_attn) and RG-LRU (rglru), with the
-token frontend.
+``torch.utils.checkpoint`` whose first pass offloads nothing, and
+``remat="offload"`` runs each cycle as ``_OffloadedCycle``, which keeps the
+cycle's input in pinned host memory between the forward and the backward
+(the JAX package's ``block_in`` offload policy).  The ported block kinds are
+attention (attn, local_attn) and RG-LRU (rglru), with the token frontend.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
-from repro_torch.runtime.placement import no_offload
+from repro_torch.runtime.placement import host_offload, no_offload
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
@@ -88,7 +90,13 @@ def cycle(tree, c: int):
 
 def unstack(tree, n: int):
     """The ``n`` per-cycle trees of a stacked tree, as views: one ``unbind``
-    per leaf, whose backward stacks the cycles' gradients once."""
+    per leaf, whose backward stacks the cycles' gradients once.  A list is
+    taken to hold the per-cycle trees already (``train_loop.value_and_grad``
+    passes one leaf a cycle) and is returned as it is."""
+    if isinstance(tree, list):
+        if len(tree) != n:
+            raise ValueError(f"{len(tree)} cycle trees, expected {n}")
+        return tree
     parts = [x.unbind(0) for x in tree_leaves(tree)]
     return [tree_unflatten(tree, [p[c] for p in parts]) for c in range(n)]
 
@@ -165,22 +173,59 @@ def _remat_contexts():
     return no_offload(), contextlib.nullcontext()
 
 
+class _OffloadedCycle(torch.autograd.Function):
+    """One layer cycle under ``remat="offload"``: the twin of the JAX
+    package's ``save_and_offload_only_these_names(["block_in"])``.  The
+    forward sends the cycle's input h to pinned host memory
+    (``HostOffload.to_host``, on the copy stream, so the copy overlaps the
+    cycle) and runs the cycle without grad and without FPDT offload, keeping
+    nothing else.  The backward fetches h, recomputes the cycle with grad
+    (FPDT offload on, as a checkpoint's recompute has it) and returns the
+    gradients of h and of every parameter leaf.  The leaves are the cycle's
+    parameters (views of the stacks from ``unstack``, or
+    ``train_loop.value_and_grad``'s one leaf a cycle), so their gradients
+    reach ``params["cycles"]`` with the JAX pytree's shapes.  A non-reentrant
+    checkpoint would keep h on the device (its frame holds the inputs),
+    which is why this is a Function.  On the CPU ``to_host`` is the
+    identity, so only the recompute is exercised there."""
+
+    @staticmethod
+    def forward(ctx, cfg, par, pat, like, h, *leaves):
+        ctx.offload = host_offload(h.device)
+        h_host = ctx.offload.to_host(h)
+        with no_offload():
+            out = _cycle(cfg, par, pat, tree_unflatten(like, list(leaves)), h)
+        ctx.cfg, ctx.par, ctx.pat, ctx.like = cfg, par, pat, like
+        ctx.save_for_backward(h_host, *leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        h_host, *leaves = ctx.saved_tensors
+        h = ctx.offload.to_device(h_host).wait().detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in leaves]
+        with torch.enable_grad():
+            out = _cycle(ctx.cfg, ctx.par, ctx.pat, tree_unflatten(ctx.like, ws), h)
+        grads = torch.autograd.grad(out, [h, *ws], dout)
+        return (None, None, None, None, *grads)
+
+
 def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                    h: torch.Tensor):
     """Run the full layer stack. h: [b, S, d].  Returns (h, aux); aux is the
     MoE load-balancing loss in the JAX package, and no ported block has one."""
-    if cfg.remat == "offload":
-        raise NotImplementedError("remat='offload' is not yet ported; use 'full' or 'none'")
-    if cfg.remat not in ("none", "full"):
+    if cfg.remat not in ("none", "full", "offload"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     pat, n_cycles, tail = layout_of(cfg)
     for cyc_p in unstack(params["cycles"], n_cycles):
-        if cfg.remat == "full" and torch.is_grad_enabled():
+        if cfg.remat == "none" or not torch.is_grad_enabled():
+            h = _cycle(cfg, par, pat, cyc_p, h)
+        elif cfg.remat == "full":
             h = checkpoint(_cycle, cfg, par, pat, cyc_p, h, use_reentrant=False,
                            preserve_rng_state=False, context_fn=_remat_contexts,
                            determinism_check="none")
         else:
-            h = _cycle(cfg, par, pat, cyc_p, h)
+            h = _OffloadedCycle.apply(cfg, par, pat, cyc_p, h, *tree_leaves(cyc_p))
     for i, kind in enumerate(tail):
         h = block_apply(cfg, par, kind, params["tail"][i], h)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)

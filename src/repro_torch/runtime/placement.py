@@ -4,7 +4,9 @@ The paper's memory headroom comes from moving chunks that are idle (the
 KV and query chunks a later pair or the backward will need) to host memory
 and fetching each back just ahead of the kernel that reads it.
 
-``HostOffload(device)`` is the policy for one device:
+``HostOffload(device)`` is the policy for one device (also used by
+``remat="offload"``, ``models/transformer.py``, for each layer cycle's
+input):
 
   * on a CUDA device, ``to_host(t)`` copies ``t`` into a **pinned** host
     tensor on a side copy stream, after the copy stream has waited for what
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Callable, Dict, Iterable, Iterator, Optional, TypeVar
 
 import torch
@@ -105,7 +108,9 @@ def offload_enabled() -> bool:
 
 class HostOffload:
     """``to_host`` / ``to_device`` for one device, with byte counts of what
-    crossed (``to_host_bytes``, ``to_device_bytes``)."""
+    crossed (``to_host_bytes``, ``to_device_bytes``) and of the host copies
+    that ``to_host`` made and that are still alive (``held_bytes``, and its
+    largest value since the last reset, ``peak_held_bytes``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -116,6 +121,8 @@ class HostOffload:
         self._lock = threading.Lock()  # autograd runs the backward on its own thread
         self.to_host_bytes = 0
         self.to_device_bytes = 0
+        self.held_bytes = 0
+        self.peak_held_bytes = 0
 
     def _copy_stream(self) -> torch.cuda.Stream:
         if self._stream is None:
@@ -129,6 +136,12 @@ class HostOffload:
     def reset_counts(self):
         with self._lock:
             self.to_host_bytes = self.to_device_bytes = 0
+            self.peak_held_bytes = self.held_bytes
+
+    def _held(self, n: int):
+        with self._lock:
+            self.held_bytes += n
+            self.peak_held_bytes = max(self.peak_held_bytes, self.held_bytes)
 
     def to_host(self, t: torch.Tensor) -> torch.Tensor:
         """A pinned host copy of the device tensor ``t`` (the CPU: ``t`` itself)."""
@@ -146,6 +159,9 @@ class HostOffload:
             dst.copy_(t, non_blocking=True)
         t.record_stream(copy)  # t's memory is not reused before the copy has read it
         self._count("to_host_bytes", t)
+        n = dst.numel() * dst.element_size()
+        self._held(n)
+        weakref.finalize(dst, self._held, -n)  # when the last holder lets it go
         return dst
 
     def to_device(self, t: torch.Tensor) -> Pending:

@@ -50,12 +50,36 @@ class StragglerAlert(RuntimeError):
 def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
                    batch: Dict[str, torch.Tensor]):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``: grads is a tree
-    shaped like ``params``, each leaf in its parameter's dtype."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    total, metrics = T.loss_fn(cfg, par, tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(total, leaves)
-    return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
-        tree_unflatten(params, list(grads))
+    shaped like ``params``, each leaf in its parameter's dtype.
+
+    The stacked cycle parameters are differentiated through one leaf a cycle
+    (a view of the stack) whose ``.grad`` is that cycle's slice of a zeroed
+    stacked buffer, so the backward adds each cycle's gradients into place
+    as it finishes the cycle.  Differentiating the stacks themselves (one
+    ``unbind`` a leaf) holds every cycle's gradients until the backward
+    reaches the first cycle and then stacks them, a second copy of the layer
+    gradients at the end of the backward (4.8 GiB at gpt-2.7b) that the JAX
+    package's scan does not make.  The sums are the same bits (0 + g)."""
+    _, n_cycles, _ = T.layout_of(cfg)
+    stacks = tree_leaves(params["cycles"])
+    sums = [torch.zeros_like(x) for x in stacks]
+    cycles = []
+    for c in range(n_cycles):
+        views = []
+        for x, g in zip(stacks, sums):
+            v = x[c].detach().requires_grad_(True)
+            v.grad = g[c]  # accumulated into in place by the backward
+            views.append(v)
+        cycles.append(tree_unflatten(params["cycles"], views))
+    rest = {k: v for k, v in params.items() if k != "cycles"}
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(rest)]
+    total, metrics = T.loss_fn(cfg, par, {**tree_unflatten(rest, leaves), "cycles": cycles}, batch)
+    total.backward(inputs=leaves + [v for cyc in cycles for v in tree_leaves(cyc)])
+    if any(p.grad is None for p in leaves):
+        raise RuntimeError("a parameter outside the layer cycles got no gradient")
+    grads = {**tree_unflatten(rest, [p.grad for p in leaves]),
+             "cycles": tree_unflatten(params["cycles"], sums)}
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],

@@ -114,3 +114,17 @@ def test_apply_updates_in_place():
     w = params["w"]
     new, state, _ = A.apply(oc, params, {"w": torch.full((4, 4), 0.5)}, state)
     assert new["w"] is w and not torch.equal(w, torch.ones(4, 4))
+
+
+def test_global_norm_in_slices_is_the_whole_norm(monkeypatch):
+    """A leaf above NORM_SLICE elements is squared and summed slice by slice:
+    the same norm as in one piece, up to fp32 summation order."""
+    rng = np.random.default_rng(3)
+    g = {"w": torch.from_numpy(rng.standard_normal((7, 5)).astype(np.float32)).to(torch.bfloat16),
+         "b": torch.from_numpy(rng.standard_normal((9,)).astype(np.float32))}
+    whole = float(A.global_norm(g))
+    monkeypatch.setattr(A, "NORM_SLICE", 6)
+    assert len(list(A._slices(g["w"], limit=A.NORM_SLICE))) == 7
+    np.testing.assert_allclose(float(A.global_norm(g)), whole, rtol=1e-6)
+    want = np.sqrt(sum(np.sum(np.square(v.float().numpy().astype(np.float64))) for v in g.values()))
+    np.testing.assert_allclose(whole, want, rtol=1e-6)

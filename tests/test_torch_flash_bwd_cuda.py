@@ -51,6 +51,14 @@ CASES = [
     (1, 4, 1, 70, 64, 256, torch.bfloat16, True, 33, 0, 200),  # every row masked
     (1, 8, 2, 33, 257, 128, torch.bfloat16, False, 0, 0, 0),
     (2, 4, 2, 40, 90, 16, torch.bfloat16, True, 20, 60, 0),
+    # head_dim 80 (gpt-2.7b, MHA; one warp column in the bf16 kernels):
+    # both kernels, ragged tails, a window, offsets, masked rows
+    (1, 4, 4, 100, 100, 80, torch.float32, True, 0, 0, 0),
+    (2, 4, 4, 130, 70, 80, torch.float32, True, 33, 90, 40),
+    (1, 4, 4, 100, 100, 80, torch.bfloat16, True, 0, 0, 0),
+    (2, 4, 4, 130, 200, 80, torch.bfloat16, True, 48, 300, 180),
+    (1, 4, 4, 64, 64, 80, torch.bfloat16, True, 33, 0, 200),  # every row masked
+    (1, 8, 2, 37, 257, 80, torch.bfloat16, False, 0, 0, 0),
 ]
 
 
@@ -100,7 +108,7 @@ def test_bwd_kernels_match_plain(device, case):
         assert not dq.any() and not dk.any() and not dv.any()
 
 
-@pytest.mark.parametrize("hq,hkv,s,d", [(16, 1, 300, 256), (8, 2, 200, 64)])
+@pytest.mark.parametrize("hq,hkv,s,d", [(16, 1, 300, 256), (8, 2, 200, 64), (8, 2, 200, 80)])
 def test_bf16_dkv_is_deterministic(device, hq, hkv, s, d):
     """Two launches on the same inputs give the same bits: the q-head
     splits' partials are summed in split order, without atomics."""
@@ -113,7 +121,7 @@ def test_bf16_dkv_is_deterministic(device, hq, hkv, s, d):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("hq,hkv,s,d", [(16, 1, 300, 256), (8, 2, 200, 64)])
+@pytest.mark.parametrize("hq,hkv,s,d", [(16, 1, 300, 256), (8, 2, 200, 64), (32, 32, 300, 80)])
 def test_bf16_dq_is_deterministic(device, hq, hkv, s, d):
     """Two launches on the same inputs give the same bits: each block owns
     its q rows' dq, with no cross-block sum."""
@@ -130,6 +138,7 @@ TOL_TC = 3e-4
 TC_CASES = [
     (1, 8, 2, 512, 512, 64, torch.bfloat16, True, 0, 512, 0),
     (1, 16, 1, 256, 320, 256, torch.bfloat16, True, 200, 256, 64),
+    (1, 8, 8, 512, 512, 80, torch.bfloat16, True, 0, 512, 512),  # gpt-2.7b's width
 ]
 
 

@@ -34,6 +34,14 @@ CASES = [
     (1, 4, 4, 64, 64, 64, torch.bfloat16, True, 0, 0, 100, False),  # every row masked, no carry
     (1, 8, 2, 33, 257, 128, torch.bfloat16, False, 0, 0, 0, True),
     (2, 4, 2, 40, 90, 16, torch.bfloat16, True, 20, 60, 0, False),
+    # head_dim 80 (gpt-2.7b, MHA): both kernels, ragged tails, a window,
+    # offsets, a carry, masked rows
+    (1, 4, 4, 100, 100, 80, torch.float32, True, 0, 0, 0, False),
+    (2, 4, 4, 130, 70, 80, torch.float32, True, 33, 90, 40, True),
+    (1, 4, 4, 100, 100, 80, torch.bfloat16, True, 0, 0, 0, False),
+    (2, 4, 4, 130, 200, 80, torch.bfloat16, True, 48, 300, 180, True),
+    (1, 4, 4, 64, 64, 80, torch.bfloat16, True, 33, 0, 200, True),  # every row masked
+    (1, 8, 8, 37, 257, 80, torch.bfloat16, False, 0, 0, 0, True),
 ]
 
 
@@ -94,10 +102,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
 TOL_TC = 3e-4
 
 
-@pytest.mark.parametrize("case", [
+TC_CASES = [
     (1, 8, 2, 512, 512, 64, torch.bfloat16, True, 0, 512, 0, True),
     (1, 16, 1, 256, 320, 256, torch.bfloat16, True, 200, 256, 64, True),
-])
+    (1, 8, 8, 512, 512, 80, torch.bfloat16, True, 0, 512, 512, True),  # gpt-2.7b's width
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
 def test_bf16_kernel_matches_its_rounding(device, case):
     """The tensor-core kernel against the plain version rounded where it
     rounds (P to bf16 before P V, ref.attend_chunk_tc): only the fp32
@@ -107,6 +119,17 @@ def test_bf16_kernel_matches_its_rounding(device, case):
     want = R.attend_chunk_tc(q, k, v, carry=st, **kw)
     for a, b in ((got[0], want.acc), (got[2], want.l)):
         assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= TOL_TC
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_bf16_kernel_is_deterministic(device, case):
+    """Two launches on the same inputs give the same bits: each block owns
+    its q rows, with no cross-block sum."""
+    q, k, v, st, kw = _inputs(case, device)
+    first = K.flash_fwd(q, k, v, tuple(st), **kw)
+    second = K.flash_fwd(q, k, v, tuple(st), **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_reduced_serve_runs_through_the_kernel(device):

@@ -32,7 +32,6 @@ from repro.runtime import train_loop as JTL
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import from_jax_params
 from repro_torch.launch import train as CLI
-from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.runtime import train_loop as TL
 from repro_torch.tree import tree_leaves
@@ -146,13 +145,6 @@ def test_hybrid_three_step_trajectory_matches_jax(hybrid):
             np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
 
 
-def test_remat_offload_not_yet_ported(model):
-    _, tc = _cfgs(remat="offload")
-    params = T.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.loss_fn(tc, None, params, _tbatch(model[1][0]))
-
-
 def test_cli_on_cpu(capsys):
     history = CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--steps", "2",
                         "--batch", "2", "--seq", "32", "--chunks", "4", "--offload",
@@ -176,7 +168,6 @@ def test_hybrid_cli_on_cpu(capsys):
 @pytest.mark.parametrize("flag", [
     ["--mesh", "host8"], ["--ckpt-dir", "ckpt"], ["--ckpt-every", "5"], ["--resume", "auto"],
     ["--compress-grads"], ["--trace-out", "t.json"], ["--metrics-out", "m.prom"],
-    ["--remat", "offload"],
 ])
 def test_cli_refuses_unported(capsys, flag):
     with pytest.raises(SystemExit) as ex:
