@@ -49,13 +49,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 over a copied a_next, then torch's multiply and cast); two
                 launches of each kernel bit for bit, and again behind a side
                 stream that keeps the SMs busy; the op's backward against
-                autograd of the plain version at a reduced length;
-  5. serve    — llama3.2-1b at full width with random weights from a seeded
-                generator, through the CLI's own function (serve_batch):
-                batch 4, prompt 64, gen 32, greedy; the launch counts are reset
-                just before and read just after.  Decode's first step against a
-                prefill of one more token, in fp32 weights.  Then a 2048 prompt
-                whose prefill logits at fpdt_chunks=4 must equal fpdt_chunks=1;
+                autograd of the plain version at a reduced length; at the
+                selective scan's block [1, 256, 131072] with h0 and a =
+                exp(dt A) in (0, 1] (falcon-mamba-7b's d_inner x d_state
+                channels), the forward relative to (1 + max |h|), the fused
+                backward, and two launches of each bit for bit;
+  5. serve    — llama3.2-1b, recurrentgemma-9b (38 layers) and falcon-mamba-7b
+                (64 layers), each at full size with random weights from a
+                seeded generator, through the CLI's own function
+                (serve_batch): batch 4, prompt 64, gen 32, greedy; the launch
+                counts are reset just before and read just after, and each
+                kernel the arch's blocks run (flash_fwd for attention,
+                linear_scan for RG-LRU and Mamba) must have launched.  With
+                attention, a 2048 prompt whose prefill logits at
+                fpdt_chunks=4 must equal fpdt_chunks=1.  Then, the bf16
+                weights released, decode's first step against a prefill of
+                one more token in fp32 weights, and a changed first prompt
+                token must move those logits;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -77,9 +87,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 commit (EARLIER_LOSSES);
   6c. gpt     — gpt-2.7b (the paper's GPT) at full width and depth, 32
                 layers, B1-B3 at head_dim 80: the same as 6b (u = 4 vs u = 1 at
-                all 32 layers); its losses are printed, having no earlier
-                figure yet;
-  6d. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
+                all 32 layers), its losses held to EARLIER_LOSSES;
+  6d. falcon  — falcon-mamba-7b at full width and 16 of its 64 layers, the
+                selective scan on linear_scan in 256-token blocks: remat
+                offload == remat full bit for bit, then 3 steps through
+                train_steps (remat full, no attention so no FPDT offload) with
+                the scan launches held to the count reckoned from the code,
+                peak memory, one profiled step; its losses printed, having no
+                earlier figure yet; one layer's selective scan timed alone and
+                its share of a step reckoned;
+  6e. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
                 mlp_chunks 2u) at s = 16384 and 32768 under A (FPDT offload
                 off, remat full), B (offload on, remat full) and C (offload
                 on, remat offload): 2 AdamW steps each, the second's ms, peak
@@ -95,16 +112,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the port never calls them; no PyTorch call computes a linear
                 recurrence), all as device time from a CUDA graph of repeated
                 calls, at the serve shape, the llama3.2-1b, gpt-2.7b and
-                recurrentgemma-9b training pairs and the RG-LRU scan shape (forward,
-                and the fused backward beside the unfused chain it replaced);
+                recurrentgemma-9b training pairs, the RG-LRU scan shape (forward,
+                and the fused backward beside the unfused chain it replaced) and
+                the selective scan's block with h0;
                 the wrappers also launched from the host back to back
                 (wrapper_ms: host dispatch included); the redesigned kernels
                 beside the earlier kernels' times (EARLIER_MS); the q-head
                 splits of flash_bwd_dkv at each timed pair (n_split);
   8. kernels  — one JSON line per the kernel contract: the attention
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
-                their launches on its training path, the scan kernels' on the
-                hybrid's;
+                their launches on its training path, the scan kernels' on
+                falcon-mamba-7b's, every path's launches beside them
+                (launches_by_path: the three serve paths and four trainings);
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -165,13 +184,15 @@ FPDT_GRAD_RTOL = 5e-4
 # fp32 logits of decode vs prefill, relative to the logits' largest magnitude:
 # other matmul shapes and another softmax order, fp32 rounding through 16 layers.
 FP32_LOGIT_RTOL = 1e-4
-# Training losses of the three steps from seed 0 at the parent commit, whose
-# bf16 flash_bwd_dq still ran on the CUDA cores: this script at commit
-# 6a7ca09, run from a git archive in the same chip call as this tree, on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6); each step is held
-# within LOSS_RTOL of them.
+# Training losses of the three steps from seed 0 at earlier commits, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): llama3.2-1b's and
+# recurrentgemma-9b's from this script at commit 6a7ca09 (whose bf16
+# flash_bwd_dq still ran on the CUDA cores), run from a git archive in one
+# chip call with its child; gpt-2.7b's from this script at commit 0fd5e81,
+# where it was first trained.  Each step is held within LOSS_RTOL of them.
 EARLIER_LOSSES = {"llama3.2-1b": (12.1212, 10.8319, 14.2329),
-                  "recurrentgemma-9b": (12.8542, 10.5876, 9.7271)}
+                  "recurrentgemma-9b": (12.8542, 10.5876, 9.7271),
+                  "gpt-2.7b": (11.5631, 19.6821, 19.4709)}
 LOSS_RTOL = 0.02
 # Device ms of the earlier kernels that the redesigned ones replaced, at the
 # timed shapes (same card, same script; the "was" figures of PERF.md
@@ -213,13 +234,16 @@ def fail(msg: str):
 
 def phase(name, fn, *args):
     print(f"== {name}", flush=True)
+    t0 = time.perf_counter()
     try:
-        return fn(*args)
+        out = fn(*args)
     except SystemExit:
         raise
     except Exception:  # every phase failure ends the run with its traceback
         traceback.print_exc()
         fail(f"phase {name!r} failed")
+    print(f"({name}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
 
 
 def phase_device(torch):
@@ -358,8 +382,6 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     errs = {"float32": 0.0, "bfloat16": 0.0}
     acc_errs = dict(errs)
     check = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs)
-    tc = {}
-    check_tc = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs, tc)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -387,34 +409,46 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
                 check(f"{label} d={d} {dtype}", dtype, q, k, v, st, causal=causal,
                       window=window, q_offset=qo, k_offset=ko)
                 n += 1
-    # the serve shapes, one call per layer at u=1: the 64-token prompt, the
-    # 65-token prefill of the decode-vs-prefill check, the 2048 prompt
-    for s in (64, 65, 2048):
-        for dtype in (torch.float32, torch.bfloat16):
-            q = rnd(4, 32, s, 64).to(dtype)
-            k, v = rnd(4, 8, s, 64).to(dtype), rnd(4, 8, s, 64).to(dtype)
-            check(f"serve b4 hq32 hkv8 s{s} {dtype}", dtype, q, k, v, None)
-            n += 1
-    # the u=4 chunks of a 2048 prompt (cq=512): every (i, j <= i) pair, each
-    # fed the plain version's running state as its carry
+    # the serve shapes of llama3.2-1b (GQA, d 64) and of recurrentgemma-9b's
+    # local_attn layers (MQA, d 256, window 2048), one call per layer at u=1:
+    # the 64-token prompt, the 65-token prefill of the decode-vs-prefill
+    # check, the 2048 prompt; then the u=4 chunks of a 2048 prompt (cq=512):
+    # every (i, j <= i) pair, each fed the plain version's running state as
+    # its carry
     cq, u = 512, 4
-    qs = [rnd(4, 32, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    ks = [rnd(4, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    vs = [rnd(4, 8, cq, 64).to(torch.bfloat16) for _ in range(u)]
-    for i in range(u):
-        st = None
-        for j in range(i + 1):
-            st = check_tc(f"fpdt pair ({i},{j})", torch.bfloat16, qs[i], ks[j], vs[j], st,
-                          causal=True, q_offset=i * cq, k_offset=j * cq)
-            n += 1
+    tcs = {}
+    for model, hq, hkv, d, window in SERVE_ATTN:
+        for s in (64, 65, 2048):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = rnd(4, hq, s, d).to(dtype)
+                k, v = rnd(4, hkv, s, d).to(dtype), rnd(4, hkv, s, d).to(dtype)
+                check(f"serve {model} b4 hq{hq} hkv{hkv} d{d} window {window} s{s} {dtype}",
+                      dtype, q, k, v, None, window=window)
+                n += 1
+        qs = [rnd(4, hq, cq, d).to(torch.bfloat16) for _ in range(u)]
+        ks = [rnd(4, hkv, cq, d).to(torch.bfloat16) for _ in range(u)]
+        vs = [rnd(4, hkv, cq, d).to(torch.bfloat16) for _ in range(u)]
+        tc = tcs[model] = {}
+        check_tc = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc_errs, tc)
+        for i in range(u):
+            st = None
+            for j in range(i + 1):
+                st = check_tc(f"{model} fpdt pair ({i},{j})", torch.bfloat16, qs[i], ks[j],
+                              vs[j], st, causal=True, window=window, q_offset=i * cq,
+                              k_offset=j * cq)
+                n += 1
+        del q, k, v, qs, ks, vs, st
     print(f"kernel vs plain: {n} cases within tolerance; max abs err of out, m, l: "
           f"fp32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; acc err / (1 + l): "
           f"fp32 {acc_errs['float32']:.3e} bf16 {acc_errs['bfloat16']:.3e}; at the u=4 pairs "
-          f"of the 2048 prompt, against the bf16 rounding emulation: acc, l relative error "
-          f"{tc['acc']:.3e}, {tc['l']:.3e} (limit {TOL_TC}); least rms of plain out "
-          f"{tc['rms_out']:.3e}")
+          f"of the 2048 prompt, against the bf16 rounding emulation (limit {TOL_TC}): "
+          + "; ".join(f"{m} acc, l relative error {tc['acc']:.3e}, {tc['l']:.3e}, least rms of "
+                      f"plain out {tc['rms_out']:.3e}" for m, tc in tcs.items()))
     return errs
 
+
+# the attention layers each serve path runs: model, hq, hkv, head_dim, window
+SERVE_ATTN = (("llama3.2-1b", 32, 8, 64, 0), ("recurrentgemma-9b", 16, 1, 256, 2048))
 
 # head_dim 80 is gpt-2.7b's, whose attention is MHA: its cases keep hq = hkv
 # = 32, ragged, windowed and offset as the others are
@@ -654,6 +688,10 @@ def phase_scan(torch, SK, SR, SO):
         ("near+1-rglru", 1, 8192, 515, torch.float32, (0.99, 1.0), True, True, True),
         ("train-shape", 1, 8192, 4096, torch.float32, (0.0, 1.0), False, True, True),
         ("train-shape-bf16", 1, 8192, 4096, torch.bfloat16, (0.0, 1.0), True, True, True),
+        # recurrentgemma-9b's prefill at the serve phase's prompts: b4, no h0
+        ("serve-rglru-s64", 4, 64, 4096, torch.float32, (0.0, 1.0), False, True, True),
+        ("serve-rglru-s65", 4, 65, 4096, torch.float32, (0.0, 1.0), False, True, True),
+        ("serve-rglru-s2048", 4, 2048, 4096, torch.float32, (0.0, 1.0), False, True, True),
     ]
     for label, b, s, c, dtype, (lo, hi), with_h0, rglru, elementwise in cases:
         a, x, h0 = inputs(b, s, c, dtype, lo, hi, with_h0, rglru)
@@ -678,6 +716,7 @@ def phase_scan(torch, SK, SR, SO):
             n += 1
         del a, x, h0, got, want
     bwd = _scan_bwd_checks(torch, SK, SR, inputs, g)
+    sel = _selective_scan_block_checks(torch, SK, SR, g)
     # the op's backward (the fused kernel) at a reduced length
     a, x, h0 = inputs(2, 512, 300, torch.float32, 0.2, 0.999, True, False)
     w = torch.randn(a.shape, generator=g, device=dev)
@@ -696,7 +735,91 @@ def phase_scan(torch, SK, SR, SO):
           f"plain version: max abs err da {grad_err['da']:.3e} db {grad_err['db']:.3e} dh0 "
           f"{grad_err['dh0']:.3e} (tol {TOL_SCAN_GRAD})")
     return {"max_abs_err": worst["elementwise"], "max_rel_err_near_unit": worst["scaled"],
-            "grad": grad_err, **bwd}
+            "grad": grad_err, **bwd, **sel}
+
+
+SELECTIVE_BLOCK = (1, 256, 8192, 16)  # b, block tokens, d_inner, d_state: falcon-mamba-7b's
+SELECTIVE_SERVE = ((4, 64), (4, 65))  # b, tokens: the serve phase's prefills, one block each
+
+
+def _selective_block_inputs(torch, g, b, s):
+    """One block of falcon-mamba-7b's selective scan as the mixer hands it to
+    linear_scan: a = exp(dt A) in (0, 1] and b = (dt x) B, fp32 [b, s,
+    d_inner * d_state], dt log-uniform in the init's band [0.001, 0.1], A =
+    -(1..d_state) on every channel; h0 the carried state [b, d_inner *
+    d_state]."""
+    dev = torch.device("cuda")
+    _, _, di, ds = SELECTIVE_BLOCK
+    dt = torch.exp(math.log(1e-3) + (math.log(0.1) - math.log(1e-3))
+                   * torch.rand((b, s, di), generator=g, device=dev))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    x = torch.randn((b, s, di), generator=g, device=dev)
+    bm = torch.randn((b, s, ds), generator=g, device=dev)
+    a = torch.exp(dt[..., None] * A).reshape(b, s, di * ds)
+    bb = ((dt * x)[..., None] * bm[:, :, None, :]).reshape(b, s, di * ds)
+    h0 = torch.randn((b, di * ds), generator=g, device=dev)
+    return a, bb, h0
+
+
+def _selective_fwd_err(torch, SK, SR, a, bb, h0, tag):
+    """linear_scan against its plain version at a selective-scan shape:
+    max err / (1 + max |h|), raised beyond TOL_SCAN; returns (err, h)."""
+    h = SK.linear_scan(a, bb, h0)
+    want = SR.linear_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    err = float((h - want).abs().max()) / (1 + float(want.abs().max()))
+    if not torch.isfinite(h).all() or err > TOL_SCAN:
+        raise AssertionError(f"{tag}: err {err:.3e} beyond {TOL_SCAN}")
+    return err, h
+
+
+def _selective_scan_block_checks(torch, SK, SR, g):
+    """linear_scan at the selective scan's block shape [1, 256, 131072] with
+    h0: the forward against its plain version at TOL_SCAN relative to (1 +
+    max |h|), the fused backward at TOL_SCAN_GRAD (elementwise) and bit for
+    bit the unfused chain, two launches of each bit for bit.  Then the
+    forward alone at the serve phase's prefill blocks (SELECTIVE_SERVE)."""
+    dev = torch.device("cuda")
+    a, bb, h0 = _selective_block_inputs(torch, g, *SELECTIVE_BLOCK[:2])
+    fwd_err, h = _selective_fwd_err(torch, SK, SR, a, bb, h0, "selective block linear_scan")
+    dout = torch.randn(h.shape, generator=g, device=dev)
+    got_bwd = SK.linear_scan_bwd(a, h, h0, dout, torch.float32)
+    want_bwd = SR.linear_scan_bwd(a, h, h0, dout, torch.float32)
+    unfused = SR.linear_scan_bwd(a, h, h0, dout, torch.float32,
+                                 reverse_scan=lambda a_, b_: SK.linear_scan(a_, b_, reverse=True))
+    same = torch.equal(SK.linear_scan(a, bb, h0), h) and all(
+        torch.equal(u, v) for u, v in zip(SK.linear_scan_bwd(a, h, h0, dout, torch.float32),
+                                          got_bwd))
+    torch.cuda.synchronize()
+    bwd_err = 0.0
+    for name, gv, wv, uv in zip(("da", "db", "dh0"), got_bwd, want_bwd, unfused):
+        if not torch.isfinite(gv).all() or not torch.equal(gv, uv):
+            raise AssertionError(f"selective block linear_scan_bwd {name}: non-finite or not "
+                                 "the unfused chain's bits")
+        diff = (gv - wv).abs()
+        if bool((diff > TOL_SCAN_GRAD * (1 + wv.abs())).any()):
+            raise AssertionError(f"selective block linear_scan_bwd {name}: max err "
+                                 f"{float(diff.max()):.3e} beyond {TOL_SCAN_GRAD}")
+        bwd_err = max(bwd_err, float(diff.max()))
+    print(f"linear_scan at the selective scan's block {list(a.shape)} fp32 with h0 (a = exp(dt "
+          f"A) in [{float(a.min()):.4f}, {float(a.max()):.4f}]): forward max err / (1 + max|h|) "
+          f"{fwd_err:.3e} (tol {TOL_SCAN}); fused backward max abs err {bwd_err:.3e} (tol "
+          f"{TOL_SCAN_GRAD}), bit for bit the unfused chain; two launches of each bit for bit: "
+          f"{same}")
+    if not same:
+        raise AssertionError("two launches at the selective block differ")
+    del a, bb, h0, h, dout, got_bwd, want_bwd, unfused
+    serve_err = 0.0
+    for b, s in SELECTIVE_SERVE:
+        a, bb, h0 = _selective_block_inputs(torch, g, b, s)
+        tag = f"selective serve block linear_scan {list(a.shape)}"
+        serve_err = max(serve_err, _selective_fwd_err(torch, SK, SR, a, bb, h0, tag)[0])
+        del a, bb, h0
+    print(f"linear_scan at the serve phase's selective blocks "
+          f"{[[b, s, SELECTIVE_BLOCK[2] * SELECTIVE_BLOCK[3]] for b, s in SELECTIVE_SERVE]} fp32 "
+          f"with h0: forward max err / (1 + max|h|) {serve_err:.3e} (tol {TOL_SCAN})")
+    return {"selective_fwd_rel_err": fwd_err, "selective_bwd_max_abs_err": bwd_err,
+            "selective_serve_fwd_rel_err": serve_err}
 
 
 def _scan_bwd_checks(torch, SK, SR, inputs, g):
@@ -791,90 +914,113 @@ def _scan_bwd_checks(torch, SK, SR, inputs, g):
     return {"bwd_max_abs_err": worst, "bwd_bf16_steps": flips}
 
 
-def phase_serve(torch, K, SK, cfg_mod, T, SV, CLI, card):
+# which kernel each block kind's serve and train paths must launch
+KERNEL_OF_KIND = {"attn": "flash_fwd", "local_attn": "flash_fwd", "rglru": "linear_scan",
+                  "ssm": "linear_scan"}
+
+
+def _has_attention(cfg) -> bool:
+    return any(k in ("attn", "local_attn") for k in cfg.layer_kinds())
+
+
+def phase_serve(torch, M, arch, card):
+    """``arch`` at full size with random bf16 weights from a seeded
+    generator, through the CLI's own function (serve_batch): batch 4,
+    prompt 64, gen 32, greedy, the launch counts reset just before and read
+    just after; each kernel its block kinds run must have launched.  With
+    attention, a 2048 prompt whose prefill logits at fpdt_chunks=4 must
+    equal fpdt_chunks=1.  Then, with the bf16 weights released, decode's
+    first step against a prefill of one more token in fp32 weights, and
+    how far a changed first prompt token moves those logits."""
     dev = torch.device("cuda")
-    cfg = cfg_mod.get_config("llama3.2-1b")
+    cfg = M.cfg_mod.get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    params = T.init_params(cfg, gen, dev)
+    params = M.T.init_params(cfg, gen, dev)
     torch.cuda.synchronize()
-    print(f"init_params {cfg.name} ({cfg.num_params() / 1e9:.3f} B params, "
-          f"{cfg.param_dtype}) in {time.perf_counter() - t0:.1f} s")
+    print(f"init_params {cfg.name} ({cfg.num_layers} layers, {cfg.num_params() / 1e9:.3f} B "
+          f"params, {cfg.param_dtype}) in {time.perf_counter() - t0:.1f} s")
     b, s, new = 4, 64, 32
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
-    CLI.serve_batch(cfg, params, tokens, gen=new)  # warm-up: cuBLAS and allocator set-up
+    M.CLI.serve_batch(cfg, params, tokens, gen=new)  # warm-up: cuBLAS and allocator set-up
 
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(K, SK)
-    out = CLI.serve_batch(cfg, params, tokens, gen=new)
-    counts = _counts(K, SK)
-    launches = counts["flash_fwd"]
+    _reset_counts(M.K, M.SK)
+    out = M.CLI.serve_batch(cfg, params, tokens, gen=new)
+    counts = _counts(M.K, M.SK)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     logits, toks = out["prefill_logits"], out["tokens"]
-    if launches <= 0:
-        raise AssertionError("the serve path launched flash_fwd no time")
+    for kname in sorted({KERNEL_OF_KIND[k] for k in cfg.layer_kinds()}):
+        if counts[kname] <= 0:
+            raise AssertionError(f"the {arch} serve path launched {kname} no time")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
     if tuple(toks.shape) != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     steps = out["steps"]
-    print(f"serve {cfg.name} b={b} prompt={s} gen={new}: launches {counts}; "
-          f"prefill {out['prefill_ms']:.2f} ms; decode {out['decode_ms'] / steps:.3f} ms/step, "
-          f"{steps * b / (out['decode_ms'] / 1e3):.1f} tok/s; peak {peak_gib:.2f} GiB "
-          f"[{card}]")
+    print(f"serve {cfg.name} ({cfg.num_layers} layers) b={b} prompt={s} gen={new}: launches "
+          f"{counts}; prefill {out['prefill_ms']:.2f} ms; decode "
+          f"{out['decode_ms'] / steps:.3f} ms/step, {steps * b / (out['decode_ms'] / 1e3):.1f} "
+          f"tok/s; peak {peak_gib:.2f} GiB [{card}]")
     print("generated ids (row 0):", toks[0].tolist())
+
+    if _has_attention(cfg):  # a 2048 prompt: FPDT with u=4 computes what u=1 computes
+        s2 = 2048
+        tokens2 = torch.randint(0, cfg.vocab_size, (b, s2), generator=gen, device=dev)
+        res = {}
+        for u in (1, 4):
+            cu = dataclasses.replace(cfg, fpdt_chunks=u)
+            M.SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)  # warm-up
+            _reset_counts(M.K, M.SK)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = M.SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res[u] = lg
+            if not torch.isfinite(lg).all() or M.K.launches <= 0:
+                raise AssertionError(f"u={u}: non-finite logits or no kernel launch")
+            print(f"prefill {cfg.name} b={b} prompt={s2} fpdt_chunks={u}: {ms:.2f} ms, "
+                  f"launches {_counts(M.K, M.SK)} [{card}]")
+        diff = float((res[4] - res[1]).abs().max())
+        print(f"u=4 vs u=1 prefill logits: max |diff| = {diff:.3e} (must be 0)")
+        if diff != 0.0:
+            raise AssertionError("u=4 prefill differs from u=1")
+        del res, lg
+    del params, out, logits
+    torch.cuda.empty_cache()
 
     # decode agrees with prefill (the repo's own check): the first decode
     # step's logits == the last logits of a prefill over the prompt plus that
     # token.  In fp32 weights, so the two orders of summation differ by fp32
     # rounding only; beside it, how far the same logits move when only the
-    # first prompt token changes, which reaches them through attention alone.
+    # first prompt token changes, which reaches them through attention or
+    # the recurrent state alone.
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    params32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    params32 = M.T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
     nxt = toks[:, :1]
     other = tokens.clone()
     other[:, 0] = (other[:, 0] + 1) % cfg.vocab_size
     with torch.no_grad():
-        _, cache = SV.prefill_step(cfg32, None, params32, {"tokens": tokens}, max_len=s + 1)
-        dec, _ = SV.decode_step(cfg32, None, params32, cache, {"tokens": nxt}, s)
-        full, _ = SV.prefill_step(cfg32, None, params32,
-                                  {"tokens": torch.cat([tokens, nxt], dim=1)}, max_len=s + 1)
-        moved, _ = SV.prefill_step(cfg32, None, params32,
-                                   {"tokens": torch.cat([other, nxt], dim=1)}, max_len=s + 1)
+        _, cache = M.SV.prefill_step(cfg32, None, params32, {"tokens": tokens}, max_len=s + 1)
+        dec, _ = M.SV.decode_step(cfg32, None, params32, cache, {"tokens": nxt}, s)
+        full, _ = M.SV.prefill_step(cfg32, None, params32,
+                                    {"tokens": torch.cat([tokens, nxt], dim=1)}, max_len=s + 1)
+        moved, _ = M.SV.prefill_step(cfg32, None, params32,
+                                     {"tokens": torch.cat([other, nxt], dim=1)}, max_len=s + 1)
     scale = float(full.abs().max())
     rel = float((dec - full).abs().max()) / scale
     signal = float((moved - full).abs().max()) / scale
     del params32, cache
-    print(f"decode-vs-prefill fp32 logits: max |diff| / max |logit| = {rel:.3e} "
-          f"(tolerance {FP32_LOGIT_RTOL}); changing prompt token 0 moves them {signal:.3e}")
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} decode-vs-prefill fp32 logits ({cfg.num_layers} layers): max |diff| / "
+          f"max |logit| = {rel:.3e} (tolerance {FP32_LOGIT_RTOL}); changing prompt token 0 "
+          f"moves them {signal:.3e}")
     if not rel <= FP32_LOGIT_RTOL:
         raise AssertionError("decode step disagrees with prefill")
     if not signal >= 10 * FP32_LOGIT_RTOL:
         raise AssertionError("the decode-vs-prefill check cannot see the context: "
                              f"a changed prompt moves the logits by {signal:.3e} only")
-
-    # a 2048 prompt: FPDT with u=4 computes what u=1 computes
-    s2 = 2048
-    tokens2 = torch.randint(0, cfg.vocab_size, (b, s2), generator=gen, device=dev)
-    res = {}
-    for u in (1, 4):
-        cu = dataclasses.replace(cfg, fpdt_chunks=u)
-        SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)  # warm-up
-        K.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, _ = SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        res[u] = lg
-        if not torch.isfinite(lg).all() or K.launches <= 0:
-            raise AssertionError(f"u={u}: non-finite logits or no kernel launch")
-        print(f"prefill {cfg.name} b={b} prompt={s2} fpdt_chunks={u}: {ms:.2f} ms, "
-              f"flash_fwd launches {K.launches} [{card}]")
-    diff = float((res[4] - res[1]).abs().max())
-    print(f"u=4 vs u=1 prefill logits: max |diff| = {diff:.3e} (must be 0)")
-    if diff != 0.0:
-        raise AssertionError("u=4 prefill differs from u=1")
     return counts
 
 
@@ -1043,12 +1189,15 @@ def _pinned_residuals(torch, M, cfg, params, seq, batch):
 
 def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None):
     """A model's training phase at b1, seq 8192, u=4, mlp_chunks 8, remat
-    full, offload on: offload on vs off bit for bit; ``extra_check(cfg,
-    params)``; 3 AdamW steps through the CLI's own function (train_steps),
-    the launch counts read around each step; step ms, tokens/s, MFU, peak
-    memory, offload bytes; the losses against EARLIER_LOSSES; one profiled
-    step per ``profile_offload`` flag; u=4 vs u=1 in fp32 weights at every
-    layer.  Returns each kernel's launches over the 3 steps."""
+    full (offload as ``cfg`` has it): offload on vs off bit for bit;
+    ``extra_check(cfg, params, batch)``; 3 AdamW steps through the CLI's
+    own function (train_steps), the launch counts read around each step;
+    step ms, tokens/s, MFU, peak memory, offload bytes; the losses against
+    EARLIER_LOSSES; one profiled step per ``profile_offload`` flag; u=4 vs
+    u=1 in fp32 weights at every layer.  A model with no attention layer
+    (falcon-mamba-7b) has nothing for FPDT to chunk or offload, so the
+    offload and u comparisons are skipped for it.  Returns each kernel's
+    launches over the 3 steps."""
     dev = torch.device("cuda")
     seq, batch, steps = TRAIN_SEQ, 1, 3
     t0 = time.perf_counter()
@@ -1061,9 +1210,11 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
           f"{pbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
     b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
-    _offload_on_off(torch, M, cfg, params, b0)
+    attention = _has_attention(cfg)
+    if attention:
+        _offload_on_off(torch, M, cfg, params, b0)
     if extra_check is not None:
-        extra_check(cfg, params)
+        extra_check(cfg, params, b0)
 
     oc = M.TRAIN.opt_config(cfg, 3e-4, steps)
     tc = M.TL.TrainConfig(steps=steps, log_every=steps + 1)
@@ -1083,7 +1234,7 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
                                                on_step=on_step)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     flops = _model_flops(cfg, batch, seq)
-    want = _launches_per_step(cfg, M.F, M.T, seq)
+    want = _launches_per_step(cfg, M.F, M.T, M.MB, seq)
     for rec in records:
         mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
         rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
@@ -1098,11 +1249,12 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
         raise AssertionError(f"{len(records)} steps taken, {steps} asked")
     _check_losses(cfg.name, records, card)
     print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={cfg.fpdt_chunks} "
-          f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload=on: peak device memory "
+          f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload="
+          f"{'on' if cfg.fpdt_offload else 'off'}: peak device memory "
           f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
           f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
           f"FLOPs/step {flops:.4e} [{card}]")
-    if off.to_host_bytes <= 0 or off.to_device_bytes <= 0:
+    if cfg.fpdt_offload and (off.to_host_bytes <= 0 or off.to_device_bytes <= 0):
         raise AssertionError("offload on moved no bytes through pinned host memory")
     totals = {k: sum(r["launches"][k] for r in records) for k in want}
     # where a step's time goes (the first profiled step also pays the
@@ -1110,10 +1262,12 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     prof = {flag: _profile_step(torch, M.TRAIN, M.TL, dataclasses.replace(cfg, fpdt_offload=flag),
                                 params, oc, batch_fn, dev, opt_state, off, card)
             for flag in profile_offload}
-    if not prof[True]["copy_ms"] > 0:
+    if True in prof and not prof[True]["copy_ms"] > 0:
         raise AssertionError("the profiled step with offload on shows no pinned copies")
     del params, opt_state
     torch.cuda.empty_cache()
+    if not attention:
+        return totals
 
     # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
@@ -1148,8 +1302,8 @@ def phase_train(torch, M, card):
     """llama3.2-1b at full width; profiled with offload off and on; the
     offloaded chunks are pinned host tensors."""
     return _train_run(torch, M, _train_cfg(M, "llama3.2-1b"), card, profile_offload=(False, True),
-                      extra_check=lambda cfg, params: _pinned_residuals(torch, M, cfg, params,
-                                                                        TRAIN_SEQ, 1))
+                      extra_check=lambda cfg, params, _: _pinned_residuals(torch, M, cfg, params,
+                                                                           TRAIN_SEQ, 1))
 
 
 def phase_train_hybrid(torch, M, card):
@@ -1158,9 +1312,42 @@ def phase_train_hybrid(torch, M, card):
 
 
 def phase_train_gpt(torch, M, card):
-    """gpt-2.7b at full width and full depth (32 layers): this slice's main
-    path, B1-B3 at head_dim 80."""
+    """gpt-2.7b (the paper's GPT) at full width and full depth (32 layers),
+    B1-B3 at head_dim 80."""
     return _train_run(torch, M, _train_cfg(M, "gpt-2.7b"), card)
+
+
+FALCON_LAYERS = 16  # of 64: 2.218 B parameters, 24.8 GiB of weights, gradients, AdamW state
+
+
+def phase_train_falcon(torch, M, card):
+    """falcon-mamba-7b at full width, FALCON_LAYERS of its 64 layers (64 need
+    ~87 GB of state): remat offload == remat full bit for bit at this depth,
+    then the training run (no attention: no FPDT offload, profiled once)."""
+    cfg = dataclasses.replace(_train_cfg(M, "falcon-mamba-7b", num_layers=FALCON_LAYERS),
+                              fpdt_offload=False)
+    totals = _train_run(torch, M, cfg, card, profile_offload=(False,),
+                        extra_check=lambda c, p, b0: _remat_offload_equal(
+                            torch, M, c, p, b0, f"{c.name} ({c.num_layers} layers)"))
+    return totals
+
+
+def _remat_offload_equal(torch, M, cfg, params, batch, label):
+    """remat offload against remat full (``cfg``'s other settings kept): the
+    loss and every gradient leaf, bit for bit."""
+    full = dataclasses.replace(cfg, remat="full")
+    l_f, _, g_f = M.TL.value_and_grad(full, None, params, batch)
+    l_o, _, g_o = M.TL.value_and_grad(dataclasses.replace(full, remat="offload"), None, params,
+                                      batch)
+    torch.cuda.synchronize()
+    differ = sum(not torch.equal(a, b) for a, b in zip(M.TR.tree_leaves(g_f),
+                                                       M.TR.tree_leaves(g_o)))
+    print(f"{label}: remat offload vs remat full: loss {float(l_o):.6f} vs {float(l_f):.6f}; "
+          f"gradient leaves that differ: {differ} of {len(M.TR.tree_leaves(g_f))}")
+    if not torch.equal(l_f, l_o) or differ:
+        raise AssertionError("remat offload and remat full give different losses or gradients")
+    del g_f, g_o
+    torch.cuda.empty_cache()
 
 
 def _check_losses(name, records, card):
@@ -1180,11 +1367,13 @@ def _check_losses(name, records, card):
         raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the earlier ones")
 
 
-def _launches_per_step(cfg, F, T, seq):
+def _launches_per_step(cfg, F, T, MB, seq):
     """Launches per training step of each kernel under remat full or
     offload: a layer in a recomputed cycle runs its forward twice (and
     flash_fwd once per live pair each time), a tail layer once; the
-    backward once."""
+    backward once.  An ssm layer's selective scan runs linear_scan once a
+    block (MB.BLOCK_S tokens) in each of those forwards, and once more in the
+    block's own checkpoint recompute, and linear_scan_bwd once a block."""
     pat, n_cycles, tail = T.layout_of(cfg)
     u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0,
@@ -1193,6 +1382,10 @@ def _launches_per_step(cfg, F, T, seq):
         if kind == "rglru":
             want["linear_scan"] += passes
             want["linear_scan_bwd"] += 1
+        elif kind == "ssm":
+            blocks = seq // min(MB.BLOCK_S, seq)
+            want["linear_scan"] += (passes + 1) * blocks
+            want["linear_scan_bwd"] += blocks
         else:
             window = cfg.window if kind == "local_attn" else 0
             pairs = sum(F.pair_live(i, j, cq=cq, window=window, sparsity=cfg.attn_sparsity)
@@ -1235,18 +1428,8 @@ def phase_long_context(torch, M, card):
         if seq == LONG_SEQS[0]:  # remat offload == remat full, bit for bit
             params = M.T.init_params(base, torch.Generator(device=dev).manual_seed(0), dev)
             b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
-            l_b, _, g_b = M.TL.value_and_grad(cfgs["B"], None, params, b0)
-            l_c, _, g_c = M.TL.value_and_grad(cfgs["C"], None, params, b0)
-            torch.cuda.synchronize()
-            differ = sum(not torch.equal(a, b) for a, b in zip(M.TR.tree_leaves(g_b),
-                                                               M.TR.tree_leaves(g_c)))
-            print(f"seq {seq}: remat offload vs remat full (offload on): loss {float(l_c):.6f} "
-                  f"vs {float(l_b):.6f}; gradient leaves that differ: {differ} of "
-                  f"{len(M.TR.tree_leaves(g_b))}")
-            if not torch.equal(l_b, l_c) or differ:
-                raise AssertionError("remat offload and remat full give different losses or "
-                                     "gradients")
-            del params, g_b, g_c, b0
+            _remat_offload_equal(torch, M, cfgs["B"], params, b0, f"seq {seq} (offload on)")
+            del params, b0
             torch.cuda.empty_cache()
         for name, cfg in cfgs.items():
             params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -1571,6 +1754,30 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     rows["linear_scan"] = row
     seen.append(row)
 
+    # linear_scan at the selective scan's block: 8 segments a channel
+    # instead of 256, with the carried state as h0
+    sa, sb, sh0 = _selective_block_inputs(torch, g, *SELECTIVE_BLOCK[:2])
+
+    def kern_sel():
+        return SK.linear_scan(sa, sb, sh0)
+
+    def plain_sel():
+        return SR.linear_scan(sa, sb, sh0)
+
+    t_bytes = (3 * sa.numel() + sh0.numel()) * 4 / PEAK_BYTES  # a, b, h0 read; h written
+    t_ops = 2 * sa.numel() / PEAK_FP32_FLOPS
+    row = {"kernel": "linear_scan", "shape": "selective scan block [1, 256, 131072] fp32, h0",
+           "ms": _device_ms(torch, kern_sel),
+           "plain_ms": _device_ms(torch, plain_sel, per_graph=1, replays=3),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "library": "none: no PyTorch call computes a linear recurrence",
+           "wrapper_ms": _eager_ms(torch, kern_sel, iters=50, warmup=5), "card": card}
+    print("timing " + json.dumps(row))
+    rows["linear_scan_selective"] = row
+    seen.append(row)
+    del sa, sb, sh0
+
     # the fused backward at the same shape, as the RG-LRU layer's backward
     # gives it: fp32 a, h and dout, fp32 db, no h0; beside it the unfused
     # chain it replaced (the forward kernel in reverse mode over a copied
@@ -1610,6 +1817,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
 
 
 def main():
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the port is not beside this script: {SRC / 'repro_torch'} is missing")
     sys.path.insert(0, str(SRC))
@@ -1632,6 +1840,7 @@ def main():
     from repro_torch.kernels.linear_scan import ref as SR
     from repro_torch.launch import serve as CLI
     from repro_torch.launch import train as TRAIN
+    from repro_torch.models import mamba as MB
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
     from repro_torch.runtime import placement as PL
@@ -1643,12 +1852,15 @@ def main():
     bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, F, SoftmaxState, lse,
                 finalize)
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
-    serve = phase("serve llama3.2-1b", phase_serve, torch, K, SK, cfg_mod, T, SV, CLI, card)
     M = types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DP=DP,
-                              TRAIN=TRAIN)
+                              TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB)
+    serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
+             for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b")}
     train = phase("train llama3.2-1b", phase_train, torch, M, card)
     hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, M, card)
     gpt = phase("train gpt-2.7b", phase_train_gpt, torch, M, card)
+    falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
+                   M, card)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
 
@@ -1691,10 +1903,14 @@ def main():
           **at("flash_bwd_dkv_train", "llama_train_pair"),
           **at("flash_bwd_dkv_hybrid", "hybrid_pair")}),
         ("linear_scan", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
-         scan["max_abs_err"], {"max_rel_err_near_unit": scan["max_rel_err_near_unit"]}),
+         scan["max_abs_err"], {"max_rel_err_near_unit": scan["max_rel_err_near_unit"],
+                               "max_rel_err_selective_block": scan["selective_fwd_rel_err"],
+                               **at("linear_scan_selective", "selective_block")}),
         ("linear_scan_bwd", scan_src, "src/repro/kernels/linear_scan/kernel.py:67",
          scan["bwd_max_abs_err"], {"max_abs_err_op_grad": max(scan["grad"].values()),
                                    "bf16_rounding_steps": scan["bwd_bf16_steps"],
+                                   "max_abs_err_selective_block":
+                                       scan["selective_bwd_max_abs_err"],
                                    "unfused_ms": timing["linear_scan_bwd"]["unfused_ms"]}),
     ]
     kernels = {"kernels": []}
@@ -1702,11 +1918,12 @@ def main():
         row = timing[kname]
         if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
             fail(f"non-finite timing of {kname}")
-        by_path = {"serve llama3.2-1b": serve[kname], "train llama3.2-1b": train[kname],
-                   "train recurrentgemma-9b": hybrid[kname], "train gpt-2.7b": gpt[kname]}
-        # each kernel's own path: this slice's gpt-2.7b training for the
-        # attention kernels, the hybrid's for the scan (gpt runs none)
-        path = "train recurrentgemma-9b" if kname.startswith("linear_scan") else "train gpt-2.7b"
+        by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
+                   "train llama3.2-1b": train[kname], "train recurrentgemma-9b": hybrid[kname],
+                   "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname]}
+        # each kernel's own path: gpt-2.7b's training for the attention
+        # kernels, this slice's falcon-mamba-7b training for the scan
+        path = "train falcon-mamba-7b" if kname.startswith("linear_scan") else "train gpt-2.7b"
         if by_path[path] <= 0:
             fail(f"the {path} path launched {kname} no time")
         kernels["kernels"].append({
@@ -1716,6 +1933,8 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],
             "timed_shape": row["shape"], **extra})
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
+          "included")
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
 ``reduced`` (the port imports nothing from it).  Only architectures the
-port trains are registered: llama3.2-1b, recurrentgemma-9b and the paper's
-models (``PAPER_ARCHS``); ``get_config`` raises for every other one.
-Serving raises for the block kinds it does not port yet (rglru).
+port trains are registered: llama3.2-1b, recurrentgemma-9b,
+falcon-mamba-7b and the paper's models (``PAPER_ARCHS``); ``get_config``
+raises for every other one.
 """
 from __future__ import annotations
 
@@ -176,6 +176,7 @@ PAPER_ARCHS = (
 _MODULE_FOR = {
     "llama3.2-1b": "llama3p2_1b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "gpt-2.7b": "gpt_paper",
     "gpt-6.7b": "gpt_paper",
     "gpt-13b": "gpt_paper",

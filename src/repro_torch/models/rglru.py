@@ -4,9 +4,9 @@ h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 a_t = exp(-c * softplus(Lambda) * sigmoid(r_t)),  c = 8
 with per-channel input gate i_t and recurrence gate r_t.  The recurrence
 runs through ``kernels/linear_scan/ops.py`` (the hand-written CUDA kernel
-on the card).  Single device only: the sequence-parallel
-``dist_linear_scan`` comes with the distribution slice, and the chunked
-prefill and decode steps with hybrid serving.
+on the card); ``rglru_decode_step`` takes one token at a time.  Single
+device only: the sequence-parallel ``dist_linear_scan`` comes with the
+distribution slice, and ``rglru_chunk_step`` with chunked prefill.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.layers import _dense_init
-from repro_torch.models.mamba import causal_conv1d
+from repro_torch.models.mamba import _softplus, causal_conv1d
 
 Params = Dict[str, Any]
 C_FACTOR = 8.0
@@ -47,12 +47,6 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
     }
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + exp(x)) = logaddexp(x, 0) everywhere
-    (``F.softplus`` turns linear above its threshold)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _gates(p: Params, x: torch.Tensor):
     """(a, gated input) of the recurrence, fp32 [b, s, di]."""
     r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"])
@@ -79,3 +73,15 @@ def rglru_mixer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     h = scan_ops.linear_scan(a, gated, h0)  # [b, s, di] fp32
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, {"conv": conv_state, "h": h[:, -1]}
+
+
+def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):
+    """Single-token decode. x [b, 1, d]; ``state`` {conv, h}.  Returns
+    (y [b, 1, d], new_state)."""
+    y = x @ p["w_y"]
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    y, conv_state = causal_conv1d(y, p["conv_w"], p["conv_b"], state["conv"])
+    a, gated = _gates(p, y)
+    h = a[:, 0] * state["h"] + gated[:, 0]
+    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    return out, {"conv": conv_state, "h": h}

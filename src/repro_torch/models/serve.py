@@ -3,6 +3,8 @@
 Cache layout (stacked over layer cycles C, as in the JAX package):
   attn        {"k","v": [C, b, S, hkv, dh], "kpos": [C, b, S] int32 filled positions}
   local_attn  same with S = window (ring buffer; slot = pos % window)
+  rglru       {"conv": [C, b, k-1, di] param dtype, "h": [C, b, di] fp32}
+  ssm         {"conv": [C, b, k-1, di] param dtype, "ssm": [C, b, di, ds] fp32}
 
 Decode positions are per-sequence: ``pos`` is a scalar or a ``[b]``
 vector, so a batch may hold sequences at different depths.  ``kpos``
@@ -11,13 +13,15 @@ entries of ``-1`` mark unfilled or invalid slots, and attention masks on
 (padded) prefill exact.
 
 Prefill runs FPDT attention (``core/fpdt.py``), whose chunk pairs go
-through the hand-written CUDA ``flash_fwd`` on the card.  Decode attention
-is gather-then-dense PyTorch, as the JAX package's is jnp.  Unlike the JAX
-functions, ``decode_step`` writes the new token's K/V into the cache
-tensors in place (no copy of the cache per step) and returns the same
-cache dict.  Host-streamed KV chunks, the paged pool and the recurrent
-blocks' state (hybrid serving: ``check_servable`` refuses them) are not yet
-ported.
+through the hand-written CUDA ``flash_fwd`` on the card, and the recurrent
+mixers over the whole prompt, whose scans go through the CUDA
+``linear_scan``; their final states fill the cache.  Decode attention is
+gather-then-dense PyTorch, as the JAX package's is jnp, and the recurrent
+blocks take one step of their recurrence.  Unlike the JAX functions,
+``decode_step`` writes the new token's K/V and every recurrent state into
+the cache tensors in place (``copy_`` at fixed shapes, no copy of the cache
+per step) and returns the same cache dict.  Host-streamed KV chunks and the
+paged pool are not yet ported.
 """
 from __future__ import annotations
 
@@ -30,22 +34,11 @@ from repro_torch.core import fpdt
 from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
-
-SERVE_KINDS = ("attn", "local_attn")
-
-
-def check_servable(cfg: ModelConfig):
-    """Raise NotImplementedError for what serving does not port yet: block
-    kinds other than attention (rglru's chunk and decode steps come with
-    hybrid serving), and whatever the model itself does not port."""
-    T._check_ported(cfg)
-    pat, _, tail = T.layout_of(cfg)
-    bad = sorted({k for k in (*pat, *tail) if k not in SERVE_KINDS})
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: serving {bad} blocks is not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +59,14 @@ def _block_cache(cfg: ModelConfig, kind: str, b: int, max_len: int, dtype, devic
         return _attn_cache(cfg, b, max_len, dtype, device, lead)
     if kind == "local_attn":
         return _attn_cache(cfg, b, min(cfg.window, max_len), dtype, device, lead)
-    raise NotImplementedError(f"{kind!r} block caches are not yet ported")
+    conv = torch.zeros((*lead, b, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device)
+    if kind == "ssm":
+        return {"conv": conv, "ssm": torch.zeros((*lead, b, cfg.d_inner, cfg.ssm_state),
+                                                 dtype=torch.float32, device=device)}
+    if kind == "rglru":
+        return {"conv": conv, "h": torch.zeros((*lead, b, cfg.d_inner), dtype=torch.float32,
+                                               device=device)}
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda") -> Params:
@@ -116,10 +116,25 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
     return o @ p["wo"]
 
 
+def _keep_state(cache: Params, state: Params):
+    """Copy a recurrent mixer's new state into its cache tensors in place."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+
+
 def _decode_block(cfg, par, kind, p, h, cache, pos):
-    window = cfg.window if kind == "local_attn" else 0
+    if kind == "ssm":
+        y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache)
+        _keep_state(cache, st)
+        return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
-    h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window)
+    if kind == "rglru":
+        y, st = R.rglru_decode_step(cfg, p["mixer"], hn, cache)
+        _keep_state(cache, st)
+        h = h + y
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window)
     hn2 = L.apply_norm(cfg, p["norm2"], h)
     return h + L.mlp_block(cfg, p["mlp"], hn2)
 
@@ -141,7 +156,8 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
                ``0 <= kpos <= pos``, so batch rows may sit at different
                depths.
       cache  — dict from ``init_cache``/``prefill_step``, updated in place
-               at exactly the ``pos`` slot of every layer.
+               at exactly the ``pos`` slot of every attention layer and in
+               every recurrent layer's state.
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
     tokens = inp["tokens"]
@@ -182,11 +198,12 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
                 entries at positions >= ``lengths[i]`` are marked invalid
                 (``kpos = -1``) and row i's logits are taken at position
                 ``lengths[i] - 1``.  Exact for global attention only, so
-                layouts with a local_attn ring raise ValueError.
+                layouts with a local_attn ring or a recurrent block raise
+                ValueError.
 
     Returns (logits [b, padded_vocab] fp32 at each row's last real token, cache).
     """
-    check_servable(cfg)
+    T._check_ported(cfg)
     h = T.embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
     b, s, _ = h.shape
     device = h.device
@@ -204,13 +221,10 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
         raise ValueError(f"prompt length {s} exceeds the cache capacity max_len={max_len}")
     cache = init_cache(cfg, b, max_len, device)
 
-    def prefill_block(kind, p, h, bc):
-        window = cfg.window if kind == "local_attn" else 0
-        hn = L.apply_norm(cfg, p["norm1"], h)
-        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
-        h = h + o @ p["attn"]["wo"]
-        # cache: recompute roped k/v (cheap vs attention)
-        _, k, v = L.qkv_proj(cfg, p["attn"], hn)
+    def fill_kv(kind, pa, hn, bc):
+        """Write the prompt's roped k/v (recomputed: cheap beside attention)
+        into an attention block's cache."""
+        _, k, v = L.qkv_proj(cfg, pa, hn)
         k = L.apply_rope(k, torch.arange(s, device=device), cfg.rope_theta)
         W = bc["k"].shape[1]
         take = min(W, s)
@@ -223,6 +237,22 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
         bc["k"][:, slots] = k[:, s - take:].to(bc["k"].dtype)
         bc["v"][:, slots] = v[:, s - take:].to(bc["v"].dtype)
         bc["kpos"][:, slots] = kp.to(torch.int32)
+
+    def prefill_block(kind, p, h, bc):
+        if kind == "ssm":
+            y, st = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h))
+            _keep_state(bc, st)
+            return h + y
+        hn = L.apply_norm(cfg, p["norm1"], h)
+        if kind == "rglru":
+            y, st = R.rglru_mixer(cfg, p["mixer"], hn)
+            _keep_state(bc, st)
+            h = h + y
+        else:
+            window = cfg.window if kind == "local_attn" else 0
+            o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
+            h = h + o @ p["attn"]["wo"]
+            fill_kv(kind, p["attn"], hn, bc)
         hn2 = L.apply_norm(cfg, p["norm2"], h)
         return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
 

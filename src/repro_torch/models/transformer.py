@@ -12,7 +12,8 @@ pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
 ``remat="offload"`` runs each cycle as ``_OffloadedCycle``, which keeps the
 cycle's input in pinned host memory between the forward and the backward
 (the JAX package's ``block_in`` offload policy).  The ported block kinds are
-attention (attn, local_attn) and RG-LRU (rglru), with the token frontend.
+attention (attn, local_attn), RG-LRU (rglru) and Mamba-1 (ssm), with the
+token frontend.
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ from repro_torch.core import fpdt
 from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import rglru as R
 from repro_torch.runtime.placement import host_offload, no_offload
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
-PORTED_KINDS = ("attn", "local_attn", "rglru")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "ssm")
 
 
 def _check_ported(cfg: ModelConfig):
@@ -49,7 +51,11 @@ def _check_ported(cfg: ModelConfig):
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype, device) -> Params:
     """A block of ``kind``: attention (attn and local_attn have the same
-    parameters) or rglru, each with its MLP."""
+    parameters) or rglru, each with its MLP, or ssm (a norm and the Mamba
+    mixer, no MLP)."""
+    if kind == "ssm":
+        return {"norm": L.init_norm(cfg, dtype, device),
+                "mixer": M.init_mamba(cfg, gen, dtype, device)}
     if kind == "rglru":
         mixer = {"mixer": R.init_rglru(cfg, gen, dtype, device)}
     else:
@@ -144,9 +150,13 @@ def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
                 p: Params, h: torch.Tensor) -> torch.Tensor:
     """One block: norm1 -> mixer (FPDT attention or RG-LRU) -> residual ->
-    norm2 -> chunked MLP -> residual."""
+    norm2 -> chunked MLP -> residual; an ssm block is norm -> Mamba mixer ->
+    residual."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not yet ported")
+    if kind == "ssm":
+        y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h))
+        return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
         y, _ = R.rglru_mixer(cfg, p["mixer"], hn)

@@ -42,7 +42,8 @@ def test_port_has_modules():
                  "runtime/placement.py", "runtime/train_loop.py", "launch/train.py",
                  "kernels/build.py", "kernels/linear_scan/ref.py",
                  "kernels/linear_scan/kernel.py", "kernels/linear_scan/ops.py",
-                 "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py"):
+                 "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py",
+                 "configs/falcon_mamba_7b.py"):
         assert want in names
     assert os.path.exists(SMOKE)
     for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),

@@ -12,8 +12,9 @@ as ``tests/test_torch_train.py`` runs it.  A gpt at head_dim 80 (d_model
 at u = 4 against the JAX package's (Pallas kernels in interpret mode), and
 its 2-layer loss and gradients.  The port's remat offload equals its remat
 full bit for bit (on the CPU ``HostOffload`` is the identity, so the
-recompute and the gradients are what is held); and the CLI trains reduced
-gpt-2.7b with ``--remat offload``.  Tolerances: loss 2e-4, gradients 5e-4
+recompute and the gradients are what is held), for falcon-mamba-7b's ssm
+cycles too, which are also held against JAX under both remats; and the
+CLI trains reduced gpt-2.7b with ``--remat offload``.  Tolerances: loss 2e-4, gradients 5e-4
 (tests/test_fpdt.py)."""
 import dataclasses
 
@@ -97,10 +98,11 @@ def _assert_matches(arch, u, remat, **sizes):
 
 @pytest.mark.parametrize("remat", ["full", "offload"])
 @pytest.mark.parametrize("u", [1, 4])
-@pytest.mark.parametrize("arch", ["gpt-2.7b", "llama-8b"])
+@pytest.mark.parametrize("arch", ["gpt-2.7b", "llama-8b", "falcon-mamba-7b"])
 def test_loss_and_grads_match_jax(arch, u, remat):
     """Every leaf, the layernorm ``w``/``b`` and gelu MLP of gpt included,
-    lines up with the JAX pytree and its gradient."""
+    lines up with the JAX pytree and its gradient (falcon-mamba-7b: the
+    ssm blocks under both remats; u reaches no attention there)."""
     tg = _assert_matches(arch, u, remat)
     if arch == "gpt-2.7b":
         norm = tg["cycles"]["pos0"]["norm1"]
@@ -135,11 +137,13 @@ def test_head_dim_80_fpdt_matches_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=5e-4, atol=5e-4)
 
 
-@pytest.mark.parametrize("arch", ["gpt-2.7b", "llama-8b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["gpt-2.7b", "llama-8b", "recurrentgemma-9b",
+                                  "falcon-mamba-7b"])
 def test_remat_offload_is_remat_full_bit_for_bit(arch):
     """The same forward, recomputed the same way in the backward: the loss
     and every gradient leaf are the same bits (the hybrid's rglru cycles
-    too)."""
+    and falcon's ssm cycles, whose scan blocks are checkpoints of their
+    own, too)."""
     jc, _ = _cfgs(arch)
     params = _torch(JT.init_params(jc, jax.random.PRNGKey(0)))
     tb = _tbatch(j_make_batch_fn(jc, JShape("t", S, B, "train"))(0))

@@ -2,8 +2,9 @@
 parameters and inputs: ``causal_conv1d`` with and without a carried state,
 ``rglru_mixer``'s output, carried state and gradients (every parameter and
 the input) against JAX ``rglru_mixer(scan_impl="pallas")`` (the
-linear-scan kernel in interpret mode), the parameter layout and dtypes of
-``init_rglru``, and the recurrentgemma-9b config.  Tolerances: the output
+linear-scan kernel in interpret mode), ``rglru_decode_step`` in fp32 and
+bf16, the parameter layout and dtypes of ``init_rglru``, and the
+recurrentgemma-9b config.  Tolerances: the output
 2e-4 and the gradients 5e-4 of each leaf's largest magnitude
 (tests/test_fpdt.py's FPDT limits); the conv 1e-5 (one product and sum)."""
 import dataclasses
@@ -118,6 +119,33 @@ def test_init_layout_and_dtypes_match_jax():
     # a^c at r = 1 in (0.9, 0.999), the init's target band
     a8 = torch.exp(-R.C_FACTOR * R._softplus(tp["lam"]))
     assert bool(((a8 > 0.9) & (a8 < 0.999)).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 3e-2)])
+def test_decode_step_matches_jax(dtype, tol):
+    """One token against a carried conv and h: the output and both new
+    states, against JAX ``rglru_decode_step``."""
+    jc, tc = (dataclasses.replace(c, param_dtype=dtype) for c in _cfgs())
+    jp = JR.init_rglru(jc, jax.random.PRNGKey(4), jnp.dtype(dtype))
+    rng = np.random.default_rng(4)
+    for name in ("b_a", "b_i"):
+        jp[name] = jnp.asarray(0.3 * rng.standard_normal(jp[name].shape), jnp.float32)
+    tp = from_jax_params(jax.device_get(jp), "cpu")
+    x = rng.standard_normal((B, 1, jc.d_model)).astype(np.float32)
+    conv = rng.standard_normal((B, jc.d_conv - 1, jc.d_inner)).astype(np.float32)
+    h = rng.standard_normal((B, jc.d_inner)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    jy, jnew = JR.rglru_decode_step(jc, jp, jnp.asarray(x, jnp.dtype(dtype)),
+                                    {"conv": jnp.asarray(conv, jnp.dtype(dtype)),
+                                     "h": jnp.asarray(h)})
+    ty, tnew = R.rglru_decode_step(tc, tp, torch.from_numpy(x).to(tdt),
+                                   {"conv": torch.from_numpy(conv).to(tdt),
+                                    "h": torch.from_numpy(h)})
+    assert ty.dtype == tdt and tnew["h"].dtype == torch.float32
+    _rel_close(ty, jy, tol, "out")
+    _rel_close(tnew["h"], jnew["h"], tol, "h")
+    np.testing.assert_array_equal(tnew["conv"].float().numpy(),
+                                  np.asarray(jnew["conv"], np.float32))
 
 
 def test_softplus_is_jax_softplus_beyond_torch_threshold():

@@ -1,7 +1,11 @@
 """The port's serve slice against the JAX package's on reduced(llama3.2-1b)
 with the same (converted) parameters and prompts: prefill logits and cache
 at u in {1, 4}, position-masked prefill, greedy decode over 8 steps (tokens
-and per-step logits), and the CLI on the CPU."""
+and per-step logits), and the CLI on the CPU.  The same for the reduced
+recurrent archs, recurrentgemma-9b (RG-LRU and a local_attn ring) and
+falcon-mamba-7b (Mamba-1): prefill logits and every cache leaf (conv, h,
+ssm, k, v, kpos), greedy tokens, per-step logits and the cache after
+decode, bf16 prefill, and the CLI."""
 import dataclasses
 
 import jax
@@ -23,6 +27,8 @@ from repro_torch.runtime import decode_loop as DL
 
 B, S, MAX_LEN = 2, 16, 32
 TOL = 2e-4
+# the recurrent archs: RG-LRU + local attention, and Mamba-1
+RECURRENT = ["recurrentgemma-9b", "falcon-mamba-7b"]
 
 
 def _cfgs(u=1, dtype="float32"):
@@ -177,13 +183,17 @@ def test_cli_refuses_unported(capsys, flag):
     assert "not yet ported" in capsys.readouterr().err
 
 
-def test_cli_refuses_the_hybrid_arch(capsys):
-    """recurrentgemma-9b trains in the port but its RG-LRU blocks do not
-    serve yet: exit 2 with "not yet ported", before any weight is made."""
-    with pytest.raises(SystemExit) as ex:
-        CLI.main(["--arch", "recurrentgemma-9b", "--reduced", "--device", "cpu"])
-    assert ex.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cli_serves_recurrent_arch_on_cpu(capsys, arch):
+    """The recurrent archs serve through the CLI: exit 0, the tokens asked
+    for, both timed lines naming the CPU."""
+    out = CLI.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "16", "--gen", "4"])
+    text = capsys.readouterr().out
+    assert out["tokens"].shape == (2, 4)
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 256
+    timed = [ln for ln in text.splitlines() if " ms" in ln]
+    assert len(timed) == 2 and all(ln.endswith("on cpu") for ln in timed)
 
 
 def test_windowed_layout_matches_jax():
@@ -213,3 +223,105 @@ def test_windowed_layout_matches_jax():
     with pytest.raises(ValueError, match="global-attention"):
         SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
                         max_len=MAX_LEN, lengths=torch.tensor([20, 12]))
+
+
+_RECURRENT_MODELS = {}
+
+
+def _recurrent(arch, dtype="float32"):
+    """(JAX config, port config, JAX params, port params, prompts) of the
+    reduced ``arch`` at u = 4; 20-token prompts wrap the hybrid's 8-slot
+    local_attn ring."""
+    if (arch, dtype) not in _RECURRENT_MODELS:
+        kw = dict(param_dtype=dtype, remat="none", fpdt_chunks=4)
+        jc = dataclasses.replace(j_reduced(j_get_config(arch)), **kw)
+        tc = dataclasses.replace(reduced(get_config(arch)), **kw)
+        jparams = JT.init_params(jc, jax.random.PRNGKey(7))
+        tokens = np.random.default_rng(13).integers(0, jc.vocab_size, (B, 20)).astype(np.int32)
+        _RECURRENT_MODELS[arch, dtype] = (jc, tc, jparams,
+                                          from_jax_params(jax.device_get(jparams), "cpu"), tokens)
+    return _RECURRENT_MODELS[arch, dtype]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_param_tree_matches_jax(arch):
+    jc, tc, jparams, _, _ = _recurrent(arch)
+    mine = T.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    jl = {k: (v.shape, str(v.dtype)) for k, v in _leaves(jax.device_get(jparams))}
+    tl = {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in _leaves(mine)}
+    assert jl == tl
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_matches_jax(arch):
+    """Logits and every cache leaf; the recurrent states in the dtypes the
+    JAX cache has (conv in the parameter dtype, h and ssm fp32)."""
+    jc, tc, jparams, tparams, tokens = _recurrent(arch)
+    jl, jcache = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                                  max_len=MAX_LEN)
+    tl, tcache = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                                 max_len=MAX_LEN)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    _assert_cache(tcache, jcache, TOL)
+    names = {name.rsplit("/", 1)[1] for name, _ in _leaves(tcache)}
+    assert names == ({"conv", "h", "k", "v", "kpos"} if arch == RECURRENT[0]
+                     else {"conv", "ssm"})
+    jdt = {name: str(v.dtype) for name, v in _leaves(jax.device_get(jcache))}
+    assert {name: str(v.dtype).split(".")[-1] for name, v in _leaves(tcache)} == jdt
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_greedy_decode_matches_jax(arch):
+    """8 greedy steps: tokens, per-step logits, positions and the cache
+    after them; the cache dict comes back as the same object, written in
+    place."""
+    jc, tc, jparams, tparams, tokens = _recurrent(arch)
+    steps, s = 8, tokens.shape[1]
+    jl, jcache = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                                  max_len=MAX_LEN)
+    jtok0 = JDL.sample_token(jl[:, : jc.vocab_size], None)
+    jtoks, jaux = JDL.decode_tokens(jc, None, jparams, jcache, jtok0[:, None],
+                                    jnp.full((B,), s, jnp.int32), num_steps=steps,
+                                    collect_logits=True)
+    tl, tcache = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                                 max_len=MAX_LEN)
+    ttok0 = DL.sample_token(tl[:, : tc.vocab_size], None)
+    ttoks, taux = DL.decode_tokens(tc, None, tparams, tcache, ttok0[:, None],
+                                   torch.full((B,), s, dtype=torch.int32), num_steps=steps,
+                                   collect_logits=True)
+    assert ttok0.tolist() == np.asarray(jtok0).tolist()
+    assert ttoks.tolist() == np.asarray(jtoks).tolist()
+    np.testing.assert_allclose(taux["logits"].numpy(), np.asarray(jaux["logits"]),
+                               rtol=TOL, atol=TOL)
+    assert taux["pos"].tolist() == np.asarray(jaux["pos"]).tolist()
+    assert taux["cache"] is tcache
+    _assert_cache(taux["cache"], jaux["cache"], TOL)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bf16_prefill_close_to_jax(arch):
+    """bf16 logits within 3e-2 of the largest logit: the two packages round
+    the bf16 conv, silu and gates at different steps, and each rounding is
+    2^-8 of its value (held, like the mixers' bf16 tests, relative to the
+    largest magnitude rather than elementwise)."""
+    jc, tc, jparams, tparams, tokens = _recurrent(arch, "bfloat16")
+    jl, _ = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                             max_len=MAX_LEN)
+    tl, _ = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                            max_len=MAX_LEN)
+    jl = np.asarray(jl)
+    assert np.abs(tl.numpy() - jl).max() <= 3e-2 * np.abs(jl).max()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_position_masked_prefill_refused(arch):
+    """A recurrent state integrates pad tokens: both packages refuse
+    ``lengths=...`` for these layouts."""
+    jc, tc, jparams, tparams, tokens = _recurrent(arch)
+    lengths = np.array([20, 12], np.int32)
+    with pytest.raises(ValueError, match="global-attention"):
+        JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                         max_len=MAX_LEN, lengths=jnp.asarray(lengths))
+    with pytest.raises(ValueError, match="global-attention"):
+        SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                        max_len=MAX_LEN, lengths=torch.from_numpy(lengths))

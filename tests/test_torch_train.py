@@ -14,7 +14,10 @@ in the two implementations.
 Reduced recurrentgemma-9b (rglru, rglru, local_attn: the RG-LRU blocks and
 a windowed MQA attention block) is held the same way against JAX
 ``loss_fn`` with ``par=None``, the JAX trainer's own single-device path,
-which runs the Pallas linear-scan and flash kernels in interpret mode."""
+which runs the Pallas linear-scan and flash kernels in interpret mode.
+Reduced falcon-mamba-7b (three Mamba-1 blocks) at 512 tokens, two blocks
+of the selective scan, likewise: loss and gradients under remat none and
+full, a 3-step trajectory and the CLI."""
 import dataclasses
 
 import jax
@@ -41,6 +44,7 @@ JPAR = JPar(mesh=None, attn_impl="xla_flash", offload_to_host=False)
 
 
 HYBRID = "recurrentgemma-9b"
+FALCON = "falcon-mamba-7b"
 
 
 def _cfgs(arch="llama3.2-1b", **kw):
@@ -49,10 +53,10 @@ def _cfgs(arch="llama3.2-1b", **kw):
             dataclasses.replace(reduced(get_config(arch)), **kw))
 
 
-def _model(arch):
+def _model(arch, seq=S, batch=B):
     jc, _ = _cfgs(arch)
     jparams = JT.init_params(jc, jax.random.PRNGKey(0))
-    batches = [j_make_batch_fn(jc, JShape("t", S, B, "train"))(step) for step in range(3)]
+    batches = [j_make_batch_fn(jc, JShape("t", seq, batch, "train"))(step) for step in range(3)]
     return jparams, batches
 
 
@@ -64,6 +68,13 @@ def model():
 @pytest.fixture(scope="module")
 def hybrid():
     return _model(HYBRID)
+
+
+@pytest.fixture(scope="module")
+def falcon():
+    """512 tokens: two of the selective scan's 256-token blocks, the state
+    carried between them."""
+    return _model(FALCON, seq=512, batch=1)
 
 
 def _torch(tree):
@@ -143,6 +154,42 @@ def test_hybrid_three_step_trajectory_matches_jax(hybrid):
     for rec in _trajectories(hybrid, 3, 1, HYBRID, None):
         for k, (got, want) in rec.items():
             np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_falcon_loss_and_grads_match_jax(falcon, remat):
+    """Reduced falcon-mamba-7b (three ssm blocks, no attention, no MLP):
+    the loss and every gradient leaf (A_log, b_dt and D in fp32 included)
+    against JAX loss_fn(par=None) under the same remat."""
+    jparams, batches = falcon
+    jc, tc = _cfgs(FALCON, remat=remat)
+    jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.loss_fn(jc, None, p, b), has_aux=True))(jparams, jb)
+    tl, tm, tg = TL.value_and_grad(tc, None, _torch(jparams), _tbatch(batches[0]))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-4, atol=2e-4)
+    assert float(tm["tokens"]) == float(jm["tokens"]) == 512
+    jleaves, tleaves = jax.tree.leaves(jg), tree_leaves(tg)
+    assert [tuple(t.shape) for t in tleaves] == [j.shape for j in jleaves]
+    assert [t.dtype for t in tleaves] == [t.dtype for t in tree_leaves(_torch(jparams))]
+    for t, j in zip(tleaves, jleaves):
+        j = np.asarray(j)
+        assert np.abs(t.numpy() - j).max() <= 5e-4 * max(np.abs(j).max(), 1e-30)
+
+
+def test_falcon_three_step_trajectory_matches_jax(falcon):
+    for rec in _trajectories(falcon, 3, 1, FALCON, None):
+        for k, (got, want) in rec.items():
+            np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=k)
+
+
+def test_falcon_cli_on_cpu(capsys):
+    history = CLI.main(["--arch", FALCON, "--reduced", "--device", "cpu", "--steps", "2",
+                        "--batch", "1", "--seq", "512", "--remat", "full", "--log-every", "1"])
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in history)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "tokens/s" in ln]
+    assert len(lines) == 2 and all(ln.endswith("on cpu") for ln in lines)
 
 
 def test_cli_on_cpu(capsys):
