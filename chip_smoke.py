@@ -32,7 +32,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 d64) and gpt-2.7b (b1 hq32 hkv32 d80), the 7 live pairs of
                 recurrentgemma-9b's (b1 hq16 hkv1 d256, window 2048) and the
                 8192 x 8192 pair of u = 1 (held at b1 hq4 hkv1 so that the
-                plain version's [sq, sk] fp32 matrices fit); flash_fwd is held
+                plain version's [sq, sk] fp32 matrices fit), and the
+                distributed path's shapes in fp32 and bf16 (cp's 1024 query
+                rows against a 2048-token key chunk, the diagonal pair at
+                q_offset - k_offset 0 and 1024; ulysses' hq16 hkv4 at
+                2048 x 2048); flash_fwd is held
                 against its plain version at those same pairs, with carry and
                 offsets; at the u = 4 pairs the bf16 flash_fwd, flash_bwd_dq
                 and flash_bwd_dkv are also held against the plain version
@@ -105,6 +109,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 exactly the 32 cycle inputs more to the host and peaks lower;
                 each setting's device bytes a token and intercept from the
                 two lengths, and the longest context reckoned from them;
+  6f. dist    — FPDT's distribution on torch.distributed: ulysses over a
+                1-rank NCCL group equal to kind="local" bit for bit
+                (llama3.2-1b's attention, bf16, s 8192, u 4, offload on);
+                then 2 gloo ranks spawned on the one card (gloo takes the
+                CUDA tensors): the attention alone at s 16384, u 8, fp32
+                and bf16, ulysses (16 q / 4 kv heads a rank), cp (through
+                attn_impl) and ulysses at the hybrid's shape (its one kv
+                head gathered), each rank's o and dx and the summed dW
+                against local on the same card; llama3.2-1b at full size,
+                mesh 1 x 2, b1 s 16384 u 8 remat full offload on, 3 AdamW
+                steps under ulysses and 2 under cp through train_steps:
+                the first step's loss and gradient norm against a
+                one-rank step run first, the kernels' launches and each
+                collective's calls and bytes a step against the counts
+                reckoned from the code, the parameters the same bits on
+                both ranks, peak memory and step ms a rank (gloo through
+                the host on one shared card, not a multi-card speed);
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
@@ -123,7 +144,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
-                (launches_by_path: the three serve paths and four trainings);
+                (launches_by_path: the three serve paths, four trainings
+                and the two distributed trainings, per rank);
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -617,6 +639,50 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
         return {"fwd": errs["bfloat16"], "fwd_acc": acc["bfloat16"], "fwd_tc": ftc,
                 "worst": pair_worst, "tc": tc, "pairs": n_pairs}
 
+    def dist_pairs():
+        """The shapes the distributed path (phase_dist) gives the kernels,
+        fp32 and bf16, chunk 1 of 2048-token chunks: cp's rank of two holds
+        1024 query rows of the chunk (llama3.2-1b, hq32 hkv8 d64; model rank
+        m's rows at q_offset 2048 + 1024 m) against each whole key chunk, so
+        its diagonal pair has sq 1024, sk 2048 and q_offset - k_offset =
+        1024 m; ulysses' rank of two holds half the heads (hq16 hkv4 d64) of
+        the 2048 x 2048 pairs.  flash_fwd with the carry of the off-diagonal
+        pair, then flash_bwd_dq and flash_bwd_dkv from the rows' L and
+        delta, each against its plain version."""
+        nonlocal n
+        worst = {}
+        shapes = [(f"cp rank {m} (sq 1024, q_offset - k_offset of the diagonal {1024 * m})",
+                   32, 8, 1024, 2048 + 1024 * m) for m in (0, 1)]
+        shapes.append(("ulysses rank (hq16 hkv4, 2048 x 2048)", 16, 4, 2048, 2048))
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, acc = {}, {}
+            fcheck = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc)
+            for label, hq, hkv, sq, q_offset in shapes:
+                q = rnd(1, hq, sq, 64).to(dtype)
+                ks = [rnd(1, hkv, 2048, 64).to(dtype) for _ in range(2)]
+                vs = [rnd(1, hkv, 2048, 64).to(dtype) for _ in range(2)]
+                st = None
+                for j in (0, 1):
+                    st = fcheck(f"flash_fwd {label} pair (1,{j}) {dtype}", dtype, q, ks[j],
+                                vs[j], st, causal=True, q_offset=q_offset, k_offset=2048 * j)
+                do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, None, None, g, states=st)
+                for j in (0, 1):
+                    out = check(f"{label} pair (1,{j}) {dtype}", q, ks[j], vs[j], do, L, delta,
+                                causal=True, q_offset=q_offset, k_offset=2048 * j)
+                    key = str(dtype).split(".")[-1]
+                    worst[key] = {p: max(worst.get(key, {}).get(p, 0.0), out[p]) for p in out}
+                    n += 1
+                del q, ks, vs, st, do, L, delta
+            worst[str(dtype).split(".")[-1]]["fwd"] = errs[str(dtype).split(".")[-1]]
+        print("distributed shapes (cp's 1024 query rows at q_offset - k_offset 0 and 1024 of "
+              "the diagonal pair, hq32 hkv8 d64; ulysses' hq16 hkv4 d64 2048 x 2048), fp32 and "
+              "bf16, flash_fwd with carry and both backward kernels within tolerance: "
+              + "; ".join(f"{k} max abs err of out, m, l {w['fwd']:.3e}, dq, dk, dv err / "
+                          f"(1 + max|ref|) {w['dq']:.3e}, {w['dk']:.3e}, {w['dv']:.3e}"
+                          for k, w in worst.items()))
+        return worst
+
+    dist = dist_pairs()
     pairs = {"llama": train_pairs("llama3.2-1b", 32, 8, 64),
              "gpt": train_pairs("gpt-2.7b", 32, 32, 80),
              # window 2048, so pair (i, j) lives only for i - j <= 1
@@ -647,7 +713,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"{worst_abs['dq']:.3e}, {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); "
           f"flash_bwd_dq and flash_bwd_dkv deterministic (two launches each, same bits) at "
           f"{n_det} training pairs")
-    return {"abs": worst_abs, "rel": worst, "pairs": pairs}
+    return {"abs": worst_abs, "rel": worst, "pairs": pairs, "dist": dist}
 
 
 def _bwd_summary(worst, tc):
@@ -1503,6 +1569,459 @@ def phase_long_context(torch, M, card):
         "fit": fit, "card_bytes": card_bytes, "host_bytes": host_bytes, "card": card}))
 
 
+# ---------------------------------------------------------------------------
+# distribution: FPDT's ulysses and cp kinds on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_SEQ, DIST_U = 16384, 8  # b1: chunks of 2048 tokens, 1024 of each on a rank of two
+DIST_NCCL_SEQ, DIST_NCCL_U = 8192, 4
+DIST_RANKS = 2  # gloo ranks sharing the one card
+# attention-only parity: label, arch (whose attention width is taken), kind
+# asked through attn_impl
+DIST_ATTN = (("llama3.2-1b ulysses (16 q / 4 kv heads a rank)", "llama3.2-1b", "ulysses"),
+             ("llama3.2-1b cp", "llama3.2-1b", "cp"),
+             ("recurrentgemma-9b ulysses (8 q heads a rank, its 1 kv head gathered)",
+              "recurrentgemma-9b", "ulysses"))
+# (output, gradients): the output elementwise, |got - want| <= tol * (1 +
+# |want|); each gradient relative to its largest magnitude, as
+# FPDT_GRAD_RTOL (a weight's gradient sums over the tokens, and in bf16 each
+# rank's partial sum is rounded before the two are added).  fp32:
+# tests/test_fpdt.py's 2e-4 and 5e-4; bf16: the repo's bf16 kernel tolerance.
+DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16"])}
+DIST_STEPS = (("ulysses", 3), ("cp", 2))  # AdamW steps of llama3.2-1b's 1 x 2 training
+# The first batch's bf16 gradients, two ranks against one, relative in each
+# leaf's norm: FPDT_GRAD_RTOL for every leaf but the tied embedding.  Its
+# head part sums 64 loss chunks' gradients in bf16 and loses small
+# increments to rounding, fewer where each rank sums half: on the H100 its
+# norm read 7.56e-2 from one rank's and the global norm 8.5e-3.  A rank's
+# contribution dropped or counted twice moves both by 0.29 or more (half of
+# the tokens' gradient; 1 - 1/sqrt(2) where the halves are uncorrelated),
+# so these limits sit between the two.
+DIST_BF16_EMBED_RTOL = 0.15
+DIST_BF16_NORM_RTOL = 2.5e-2
+DIST_JOIN_S = 900  # the ranks' whole run, start-up included
+
+
+def _dist_cfg(M, arch="llama3.2-1b", **over):
+    """``arch`` at full size for the distributed phase: u = DIST_U,
+    mlp_chunks 2u, remat full, FPDT offload on."""
+    return dataclasses.replace(M.cfg_mod.get_config(arch), fpdt_chunks=DIST_U,
+                               mlp_chunks=2 * DIST_U, remat="full", fpdt_offload=True, **over)
+
+
+def _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes):
+    """(calls, bytes) of each collective that one FPDT attention layer hands
+    in on a rank over ``passes`` forwards and one backward, as
+    ``core/fpdt.py`` issues them: per chunk, ulysses sends q (and k, v where
+    hkv % sp == 0) through seq_to_heads and o back, and in the backward do
+    out and dq (dk, dv) back as each chunk finishes, in x's dtype; gathered
+    KV (ulysses with hkv % sp != 0, and cp) goes through gather_seq in x's
+    dtype and its dk, dv come back through reduce_scatter_seq in fp32 over
+    the chunk's tokens and every kv head."""
+    u = cfg.fpdt_chunks
+    c = seq // u // sp
+    q = b * cfg.num_heads * c * cfg.head_dim * x_bytes  # a rank's q, o, do or dq of a chunk
+    kv = b * cfg.num_kv_heads * c * cfg.head_dim * x_bytes  # its k, v, dk or dv
+    kv32 = b * cfg.num_kv_heads * c * sp * cfg.head_dim * 4  # a chunk's dk or dv, fp32
+    calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
+
+    def add(name, n, size):
+        calls[name] += n
+        nbytes[name] += n * size
+
+    if kind == "ulysses":
+        add("seq_to_heads", passes * u + u, q)  # q in each forward, do in the backward
+        add("heads_to_seq", passes * u + u, q)  # o, dq
+    if kind == "ulysses" and cfg.num_kv_heads % sp == 0:
+        add("seq_to_heads", 2 * passes * u, kv)
+        add("heads_to_seq", 2 * u, kv)
+    else:
+        add("gather_seq", 2 * passes * u, kv)
+        add("reduce_scatter_seq", 2 * u, kv32)
+    return calls, nbytes
+
+
+def _train_collectives(P, T, TR, cfg, kind, sp, b, seq, params_like):
+    """(calls, bytes) of each collective a training step hands in on a rank
+    under remat full: every attention layer of a cycle runs two forwards
+    (the checkpoint's pass and its recompute), a tail layer one; loss_fn sums
+    (loss, count) over the world once (8 bytes); every gradient leaf is
+    summed once; the loop sums its stop flag once (4 bytes)."""
+    pat, n_cycles, tail = T.layout_of(cfg)
+    calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
+    x_bytes = 2 if cfg.param_dtype == "bfloat16" else 4
+    for k, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
+        if k in ("attn", "local_attn"):
+            c, n = _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes)
+            for name in P.COLLECTIVES:
+                calls[name] += c[name]
+                nbytes[name] += n[name]
+    leaves = TR.tree_leaves(params_like)
+    calls["all_reduce_sum"] += len(leaves) + 2
+    nbytes["all_reduce_sum"] += sum(t.numel() * t.element_size() for t in leaves) + 8 + 4
+    return calls, nbytes
+
+
+def _collective_counts(P):
+    return {name: [P.calls[name], P.nbytes[name]] for name in P.COLLECTIVES}
+
+
+def _elementwise_err(torch, got, want):
+    """max |got - want| / (1 + |want|) over the elements."""
+    return float(((got.float() - want.float()).abs() / (1.0 + want.float().abs())).max())
+
+
+def _leaf_rel(torch, got, want):
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+
+def _attention_run(torch, F, cfg, par, kind, w, x, do):
+    """o and the gradients of x and w through fpdt_attention."""
+    xg = x.clone().requires_grad_(True)
+    wg = {n: t.clone().requires_grad_(True) for n, t in w.items()}
+    o = F.fpdt_attention(cfg, par, wg, xg, kind=kind)
+    o.backward(do)
+    return o.detach(), xg.grad, {n: t.grad for n, t in wg.items()}
+
+
+def _attention_inputs(torch, L, F, cfg, dev, seq, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.param_dtype)
+    w = {n: t for n, t in L.init_attn(cfg, g, dt, dev).items() if n in F.WEIGHTS}
+    x = torch.randn((1, seq, cfg.d_model), generator=g, device=dev).to(dt)
+    do = torch.randn((1, seq, cfg.q_dim), generator=g, device=dev).to(dt)
+    return w, x, do
+
+
+def _dist_nccl_one_rank(torch, M, card):
+    """kind="ulysses" over a 1-rank NCCL group (the path multi-card runs
+    take) against kind="local": llama3.2-1b's attention at full width, bf16,
+    b1, DIST_NCCL_SEQ tokens, u = DIST_NCCL_U, offload on; forward and
+    backward bit for bit, and the collectives as reckoned."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(M.cfg_mod.get_config("llama3.2-1b"), fpdt_chunks=DIST_NCCL_U,
+                              fpdt_offload=True)
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                            M.MESH.INIT_METHOD_ENV)}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          **{M.MESH.INIT_METHOD_ENV: f"file://{tmp}/store"})
+        try:
+            M.MESH.init_from_env("nccl")
+            par = M.P.ParallelContext(M.MESH.make_mesh(1, 1))
+            w, x, do = _attention_inputs(torch, M.L, M.F, cfg, dev, DIST_NCCL_SEQ, 5)
+            want = _attention_run(torch, M.F, cfg, None, "local", w, x, do)
+            M.P.reset_counts()
+            got = _attention_run(torch, M.F, cfg, par, M.T.attn_kind(cfg, par), w, x, do)
+            torch.cuda.synchronize()
+            counts = _collective_counts(M.P)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    parts = [("o", got[0], want[0]), ("dx", got[1], want[1])] + [
+        ("d" + n, got[2][n], want[2][n]) for n in want[2]]
+    differ = [name for name, a, b in parts if not torch.equal(a, b)]
+    c, n = _fpdt_collectives(M.P, cfg, "ulysses", 1, 1, DIST_NCCL_SEQ, 1, 2)
+    want_counts = {k: [c[k], n[k]] for k in M.P.COLLECTIVES}
+    print(f"nccl, world size 1 (device to device): ulysses vs local, llama3.2-1b attention "
+          f"(d_model 2048, hq 32, hkv 8, dh 64) bf16 b1 s{DIST_NCCL_SEQ} u={DIST_NCCL_U} offload "
+          f"on: {len(parts) - len(differ)} of {len(parts)} of o, dx, dwq, dwk, dwv bit for bit; "
+          f"collectives (calls, bytes) {counts} [{card}]")
+    if differ:
+        raise AssertionError(f"nccl ulysses differs from local in {differ}")
+    if counts != want_counts:
+        raise AssertionError(f"collectives {counts}, reckoned {want_counts}")
+    del got, want, w, x, do
+    torch.cuda.empty_cache()
+
+
+def _grad_readings(torch, M, cfg, par, dev):
+    """(loss, global gradient norm, each gradient leaf's norm, the index of
+    the embedding's leaf) of the first b1 DIST_SEQ batch from seed 0's
+    weights in ``cfg``'s dtype, on one rank (``par`` None) or this rank's
+    part of it with the gradients summed over the world, as the train step
+    sums them."""
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in M.DP.shard_batch(batch_fn(0), par, cfg.fpdt_chunks).items()}
+    loss, _, grads = M.TL.value_and_grad(cfg, par, params, batch)
+    leaves = M.TR.tree_leaves(M.TL.reduce_grads(par, grads))
+    norms = [float(g.float().norm()) for g in leaves]
+    out = {"loss": float(loss), "grad_norm": math.sqrt(sum(x * x for x in norms)),
+           "leaf_norms": norms,
+           "embed_leaf": next(i for i, g in enumerate(leaves) if g is grads["embed"])}
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_train_reference(torch, M, card):
+    """llama3.2-1b at the distributed phase's settings on one rank: one
+    AdamW step in bf16 (loss, grad norm) and the gradients in fp32 weights
+    (``_grad_readings``), of the first batch from seed 0's weights."""
+    dev = torch.device("cuda")
+    cfg = _dist_cfg(M)
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
+    torch.cuda.reset_peak_memory_stats()
+    _, _, hist = M.TRAIN.train_steps(cfg, params, M.TRAIN.opt_config(cfg, 3e-4, 1),
+                                     M.TL.TrainConfig(steps=1, log_every=2), batch_fn, dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = hist[0]
+    del params, hist
+    torch.cuda.empty_cache()
+    fp32 = _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"), None, dev)
+    bf16 = _grad_readings(torch, M, cfg, None, dev)
+    print(f"one-rank reference, llama3.2-1b b1 s{DIST_SEQ} u={DIST_U} remat full offload on: "
+          f"bf16 step loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f}, "
+          f"{rec['dt'] * 1e3:.1f} ms, peak {peak:.2f} GiB; fp32 weights loss "
+          f"{fp32['loss']:.6f} grad_norm {fp32['grad_norm']:.6f} [{card}]")
+    return {"bf16": rec, "fp32": fp32, "bf16_grads": bf16}
+
+
+def _param_digest(torch, TR, params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in TR.tree_leaves(params):
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def _dist_rank(rank, world, tmp):
+    """One gloo rank of the distributed phase, on the one card: the
+    attention-only parity, then llama3.2-1b's 1 x world training.  Writes
+    its readings to ``tmp/rank<r>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = _modules()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      **{M.MESH.INIT_METHOD_ENV: f"file://{tmp}/store"})
+    M.MESH.init_from_env("gloo")
+    try:
+        dev = M.MESH.rank_device("cuda", rank)
+        torch.cuda.set_device(dev)
+        par = M.P.ParallelContext(M.MESH.make_mesh(1, world))
+        out = {"attention": _dist_attention(torch, M, par, dev),
+               "fp32": {kind: _grad_readings(torch, M, _dist_cfg(M, attn_impl=kind,
+                                                                 param_dtype="float32"),
+                                             par, dev) for kind, _ in DIST_STEPS},
+               "bf16_grads": {kind: _grad_readings(torch, M, _dist_cfg(M, attn_impl=kind),
+                                                   par, dev) for kind, _ in DIST_STEPS},
+               "train": {kind: _dist_train(torch, M, par, dev, kind, steps)
+                         for kind, steps in DIST_STEPS}}
+    finally:
+        dist.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _dist_attention(torch, M, par, dev):
+    """Each DIST_ATTN case in fp32 and bf16, b1, DIST_SEQ tokens, u =
+    DIST_U, offload on: this rank's o and dx, and dW summed over the world,
+    against kind="local" over the whole sequence on the same card and
+    inputs; the collectives of the distributed call."""
+    pos = torch.from_numpy(M.DP.token_positions(DIST_SEQ, par.sp, par.sp_rank, DIST_U)).to(dev)
+    out = {}
+    for label, arch, impl in DIST_ATTN:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(M.cfg_mod.get_config(arch), attn_impl=impl,
+                                      param_dtype=dtype, fpdt_chunks=DIST_U, fpdt_offload=True)
+            kind = M.T.attn_kind(cfg, par)
+            if kind != impl:
+                raise AssertionError(f"{label}: attention kind {kind}")
+            w, x, do = _attention_inputs(torch, M.L, M.F, cfg, dev, DIST_SEQ, 7)
+            want = _attention_run(torch, M.F, cfg, None, "local", w, x, do)
+            M.P.reset_counts()
+            got = _attention_run(torch, M.F, cfg, par, kind, w, x[:, pos].contiguous(),
+                                 do[:, pos].contiguous())
+            counts = _collective_counts(M.P)
+            errs = {"o": _elementwise_err(torch, got[0], want[0][:, pos]),
+                    "dx": _leaf_rel(torch, got[1], want[1][:, pos])}
+            for n, g in got[2].items():
+                errs["d" + n] = _leaf_rel(torch, M.P.all_reduce_sum(g.float().contiguous()),
+                                          want[2][n])
+            c, nb = _fpdt_collectives(M.P, cfg, kind, par.sp, 1, DIST_SEQ, 1,
+                                      2 if dtype == "bfloat16" else 4)
+            out[f"{label} {dtype}"] = {
+                "errs": errs, "counts": counts,
+                "want_counts": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
+            del want, got, w, x, do
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dist_train(torch, M, par, dev, kind, steps):
+    """llama3.2-1b at full size on this rank's half of each b1 DIST_SEQ
+    batch: ``steps`` AdamW steps from seed 0's weights through train_steps,
+    the kernels' launches and the collectives read around each step; peak
+    memory; a digest of the parameters after the steps from every rank."""
+    import torch.distributed as dist
+
+    cfg = _dist_cfg(M, attn_impl=kind)
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
+    c, nb = _train_collectives(M.P, M.T, M.TR, cfg, kind, par.sp, 1, DIST_SEQ, params)
+    records = []
+
+    def on_step(rec):
+        rec["launches"] = _counts(M.K, M.SK)
+        rec["collectives"] = _collective_counts(M.P)
+        records.append(rec)
+        _reset_counts(M.K, M.SK)
+        M.P.reset_counts()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(M.K, M.SK)
+    M.P.reset_counts()
+    params, opt_state, _ = M.TRAIN.train_steps(
+        cfg, params, M.TRAIN.opt_config(cfg, 3e-4, steps),
+        M.TL.TrainConfig(steps=steps, log_every=steps + 1), batch_fn, dev, par=par,
+        on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, _param_digest(torch, M.TR, params))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {"records": records, "peak_gib": peak, "digests": digests,
+            "want_launches": _launches_per_step(cfg, M.F, M.T, M.MB, DIST_SEQ),
+            "want_collectives": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
+
+
+def _join_ranks(procs, timeout):
+    """Wait for every rank; the first to fail, or the deadline, kills them
+    all and fails the phase."""
+    import multiprocessing.connection
+
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.exitcode is None for p in procs):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"the ranks did not finish within {timeout} s")
+            multiprocessing.connection.wait([p.sentinel for p in procs if p.exitcode is None],
+                                            timeout=left)
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad:
+                raise AssertionError(f"a rank exited with {bad[0]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def phase_dist(torch, M, card):
+    """FPDT's distribution (core/parallel.py): the NCCL world-size-1 path bit
+    for bit against local; then DIST_RANKS gloo ranks spawned on the one
+    card (gloo takes the CUDA tensors and stages them through host memory
+    itself): the attention-only parity of DIST_ATTN and llama3.2-1b's
+    1 x DIST_RANKS training, its first step against a one-rank step run here
+    first.  Returns each kernel's launches on rank 0 by training kind."""
+    import multiprocessing
+    import tempfile
+
+    _dist_nccl_one_rank(torch, M, card)
+    ref = _dist_train_reference(torch, M, card)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, tmp))
+                 for r in range(DIST_RANKS)]
+        for p in procs:
+            p.start()
+        _join_ranks(procs, DIST_JOIN_S)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+    print(f"gloo, {DIST_RANKS} ranks sharing the card: the port hands gloo the CUDA tensors "
+          "(no explicit staging); gloo stages them through host memory")
+
+    for case in ranks[0]["attention"]:
+        dtype = case.split()[-1]
+        tol_o, tol_g = DIST_TOL[dtype]
+        for r, got in enumerate(ranks):
+            a = got["attention"][case]
+            errs = a["errs"]
+            print(f"  rank {r} {case}, b1 s{DIST_SEQ} u={DIST_U} offload on, vs local: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (o: max |err| / (1 + |want|), limit {tol_o}; gradients: max |err| / "
+                  f"max |want|, limit {tol_g}); collectives "
+                  + str({k: v for k, v in a["counts"].items() if v[0]}))
+            if errs["o"] > tol_o or any(errs[k] > tol_g for k in errs if k != "o"):
+                raise AssertionError(f"rank {r} {case}: beyond tolerance")
+            if a["counts"] != a["want_counts"]:
+                raise AssertionError(f"rank {r} {case}: collectives {a['counts']}, reckoned "
+                                     f"{a['want_counts']}")
+
+    totals = {}
+    for kind, steps in DIST_STEPS:
+        for r, got in enumerate(ranks):
+            t = got["train"][kind]
+            recs = t["records"]
+            if len(recs) != steps:
+                raise AssertionError(f"rank {r} {kind}: {len(recs)} steps of {steps}")
+            for rec in recs:
+                print(f"  rank {r} train llama3.2-1b 1x{DIST_RANKS} {kind} step {rec['step']}: "
+                      f"loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
+                      f"{rec['dt'] * 1e3:.1f} ms (gloo through the host on one shared card, "
+                      f"not a multi-card speed); launches {rec['launches']}; collectives "
+                      f"{ {k: v for k, v in rec['collectives'].items() if v[0]} }")
+                if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+                    raise AssertionError(f"rank {r} {kind}: non-finite loss or grad norm")
+                if rec["launches"] != t["want_launches"]:
+                    raise AssertionError(f"rank {r} {kind} step {rec['step']}: launches "
+                                         f"{rec['launches']}, reckoned {t['want_launches']}")
+                if rec["collectives"] != t["want_collectives"]:
+                    raise AssertionError(f"rank {r} {kind} step {rec['step']}: collectives "
+                                         f"{rec['collectives']}, reckoned "
+                                         f"{t['want_collectives']}")
+            first, ref16 = recs[0], ref["bf16"]
+            rel16 = {k: abs(first[k] - ref16[k]) / abs(ref16[k]) for k in ("loss", "grad_norm")}
+            f32, ref32 = got["fp32"][kind], ref["fp32"]
+            rel32 = {k: abs(f32[k] - ref32[k]) / abs(ref32[k]) for k in ("loss", "grad_norm")}
+            leaf32 = max(abs(a - b) / b for a, b in zip(f32["leaf_norms"], ref32["leaf_norms"]))
+            print(f"  rank {r} {kind} vs one rank, first batch: in fp32 weights loss rel "
+                  f"{rel32['loss']:.3e}, grad_norm rel {rel32['grad_norm']:.3e}, largest "
+                  f"gradient-leaf norm rel {leaf32:.3e} (limit {FPDT_GRAD_RTOL}); the bf16 "
+                  f"step's loss rel {rel16['loss']:.3e} (limit {FPDT_GRAD_RTOL}) and grad_norm "
+                  f"rel {rel16['grad_norm']:.3e} (limit {DIST_BF16_NORM_RTOL}); peak device "
+                  f"memory {t['peak_gib']:.2f} GiB; parameter digests "
+                  f"{[d[:12] for d in t['digests']]} [{card}]")
+            b16, rb16 = got["bf16_grads"][kind], ref["bf16_grads"]
+            leaf16 = [abs(a - b) / b for a, b in zip(b16["leaf_norms"], rb16["leaf_norms"])]
+            emb = rb16["embed_leaf"]
+            norm16 = abs(b16["grad_norm"] - rb16["grad_norm"]) / rb16["grad_norm"]
+            print(f"  rank {r} {kind} vs one rank, first batch, bf16 gradient-leaf norms rel: "
+                  + ", ".join(f"{x:.2e}" for x in leaf16) + f"; the embedding (leaf {emb}) "
+                  f"{leaf16[emb]:.3e} (limit {DIST_BF16_EMBED_RTOL}), the others limit "
+                  f"{FPDT_GRAD_RTOL}; global norm {norm16:.3e} (limit {DIST_BF16_NORM_RTOL})")
+            if max(*rel32.values(), leaf32, rel16["loss"]) > FPDT_GRAD_RTOL:
+                raise AssertionError(f"rank {r} {kind}: first step differs from one rank")
+            if (b16["embed_leaf"] != emb or leaf16[emb] > DIST_BF16_EMBED_RTOL
+                    or max(x for i, x in enumerate(leaf16) if i != emb) > FPDT_GRAD_RTOL
+                    or max(norm16, rel16["grad_norm"]) > DIST_BF16_NORM_RTOL):
+                raise AssertionError(f"rank {r} {kind}: first batch's bf16 gradients differ "
+                                     "from one rank's")
+            if len(set(t["digests"])) != 1:
+                raise AssertionError(f"{kind}: the ranks' parameters differ after the steps")
+        t0 = ranks[0]["train"][kind]
+        totals[kind] = {k: sum(rec["launches"][k] for rec in t0["records"])
+                        for k in t0["want_launches"]}
+    return totals
+
+
 def _eager_ms(torch, fn, iters=200, warmup=20):
     """Per call, launched back to back from the host (CUDA events): at small
     shapes this is the host's dispatch time, wrapper included."""
@@ -1816,6 +2335,29 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     return rows
 
 
+def _modules():
+    """The port's modules the phases drive, by short name."""
+    from repro_torch import configs as cfg_mod
+    from repro_torch import tree as TR
+    from repro_torch.core import fpdt as F
+    from repro_torch.core import parallel as P
+    from repro_torch.data import pipeline as DP
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.linear_scan import kernel as SK
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import serve as CLI
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import placement as PL
+    from repro_torch.runtime import train_loop as TL
+
+    return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
+                                 DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, L=L, P=P, MESH=MESH)
+
+
 def main():
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "__init__.py").is_file():
@@ -1827,33 +2369,20 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
 
-    from repro_torch import configs as cfg_mod
-    from repro_torch import tree as TR
-    from repro_torch.core import fpdt as F
     from repro_torch.core.online_softmax import SoftmaxState, finalize, lse
-    from repro_torch.data import pipeline as DP
     from repro_torch.kernels import build as B
-    from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
-    from repro_torch.kernels.linear_scan import kernel as SK
     from repro_torch.kernels.linear_scan import ops as SO
     from repro_torch.kernels.linear_scan import ref as SR
-    from repro_torch.launch import serve as CLI
-    from repro_torch.launch import train as TRAIN
-    from repro_torch.models import mamba as MB
-    from repro_torch.models import serve as SV
-    from repro_torch.models import transformer as T
-    from repro_torch.runtime import placement as PL
-    from repro_torch.runtime import train_loop as TL
 
+    M = _modules()
+    K, SK, F = M.K, M.SK, M.F
     card, name = phase("device", phase_device, torch)
     phase("build", phase_build, B, K.SOURCES + SK.SOURCES)
     errs = phase("kernel vs plain", phase_kernel, torch, K, R, SoftmaxState, finalize)
     bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, F, SoftmaxState, lse,
                 finalize)
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
-    M = types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DP=DP,
-                              TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB)
     serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
              for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b")}
     train = phase("train llama3.2-1b", phase_train, torch, M, card)
@@ -1862,6 +2391,7 @@ def main():
     falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
                    M, card)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
+    dist = phase("distribution (ulysses, cp)", phase_dist, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
 
     def at(key, tag):  # another timed shape's figures, as extra keys
@@ -1879,12 +2409,14 @@ def main():
           **{f"max_err_{m}_pairs": p["fwd"] for m, p in pairs.items()},
           **{f"max_acc_rel_err_{m}_pairs": p["fwd_acc"] for m, p in pairs.items()},
           **{f"tc_rel_err_acc_{m}_pairs": p["fwd_tc"]["acc"] for m, p in pairs.items()},
+          **{f"max_err_dist_pairs_{k}": w["fwd"] for k, w in bwd["dist"].items()},
           "library": timing["flash_fwd"]["library"],
           **at("flash_fwd_gpt_diagonal", "gpt_diagonal_pair"),
           **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_hybrid", "hybrid_pair"),
           **at("flash_fwd_serve", "serve")}),
         ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
          {"max_rel_err": bwd["rel"]["dq"],
+          **{f"max_rel_err_dist_pairs_{k}": w["dq"] for k, w in bwd["dist"].items()},
           **{f"max_rel_err_{m}_pairs": p["worst"]["dq"] for m, p in pairs.items()},
           **{f"tc_rel_err_{m}_pairs": p["tc"]["dq"] for m, p in pairs.items()},
           **at("flash_bwd_dq_gpt_diagonal", "gpt_diagonal_pair"),
@@ -1893,6 +2425,8 @@ def main():
         ("flash_bwd_dkv", flash + "flash_bwd.cu", replaces + "367",
          max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
          {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"],
+          **{f"max_rel_err_{p}_dist_pairs_{k}": w[p] for k, w in bwd["dist"].items()
+             for p in ("dk", "dv")},
           **{f"max_rel_err_dk_{m}_pairs": p["worst"]["dk"] for m, p in pairs.items()},
           **{f"max_rel_err_dv_{m}_pairs": p["worst"]["dv"] for m, p in pairs.items()},
           **{f"tc_rel_err_dk_{m}_pairs": p["tc"]["dk"] for m, p in pairs.items()},
@@ -1920,7 +2454,9 @@ def main():
             fail(f"non-finite timing of {kname}")
         by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
                    "train llama3.2-1b": train[kname], "train recurrentgemma-9b": hybrid[kname],
-                   "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname]}
+                   "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],
+                   **{f"train llama3.2-1b 1x{DIST_RANKS} {kind} (per rank)": d[kname]
+                      for kind, d in dist.items()}}
         # each kernel's own path: gpt-2.7b's training for the attention
         # kernels, this slice's falcon-mamba-7b training for the scan
         path = "train falcon-mamba-7b" if kname.startswith("linear_scan") else "train gpt-2.7b"

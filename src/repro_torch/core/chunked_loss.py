@@ -7,8 +7,10 @@ llama3.2-1b row, twice that with its gradient).  Chunking the sequence into
 enabled each chunk is checkpointed (non-reentrant) so its logits are
 recomputed in the backward and never kept.
 
-Only the sequence-chunk mode is ported: the batch mode of the JAX package
-needs a data-parallel mesh and comes with the distribution slice.
+Under a mesh each rank computes its own tokens' (sum, count) with the
+same code (``models/transformer.py::loss_fn`` adds the world's counts).
+The JAX package's batch mode exists for its vocabulary-sharded logits; the
+port keeps the vocabulary whole, so the sequence chunks serve every mesh.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ def softmax_xent_chunked(
     n_chunks: int,
     z_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (sum_loss fp32 scalar, token_count fp32 scalar)."""
+    """Returns (sum_loss fp32 scalar, token_count fp32 scalar) over the rows
+    and tokens of ``x``."""
     b, s, d = x.shape
     if s % n_chunks != 0:
         n_chunks = 1

@@ -1,22 +1,161 @@
-"""Parallel context of the single-device path.
+"""Parallel context and the explicit collectives of the distributed path.
 
-The single-device path reads nothing from it yet: host offload follows
-``cfg.fpdt_offload`` alone (``core/fpdt.py``), and which chunk kernel runs
-is decided by the tensors' device (``kernels/flash_attention/ops.py``).
-Meshes (and with them the Ulysses/CP distribution) come with the
-distribution slice, so ``mesh`` must stay ``None``.
+The JAX package writes distribution as global arrays with sharding
+constraints and lets GSPMD make the collectives.  PyTorch has no GSPMD, so
+here every rank holds its own shard and the collectives are written out on
+``torch.distributed`` process groups of a ``launch/mesh.py::Mesh``
+(``data`` x ``model``; sp = model, dp = data).
+
+The layout is the paper's chunk-interleaved sequence sharding: with u FPDT
+chunks of C = S / u tokens, model rank m holds tokens
+``[i*C + m*C/sp, i*C + (m+1)*C/sp)`` of every chunk i, and its data rank's
+batch rows (``data/pipeline.py::shard_batch``).  So a chunk's all-to-all
+is balanced, and after it every rank holds all C tokens of the chunk for
+its heads.
+
+The collectives work on the kernels' head-major layout [b, h, s, dh]:
+
+  seq_to_heads        [b, h, C/sp, dh] -> [b, h/sp, C, dh]    (all_to_all_single)
+  heads_to_seq        its inverse                              (all_to_all_single)
+  gather_seq          [b, h, C/sp, dh] -> [b, h, C, dh]       (all_gather_into_tensor)
+  reduce_scatter_seq  [b, h, C, dh] -> [b, h, C/sp, dh] summed (reduce_scatter_tensor)
+  all_reduce_sum      in place, over a group or the world      (all_reduce)
+
+Each adds one to its call count and the bytes it hands to the collective
+(the tensor it sends) to its byte count, in ``calls`` and ``nbytes``
+(``chip_smoke.py`` reads them as it reads the kernels' launches).  Every
+call is synchronous and on the tensors' own device: NCCL moves CUDA tensors
+device to device, and gloo takes CUDA tensors too (it stages them through
+host memory itself).  Nothing here picks a backend: the caller's mesh has
+one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import warnings
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
+               "all_reduce_sum")
+# calls and bytes handed in since the last reset_counts()
+calls = dict.fromkeys(COLLECTIVES, 0)
+nbytes = dict.fromkeys(COLLECTIVES, 0)
+
+
+def reset_counts() -> None:
+    for name in COLLECTIVES:
+        calls[name] = nbytes[name] = 0
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    calls[name] += 1
+    nbytes[name] += t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
+    """``mesh`` (``launch/mesh.py::Mesh``) or None for one rank.  Whether
+    FPDT keeps idle chunks in host memory is ``cfg.fpdt_offload``'s alone."""
+
     mesh: Any = None
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not yet ported to repro_torch (distribution slice)")
+    @property
+    def sp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model
+
+    @property
+    def dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data
+
+    @property
+    def sp_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.model_rank
+
+    @property
+    def dp_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.data_rank
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    @property
+    def sp_group(self):
+        return None if self.mesh is None else self.mesh.model_group
+
+    @property
+    def dp_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+
+def distributed(par: Optional[ParallelContext]) -> bool:
+    return par is not None and par.mesh is not None
+
+
+def seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, h, c, dh] (this rank's c tokens of a chunk, every head) ->
+    [b, h/sp, sp*c, dh] (the chunk's tokens in rank order, this rank's
+    heads), contiguous."""
+    sp = dist.get_world_size(group)
+    b, h, c, d = x.shape
+    if h % sp:
+        raise ValueError(f"seq_to_heads: {h} heads do not split over {sp} ranks")
+    send = x.reshape(b, sp, h // sp, c, d).transpose(0, 1).contiguous()  # by destination
+    recv = torch.empty_like(send)  # by source: its token block
+    _count("seq_to_heads", send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, h // sp, sp * c, d)
+
+
+def heads_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The inverse of ``seq_to_heads``: [b, h/sp, sp*c, dh] -> [b, h, c, dh]."""
+    sp = dist.get_world_size(group)
+    b, hl, s, d = x.shape
+    if s % sp:
+        raise ValueError(f"heads_to_seq: {s} tokens do not split over {sp} ranks")
+    send = x.reshape(b, hl, sp, s // sp, d).permute(2, 0, 1, 3, 4).contiguous()
+    recv = torch.empty_like(send)  # by source: its head group
+    _count("heads_to_seq", send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.transpose(0, 1).reshape(b, sp * hl, s // sp, d)
+
+
+def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, h, c, dh] -> [b, h, sp*c, dh]: every rank's tokens in rank order."""
+    sp = dist.get_world_size(group)
+    b, h, c, d = x.shape
+    x = x.contiguous()
+    out = x.new_empty((sp * b, h, c, d))  # concatenated along dim 0, as gloo takes it
+    _count("gather_seq", x)
+    with warnings.catch_warnings():  # newer torch renames it all_gather_single
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out.view(sp, b, h, c, d).permute(1, 2, 0, 3, 4).reshape(b, h, sp * c, d)
+
+
+def reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, h, sp*c, dh] -> [b, h, c, dh]: the sum over the group of this
+    rank's token block."""
+    sp = dist.get_world_size(group)
+    b, h, s, d = x.shape
+    if s % sp:
+        raise ValueError(f"reduce_scatter_seq: {s} tokens do not split over {sp} ranks")
+    send = x.reshape(b, h, sp, s // sp, d).permute(2, 0, 1, 3, 4).reshape(sp * b, h, s // sp, d)
+    out = x.new_empty((b, h, s // sp, d))
+    _count("reduce_scatter_seq", send)
+    with warnings.catch_warnings():  # newer torch renames it reduce_scatter_single
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``x`` in place over ``group`` (None: the world); returns ``x``."""
+    if not x.is_contiguous():
+        raise ValueError("all_reduce_sum: the tensor must be contiguous")
+    _count("all_reduce_sum", x)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x

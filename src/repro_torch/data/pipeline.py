@@ -3,7 +3,8 @@
 The port's own copy of the JAX package's ``data/pipeline.py`` for the token
 frontend: ``batch(step)`` is a pure function of (seed, step, layout), so
 the same seed and step give exactly the JAX package's batches, and the
-iterator's state is the step counter.  The audio and vision frontends come
+iterator's state is the step counter.  Under a mesh each rank takes its
+part of the global batch (``shard_batch``).  The audio and vision frontends come
 with their model slices.
 """
 from __future__ import annotations
@@ -63,6 +64,35 @@ def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, dc: Optional[DataConfig]
         return {"tokens": toks[:, :S], "labels": toks[:, 1 : S + 1]}
 
     return batch
+
+
+def token_positions(seq_len: int, sp: int, sp_rank: int, u: int) -> np.ndarray:
+    """Global positions of model rank ``sp_rank``'s tokens under the
+    chunk-interleaved layout (``core/parallel.py``): its C/sp tokens of each
+    of the u chunks of C = seq_len / u, in chunk order."""
+    if u < 1 or seq_len % u or (seq_len // u) % sp:
+        raise ValueError(f"seq_len {seq_len}: u={u} chunks of a length divisible by sp={sp} "
+                         "are needed")
+    chunk = seq_len // u
+    c = chunk // sp
+    return (np.arange(u)[:, None] * chunk + sp_rank * c + np.arange(c)[None, :]).reshape(-1)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], par, u: int) -> Dict[str, np.ndarray]:
+    """This rank's part of a global batch ({"tokens", "labels"} [B, S]): its
+    data rank's rows and its model rank's tokens (``token_positions``).
+    Every rank builds the global batch from the same seed and takes its
+    part.  Without a mesh the batch is returned as it is."""
+    if par is None or par.mesh is None:
+        return batch
+    rows = next(iter(batch.values())).shape[0]
+    if rows % par.dp:
+        raise ValueError(f"global batch {rows} does not split over dp={par.dp}")
+    r = rows // par.dp
+    seq = next(iter(batch.values())).shape[1]
+    pos = token_positions(seq, par.sp, par.sp_rank, u)
+    lo = par.dp_rank * r
+    return {k: np.ascontiguousarray(v[lo:lo + r][:, pos]) for k, v in batch.items()}
 
 
 class CheckpointableIterator:

@@ -2,30 +2,47 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 3 --batch 1 --seq 8192 --chunks 4 --offload [--remat full] \\
-      [--reduced] [--device cuda|cpu]
+      [--reduced] [--device cuda|cpu] [--mesh none|host8|DxM] [--dist-backend nccl|gloo]
 
-The JAX package's flags, plus ``--device``.  Weights are random from
-``--seed``; batches come from the port's copy of the data pipeline, so they
-are the JAX trainer's.  The run is on the card unless ``--device cpu`` asks
-for the CPU; with no card it stops instead of falling back.  Every time it
-prints names the device it was taken on.  ``--mesh``, checkpointing
-(``--ckpt-dir/--ckpt-every/--resume``), ``--compress-grads``, telemetry
-(``--trace-out/--metrics-out``) are not yet ported.  ``--remat offload``
-keeps each layer cycle's input in pinned host memory until the backward
-recomputes the cycle (the paper's "OC."), as ``--offload`` keeps FPDT's
-idle chunks there.
+The JAX package's flags, plus ``--device`` and ``--dist-backend``.  Weights
+are random from ``--seed``; batches come from the port's copy of the data
+pipeline, so they are the JAX trainer's.  The run is on the card unless
+``--device cpu`` asks for the CPU; with no card it stops instead of falling
+back.  Every time it prints names the device it was taken on.
+``--remat offload`` keeps each layer cycle's input in pinned host memory
+until the backward recomputes the cycle (the paper's "OC."), as
+``--offload`` keeps FPDT's idle chunks there.
+
+``--mesh DxM`` (``host8``: the JAX CLI's 2 data x 4 model) trains over
+D*M ranks, sequence-parallel over M (FPDT's Ulysses or CP kind,
+``models/transformer.py::attn_kind``) and data-parallel over D, with the
+gradients summed over the world each step.  Without ``WORLD_SIZE`` in the
+environment the CLI spawns the ranks itself (``torch.multiprocessing``,
+a ``file://`` store in a temporary directory); under ``torchrun`` it joins
+the world it finds.  Rank r runs on cuda:(LOCAL_RANK % cards), or the CPU.
+``--dist-backend`` is nccl on the card and gloo on the CPU unless given:
+NCCL needs one card a rank, gloo can share one.  Only rank 0 prints.
+Checkpointing (``--ckpt-dir/--ckpt-every/--resume``), ``--compress-grads``
+and telemetry (``--trace-out/--metrics-out``) are not yet ported.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import multiprocessing.connection
+import os
 import sys
+import tempfile
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro_torch.configs import ModelConfig, ShapeConfig, get_config, reduced
-from repro_torch.data.pipeline import CheckpointableIterator, make_batch_fn
+from repro_torch.core.parallel import ParallelContext
+from repro_torch.data.pipeline import CheckpointableIterator, make_batch_fn, shard_batch
+from repro_torch.launch import mesh as MESH
 from repro_torch.launch.serve import device_name
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -39,27 +56,28 @@ def opt_config(cfg: ModelConfig, lr: float, steps: int) -> adamw.OptConfig:
 
 
 def train_steps(cfg: ModelConfig, params, oc: adamw.OptConfig, tc: TrainConfig,
-                batch_fn: Callable, device, *, opt_state=None,
-                on_step: Optional[Callable[[dict], None]] = None):
+                batch_fn: Callable, device, *, par: Optional[ParallelContext] = None,
+                opt_state=None, on_step: Optional[Callable[[dict], None]] = None):
     """Take ``tc.steps`` AdamW steps from ``params`` (updated in place) over
-    ``batch_fn``'s batches 0, 1, ...  Returns (params, opt_state, history);
-    each history record holds the step's loss, grad norm and host-clock
-    seconds around work that ends in a device synchronise."""
+    ``batch_fn``'s batches 0, 1, ... (under a mesh, each rank's part of
+    them).  Returns (params, opt_state, history); each history record holds
+    the step's loss, grad norm and host-clock seconds around work that ends
+    in a device synchronise."""
     device = torch.device(device)
     if opt_state is None:
         opt_state = adamw.init(oc, params)
-    loop = TrainLoop(cfg, None, oc, tc, make_train_step(cfg, None, oc, tc),
+    loop = TrainLoop(cfg, par, oc, tc, make_train_step(cfg, par, oc, tc),
                      CheckpointableIterator(batch_fn), on_step=on_step)
 
     def put(b):
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in shard_batch(b, par, cfg.fpdt_chunks).items()}
 
     params, opt_state, _ = loop.run(params, opt_state, put_batch=put)
     return params, opt_state, loop.history
 
 
 NOT_PORTED = {
-    "mesh": "--mesh: device meshes",
     "ckpt_dir": "--ckpt-dir: checkpointing",
     "ckpt_every": "--ckpt-every: checkpointing",
     "resume": "--resume: checkpointing",
@@ -86,8 +104,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, on the CPU")
+    ap.add_argument("--mesh", default=None,
+                    help="none, host8 (2 data x 4 model) or DxM: train over D*M ranks")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the ranks' backend under --mesh (default nccl on the card, gloo on "
+                         "the CPU)")
     # the JAX trainer's flags that are not yet ported: refused below
-    ap.add_argument("--mesh", default=None, help="not yet ported")
     ap.add_argument("--ckpt-dir", default=None, help="not yet ported")
     ap.add_argument("--ckpt-every", type=int, default=None, help="not yet ported")
     ap.add_argument("--resume", default=None, help="not yet ported")
@@ -96,16 +118,83 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None, help="not yet ported")
     args = ap.parse_args(argv)
     for name, what in NOT_PORTED.items():
-        val = getattr(args, name)
-        if val not in (None, False) and not (name == "mesh" and val == "none"):
+        if getattr(args, name) not in (None, False):
             ap.exit(2, f"{what} is not yet ported\n")
     if min(args.steps, args.batch, args.seq, args.grad_accum) < 1:
         ap.error("--steps, --batch, --seq and --grad-accum must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.exit(1, "no CUDA device is available; pass --device cpu to run on the CPU\n")
-    device = torch.device(args.device)
-    name = device_name(device)
+    if args.mesh in (None, "none"):
+        return _train(args, None, torch.device(args.device))
+    try:
+        shape = MESH.parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    if args.device == "cpu" and backend == "nccl":
+        ap.error("nccl runs on the card: --device cpu takes --dist-backend gloo")
+    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, _spawn)
+        return _rank_main(args, shape, backend)
+    world = shape[0] * shape[1]
+    if backend == "nccl" and world > torch.cuda.device_count():
+        ap.exit(2, f"nccl needs one card a rank: {world} ranks, {torch.cuda.device_count()} "
+                   "cards (gloo can share a card: --dist-backend gloo)\n")
+    code = _spawn(list(argv if argv is not None else sys.argv[1:]), world)
+    if code:
+        sys.exit(code)
+    return None
 
+
+def _rank_main(args, shape, backend):
+    """One rank of a ``--mesh`` run: join the world, build the mesh, train."""
+    _, world, local_rank = MESH.init_from_env(backend)
+    try:
+        device = MESH.rank_device(args.device, local_rank)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        par = ParallelContext(MESH.make_mesh(*shape))
+        return _train(args, par, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawned_rank(argv, rank: int, world: int, init_method: str):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), **{MESH.INIT_METHOD_ENV: init_method})
+    main(argv)
+
+
+def _spawn(argv, world: int) -> int:
+    """Run ``world`` ranks of this CLI (spawned processes, a ``file://``
+    store in a temporary directory); the first rank to fail ends them all.
+    Returns 0, or the exit code of a failed rank."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_spawned_rank, args=(argv, r, world, init))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            alive = list(procs)
+            while alive:
+                multiprocessing.connection.wait([p.sentinel for p in alive])
+                alive = [p for p in alive if p.exitcode is None]
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed:
+                    return failed[0] if failed[0] > 0 else 1
+            return 0
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+
+
+def _train(args, par: Optional[ParallelContext], device: torch.device):
+    name = device_name(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -118,16 +207,27 @@ def main(argv=None):
         over["remat"] = args.remat
     if over:
         cfg = dataclasses.replace(cfg, **over)
+    main_rank = par is None or par.rank == 0
+    if par is not None:
+        u = cfg.fpdt_chunks
+        if args.batch % par.dp or args.seq % u or (args.seq // u) % par.sp:
+            raise SystemExit(f"--batch {args.batch} must split over {par.dp} data ranks and "
+                             f"each of the {u} chunks of --seq {args.seq} over {par.sp} model "
+                             "ranks")
+        if main_rank:
+            print(f"mesh {par.dp} data x {par.sp} model ({par.mesh.backend}), attention kind "
+                  f"{T.attn_kind(cfg, par)}, on {name}", flush=True)
 
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     oc = opt_config(cfg, args.lr, args.steps)
     tc = TrainConfig(steps=args.steps, log_every=args.log_every, grad_accum=args.grad_accum)
     bf = make_batch_fn(cfg, ShapeConfig("cli", args.seq, args.batch, "train"))
-    _, _, history = train_steps(cfg, params, oc, tc, bf, device)
+    _, _, history = train_steps(cfg, params, oc, tc, bf, device, par=par)
     tokens = args.batch * args.seq
-    for rec in history:
+    where = name if par is None else f"{name}, {par.dp * par.sp} ranks"
+    for rec in history if main_rank else ():
         print(f"step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-              f"{rec['dt'] * 1e3:.1f} ms ({tokens / rec['dt']:.1f} tokens/s) on {name}")
+              f"{rec['dt'] * 1e3:.1f} ms ({tokens / rec['dt']:.1f} tokens/s) on {where}")
     return history
 
 

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import fpdt
+from repro_torch.core import parallel as P
 from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
@@ -147,23 +148,34 @@ def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
+    if par is None or par.mesh is None:
+        return "local"
+    if cfg.attn_impl in ("ulysses", "cp"):
+        return cfg.attn_impl
+    return "ulysses" if cfg.num_heads % par.sp == 0 else "cp"
+
+
 def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
                 p: Params, h: torch.Tensor) -> torch.Tensor:
     """One block: norm1 -> mixer (FPDT attention or RG-LRU) -> residual ->
     norm2 -> chunked MLP -> residual; an ssm block is norm -> Mamba mixer ->
-    residual."""
+    residual.  Under a mesh h holds this rank's tokens (``core/parallel.py``);
+    everything but attention is per token."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not yet ported")
+    n_shards = par.sp if par is not None else 1
     if kind == "ssm":
-        y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h))
+        y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h),
+                             n_shards=n_shards)
         return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
-        y, _ = R.rglru_mixer(cfg, p["mixer"], hn)
+        y, _ = R.rglru_mixer(cfg, p["mixer"], hn, n_shards=n_shards)
         h = h + y
     else:
         window = cfg.window if kind == "local_attn" else 0
-        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, window=window)
+        o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, kind=attn_kind(cfg, par), window=window)
         h = h + o @ p["attn"]["wo"]
     hn2 = L.apply_norm(cfg, p["norm2"], h)
     return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
@@ -244,13 +256,26 @@ def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Par
 def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
             batch: Dict[str, torch.Tensor]):
     """Mean next-token xent (labels pre-shifted; IGNORE masked).  Returns
-    (loss, metrics)."""
+    (loss, metrics).
+
+    Under a mesh ``batch`` holds this rank's rows and tokens
+    (``data/pipeline.py::shard_batch``): the loss returned is this rank's
+    sum over the world's token count (an all-reduce of a detached value),
+    so the gradients summed over the world (``train_loop``) are exactly
+    those of the global mean; ``metrics["loss"]`` is the global mean."""
     _check_ported(cfg)
     h = embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
     h, aux = hidden_forward(cfg, par, params, h)
     h = L.apply_norm(cfg, params["final_norm"], h)
-    n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1])
+    sp = par.sp if par is not None else 1
+    n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1] * sp, sp)
     loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params), batch["labels"],
                                            n_chunks)
+    if P.distributed(par):
+        world = P.all_reduce_sum(torch.stack([loss_sum.detach(), count]))
+        count = world[1]
+        loss = loss_sum / torch.clamp(count, min=1.0)
+        return loss, {"loss": world[0] / torch.clamp(count, min=1.0), "aux": aux,
+                      "tokens": count}
     loss = loss_sum / torch.clamp(count, min=1.0)
     return loss, {"loss": loss, "aux": aux, "tokens": count}

@@ -8,6 +8,14 @@ in a Python loop with fp32 gradient sums, then one AdamW update (in place).
 Nothing in a step reads a device value on the host; ``TrainLoop``
 synchronises the card once after each step, then reads the loss.
 
+Under a mesh (``core/parallel.py``) each rank differentiates its own
+tokens' loss over the world's token count, and the step sums every
+gradient leaf over the world (``all_reduce_sum``, one call a leaf, in
+``tree_leaves`` order) before AdamW, so every rank takes the same step and
+the parameters stay the same bits on every rank.  The loop ends on every
+rank after the same step: a stop asked for on any rank (a signal, a
+straggler) is summed over the world after each step.
+
 ``TrainLoop`` keeps the JAX package's signal handling (SIGTERM/SIGINT end
 the loop after the current step), ``history`` and straggler monitor.
 Checkpointing, gradient compression and telemetry are not yet ported.
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core import parallel as P
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -79,7 +88,17 @@ def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
         raise RuntimeError("a parameter outside the layer cycles got no gradient")
     grads = {**tree_unflatten(rest, [p.grad for p in leaves]),
              "cycles": tree_unflatten(params["cycles"], sums)}
-    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return metrics["loss"], metrics, grads
+
+
+def reduce_grads(par: Optional[ParallelContext], grads):
+    """Each gradient leaf summed in place over the world (one call a leaf,
+    in ``tree_leaves`` order); the identity without a mesh."""
+    if P.distributed(par):
+        for g in tree_leaves(grads):
+            P.all_reduce_sum(g)
+    return grads
 
 
 def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
@@ -102,6 +121,7 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
             metrics = {"loss": lsum / n}
         else:
             lval, metrics, grads = value_and_grad(cfg, par, params, batch)
+        grads = reduce_grads(par, grads)
         params, opt_state, om = adamw.apply(oc, params, grads, opt_state)
         metrics = dict(metrics)
         metrics.update(om)
@@ -193,14 +213,18 @@ class TrainLoop:
             rec = {"step": step, "loss": float(metrics["loss"]),
                    "grad_norm": float(metrics["grad_norm"]), "dt": dt}
             self.history.append(rec)
-            if step % self.tc.log_every == 0:
+            rank = self.par.rank if self.par is not None else 0
+            if step % self.tc.log_every == 0 and rank == 0:
                 print(f"step {step:6d} loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
                       f"{dt * 1000:.0f}ms", flush=True)
-            if self.on_step is not None:
-                self.on_step(rec)
             try:
                 self.monitor.record(dt)
             except StragglerAlert as e:
-                print(f"[ft] straggler detected: {e}; stopping")
-                break
+                print(f"[ft] straggler detected on rank {rank}: {e}; stopping")
+                self._stop = True
+            if P.distributed(self.par):  # every rank stops after the same step
+                flag = torch.tensor([float(self._stop)], device=device)
+                self._stop = bool(P.all_reduce_sum(flag).item())
+            if self.on_step is not None:
+                self.on_step(rec)
         return params, opt_state, step

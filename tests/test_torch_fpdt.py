@@ -92,16 +92,19 @@ def test_every_u_is_the_same_function(inputs):
 
 
 def test_unported_options_raise(inputs):
-    """The distributed kinds are not yet ported, and u must divide S.  Host
-    offload is ported (test_offload_on_off_equal)."""
+    """The distributed kinds need a mesh (their parity runs in
+    tests/test_torch_fpdt_dist.py), an unknown kind is refused, and u must
+    divide S.  Host offload is ported (test_offload_on_off_equal)."""
     tc = dataclasses.replace(reduced(get_config("llama3.2-1b")), param_dtype="float32",
                              fpdt_chunks=4, fpdt_offload=True)
     p = from_jax_params(jax.device_get(JL.init_attn(tc, jax.random.PRNGKey(3), jnp.float32)),
                         "cpu")
     x = torch.from_numpy(inputs)
     for kind in ("ulysses", "cp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="needs a ParallelContext with a mesh"):
             F.fpdt_attention(tc, None, p, x, kind=kind)
+    with pytest.raises(ValueError, match="fpdt kind"):
+        F.fpdt_attention(tc, None, p, x, kind="ring")
     with pytest.raises(ValueError, match="must divide"):
         F.fpdt_attention(dataclasses.replace(tc, fpdt_chunks=5), None, p, x)
 

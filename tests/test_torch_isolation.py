@@ -43,7 +43,7 @@ def test_port_has_modules():
                  "kernels/build.py", "kernels/linear_scan/ref.py",
                  "kernels/linear_scan/kernel.py", "kernels/linear_scan/ops.py",
                  "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py",
-                 "configs/falcon_mamba_7b.py"):
+                 "configs/falcon_mamba_7b.py", "core/parallel.py", "launch/mesh.py"):
         assert want in names
     assert os.path.exists(SMOKE)
     for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),
@@ -52,8 +52,10 @@ def test_port_has_modules():
 
 
 def test_no_jax_or_repro_imports():
+    """The port, chip_smoke.py and the distributed tests' ranks
+    (tests/_torch_dist.py, whose tasks run in spawned processes)."""
     bad = {}
-    for path in _port_files() + [SMOKE]:
+    for path in _port_files() + [SMOKE, os.path.join(ROOT, "tests", "_torch_dist.py")]:
         hit = _imported_roots(path) & FORBIDDEN_ROOTS
         if hit:
             bad[os.path.relpath(path, ROOT)] = sorted(hit)

@@ -3,7 +3,8 @@ llama3.2-1b (fp32 parameters, the same converted weights and the same
 pipeline batches): ``loss_fn`` and every gradient leaf at u in {1, 4} with
 remat full and none; a 3-step loss and grad-norm trajectory of
 ``make_train_step`` (and one step with grad_accum 2); the CLI on the CPU,
-and the CLI refusing the flags that are not yet ported.  The JAX side runs
+and the CLI refusing the flags that are not yet ported (``--mesh`` is
+ported: tests/test_torch_train_dist.py).  The JAX side runs
 attention as ``xla_flash``, which its own tests hold equal to the Pallas
 kernels (tests/test_kernels_flash.py), with host offload off.  Tolerances:
 loss 2e-4 and gradients 5e-4 (tests/test_fpdt.py); the trajectory's losses
@@ -213,7 +214,7 @@ def test_hybrid_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "host8"], ["--ckpt-dir", "ckpt"], ["--ckpt-every", "5"], ["--resume", "auto"],
+    ["--ckpt-dir", "ckpt"], ["--ckpt-every", "5"], ["--resume", "auto"],
     ["--compress-grads"], ["--trace-out", "t.json"], ["--metrics-out", "m.prom"],
 ])
 def test_cli_refuses_unported(capsys, flag):
