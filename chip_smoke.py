@@ -117,15 +117,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and bf16, ulysses (16 q / 4 kv heads a rank), cp (through
                 attn_impl) and ulysses at the hybrid's shape (its one kv
                 head gathered), each rank's o and dx and the summed dW
-                against local on the same card; llama3.2-1b at full size,
-                mesh 1 x 2, b1 s 16384 u 8 remat full offload on, 3 AdamW
-                steps under ulysses and 2 under cp through train_steps:
-                the first step's loss and gradient norm against a
-                one-rank step run first, the kernels' launches and each
-                collective's calls and bytes a step against the counts
-                reckoned from the code, the parameters the same bits on
-                both ranks, peak memory and step ms a rank (gloo through
-                the host on one shared card, not a multi-card speed);
+                against local on the same card, its pinned host bytes held
+                and fetched against the own-slice KV store's reckoning,
+                and offload off bit for bit; the recurrent mixers alone
+                at full width (RG-LRU 4096 channels, Mamba d_inner 8192
+                d_state 16), fp32 and bf16, two ranks against one;
+                llama3.2-1b at full size, mesh 1 x 2, b1 s 16384 u 8
+                remat full offload on, 3 AdamW steps under ulysses and 2
+                under cp, then recurrentgemma-9b (3 layers: one rglru,
+                rglru, local_attn cycle) and falcon-mamba-7b (8 layers), 2
+                steps each, through train_steps: the first step against a
+                one-rank step run first (the bf16 loss, and in fp32
+                weights the loss, gradient norm and every leaf's norm),
+                the kernels' launches and each collective's calls and
+                bytes a step against the counts reckoned from the code,
+                the parameters the same bits on both ranks, peak memory
+                beside its reckoning and step ms a rank (gloo through the
+                host on one shared card, not a multi-card speed);
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
@@ -145,7 +153,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
                 (launches_by_path: the three serve paths, four trainings
-                and the two distributed trainings, per rank);
+                and the four distributed trainings, per rank);
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -985,10 +993,6 @@ KERNEL_OF_KIND = {"attn": "flash_fwd", "local_attn": "flash_fwd", "rglru": "line
                   "ssm": "linear_scan"}
 
 
-def _has_attention(cfg) -> bool:
-    return any(k in ("attn", "local_attn") for k in cfg.layer_kinds())
-
-
 def phase_serve(torch, M, arch, card):
     """``arch`` at full size with random bf16 weights from a seeded
     generator, through the CLI's own function (serve_batch): batch 4,
@@ -1030,7 +1034,7 @@ def phase_serve(torch, M, arch, card):
           f"tok/s; peak {peak_gib:.2f} GiB [{card}]")
     print("generated ids (row 0):", toks[0].tolist())
 
-    if _has_attention(cfg):  # a 2048 prompt: FPDT with u=4 computes what u=1 computes
+    if M.T.has_attention(cfg):  # a 2048 prompt: FPDT with u=4 computes what u=1 computes
         s2 = 2048
         tokens2 = torch.randint(0, cfg.vocab_size, (b, s2), generator=gen, device=dev)
         res = {}
@@ -1276,7 +1280,7 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
           f"{pbytes / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
     b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
-    attention = _has_attention(cfg)
+    attention = M.T.has_attention(cfg)
     if attention:
         _offload_on_off(torch, M, cfg, params, b0)
     if extra_check is not None:
@@ -1433,25 +1437,29 @@ def _check_losses(name, records, card):
         raise AssertionError(f"{name}: losses move beyond {LOSS_RTOL:.0%} of the earlier ones")
 
 
-def _launches_per_step(cfg, F, T, MB, seq):
-    """Launches per training step of each kernel under remat full or
-    offload: a layer in a recomputed cycle runs its forward twice (and
-    flash_fwd once per live pair each time), a tail layer once; the
-    backward once.  An ssm layer's selective scan runs linear_scan once a
-    block (MB.BLOCK_S tokens) in each of those forwards, and once more in the
-    block's own checkpoint recompute, and linear_scan_bwd once a block."""
+def _launches_per_step(cfg, F, T, MB, seq, sp=1):
+    """Launches per training step (a rank's, over ``sp`` model ranks) of each
+    kernel under remat full or offload: a layer in a recomputed cycle runs
+    its forward twice (and flash_fwd once per live pair each time), a tail
+    layer once; the backward once.  An ssm layer's selective scan runs
+    linear_scan once a block (MB.BLOCK_S tokens) in each of those forwards,
+    and once more in the block's own checkpoint recompute, and
+    linear_scan_bwd once a block.  Under sp > 1 a recurrent layer scans
+    twice (pass 1 and pass 2), each over the rank's u spans as u rows of
+    seq / (u sp) tokens, so a scan's blocks are a span's."""
     pat, n_cycles, tail = T.layout_of(cfg)
     u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
+    scans, row = (2, seq // (u * sp)) if sp > 1 else (1, seq)
     want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "linear_scan": 0,
             "linear_scan_bwd": 0}
     for kind, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
         if kind == "rglru":
-            want["linear_scan"] += passes
-            want["linear_scan_bwd"] += 1
+            want["linear_scan"] += scans * passes
+            want["linear_scan_bwd"] += scans
         elif kind == "ssm":
-            blocks = seq // min(MB.BLOCK_S, seq)
-            want["linear_scan"] += (passes + 1) * blocks
-            want["linear_scan_bwd"] += blocks
+            blocks = row // min(MB.BLOCK_S, row)
+            want["linear_scan"] += scans * (passes + 1) * blocks
+            want["linear_scan_bwd"] += scans * blocks
         else:
             window = cfg.window if kind == "local_attn" else 0
             pairs = sum(F.pair_live(i, j, cq=cq, window=window, sparsity=cfg.attn_sparsity)
@@ -1600,16 +1608,66 @@ DIST_STEPS = (("ulysses", 3), ("cp", 2))  # AdamW steps of llama3.2-1b's 1 x 2 t
 DIST_BF16_EMBED_RTOL = 0.15
 DIST_BF16_NORM_RTOL = 2.5e-2
 DIST_JOIN_S = 900  # the ranks' whole run, start-up included
+# The recurrent families trained on 1 x DIST_RANKS (b1, DIST_SEQ, u = DIST_U,
+# remat full, offload on): arch, layers, AdamW steps.  Each rank holds the
+# whole model and its AdamW state: recurrentgemma-9b's one (rglru, rglru,
+# local_attn) cycle is 2.60 B parameters, 29 GiB of state; falcon-mamba-7b's
+# 8 layers 1.37 B, 15 GiB.  Their fp32-weight checks run at the same depth.
+DIST_RECURRENT = (("recurrentgemma-9b", 3, 2), ("falcon-mamba-7b", 8, 2))
+# the mixers alone, at their archs' full width: mixer, arch
+DIST_MIXERS = (("rglru", "recurrentgemma-9b"), ("mamba", "falcon-mamba-7b"))
+# (output, gradients): the output max |err| / (1 + max |want|), each gradient
+# max |err| / max |want|; fp32 tests/test_fpdt.py's 2e-4 and 5e-4, bf16 the
+# repo's bf16 kernel tolerance.
+DIST_MIXER_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16"])}
 
 
-def _dist_cfg(M, arch="llama3.2-1b", **over):
-    """``arch`` at full size for the distributed phase: u = DIST_U,
-    mlp_chunks 2u, remat full, FPDT offload on."""
-    return dataclasses.replace(M.cfg_mod.get_config(arch), fpdt_chunks=DIST_U,
+def _dist_cfg(M, arch="llama3.2-1b", layers=None, **over):
+    """``arch`` at full width (``layers`` of its layers, or all) for the
+    distributed phase: u = DIST_U, mlp_chunks 2u, remat full, FPDT offload
+    on."""
+    cut = {} if layers is None else {"num_layers": layers}
+    return dataclasses.replace(M.cfg_mod.get_config(arch, **cut), fpdt_chunks=DIST_U,
                                mlp_chunks=2 * DIST_U, remat="full", fpdt_offload=True, **over)
 
 
-def _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes):
+def _reckoned_peak_gib(M, cfg, sp):
+    """A rank's peak device memory in a training step, reckoned from the
+    shapes before the run: the training state (bf16 weights and gradients,
+    fp32 AdamW moments: 12 bytes a parameter), every cycle's saved input
+    (remat full), and the larger of the tail layers' activations and one
+    cycle's recompute, with per token and layer the tensors a block keeps
+    for its backward (counted from the code: RG-LRU 4d + 48 di + 6 d_ff
+    bytes, attention 4d + 6 hq dh + 6 d_ff, Mamba 2d + 30 di) and for an
+    ssm layer the selective scan's block in its backward (a, b, the states
+    and their gradients: six fp32 [rows, 256, di, ds], rows = u under sp >
+    1).  Not measured: an estimate to print beside the reading."""
+    tokens = DIST_SEQ // sp
+    d, di, ff = cfg.d_model, cfg.d_inner, cfg.d_ff
+    per_token = {"rglru": 4 * d + 48 * di + 6 * ff,
+                 "local_attn": 4 * d + 6 * cfg.num_heads * cfg.head_dim + 6 * ff,
+                 "ssm": 2 * d + 30 * di}
+    per_token["attn"] = per_token["local_attn"]
+    rows = cfg.fpdt_chunks if sp > 1 else 1
+    block = 6 * rows * M.MB.BLOCK_S * di * cfg.ssm_state * 4
+
+    def layers(kinds):
+        return sum(tokens * per_token[k] + (block if k == "ssm" else 0) for k in kinds)
+
+    pat, n_cycles, tail = M.T.layout_of(cfg)
+    state = 12 * cfg.num_params()
+    inputs = n_cycles * tokens * d * 2
+    return (state + inputs + max(layers(pat), layers(tail))) / 2**30
+
+
+def _live_off_diagonal(M, cfg, seq, window):
+    """The live (i, j < i) chunk pairs of an FPDT layer over ``seq`` tokens."""
+    u = cfg.fpdt_chunks
+    return sum(M.F.pair_live(i, j, cq=seq // u, window=window, sparsity=cfg.attn_sparsity)
+               for i in range(u) for j in range(i))
+
+
+def _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes, window=0):
     """(calls, bytes) of each collective that one FPDT attention layer hands
     in on a rank over ``passes`` forwards and one backward, as
     ``core/fpdt.py`` issues them: per chunk, ulysses sends q (and k, v where
@@ -1617,7 +1675,12 @@ def _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes):
     out and dq (dk, dv) back as each chunk finishes, in x's dtype; gathered
     KV (ulysses with hkv % sp != 0, and cp) goes through gather_seq in x's
     dtype and its dk, dv come back through reduce_scatter_seq in fp32 over
-    the chunk's tokens and every kv head."""
+    the chunk's tokens and every kv head.  A forward that offloads (the
+    last, the recompute under remat, when ``cfg.fpdt_offload`` and u > 1)
+    keeps the rank's own slice of gathered KV on the host, so it gathers
+    each k and v again for every live off-diagonal pair that fetches it,
+    and the backward gathers each chunk's once after its fetch."""
+    P = M.P
     u = cfg.fpdt_chunks
     c = seq // u // sp
     q = b * cfg.num_heads * c * cfg.head_dim * x_bytes  # a rank's q, o, do or dq of a chunk
@@ -1636,27 +1699,50 @@ def _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes):
         add("seq_to_heads", 2 * passes * u, kv)
         add("heads_to_seq", 2 * u, kv)
     else:
-        add("gather_seq", 2 * passes * u, kv)
+        fetches = (_live_off_diagonal(M, cfg, seq, window) + u
+                   if cfg.fpdt_offload and u > 1 else 0)
+        add("gather_seq", 2 * passes * u + 2 * fetches, kv)
         add("reduce_scatter_seq", 2 * u, kv32)
     return calls, nbytes
 
 
-def _train_collectives(P, T, TR, cfg, kind, sp, b, seq, params_like):
+def _mixer_collectives(cfg, kind, sp, b, passes, x_bytes):
+    """(calls, bytes) of gather_spans and reduce_scatter_spans that one
+    recurrent layer (rglru or ssm) hands in on a rank over ``passes``
+    forwards and one backward under sp > 1 (``models/mamba.py``): each
+    forward gathers the [b, u, d_conv - 1, di] conv tails in x's dtype and
+    the fp32 span summaries ([b, u, 2 di] for RG-LRU, [b, u, di (1 + ds)]
+    for Mamba); the backward reduce-scatters both, sp times the bytes."""
+    u, di = cfg.fpdt_chunks, cfg.d_inner
+    width = 2 * di if kind == "rglru" else di * (1 + cfg.ssm_state)
+    sent = b * u * ((cfg.d_conv - 1) * di * x_bytes + width * 4)
+    return ({"gather_spans": 2 * passes, "reduce_scatter_spans": 2},
+            {"gather_spans": passes * sent, "reduce_scatter_spans": sp * sent})
+
+
+def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
     """(calls, bytes) of each collective a training step hands in on a rank
-    under remat full: every attention layer of a cycle runs two forwards
-    (the checkpoint's pass and its recompute), a tail layer one; loss_fn sums
-    (loss, count) over the world once (8 bytes); every gradient leaf is
-    summed once; the loop sums its stop flag once (4 bytes)."""
-    pat, n_cycles, tail = T.layout_of(cfg)
+    under remat full: every attention or recurrent layer of a cycle runs
+    two forwards (the checkpoint's pass and its recompute), a tail layer
+    one; loss_fn sums (loss, count) over the world once (8 bytes); every
+    gradient leaf is summed once; the loop sums its stop flag once (4
+    bytes)."""
+    P = M.P
+    pat, n_cycles, tail = M.T.layout_of(cfg)
     calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
     x_bytes = 2 if cfg.param_dtype == "bfloat16" else 4
     for k, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
         if k in ("attn", "local_attn"):
-            c, n = _fpdt_collectives(P, cfg, kind, sp, b, seq, passes, x_bytes)
-            for name in P.COLLECTIVES:
-                calls[name] += c[name]
-                nbytes[name] += n[name]
-    leaves = TR.tree_leaves(params_like)
+            c, n = _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes,
+                                     cfg.window if k == "local_attn" else 0)
+        elif sp > 1:
+            c, n = _mixer_collectives(cfg, k, sp, b, passes, x_bytes)
+        else:
+            continue
+        for name in c:
+            calls[name] += c[name]
+            nbytes[name] += n[name]
+    leaves = M.TR.tree_leaves(params_like)
     calls["all_reduce_sum"] += len(leaves) + 2
     nbytes["all_reduce_sum"] += sum(t.numel() * t.element_size() for t in leaves) + 8 + 4
     return calls, nbytes
@@ -1731,7 +1817,7 @@ def _dist_nccl_one_rank(torch, M, card):
     parts = [("o", got[0], want[0]), ("dx", got[1], want[1])] + [
         ("d" + n, got[2][n], want[2][n]) for n in want[2]]
     differ = [name for name, a, b in parts if not torch.equal(a, b)]
-    c, n = _fpdt_collectives(M.P, cfg, "ulysses", 1, 1, DIST_NCCL_SEQ, 1, 2)
+    c, n = _fpdt_collectives(M, cfg, "ulysses", 1, 1, DIST_NCCL_SEQ, 1, 2)
     want_counts = {k: [c[k], n[k]] for k in M.P.COLLECTIVES}
     print(f"nccl, world size 1 (device to device): ulysses vs local, llama3.2-1b attention "
           f"(d_model 2048, hq 32, hkv 8, dh 64) bf16 b1 s{DIST_NCCL_SEQ} u={DIST_NCCL_U} offload "
@@ -1761,17 +1847,18 @@ def _grad_readings(torch, M, cfg, par, dev):
     out = {"loss": float(loss), "grad_norm": math.sqrt(sum(x * x for x in norms)),
            "leaf_norms": norms,
            "embed_leaf": next(i for i, g in enumerate(leaves) if g is grads["embed"])}
-    del params, grads, batch
+    del params, grads, batch, leaves
     torch.cuda.empty_cache()
     return out
 
 
-def _dist_train_reference(torch, M, card):
-    """llama3.2-1b at the distributed phase's settings on one rank: one
-    AdamW step in bf16 (loss, grad norm) and the gradients in fp32 weights
-    (``_grad_readings``), of the first batch from seed 0's weights."""
+def _dist_train_reference(torch, M, card, cfg, bf16_grads=False):
+    """``cfg`` at the distributed phase's settings on one rank: one AdamW
+    step in bf16 (loss, grad norm) and the gradients in fp32 weights
+    (``_grad_readings``; also in bf16 weights with ``bf16_grads``), of the
+    first batch from seed 0's weights."""
     dev = torch.device("cuda")
-    cfg = _dist_cfg(M)
+    t0 = time.perf_counter()
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
     torch.cuda.reset_peak_memory_stats()
@@ -1782,12 +1869,15 @@ def _dist_train_reference(torch, M, card):
     del params, hist
     torch.cuda.empty_cache()
     fp32 = _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"), None, dev)
-    bf16 = _grad_readings(torch, M, cfg, None, dev)
-    print(f"one-rank reference, llama3.2-1b b1 s{DIST_SEQ} u={DIST_U} remat full offload on: "
-          f"bf16 step loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f}, "
-          f"{rec['dt'] * 1e3:.1f} ms, peak {peak:.2f} GiB; fp32 weights loss "
-          f"{fp32['loss']:.6f} grad_norm {fp32['grad_norm']:.6f} [{card}]")
-    return {"bf16": rec, "fp32": fp32, "bf16_grads": bf16}
+    out = {"bf16": rec, "fp32": fp32}
+    if bf16_grads:
+        out["bf16_grads"] = _grad_readings(torch, M, cfg, None, dev)
+    print(f"one-rank reference, {cfg.name} ({cfg.num_layers} layers) b1 s{DIST_SEQ} u={DIST_U} "
+          f"remat full offload on: bf16 step loss {rec['loss']:.6f} grad_norm "
+          f"{rec['grad_norm']:.6f}, {rec['dt'] * 1e3:.1f} ms, peak {peak:.2f} GiB; fp32 weights "
+          f"({cfg.num_layers} layers) loss {fp32['loss']:.6f} grad_norm {fp32['grad_norm']:.6f}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return out
 
 
 def _param_digest(torch, TR, params) -> str:
@@ -1801,8 +1891,9 @@ def _param_digest(torch, TR, params) -> str:
 
 def _dist_rank(rank, world, tmp):
     """One gloo rank of the distributed phase, on the one card: the
-    attention-only parity, then llama3.2-1b's 1 x world training.  Writes
-    its readings to ``tmp/rank<r>.json``."""
+    attention-only parity, the recurrent mixers alone, llama3.2-1b's
+    1 x world training, then each DIST_RECURRENT arch's.  Writes its
+    readings to ``tmp/rank<r>.json``, with each part's seconds."""
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -1812,29 +1903,104 @@ def _dist_rank(rank, world, tmp):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       **{M.MESH.INIT_METHOD_ENV: f"file://{tmp}/store"})
     M.MESH.init_from_env("gloo")
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return res
+
     try:
         dev = M.MESH.rank_device("cuda", rank)
         torch.cuda.set_device(dev)
         par = M.P.ParallelContext(M.MESH.make_mesh(1, world))
-        out = {"attention": _dist_attention(torch, M, par, dev),
-               "fp32": {kind: _grad_readings(torch, M, _dist_cfg(M, attn_impl=kind,
-                                                                 param_dtype="float32"),
-                                             par, dev) for kind, _ in DIST_STEPS},
-               "bf16_grads": {kind: _grad_readings(torch, M, _dist_cfg(M, attn_impl=kind),
-                                                   par, dev) for kind, _ in DIST_STEPS},
-               "train": {kind: _dist_train(torch, M, par, dev, kind, steps)
-                         for kind, steps in DIST_STEPS}}
+        out = {"attention": timed("attention", _dist_attention, torch, M, par, dev),
+               "mixers": timed("mixers", _dist_mixers, torch, M, par, dev), "train": {}}
+        for kind, steps in DIST_STEPS:
+            cfg = _dist_cfg(M, attn_impl=kind)
+            out["train"][f"llama3.2-1b {kind}"] = timed(f"llama3.2-1b {kind}", _dist_train_case,
+                                                        torch, M, par, dev, cfg, steps, True)
+        for arch, layers, steps in DIST_RECURRENT:
+            cfg = _dist_cfg(M, arch, layers)
+            label = f"{arch} {M.T.attn_kind(cfg, par)}" if M.T.has_attention(cfg) else arch
+            out["train"][label] = timed(label, _dist_train_case, torch, M, par, dev, cfg, steps,
+                                        False)
+        out["seconds"] = seconds
     finally:
         dist.destroy_process_group()
     Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _dist_train_case(torch, M, par, dev, cfg, steps, bf16_grads):
+    """A 1 x world training case on this rank: the first batch's gradients
+    in fp32 weights (and in bf16 with ``bf16_grads``), then the steps."""
+    return {"fp32": _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"),
+                                   par, dev),
+            **({"bf16_grads": _grad_readings(torch, M, cfg, par, dev)} if bf16_grads else {}),
+            **_dist_train(torch, M, par, dev, cfg, steps)}
+
+
+def _dist_mixers(torch, M, par, dev):
+    """Each DIST_MIXERS mixer at its arch's full width (RG-LRU lru_width
+    4096; Mamba d_inner 8192, d_state 16) in fp32 and bf16, b1, DIST_SEQ
+    tokens, u = DIST_U (spans of DIST_SEQ / (u sp) tokens): this rank's y
+    and dx, and every dW summed over the world, of the sequence-parallel
+    mixer against the one-rank mixer over the whole sequence on the same
+    card and inputs; the collectives of the distributed call."""
+    pos = torch.from_numpy(M.DP.token_positions(DIST_SEQ, par.sp, par.sp_rank, DIST_U)).to(dev)
+    out = {}
+    for mixer, arch in DIST_MIXERS:
+        mod = M.R if mixer == "rglru" else M.MB
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(M.cfg_mod.get_config(arch), param_dtype=dtype,
+                                      fpdt_chunks=DIST_U)
+            dt = getattr(torch, dtype)
+            g = torch.Generator(device=dev).manual_seed(11)
+            init = mod.init_rglru if mixer == "rglru" else mod.init_mamba
+            p = init(cfg, g, dt, dev)
+            x = torch.randn((1, DIST_SEQ, cfg.d_model), generator=g, device=dev).to(dt)
+            dy = torch.randn((1, DIST_SEQ, cfg.d_model), generator=g, device=dev).to(dt)
+            fn = mod.rglru_mixer if mixer == "rglru" else mod.mamba_mixer
+
+            def run(par_, x_, dy_):
+                xg = x_.clone().requires_grad_(True)
+                pg = {n: t.clone().requires_grad_(True) for n, t in p.items()}
+                y, _ = fn(cfg, pg, xg, None, par_)
+                y.backward(dy_)
+                return y.detach(), xg.grad, {n: t.grad for n, t in pg.items()}
+
+            want = run(None, x, dy)
+            M.P.reset_counts()
+            got = run(par, x[:, pos].contiguous(), dy[:, pos].contiguous())
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _collective_counts(M.P).items() if v[0]}
+            y_want = want[0][:, pos].float()
+            errs = {"y": float((got[0].float() - y_want).abs().max())
+                    / (1.0 + float(y_want.abs().max())),
+                    "dx": _leaf_rel(torch, got[1], want[1][:, pos])}
+            for n, gr in got[2].items():
+                errs["d" + n] = _leaf_rel(torch, M.P.all_reduce_sum(gr.float().contiguous()),
+                                          want[2][n])
+            c, nb = _mixer_collectives(cfg, "rglru" if mixer == "rglru" else "ssm", par.sp, 1,
+                                       1, 2 if dtype == "bfloat16" else 4)
+            out[f"{mixer} ({arch} width) {dtype}"] = {
+                "errs": errs, "counts": counts, "want_counts": {k: [c[k], nb[k]] for k in c}}
+            del want, got, p, x, dy
+            torch.cuda.empty_cache()
+    return out
 
 
 def _dist_attention(torch, M, par, dev):
     """Each DIST_ATTN case in fp32 and bf16, b1, DIST_SEQ tokens, u =
     DIST_U, offload on: this rank's o and dx, and dW summed over the world,
     against kind="local" over the whole sequence on the same card and
-    inputs; the collectives of the distributed call."""
+    inputs; the collectives of the distributed call; the pinned host bytes
+    it held at most and fetched back, against the own-slice reckoning
+    (``_host_bytes``); and the same call with offload off, which must give
+    the same bits."""
     pos = torch.from_numpy(M.DP.token_positions(DIST_SEQ, par.sp, par.sp_rank, DIST_U)).to(dev)
+    off = M.PL.host_offload(dev)
     out = {}
     for label, arch, impl in DIST_ATTN:
         for dtype in ("float32", "bfloat16"):
@@ -1845,36 +2011,81 @@ def _dist_attention(torch, M, par, dev):
                 raise AssertionError(f"{label}: attention kind {kind}")
             w, x, do = _attention_inputs(torch, M.L, M.F, cfg, dev, DIST_SEQ, 7)
             want = _attention_run(torch, M.F, cfg, None, "local", w, x, do)
+            xl, dol = x[:, pos].contiguous(), do[:, pos].contiguous()
+            torch.cuda.synchronize()
+            off.reset_counts()
+            held = off.held_bytes
             M.P.reset_counts()
-            got = _attention_run(torch, M.F, cfg, par, kind, w, x[:, pos].contiguous(),
-                                 do[:, pos].contiguous())
+            got = _attention_run(torch, M.F, cfg, par, kind, w, xl, dol)
+            torch.cuda.synchronize()
             counts = _collective_counts(M.P)
+            host = {"peak_held": off.peak_held_bytes - held, "to_device": off.to_device_bytes}
+            x_bytes = 2 if dtype == "bfloat16" else 4
+            host.update(_host_bytes(M, cfg, kind, par, x_bytes))
+            M.P.reset_counts()
+            plain = _attention_run(torch, M.F, dataclasses.replace(cfg, fpdt_offload=False),
+                                   par, kind, w, xl, dol)
+            counts_off = _collective_counts(M.P)
+            differ = [n for n, a, b in zip(("o", "dx"), got[:2], plain[:2])
+                      if not torch.equal(a, b)]
+            differ += ["d" + n for n in got[2] if not torch.equal(got[2][n], plain[2][n])]
             errs = {"o": _elementwise_err(torch, got[0], want[0][:, pos]),
                     "dx": _leaf_rel(torch, got[1], want[1][:, pos])}
             for n, g in got[2].items():
                 errs["d" + n] = _leaf_rel(torch, M.P.all_reduce_sum(g.float().contiguous()),
                                           want[2][n])
-            c, nb = _fpdt_collectives(M.P, cfg, kind, par.sp, 1, DIST_SEQ, 1,
-                                      2 if dtype == "bfloat16" else 4)
+            c, nb = _fpdt_collectives(M, cfg, kind, par.sp, 1, DIST_SEQ, 1, x_bytes)
+            c0, nb0 = _fpdt_collectives(M, dataclasses.replace(cfg, fpdt_offload=False), kind,
+                                        par.sp, 1, DIST_SEQ, 1, x_bytes)
             out[f"{label} {dtype}"] = {
-                "errs": errs, "counts": counts,
-                "want_counts": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
-            del want, got, w, x, do
+                "errs": errs, "counts": counts, "counts_off": counts_off, "host": host,
+                "offload_off_differs": differ,
+                "want_counts": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES},
+                "want_counts_off": {k: [c0[k], nb0[k]] for k in M.P.COLLECTIVES}}
+            del want, got, plain, w, x, do, xl, dol
             torch.cuda.empty_cache()
     return out
 
 
-def _dist_train(torch, M, par, dev, kind, steps):
-    """llama3.2-1b at full size on this rank's half of each b1 DIST_SEQ
-    batch: ``steps`` AdamW steps from seed 0's weights through train_steps,
-    the kernels' launches and the collectives read around each step; peak
-    memory; a digest of the parameters after the steps from every rank."""
+def _host_bytes(M, cfg, kind, par, x_bytes):
+    """Pinned host bytes of one FPDT layer's forward and backward with
+    offload on, on a rank, as ``core/fpdt.py`` moves them (no window): per
+    chunk its q (c tokens, or all C of hq/sp heads under ulysses: the same
+    bytes) and its k and v as the store keeps them, held until the backward
+    ends; fetched back for every live off-diagonal pair (k, v) and in the
+    backward for every chunk (k, v) and every live pair (q).  Own slice:
+    the rank's [hkv, c] of k and v (or hkv/sp heads of all C tokens, the
+    same bytes); gathered: the k and v the pairs read (cp every kv head,
+    ulysses the kv heads its q heads read, of all C tokens), which the store
+    kept before it kept the rank's own."""
+    u, sp = DIST_U, par.sp
+    c = DIST_SEQ // u // sp
+    q = cfg.num_heads * c * cfg.head_dim * x_bytes
+    own = cfg.num_kv_heads * c * cfg.head_dim * x_bytes
+    read = own
+    if kind == "cp":
+        read = own * sp
+    elif cfg.num_kv_heads % sp:
+        read = len(M.F.kv_heads_read(cfg.num_heads, cfg.num_kv_heads, sp, par.sp_rank)) \
+            * c * sp * cfg.head_dim * x_bytes
+    pairs = _live_off_diagonal(M, cfg, DIST_SEQ, 0) + u
+    return {"want_peak_held": u * (q + 2 * own), "want_to_device": pairs * (q + 2 * own),
+            "gathered_peak_held": u * (q + 2 * read), "gathered_to_device": pairs * (q + 2 * read)}
+
+
+def _dist_train(torch, M, par, dev, cfg, steps):
+    """``cfg`` on this rank's half of each b1 DIST_SEQ batch: ``steps``
+    AdamW steps from seed 0's weights through train_steps, the kernels'
+    launches and the collectives read around each step; peak memory beside
+    its reckoning; a digest of the parameters after the steps from every
+    rank."""
     import torch.distributed as dist
 
-    cfg = _dist_cfg(M, attn_impl=kind)
+    kind = M.T.attn_kind(cfg, par)
+    reckoned = _reckoned_peak_gib(M, cfg, par.sp)
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
-    c, nb = _train_collectives(M.P, M.T, M.TR, cfg, kind, par.sp, 1, DIST_SEQ, params)
+    c, nb = _train_collectives(M, cfg, kind, par.sp, 1, DIST_SEQ, params)
     records = []
 
     def on_step(rec):
@@ -1897,8 +2108,9 @@ def _dist_train(torch, M, par, dev, kind, steps):
     dist.all_gather_object(digests, _param_digest(torch, M.TR, params))
     del params, opt_state
     torch.cuda.empty_cache()
-    return {"records": records, "peak_gib": peak, "digests": digests,
-            "want_launches": _launches_per_step(cfg, M.F, M.T, M.MB, DIST_SEQ),
+    return {"records": records, "peak_gib": peak, "reckoned_peak_gib": reckoned,
+            "digests": digests, "layers": cfg.num_layers, "steps": steps,
+            "want_launches": _launches_per_step(cfg, M.F, M.T, M.MB, DIST_SEQ, par.sp),
             "want_collectives": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
 
 
@@ -1926,17 +2138,27 @@ def _join_ranks(procs, timeout):
 
 
 def phase_dist(torch, M, card):
-    """FPDT's distribution (core/parallel.py): the NCCL world-size-1 path bit
-    for bit against local; then DIST_RANKS gloo ranks spawned on the one
-    card (gloo takes the CUDA tensors and stages them through host memory
-    itself): the attention-only parity of DIST_ATTN and llama3.2-1b's
-    1 x DIST_RANKS training, its first step against a one-rank step run here
-    first.  Returns each kernel's launches on rank 0 by training kind."""
+    """FPDT's distribution (core/parallel.py) and the recurrent mixers' two
+    passes: the NCCL world-size-1 path bit for bit against local; one-rank
+    references of each training case; then DIST_RANKS gloo ranks spawned
+    on the one card (gloo takes the CUDA tensors and stages them through
+    host memory itself): the attention-only parity of DIST_ATTN (with the
+    host bytes of the own-slice KV store and offload off bit for bit), the
+    mixers alone, llama3.2-1b's 1 x DIST_RANKS training and the
+    DIST_RECURRENT archs', each first step against its one-rank reference.
+    Returns each kernel's launches on rank 0 by training path."""
     import multiprocessing
     import tempfile
 
     _dist_nccl_one_rank(torch, M, card)
-    ref = _dist_train_reference(torch, M, card)
+    t0 = time.perf_counter()
+    refs = {"llama3.2-1b": _dist_train_reference(torch, M, card, _dist_cfg(M), bf16_grads=True)}
+    for arch, layers, _ in DIST_RECURRENT:
+        refs[arch] = _dist_train_reference(torch, M, card, _dist_cfg(M, arch, layers))
+    torch.cuda.empty_cache()  # the ranks share the card: this process keeps nothing cached
+    print(f"one-rank references: {time.perf_counter() - t0:.1f} s; this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card's memory")
+    t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, tmp))
@@ -1946,79 +2168,112 @@ def phase_dist(torch, M, card):
         _join_ranks(procs, DIST_JOIN_S)
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
     print(f"gloo, {DIST_RANKS} ranks sharing the card: the port hands gloo the CUDA tensors "
-          "(no explicit staging); gloo stages them through host memory")
+          f"(no explicit staging); gloo stages them through host memory; the ranks took "
+          f"{time.perf_counter() - t0:.1f} s, rank 0's parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
 
     for case in ranks[0]["attention"]:
         dtype = case.split()[-1]
         tol_o, tol_g = DIST_TOL[dtype]
         for r, got in enumerate(ranks):
             a = got["attention"][case]
-            errs = a["errs"]
+            errs, host = a["errs"], a["host"]
             print(f"  rank {r} {case}, b1 s{DIST_SEQ} u={DIST_U} offload on, vs local: "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                   + f" (o: max |err| / (1 + |want|), limit {tol_o}; gradients: max |err| / "
                   f"max |want|, limit {tol_g}); collectives "
-                  + str({k: v for k, v in a["counts"].items() if v[0]}))
+                  + str({k: v for k, v in a["counts"].items() if v[0]})
+                  + f"; pinned host bytes held at most {host['peak_held']} (own-slice "
+                  f"reckoning {host['want_peak_held']}, a gathered store "
+                  f"{host['gathered_peak_held']}), fetched {host['to_device']} (reckoned "
+                  f"{host['want_to_device']}, a gathered store {host['gathered_to_device']}); "
+                  f"offload off differs in {a['offload_off_differs'] or 'nothing'}")
             if errs["o"] > tol_o or any(errs[k] > tol_g for k in errs if k != "o"):
                 raise AssertionError(f"rank {r} {case}: beyond tolerance")
+            if a["counts"] != a["want_counts"] or a["counts_off"] != a["want_counts_off"]:
+                raise AssertionError(f"rank {r} {case}: collectives {a['counts']} (offload off "
+                                     f"{a['counts_off']}), reckoned {a['want_counts']} "
+                                     f"({a['want_counts_off']})")
+            if (host["peak_held"], host["to_device"]) != (host["want_peak_held"],
+                                                          host["want_to_device"]):
+                raise AssertionError(f"rank {r} {case}: host bytes {host}")
+            if a["offload_off_differs"]:
+                raise AssertionError(f"rank {r} {case}: offload off gives other bits in "
+                                     f"{a['offload_off_differs']}")
+
+    for case in ranks[0]["mixers"]:
+        tol_y, tol_g = DIST_MIXER_TOL[case.split()[-1]]
+        for r, got in enumerate(ranks):
+            a = got["mixers"][case]
+            errs = a["errs"]
+            print(f"  rank {r} mixer {case}, b1 s{DIST_SEQ} u={DIST_U}, two ranks vs one: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (y: max |err| / (1 + max |want|), limit {tol_y}; gradients: max |err| / "
+                  f"max |want|, limit {tol_g}); collectives {a['counts']} [{card}]")
+            if errs["y"] > tol_y or any(errs[k] > tol_g for k in errs if k != "y"):
+                raise AssertionError(f"rank {r} mixer {case}: beyond tolerance")
             if a["counts"] != a["want_counts"]:
-                raise AssertionError(f"rank {r} {case}: collectives {a['counts']}, reckoned "
-                                     f"{a['want_counts']}")
+                raise AssertionError(f"rank {r} mixer {case}: collectives {a['counts']}, "
+                                     f"reckoned {a['want_counts']}")
 
     totals = {}
-    for kind, steps in DIST_STEPS:
+    for case in ranks[0]["train"]:
+        arch = case.split()[0]
         for r, got in enumerate(ranks):
-            t = got["train"][kind]
+            t = got["train"][case]
             recs = t["records"]
-            if len(recs) != steps:
-                raise AssertionError(f"rank {r} {kind}: {len(recs)} steps of {steps}")
             for rec in recs:
-                print(f"  rank {r} train llama3.2-1b 1x{DIST_RANKS} {kind} step {rec['step']}: "
-                      f"loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
+                print(f"  rank {r} train {case} 1x{DIST_RANKS} ({t['layers']} layers) step "
+                      f"{rec['step']}: loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
                       f"{rec['dt'] * 1e3:.1f} ms (gloo through the host on one shared card, "
                       f"not a multi-card speed); launches {rec['launches']}; collectives "
                       f"{ {k: v for k, v in rec['collectives'].items() if v[0]} }")
                 if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
-                    raise AssertionError(f"rank {r} {kind}: non-finite loss or grad norm")
+                    raise AssertionError(f"rank {r} {case}: non-finite loss or grad norm")
                 if rec["launches"] != t["want_launches"]:
-                    raise AssertionError(f"rank {r} {kind} step {rec['step']}: launches "
+                    raise AssertionError(f"rank {r} {case} step {rec['step']}: launches "
                                          f"{rec['launches']}, reckoned {t['want_launches']}")
                 if rec["collectives"] != t["want_collectives"]:
-                    raise AssertionError(f"rank {r} {kind} step {rec['step']}: collectives "
+                    raise AssertionError(f"rank {r} {case} step {rec['step']}: collectives "
                                          f"{rec['collectives']}, reckoned "
                                          f"{t['want_collectives']}")
-            first, ref16 = recs[0], ref["bf16"]
+            first, ref16 = recs[0], refs[arch]["bf16"]
             rel16 = {k: abs(first[k] - ref16[k]) / abs(ref16[k]) for k in ("loss", "grad_norm")}
-            f32, ref32 = got["fp32"][kind], ref["fp32"]
+            f32, ref32 = t["fp32"], refs[arch]["fp32"]
             rel32 = {k: abs(f32[k] - ref32[k]) / abs(ref32[k]) for k in ("loss", "grad_norm")}
             leaf32 = max(abs(a - b) / b for a, b in zip(f32["leaf_norms"], ref32["leaf_norms"]))
-            print(f"  rank {r} {kind} vs one rank, first batch: in fp32 weights loss rel "
-                  f"{rel32['loss']:.3e}, grad_norm rel {rel32['grad_norm']:.3e}, largest "
-                  f"gradient-leaf norm rel {leaf32:.3e} (limit {FPDT_GRAD_RTOL}); the bf16 "
-                  f"step's loss rel {rel16['loss']:.3e} (limit {FPDT_GRAD_RTOL}) and grad_norm "
-                  f"rel {rel16['grad_norm']:.3e} (limit {DIST_BF16_NORM_RTOL}); peak device "
-                  f"memory {t['peak_gib']:.2f} GiB; parameter digests "
-                  f"{[d[:12] for d in t['digests']]} [{card}]")
-            b16, rb16 = got["bf16_grads"][kind], ref["bf16_grads"]
-            leaf16 = [abs(a - b) / b for a, b in zip(b16["leaf_norms"], rb16["leaf_norms"])]
-            emb = rb16["embed_leaf"]
-            norm16 = abs(b16["grad_norm"] - rb16["grad_norm"]) / rb16["grad_norm"]
-            print(f"  rank {r} {kind} vs one rank, first batch, bf16 gradient-leaf norms rel: "
-                  + ", ".join(f"{x:.2e}" for x in leaf16) + f"; the embedding (leaf {emb}) "
-                  f"{leaf16[emb]:.3e} (limit {DIST_BF16_EMBED_RTOL}), the others limit "
-                  f"{FPDT_GRAD_RTOL}; global norm {norm16:.3e} (limit {DIST_BF16_NORM_RTOL})")
+            print(f"  rank {r} {case} vs one rank, first batch: in fp32 weights ({t['layers']} "
+                  f"layers) loss rel {rel32['loss']:.3e}, grad_norm rel {rel32['grad_norm']:.3e}, "
+                  f"largest gradient-leaf norm rel {leaf32:.3e} (limit {FPDT_GRAD_RTOL}); the "
+                  f"bf16 step's loss rel {rel16['loss']:.3e} (limit {FPDT_GRAD_RTOL}) and "
+                  f"grad_norm rel {rel16['grad_norm']:.3e}; peak device memory "
+                  f"{t['peak_gib']:.2f} GiB (reckoned {t['reckoned_peak_gib']:.2f}); parameter "
+                  f"digests {[d[:12] for d in t['digests']]} [{card}]")
+            if len(recs) != t["steps"]:
+                raise AssertionError(f"rank {r} {case}: {len(recs)} steps of {t['steps']}")
             if max(*rel32.values(), leaf32, rel16["loss"]) > FPDT_GRAD_RTOL:
-                raise AssertionError(f"rank {r} {kind}: first step differs from one rank")
-            if (b16["embed_leaf"] != emb or leaf16[emb] > DIST_BF16_EMBED_RTOL
-                    or max(x for i, x in enumerate(leaf16) if i != emb) > FPDT_GRAD_RTOL
-                    or max(norm16, rel16["grad_norm"]) > DIST_BF16_NORM_RTOL):
-                raise AssertionError(f"rank {r} {kind}: first batch's bf16 gradients differ "
-                                     "from one rank's")
+                raise AssertionError(f"rank {r} {case}: first step differs from one rank")
+            if "bf16_grads" in t:
+                b16, rb16 = t["bf16_grads"], refs[arch]["bf16_grads"]
+                leaf16 = [abs(a - b) / b for a, b in zip(b16["leaf_norms"], rb16["leaf_norms"])]
+                emb = rb16["embed_leaf"]
+                norm16 = abs(b16["grad_norm"] - rb16["grad_norm"]) / rb16["grad_norm"]
+                print(f"  rank {r} {case} vs one rank, first batch, bf16 gradient-leaf norms "
+                      "rel: " + ", ".join(f"{x:.2e}" for x in leaf16) + f"; the embedding "
+                      f"(leaf {emb}) {leaf16[emb]:.3e} (limit {DIST_BF16_EMBED_RTOL}), the others "
+                      f"limit {FPDT_GRAD_RTOL}; global norm {norm16:.3e} (limit "
+                      f"{DIST_BF16_NORM_RTOL}), the step's {rel16['grad_norm']:.3e}")
+                if (b16["embed_leaf"] != emb or leaf16[emb] > DIST_BF16_EMBED_RTOL
+                        or max(x for i, x in enumerate(leaf16) if i != emb) > FPDT_GRAD_RTOL
+                        or max(norm16, rel16["grad_norm"]) > DIST_BF16_NORM_RTOL):
+                    raise AssertionError(f"rank {r} {case}: first batch's bf16 gradients differ "
+                                         "from one rank's")
             if len(set(t["digests"])) != 1:
-                raise AssertionError(f"{kind}: the ranks' parameters differ after the steps")
-        t0 = ranks[0]["train"][kind]
-        totals[kind] = {k: sum(rec["launches"][k] for rec in t0["records"])
-                        for k in t0["want_launches"]}
+                raise AssertionError(f"{case}: the ranks' parameters differ after the steps")
+        t0 = ranks[0]["train"][case]
+        kind = case[len(arch):]  # " ulysses", " cp", or nothing
+        totals[f"train {arch} 1x{DIST_RANKS}{kind} (per rank)"] = {
+            k: sum(rec["launches"][k] for rec in t0["records"]) for k in t0["want_launches"]}
     return totals
 
 
@@ -2349,13 +2604,15 @@ def _modules():
     from repro_torch.launch import train as TRAIN
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as MB
+    from repro_torch.models import rglru as R
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
     from repro_torch.runtime import placement as PL
     from repro_torch.runtime import train_loop as TL
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
-                                 DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, L=L, P=P, MESH=MESH)
+                                 DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
+                                 MESH=MESH)
 
 
 def main():
@@ -2391,7 +2648,7 @@ def main():
     falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
                    M, card)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
-    dist = phase("distribution (ulysses, cp)", phase_dist, torch, M, card)
+    dist = phase("distribution (ulysses, cp, the recurrent mixers)", phase_dist, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
 
     def at(key, tag):  # another timed shape's figures, as extra keys
@@ -2455,8 +2712,7 @@ def main():
         by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
                    "train llama3.2-1b": train[kname], "train recurrentgemma-9b": hybrid[kname],
                    "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],
-                   **{f"train llama3.2-1b 1x{DIST_RANKS} {kind} (per rank)": d[kname]
-                      for kind, d in dist.items()}}
+                   **{path: d[kname] for path, d in dist.items()}}
         # each kernel's own path: gpt-2.7b's training for the attention
         # kernels, this slice's falcon-mamba-7b training for the scan
         path = "train falcon-mamba-7b" if kname.startswith("linear_scan") else "train gpt-2.7b"

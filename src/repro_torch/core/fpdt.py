@@ -50,9 +50,19 @@ with the forward:
     backward's dk_j, dv_j are summed back to their tokens' ranks by
     ``reduce_scatter_seq``.
 
-Offload stays per rank: each keeps its own q and KV chunks on the host.
-The weight gradients a rank returns cover its own tokens; the train step
-sums them over the world.
+Offload stays per rank: each keeps its own q chunks on the host, and its
+own KV.  Where KV is gathered (cp, and ulysses with hkv % sp != 0) the
+host store holds the rank's own [b, hkv, C/sp, dh] slice of each chunk,
+as the JAX package shards its offloaded store along the chunk
+(``_host_spec_kv``): the diagonal pair reads the chunk gathered just
+after its projection, and every later fetch of chunk j (a live
+off-diagonal pair in the forward, chunk j's outer step in the backward)
+is gathered again once its copy has arrived.  So a rank's pinned bytes
+and host-to-device bytes for KV are 1/sp of the gathered chunk's, at one
+more ``gather_seq`` a fetch.  Without offload the gathered chunk stays on
+the device, as the JAX package's replicated KV does.  The weight gradients
+a rank returns cover its own tokens; the train step sums them over the
+world.
 """
 from __future__ import annotations
 
@@ -170,14 +180,31 @@ class _Plan:
         """This rank's [b, hq, c, dh] -> what its pairs read as q."""
         return P.seq_to_heads(t, self.par.sp_group) if self.kind == "ulysses" else t
 
+    @property
+    def gathers_kv(self) -> bool:
+        """Each rank reads the whole KV chunk (gathered over the group)."""
+        return self.kind == "cp" or (self.kind == "ulysses" and self.kv_heads is not None)
+
     def kv_in(self, t):
         """This rank's [b, hkv, c, dh] -> the chunk's k or v its pairs read."""
         if self.kind == "local":
             return t
-        if self.kind == "ulysses" and self.kv_heads is None:
+        if not self.gathers_kv:
             return P.seq_to_heads(t, self.par.sp_group)
         full = P.gather_seq(t, self.par.sp_group)
         return full if self.kv_heads is None else full[:, list(self.kv_heads)]
+
+    def kv_keep(self, own, read):
+        """What the KV store keeps of a chunk: this rank's own slice where
+        the chunk is gathered and offloaded, else what the pairs read."""
+        return own if self.gathers_kv and self.offload is not None else read
+
+    def kv_fetched(self, t):
+        """A fetched KV chunk -> what the pairs read: gathered again where
+        the store kept this rank's own c tokens (told by the length, since a
+        checkpoint's backward sees the recompute's tensors, not its plan)."""
+        own = self.gathers_kv and self.sp > 1 and t.shape[2] == self.c
+        return self.kv_in(t) if own else t
 
     def o_out(self, t):
         """The pairs' rows -> this rank's tokens (every head)."""
@@ -221,7 +248,8 @@ def _project(plan: _Plan, w: Params, xi: torch.Tensor, i: int):
 def _forward(plan: _Plan, x: torch.Tensor, w: Params, keep: bool):
     """o [b, S, hq*dh] in x's dtype (this rank's tokens), and, when
     ``keep``, the residuals of the backward: per chunk q_i, k_i, v_i as the
-    pairs read them (host-resident under offload), o_i fp32 and L_i."""
+    pairs read them (host-resident under offload; gathered KV offloaded as
+    this rank's own slice, ``_Plan.kv_keep``), o_i fp32 and L_i."""
     b = x.shape[0]
     cfg, u, c = plan.cfg, plan.u, plan.c
     kv_store = []  # (k_j, v_j) in head layout, on the host while idle
@@ -232,15 +260,17 @@ def _forward(plan: _Plan, x: torch.Tensor, w: Params, keep: bool):
         return plan.to_device(kj), plan.to_device(vj)
 
     for i in range(u):
-        qi, ki, vi = _project(plan, w, x[:, i * c:(i + 1) * c], i)
-        qi, ki, vi = plan.q_in(qi), plan.kv_in(ki), plan.kv_in(vi)
+        qi, k_own, v_own = _project(plan, w, x[:, i * c:(i + 1) * c], i)
+        qi, ki, vi = plan.q_in(qi), plan.kv_in(k_own), plan.kv_in(v_own)
         live = [j for j in range(i) if plan.live(i, j)]
         carry = None
         for j, (kj, vj) in zip(live, double_buffered(live, fetch_kv)):
+            kj, vj = plan.kv_fetched(kj), plan.kv_fetched(vj)
             carry = fa.chunk_fwd(qi, kj, vj, carry, **plan.pair_kwargs(i, j))
         st = SoftmaxState(*fa.chunk_fwd(qi, ki, vi, carry, **plan.pair_kwargs(i, i)))
         oi = finalize(st)  # [b, hq (ulysses: hq/sp), rows, dh] fp32
-        kv_store.append((plan.to_host(ki), plan.to_host(vi)))
+        kv_store.append((plan.to_host(plan.kv_keep(k_own, ki)),
+                         plan.to_host(plan.kv_keep(v_own, vi))))
         if keep:
             qs.append(plan.to_host(qi))
             os_.append(oi)
@@ -279,6 +309,7 @@ def _backward(plan: _Plan, x, w: Params, qs, ks, vs, os_, Ls, do):
     # the next KV chunk's fetch is issued before this chunk's inner loop,
     # and the next query chunk's before the current pair's kernels
     for j, (kj, vj) in zip(range(u), double_buffered(range(u), fetch_kv)):
+        kj, vj = plan.kv_fetched(kj), plan.kv_fetched(vj)
         inner = [i for i in range(j, u) if plan.live(i, j)]
         for i, qi in zip(inner, double_buffered(inner, fetch_q)):
             kw = plan.pair_kwargs(i, j)
@@ -290,8 +321,8 @@ def _backward(plan: _Plan, x, w: Params, qs, ks, vs, os_, Ls, do):
         # chunk j's dq (its diagonal pair came last), dk and dv are final:
         # back to this rank's tokens
         dqs[j] = plan.q_back(or_zeros(dqs[j], qs[j]), x.dtype)
-        dks[j] = plan.kv_back(or_zeros(dks[j], ks[j]), x.dtype)
-        dvs[j] = plan.kv_back(or_zeros(dvs[j], vs[j]), x.dtype)
+        dks[j] = plan.kv_back(or_zeros(dks[j], kj), x.dtype)
+        dvs[j] = plan.kv_back(or_zeros(dvs[j], vj), x.dtype)
 
     # per chunk: un-rope, un-project, and accumulate the weight grads
     # (_unproject_body) over this rank's tokens

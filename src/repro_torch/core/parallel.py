@@ -21,6 +21,15 @@ The collectives work on the kernels' head-major layout [b, h, s, dh]:
   reduce_scatter_seq  [b, h, C, dh] -> [b, h, C/sp, dh] summed (reduce_scatter_tensor)
   all_reduce_sum      in place, over a group or the world      (all_reduce)
 
+and, for the recurrent mixers' two-pass scans (``models/mamba.py``,
+``models/rglru.py``), one collective that autograd differentiates:
+
+  gather_spans        [b, u, ...] -> [b, u*sp, ...]           (all_gather_into_tensor)
+  reduce_scatter_spans  its adjoint, in the backward            (reduce_scatter_tensor)
+
+A rank's u spans are its C/sp tokens of each chunk; ``gather_spans`` puts
+every rank's spans in global order, span (i, m) at g = i*sp + m.
+
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``
 (``chip_smoke.py`` reads them as it reads the kernels' launches).  Every
@@ -39,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
-               "all_reduce_sum")
+               "all_reduce_sum", "gather_spans", "reduce_scatter_spans")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -159,3 +168,42 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     _count("all_reduce_sum", x)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+class _GatherSpans(torch.autograd.Function):
+    """All-gather of every rank's spans; its adjoint sums each rank's block
+    of the gradient over the group (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        sp = dist.get_world_size(group)
+        b, u, *rest = x.shape
+        x = x.contiguous()
+        out = x.new_empty((sp * b, u, *rest))  # concatenated along dim 0, as gloo takes it
+        _count("gather_spans", x)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, x, group=group)
+        return out.view(sp, b, u, *rest).movedim(0, 2).reshape(b, u * sp, *rest)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = dist.get_world_size(ctx.group)
+        b, n, *rest = g.shape
+        send = g.reshape(b, n // sp, sp, *rest).movedim(2, 0).reshape(sp * b, n // sp, *rest)
+        send = send.contiguous()
+        out = g.new_empty((b, n // sp, *rest))
+        _count("reduce_scatter_spans", send)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def gather_spans(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, u, ...] (this rank's u spans) -> [b, u*sp, ...]: every rank's
+    spans in global order, rank m's span i at i*sp + m.  Differentiable:
+    the backward hands this rank the sum over the group of its spans'
+    gradients (``reduce_scatter_spans``)."""
+    return _GatherSpans.apply(x, group)

@@ -15,11 +15,12 @@ until the backward recomputes the cycle (the paper's "OC."), as
 
 ``--mesh DxM`` (``host8``: the JAX CLI's 2 data x 4 model) trains over
 D*M ranks, sequence-parallel over M (FPDT's Ulysses or CP kind,
-``models/transformer.py::attn_kind``) and data-parallel over D, with the
-gradients summed over the world each step.  Without ``WORLD_SIZE`` in the
-environment the CLI spawns the ranks itself (``torch.multiprocessing``,
-a ``file://`` store in a temporary directory); under ``torchrun`` it joins
-the world it finds.  Rank r runs on cuda:(LOCAL_RANK % cards), or the CPU.
+``models/transformer.py::attn_kind``; the recurrent mixers' two-pass scans
+over the ranks' spans, ``models/mamba.py``) and data-parallel over D, with
+the gradients summed over the world each step; rank 0 prints the layout.
+Without ``WORLD_SIZE`` in the environment the CLI spawns the ranks itself
+(``torch.multiprocessing``, a ``file://`` store in a temporary directory);
+under ``torchrun`` it joins the world it finds.  Rank r runs on cuda:(LOCAL_RANK % cards), or the CPU.
 ``--dist-backend`` is nccl on the card and gloo on the CPU unless given:
 NCCL needs one card a rank, gloo can share one.  Only rank 0 prints.
 Checkpointing (``--ckpt-dir/--ckpt-every/--resume``), ``--compress-grads``
@@ -193,6 +194,16 @@ def _spawn(argv, world: int) -> int:
                 p.join()
 
 
+def _layout(cfg: ModelConfig, par: ParallelContext, seq: int) -> str:
+    """The chunk-interleaved layout of ``seq`` tokens under ``par``, in words."""
+    u, sp = cfg.fpdt_chunks, par.sp
+    line = (f"layout: {u} chunks of {seq // u} tokens, {seq // u // sp} of each on every model "
+            "rank")
+    if sp > 1 and any(k in ("rglru", "ssm") for k in cfg.layer_kinds()):
+        line += f"; the recurrent scans run in two passes over {u * sp} spans"
+    return line
+
+
 def _train(args, par: Optional[ParallelContext], device: torch.device):
     name = device_name(device)
     cfg = get_config(args.arch)
@@ -216,7 +227,8 @@ def _train(args, par: Optional[ParallelContext], device: torch.device):
                              "ranks")
         if main_rank:
             print(f"mesh {par.dp} data x {par.sp} model ({par.mesh.backend}), attention kind "
-                  f"{T.attn_kind(cfg, par)}, on {name}", flush=True)
+                  f"{T.attn_kind(cfg, par) if T.has_attention(cfg) else 'none'}, on {name}; "
+                  f"{_layout(cfg, par, args.seq)}", flush=True)
 
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     oc = opt_config(cfg, args.lr, args.steps)

@@ -4,9 +4,20 @@ h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 a_t = exp(-c * softplus(Lambda) * sigmoid(r_t)),  c = 8
 with per-channel input gate i_t and recurrence gate r_t.  The recurrence
 runs through ``kernels/linear_scan/ops.py`` (the hand-written CUDA kernel
-on the card); ``rglru_decode_step`` takes one token at a time.  Single
-device only: the sequence-parallel ``dist_linear_scan`` comes with the
-distribution slice, and ``rglru_chunk_step`` with chunked prefill.
+on the card); ``rglru_decode_step`` takes one token at a time.
+
+Sequence-parallel (a ``ParallelContext`` with sp > 1) the mixer stays
+sequence-sharded in FPDT's chunk-interleaved layout and runs the JAX
+package's ``dist_linear_scan`` over the n = u*sp spans (u =
+``cfg.fpdt_chunks``; span (i, m) of rank m is g = i*sp + m in global
+order), as ``models/mamba.py`` describes: the conv takes its d_conv - 1
+token halo from the span before (``causal_conv1d_spans``); pass 1 scans
+the rank's u spans as b*u rows from zero state and keeps each span's
+sum of log a and last h; one gather of those summaries and a prefix
+combine in global order give each span's entering state
+(``span_entry_states``, the transition exp(sum log a)); pass 2 rescans
+each span from it through the op's h0.  The new state is the global last
+span's.  ``rglru_chunk_step`` (chunked prefill) is not yet ported.
 """
 from __future__ import annotations
 
@@ -16,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.parallel import ParallelContext
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.layers import _dense_init
-from repro_torch.models.mamba import _softplus, causal_conv1d
+from repro_torch.models.mamba import (_conv, _softplus, _spans, causal_conv1d, sharded,
+                                      span_entry_states)
 
 Params = Dict[str, Any]
 C_FACTOR = 8.0
@@ -48,31 +61,55 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
 
 
 def _gates(p: Params, x: torch.Tensor):
-    """(a, gated input) of the recurrence, fp32 [b, s, di]."""
+    """(a, gated input, log a) of the recurrence, fp32 [b, s, di]."""
     r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"])
     i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"])
     log_a = -C_FACTOR * _softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * x.float())
-    return a, gated
+    return a, gated, log_a
+
+
+def span_summaries(a, b, log_a, u: int) -> torch.Tensor:
+    """Pass 1 of ``dist_linear_scan``: each of this rank's u spans (a, b,
+    log a [bsz, u*c, ch] fp32) scanned as one row from zero state.  Returns
+    [bsz, u, 2*ch] fp32: each span's sum of log a, then its last h."""
+    h_loc = scan_ops.linear_scan(_spans(a, u), _spans(b, u))[:, -1]  # [bsz*u, ch]
+    return torch.cat([_spans(log_a, u).sum(1), h_loc], dim=-1).reshape(a.shape[0], u, -1)
+
+
+def dist_linear_scan(a, b, log_a, h0, par: ParallelContext, u: int):
+    """The two-pass sequence-parallel linear scan over this rank's u spans
+    (a, b, log a [bsz, u*c, ch] fp32; h0 [bsz, ch] or None): pass 1
+    (``span_summaries``), the summaries' prefix combine
+    (``span_entry_states``; a span's transition exp(sum log a)), pass 2
+    from each span's entering state.  Returns (h [bsz, u*c, ch] fp32 of
+    this rank's tokens, the state after the global last span [bsz, ch])."""
+    bsz, s, ch = a.shape
+    h_in, h_last = span_entry_states(par, span_summaries(a, b, log_a, u), ch, torch.exp, h0)
+    h = scan_ops.linear_scan(_spans(a, u), _spans(b, u), h_in.reshape(bsz * u, ch))
+    return h.reshape(bsz, s, ch), h_last
 
 
 def rglru_mixer(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: Optional[dict] = None, n_shards: int = 1):
+                state: Optional[dict] = None, par: Optional[ParallelContext] = None):
     """x [b, s, d] -> (y [b, s, d], new_state {conv, h}); ``state`` carries
-    the conv inputs and h across chunks (None: zeros)."""
-    if n_shards > 1:
-        raise NotImplementedError("the sequence-parallel RG-LRU (dist_linear_scan) is not yet "
-                                  "ported (distribution slice)")
+    the conv inputs and h across chunks (None: zeros).  Under ``par`` with
+    sp > 1, x is this rank's tokens in the chunk-interleaved layout and the
+    scan runs in two passes (``dist_linear_scan``); the new state is the
+    global sequence's."""
     y = x @ p["w_y"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")  # jax.nn.gelu's default
-    y, conv_state = causal_conv1d(y, p["conv_w"], p["conv_b"],
-                                  state["conv"] if state else None)
-    a, gated = _gates(p, y)
+    y, conv_state = _conv(cfg, p, y, state["conv"] if state else None, par)
+    a, gated, log_a = _gates(p, y)
     h0 = state["h"] if state else None
-    h = scan_ops.linear_scan(a, gated, h0)  # [b, s, di] fp32
+    if sharded(par):
+        h, h_last = dist_linear_scan(a, gated, log_a, h0, par, cfg.fpdt_chunks)
+    else:
+        h = scan_ops.linear_scan(a, gated, h0)  # [b, s, di] fp32
+        h_last = h[:, -1]
     out = (h.to(x.dtype) * gate) @ p["w_out"]
-    return out, {"conv": conv_state, "h": h[:, -1]}
+    return out, {"conv": conv_state, "h": h_last}
 
 
 def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):
@@ -81,7 +118,7 @@ def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict)
     y = x @ p["w_y"]
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     y, conv_state = causal_conv1d(y, p["conv_w"], p["conv_b"], state["conv"])
-    a, gated = _gates(p, y)
+    a, gated, _ = _gates(p, y)
     h = a[:, 0] * state["h"] + gated[:, 0]
     out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
     return out, {"conv": conv_state, "h": h}

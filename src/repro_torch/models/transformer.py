@@ -148,6 +148,10 @@ def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def has_attention(cfg: ModelConfig) -> bool:
+    return any(k in ("attn", "local_attn") for k in cfg.layer_kinds())
+
+
 def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
     if par is None or par.mesh is None:
         return "local"
@@ -161,17 +165,17 @@ def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
     """One block: norm1 -> mixer (FPDT attention or RG-LRU) -> residual ->
     norm2 -> chunked MLP -> residual; an ssm block is norm -> Mamba mixer ->
     residual.  Under a mesh h holds this rank's tokens (``core/parallel.py``);
-    everything but attention is per token."""
+    everything but attention and the recurrent mixers' scans and convs
+    (two passes over the spans of every rank, ``models/mamba.py``) is per
+    token."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not yet ported")
-    n_shards = par.sp if par is not None else 1
     if kind == "ssm":
-        y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h),
-                             n_shards=n_shards)
+        y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), par=par)
         return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
-        y, _ = R.rglru_mixer(cfg, p["mixer"], hn, n_shards=n_shards)
+        y, _ = R.rglru_mixer(cfg, p["mixer"], hn, par=par)
         h = h + y
     else:
         window = cfg.window if kind == "local_attn" else 0

@@ -140,12 +140,24 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         y = xs[me].clone()
         out["ok"][f"{name} all_reduce_sum"] = torch.allclose(P.all_reduce_sum(y, group), sum(xs),
                                                              rtol=1e-6, atol=0)
+        # spans [b, u=h, c, d]: rank m's span i lands at i*sp + m; the
+        # backward sums each rank's block of the gradient over the group
+        mine = xs[me].clone().requires_grad_(True)
+        spans = P.gather_spans(mine, group)
+        out["ok"][f"{name} gather_spans"] = torch.equal(
+            spans, torch.stack(xs, dim=2).reshape(b, h * sp, c, d))
+        grads = [_rank_input(torch, r, (b, h * sp, c, d)) for r in members]
+        spans.backward(grads[me])
+        out["ok"][f"{name} gather_spans adjoint"] = torch.allclose(
+            mine.grad, sum(g.reshape(b, h, sp, c, d)[:, :, me] for g in grads), rtol=1e-6, atol=0)
         sent = b * h * c * d * 4
         out["ok"][f"{name} counts"] = (
             P.calls == {"seq_to_heads": 1, "heads_to_seq": 1, "gather_seq": 1,
-                        "reduce_scatter_seq": 1, "all_reduce_sum": 1}
+                        "reduce_scatter_seq": 1, "all_reduce_sum": 1, "gather_spans": 1,
+                        "reduce_scatter_spans": 1}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
-                             "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent})
+                             "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
+                             "gather_spans": sent, "reduce_scatter_spans": sp * sent})
     return out
 
 
@@ -153,6 +165,7 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
 FPDT_CASES = (("ulysses", 4, 2), ("ulysses", 8, 4), ("ulysses", 12, 3), ("cp", 6, 6))
 FPDT_MESHES = ((1, 4), (2, 2))
 FPDT_US = (1, 4)
+FPDT_OFFLOAD_CASES = (("cp", 6, 6), ("ulysses", 12, 3))  # KV gathered on both meshes
 
 
 def fpdt_key(hq: int, hkv: int, u: int) -> str:
@@ -195,18 +208,39 @@ def task_fpdt(rank: int, world: int, tmp: Path) -> dict:
                 xl = mine(x).requires_grad_(True)
                 w = {n: torch.from_numpy(ref[f"{key}/{n}"]).requires_grad_(True)
                      for n in ("wq", "wk", "wv")}
+                P.reset_counts()
                 o = F.fpdt_attention(cfg, par, w, xl, kind=kind)
                 (o * mine(do)).sum().backward()
+                gathers = [P.calls["gather_seq"], P.nbytes["gather_seq"]]
                 errs = {"o": float((o.detach() - mine(ref[f"{key}/o"])).abs().max()),
                         "dx": float((xl.grad - mine(ref[f"{key}/dx"])).abs().max())}
+                # copies: all_reduce_sum below sums the gradients in place
+                local = [o.detach(), xl.grad] + [t.grad.clone() for t in w.values()]
                 for n, t in w.items():
                     g = P.all_reduce_sum(t.grad.contiguous())
                     errs["d" + n] = float((g - torch.from_numpy(ref[f"{key}/d{n}"])).abs().max())
-                out[f"{shape[0]}x{shape[1]} {kind} {key}"] = errs
+                case = f"{shape[0]}x{shape[1]} {kind} {key}"
+                out[case] = errs
+                if (kind, hq, hkv) in FPDT_OFFLOAD_CASES and u > 1:
+                    # the same call with offload off: the same bits on this
+                    # rank, and where the gathers go
+                    xo = mine(x).requires_grad_(True)
+                    wo = {n: t.detach().clone().requires_grad_(True) for n, t in w.items()}
+                    P.reset_counts()
+                    oo = F.fpdt_attention(dataclasses.replace(cfg, fpdt_offload=False), par, wo,
+                                          xo, kind=kind)
+                    (oo * mine(do)).sum().backward()
+                    off = [oo.detach(), xo.grad] + [t.grad for t in wo.values()]
+                    out["offload " + case] = {
+                        "same_bits": all(torch.equal(a, b) for a, b in zip(local, off)),
+                        "gather_seq": {"on": gathers,
+                                       "off": [P.calls["gather_seq"], P.nbytes["gather_seq"]]}}
     return out
 
 
-TRAIN_CASES = (("llama3.2-1b", "ulysses"), ("llama3.2-1b", "cp"), ("gpt-2.7b", "ulysses"))
+# arch, attention kind (through attn_impl; falcon-mamba-7b has no attention)
+TRAIN_CASES = (("llama3.2-1b", "ulysses"), ("llama3.2-1b", "cp"), ("gpt-2.7b", "ulysses"),
+               ("recurrentgemma-9b", "ulysses"), ("falcon-mamba-7b", "auto"))
 TRAIN_B, TRAIN_S, TRAIN_U, TRAIN_STEPS = 2, 32, 2, 2
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 
@@ -232,7 +266,10 @@ def _digest(torch, leaves) -> str:
 def task_train(rank: int, world: int, tmp: Path) -> dict:
     """On a 2 x 2 mesh, per case: the world-summed gradients of the first
     batch against JAX's, a TRAIN_STEPS trajectory of make_train_step, and a
-    digest of the parameters after it; an rglru arch under sp = 2 raises."""
+    digest of the parameters after it; for the recurrent archs, the first
+    batch's gradients under remat offload against remat full, bit for bit."""
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -252,7 +289,7 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
     out = {}
     for arch, impl in TRAIN_CASES:
         cfg = train_cfg(configs, arch, impl)
-        if T.attn_kind(cfg, par) != impl:
+        if T.has_attention(cfg) and T.attn_kind(cfg, par) != impl:
             raise AssertionError(f"{arch}: attention kind {T.attn_kind(cfg, par)}, not {impl}")
         like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         n = len(tree_leaves(like))
@@ -268,13 +305,21 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
                     shard_batch(batch_fn(step), par, cfg.fpdt_chunks).items()}
 
         loss, _, grads = TL.value_and_grad(cfg, par, params(), local(0))
+        case = f"{arch} {impl}"
+        out[case] = {}
+        if not T.has_attention(cfg) or "rglru" in cfg.layer_kinds():
+            # remat offload recomputes each cycle, its collectives included,
+            # in the backward: the same bits as remat full
+            off = TL.value_and_grad(dataclasses.replace(cfg, remat="offload"), par, params(),
+                                    local(0))[2]
+            out[case]["remat_offload_same_bits"] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(off)))
         grads = tree_leaves(TL.reduce_grads(par, grads))
         rel = 0.0
         for i, g in enumerate(grads):
             want = torch.from_numpy(ref[f"{arch}/g{i}"])
             rel = max(rel, float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30))
-        case = f"{arch} {impl}"
-        out[case] = {"loss": float(loss), "grad_rel": rel, "steps": []}
+        out[case].update(loss=float(loss), grad_rel=rel, steps=[])
         oc = A.OptConfig(**TRAIN_OPT)
         p = params()
         state = A.init(oc, p)
@@ -285,14 +330,154 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
         digests = [None] * world
         dist.all_gather_object(digests, _digest(torch, tree_leaves(p)))
         out[case]["digests"] = digests
-    hyb = configs.reduced(configs.get_config("recurrentgemma-9b"))
-    zeros = torch.zeros((1, 16), dtype=torch.long)
+    return out
+
+
+REC_MESHES = ((1, 4), (2, 2))
+REC_US = (1, 4)
+REC_B, REC_S = 2, 64  # at 1 x 4 and u = 4, spans of 4 tokens: the conv's halo is 3
+REC_MIXERS = ("rglru", "mamba")
+REC_ARCH = {"rglru": "recurrentgemma-9b", "mamba": "falcon-mamba-7b"}
+
+
+def rec_cfg(cfgs, mixer: str, u: int = 1):
+    """The config of ``mixer``'s cases, from ``cfgs`` (either package's
+    ``configs`` module): the arch's reduced config in fp32 at u chunks."""
+    import dataclasses
+
+    return dataclasses.replace(cfgs.reduced(cfgs.get_config(REC_ARCH[mixer])),
+                               param_dtype="float32", fpdt_chunks=u)
+
+
+def task_recurrent(rank: int, world: int, tmp: Path) -> dict:
+    """The sequence-parallel recurrent mixers on meshes 1 x 4 and 2 x 2 at u
+    in {1, 4}, each rank on its rows and tokens, against the JAX references
+    in ``recurrent.npz`` (relative to each reference's largest magnitude):
+    ``rglru_mixer`` and ``mamba_mixer`` with and without a state (output,
+    new state, dx, every dW and the state's gradients summed over the
+    world; the collectives' counts at u = 4), pass 1's summaries and the
+    two-pass scans at n = u*sp spans, the conv halo (the tokens at span
+    starts apart), and the ValueError of a span shorter than the halo."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import parallel as P
+    from repro_torch.data.pipeline import token_positions
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mamba as M
+    from repro_torch.models import rglru as R
+
+    ref = np.load(tmp / "recurrent.npz")
+    out = {}
+
+    def rel(got, want):
+        want = torch.as_tensor(want)
+        return float((got.detach() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    for shape in REC_MESHES:
+        par = P.ParallelContext(make_mesh(*shape))
+        rows, sp, m = REC_B // par.dp, par.sp, par.sp_rank
+        lo = par.dp_rank * rows
+
+        def world_sum_rows(g, full_shape):  # a per-row gradient, summed over the world
+            full = torch.zeros(full_shape, dtype=g.dtype)
+            full[lo:lo + rows] = g
+            return P.all_reduce_sum(full)
+
+        for u in REC_US:
+            pos = token_positions(REC_S, sp, m, u)
+
+            def mine(a):
+                return torch.from_numpy(np.ascontiguousarray(np.asarray(a)[lo:lo + rows][:, pos]))
+
+            mesh = f"{shape[0]}x{shape[1]} u{u}"
+            for mixer in REC_MIXERS:
+                cfg = rec_cfg(configs, mixer, u)
+                fn = R.rglru_mixer if mixer == "rglru" else M.mamba_mixer
+                names = [k[len(f"{mixer}/p/"):] for k in ref.files if k.startswith(f"{mixer}/p/")]
+                hkey = "h" if mixer == "rglru" else "ssm"
+                for st in ("none", "state"):
+                    key = f"{mixer}/{st}"
+                    p = {n: torch.from_numpy(ref[f"{mixer}/p/{n}"]).requires_grad_(True)
+                         for n in names}
+                    x = mine(ref[f"{mixer}/x"]).requires_grad_(True)
+                    state = None
+                    if st == "state":
+                        state = {k: torch.from_numpy(ref[f"{mixer}/{k}"][lo:lo + rows].copy()
+                                                     ).requires_grad_(True)
+                                 for k in ("conv", hkey)}
+                    P.reset_counts()
+                    y, new = fn(cfg, p, x, state, par)
+                    (y * mine(ref[f"{mixer}/dy"])).sum().backward()
+                    counts = {k: [P.calls[k], P.nbytes[k]] for k in P.COLLECTIVES if P.calls[k]}
+                    errs = {"y": rel(y, mine(ref[f"{key}/y"])),
+                            "dx": rel(x.grad, mine(ref[f"{key}/dx"]))}
+                    for k in ("conv", hkey):
+                        errs["new_" + k] = rel(new[k], ref[f"{key}/new_{k}"][lo:lo + rows])
+                    for n, t in p.items():
+                        errs["d" + n] = rel(P.all_reduce_sum(t.grad.contiguous()),
+                                            ref[f"{key}/d{n}"])
+                    if state is not None:
+                        for k, t in state.items():
+                            g = world_sum_rows(t.grad, ref[f"{mixer}/{k}"].shape)
+                            errs["dstate_" + k] = rel(g, ref[f"{key}/dstate_{k}"])
+                    out[f"{mesh} {key}"] = {"errs": errs, "counts": counts, "rows": rows}
+
+            # the scans alone at n = u*sp spans: pass 1's summaries of this
+            # rank's spans, and the two passes (its tokens, the last state)
+            n = u * sp
+            a, b = mine(ref["rscan/a"]), mine(ref["rscan/b"])
+            summ = R.span_summaries(a, b, torch.log(a), u)
+            ch = a.shape[-1]
+            errs = {"log_A": rel(summ[..., :ch], ref[f"rscan/n{n}/log_A"][lo:lo + rows, m::sp]),
+                    "h_loc": rel(summ[..., ch:], ref[f"rscan/n{n}/h_loc"][lo:lo + rows, m::sp])}
+            h0 = torch.from_numpy(ref["rscan/h0"][lo:lo + rows].copy())
+            h, h_last = R.dist_linear_scan(a, b, torch.log(a), h0, par, u)
+            errs2 = {"h": rel(h, mine(ref[f"rscan/n{n}/h"])),
+                     "h_last": rel(h_last, ref[f"rscan/n{n}/h"][lo:lo + rows, -1])}
+            out[f"{mesh} rglru summaries"], out[f"{mesh} rglru two-pass"] = errs, errs2
+            xc, dt, Bm, Cm = (mine(ref[f"mscan/{k}"]) for k in ("xc", "dt", "B", "C"))
+            A_log = torch.from_numpy(ref["mscan/A_log"])
+            summ = M.span_summaries(xc, dt, A_log, Bm, u)
+            di = xc.shape[-1]
+            errs = {"sum_dt": rel(summ[..., :di],
+                                  ref[f"mscan/n{n}/sum_dt"][lo:lo + rows, m::sp]),
+                    "h_loc": rel(summ[..., di:].reshape(rows, u, di, -1),
+                                 ref[f"mscan/n{n}/h_loc"][lo:lo + rows, m::sp])}
+            h0 = torch.from_numpy(ref["mscan/h0"][lo:lo + rows].copy())
+            y, h_last = M.selective_scan_dist(xc, dt, A_log, Bm, Cm, h0, par, u)
+            errs2 = {"y": rel(y, mine(ref[f"mscan/n{n}/y"])),
+                     "h_last": rel(h_last, ref[f"mscan/n{n}/h_last"][lo:lo + rows])}
+            out[f"{mesh} mamba summaries"], out[f"{mesh} mamba two-pass"] = errs, errs2
+
+            # the conv halo: every token, and the k - 1 at each span's start
+            # (whose halo came from the span before, on another rank)
+            x = mine(ref["conv/x"]).requires_grad_(True)
+            w, bias = torch.from_numpy(ref["conv/w"]), torch.from_numpy(ref["conv/b"])
+            state = torch.from_numpy(ref["conv/state"][lo:lo + rows].copy())
+            y, new = M.causal_conv1d_spans(x, w, bias, state, par, u)
+            y.backward(mine(ref["conv/dy"]))
+            k, c = w.shape[0], REC_S // u // sp
+            starts = [i * c + t for i in range(u) for t in range(k - 1)]
+            want = mine(ref["conv/y"])
+            out[f"{mesh} conv"] = {"y": rel(y, want),
+                                   "y_span_starts": rel(y[:, starts], want[:, starts]),
+                                   "new_state": rel(new, ref["conv/new_state"][lo:lo + rows]),
+                                   "dx": rel(x.grad, mine(ref["conv/dx"]))}
+
+    par = P.ParallelContext(make_mesh(1, world))
+    cfg = rec_cfg(configs, "rglru", 4)
+    p = {k[len("rglru/p/"):]: torch.from_numpy(ref[k]) for k in ref.files
+         if k.startswith("rglru/p/")}
+    short = torch.zeros((1, 4 * (cfg.d_conv - 2), cfg.d_model))  # spans of d_conv - 2 tokens
     try:
-        T.loss_fn(hyb, par, T.init_params(hyb, torch.Generator().manual_seed(0), "cpu"),
-                  {"tokens": zeros, "labels": zeros})
-        out["rglru raises"] = False
-    except NotImplementedError as e:
-        out["rglru raises"] = "not yet ported" in str(e)
+        R.rglru_mixer(cfg, p, short, None, par)
+        out["short span"] = ""
+    except ValueError as e:
+        out["short span"] = str(e)
+    dist.barrier()
     return out
 
 
@@ -306,7 +491,9 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
     (KV through the all-to-all, and gathered) and cp on a 1 x world mesh
     against kind="local" on the same card and inputs, with offload on: the
     largest elementwise |got - want| / (1 + |want|) of this rank's o, and
-    max |got - want| / max |want| of its dx and of the world-summed dW."""
+    max |got - want| / max |want| of its dx and of the world-summed dW; the
+    pinned host bytes the distributed call held at most, beside those of
+    its q chunks and of its own and of the gathered KV chunks."""
     import dataclasses
 
     import torch
@@ -317,6 +504,7 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
     from repro_torch.data.pipeline import token_positions
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers as L
+    from repro_torch.runtime.placement import host_offload
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -342,7 +530,18 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
                 return o.detach(), xg.grad, {n: t.grad for n, t in wg.items()}
 
             o_ref, dx_ref, dw_ref = run(None, "local", x, do)
+            off = host_offload(dev)
+            torch.cuda.synchronize()
+            off.reset_counts()
+            held = off.held_bytes
             o, dx, dw = run(par, kind, x[:, pos].contiguous(), do[:, pos].contiguous())
+            torch.cuda.synchronize()
+            # per chunk a rank's q (its c tokens, or under ulysses all C
+            # tokens of its hq/sp heads: the same bytes) and k, v
+            chunk = CUDA_S // CUDA_U // world * cfg.head_dim * (4 if dtype == "float32" else 2)
+            host = {"peak": off.peak_held_bytes - held, "q": CUDA_U * cfg.num_heads * chunk,
+                    "kv_own": CUDA_U * 2 * cfg.num_kv_heads * chunk,
+                    "kv_gathered": CUDA_U * 2 * cfg.num_kv_heads * world * chunk}
 
             def elementwise(a, b):
                 return float(((a.float() - b.float()).abs() / (1 + b.float().abs())).max())
@@ -353,12 +552,12 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
             errs = {"o": elementwise(o, o_ref[:, pos]), "dx": leaf(dx, dx_ref[:, pos])}
             for n, t in dw.items():
                 errs["d" + n] = leaf(P.all_reduce_sum(t.float().contiguous()), dw_ref[n])
-            out[f"{kind} h{hq}-{hkv} {dtype}"] = errs
+            out[f"{kind} h{hq}-{hkv} {dtype}"] = {"errs": errs, "host": host}
     return out
 
 
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
-         "fpdt_cuda": task_fpdt_cuda}
+         "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda}
 
 
 def main() -> None:

@@ -2,7 +2,9 @@
 (gloo moves the CUDA tensors), each running the hand-written kernels at the
 shapes sharding gives them, against ``kind="local"`` on the same card and
 inputs (``tests/_torch_dist.py::task_fpdt_cuda``: ulysses with KV through
-the all-to-all and gathered, and cp; fp32 and bf16; offload on).  Marked
+the all-to-all and gathered, and cp; fp32 and bf16; offload on).  Where KV
+is gathered, a rank's pinned host memory holds its own slice of each KV
+chunk, 1/sp of the gathered chunk's bytes, beside its q chunks.  Marked
 ``cuda``: the test skips, inside its fixture, where there is no NVIDIA GPU.
 Run it on a machine with the card:
 
@@ -33,7 +35,16 @@ def readings(tmp_path_factory):
 @pytest.mark.parametrize("dtype", CUDA_DTYPES)
 def test_two_ranks_on_one_card_match_local(readings, kind, hq, hkv, dtype):
     for rank, got in enumerate(readings):
-        errs = got[f"{kind} h{hq}-{hkv} {dtype}"]
+        errs = got[f"{kind} h{hq}-{hkv} {dtype}"]["errs"]
         assert errs["o"] <= TOL[dtype]["o"], (rank, errs)
         for part in ("dx", "dwq", "dwk", "dwv"):
             assert errs[part] <= TOL[dtype]["grad"], (rank, part, errs)
+
+
+@pytest.mark.parametrize("kind,hq,hkv", [c for c in CUDA_CASES if c[0] == "cp" or c[2] % 2],
+                         ids=str)
+@pytest.mark.parametrize("dtype", CUDA_DTYPES)
+def test_gathered_kv_on_the_host_is_the_ranks_own_slice(readings, kind, hq, hkv, dtype):
+    for rank, got in enumerate(readings):
+        host = got[f"{kind} h{hq}-{hkv} {dtype}"]["host"]
+        assert host["peak"] - host["q"] == host["kv_own"] == host["kv_gathered"] // 2, (rank, host)

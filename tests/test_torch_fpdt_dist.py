@@ -15,7 +15,13 @@ q heads read two kv heads unevenly, whose gradients ``kv_back`` sums) and
 ``cp`` 6/6 (the cases of ``tests/distributed/check_fpdt_mesh.py`` and two
 more).  Each rank's slice of
 the output and of dx, and dW summed over the world, must be within 2e-4
-(output) and 5e-4 (gradients) of the reference."""
+(output) and 5e-4 (gradients) of the reference.  Where KV is gathered
+(cp 6/6 and ulysses 12/3 on both meshes, u = 4) the same call with offload
+off must give the same bits on every rank, and the ``gather_seq`` counts
+must be those reckoned from ``core/fpdt.py``: with offload the store keeps
+the rank's own slice, so each chunk is gathered once fresh, again for
+every live off-diagonal pair that fetches it, and once in the backward;
+without, once."""
 import dataclasses
 
 import jax
@@ -23,7 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_dist import FPDT_CASES, FPDT_MESHES, FPDT_US, fpdt_key, run_ranks
+from _torch_dist import (FPDT_CASES, FPDT_MESHES, FPDT_OFFLOAD_CASES, FPDT_US, fpdt_key,
+                         run_ranks)
 from repro.configs import get_config, reduced
 from repro.core import fpdt as JF
 from repro.core.parallel import ParallelContext as JPar
@@ -79,3 +86,32 @@ def test_distributed_fpdt_matches_jax_local(readings, shape, kind, hq, hkv, u):
         assert errs["o"] <= TOL_OUT, (rank, case, errs)
         for part in ("dx", "dwq", "dwk", "dwv"):
             assert errs[part] <= TOL_GRAD, (rank, case, part, errs)
+
+
+def _gathers(hkv, u, sp, dp):
+    """(calls, bytes) of gather_seq in one forward and backward of a layer
+    whose KV is gathered, with offload on and off: a rank hands in its own
+    [rows, hkv, S/u/sp, dh] fp32 k or v each time."""
+    cfg = reduced(get_config("llama3.2-1b"))
+    size = (B // dp) * hkv * (S // u // sp) * cfg.head_dim * 4
+    fetched = u * (u - 1) // 2  # live off-diagonal pairs: no window, no sparsity
+    on = 2 * u + 2 * fetched + 2 * u  # fresh, each fetch in the forward, the backward's
+    off = 2 * u
+    return {"on": [on, on * size], "off": [off, off * size]}
+
+
+@pytest.mark.parametrize("shape", FPDT_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind,hq,hkv", FPDT_OFFLOAD_CASES, ids=lambda v: str(v))
+def test_gathered_kv_offload_keeps_own_slice_same_bits(readings, shape, kind, hq, hkv):
+    case = f"offload {shape[0]}x{shape[1]} {kind} {fpdt_key(hq, hkv, 4)}"
+    for rank, got in enumerate(readings):
+        assert got[case]["same_bits"], (rank, case)
+
+
+@pytest.mark.parametrize("shape", FPDT_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind,hq,hkv", FPDT_OFFLOAD_CASES, ids=lambda v: str(v))
+def test_gathered_kv_offload_gather_counts(readings, shape, kind, hq, hkv):
+    case = f"offload {shape[0]}x{shape[1]} {kind} {fpdt_key(hq, hkv, 4)}"
+    want = _gathers(hkv, 4, shape[1], shape[0])
+    for rank, got in enumerate(readings):
+        assert got[case]["gather_seq"] == want, (rank, case, got[case]["gather_seq"], want)

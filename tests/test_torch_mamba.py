@@ -215,9 +215,3 @@ def test_decode_steps_continue_the_mixer():
 def test_softplus_lives_in_mamba_and_rglru_keeps_it():
     assert R._softplus is M._softplus
 
-
-def test_sequence_parallel_mixer_not_yet_ported():
-    _, tc = _cfgs()
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        M.mamba_mixer(tc, tp, torch.zeros((1, 8, tc.d_model)), n_shards=2)

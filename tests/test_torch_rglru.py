@@ -153,9 +153,3 @@ def test_softplus_is_jax_softplus_beyond_torch_threshold():
     np.testing.assert_allclose(R._softplus(torch.from_numpy(x)).numpy(),
                                np.asarray(jax.nn.softplus(jnp.asarray(x))), rtol=1e-6, atol=0)
 
-
-def test_sequence_parallel_mixer_not_yet_ported():
-    _, tc = _cfgs()
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        R.rglru_mixer(tc, tp, torch.zeros((1, 8, tc.d_model)), n_shards=2)

@@ -1,19 +1,23 @@
 """Sequence- and data-parallel training on a 2 x 2 mesh against the JAX
 package's single-device train step.
 
-In this process JAX computes, for reduced llama3.2-1b and reduced gpt-2.7b
-(fp32, u = 2, remat full), the loss and every gradient leaf of the first
-pipeline batch and a 2-step ``make_train_step`` trajectory (``xla_flash``
-attention, offload off, as tests/test_torch_train.py runs it).  One spawn
-of 4 gloo ranks (``tests/_torch_dist.py``, torch only) runs the port on
-mesh 2 x 2 from the same weights and batches, each rank on its rows and
-tokens: the world-summed gradients, within 5e-4 of each leaf's largest
-magnitude, and the trajectory's losses and gradient norms within 5e-4
-relative, under ``ulysses`` (llama, gpt) and ``cp`` (llama, forced through
-``attn_impl``); after the steps the parameters are the same bits on every
-rank; an rglru arch under sp = 2 raises ``NotImplementedError``.  The
-train CLI at ``--mesh host8 --device cpu --dist-backend gloo`` spawns its 8
-ranks, trains 2 steps and exits 0."""
+In this process JAX computes, for reduced llama3.2-1b, gpt-2.7b,
+recurrentgemma-9b and falcon-mamba-7b (fp32, u = 2, remat full), the loss
+and every gradient leaf of the first pipeline batch and a 2-step
+``make_train_step`` trajectory (``xla_flash`` attention, offload off, as
+tests/test_torch_train.py runs it).  One spawn of 4 gloo ranks
+(``tests/_torch_dist.py``, torch only) runs the port on mesh 2 x 2 from
+the same weights and batches, each rank on its rows and tokens: the
+world-summed gradients, within 5e-4 of each leaf's largest magnitude, and
+the trajectory's losses and gradient norms within 5e-4 relative, under
+``ulysses`` (llama, gpt, and the hybrid's MQA local attention with its kv
+head gathered) and ``cp`` (llama, forced through ``attn_impl``); the
+hybrid's RG-LRU and falcon's Mamba layers run their two-pass scans with
+the conv halo over the model group, and remat offload gives remat full's
+gradients bit for bit there; after the steps the parameters are the same
+bits on every rank.  The train CLI at ``--device cpu --dist-backend
+gloo`` spawns its ranks (``--mesh host8`` for llama, ``1x2`` for falcon),
+trains 2 steps and exits 0."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -90,9 +94,13 @@ def test_parameters_identical_across_ranks(readings, case):
     assert len(digests) == 1
 
 
-def test_recurrent_block_under_sequence_parallel_raises(readings):
+@pytest.mark.parametrize("case", [c for c in CASES if c.split()[0] in
+                                  ("recurrentgemma-9b", "falcon-mamba-7b")])
+def test_recurrent_remat_offload_equals_full_on_the_mesh(readings, case):
+    """remat offload reruns each cycle's gathers in its recompute, in the
+    same order on every rank: the gradients are remat full's bits."""
     ranks, _, _ = readings
-    assert all(got["rglru raises"] for got in ranks)
+    assert all(got[case]["remat_offload_same_bits"] for got in ranks)
 
 
 def test_cli_mesh_host8_on_cpu(tmp_path):
@@ -102,3 +110,14 @@ def test_cli_mesh_host8_on_cpu(tmp_path):
     assert "mesh 2 data x 4 model (gloo), attention kind ulysses" in out
     lines = [ln for ln in out.splitlines() if "tokens/s" in ln]
     assert len(lines) == 2 and all(ln.endswith("on cpu, 8 ranks") for ln in lines), out
+
+
+def test_cli_mesh_1x2_trains_falcon_on_cpu(tmp_path):
+    out = run_cli(["--arch", "falcon-mamba-7b", "--reduced", "--device", "cpu", "--dist-backend",
+                   "gloo", "--mesh", "1x2", "--steps", "2", "--batch", "2", "--seq", "64",
+                   "--chunks", "2", "--log-every", "1"], tmp_path)
+    assert ("mesh 1 data x 2 model (gloo), attention kind none, on cpu; layout: 2 chunks of 32 "
+            "tokens, 16 of each on every model rank; the recurrent scans run in two passes over "
+            "4 spans") in out, out
+    lines = [ln for ln in out.splitlines() if "tokens/s" in ln]
+    assert len(lines) == 2 and all(ln.endswith("on cpu, 2 ranks") for ln in lines), out
