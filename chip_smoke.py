@@ -58,18 +58,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 exp(dt A) in (0, 1] (falcon-mamba-7b's d_inner x d_state
                 channels), the forward relative to (1 + max |h|), the fused
                 backward, and two launches of each bit for bit;
-  5. serve    — llama3.2-1b, recurrentgemma-9b (38 layers) and falcon-mamba-7b
-                (64 layers), each at full size with random weights from a
+  5. serve    — llama3.2-1b, recurrentgemma-9b (38 layers), falcon-mamba-7b
+                (64 layers) and granite-moe-1b-a400m (24 layers, the MoE
+                FFN), each at full size with random weights from a
                 seeded generator, through the CLI's own function
                 (serve_batch): batch 4, prompt 64, gen 32, greedy; the launch
                 counts are reset just before and read just after, and each
                 kernel the arch's blocks run (flash_fwd for attention,
-                linear_scan for RG-LRU and Mamba) must have launched.  With
-                attention, a 2048 prompt whose prefill logits at
+                linear_scan for RG-LRU and Mamba) must have launched,
+                flash_fwd once a live chunk pair of each attention layer.
+                With attention, a 2048 prompt whose prefill logits at
                 fpdt_chunks=4 must equal fpdt_chunks=1.  Then, the bf16
                 weights released, decode's first step against a prefill of
-                one more token in fp32 weights, and a changed first prompt
-                token must move those logits;
+                one more token in fp32 weights (an MoE model at a capacity
+                that drops no pair, where routing is per token), and a
+                changed first prompt token must move those logits;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -100,7 +103,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 peak memory, one profiled step; its losses printed, having no
                 earlier figure yet; one layer's selective scan timed alone and
                 its share of a step reckoned;
-  6e. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
+  6e. moe     — one granite MoE FFN layer alone at the training shape (b1,
+                8192 tokens, mlp_chunks 8, bf16): forward and backward under
+                torch.cuda.set_sync_debug_mode("error") (no host read of a
+                device value), a second run the same bits, its device time;
+  6f. granite — granite-moe-1b-a400m at full width and depth (24 layers, 32
+                experts, top-8): as 6b, with two runs of the first step and
+                remat offload == remat full bit for bit, the steps' aux
+                printed, MFU over the active parameters, and in the u = 4
+                vs u = 1 fp32 comparison the routing decisions that differ
+                counted from the port's routing of both runs' layer inputs
+                (every leaf held at 5e-4 when none differs, else every leaf
+                but the expert weights, the worst of those printed);
+  6g. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
                 mlp_chunks 2u) at s = 16384 and 32768 under A (FPDT offload
                 off, remat full), B (offload on, remat full) and C (offload
                 on, remat offload): 2 AdamW steps each, the second's ms, peak
@@ -109,7 +124,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 exactly the 32 cycle inputs more to the host and peaks lower;
                 each setting's device bytes a token and intercept from the
                 two lengths, and the longest context reckoned from them;
-  6f. dist    — FPDT's distribution on torch.distributed: ulysses over a
+  6h. dist    — FPDT's distribution on torch.distributed: ulysses over a
                 1-rank NCCL group equal to kind="local" bit for bit
                 (llama3.2-1b's attention, bf16, s 8192, u 4, offload on);
                 then 2 gloo ranks spawned on the one card (gloo takes the
@@ -122,13 +137,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and offload off bit for bit; the recurrent mixers alone
                 at full width (RG-LRU 4096 channels, Mamba d_inner 8192
                 d_state 16), fp32 and bf16, two ranks against one;
-                llama3.2-1b at full size, mesh 1 x 2, b1 s 16384 u 8
-                remat full offload on, 3 AdamW steps under ulysses and 2
-                under cp, then recurrentgemma-9b (3 layers: one rglru,
-                rglru, local_attn cycle) and falcon-mamba-7b (8 layers), 2
-                steps each, through train_steps: the first step against a
-                one-rank step run first (the bf16 loss, and in fp32
-                weights the loss, gradient norm and every leaf's norm),
+                llama3.2-1b at full width (8 of its 16 layers), mesh
+                1 x 2, b1 s 16384 u 8 remat full offload on, 2 AdamW
+                steps under ulysses and 1 under cp, then recurrentgemma-9b
+                (3 layers: one rglru, rglru, local_attn cycle) and
+                falcon-mamba-7b (4 layers), 1 step each, and
+                granite-moe-1b-a400m (6 layers, ulysses), 2 steps,
+                through train_steps: the first step against a one-rank
+                step run first (the bf16 loss, and in fp32 weights the
+                loss, gradient norm, every leaf's norm and granite's aux,
+                its routing decisions that differ counted and gated as in
+                6f),
                 the kernels' launches and each collective's calls and
                 bytes a step against the counts reckoned from the code,
                 the parameters the same bits on both ranks, peak memory
@@ -152,8 +171,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
-                (launches_by_path: the three serve paths, four trainings
-                and the four distributed trainings, per rank);
+                (launches_by_path: the four serve paths, five trainings
+                and the five distributed trainings, per rank);
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -161,12 +180,14 @@ library, and stops if there is no card or no port beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -176,6 +197,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+STARTED = time.monotonic()
+# The script's own deadline, inside the 1200 s a run may take: the ranks of
+# the distributed phase, stuck, write their stacks and fail the phase by
+# then, and a run still going writes this process's stacks to stderr.
+BUDGET_S = 1100
 
 # published dense peaks of one H100 SXM at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -264,6 +290,8 @@ def fail(msg: str):
 
 def phase(name, fn, *args):
     print(f"== {name}", flush=True)
+    # progress on stderr too, so that a run stopped from outside shows where
+    print(f"[{time.monotonic() - STARTED:.0f} s] {name}", file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     try:
         out = fn(*args)
@@ -997,11 +1025,15 @@ def phase_serve(torch, M, arch, card):
     """``arch`` at full size with random bf16 weights from a seeded
     generator, through the CLI's own function (serve_batch): batch 4,
     prompt 64, gen 32, greedy, the launch counts reset just before and read
-    just after; each kernel its block kinds run must have launched.  With
+    just after; each kernel its block kinds run must have launched, and
+    flash_fwd once a live chunk pair of each attention layer.  With
     attention, a 2048 prompt whose prefill logits at fpdt_chunks=4 must
     equal fpdt_chunks=1.  Then, with the bf16 weights released, decode's
-    first step against a prefill of one more token in fp32 weights, and
-    how far a changed first prompt token moves those logits."""
+    first step against a prefill of one more token in fp32 weights (an MoE
+    model at a capacity factor that drops no pair: decode's dispatch group
+    is the batch's b tokens and the prefill's a chunk's, so only without
+    drops is routing per token and the two comparable), and how far a
+    changed first prompt token moves those logits."""
     dev = torch.device("cuda")
     cfg = M.cfg_mod.get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1023,6 +1055,14 @@ def phase_serve(torch, M, arch, card):
     for kname in sorted({KERNEL_OF_KIND[k] for k in cfg.layer_kinds()}):
         if counts[kname] <= 0:
             raise AssertionError(f"the {arch} serve path launched {kname} no time")
+    u = cfg.fpdt_chunks  # the prefill's flash_fwd: one launch a live chunk pair a layer
+    want_fwd = sum(M.F.pair_live(i, j, cq=s // u, window=cfg.window if k == "local_attn" else 0,
+                                 sparsity=cfg.attn_sparsity)
+                   for k in cfg.layer_kinds() if k in ("attn", "local_attn")
+                   for i in range(u) for j in range(i + 1))
+    if counts["flash_fwd"] != want_fwd:
+        raise AssertionError(f"the {arch} serve path launched flash_fwd {counts['flash_fwd']} "
+                             f"times, reckoned {want_fwd}")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
     if tuple(toks.shape) != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -1067,6 +1107,9 @@ def phase_serve(torch, M, arch, card):
     # first prompt token changes, which reaches them through attention or
     # the recurrent state alone.
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    if cfg.num_experts:  # capacity for every pair: routing is then per token, as decode's
+        cfg32 = dataclasses.replace(cfg32, moe_capacity_factor=cfg.num_experts
+                                    / cfg.experts_per_token)
     params32 = M.T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
     nxt = toks[:, :1]
     other = tokens.clone()
@@ -1083,6 +1126,10 @@ def phase_serve(torch, M, arch, card):
     signal = float((moved - full).abs().max()) / scale
     del params32, cache
     torch.cuda.empty_cache()
+    if cfg.num_experts:
+        print(f"{cfg.name}: the decode-vs-prefill check runs at capacity factor "
+              f"{cfg32.moe_capacity_factor:g} (no pair dropped): decode's group is the batch's "
+              f"{b} tokens, the prefill's its chunk's, and only without drops is routing per token")
     print(f"{cfg.name} decode-vs-prefill fp32 logits ({cfg.num_layers} layers): max |diff| / "
           f"max |logit| = {rel:.3e} (tolerance {FP32_LOGIT_RTOL}); changing prompt token 0 "
           f"moves them {signal:.3e}")
@@ -1095,27 +1142,87 @@ def phase_serve(torch, M, arch, card):
 
 
 def _model_flops(cfg, b, s):
-    """Model FLOPs of one training step: 6 N per token for the weights, plus,
-    in each attention layer, 12 d per live (q, k) pair and q-head (4 d
-    forward, 8 d backward) under that layer's causal mask and window (none
-    for attn, ``cfg.window`` for local_attn).  RG-LRU layers have no pairs:
-    their weights are in N."""
+    """Model FLOPs of one training step: 6 N per token for the weights that
+    a token touches (N = ``cfg.num_active_params()``: for an MoE model the
+    router and the experts_per_token experts a token is routed to, not all
+    of them, the model FLOPs convention; the dense models' N is all of
+    ``num_params``), plus, in each attention layer, 12 d per live (q, k)
+    pair and q-head (4 d forward, 8 d backward) under that layer's causal
+    mask and window (none for attn, ``cfg.window`` for local_attn).  RG-LRU
+    layers have no pairs: their weights are in N."""
     attn = 0
     for kind in cfg.layer_kinds():
         if kind in ("attn", "local_attn"):
             window = cfg.window if kind == "local_attn" else 0
             attn += 12 * cfg.head_dim * cfg.num_heads * _live_pairs(s, s, 0, 0, window) * b
-    return 6 * cfg.num_params() * b * s + attn
+    return 6 * cfg.num_active_params() * b * s + attn
 
 
-def _tree_max_rel(TR, got, want):
-    """Largest |got - want| over each leaf, relative to that leaf's largest
-    magnitude: (worst ratio, leaf index)."""
-    worst = (0.0, -1)
-    for n, (a, b) in enumerate(zip(TR.tree_leaves(got), TR.tree_leaves(want))):
-        rel = float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
-        worst = max(worst, (rel, n))
-    return worst
+def _leaf_rels(TR, got, want):
+    """Each leaf's largest |got - want| relative to its largest magnitude."""
+    return [float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+            for a, b in zip(TR.tree_leaves(got), TR.tree_leaves(want))]
+
+
+def _expert_leaves(params) -> list:
+    """Indices (in ``tree_leaves`` order) of the expert weights: the MoE
+    blocks' wu, wg and wd.  Their gradients move by a token's share of an
+    expert when a routing decision differs between two runs."""
+    paths = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, list):
+            for v in t:
+                walk(v, path)
+        else:
+            paths.append(path)
+
+    walk(params, ())
+    return [i for i, p in enumerate(paths) if "moe" in p and p[-1] in ("wu", "wg", "wd")]
+
+
+@contextlib.contextmanager
+def _recording_moe_inputs(M, n):
+    """Records the parameters and input of the first ``n`` MoE FFN calls (a
+    forward pass's layers, before any recompute), the input as a detached
+    copy."""
+    got, real = [], M.MOE.moe_ffn_chunked
+
+    def record(cfg, p, x, n_chunks, par=None):
+        if len(got) < n:
+            got.append((p, x.detach().clone()))
+        return real(cfg, p, x, n_chunks, par)
+
+    M.MOE.moe_ffn_chunked = record
+    try:
+        yield got
+    finally:
+        M.MOE.moe_ffn_chunked = real
+
+
+def _moe_decisions(M, cfg, inputs, par=None):
+    """The port's routing (``MOE.routing``) of each recorded MoE layer's
+    input (this rank's tokens): per layer the top-k experts [b, s, k] and
+    keep masks, on the host.  No collective: on a layout where a group
+    spans ranks its decisions need the exchanged counts, and that raises."""
+    def no_gather(_):
+        raise AssertionError("a group spans ranks: its decisions need the exchanged counts")
+
+    out = []
+    for p, x in inputs:
+        topi, keep = M.MOE.routing(cfg, p, x, cfg.mlp_chunks, par, gather=no_gather)
+        out.append((topi.short().cpu(), keep.cpu()))
+    return out
+
+
+def _decisions_differ(a, b):
+    """(token, layer) routing decisions that differ: another top-k list or
+    another keep mask."""
+    return sum(int(((ta != tb).any(-1) | (ka != kb).any(-1)).sum())
+               for (ta, ka), (tb, kb) in zip(a, b))
 
 
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
@@ -1218,20 +1325,27 @@ def _profile_step(torch, TRAIN, TL, cfg, params, oc, batch_fn, dev, opt_state, o
             "copy_ms": copy_us / 1e3, "copy_hidden": hidden}
 
 
-def _offload_on_off(torch, M, cfg, params, b0):
-    """Offload on vs off: the loss and gradients of step 1's batch at step
-    1's parameters, bit for bit (the same kernels in the same order)."""
-    l_on, _, g_on = M.TL.value_and_grad(cfg, None, params, b0)
-    l_off, _, g_off = M.TL.value_and_grad(dataclasses.replace(cfg, fpdt_offload=False), None,
-                                          params, b0)
-    torch.cuda.synchronize()
-    differ = [n for n, (a, b) in enumerate(zip(M.TR.tree_leaves(g_on), M.TR.tree_leaves(g_off)))
-              if not torch.equal(a, b)]
-    print(f"offload on vs off, step 1: loss {float(l_on):.6f} vs {float(l_off):.6f}; "
-          f"gradient leaves that differ: {len(differ)} of {len(M.TR.tree_leaves(g_on))}")
-    if not torch.equal(l_on, l_off) or differ:
-        raise AssertionError("offload on and off give different losses or gradients")
-    del g_on, g_off
+def _same_bits(torch, M, cfg, params, batch, label, variants):
+    """The loss (and an MoE model's aux) and every gradient leaf of one
+    batch at ``cfg`` against each of ``variants``, (name, overrides of
+    ``cfg``) pairs, bit for bit: offload off (the same kernels in the same
+    order), remat offload (the same recompute), or no override, a second
+    run (no atomic sum reorders a float sum, the MoE dispatch's adjoint
+    included)."""
+    l_a, m_a, g_a = M.TL.value_and_grad(cfg, None, params, batch)
+    leaves = M.TR.tree_leaves(g_a)
+    for name, over in variants:
+        loss, metrics, grads = M.TL.value_and_grad(dataclasses.replace(cfg, **over), None,
+                                                   params, batch)
+        torch.cuda.synchronize()
+        differ = sum(not torch.equal(a, b) for a, b in zip(leaves, M.TR.tree_leaves(grads)))
+        print(f"{label}: {name} vs as configured: loss {float(loss):.6f} vs {float(l_a):.6f}, "
+              f"aux {float(metrics['aux']):.6f} vs {float(m_a['aux']):.6f}; gradient leaves "
+              f"that differ: {differ} of {len(leaves)}")
+        if not (torch.equal(l_a, loss) and torch.equal(m_a["aux"], metrics["aux"])) or differ:
+            raise AssertionError(f"{label}: {name} gives another loss or other gradients")
+        del grads
+    del g_a, leaves
     torch.cuda.empty_cache()
 
 
@@ -1257,9 +1371,11 @@ def _pinned_residuals(torch, M, cfg, params, seq, batch):
         raise AssertionError("offloaded chunks are not pinned host tensors")
 
 
-def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None):
+def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None,
+               same_bits=()):
     """A model's training phase at b1, seq 8192, u=4, mlp_chunks 8, remat
-    full (offload as ``cfg`` has it): offload on vs off bit for bit;
+    full (offload as ``cfg`` has it): offload off and each ``same_bits``
+    variant against ``cfg`` bit for bit (``_same_bits``);
     ``extra_check(cfg, params, batch)``; 3 AdamW steps through the CLI's
     own function (train_steps), the launch counts read around each step;
     step ms, tokens/s, MFU, peak memory, offload bytes; the losses against
@@ -1281,8 +1397,10 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("smoke", seq, batch, "train"))
     b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
     attention = M.T.has_attention(cfg)
-    if attention:
-        _offload_on_off(torch, M, cfg, params, b0)
+    variants = [("offload off", {"fpdt_offload": False})] * attention + list(same_bits)
+    if variants:
+        _same_bits(torch, M, cfg, params, b0, f"{cfg.name} ({cfg.num_layers} layers), step 1's "
+                   "batch", variants)
     if extra_check is not None:
         extra_check(cfg, params, b0)
 
@@ -1308,9 +1426,10 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     for rec in records:
         mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
         rec.update(tokens_per_s=batch * seq / rec["dt"], mfu=mfu)
-        print(f"train step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-              f"{rec['dt'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s, MFU {mfu:.4f}; "
-              f"launches {rec['launches']} [{card}]")
+        aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""
+        print(f"train step {rec['step']}: loss {rec['loss']:.4f}{aux} grad_norm "
+              f"{rec['grad_norm']:.4f} {rec['dt'] * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} "
+              f"tokens/s, MFU {mfu:.4f}; launches {rec['launches']} [{card}]")
         if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
             raise AssertionError(f"step {rec['step']}: non-finite loss or grad norm")
         if rec["launches"] != want:
@@ -1321,7 +1440,8 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={cfg.fpdt_chunks} "
           f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload="
           f"{'on' if cfg.fpdt_offload else 'off'}: peak device memory "
-          f"{peak_gib:.2f} GiB; host offload moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
+          f"{peak_gib:.2f} GiB (reckoned {_reckoned_peak_gib(M, cfg, 1, seq):.2f}); host offload "
+          f"moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
           f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
           f"FLOPs/step {flops:.4e} [{card}]")
     if cfg.fpdt_offload and (off.to_host_bytes <= 0 or off.to_device_bytes <= 0):
@@ -1339,19 +1459,47 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     if not attention:
         return totals
 
-    # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf
+    # u=4 vs u=1 in fp32 weights: the loss and every gradient leaf (an MoE
+    # model's mlp_chunks kept, so its chunks and groups are the same)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", fpdt_offload=False)
     p32 = M.T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    l4, _, g4 = M.TL.value_and_grad(cfg32, None, p32, b0)
-    l1, _, g1 = M.TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32, b0)
+    moe_layers = cfg.num_layers if cfg.num_experts else 0
+    with _recording_moe_inputs(M, moe_layers) as in4:
+        l4, m4, g4 = M.TL.value_and_grad(cfg32, None, p32, b0)
+    dec4 = _moe_decisions(M, cfg32, in4)
+    del in4
+    with _recording_moe_inputs(M, moe_layers) as in1:
+        l1, m1, g1 = M.TL.value_and_grad(dataclasses.replace(cfg32, fpdt_chunks=1), None, p32,
+                                         b0)
+    dec1 = _moe_decisions(M, cfg32, in1)
+    del in1
     torch.cuda.synchronize()
     loss_rel = abs(float(l4) - float(l1)) / abs(float(l1))
-    grad_rel, leaf = _tree_max_rel(M.TR, g4, g1)
-    print(f"fp32 weights, {cfg32.num_layers} layers, u=4 vs u=1 at seq {seq}: loss "
-          f"{float(l4):.6f} vs {float(l1):.6f} (rel {loss_rel:.3e}); largest gradient-leaf error "
-          f"/ leaf max {grad_rel:.3e} (leaf {leaf} of {len(M.TR.tree_leaves(g4))}); tolerance "
-          f"{FPDT_GRAD_RTOL}")
-    if loss_rel > FPDT_GRAD_RTOL or grad_rel > FPDT_GRAD_RTOL:
+    n4, n1 = (math.sqrt(sum(float(x.float().square().sum()) for x in M.TR.tree_leaves(g)))
+              for g in (g4, g1))
+    loss_rel = max(loss_rel, abs(n4 - n1) / n1)
+    rels = _leaf_rels(M.TR, g4, g1)
+    grad_rel, leaf = max((r, n) for n, r in enumerate(rels))
+    line = (f"fp32 weights, {cfg32.num_layers} layers, u=4 vs u=1 at seq {seq}: loss "
+            f"{float(l4):.6f} vs {float(l1):.6f}, gradient norm {n4:.6f} vs {n1:.6f} (largest "
+            f"rel {loss_rel:.3e}); largest gradient-leaf "
+            f"error / leaf max {grad_rel:.3e} (leaf {leaf} of {len(rels)}); tolerance "
+            f"{FPDT_GRAD_RTOL}")
+    gated = rels
+    if cfg.num_experts:
+        differ = _decisions_differ(dec4, dec1)
+        experts = set(_expert_leaves(p32))
+        if differ:  # a flipped decision moves an expert's gradient by a token's share
+            gated = [r for n, r in enumerate(rels) if n not in experts]
+        worst = max((r, n) for n, r in enumerate(rels) if n in experts)
+        aux_rel = abs(float(m4["aux"]) - float(m1["aux"])) / abs(float(m1["aux"]))
+        line += (f"; MoE routing decisions (token, layer) that differ: {differ} of "
+                 f"{sum(t.shape[0] * t.shape[1] for t, _ in dec1)}; aux rel {aux_rel:.3e}; "
+                 f"worst expert leaf {worst[0]:.3e} (leaf {worst[1]}), "
+                 + ("gated" if not differ else "not gated: the others held"))
+        loss_rel = max(loss_rel, aux_rel)
+    print(line)
+    if loss_rel > FPDT_GRAD_RTOL or max(gated) > FPDT_GRAD_RTOL:
         raise AssertionError("u=4 training gradients differ from u=1")
     del p32, g4, g1
     torch.cuda.empty_cache()
@@ -1387,6 +1535,83 @@ def phase_train_gpt(torch, M, card):
     return _train_run(torch, M, _train_cfg(M, "gpt-2.7b"), card)
 
 
+GRANITE = "granite-moe-1b-a400m"
+
+
+def phase_train_granite(torch, M, card):
+    """granite-moe-1b-a400m at full width and depth (24 layers; 32 experts,
+    top-8): offload on == off, two runs of the first step and remat
+    offload == remat full, each bit for bit; the training run, profiled
+    with offload on; u=4 vs u=1 in fp32 weights with the routing decisions
+    that differ counted."""
+    return _train_run(torch, M, _train_cfg(M, GRANITE), card,
+                      same_bits=[("a second run", {}), ("remat offload", {"remat": "offload"})])
+
+
+MOE_LAYER_ITERS = 10
+
+
+def phase_moe_layer(torch, M, card):
+    """One granite MoE FFN layer alone at the training shape (b1, TRAIN_SEQ
+    tokens, mlp_chunks 8, bf16 with the fp32 router): its forward and
+    backward under torch.cuda.set_sync_debug_mode("error"), so that any
+    host read of a device value (an .item(), a nonzero, a mask index, a
+    bounds check) fails the phase; a second run the same bits; the device
+    time of a forward and of a forward and backward (CUDA events), and
+    what 24 layers of them take in a remat-full step (each layer's forward
+    three times: the cycle's pass, its recompute and the chunk's
+    recompute; its backward once)."""
+    dev = torch.device("cuda")
+    cfg = _train_cfg(M, GRANITE)
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = {k: v.requires_grad_(True)
+         for k, v in M.MOE.init_moe(cfg, g, torch.bfloat16, dev).items()}
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    dy = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=g, device=dev)
+
+    def run():
+        for t in (x, *p.values()):
+            t.grad = None
+        y, aux = M.MOE.moe_ffn_chunked(cfg, p, x, cfg.mlp_chunks)
+        ((y.float() * dy).sum() + aux).backward()
+        return [y.detach(), aux.detach(), x.grad, *(p[k].grad for k in sorted(p))]
+
+    run()  # warm-up: cuBLAS handles and the allocator's pools
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    second = run()
+    torch.cuda.synchronize()
+    differ = [n for n, (a, b) in enumerate(zip(first, second)) if not torch.equal(a, b)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    with torch.no_grad():
+        for _ in range(MOE_LAYER_ITERS):
+            M.MOE.moe_ffn_chunked(cfg, p, x, cfg.mlp_chunks)
+    events[1].record()
+    for _ in range(MOE_LAYER_ITERS):
+        run()
+    events[2].record()
+    torch.cuda.synchronize()
+    fwd = events[0].elapsed_time(events[1]) / MOE_LAYER_ITERS
+    both = events[1].elapsed_time(events[2]) / MOE_LAYER_ITERS
+    layers = M.cfg_mod.get_config(GRANITE).num_layers
+    print(f"granite MoE layer alone (b1 s{TRAIN_SEQ}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, mlp_chunks {cfg.mlp_chunks}, bf16): forward and backward "
+          f"under set_sync_debug_mode('error') with no host read; a second run differs in "
+          f"{differ or 'nothing'}; forward {fwd:.3f} ms, forward + backward {both:.3f} ms "
+          f"(CUDA events, {MOE_LAYER_ITERS} runs); a remat-full step's {layers} layers: "
+          f"{layers * (2 * fwd + both):.1f} ms [{card}]")
+    if differ:
+        raise AssertionError(f"two runs of the MoE layer differ in outputs {differ}")
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both}
+
+
 FALCON_LAYERS = 16  # of 64: 2.218 B parameters, 24.8 GiB of weights, gradients, AdamW state
 
 
@@ -1396,28 +1621,8 @@ def phase_train_falcon(torch, M, card):
     then the training run (no attention: no FPDT offload, profiled once)."""
     cfg = dataclasses.replace(_train_cfg(M, "falcon-mamba-7b", num_layers=FALCON_LAYERS),
                               fpdt_offload=False)
-    totals = _train_run(torch, M, cfg, card, profile_offload=(False,),
-                        extra_check=lambda c, p, b0: _remat_offload_equal(
-                            torch, M, c, p, b0, f"{c.name} ({c.num_layers} layers)"))
-    return totals
-
-
-def _remat_offload_equal(torch, M, cfg, params, batch, label):
-    """remat offload against remat full (``cfg``'s other settings kept): the
-    loss and every gradient leaf, bit for bit."""
-    full = dataclasses.replace(cfg, remat="full")
-    l_f, _, g_f = M.TL.value_and_grad(full, None, params, batch)
-    l_o, _, g_o = M.TL.value_and_grad(dataclasses.replace(full, remat="offload"), None, params,
-                                      batch)
-    torch.cuda.synchronize()
-    differ = sum(not torch.equal(a, b) for a, b in zip(M.TR.tree_leaves(g_f),
-                                                       M.TR.tree_leaves(g_o)))
-    print(f"{label}: remat offload vs remat full: loss {float(l_o):.6f} vs {float(l_f):.6f}; "
-          f"gradient leaves that differ: {differ} of {len(M.TR.tree_leaves(g_f))}")
-    if not torch.equal(l_f, l_o) or differ:
-        raise AssertionError("remat offload and remat full give different losses or gradients")
-    del g_f, g_o
-    torch.cuda.empty_cache()
+    return _train_run(torch, M, cfg, card, profile_offload=(False,),
+                      same_bits=[("remat offload", {"remat": "offload"})])
 
 
 def _check_losses(name, records, card):
@@ -1446,7 +1651,10 @@ def _launches_per_step(cfg, F, T, MB, seq, sp=1):
     and once more in the block's own checkpoint recompute, and
     linear_scan_bwd once a block.  Under sp > 1 a recurrent layer scans
     twice (pass 1 and pass 2), each over the rank's u spans as u rows of
-    seq / (u sp) tokens, so a scan's blocks are a span's."""
+    seq / (u sp) tokens, so a scan's blocks are a span's.  An attention
+    block's MoE FFN (granite) launches none of these kernels: its routing,
+    dispatch and expert products are PyTorch ops, so an MoE layer counts as
+    its attention alone."""
     pat, n_cycles, tail = T.layout_of(cfg)
     u, cq = cfg.fpdt_chunks, seq // cfg.fpdt_chunks
     scans, row = (2, seq // (u * sp)) if sp > 1 else (1, seq)
@@ -1502,7 +1710,8 @@ def phase_long_context(torch, M, card):
         if seq == LONG_SEQS[0]:  # remat offload == remat full, bit for bit
             params = M.T.init_params(base, torch.Generator(device=dev).manual_seed(0), dev)
             b0 = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(0).items()}
-            _remat_offload_equal(torch, M, cfgs["B"], params, b0, f"seq {seq} (offload on)")
+            _same_bits(torch, M, cfgs["B"], params, b0, f"gpt-2.7b seq {seq} (offload on, remat "
+                       "full)", [("remat offload", {"remat": "offload"})])
             del params, b0
             torch.cuda.empty_cache()
         for name, cfg in cfgs.items():
@@ -1596,7 +1805,13 @@ DIST_ATTN = (("llama3.2-1b ulysses (16 q / 4 kv heads a rank)", "llama3.2-1b", "
 # rank's partial sum is rounded before the two are added).  fp32:
 # tests/test_fpdt.py's 2e-4 and 5e-4; bf16: the repo's bf16 kernel tolerance.
 DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16"])}
-DIST_STEPS = (("ulysses", 3), ("cp", 2))  # AdamW steps of llama3.2-1b's 1 x 2 training
+# llama3.2-1b's 1 x 2 training: its layers (of 16), and AdamW steps by
+# kind.  The ranks' time is gloo's, through the host: it grows with each
+# layer's all-to-alls and gradient bytes and with each step, so the 1 x 2
+# trainings are cut in depth and steps (llama's ulysses and granite take
+# a second step) and keep every check.
+DIST_LLAMA_LAYERS = 8
+DIST_STEPS = (("ulysses", 2), ("cp", 1))
 # The first batch's bf16 gradients, two ranks against one, relative in each
 # leaf's norm: FPDT_GRAD_RTOL for every leaf but the tied embedding.  Its
 # head part sums 64 loss chunks' gradients in bf16 and loses small
@@ -1607,13 +1822,20 @@ DIST_STEPS = (("ulysses", 3), ("cp", 2))  # AdamW steps of llama3.2-1b's 1 x 2 t
 # so these limits sit between the two.
 DIST_BF16_EMBED_RTOL = 0.15
 DIST_BF16_NORM_RTOL = 2.5e-2
-DIST_JOIN_S = 900  # the ranks' whole run, start-up included
+DIST_JOIN_S = 900  # the ranks' whole run, start-up included (BUDGET_S may cut it)
+DIST_EXIT_S = 60  # from a rank's readings written to its exit
 # The recurrent families trained on 1 x DIST_RANKS (b1, DIST_SEQ, u = DIST_U,
 # remat full, offload on): arch, layers, AdamW steps.  Each rank holds the
 # whole model and its AdamW state: recurrentgemma-9b's one (rglru, rglru,
 # local_attn) cycle is 2.60 B parameters, 29 GiB of state; falcon-mamba-7b's
-# 8 layers 1.37 B, 15 GiB.  Their fp32-weight checks run at the same depth.
-DIST_RECURRENT = (("recurrentgemma-9b", 3, 2), ("falcon-mamba-7b", 8, 2))
+# 4 layers 0.95 B, 11 GiB.  Their fp32-weight checks run at the same depth.
+DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
+# granite-moe-1b-a400m trained on 1 x DIST_RANKS the same way (ulysses: 8 q
+# / 4 kv heads a rank), cut to 6 of its 24 layers: each MoE chunk (mlp_chunks
+# 2u) is one rank's 1024-token span, so every group is local and no counts
+# are gathered; full depth would add ~2 GB of gloo gradient all-reduce a
+# step and nothing this phase does not already show.
+DIST_MOE = (("granite-moe-1b-a400m", 6, 2),)
 # the mixers alone, at their archs' full width: mixer, arch
 DIST_MIXERS = (("rglru", "recurrentgemma-9b"), ("mamba", "falcon-mamba-7b"))
 # (output, gradients): the output max |err| / (1 + max |want|), each gradient
@@ -1631,28 +1853,38 @@ def _dist_cfg(M, arch="llama3.2-1b", layers=None, **over):
                                mlp_chunks=2 * DIST_U, remat="full", fpdt_offload=True, **over)
 
 
-def _reckoned_peak_gib(M, cfg, sp):
-    """A rank's peak device memory in a training step, reckoned from the
-    shapes before the run: the training state (bf16 weights and gradients,
-    fp32 AdamW moments: 12 bytes a parameter), every cycle's saved input
-    (remat full), and the larger of the tail layers' activations and one
-    cycle's recompute, with per token and layer the tensors a block keeps
-    for its backward (counted from the code: RG-LRU 4d + 48 di + 6 d_ff
-    bytes, attention 4d + 6 hq dh + 6 d_ff, Mamba 2d + 30 di) and for an
-    ssm layer the selective scan's block in its backward (a, b, the states
-    and their gradients: six fp32 [rows, 256, di, ds], rows = u under sp >
-    1).  Not measured: an estimate to print beside the reading."""
-    tokens = DIST_SEQ // sp
+def _reckoned_peak_gib(M, cfg, sp, seq=None):
+    """A rank's peak device memory in a training step over ``seq`` tokens
+    (DIST_SEQ), reckoned from the shapes before the run: the training state
+    (bf16 weights and gradients, fp32 AdamW moments: 12 bytes a parameter),
+    every cycle's saved input (remat full), and the larger of the tail
+    layers' activations and one cycle's recompute, with per token and layer
+    the tensors a block keeps for its backward (counted from the code:
+    RG-LRU 4d + 48 di + 6 d_ff bytes, attention 4d + 6 hq dh + 6 d_ff, with
+    the MoE FFN 4d + 6 hq dh + 2d, Mamba 2d + 30 di), for an ssm layer the
+    selective scan's block in its backward (a, b, the states and their
+    gradients: six fp32 [rows, 256, di, ds], rows = u under sp > 1) and for
+    an MoE layer one chunk's backward (its routing's four int64 [T, k, e],
+    the [e, g, cap] slots at 4d + 8 d_ff bytes, the k gathered outputs,
+    twice for their gradients).  Not measured: an estimate to print beside
+    the reading."""
+    tokens = (seq or DIST_SEQ) // sp
     d, di, ff = cfg.d_model, cfg.d_inner, cfg.d_ff
-    per_token = {"rglru": 4 * d + 48 * di + 6 * ff,
-                 "local_attn": 4 * d + 6 * cfg.num_heads * cfg.head_dim + 6 * ff,
-                 "ssm": 2 * d + 30 * di}
-    per_token["attn"] = per_token["local_attn"]
+    attn = 4 * d + 6 * cfg.num_heads * cfg.head_dim
+    per_token = {"rglru": 4 * d + 48 * di + 6 * ff, "local_attn": attn + 6 * ff,
+                 "ssm": 2 * d + 30 * di, "attn": attn + (2 * d if cfg.num_experts else 6 * ff)}
     rows = cfg.fpdt_chunks if sp > 1 else 1
     block = 6 * rows * M.MB.BLOCK_S * di * cfg.ssm_state * 4
+    if cfg.num_experts:  # one chunk of the MoE FFN in its backward
+        e, k, n = cfg.num_experts, cfg.experts_per_token, max(1, cfg.mlp_chunks)
+        t = tokens // n
+        tg = min(M.MOE.GROUP_TOKENS, t)
+        slots = e * (t // tg) * M.MOE.capacity(tg, cfg)
+        block = 2 * (4 * t * k * e * 8 + slots * (4 * d + 8 * ff) + t * k * d * 2)
 
     def layers(kinds):
-        return sum(tokens * per_token[k] + (block if k == "ssm" else 0) for k in kinds)
+        return sum(tokens * per_token[k] + (block if k == "ssm" or cfg.num_experts else 0)
+                   for k in kinds)
 
     pat, n_cycles, tail = M.T.layout_of(cfg)
     state = 12 * cfg.num_params()
@@ -1722,16 +1954,25 @@ def _mixer_collectives(cfg, kind, sp, b, passes, x_bytes):
 
 def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
     """(calls, bytes) of each collective a training step hands in on a rank
-    under remat full: every attention or recurrent layer of a cycle runs
-    two forwards (the checkpoint's pass and its recompute), a tail layer
-    one; loss_fn sums (loss, count) over the world once (8 bytes); every
-    gradient leaf is summed once; the loop sums its stop flag once (4
-    bytes)."""
+    of a 1 x sp mesh under remat full: every attention or recurrent layer
+    of a cycle runs two forwards (the checkpoint's pass and its recompute),
+    a tail layer one; an MoE layer's forward gathers its counts once where
+    a group or a chunk spans ranks (``MOE.mesh_plan``: rows x e int32);
+    loss_fn sums (loss, count) over the world once (8 bytes; 12 with an
+    MoE model's aux); every gradient leaf is summed once; the loop sums its
+    stop flag once (4 bytes)."""
     P = M.P
     pat, n_cycles, tail = M.T.layout_of(cfg)
     calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
     x_bytes = 2 if cfg.param_dtype == "bfloat16" else 4
+    moe_rows = 0
+    if cfg.num_experts:
+        n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
+        moe_rows = M.MOE.mesh_plan(cfg, seq, b, sp, 1, n, 0).rows
     for k, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
+        if k in ("attn", "local_attn") and moe_rows:
+            calls["gather_counts"] += passes
+            nbytes["gather_counts"] += passes * moe_rows * cfg.num_experts * 4
         if k in ("attn", "local_attn"):
             c, n = _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes,
                                      cfg.window if k == "local_attn" else 0)
@@ -1744,7 +1985,8 @@ def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
             nbytes[name] += n[name]
     leaves = M.TR.tree_leaves(params_like)
     calls["all_reduce_sum"] += len(leaves) + 2
-    nbytes["all_reduce_sum"] += sum(t.numel() * t.element_size() for t in leaves) + 8 + 4
+    nbytes["all_reduce_sum"] += (sum(t.numel() * t.element_size() for t in leaves)
+                                 + (12 if cfg.num_experts else 8) + 4)
     return calls, nbytes
 
 
@@ -1836,18 +2078,24 @@ def _grad_readings(torch, M, cfg, par, dev):
     the embedding's leaf) of the first b1 DIST_SEQ batch from seed 0's
     weights in ``cfg``'s dtype, on one rank (``par`` None) or this rank's
     part of it with the gradients summed over the world, as the train step
-    sums them."""
+    sums them.  For an MoE model also aux, the expert leaves' indices and
+    each layer's routing decisions of this rank's tokens (``decisions``,
+    host tensors)."""
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in M.DP.shard_batch(batch_fn(0), par, cfg.fpdt_chunks).items()}
-    loss, _, grads = M.TL.value_and_grad(cfg, par, params, batch)
+    with _recording_moe_inputs(M, cfg.num_layers if cfg.num_experts else 0) as inputs:
+        loss, metrics, grads = M.TL.value_and_grad(cfg, par, params, batch)
     leaves = M.TR.tree_leaves(M.TL.reduce_grads(par, grads))
     norms = [float(g.float().norm()) for g in leaves]
     out = {"loss": float(loss), "grad_norm": math.sqrt(sum(x * x for x in norms)),
            "leaf_norms": norms,
            "embed_leaf": next(i for i, g in enumerate(leaves) if g is grads["embed"])}
-    del params, grads, batch, leaves
+    if cfg.num_experts:
+        out.update(aux=float(metrics["aux"]), expert_leaves=_expert_leaves(params),
+                   decisions=_moe_decisions(M, cfg, inputs, par))
+    del params, grads, batch, leaves, inputs
     torch.cuda.empty_cache()
     return out
 
@@ -1889,26 +2137,34 @@ def _param_digest(torch, TR, params) -> str:
     return h.hexdigest()
 
 
-def _dist_rank(rank, world, tmp):
+def _dist_rank(rank, world, tmp, spawned_at):
     """One gloo rank of the distributed phase, on the one card: the
     attention-only parity, the recurrent mixers alone, llama3.2-1b's
-    1 x world training, then each DIST_RECURRENT arch's.  Writes its
-    readings to ``tmp/rank<r>.json``, with each part's seconds."""
+    1 x world training, then each DIST_RECURRENT and DIST_MOE arch's.
+    Writes its readings to ``tmp/rank<r>.json``, with each part's seconds
+    (its start-up from ``spawned_at``, a ``time.time()``, included) and
+    the time its work ended; each part's end also goes to stderr.  On
+    SIGUSR1 it writes every thread's stack to stderr."""
+    import faulthandler
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    seconds = {"start-up": time.time() - spawned_at}
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # as launch/train.py
     M = _modules()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       **{M.MESH.INIT_METHOD_ENV: f"file://{tmp}/store"})
     M.MESH.init_from_env("gloo")
-    seconds = {}
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         res = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        print(f"rank {rank}: {name} {seconds[name]:.1f} s", file=sys.stderr, flush=True)
         return res
 
     try:
@@ -1918,18 +2174,23 @@ def _dist_rank(rank, world, tmp):
         out = {"attention": timed("attention", _dist_attention, torch, M, par, dev),
                "mixers": timed("mixers", _dist_mixers, torch, M, par, dev), "train": {}}
         for kind, steps in DIST_STEPS:
-            cfg = _dist_cfg(M, attn_impl=kind)
+            cfg = _dist_cfg(M, layers=DIST_LLAMA_LAYERS, attn_impl=kind)
             out["train"][f"llama3.2-1b {kind}"] = timed(f"llama3.2-1b {kind}", _dist_train_case,
                                                         torch, M, par, dev, cfg, steps, True)
-        for arch, layers, steps in DIST_RECURRENT:
+        for arch, layers, steps in DIST_RECURRENT + DIST_MOE:
             cfg = _dist_cfg(M, arch, layers)
             label = f"{arch} {M.T.attn_kind(cfg, par)}" if M.T.has_attention(cfg) else arch
             out["train"][label] = timed(label, _dist_train_case, torch, M, par, dev, cfg, steps,
                                         False)
+            decisions = out["train"][label]["fp32"].pop("decisions", None)
+            if decisions is not None:  # this rank's routing, for the parent to compare
+                torch.save(decisions, Path(tmp, f"routing-{arch}-rank{rank}.pt"))
         out["seconds"] = seconds
     finally:
         dist.destroy_process_group()
-    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+    out["done_at"] = time.time()
+    Path(tmp, f"rank{rank}.part").write_text(json.dumps(out))
+    os.replace(Path(tmp, f"rank{rank}.part"), Path(tmp, f"rank{rank}.json"))
 
 
 def _dist_train_case(torch, M, par, dev, cfg, steps, bf16_grads):
@@ -2114,27 +2375,57 @@ def _dist_train(torch, M, par, dev, cfg, steps):
             "want_collectives": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
 
 
-def _join_ranks(procs, timeout):
-    """Wait for every rank; the first to fail, or the deadline, kills them
-    all and fails the phase."""
+def _dump_stacks(procs):
+    """Every live rank writes its threads' stacks to stderr (SIGUSR1)."""
+    live = [p for p in procs if p.is_alive()]
+    for p in live:
+        os.kill(p.pid, signal.SIGUSR1)
+    if live:
+        time.sleep(3)
+
+
+def _join_ranks(procs, timeout, tmp):
+    """Wait for every rank.  The first to fail, or the deadline, has the
+    live ranks write their stacks, kills them all and fails the phase.  A
+    rank that wrote its readings (``tmp/rank<r>.json``) and has not exited
+    DIST_EXIT_S later writes its stacks and is stopped: returns those
+    ranks, whose readings the phase still checks."""
     import multiprocessing.connection
 
     deadline = time.monotonic() + timeout
+    done_at, stopped = {}, []
     try:
         while any(p.exitcode is None for p in procs):
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise AssertionError(f"the ranks did not finish within {timeout} s")
+            now = time.monotonic()
+            for r in range(len(procs)):
+                if r not in done_at and Path(tmp, f"rank{r}.json").exists():
+                    done_at[r] = now
+            late = [r for r, p in enumerate(procs)
+                    if p.exitcode is None and r in done_at and now - done_at[r] > DIST_EXIT_S]
+            if late:
+                _dump_stacks([procs[r] for r in late])
+                for r in late:
+                    procs[r].kill()
+                    procs[r].join()
+                stopped += late
+                continue
+            if now >= deadline:
+                _dump_stacks(procs)
+                raise AssertionError(f"the ranks did not finish within {timeout:.0f} s (their "
+                                     "stacks are on stderr)")
             multiprocessing.connection.wait([p.sentinel for p in procs if p.exitcode is None],
-                                            timeout=left)
-            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                                            timeout=min(deadline - now, 5.0))
+            bad = [p.exitcode for r, p in enumerate(procs)
+                   if r not in stopped and p.exitcode not in (None, 0)]
             if bad:
+                _dump_stacks(procs)
                 raise AssertionError(f"a rank exited with {bad[0]}")
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
             p.join()
+    return stopped
 
 
 def phase_dist(torch, M, card):
@@ -2152,8 +2443,10 @@ def phase_dist(torch, M, card):
 
     _dist_nccl_one_rank(torch, M, card)
     t0 = time.perf_counter()
-    refs = {"llama3.2-1b": _dist_train_reference(torch, M, card, _dist_cfg(M), bf16_grads=True)}
-    for arch, layers, _ in DIST_RECURRENT:
+    refs = {"llama3.2-1b": _dist_train_reference(torch, M, card,
+                                                 _dist_cfg(M, layers=DIST_LLAMA_LAYERS),
+                                                 bf16_grads=True)}
+    for arch, layers, _ in DIST_RECURRENT + DIST_MOE:
         refs[arch] = _dist_train_reference(torch, M, card, _dist_cfg(M, arch, layers))
     torch.cuda.empty_cache()  # the ranks share the card: this process keeps nothing cached
     print(f"one-rank references: {time.perf_counter() - t0:.1f} s; this process holds "
@@ -2161,16 +2454,25 @@ def phase_dist(torch, M, card):
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, tmp))
+        procs = [ctx.Process(target=_dist_rank, args=(r, DIST_RANKS, tmp, time.time()))
                  for r in range(DIST_RANKS)]
         for p in procs:
             p.start()
-        _join_ranks(procs, DIST_JOIN_S)
+        stopped = _join_ranks(procs, min(DIST_JOIN_S, BUDGET_S - (time.monotonic() - STARTED)),
+                              tmp)
+        joined = time.time()
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+        routing = {arch: [torch.load(Path(tmp, f"routing-{arch}-rank{r}.pt"))
+                          for r in range(DIST_RANKS)] for arch, _, _ in DIST_MOE}
     print(f"gloo, {DIST_RANKS} ranks sharing the card: the port hands gloo the CUDA tensors "
           f"(no explicit staging); gloo stages them through host memory; the ranks took "
           f"{time.perf_counter() - t0:.1f} s, rank 0's parts (s): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items())
+          + f"; from the last rank's end of work to the join "
+          f"{joined - max(r['done_at'] for r in ranks):.1f} s")
+    for r in stopped:
+        print(f"rank {r} wrote its readings and had not exited {DIST_EXIT_S} s later: stopped "
+              "(its stacks are on stderr)")
 
     for case in ranks[0]["attention"]:
         dtype = case.split()[-1]
@@ -2240,11 +2542,25 @@ def phase_dist(torch, M, card):
             first, ref16 = recs[0], refs[arch]["bf16"]
             rel16 = {k: abs(first[k] - ref16[k]) / abs(ref16[k]) for k in ("loss", "grad_norm")}
             f32, ref32 = t["fp32"], refs[arch]["fp32"]
-            rel32 = {k: abs(f32[k] - ref32[k]) / abs(ref32[k]) for k in ("loss", "grad_norm")}
-            leaf32 = max(abs(a - b) / b for a, b in zip(f32["leaf_norms"], ref32["leaf_norms"]))
+            rel32 = {k: abs(f32[k] - ref32[k]) / abs(ref32[k])
+                     for k in ("loss", "grad_norm", "aux") if k in ref32}
+            leaf_rels = [abs(a - b) / b for a, b in zip(f32["leaf_norms"], ref32["leaf_norms"])]
+            leaf32, moe = max(leaf_rels), ""
+            if arch in routing:  # the port's routing of both runs' layer inputs
+                pos = torch.from_numpy(M.DP.token_positions(DIST_SEQ, DIST_RANKS, r, DIST_U))
+                differ = _decisions_differ(routing[arch][r],
+                                           [(a[:, pos], b[:, pos]) for a, b in ref32["decisions"]])
+                experts = set(ref32["expert_leaves"])
+                worst = max((x, n) for n, x in enumerate(leaf_rels) if n in experts)
+                if differ:  # a flipped decision moves an expert's gradient by a token's share
+                    leaf32 = max(x for n, x in enumerate(leaf_rels) if n not in experts)
+                moe = (f"; aux rel {rel32['aux']:.3e}; MoE routing decisions (token, layer) that "
+                       f"differ from one rank's: {differ} of {DIST_SEQ // DIST_RANKS * t['layers']}"
+                       f"; worst expert-leaf norm rel {worst[0]:.3e} (leaf {worst[1]}, "
+                       + ("gated)" if not differ else "not gated: the others held)"))
             print(f"  rank {r} {case} vs one rank, first batch: in fp32 weights ({t['layers']} "
                   f"layers) loss rel {rel32['loss']:.3e}, grad_norm rel {rel32['grad_norm']:.3e}, "
-                  f"largest gradient-leaf norm rel {leaf32:.3e} (limit {FPDT_GRAD_RTOL}); the "
+                  f"largest gradient-leaf norm rel {leaf32:.3e} (limit {FPDT_GRAD_RTOL}){moe}; the "
                   f"bf16 step's loss rel {rel16['loss']:.3e} (limit {FPDT_GRAD_RTOL}) and "
                   f"grad_norm rel {rel16['grad_norm']:.3e}; peak device memory "
                   f"{t['peak_gib']:.2f} GiB (reckoned {t['reckoned_peak_gib']:.2f}); parameter "
@@ -2604,6 +2920,7 @@ def _modules():
     from repro_torch.launch import train as TRAIN
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as MB
+    from repro_torch.models import moe as MOE
     from repro_torch.models import rglru as R
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
@@ -2612,11 +2929,15 @@ def _modules():
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
-                                 MESH=MESH)
+                                 MESH=MESH, MOE=MOE)
 
 
 def main():
+    import faulthandler
+
     t_start = time.perf_counter()
+    faulthandler.enable()
+    faulthandler.dump_traceback_later(BUDGET_S - (time.monotonic() - STARTED))
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the port is not beside this script: {SRC / 'repro_torch'} is missing")
     sys.path.insert(0, str(SRC))
@@ -2641,12 +2962,14 @@ def main():
                 finalize)
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
     serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
-             for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b")}
+             for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE)}
     train = phase("train llama3.2-1b", phase_train, torch, M, card)
     hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, M, card)
     gpt = phase("train gpt-2.7b", phase_train_gpt, torch, M, card)
     falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
                    M, card)
+    phase("granite MoE layer under set_sync_debug_mode('error')", phase_moe_layer, torch, M, card)
+    granite = phase(f"train {GRANITE}", phase_train_granite, torch, M, card)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
     dist = phase("distribution (ulysses, cp, the recurrent mixers)", phase_dist, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
@@ -2712,6 +3035,7 @@ def main():
         by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
                    "train llama3.2-1b": train[kname], "train recurrentgemma-9b": hybrid[kname],
                    "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],
+                   f"train {GRANITE}": granite[kname],
                    **{path: d[kname] for path, d in dist.items()}}
         # each kernel's own path: gpt-2.7b's training for the attention
         # kernels, this slice's falcon-mamba-7b training for the scan
@@ -2725,6 +3049,7 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],
             "timed_shape": row["shape"], **extra})
+    faulthandler.cancel_dump_traceback_later()
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
           "included")
     print(card)

@@ -3,8 +3,9 @@
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
 ``reduced`` (the port imports nothing from it).  Only architectures the
 port trains are registered: llama3.2-1b, recurrentgemma-9b,
-falcon-mamba-7b and the paper's models (``PAPER_ARCHS``); ``get_config``
-raises for every other one.
+falcon-mamba-7b, granite-moe-1b-a400m, llama4-maverick-400b-a17b (778 B
+parameters: only its reduced form fits a card) and the paper's models
+(``PAPER_ARCHS``); ``get_config`` raises for every other one.
 """
 from __future__ import annotations
 
@@ -177,6 +178,8 @@ _MODULE_FOR = {
     "llama3.2-1b": "llama3p2_1b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "gpt-2.7b": "gpt_paper",
     "gpt-6.7b": "gpt_paper",
     "gpt-13b": "gpt_paper",

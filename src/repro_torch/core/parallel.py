@@ -30,6 +30,11 @@ and, for the recurrent mixers' two-pass scans (``models/mamba.py``,
 A rank's u spans are its C/sp tokens of each chunk; ``gather_spans`` puts
 every rank's spans in global order, span (i, m) at g = i*sp + m.
 
+and, for the MoE FFN's queue offsets and top-1 shares (``models/moe.py``),
+outside autograd:
+
+  gather_counts       [rows, e] int32 -> [world, rows, e]      (all_gather_into_tensor)
+
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``
 (``chip_smoke.py`` reads them as it reads the kernels' launches).  Every
@@ -48,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
-               "all_reduce_sum", "gather_spans", "reduce_scatter_spans")
+               "all_reduce_sum", "gather_spans", "reduce_scatter_spans", "gather_counts")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -207,3 +212,16 @@ def gather_spans(x: torch.Tensor, group) -> torch.Tensor:
     the backward hands this rank the sum over the group of its spans'
     gradients (``reduce_scatter_spans``)."""
     return _GatherSpans.apply(x, group)
+
+
+def gather_counts(x: torch.Tensor, group=None) -> torch.Tensor:
+    """[rows, e] (this rank's integer counts) -> [n, rows, e]: every rank's
+    counts in rank order over ``group`` (None: the world, n its size)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # concatenated along dim 0
+    _count("gather_counts", x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out.view(n, *x.shape)

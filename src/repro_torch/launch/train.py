@@ -238,7 +238,8 @@ def _train(args, par: Optional[ParallelContext], device: torch.device):
     tokens = args.batch * args.seq
     where = name if par is None else f"{name}, {par.dp * par.sp} ranks"
     for rec in history if main_rank else ():
-        print(f"step {rec['step']}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+        aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""
+        print(f"step {rec['step']}: loss {rec['loss']:.4f}{aux} grad_norm {rec['grad_norm']:.4f} "
               f"{rec['dt'] * 1e3:.1f} ms ({tokens / rec['dt']:.1f} tokens/s) on {where}")
     return history
 

@@ -20,8 +20,12 @@ gather-then-dense PyTorch, as the JAX package's is jnp, and the recurrent
 blocks take one step of their recurrence.  Unlike the JAX functions,
 ``decode_step`` writes the new token's K/V and every recurrent state into
 the cache tensors in place (``copy_`` at fixed shapes, no copy of the cache
-per step) and returns the same cache dict.  Host-streamed KV chunks and the
-paged pool are not yet ported.
+per step) and returns the same cache dict.  An MoE model's attention
+blocks run the MoE FFN as the JAX package's do: unchunked ``moe_ffn`` in
+decode (the batch's b tokens are one group) and ``moe_ffn_chunked`` over
+``cfg.mlp_chunks`` in prefill, where a padded prompt's pad tokens route
+and take queue places too.  Host-streamed KV chunks and the paged pool
+are not yet ported.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 
@@ -136,6 +141,8 @@ def _decode_block(cfg, par, kind, p, h, cache, pos):
         window = cfg.window if kind == "local_attn" else 0
         h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window)
     hn2 = L.apply_norm(cfg, p["norm2"], h)
+    if "moe" in p:
+        return h + MOE.moe_ffn(cfg, p["moe"], hn2)[0]
     return h + L.mlp_block(cfg, p["mlp"], hn2)
 
 
@@ -254,6 +261,8 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
             h = h + o @ p["attn"]["wo"]
             fill_kv(kind, p["attn"], hn, bc)
         hn2 = L.apply_norm(cfg, p["norm2"], h)
+        if "moe" in p:
+            return h + MOE.moe_ffn_chunked(cfg, p["moe"], hn2, cfg.mlp_chunks)[0]
         return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
 
     for c in range(n_cycles):

@@ -13,7 +13,10 @@ pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
 cycle's input in pinned host memory between the forward and the backward
 (the JAX package's ``block_in`` offload policy).  The ported block kinds are
 attention (attn, local_attn), RG-LRU (rglru) and Mamba-1 (ssm), with the
-token frontend.
+token frontend; an attention block of an MoE config (``num_experts``)
+runs the MoE FFN (``models/moe.py``) in place of its MLP, and its
+load-balancing aux rides beside h through every cycle, remat form
+included, into the loss's ``0.01 * aux``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.runtime.placement import host_offload, no_offload
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -44,16 +48,14 @@ def _check_ported(cfg: ModelConfig):
     bad = sorted({k for k in (*pat, *tail) if k not in PORTED_KINDS})
     if bad:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not yet ported")
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not yet ported")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not yet ported")
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype, device) -> Params:
     """A block of ``kind``: attention (attn and local_attn have the same
-    parameters) or rglru, each with its MLP, or ssm (a norm and the Mamba
-    mixer, no MLP)."""
+    parameters; the MoE FFN in place of the MLP under ``num_experts``) or
+    rglru with its MLP, or ssm (a norm and the Mamba mixer, no MLP)."""
     if kind == "ssm":
         return {"norm": L.init_norm(cfg, dtype, device),
                 "mixer": M.init_mamba(cfg, gen, dtype, device)}
@@ -61,11 +63,13 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype, device
         mixer = {"mixer": R.init_rglru(cfg, gen, dtype, device)}
     else:
         mixer = {"attn": L.init_attn(cfg, gen, dtype, device)}
+    ffn = ({"moe": MOE.init_moe(cfg, gen, dtype, device)} if cfg.num_experts and kind != "rglru"
+           else {"mlp": L.init_mlp(cfg, gen, dtype, device)})
     return {
         "norm1": L.init_norm(cfg, dtype, device),
         **mixer,
         "norm2": L.init_norm(cfg, dtype, device),
-        "mlp": L.init_mlp(cfg, gen, dtype, device),
+        **ffn,
     }
 
 
@@ -161,18 +165,21 @@ def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
 
 
 def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
-                p: Params, h: torch.Tensor) -> torch.Tensor:
+                p: Params, h: torch.Tensor):
     """One block: norm1 -> mixer (FPDT attention or RG-LRU) -> residual ->
-    norm2 -> chunked MLP -> residual; an ssm block is norm -> Mamba mixer ->
-    residual.  Under a mesh h holds this rank's tokens (``core/parallel.py``);
-    everything but attention and the recurrent mixers' scans and convs
-    (two passes over the spans of every rank, ``models/mamba.py``) is per
-    token."""
+    norm2 -> chunked MLP or MoE FFN -> residual; an ssm block is norm ->
+    Mamba mixer -> residual.  Returns (h, aux): the MoE block's
+    load-balancing loss (this rank's share under a mesh), None for every
+    other block.  Under a mesh h holds this rank's tokens
+    (``core/parallel.py``); everything but attention, the recurrent mixers'
+    scans and convs (two passes over the spans of every rank,
+    ``models/mamba.py``) and the MoE queue counts (``models/moe.py``) is
+    per token."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{kind!r} blocks are not yet ported")
     if kind == "ssm":
         y, _ = M.mamba_mixer(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), par=par)
-        return h + y
+        return h + y, None
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
         y, _ = R.rglru_mixer(cfg, p["mixer"], hn, par=par)
@@ -182,13 +189,23 @@ def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,
         o = fpdt.fpdt_attention(cfg, par, p["attn"], hn, kind=attn_kind(cfg, par), window=window)
         h = h + o @ p["attn"]["wo"]
     hn2 = L.apply_norm(cfg, p["norm2"], h)
-    return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks)
+    if "moe" in p:
+        y, aux = MOE.moe_ffn_chunked(cfg, p["moe"], hn2, cfg.mlp_chunks, par)
+        return h + y, aux
+    return h + L.mlp_chunked(cfg, p["mlp"], hn2, cfg.mlp_chunks), None
+
+
+def _add_aux(total, aux):
+    return aux if total is None else total if aux is None else total + aux
 
 
 def _cycle(cfg, par, pat, cyc_p, h):
+    """The blocks of one layer cycle: (h, the sum of their aux or None)."""
+    total = None
     for i, kind in enumerate(pat):
-        h = block_apply(cfg, par, kind, cyc_p[f"pos{i}"], h)
-    return h
+        h, aux = block_apply(cfg, par, kind, cyc_p[f"pos{i}"], h)
+        total = _add_aux(total, aux)
+    return h, total
 
 
 def _remat_contexts():
@@ -210,7 +227,9 @@ class _OffloadedCycle(torch.autograd.Function):
     gradients of h and of every parameter leaf.  The leaves are the cycle's
     parameters (views of the stacks from ``unstack``, or
     ``train_loop.value_and_grad``'s one leaf a cycle), so their gradients
-    reach ``params["cycles"]`` with the JAX pytree's shapes.  A non-reentrant
+    reach ``params["cycles"]`` with the JAX pytree's shapes.  The forward
+    returns (h, aux) as ``_cycle`` does, and the backward takes both
+    cotangents (aux None for a cycle without MoE).  A non-reentrant
     checkpoint would keep h on the device (its frame holds the inputs),
     which is why this is a Function.  On the CPU ``to_host`` is the
     identity, so only the recompute is exercised there."""
@@ -220,53 +239,64 @@ class _OffloadedCycle(torch.autograd.Function):
         ctx.offload = host_offload(h.device)
         h_host = ctx.offload.to_host(h)
         with no_offload():
-            out = _cycle(cfg, par, pat, tree_unflatten(like, list(leaves)), h)
+            out, aux = _cycle(cfg, par, pat, tree_unflatten(like, list(leaves)), h)
         ctx.cfg, ctx.par, ctx.pat, ctx.like = cfg, par, pat, like
         ctx.save_for_backward(h_host, *leaves)
-        return out
+        return out, aux
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, daux):
         h_host, *leaves = ctx.saved_tensors
         h = ctx.offload.to_device(h_host).wait().detach().requires_grad_(True)
         ws = [w.detach().requires_grad_(True) for w in leaves]
         with torch.enable_grad():
-            out = _cycle(ctx.cfg, ctx.par, ctx.pat, tree_unflatten(ctx.like, ws), h)
-        grads = torch.autograd.grad(out, [h, *ws], dout)
+            out, aux = _cycle(ctx.cfg, ctx.par, ctx.pat, tree_unflatten(ctx.like, ws), h)
+        outs, douts = ([out], [dout]) if aux is None else ([out, aux], [dout, daux])
+        grads = torch.autograd.grad(outs, [h, *ws], douts)
         return (None, None, None, None, *grads)
 
 
 def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                    h: torch.Tensor):
-    """Run the full layer stack. h: [b, S, d].  Returns (h, aux); aux is the
-    MoE load-balancing loss in the JAX package, and no ported block has one."""
+    """Run the full layer stack. h: [b, S, d].  Returns (h, aux): aux the
+    sum of the MoE blocks' load-balancing losses (under a mesh this rank's
+    share), zero for a model without MoE."""
     if cfg.remat not in ("none", "full", "offload"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     pat, n_cycles, tail = layout_of(cfg)
+    total = None
     for cyc_p in unstack(params["cycles"], n_cycles):
         if cfg.remat == "none" or not torch.is_grad_enabled():
-            h = _cycle(cfg, par, pat, cyc_p, h)
+            h, aux = _cycle(cfg, par, pat, cyc_p, h)
         elif cfg.remat == "full":
-            h = checkpoint(_cycle, cfg, par, pat, cyc_p, h, use_reentrant=False,
-                           preserve_rng_state=False, context_fn=_remat_contexts,
-                           determinism_check="none")
+            h, aux = checkpoint(_cycle, cfg, par, pat, cyc_p, h, use_reentrant=False,
+                                preserve_rng_state=False, context_fn=_remat_contexts,
+                                determinism_check="none")
         else:
-            h = _OffloadedCycle.apply(cfg, par, pat, cyc_p, h, *tree_leaves(cyc_p))
+            h, aux = _OffloadedCycle.apply(cfg, par, pat, cyc_p, h, *tree_leaves(cyc_p))
+        total = _add_aux(total, aux)
     for i, kind in enumerate(tail):
-        h = block_apply(cfg, par, kind, params["tail"][i], h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        h, aux = block_apply(cfg, par, kind, params["tail"][i], h)
+        total = _add_aux(total, aux)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, total
 
 
 def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
             batch: Dict[str, torch.Tensor]):
-    """Mean next-token xent (labels pre-shifted; IGNORE masked).  Returns
-    (loss, metrics).
+    """Mean next-token xent (labels pre-shifted; IGNORE masked) plus, for an
+    MoE model, ``0.01 * aux``.  Returns (total, metrics): ``metrics["loss"]``
+    is the cross-entropy alone and ``metrics["aux"]`` the load-balancing
+    loss, as the JAX package's metrics hold them.
 
     Under a mesh ``batch`` holds this rank's rows and tokens
-    (``data/pipeline.py::shard_batch``): the loss returned is this rank's
-    sum over the world's token count (an all-reduce of a detached value),
-    so the gradients summed over the world (``train_loop``) are exactly
-    those of the global mean; ``metrics["loss"]`` is the global mean."""
+    (``data/pipeline.py::shard_batch``): the total returned is this rank's
+    loss sum over the world's token count plus 0.01 times its aux share
+    (the all-reduce of a detached value gives the count), so the gradients
+    summed over the world (``train_loop``) are exactly those of the global
+    total; ``metrics["loss"]`` is the global mean and ``metrics["aux"]`` the
+    world's aux, both summed in the same all-reduce."""
     _check_ported(cfg)
     h = embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
     h, aux = hidden_forward(cfg, par, params, h)
@@ -275,11 +305,15 @@ def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
     n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1] * sp, sp)
     loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params), batch["labels"],
                                            n_chunks)
+    moe = bool(cfg.num_experts)
     if P.distributed(par):
-        world = P.all_reduce_sum(torch.stack([loss_sum.detach(), count]))
+        sums = [loss_sum.detach(), count] + ([aux.detach()] if moe else [])
+        world = P.all_reduce_sum(torch.stack(sums))
         count = world[1]
         loss = loss_sum / torch.clamp(count, min=1.0)
-        return loss, {"loss": world[0] / torch.clamp(count, min=1.0), "aux": aux,
-                      "tokens": count}
+        total = loss + 0.01 * aux if moe else loss
+        return total, {"loss": world[0] / torch.clamp(count, min=1.0),
+                       "aux": world[2] if moe else aux, "tokens": count}
     loss = loss_sum / torch.clamp(count, min=1.0)
-    return loss, {"loss": loss, "aux": aux, "tokens": count}
+    total = loss + 0.01 * aux if moe else loss
+    return total, {"loss": loss, "aux": aux, "tokens": count}

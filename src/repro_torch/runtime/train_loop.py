@@ -6,7 +6,13 @@ opt_state, metrics)``: the loss and its gradient through
 backward inside), optionally accumulated over ``grad_accum`` micro-batches
 in a Python loop with fp32 gradient sums, then one AdamW update (in place).
 Nothing in a step reads a device value on the host; ``TrainLoop``
-synchronises the card once after each step, then reads the loss.
+synchronises the card once after each step, then reads the loss.  For an
+MoE model the metrics also hold ``aux``, the load-balancing loss that
+``loss_fn`` adds as ``0.01 * aux`` (``loss`` stays the cross-entropy, as
+in the JAX package); under ``grad_accum`` ``loss`` is the micro-batches'
+mean total (cross-entropy plus ``0.01 * aux``), as the JAX loop reports
+it there, and ``aux`` their mean aux.  The loop's history and log line
+carry ``aux``.
 
 Under a mesh (``core/parallel.py``) each rank differentiates its own
 tokens' loss over the world's token count, and the step sums every
@@ -58,8 +64,10 @@ class StragglerAlert(RuntimeError):
 
 def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
                    batch: Dict[str, torch.Tensor]):
-    """(loss, metrics, grads) of ``loss_fn`` at ``params``: grads is a tree
-    shaped like ``params``, each leaf in its parameter's dtype.
+    """(loss, metrics, grads) of ``loss_fn`` at ``params``: loss is
+    ``metrics["loss"]`` (the cross-entropy; the gradients are those of the
+    total, with an MoE model's ``0.01 * aux``), grads a tree shaped like
+    ``params``, each leaf in its parameter's dtype.
 
     The stacked cycle parameters are differentiated through one leaf a cycle
     (a view of the stack) whose ``.grad`` is that cycle's slice of a zeroed
@@ -109,16 +117,18 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
     def step(params, opt_state, batch):
         if tc.grad_accum > 1:
             n = tc.grad_accum
-            gsum, lsum = None, None
+            gsum, lsum, asum = None, None, None
             for i in range(n):
                 mb = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
                       for k, v in batch.items()}
-                lval, _, g = value_and_grad(cfg, par, params, mb)
+                lval, m, g = value_and_grad(cfg, par, params, mb)
                 gsum = (tree_map(lambda x: x.float(), g) if gsum is None
                         else tree_map(lambda s, x: s.add_(x.float()), gsum, g))
+                lval = lval + 0.01 * m["aux"] if cfg.num_experts else lval  # the total
                 lsum = lval if lsum is None else lsum + lval
+                asum = m["aux"] if asum is None else asum + m["aux"]
             grads = tree_map(lambda s: s / n, gsum)
-            metrics = {"loss": lsum / n}
+            metrics = {"loss": lsum / n, "aux": asum / n}
         else:
             lval, metrics, grads = value_and_grad(cfg, par, params, batch)
         grads = reduce_grads(par, grads)
@@ -212,11 +222,14 @@ class TrainLoop:
             step += 1
             rec = {"step": step, "loss": float(metrics["loss"]),
                    "grad_norm": float(metrics["grad_norm"]), "dt": dt}
+            if self.cfg.num_experts:
+                rec["aux"] = float(metrics["aux"])
             self.history.append(rec)
             rank = self.par.rank if self.par is not None else 0
             if step % self.tc.log_every == 0 and rank == 0:
-                print(f"step {step:6d} loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
-                      f"{dt * 1000:.0f}ms", flush=True)
+                aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""
+                print(f"step {step:6d} loss {rec['loss']:.4f}{aux} gnorm "
+                      f"{rec['grad_norm']:.3f} {dt * 1000:.0f}ms", flush=True)
             try:
                 self.monitor.record(dt)
             except StragglerAlert as e:

@@ -150,14 +150,19 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         spans.backward(grads[me])
         out["ok"][f"{name} gather_spans adjoint"] = torch.allclose(
             mine.grad, sum(g.reshape(b, h, sp, c, d)[:, :, me] for g in grads), rtol=1e-6, atol=0)
+        # integer counts [rows, e]: every rank's, stacked in rank order
+        counts = [torch.arange(6, dtype=torch.int32).reshape(3, 2) + 10 * r for r in members]
+        out["ok"][f"{name} gather_counts"] = torch.equal(P.gather_counts(counts[me], group),
+                                                         torch.stack(counts))
         sent = b * h * c * d * 4
         out["ok"][f"{name} counts"] = (
             P.calls == {"seq_to_heads": 1, "heads_to_seq": 1, "gather_seq": 1,
                         "reduce_scatter_seq": 1, "all_reduce_sum": 1, "gather_spans": 1,
-                        "reduce_scatter_spans": 1}
+                        "reduce_scatter_spans": 1, "gather_counts": 1}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
                              "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
-                             "gather_spans": sent, "reduce_scatter_spans": sp * sent})
+                             "gather_spans": sent, "reduce_scatter_spans": sp * sent,
+                             "gather_counts": 24})
     return out
 
 
@@ -481,6 +486,85 @@ def task_recurrent(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
+# reduced granite-moe-1b-a400m (4 experts, top-2) at b 2, s 64, u 2: label,
+# mesh, mlp_chunks.  At mlp_chunks 2 a MoE chunk is an FPDT chunk (32
+# tokens of each row) and its one group of 64 tokens spans the model ranks
+# (1x4) or the data and model ranks (2x2); at 8 a MoE chunk is exactly one
+# rank's 8-token span of both rows, so every group is local.
+MOE_CASES = (("1x4", (1, 4), 2), ("2x2", (2, 2), 2), ("1x4 local", (1, 4), 8))
+MOE_B, MOE_S, MOE_U = 2, 64, 2
+
+
+def moe_cfg(cfgs, mlp_chunks: int, remat: str = "full"):
+    """The config of the MoE cases, from ``cfgs`` (either package's
+    ``configs`` module)."""
+    import dataclasses
+
+    return dataclasses.replace(cfgs.reduced(cfgs.get_config("granite-moe-1b-a400m")),
+                               param_dtype="float32", fpdt_chunks=MOE_U, mlp_chunks=mlp_chunks,
+                               remat=remat)
+
+
+def task_moe(rank: int, world: int, tmp: Path) -> dict:
+    """Per MOE_CASES case: the first batch's loss, aux and world-summed
+    gradients against JAX's (``moe.npz``), the gather_counts calls and
+    bytes of that value_and_grad, a digest of the parameters after one
+    train step; on 1x4, remat offload's gradients against remat full's bit
+    for bit (the recompute reruns the counts' gather)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import parallel as P
+    from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    ref = np.load(tmp / "moe.npz")
+    out = {}
+    for label, shape, chunks in MOE_CASES:
+        par = P.ParallelContext(make_mesh(*shape))
+        cfg = moe_cfg(configs, chunks)
+        like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        n = len(tree_leaves(like))
+
+        def params():
+            return tree_unflatten(like, [torch.from_numpy(ref[f"p{i}"].copy()) for i in range(n)])
+
+        batch_fn = make_batch_fn(cfg, ShapeConfig("t", MOE_S, MOE_B, "train"))
+        batch = {k: torch.from_numpy(v)
+                 for k, v in shard_batch(batch_fn(0), par, cfg.fpdt_chunks).items()}
+        P.reset_counts()
+        loss, metrics, grads = TL.value_and_grad(cfg, par, params(), batch)
+        case = {"loss": float(loss), "aux": float(metrics["aux"]),
+                "gather_counts": [P.calls["gather_counts"], P.nbytes["gather_counts"]]}
+        if label == "1x4":
+            off = TL.value_and_grad(dataclasses.replace(cfg, remat="offload"), par, params(),
+                                    batch)[2]
+            case["remat_offload_same_bits"] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(off)))
+        rel = 0.0
+        for i, g in enumerate(tree_leaves(TL.reduce_grads(par, grads))):
+            want = torch.from_numpy(ref[f"{label}/g{i}"])
+            rel = max(rel, float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30))
+        case["grad_rel"] = rel
+        oc = A.OptConfig(**TRAIN_OPT)
+        p = params()
+        p, _, _ = TL.make_train_step(cfg, par, oc, TL.TrainConfig())(p, A.init(oc, p), batch)
+        digests = [None] * world
+        dist.all_gather_object(digests, _digest(torch, tree_leaves(p)))
+        case["digests"] = digests
+        out[label] = case
+    return out
+
+
 CUDA_CASES = (("ulysses", 8, 2), ("ulysses", 8, 1), ("cp", 6, 2))  # kind, hq, hkv
 CUDA_DTYPES = ("float32", "bfloat16")
 CUDA_S, CUDA_U = 1024, 4
@@ -557,7 +641,7 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
 
 
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
-         "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda}
+         "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe}
 
 
 def main() -> None:

@@ -1,7 +1,8 @@
-"""The port stands alone: no file of src/repro_torch/ or chip_smoke.py imports
-jax or the JAX package, and the port calls no library attention.  The
-only place that may name scaled_dot_product_attention is chip_smoke.py's
-timing phase, where it is the yardstick the kernel is timed against."""
+"""The port stands alone: no file of src/repro_torch/, chip_smoke.py or
+tools/port_ab.py imports jax or the JAX package, and the port calls no
+library attention.  The only place that may name
+scaled_dot_product_attention is chip_smoke.py's timing phase, where it is
+the yardstick the kernel is timed against."""
 import ast
 import os
 
@@ -43,7 +44,8 @@ def test_port_has_modules():
                  "kernels/build.py", "kernels/linear_scan/ref.py",
                  "kernels/linear_scan/kernel.py", "kernels/linear_scan/ops.py",
                  "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py",
-                 "configs/falcon_mamba_7b.py", "core/parallel.py", "launch/mesh.py"):
+                 "configs/falcon_mamba_7b.py", "core/parallel.py", "launch/mesh.py",
+                 "models/moe.py", "configs/granite_moe_1b_a400m.py"):
         assert want in names
     assert os.path.exists(SMOKE)
     for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),
@@ -52,10 +54,12 @@ def test_port_has_modules():
 
 
 def test_no_jax_or_repro_imports():
-    """The port, chip_smoke.py and the distributed tests' ranks
-    (tests/_torch_dist.py, whose tasks run in spawned processes)."""
+    """The port, chip_smoke.py, the distributed tests' ranks
+    (tests/_torch_dist.py, whose tasks run in spawned processes) and the
+    port's timing script (tools/port_ab.py)."""
     bad = {}
-    for path in _port_files() + [SMOKE, os.path.join(ROOT, "tests", "_torch_dist.py")]:
+    for path in _port_files() + [SMOKE, os.path.join(ROOT, "tests", "_torch_dist.py"),
+                                 os.path.join(ROOT, "tools", "port_ab.py")]:
         hit = _imported_roots(path) & FORBIDDEN_ROOTS
         if hit:
             bad[os.path.relpath(path, ROOT)] = sorted(hit)

@@ -325,3 +325,100 @@ def test_recurrent_position_masked_prefill_refused(arch):
     with pytest.raises(ValueError, match="global-attention"):
         SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
                         max_len=MAX_LEN, lengths=torch.from_numpy(lengths))
+
+
+# granite-moe-1b-a400m: the attention blocks' MoE FFN, chunked in prefill
+# (mlp_chunks 2: two chunks of 8 tokens x 2 rows, one group each) and one
+# group of the b tokens in decode
+GRANITE = "granite-moe-1b-a400m"
+
+
+def _granite_cfgs(u=1, dtype="float32"):
+    kw = dict(param_dtype=dtype, remat="none", fpdt_chunks=u, mlp_chunks=2)
+    return (dataclasses.replace(j_reduced(j_get_config(GRANITE)), **kw),
+            dataclasses.replace(reduced(get_config(GRANITE)), **kw))
+
+
+@pytest.fixture(scope="module")
+def granite():
+    jc, _ = _granite_cfgs()
+    jparams = JT.init_params(jc, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(12).integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    return jparams, from_jax_params(jax.device_get(jparams), "cpu"), tokens
+
+
+def test_granite_param_tree_matches_jax(granite):
+    jparams, _, _ = granite
+    _, tc = _granite_cfgs()
+    mine = T.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    jl = {k: (v.shape, str(v.dtype)) for k, v in _leaves(jax.device_get(jparams))}
+    tl = {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in _leaves(mine)}
+    assert jl == tl and "/cycles/pos0/moe/router" in tl
+
+
+@pytest.mark.parametrize("u", [1, 4])
+def test_granite_prefill_matches_jax(granite, u):
+    jparams, tparams, tokens = granite
+    jc, tc = _granite_cfgs(u)
+    jl, jcache = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                                  max_len=MAX_LEN)
+    tl, tcache = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                                 max_len=MAX_LEN)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    _assert_cache(tcache, jcache, TOL)
+
+
+def test_granite_position_masked_prefill_matches_jax(granite):
+    """Right-padded row 1: its pad tokens route and take queue places, as
+    in the JAX package."""
+    jparams, tparams, tokens = granite
+    jc, tc = _granite_cfgs(4)
+    lengths = np.array([S, 11], np.int32)
+    jl, jcache = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                                  max_len=MAX_LEN, lengths=jnp.asarray(lengths))
+    tl, tcache = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                                 max_len=MAX_LEN, lengths=torch.from_numpy(lengths))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    _assert_cache(tcache, jcache, TOL)
+
+
+def test_granite_greedy_decode_matches_jax(granite):
+    jparams, tparams, tokens = granite
+    jc, tc = _granite_cfgs()
+    steps = 8
+    jl, jcache = JSV.prefill_step(jc, None, jparams, {"tokens": jnp.asarray(tokens)},
+                                  max_len=MAX_LEN)
+    jtok0 = JDL.sample_token(jl[:, : jc.vocab_size], None)
+    jtoks, jaux = JDL.decode_tokens(jc, None, jparams, jcache, jtok0[:, None],
+                                    jnp.full((B,), S, jnp.int32), num_steps=steps,
+                                    collect_logits=True)
+    tl, tcache = SV.prefill_step(tc, None, tparams, {"tokens": torch.from_numpy(tokens)},
+                                 max_len=MAX_LEN)
+    ttok0 = DL.sample_token(tl[:, : tc.vocab_size], None)
+    ttoks, taux = DL.decode_tokens(tc, None, tparams, tcache, ttok0[:, None],
+                                   torch.full((B,), S, dtype=torch.int32), num_steps=steps,
+                                   collect_logits=True)
+    assert ttok0.tolist() == np.asarray(jtok0).tolist()
+    assert ttoks.tolist() == np.asarray(jtoks).tolist()
+    np.testing.assert_allclose(taux["logits"].numpy(), np.asarray(jaux["logits"]),
+                               rtol=TOL, atol=TOL)
+    _assert_cache(taux["cache"], jaux["cache"], TOL)
+
+
+def test_granite_bf16_prefill_close_to_jax():
+    """bf16 weights with the router in fp32, from each package's own init
+    converted: the JAX tree's."""
+    jc, tc = _granite_cfgs(4, "bfloat16")
+    jp16 = JT.init_params(jc, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(12).integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    jl, _ = JSV.prefill_step(jc, None, jp16, {"tokens": jnp.asarray(tokens)}, max_len=MAX_LEN)
+    tl, _ = SV.prefill_step(tc, None, from_jax_params(jax.device_get(jp16), "cpu"),
+                            {"tokens": torch.from_numpy(tokens)}, max_len=MAX_LEN)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=3e-2, atol=3e-2)
+
+
+def test_granite_cli_on_cpu(capsys):
+    out = CLI.main(["--arch", GRANITE, "--reduced", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "16", "--gen", "4"])
+    assert tuple(out["tokens"].shape) == (2, 4)
+    assert "on cpu" in capsys.readouterr().out
