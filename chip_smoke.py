@@ -143,16 +143,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (3 layers: one rglru, rglru, local_attn cycle) and
                 falcon-mamba-7b (4 layers), 1 step each, and
                 granite-moe-1b-a400m (6 layers, ulysses), 2 steps,
-                through train_steps: the first step against a one-rank
+                through train_steps, every weight and AdamW moment a
+                ZeRO-3 shard (launch/shardings.py: the tables' d and
+                granite's experts and router stack split over model):
+                the first step against a one-rank
                 step run first (the bf16 loss, and in fp32 weights the
-                loss, gradient norm, every leaf's norm and granite's aux,
-                its routing decisions that differ counted and gated as in
-                6f),
+                loss, gradient norm, every leaf's norm (gathered) and
+                granite's aux, its routing decisions that differ counted
+                and gated as in 6f),
                 the kernels' launches and each collective's calls and
-                bytes a step against the counts reckoned from the code,
-                the parameters the same bits on both ranks, peak memory
-                beside its reckoning and step ms a rank (gloo through the
-                host on one shared card, not a multi-card speed);
+                bytes a step (gather_params, reduce_scatter_grads and the
+                gradient sums among them) against the counts reckoned
+                from the code, the parameters (gathered) the same bits on
+                both ranks, peak memory beside its reckoning and step ms
+                a rank (gloo through the host on one shared card, not a
+                multi-card speed); then, on a 2 x 1 mesh of the same
+                ranks, ZeRO-3 data-parallel: llama3.2-1b at 8 layers, b2
+                (a row a rank) s 8192 u 4, the same checks against a
+                one-rank b2 step, and what a rank holds after init (the
+                shards' bytes to the byte, about half of one rank's) and
+                its peak within a band of the reckoned; and a checkpoint
+                (checkpoint/manager.py) of llama3.2-1b at 2 layers saved
+                on 2 x 1 after step 1, restored there (step 2 the same
+                bits), onto 1 x 2 and in this process onto one rank (the
+                saved bits; step 2 as the other bf16 steps on a mesh are
+                held), with its bytes and seconds;
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
@@ -1844,6 +1859,41 @@ DIST_MIXERS = (("rglru", "recurrentgemma-9b"), ("mamba", "falcon-mamba-7b"))
 DIST_MIXER_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16"])}
 
 
+# ZeRO-3 on DIST_RANKS x 1 (``launch/shardings.py``): llama3.2-1b at full
+# width and DIST_LLAMA_LAYERS layers (749 M parameters: 6.98 GiB of bf16
+# weights and fp32 moments on one rank, half that a rank), one b1 s 8192
+# row a data rank, u 4, remat full, FPDT offload on, ZERO_STEPS steps.  A
+# rank's peak must lie within ZERO_PEAK_BAND of its reckoning.
+ZERO_BATCH, ZERO_SEQ, ZERO_U, ZERO_STEPS = DIST_RANKS, 8192, 4, 2
+ZERO_PEAK_BAND = (0.8, 1.2)
+# adamw.apply's fp32 temporaries an element of the slice it updates
+# (``UPDATE_SLICE``): g, m1, v1, m-hat, v-hat, the step and the operands
+# of each, 36 bytes at their most (tools/adamw_temporaries.py counts them;
+# tests/test_torch_adamw.py holds this constant to that count)
+ADAMW_BYTES, ADAMW_SLICE = 36, 1 << 26
+# the caching allocator rounds a small tensor up to 512 bytes and hands a
+# large one its block unsplit where no more than 1 MiB would remain
+ALLOC_SLACK = 1 << 20
+# The checkpoint case: llama3.2-1b at full width and CKPT_LAYERS layers
+# (384 M parameters, 3.8 GB on disk), b CKPT_BATCH s CKPT_SEQ, saved on
+# DIST_RANKS x 1 and restored there, on 1 x DIST_RANKS and on one rank;
+# the bf16 step after a restore onto another mesh held as the other bf16
+# steps on a mesh are: its loss within CKPT_RTOL of the uninterrupted
+# one's (FPDT_GRAD_RTOL), its grad norm within DIST_BF16_NORM_RTOL.
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, DIST_RANKS, 8192
+CKPT_RTOL = 5e-4
+
+
+def _zero_cfg(M):
+    return dataclasses.replace(_dist_cfg(M, layers=DIST_LLAMA_LAYERS), fpdt_chunks=ZERO_U,
+                               mlp_chunks=2 * ZERO_U)
+
+
+def _ckpt_cfg(M):
+    return dataclasses.replace(_dist_cfg(M, layers=CKPT_LAYERS), fpdt_chunks=ZERO_U,
+                               mlp_chunks=2 * ZERO_U)
+
+
 def _dist_cfg(M, arch="llama3.2-1b", layers=None, **over):
     """``arch`` at full width (``layers`` of its layers, or all) for the
     distributed phase: u = DIST_U, mlp_chunks 2u, remat full, FPDT offload
@@ -1853,22 +1903,41 @@ def _dist_cfg(M, arch="llama3.2-1b", layers=None, **over):
                                mlp_chunks=2 * DIST_U, remat="full", fpdt_offload=True, **over)
 
 
-def _reckoned_peak_gib(M, cfg, sp, seq=None):
-    """A rank's peak device memory in a training step over ``seq`` tokens
-    (DIST_SEQ), reckoned from the shapes before the run: the training state
-    (bf16 weights and gradients, fp32 AdamW moments: 12 bytes a parameter),
-    every cycle's saved input (remat full), and the larger of the tail
-    layers' activations and one cycle's recompute, with per token and layer
-    the tensors a block keeps for its backward (counted from the code:
-    RG-LRU 4d + 48 di + 6 d_ff bytes, attention 4d + 6 hq dh + 6 d_ff, with
-    the MoE FFN 4d + 6 hq dh + 2d, Mamba 2d + 30 di), for an ssm layer the
-    selective scan's block in its backward (a, b, the states and their
-    gradients: six fp32 [rows, 256, di, ds], rows = u under sp > 1) and for
-    an MoE layer one chunk's backward (its routing's four int64 [T, k, e],
-    the [e, g, cap] slots at 4d + 8 d_ff bytes, the k gathered outputs,
-    twice for their gradients).  Not measured: an estimate to print beside
-    the reading."""
-    tokens = (seq or DIST_SEQ) // sp
+def _adamw_slice(shape) -> int:
+    """Elements of the largest slice ``adamw.apply`` updates at once of a
+    leaf of ``shape`` (its leading-axis slices of about UPDATE_SLICE)."""
+    n = math.prod(shape)
+    if not shape or n <= ADAMW_SLICE:
+        return n
+    row = n // shape[0]
+    return max(1, ADAMW_SLICE // row) * row
+
+
+def _reckoned_peak_gib(M, cfg, sp, seq=None, dp=1, batch=1):
+    """A rank's peak device memory in a training step over ``batch`` rows
+    of ``seq`` tokens (DIST_SEQ) on a dp x sp mesh, reckoned from the
+    shapes before the run: the training state (the rank's shards of the
+    weights, their gradients and the AdamW moments, ``launch/shardings.py``;
+    on one rank bf16 weights and gradients and fp32 moments, 12 bytes a
+    parameter) and the larger of two phases.  AdamW: ADAMW_BYTES a element
+    of the largest slice it updates at once.  The backward: every cycle's
+    saved input (remat full) and the largest of the tail layers'
+    activations, one cycle's recompute (under a mesh with its gathered
+    weights and their whole gradients) and the loss's (the head's gradient
+    and a chunk's next one, under a mesh with the gathered table); with per
+    token and layer the tensors a block keeps for its backward (counted
+    from the code: RG-LRU 4d + 48 di + 6 d_ff bytes, attention 4d + 6 hq dh
+    + 6 d_ff, with the MoE FFN 4d + 6 hq dh + 2d, Mamba 2d + 30 di), for an
+    ssm layer the selective scan's block in its backward (a, b, the states
+    and their gradients: six fp32 [rows, 256, di, ds], rows = u under sp >
+    1) and for an MoE layer one chunk's backward (its routing's four int64
+    [T, k, e], the [e, g, cap] slots at 4d + 8 d_ff bytes, the k gathered
+    outputs, twice for their gradients).  Not measured: an estimate to
+    print beside the reading (and, for the ZeRO-3 case, the band it is
+    held to)."""
+    import torch
+
+    tokens = batch * (seq or DIST_SEQ) // (sp * dp)
     d, di, ff = cfg.d_model, cfg.d_inner, cfg.d_ff
     attn = 4 * d + 6 * cfg.num_heads * cfg.head_dim
     per_token = {"rglru": 4 * d + 48 * di + 6 * ff, "local_attn": attn + 6 * ff,
@@ -1887,9 +1956,18 @@ def _reckoned_peak_gib(M, cfg, sp, seq=None):
                    for k in kinds)
 
     pat, n_cycles, tail = M.T.layout_of(cfg)
-    state = 12 * cfg.num_params()
-    inputs = n_cycles * tokens * d * 2
-    return (state + inputs + max(layers(pat), layers(tail))) / 2**30
+    plans = M.SH.param_plans(cfg, dp, sp)
+    leaves = M.TR.tree_leaves(plans)
+    state = M.SH.state_bytes(plans, getattr(torch, cfg.opt_state_dtype)) + sum(
+        p.local_bytes() for p in leaves)
+    adamw = ADAMW_BYTES * max(_adamw_slice(p.local_shape()) for p in leaves)
+    meshed = dp * sp > 1
+    table = cfg.padded_vocab * d * getattr(torch, cfg.param_dtype).itemsize
+    cycle = (2 * sum(math.prod(p.shape) * p.dtype.itemsize for p in
+                     M.TR.tree_leaves(plans["cycles"])) // n_cycles if meshed else 0)
+    backward = n_cycles * tokens * d * 2 + max(layers(pat) + cycle, layers(tail),
+                                               (3 if meshed else 2) * table)
+    return (state + max(adamw, backward)) / 2**30
 
 
 def _live_off_diagonal(M, cfg, seq, window):
@@ -1952,15 +2030,58 @@ def _mixer_collectives(cfg, kind, sp, b, passes, x_bytes):
             {"gather_spans": passes * sent, "reduce_scatter_spans": sp * sent})
 
 
-def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
+def _zero_collectives(M, cfg, dp, sp):
+    """(calls, bytes) of gather_params, reduce_scatter_grads and the
+    gradients' all_reduce_sum in one training step's value_and_grad and
+    reduce_grads on a rank of a dp x sp mesh under remat full, as
+    ``launch/shardings.py`` places the leaves: a gather sends the rank's
+    shard over data, then what it has over model; its adjoint sends the
+    whole gradient over model, then what is left over data.  A cycle's leaf
+    is gathered twice a cycle (the checkpoint's pass and its recompute: its
+    cycle's view, or the whole stack where its cycles axis is split) and
+    reduce-scattered once; the tied table twice (lookup and head), every
+    other leaf once.  Each leaf replicated on an axis with ranks is summed
+    once (over the world where it is split on neither)."""
+    _, n_cycles, _ = M.T.layout_of(cfg)
+    names = ("gather_params", "reduce_scatter_grads", "all_reduce_sum")
+    calls, nbytes = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    for path, plan in M.SH.by_path(M.SH.param_plans(cfg, dp, sp)).items():
+        full, local = math.prod(plan.shape) * plan.dtype.itemsize, plan.local_bytes()
+        uses, passes = 1, 1
+        if path.startswith("cycles/"):
+            uses, passes = n_cycles, 2
+            if not plan.splits_cycles:
+                full, local = full // n_cycles, local // n_cycles
+        elif path == "embed" and cfg.tie_embeddings:
+            uses = 2
+        if plan.data_split:
+            calls["gather_params"] += passes * uses
+            nbytes["gather_params"] += passes * uses * local
+            calls["reduce_scatter_grads"] += uses
+            nbytes["reduce_scatter_grads"] += uses * (full // sp if plan.model_split else full)
+        if plan.model_split:
+            calls["gather_params"] += passes * uses
+            nbytes["gather_params"] += passes * uses * local * (dp if plan.data_split else 1)
+            calls["reduce_scatter_grads"] += uses
+            nbytes["reduce_scatter_grads"] += uses * full
+        if (dp > 1 and not plan.data_split) or (sp > 1 and not plan.model_split):
+            calls["all_reduce_sum"] += 1
+            nbytes["all_reduce_sum"] += plan.local_bytes()
+    return calls, nbytes
+
+
+def _train_collectives(M, cfg, kind, dp, sp, b, seq):
     """(calls, bytes) of each collective a training step hands in on a rank
-    of a 1 x sp mesh under remat full: every attention or recurrent layer
-    of a cycle runs two forwards (the checkpoint's pass and its recompute),
-    a tail layer one; an MoE layer's forward gathers its counts once where
-    a group or a chunk spans ranks (``MOE.mesh_plan``: rows x e int32);
-    loss_fn sums (loss, count) over the world once (8 bytes; 12 with an
-    MoE model's aux); every gradient leaf is summed once; the loop sums its
-    stop flag once (4 bytes)."""
+    of a dp x sp mesh under remat full (``b`` rows of ``seq`` tokens a data
+    rank): every attention or recurrent layer of a cycle runs two forwards
+    (the checkpoint's pass and its recompute), a tail layer one; an MoE
+    layer's forward gathers its counts once where a group or a chunk spans
+    ranks (``MOE.mesh_plan``: rows x e int32); loss_fn sums (loss, count)
+    over the world once (8 bytes; 12 with an MoE model's aux); the ZeRO-3
+    gathers, reduce-scatters and gradient sums (``_zero_collectives``); the
+    global norm sums 8 bytes over data and 4 over model where the axis has
+    ranks; the loop sums its two stop flags once (8 bytes).  A data-only
+    mesh attends locally (``T.attn_kind``): no FPDT collective."""
     P = M.P
     pat, n_cycles, tail = M.T.layout_of(cfg)
     calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
@@ -1968,14 +2089,16 @@ def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
     moe_rows = 0
     if cfg.num_experts:
         n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
-        moe_rows = M.MOE.mesh_plan(cfg, seq, b, sp, 1, n, 0).rows
+        moe_rows = M.MOE.mesh_plan(cfg, seq, b * dp, sp, dp, n, 0).rows
     for k, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
         if k in ("attn", "local_attn") and moe_rows:
             calls["gather_counts"] += passes
             nbytes["gather_counts"] += passes * moe_rows * cfg.num_experts * 4
-        if k in ("attn", "local_attn"):
+        if k in ("attn", "local_attn") and kind != "local":
             c, n = _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes,
                                      cfg.window if k == "local_attn" else 0)
+        elif k in ("attn", "local_attn"):
+            continue
         elif sp > 1:
             c, n = _mixer_collectives(cfg, k, sp, b, passes, x_bytes)
         else:
@@ -1983,10 +2106,12 @@ def _train_collectives(M, cfg, kind, sp, b, seq, params_like):
         for name in c:
             calls[name] += c[name]
             nbytes[name] += n[name]
-    leaves = M.TR.tree_leaves(params_like)
-    calls["all_reduce_sum"] += len(leaves) + 2
-    nbytes["all_reduce_sum"] += (sum(t.numel() * t.element_size() for t in leaves)
-                                 + (12 if cfg.num_experts else 8) + 4)
+    c, n = _zero_collectives(M, cfg, dp, sp)
+    for name in c:
+        calls[name] += c[name]
+        nbytes[name] += n[name]
+    calls["all_reduce_sum"] += 2 + (dp > 1) + (sp > 1)
+    nbytes["all_reduce_sum"] += (12 if cfg.num_experts else 8) + 8 + 8 * (dp > 1) + 4 * (sp > 1)
     return calls, nbytes
 
 
@@ -2045,7 +2170,7 @@ def _dist_nccl_one_rank(torch, M, card):
             w, x, do = _attention_inputs(torch, M.L, M.F, cfg, dev, DIST_NCCL_SEQ, 5)
             want = _attention_run(torch, M.F, cfg, None, "local", w, x, do)
             M.P.reset_counts()
-            got = _attention_run(torch, M.F, cfg, par, M.T.attn_kind(cfg, par), w, x, do)
+            got = _attention_run(torch, M.F, cfg, par, "ulysses", w, x, do)
             torch.cuda.synchronize()
             counts = _collective_counts(M.P)
         finally:
@@ -2073,42 +2198,62 @@ def _dist_nccl_one_rank(torch, M, card):
     torch.cuda.empty_cache()
 
 
-def _grad_readings(torch, M, cfg, par, dev):
+def _gathered_norms(torch, M, cfg, par, tree):
+    """Each leaf's norm, under a mesh of the leaf gathered from this rank's
+    shard (one leaf at a time)."""
+    plans = M.SH.plans_of(cfg, par)
+    leaves = M.TR.tree_leaves(tree)
+    if plans is None:
+        return [float(g.float().norm()) for g in leaves]
+    out = []
+    with torch.no_grad():
+        for plan, g in zip(M.TR.tree_leaves(plans), leaves):
+            out.append(float(M.SH.gather(plan, g, par).float().norm()))
+    return out
+
+
+def _grad_readings(torch, M, cfg, par, dev, batch=1, seq=DIST_SEQ):
     """(loss, global gradient norm, each gradient leaf's norm, the index of
-    the embedding's leaf) of the first b1 DIST_SEQ batch from seed 0's
-    weights in ``cfg``'s dtype, on one rank (``par`` None) or this rank's
-    part of it with the gradients summed over the world, as the train step
-    sums them.  For an MoE model also aux, the expert leaves' indices and
-    each layer's routing decisions of this rank's tokens (``decisions``,
-    host tensors)."""
-    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
+    the embedding's leaf) of the first ``batch`` x ``seq`` batch from seed
+    0's weights in ``cfg``'s dtype, on one rank (``par`` None) or this
+    rank's part of it with this rank's ZeRO-3 shards, the gradients
+    reduced as the train step reduces them and each leaf gathered for its
+    norm.  For an MoE model also aux, the expert leaves' indices and each
+    layer's routing decisions of this rank's tokens (``decisions``, host
+    tensors)."""
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, par)
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", seq, batch, "train"))
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in M.DP.shard_batch(batch_fn(0), par, cfg.fpdt_chunks).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with _recording_moe_inputs(M, cfg.num_layers if cfg.num_experts else 0) as inputs:
         loss, metrics, grads = M.TL.value_and_grad(cfg, par, params, batch)
-    leaves = M.TR.tree_leaves(M.TL.reduce_grads(par, grads))
-    norms = [float(g.float().norm()) for g in leaves]
+    grads = M.TL.reduce_grads(cfg, par, grads)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    norms = _gathered_norms(torch, M, cfg, par, grads)
     out = {"loss": float(loss), "grad_norm": math.sqrt(sum(x * x for x in norms)),
-           "leaf_norms": norms,
-           "embed_leaf": next(i for i, g in enumerate(leaves) if g is grads["embed"])}
+           "leaf_norms": norms, "peak_gib": peak,
+           "embed_leaf": next(i for i, g in enumerate(M.TR.tree_leaves(grads))
+                              if g is grads["embed"])}
     if cfg.num_experts:
         out.update(aux=float(metrics["aux"]), expert_leaves=_expert_leaves(params),
                    decisions=_moe_decisions(M, cfg, inputs, par))
-    del params, grads, batch, leaves, inputs
+    del params, grads, batch, inputs
     torch.cuda.empty_cache()
     return out
 
 
-def _dist_train_reference(torch, M, card, cfg, bf16_grads=False):
+def _dist_train_reference(torch, M, card, cfg, bf16_grads=False, batch=1, seq=DIST_SEQ):
     """``cfg`` at the distributed phase's settings on one rank: one AdamW
     step in bf16 (loss, grad norm) and the gradients in fp32 weights
     (``_grad_readings``; also in bf16 weights with ``bf16_grads``), of the
-    first batch from seed 0's weights."""
+    first ``batch`` x ``seq`` batch from seed 0's weights."""
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", seq, batch, "train"))
     torch.cuda.reset_peak_memory_stats()
     _, _, hist = M.TRAIN.train_steps(cfg, params, M.TRAIN.opt_config(cfg, 3e-4, 1),
                                      M.TL.TrainConfig(steps=1, log_every=2), batch_fn, dev)
@@ -2116,31 +2261,50 @@ def _dist_train_reference(torch, M, card, cfg, bf16_grads=False):
     rec = hist[0]
     del params, hist
     torch.cuda.empty_cache()
-    fp32 = _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"), None, dev)
-    out = {"bf16": rec, "fp32": fp32}
+    fp32 = _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"), None, dev,
+                          batch, seq)
+    out = {"bf16": rec, "fp32": fp32, "peak_gib": peak}
     if bf16_grads:
-        out["bf16_grads"] = _grad_readings(torch, M, cfg, None, dev)
-    print(f"one-rank reference, {cfg.name} ({cfg.num_layers} layers) b1 s{DIST_SEQ} u={DIST_U} "
-          f"remat full offload on: bf16 step loss {rec['loss']:.6f} grad_norm "
-          f"{rec['grad_norm']:.6f}, {rec['dt'] * 1e3:.1f} ms, peak {peak:.2f} GiB; fp32 weights "
-          f"({cfg.num_layers} layers) loss {fp32['loss']:.6f} grad_norm {fp32['grad_norm']:.6f}; "
-          f"{time.perf_counter() - t0:.1f} s [{card}]")
+        out["bf16_grads"] = _grad_readings(torch, M, cfg, None, dev, batch, seq)
+    print(f"one-rank reference, {cfg.name} ({cfg.num_layers} layers) b{batch} s{seq} "
+          f"u={cfg.fpdt_chunks} remat full offload on: bf16 step loss {rec['loss']:.6f} "
+          f"grad_norm {rec['grad_norm']:.6f}, {rec['dt'] * 1e3:.1f} ms, peak {peak:.2f} GiB; "
+          f"fp32 weights ({cfg.num_layers} layers) loss {fp32['loss']:.6f} grad_norm "
+          f"{fp32['grad_norm']:.6f}; {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
 
-def _param_digest(torch, TR, params) -> str:
+def _param_digest(torch, M, cfg, par, tree) -> str:
+    """sha256 of every leaf's bytes, under a mesh of each leaf gathered
+    from this rank's shard (one at a time): ranks that hold the same
+    model read the same digest."""
     import hashlib
 
+    plans = M.SH.plans_of(cfg, par)
+    leaves = M.TR.tree_leaves(tree)
     h = hashlib.sha256()
-    for t in TR.tree_leaves(params):
-        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
+    with torch.no_grad():
+        for plan, t in zip(M.TR.tree_leaves(plans) if plans else [None] * len(leaves), leaves):
+            if plan is not None:
+                t = M.SH.gather(plan, t, par)
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy())
     return h.hexdigest()
+
+
+def _state_digest(torch, M, cfg, par, state) -> str:
+    """``_param_digest`` of the parameters and the AdamW state (step, m, v)."""
+    opt = state["opt"]
+    return "/".join([_param_digest(torch, M, cfg, par, state["params"]),
+                     _param_digest(torch, M, cfg, None, [opt.step]),
+                     _param_digest(torch, M, cfg, par, opt.m),
+                     _param_digest(torch, M, cfg, par, opt.v)])
 
 
 def _dist_rank(rank, world, tmp, spawned_at):
     """One gloo rank of the distributed phase, on the one card: the
     attention-only parity, the recurrent mixers alone, llama3.2-1b's
-    1 x world training, then each DIST_RECURRENT and DIST_MOE arch's.
+    1 x world training, then each DIST_RECURRENT and DIST_MOE arch's, then
+    llama3.2-1b's ZeRO-3 training on world x 1 and the checkpoint case.
     Writes its readings to ``tmp/rank<r>.json``, with each part's seconds
     (its start-up from ``spawned_at``, a ``time.time()``, included) and
     the time its work ended; each part's end also goes to stderr.  On
@@ -2171,6 +2335,7 @@ def _dist_rank(rank, world, tmp, spawned_at):
         dev = M.MESH.rank_device("cuda", rank)
         torch.cuda.set_device(dev)
         par = M.P.ParallelContext(M.MESH.make_mesh(1, world))
+        zpar = M.P.ParallelContext(M.MESH.make_mesh(world, 1))  # the same world, data-parallel
         out = {"attention": timed("attention", _dist_attention, torch, M, par, dev),
                "mixers": timed("mixers", _dist_mixers, torch, M, par, dev), "train": {}}
         for kind, steps in DIST_STEPS:
@@ -2185,6 +2350,10 @@ def _dist_rank(rank, world, tmp, spawned_at):
             decisions = out["train"][label]["fp32"].pop("decisions", None)
             if decisions is not None:  # this rank's routing, for the parent to compare
                 torch.save(decisions, Path(tmp, f"routing-{arch}-rank{rank}.pt"))
+        label = "llama3.2-1b zero3"
+        out["train"][label] = timed(label, _dist_train_case, torch, M, zpar, dev, _zero_cfg(M),
+                                    ZERO_STEPS, True, ZERO_BATCH, ZERO_SEQ)
+        out["ckpt"] = timed("checkpoint", _dist_ckpt, torch, M, zpar, par, dev, tmp)
         out["seconds"] = seconds
     finally:
         dist.destroy_process_group()
@@ -2193,13 +2362,14 @@ def _dist_rank(rank, world, tmp, spawned_at):
     os.replace(Path(tmp, f"rank{rank}.part"), Path(tmp, f"rank{rank}.json"))
 
 
-def _dist_train_case(torch, M, par, dev, cfg, steps, bf16_grads):
-    """A 1 x world training case on this rank: the first batch's gradients
+def _dist_train_case(torch, M, par, dev, cfg, steps, bf16_grads, batch=1, seq=DIST_SEQ):
+    """A training case on this rank's mesh: the first batch's gradients
     in fp32 weights (and in bf16 with ``bf16_grads``), then the steps."""
     return {"fp32": _grad_readings(torch, M, dataclasses.replace(cfg, param_dtype="float32"),
-                                   par, dev),
-            **({"bf16_grads": _grad_readings(torch, M, cfg, par, dev)} if bf16_grads else {}),
-            **_dist_train(torch, M, par, dev, cfg, steps)}
+                                   par, dev, batch, seq),
+            **({"bf16_grads": _grad_readings(torch, M, cfg, par, dev, batch, seq)}
+               if bf16_grads else {}),
+            **_dist_train(torch, M, par, dev, cfg, steps, batch, seq)}
 
 
 def _dist_mixers(torch, M, par, dev):
@@ -2334,19 +2504,39 @@ def _host_bytes(M, cfg, kind, par, x_bytes):
             "gathered_peak_held": u * (q + 2 * read), "gathered_to_device": pairs * (q + 2 * read)}
 
 
-def _dist_train(torch, M, par, dev, cfg, steps):
-    """``cfg`` on this rank's half of each b1 DIST_SEQ batch: ``steps``
-    AdamW steps from seed 0's weights through train_steps, the kernels'
-    launches and the collectives read around each step; peak memory beside
-    its reckoning; a digest of the parameters after the steps from every
-    rank."""
+def _dist_train(torch, M, par, dev, cfg, steps, batch=1, seq=DIST_SEQ):
+    """``cfg`` on this rank's part of each ``batch`` x ``seq`` batch:
+    what the rank holds after init_params and adamw.init (the tensors'
+    bytes, the allocator's, and the reckoning of the ZeRO-3 shards), then
+    ``steps`` AdamW steps from seed 0's weights through train_steps, the
+    kernels' launches and the collectives read around each step; peak
+    memory beside its reckoning; a digest of the parameters after the
+    steps (gathered) from every rank."""
     import torch.distributed as dist
 
     kind = M.T.attn_kind(cfg, par)
-    reckoned = _reckoned_peak_gib(M, cfg, par.sp)
-    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", DIST_SEQ, 1, "train"))
-    c, nb = _train_collectives(M, cfg, kind, par.sp, 1, DIST_SEQ, params)
+    reckoned = _reckoned_peak_gib(M, cfg, par.sp, seq, par.dp, batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, par)
+    oc = M.TRAIN.opt_config(cfg, 3e-4, steps)
+    opt_state = M.TL.adamw.init(oc, params)
+    torch.cuda.synchronize()
+    held = [*M.TR.tree_leaves(params), opt_state.step, *M.TR.tree_leaves(opt_state.m),
+            *M.TR.tree_leaves(opt_state.v)]
+    state = {"tensor_bytes": sum(t.numel() * t.element_size() for t in held),
+             "allocated_bytes": torch.cuda.memory_allocated() - before,
+             "reckoned_bytes": M.SH.state_bytes(M.SH.param_plans(cfg, par.dp, par.sp),
+                                                getattr(torch, cfg.opt_state_dtype)),
+             "one_rank_bytes": M.SH.state_bytes(M.SH.param_plans(cfg, 1, 1),
+                                                getattr(torch, cfg.opt_state_dtype)),
+             "leaves": len(held),
+             "init_peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30}
+    del held
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", seq, batch, "train"))
+    c, nb = _train_collectives(M, cfg, kind, par.dp, par.sp, batch // par.dp, seq)
     records = []
 
     def on_step(rec):
@@ -2361,18 +2551,191 @@ def _dist_train(torch, M, par, dev, cfg, steps):
     _reset_counts(M.K, M.SK)
     M.P.reset_counts()
     params, opt_state, _ = M.TRAIN.train_steps(
-        cfg, params, M.TRAIN.opt_config(cfg, 3e-4, steps),
-        M.TL.TrainConfig(steps=steps, log_every=steps + 1), batch_fn, dev, par=par,
-        on_step=on_step)
+        cfg, params, oc, M.TL.TrainConfig(steps=steps, log_every=steps + 1), batch_fn, dev,
+        par=par, opt_state=opt_state, on_step=on_step)
     peak = torch.cuda.max_memory_allocated() / 2**30
     digests = [None] * dist.get_world_size()
-    dist.all_gather_object(digests, _param_digest(torch, M.TR, params))
+    dist.all_gather_object(digests, _param_digest(torch, M, cfg, par, params))
     del params, opt_state
     torch.cuda.empty_cache()
     return {"records": records, "peak_gib": peak, "reckoned_peak_gib": reckoned,
-            "digests": digests, "layers": cfg.num_layers, "steps": steps,
-            "want_launches": _launches_per_step(cfg, M.F, M.T, M.MB, DIST_SEQ, par.sp),
+            "digests": digests, "layers": cfg.num_layers, "steps": steps, "state": state,
+            "mesh": f"{par.dp}x{par.sp}", "batch": batch, "seq": seq,
+            "want_launches": _launches_per_step(cfg, M.F, M.T, M.MB, seq, par.sp),
             "want_collectives": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES}}
+
+
+def _ckpt_steps(torch, M, cfg, par, dev, state, first, last, oc):
+    """AdamW steps ``first`` + 1 .. ``last`` of the checkpoint case on
+    ``par``'s mesh (one rank: None) over its CKPT_BATCH x CKPT_SEQ
+    batches: (state, [(loss, grad norm)])."""
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("ckpt", CKPT_SEQ, CKPT_BATCH,
+                                                             "train"))
+    step = M.TL.make_train_step(cfg, par, oc, M.TL.TrainConfig())
+    p, st, out = state["params"], state["opt"], []
+    for s in range(first, last):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in M.DP.shard_batch(batch_fn(s), par, cfg.fpdt_chunks).items()}
+        p, st, m = step(p, st, b)
+        out.append([float(m["loss"]), float(m["grad_norm"])])
+    torch.cuda.synchronize()
+    return {"params": p, "opt": st}, out
+
+
+def _ckpt_fresh(torch, M, cfg, par, dev, oc):
+    p = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, par)
+    return {"params": p, "opt": M.TL.adamw.init(oc, p)}
+
+
+def _dist_ckpt(torch, M, zpar, par, dev, tmp):
+    """llama3.2-1b at full width and CKPT_LAYERS layers on the data x 1
+    mesh ``zpar``: step 1, a checkpoint of it (async, then joined), step
+    2; step 1 restored on the same mesh (the rank's shards the saved bits)
+    and step 2 again (the same loss and the same shards as the run that
+    went on); restored onto the 1 x world mesh ``par`` and step 2 there.
+    Each rank's digests are of its own shards; the parent restores the
+    checkpoint (left in ``tmp/ckpt``) whole on one rank and holds every
+    rank's shards of both meshes to it (``_ckpt_one_rank``).  Returns the
+    readings (bytes written, seconds to save, write and restore)."""
+    import torch.distributed as dist
+
+    cfg = _ckpt_cfg(M)
+    oc = M.TRAIN.opt_config(cfg, 3e-4, 2)
+    state, first = _ckpt_steps(torch, M, cfg, zpar, dev, _ckpt_fresh(torch, M, cfg, zpar, dev,
+                                                                     oc), 0, 1, oc)
+    saved = _state_digest(torch, M, cfg, None, state)
+    mgr = M.CKPT.CheckpointManager(str(Path(tmp, "ckpt")), cfg=cfg, par=zpar)
+    t0 = time.perf_counter()
+    mgr.save(1, state, extra={"data_step": 1})
+    t_save = time.perf_counter() - t0
+    mgr.wait()
+    t_write = time.perf_counter() - t0
+    state, went_on = _ckpt_steps(torch, M, cfg, zpar, dev, state, 1, 2, oc)
+    uninterrupted = _state_digest(torch, M, cfg, None, state)
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back, extra = mgr.restore(1, _ckpt_fresh(torch, M, cfg, zpar, dev, oc))
+    dist.barrier()
+    t_restore = time.perf_counter() - t0
+    restored = _state_digest(torch, M, cfg, None, back)
+    back, again = _ckpt_steps(torch, M, cfg, zpar, dev, back, 1, 2, oc)
+    resumed = _state_digest(torch, M, cfg, None, back)
+    del back
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    other, _ = M.CKPT.CheckpointManager(str(Path(tmp, "ckpt")), cfg=cfg, par=par).restore(
+        1, _ckpt_fresh(torch, M, cfg, par, dev, oc))
+    dist.barrier()
+    t_other = time.perf_counter() - t0
+    on_other = _state_digest(torch, M, cfg, None, other)
+    other, other_step = _ckpt_steps(torch, M, cfg, par, dev, other, 1, 2, oc)
+    del other
+    torch.cuda.empty_cache()
+    files = Path(tmp, "ckpt", "step_1")
+    return {"first": first, "went_on": went_on, "again": again, "other_step": other_step,
+            "saved": saved, "restored": restored, "uninterrupted": uninterrupted,
+            "resumed": resumed, "on_other": on_other, "extra": extra,
+            "bytes": sum(f.stat().st_size for f in files.iterdir()),
+            "files": len(list(files.iterdir())), "params": cfg.num_params(),
+            "save_s": t_save, "write_s": t_write, "restore_s": t_restore,
+            "restore_other_s": t_other}
+
+
+def _check_zero_state(r, case, t, card):
+    """What rank ``r`` held after init_params and adamw.init: the tensors'
+    bytes the ZeRO-3 reckoning to the byte, the allocator's no less and at
+    most ALLOC_SLACK a tensor more, about half of one rank's; its peak in
+    the step within ZERO_PEAK_BAND of the reckoned."""
+    st = t["state"]
+    lo, hi = (f * t["reckoned_peak_gib"] for f in ZERO_PEAK_BAND)
+    print(f"  rank {r} {case} {t['mesh']}: after init_params and adamw.init the rank holds "
+          f"{st['tensor_bytes']} bytes in {st['leaves']} tensors (allocator "
+          f"{st['allocated_bytes']}; reckoned from the shards {st['reckoned_bytes']}; one rank "
+          f"{st['one_rank_bytes']}: {st['tensor_bytes'] / st['one_rank_bytes']:.4f} of it), "
+          f"{st['tensor_bytes'] / 2**30:.3f} GiB; init peak {st['init_peak_gib']:.3f} GiB; step "
+          f"peak {t['peak_gib']:.2f} GiB (reckoned {t['reckoned_peak_gib']:.2f}, band "
+          f"{lo:.2f}-{hi:.2f}; the first batch's forward and backward alone "
+          f"{t['bf16_grads']['peak_gib']:.2f}) [{card}]")
+    if st["tensor_bytes"] != st["reckoned_bytes"]:
+        raise AssertionError(f"rank {r} {case}: holds {st['tensor_bytes']} bytes, the shards "
+                             f"reckon {st['reckoned_bytes']}")
+    if not st["reckoned_bytes"] <= st["allocated_bytes"] <= (st["reckoned_bytes"]
+                                                            + ALLOC_SLACK * st["leaves"]):
+        raise AssertionError(f"rank {r} {case}: the allocator holds {st['allocated_bytes']} "
+                             f"bytes for {st['reckoned_bytes']} of state")
+    if st["tensor_bytes"] > 0.51 * st["one_rank_bytes"]:
+        raise AssertionError(f"rank {r} {case}: more than half of one rank's state")
+    if not lo <= t["peak_gib"] <= hi:
+        raise AssertionError(f"rank {r} {case}: peak {t['peak_gib']:.2f} GiB outside "
+                             f"{lo:.2f}-{hi:.2f}")
+
+
+def _ckpt_one_rank(torch, M, card, tmp):
+    """The ranks' DIST_RANKS x 1 checkpoint restored onto one rank on the
+    card: the digests of each rank's shards of it on DIST_RANKS x 1 and on
+    1 x DIST_RANKS (``_state_digest`` of ``SH.shard_params``), and the
+    step after it."""
+    dev = torch.device("cuda")
+    cfg = _ckpt_cfg(M)
+    oc = M.TRAIN.opt_config(cfg, 3e-4, 2)
+    t0 = time.perf_counter()
+    state, extra = M.CKPT.CheckpointManager(str(Path(tmp, "ckpt"))).restore(
+        1, _ckpt_fresh(torch, M, cfg, None, dev, oc))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    digests = {}
+    for shape in ((DIST_RANKS, 1), (1, DIST_RANKS)):
+        for r in range(DIST_RANKS):
+            par = M.P.ParallelContext(M.MESH.Mesh(*shape, r, "none", None, None))
+            mine = {"params": M.SH.shard_params(cfg, par, state["params"]),
+                    "opt": state["opt"]._replace(m=M.SH.shard_params(cfg, par, state["opt"].m),
+                                                 v=M.SH.shard_params(cfg, par, state["opt"].v))}
+            digests[f"{shape[0]}x{shape[1]} rank {r}"] = _state_digest(torch, M, cfg, None, mine)
+            del mine
+    state, step = _ckpt_steps(torch, M, cfg, None, dev, state, 1, 2, oc)
+    del state
+    torch.cuda.empty_cache()
+    return {"digests": digests, "step": step, "extra": extra, "restore_s": seconds}
+
+
+def _check_ckpt(ranks, one, card):
+    """The checkpoint case: a restore on the saving mesh gives the saved
+    shards and step 2's bits; onto 1 x DIST_RANKS and onto one rank the
+    saved bits (each rank's shards of both meshes against the one-rank
+    restore's), and step 2 held as the other bf16 steps on a mesh are."""
+    for r, got in enumerate(ranks):
+        c = got["ckpt"]
+        want = c["went_on"][0]
+        here = one["digests"][f"{DIST_RANKS}x1 rank {r}"]
+        there = one["digests"][f"1x{DIST_RANKS} rank {r}"]
+        rel = {f"{where} {k}": abs(a - b) / abs(b) for where, step in
+               (("1x", c["other_step"][0]), ("one", one["step"][0]))
+               for k, a, b in zip(("loss", "grad_norm"), step, want)}
+        print(f"  rank {r} checkpoint, llama3.2-1b ({CKPT_LAYERS} layers, {c['params']} "
+              f"parameters) b{CKPT_BATCH} s{CKPT_SEQ}: step 1 (loss, grad_norm) {c['first'][0]}, "
+              f"saved on {DIST_RANKS}x1: {c['bytes']} bytes in {c['files']} files, save returned "
+              f"in {c['save_s']:.2f} s, written in {c['write_s']:.2f} s; restored there in "
+              f"{c['restore_s']:.2f} s (the rank's shards as saved: "
+              f"{c['restored'] == c['saved']}), step 2 {c['again'][0]} vs uninterrupted {want} "
+              f"(the same shards after it: {c['resumed'] == c['uninterrupted']}); onto "
+              f"1x{DIST_RANKS} in {c['restore_other_s']:.2f} s and onto one rank in "
+              f"{one['restore_s']:.2f} s (one rank's restore cut for this rank: as saved "
+              f"{here == c['saved']}, as its 1x{DIST_RANKS} restore {there == c['on_other']}); "
+              f"step 2 there vs uninterrupted, rel: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f" (loss limit {CKPT_RTOL}, bf16 grad_norm limit {DIST_BF16_NORM_RTOL}) [{card}]")
+        if c["extra"] != {"data_step": 1} or one["extra"] != {"data_step": 1}:
+            raise AssertionError(f"rank {r} checkpoint: extra {c['extra']} / {one['extra']}")
+        if not (c["restored"] == c["saved"] == here and there == c["on_other"]):
+            raise AssertionError(f"rank {r} checkpoint: a restore is not the saved bits")
+        if c["again"] != c["went_on"] or c["resumed"] != c["uninterrupted"]:
+            raise AssertionError(f"rank {r} checkpoint: the resumed step 2 differs from the "
+                                 "uninterrupted one")
+        if (max(v for k, v in rel.items() if k.endswith("loss")) > CKPT_RTOL
+                or max(rel.values()) > DIST_BF16_NORM_RTOL):
+            raise AssertionError(f"rank {r} checkpoint: step 2 after a restore onto another "
+                                 f"mesh moves {rel}")
 
 
 def _dump_stacks(procs):
@@ -2436,8 +2799,10 @@ def phase_dist(torch, M, card):
     host memory itself): the attention-only parity of DIST_ATTN (with the
     host bytes of the own-slice KV store and offload off bit for bit), the
     mixers alone, llama3.2-1b's 1 x DIST_RANKS training and the
-    DIST_RECURRENT archs', each first step against its one-rank reference.
-    Returns each kernel's launches on rank 0 by training path."""
+    DIST_RECURRENT archs', each first step against its one-rank reference,
+    then llama3.2-1b's ZeRO-3 training on DIST_RANKS x 1 and the checkpoint
+    case (restored onto one rank in this process).  Returns each kernel's
+    launches on rank 0 by training path."""
     import multiprocessing
     import tempfile
 
@@ -2448,6 +2813,9 @@ def phase_dist(torch, M, card):
                                                  bf16_grads=True)}
     for arch, layers, _ in DIST_RECURRENT + DIST_MOE:
         refs[arch] = _dist_train_reference(torch, M, card, _dist_cfg(M, arch, layers))
+    refs["llama3.2-1b zero3"] = _dist_train_reference(torch, M, card, _zero_cfg(M),
+                                                      bf16_grads=True, batch=ZERO_BATCH,
+                                                      seq=ZERO_SEQ)
     torch.cuda.empty_cache()  # the ranks share the card: this process keeps nothing cached
     print(f"one-rank references: {time.perf_counter() - t0:.1f} s; this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card's memory")
@@ -2464,6 +2832,7 @@ def phase_dist(torch, M, card):
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
         routing = {arch: [torch.load(Path(tmp, f"routing-{arch}-rank{r}.pt"))
                           for r in range(DIST_RANKS)] for arch, _, _ in DIST_MOE}
+        one_rank_ckpt = _ckpt_one_rank(torch, M, card, tmp)
     print(f"gloo, {DIST_RANKS} ranks sharing the card: the port hands gloo the CUDA tensors "
           f"(no explicit staging); gloo stages them through host memory; the ranks took "
           f"{time.perf_counter() - t0:.1f} s, rank 0's parts (s): "
@@ -2524,8 +2893,11 @@ def phase_dist(torch, M, card):
         for r, got in enumerate(ranks):
             t = got["train"][case]
             recs = t["records"]
+            if "zero3" in case:
+                _check_zero_state(r, case, t, card)
             for rec in recs:
-                print(f"  rank {r} train {case} 1x{DIST_RANKS} ({t['layers']} layers) step "
+                print(f"  rank {r} train {case} {t['mesh']} b{t['batch']} s{t['seq']} "
+                      f"({t['layers']} layers) step "
                       f"{rec['step']}: loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
                       f"{rec['dt'] * 1e3:.1f} ms (gloo through the host on one shared card, "
                       f"not a multi-card speed); launches {rec['launches']}; collectives "
@@ -2539,9 +2911,10 @@ def phase_dist(torch, M, card):
                     raise AssertionError(f"rank {r} {case} step {rec['step']}: collectives "
                                          f"{rec['collectives']}, reckoned "
                                          f"{t['want_collectives']}")
-            first, ref16 = recs[0], refs[arch]["bf16"]
+            ref = refs[case] if case in refs else refs[arch]
+            first, ref16 = recs[0], ref["bf16"]
             rel16 = {k: abs(first[k] - ref16[k]) / abs(ref16[k]) for k in ("loss", "grad_norm")}
-            f32, ref32 = t["fp32"], refs[arch]["fp32"]
+            f32, ref32 = t["fp32"], ref["fp32"]
             rel32 = {k: abs(f32[k] - ref32[k]) / abs(ref32[k])
                      for k in ("loss", "grad_norm", "aux") if k in ref32}
             leaf_rels = [abs(a - b) / b for a, b in zip(f32["leaf_norms"], ref32["leaf_norms"])]
@@ -2570,7 +2943,7 @@ def phase_dist(torch, M, card):
             if max(*rel32.values(), leaf32, rel16["loss"]) > FPDT_GRAD_RTOL:
                 raise AssertionError(f"rank {r} {case}: first step differs from one rank")
             if "bf16_grads" in t:
-                b16, rb16 = t["bf16_grads"], refs[arch]["bf16_grads"]
+                b16, rb16 = t["bf16_grads"], ref["bf16_grads"]
                 leaf16 = [abs(a - b) / b for a, b in zip(b16["leaf_norms"], rb16["leaf_norms"])]
                 emb = rb16["embed_leaf"]
                 norm16 = abs(b16["grad_norm"] - rb16["grad_norm"]) / rb16["grad_norm"]
@@ -2587,9 +2960,10 @@ def phase_dist(torch, M, card):
             if len(set(t["digests"])) != 1:
                 raise AssertionError(f"{case}: the ranks' parameters differ after the steps")
         t0 = ranks[0]["train"][case]
-        kind = case[len(arch):]  # " ulysses", " cp", or nothing
-        totals[f"train {arch} 1x{DIST_RANKS}{kind} (per rank)"] = {
+        kind = case[len(arch):]  # " ulysses", " cp", " zero3", or nothing
+        totals[f"train {arch} {t0['mesh']}{kind} (per rank)"] = {
             k: sum(rec["launches"][k] for rec in t0["records"]) for k in t0["want_launches"]}
+    _check_ckpt(ranks, one_rank_ckpt, card)
     return totals
 
 
@@ -2916,7 +3290,9 @@ def _modules():
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.linear_scan import kernel as SK
     from repro_torch.launch import mesh as MESH
+    from repro_torch.checkpoint import manager as CKPT
     from repro_torch.launch import serve as CLI
+    from repro_torch.launch import shardings as SH
     from repro_torch.launch import train as TRAIN
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as MB
@@ -2929,7 +3305,7 @@ def _modules():
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
-                                 MESH=MESH, MOE=MOE)
+                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT)
 
 
 def main():

@@ -35,6 +35,14 @@ outside autograd:
 
   gather_counts       [rows, e] int32 -> [world, rows, e]      (all_gather_into_tensor)
 
+and, for ZeRO-3 (``launch/shardings.py``), one collective that autograd
+differentiates:
+
+  gather_params       a weight's shard -> the whole weight, along its split
+                      dimension over each group it is split on (all_gather_into_tensor)
+  reduce_scatter_grads  its adjoint, in the backward: this rank's block of
+                      the gradient summed over those groups (reduce_scatter_tensor)
+
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``
 (``chip_smoke.py`` reads them as it reads the kernels' launches).  Every
@@ -53,7 +61,8 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
-               "all_reduce_sum", "gather_spans", "reduce_scatter_spans", "gather_counts")
+               "all_reduce_sum", "gather_spans", "reduce_scatter_spans", "gather_counts",
+               "gather_params", "reduce_scatter_grads")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -225,3 +234,61 @@ def gather_counts(x: torch.Tensor, group=None) -> torch.Tensor:
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, x, group=group)
     return out.view(n, *x.shape)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim``, in rank
+    order (counted as gather_params)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # concatenated along dim 0
+    _count("gather_params", x)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    if dim == 0:
+        return out
+    return out.view(n, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of this rank's block of ``g`` along ``dim``
+    (counted as reduce_scatter_grads)."""
+    n = dist.get_world_size(group)
+    size = g.shape[dim] // n
+    send = g.unflatten(dim, (n, size)).movedim(dim, 0).contiguous()
+    out = g.new_empty(send.shape[1:])
+    _count("reduce_scatter_grads", send)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, send.view(n * send.shape[1], *send.shape[2:]),
+                                   op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _GatherParams(torch.autograd.Function):
+    """All-gathers of a weight's shard along its split dimensions, in
+    ``steps`` order; the adjoint reduce-scatters in the reverse order.  It
+    saves nothing: the backward needs only the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, steps):
+        ctx.steps = steps
+        for dim, group in steps:
+            x = _gather_dim(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, group in reversed(ctx.steps):
+            g = _reduce_scatter_dim(g, dim, group)
+        return g, None
+
+
+def gather_params(x: torch.Tensor, steps) -> torch.Tensor:
+    """The whole weight from this rank's shard ``x``: an all-gather along
+    ``dim`` over ``group`` for each (dim, group) of ``steps`` (one call
+    each).  Differentiable: the backward hands this rank the sum over the
+    groups of its block of the gradient (``reduce_scatter_grads``, one call
+    a step, the last step's first)."""
+    return _GatherParams.apply(x, tuple(steps))

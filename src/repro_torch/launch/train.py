@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 3 --batch 1 --seq 8192 --chunks 4 --offload [--remat full] \\
-      [--reduced] [--device cuda|cpu] [--mesh none|host8|DxM] [--dist-backend nccl|gloo]
+      [--reduced] [--device cuda|cpu] [--mesh none|host8|DxM] [--dist-backend nccl|gloo] \\
+      [--ckpt-dir DIR [--ckpt-every 50] [--resume auto|N]]
 
 The JAX package's flags, plus ``--device`` and ``--dist-backend``.  Weights
 are random from ``--seed``; batches come from the port's copy of the data
@@ -17,14 +18,21 @@ until the backward recomputes the cycle (the paper's "OC."), as
 D*M ranks, sequence-parallel over M (FPDT's Ulysses or CP kind,
 ``models/transformer.py::attn_kind``; the recurrent mixers' two-pass scans
 over the ranks' spans, ``models/mamba.py``) and data-parallel over D, with
-the gradients summed over the world each step; rank 0 prints the layout.
+every weight and its AdamW moments sharded over the mesh as the JAX
+package places them (ZeRO-3, ``launch/shardings.py``: gathered at use,
+gradients reduce-scattered); rank 0 prints the layout.
 Without ``WORLD_SIZE`` in the environment the CLI spawns the ranks itself
 (``torch.multiprocessing``, a ``file://`` store in a temporary directory);
 under ``torchrun`` it joins the world it finds.  Rank r runs on cuda:(LOCAL_RANK % cards), or the CPU.
 ``--dist-backend`` is nccl on the card and gloo on the CPU unless given:
 NCCL needs one card a rank, gloo can share one.  Only rank 0 prints.
-Checkpointing (``--ckpt-dir/--ckpt-every/--resume``), ``--compress-grads``
-and telemetry (``--trace-out/--metrics-out``) are not yet ported.
+
+``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and at the end, and
+after SIGTERM/SIGINT (``checkpoint/manager.py``, the JAX package's layout
+on disk); ``--resume auto`` (the newest step) or ``--resume N`` restores
+before training, onto the mesh this run has, whatever mesh wrote it.
+``--compress-grads`` and telemetry (``--trace-out/--metrics-out``) are not
+yet ported.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ModelConfig, ShapeConfig, get_config, reduced
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.data.pipeline import CheckpointableIterator, make_batch_fn, shard_batch
@@ -58,30 +67,30 @@ def opt_config(cfg: ModelConfig, lr: float, steps: int) -> adamw.OptConfig:
 
 def train_steps(cfg: ModelConfig, params, oc: adamw.OptConfig, tc: TrainConfig,
                 batch_fn: Callable, device, *, par: Optional[ParallelContext] = None,
-                opt_state=None, on_step: Optional[Callable[[dict], None]] = None):
-    """Take ``tc.steps`` AdamW steps from ``params`` (updated in place) over
-    ``batch_fn``'s batches 0, 1, ... (under a mesh, each rank's part of
-    them).  Returns (params, opt_state, history); each history record holds
-    the step's loss, grad norm and host-clock seconds around work that ends
-    in a device synchronise."""
+                opt_state=None, on_step: Optional[Callable[[dict], None]] = None,
+                ckpt: Optional[CheckpointManager] = None, start_step: int = 0):
+    """Take AdamW steps ``start_step`` + 1 .. ``tc.steps`` from ``params``
+    (updated in place; under a mesh this rank's shards, ``init_params(...,
+    par)``) over ``batch_fn``'s batches ``start_step``, ... (under a mesh,
+    each rank's part of them), checkpointing through ``ckpt``.  Returns
+    (params, opt_state, history); each history record holds the step's
+    loss, grad norm and host-clock seconds around work that ends in a
+    device synchronise."""
     device = torch.device(device)
     if opt_state is None:
         opt_state = adamw.init(oc, params)
     loop = TrainLoop(cfg, par, oc, tc, make_train_step(cfg, par, oc, tc),
-                     CheckpointableIterator(batch_fn), on_step=on_step)
+                     CheckpointableIterator(batch_fn), ckpt, on_step=on_step)
 
     def put(b):
         return {k: torch.from_numpy(v).to(device)
                 for k, v in shard_batch(b, par, cfg.fpdt_chunks).items()}
 
-    params, opt_state, _ = loop.run(params, opt_state, put_batch=put)
+    params, opt_state, _ = loop.run(params, opt_state, start_step, put_batch=put)
     return params, opt_state, loop.history
 
 
 NOT_PORTED = {
-    "ckpt_dir": "--ckpt-dir: checkpointing",
-    "ckpt_every": "--ckpt-every: checkpointing",
-    "resume": "--resume: checkpointing",
     "compress_grads": "--compress-grads: gradient compression",
     "trace_out": "--trace-out: train telemetry",
     "metrics_out": "--metrics-out: train telemetry",
@@ -110,10 +119,10 @@ def main(argv=None):
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="the ranks' backend under --mesh (default nccl on the card, gloo on "
                          "the CPU)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default=None, help="'auto' or a step number")
     # the JAX trainer's flags that are not yet ported: refused below
-    ap.add_argument("--ckpt-dir", default=None, help="not yet ported")
-    ap.add_argument("--ckpt-every", type=int, default=None, help="not yet ported")
-    ap.add_argument("--resume", default=None, help="not yet ported")
     ap.add_argument("--compress-grads", action="store_true", help="not yet ported")
     ap.add_argument("--trace-out", default=None, help="not yet ported")
     ap.add_argument("--metrics-out", default=None, help="not yet ported")
@@ -121,8 +130,10 @@ def main(argv=None):
     for name, what in NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             ap.exit(2, f"{what} is not yet ported\n")
-    if min(args.steps, args.batch, args.seq, args.grad_accum) < 1:
-        ap.error("--steps, --batch, --seq and --grad-accum must be >= 1")
+    if min(args.steps, args.batch, args.seq, args.grad_accum, args.ckpt_every) < 1:
+        ap.error("--steps, --batch, --seq, --grad-accum and --ckpt-every must be >= 1")
+    if args.resume not in (None, "auto") and not args.resume.isdigit():
+        ap.error(f"--resume takes auto or a step number, not {args.resume!r}")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.exit(1, "no CUDA device is available; pass --device cpu to run on the CPU\n")
     if args.mesh in (None, "none"):
@@ -230,11 +241,24 @@ def _train(args, par: Optional[ParallelContext], device: torch.device):
                   f"{T.attn_kind(cfg, par) if T.has_attention(cfg) else 'none'}, on {name}; "
                   f"{_layout(cfg, par, args.seq)}", flush=True)
 
-    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device,
+                           par)
     oc = opt_config(cfg, args.lr, args.steps)
-    tc = TrainConfig(steps=args.steps, log_every=args.log_every, grad_accum=args.grad_accum)
+    opt_state = adamw.init(oc, params)
+    tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every, log_every=args.log_every,
+                     grad_accum=args.grad_accum)
     bf = make_batch_fn(cfg, ShapeConfig("cli", args.seq, args.batch, "train"))
-    _, _, history = train_steps(cfg, params, oc, tc, bf, device, par=par)
+    mgr = CheckpointManager(args.ckpt_dir, cfg=cfg, par=par) if args.ckpt_dir else None
+    start = 0
+    if mgr and args.resume:
+        step = mgr.latest_step() if args.resume == "auto" else int(args.resume)
+        if step is not None:
+            restored, _ = mgr.restore(step, {"params": params, "opt": opt_state})
+            params, opt_state, start = restored["params"], restored["opt"], step
+            if main_rank:
+                print(f"[resume] restored step {step}", flush=True)
+    _, _, history = train_steps(cfg, params, oc, tc, bf, device, par=par, opt_state=opt_state,
+                                ckpt=mgr, start_step=start)
     tokens = args.batch * args.seq
     where = name if par is None else f"{name}, {par.dp * par.sp} ranks"
     for rec in history if main_rank else ():

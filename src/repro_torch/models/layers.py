@@ -131,16 +131,25 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]  # jax.nn.gelu's default
 
 
+def _mlp_chunk(cfg: ModelConfig, names, x: torch.Tensor, *ws) -> torch.Tensor:
+    return mlp_block(cfg, dict(zip(names, ws)), x)
+
+
 def mlp_chunked(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int) -> torch.Tensor:
     """Paper §5.4: the token-wise MLP over ``n_chunks`` sequence chunks, so
     the d_ff-wide intermediate is bounded by one chunk.  When grad is
     enabled each chunk is checkpointed (non-reentrant) and recomputed in the
     backward, as the JAX package's ``jax.checkpoint`` scan does; under
-    no_grad (serving) there is nothing to recompute."""
+    no_grad (serving) there is nothing to recompute.  The weights reach the
+    checkpoint as tensor arguments: a surrounding checkpoint's first pass
+    (remat full) then discards its references to them, where a dict would
+    keep them, and with them a layer's gathered ZeRO-3 weights, until the
+    backward."""
     if n_chunks <= 1 or x.shape[1] % n_chunks != 0:
         return mlp_block(cfg, p, x)
     if not torch.is_grad_enabled():
         return torch.cat([mlp_block(cfg, p, xc) for xc in x.chunk(n_chunks, dim=1)], dim=1)
-    return torch.cat([checkpoint(mlp_block, cfg, p, xc, use_reentrant=False,
+    names = tuple(p)
+    return torch.cat([checkpoint(_mlp_chunk, cfg, names, xc, *p.values(), use_reentrant=False,
                                  preserve_rng_state=False)
                       for xc in x.chunk(n_chunks, dim=1)], dim=1)

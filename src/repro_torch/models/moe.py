@@ -26,8 +26,13 @@ atomic accumulation reorders a float sum, forward or backward.
 MoE FFN, each chunk a non-reentrant checkpoint.  Under a mesh
 (``core/parallel.py``) a rank holds the chunk-interleaved spans of its
 rows, and MoE chunk c is global tokens [c*S/n, (c+1)*S/n) of every row, so
-a chunk or a group may lie on several ranks.  The weights are replicated
-and the expert FFN is per token, so every rank computes its own tokens;
+a chunk or a group may lie on several ranks.  The expert stacks are
+stored as the JAX package's ``param_spec`` places them (e over model, the
+second-last dimension over data; ``launch/shardings.py``) and gathered with
+the rest of their layer cycle (``models/transformer.py::_cycle``), so this
+module sees whole weights; the expert FFN is per token, so every rank
+computes its own tokens (the JAX package's expert-parallel dispatch, an
+all-to-all of [e, g, c, d] over model, is not ported);
 only two things cross ranks (``_MeshPlan``): the count of earlier pairs in
 a group that lie on other ranks (the queue offset), and the top-1 counts
 of a chunk (``me``).  Both come from one all-gather of small integer
@@ -412,6 +417,10 @@ def routing(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int,
     return torch.cat(tops, 1), torch.cat(keeps, 1)
 
 
+def _moe_chunk(cfg: ModelConfig, names, xt, grp, seg0, g, cap, n_tokens, offsets, me, *ws):
+    return _moe_tokens(cfg, dict(zip(names, ws)), xt, grp, seg0, g, cap, n_tokens, offsets, me)
+
+
 def moe_planned(cfg: ModelConfig, p: Params, x: torch.Tensor, plan: _MeshPlan,
                 gather=P.gather_counts):
     """This rank's part of a chunked MoE call under ``plan``: (y, its aux
@@ -426,12 +435,13 @@ def moe_planned(cfg: ModelConfig, p: Params, x: torch.Tensor, plan: _MeshPlan,
         if ch is None:
             continue
         grp, seg0, _ = dev_plan[0][c]
-        args = (cfg, p, x[:, ch[0]:ch[1]].reshape(-1, d), grp, seg0, ch[5], plan.cap,
-                plan.n_tokens, offsets[c], me[c])
-        if torch.is_grad_enabled():
-            y, aux = checkpoint(_moe_tokens, *args, use_reentrant=False, preserve_rng_state=False)
+        args = (x[:, ch[0]:ch[1]].reshape(-1, d), grp, seg0, ch[5], plan.cap, plan.n_tokens,
+                offsets[c], me[c])
+        if torch.is_grad_enabled():  # the weights as tensor arguments: see layers.mlp_chunked
+            y, aux = checkpoint(_moe_chunk, cfg, tuple(p), *args, *p.values(),
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            y, aux = _moe_tokens(*args)
+            y, aux = _moe_tokens(cfg, p, *args)
         ys.append(y.view(b, ch[1] - ch[0], d))
         auxs.append(aux)
     return torch.cat(ys, dim=1), torch.stack(auxs).sum() / plan.n

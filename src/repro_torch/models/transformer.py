@@ -17,6 +17,18 @@ token frontend; an attention block of an MoE config (``num_experts``)
 runs the MoE FFN (``models/moe.py``) in place of its MLP, and its
 load-balancing aux rides beside h through every cycle, remat form
 included, into the loss's ``0.01 * aux``.
+
+Under a mesh every leaf is stored as ``launch/shardings.py`` places it
+(ZeRO-3: ``init_params(..., par)`` keeps only the rank's shards) and is
+gathered where it is used: a cycle's weights inside ``_cycle``, so that
+the checkpoint's recompute (remat full) and ``_OffloadedCycle``'s backward
+gather them again and a cycle's whole weights live only while it runs; a
+tail block's and the final norm's at their block; the embedding table at
+the lookup and, again, for the loss's head (outside the loss chunks'
+checkpoints, so it is gathered once, and a tied table's two uses reduce
+into its one shard gradient).  Under ``remat="none"`` autograd keeps what
+each layer's products saved, its gathered weights among them, until the
+backward.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ from repro_torch.core import fpdt
 from repro_torch.core import parallel as P
 from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
 from repro_torch.core.parallel import ParallelContext
+from repro_torch.launch import shardings as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
@@ -112,39 +125,71 @@ def unstack(tree, n: int):
     return [tree_unflatten(tree, [p[c] for p in parts]) for c in range(n)]
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> Params:
+def cycle_views(cfg: ModelConfig, par: Optional[ParallelContext], stacks, n: int):
+    """The ``n`` per-cycle trees of the stacked (sharded) cycle parameters:
+    each leaf a view of its cycle's slice, as ``unstack`` gives them, but
+    under a mesh a stack split along its cycles axis
+    (``shardings.LeafPlan.splits_cycles``) whole in every cycle's tree
+    (``_cycle`` gathers it and takes its cycle).  A list is taken to hold
+    the per-cycle trees already and is returned as it is."""
+    plans = SH.plans_of(cfg, par)
+    if isinstance(stacks, list) or plans is None:
+        return unstack(stacks, n)
+    whole = [p.splits_cycles for p in tree_leaves(plans["cycles"])]
+    parts = [None if w else x.unbind(0) for w, x in zip(whole, tree_leaves(stacks))]
+    return [tree_unflatten(stacks, [x if w else part[c] for w, x, part in
+                                    zip(whole, tree_leaves(stacks), parts)])
+            for c in range(n)]
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda",
+                par: Optional[ParallelContext] = None) -> Params:
     """Random parameters from ``gen`` (a generator on ``device``), in the
-    JAX package's pytree layout and initialisation scales."""
+    JAX package's pytree layout and initialisation scales.  Under a mesh
+    (``par``) each leaf is drawn whole, as on one rank, and only this
+    rank's shard of it is kept (``launch/shardings.py``): the rank holds
+    its shards and at most one whole cycle besides."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = layout_of(cfg)
-    params: Params = {
-        "embed": (0.02 * torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
-                                     device=device)).to(dtype),
-    }
-    params["cycles"] = _stack([
-        {f"pos{i}": _init_block(cfg, kind, gen, dtype, device) for i, kind in enumerate(pat)}
+    plans = SH.plans_of(cfg, par) or {}
+    embed = (0.02 * torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                                device=device)).to(dtype)
+    params: Params = {"embed": SH.shard_tree(plans.get("embed"), embed, par)}
+    params["cycles"] = SH.shard_cycles_axis(plans.get("cycles"), _stack([
+        SH.shard_tree(plans.get("cycles"), {f"pos{i}": _init_block(cfg, kind, gen, dtype, device)
+                                            for i, kind in enumerate(pat)}, par, cycle=True)
         for _ in range(n_cycles)
-    ])
+    ]), par)
     if tail:
-        params["tail"] = [_init_block(cfg, kind, gen, dtype, device) for kind in tail]
-    params["final_norm"] = L.init_norm(cfg, dtype, device)
+        params["tail"] = [SH.shard_tree(plans["tail"][i] if plans else None,
+                                        _init_block(cfg, kind, gen, dtype, device), par)
+                          for i, kind in enumerate(tail)]
+    params["final_norm"] = SH.shard_tree(plans.get("final_norm"), L.init_norm(cfg, dtype, device),
+                                         par)
     if not cfg.tie_embeddings:
-        params["head"] = L._dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype, device)
+        params["head"] = SH.shard_tree(plans.get("head"), L._dense_init(
+            gen, (cfg.d_model, cfg.padded_vocab), dtype, device), par)
     return params
 
 
-def head_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
+def head_matrix(cfg: ModelConfig, params: Params,
+                par: Optional[ParallelContext] = None) -> torch.Tensor:
+    """The [d, V] head (under a mesh gathered from this rank's shard)."""
+    plans = SH.plans_of(cfg, par) or {}
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["head"]
+        return SH.gather(plans.get("embed"), params["embed"], par).T
+    return SH.gather(plans.get("head"), params["head"], par)
 
 
-def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """Token embeddings of ``batch["tokens"] [b, s]``."""
+def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+                par: Optional[ParallelContext] = None):
+    """Token embeddings of ``batch["tokens"] [b, s]`` (under a mesh from the
+    table gathered from this rank's shard)."""
     if cfg.frontend != "none":
         raise NotImplementedError(f"the {cfg.frontend} frontend is not yet ported")
-    return params["embed"][batch["tokens"]]
+    plans = SH.plans_of(cfg, par) or {}
+    return SH.gather(plans.get("embed"), params["embed"], par)[batch["tokens"]]
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +202,12 @@ def has_attention(cfg: ModelConfig) -> bool:
 
 
 def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
-    if par is None or par.mesh is None:
+    """FPDT's kind: local without a mesh or on a data-only mesh (sp 1: a
+    rank holds its rows' whole sequence, and ulysses or cp over one model
+    rank would compute local's function through collectives); else
+    ``attn_impl`` where it names ulysses or cp, ulysses where the heads
+    split over the model ranks, cp where they do not."""
+    if par is None or par.mesh is None or par.sp == 1:
         return "local"
     if cfg.attn_impl in ("ulysses", "cp"):
         return cfg.attn_impl
@@ -199,8 +249,13 @@ def _add_aux(total, aux):
     return aux if total is None else total if aux is None else total + aux
 
 
-def _cycle(cfg, par, pat, cyc_p, h):
-    """The blocks of one layer cycle: (h, the sum of their aux or None)."""
+def _cycle(cfg, par, pat, cyc_p, h, c=0):
+    """The blocks of layer cycle ``c``: (h, the sum of their aux or None).
+    Under a mesh ``cyc_p`` holds the cycle's shards (``cycle_views``),
+    gathered here."""
+    plans = SH.plans_of(cfg, par)
+    if plans is not None:
+        cyc_p = SH.gather_cycle(plans["cycles"], cyc_p, c, par)
     total = None
     for i, kind in enumerate(pat):
         h, aux = block_apply(cfg, par, kind, cyc_p[f"pos{i}"], h)
@@ -235,12 +290,12 @@ class _OffloadedCycle(torch.autograd.Function):
     identity, so only the recompute is exercised there."""
 
     @staticmethod
-    def forward(ctx, cfg, par, pat, like, h, *leaves):
+    def forward(ctx, cfg, par, pat, c, like, h, *leaves):
         ctx.offload = host_offload(h.device)
         h_host = ctx.offload.to_host(h)
         with no_offload():
-            out, aux = _cycle(cfg, par, pat, tree_unflatten(like, list(leaves)), h)
-        ctx.cfg, ctx.par, ctx.pat, ctx.like = cfg, par, pat, like
+            out, aux = _cycle(cfg, par, pat, tree_unflatten(like, list(leaves)), h, c)
+        ctx.cfg, ctx.par, ctx.pat, ctx.c, ctx.like = cfg, par, pat, c, like
         ctx.save_for_backward(h_host, *leaves)
         return out, aux
 
@@ -250,10 +305,10 @@ class _OffloadedCycle(torch.autograd.Function):
         h = ctx.offload.to_device(h_host).wait().detach().requires_grad_(True)
         ws = [w.detach().requires_grad_(True) for w in leaves]
         with torch.enable_grad():
-            out, aux = _cycle(ctx.cfg, ctx.par, ctx.pat, tree_unflatten(ctx.like, ws), h)
+            out, aux = _cycle(ctx.cfg, ctx.par, ctx.pat, tree_unflatten(ctx.like, ws), h, ctx.c)
         outs, douts = ([out], [dout]) if aux is None else ([out, aux], [dout, daux])
         grads = torch.autograd.grad(outs, [h, *ws], douts)
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
@@ -264,19 +319,21 @@ def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Par
     if cfg.remat not in ("none", "full", "offload"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     pat, n_cycles, tail = layout_of(cfg)
+    plans = SH.plans_of(cfg, par)
     total = None
-    for cyc_p in unstack(params["cycles"], n_cycles):
+    for c, cyc_p in enumerate(cycle_views(cfg, par, params["cycles"], n_cycles)):
         if cfg.remat == "none" or not torch.is_grad_enabled():
-            h, aux = _cycle(cfg, par, pat, cyc_p, h)
+            h, aux = _cycle(cfg, par, pat, cyc_p, h, c)
         elif cfg.remat == "full":
-            h, aux = checkpoint(_cycle, cfg, par, pat, cyc_p, h, use_reentrant=False,
+            h, aux = checkpoint(_cycle, cfg, par, pat, cyc_p, h, c, use_reentrant=False,
                                 preserve_rng_state=False, context_fn=_remat_contexts,
                                 determinism_check="none")
         else:
-            h, aux = _OffloadedCycle.apply(cfg, par, pat, cyc_p, h, *tree_leaves(cyc_p))
+            h, aux = _OffloadedCycle.apply(cfg, par, pat, c, cyc_p, h, *tree_leaves(cyc_p))
         total = _add_aux(total, aux)
     for i, kind in enumerate(tail):
-        h, aux = block_apply(cfg, par, kind, params["tail"][i], h)
+        p = SH.gather_tree(plans and plans["tail"][i], params["tail"][i], par)
+        h, aux = block_apply(cfg, par, kind, p, h)
         total = _add_aux(total, aux)
     if total is None:
         total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -298,12 +355,13 @@ def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
     total; ``metrics["loss"]`` is the global mean and ``metrics["aux"]`` the
     world's aux, both summed in the same all-reduce."""
     _check_ported(cfg)
-    h = embed_input(cfg, params, batch).to(getattr(torch, cfg.param_dtype))
+    plans = SH.plans_of(cfg, par) or {}
+    h = embed_input(cfg, params, batch, par).to(getattr(torch, cfg.param_dtype))
     h, aux = hidden_forward(cfg, par, params, h)
-    h = L.apply_norm(cfg, params["final_norm"], h)
+    h = L.apply_norm(cfg, SH.gather_tree(plans.get("final_norm"), params["final_norm"], par), h)
     sp = par.sp if par is not None else 1
     n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1] * sp, sp)
-    loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params), batch["labels"],
+    loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params, par), batch["labels"],
                                            n_chunks)
     moe = bool(cfg.num_experts)
     if P.distributed(par):

@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import parallel as P
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -86,22 +87,56 @@ def init(oc: OptConfig, params) -> OptState:
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every squared gradient element, in fp32; a leaf of
-    more than NORM_SLICE elements is summed slice by slice."""
+def _squares(leaves):
+    """The sum of every squared element of ``leaves`` in fp32 (None for no
+    leaf); a leaf of more than NORM_SLICE elements is summed slice by
+    slice."""
     total = None
-    for leaf in tree_leaves(grads):
+    for leaf in leaves:
         for (g,) in _slices(leaf, limit=NORM_SLICE):
             sq = torch.sum(torch.square(g.float()))
             total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(grads, par=None, plans=None) -> torch.Tensor:
+    """sqrt of the sum of every squared gradient element, in fp32.
+
+    Under a mesh (``par``, with the leaves' ``launch/shardings.py`` plans)
+    ``grads`` are this rank's shards, and each distinct element is counted
+    once: the rank's own squares, by the axes its leaves are split on, are
+    summed over those axes, the data-split and doubly split sums in one
+    ``all_reduce_sum`` over data, then the model-split sum and the doubly
+    split one in one over model; a leaf split on neither counts as it is.
+    So every rank reads the same norm, one rank's to rounding."""
+    if plans is None:
+        return torch.sqrt(_squares(tree_leaves(grads)))
+    by = {}
+    for plan, g in zip(tree_leaves(plans), tree_leaves(grads)):
+        by.setdefault((plan.data_split, plan.model_split), []).append(g)
+    dev = tree_leaves(grads)[0].device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def part(key):
+        sq = _squares(by.get(key, []))
+        return zero if sq is None else sq
+
+    data = torch.stack([part((True, False)), part((True, True))])
+    if par.dp > 1:
+        P.all_reduce_sum(data, par.dp_group)
+    model = (part((False, True)) + data[1]).reshape(1)
+    if par.sp > 1:
+        P.all_reduce_sum(model, par.sp_group)
+    return torch.sqrt(part((False, False)) + data[0] + model[0])
 
 
 @torch.no_grad()
-def apply(oc: OptConfig, params, grads, state: OptState):
+def apply(oc: OptConfig, params, grads, state: OptState, par=None, plans=None):
     """Returns (params, new_state, metrics), params and moments updated in
-    place."""
-    gnorm = global_norm(grads)
+    place.  Under a mesh the trees hold this rank's shards (the update is
+    elementwise) and ``plans`` their ``launch/shardings.py`` plans, which
+    ``global_norm`` reads."""
+    gnorm = global_norm(grads, par, plans)
     scale = torch.clamp(oc.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(oc, step)

@@ -14,17 +14,23 @@ mean total (cross-entropy plus ``0.01 * aux``), as the JAX loop reports
 it there, and ``aux`` their mean aux.  The loop's history and log line
 carry ``aux``.
 
-Under a mesh (``core/parallel.py``) each rank differentiates its own
-tokens' loss over the world's token count, and the step sums every
-gradient leaf over the world (``all_reduce_sum``, one call a leaf, in
-``tree_leaves`` order) before AdamW, so every rank takes the same step and
-the parameters stay the same bits on every rank.  The loop ends on every
-rank after the same step: a stop asked for on any rank (a signal, a
+Under a mesh (``core/parallel.py``) the parameters and AdamW moments are
+ZeRO-3 shards (``launch/shardings.py``): each rank differentiates its own
+tokens' loss over the world's token count, the model gathers each weight
+at use and reduce-scatters its gradient over the axes the weight is split
+on, ``reduce_grads`` sums each shard gradient over the axes its leaf is
+replicated on, the global norm counts each element once, and AdamW updates
+the shards; ranks that hold the same shard hold the same bits.  Under
+``grad_accum`` the fp32 sums are of the shard gradients.  The loop ends on
+every rank after the same step: a stop asked for on any rank (a signal, a
 straggler) is summed over the world after each step.
 
-``TrainLoop`` keeps the JAX package's signal handling (SIGTERM/SIGINT end
-the loop after the current step), ``history`` and straggler monitor.
-Checkpointing, gradient compression and telemetry are not yet ported.
+``TrainLoop`` keeps the JAX package's fault tolerance: a checkpoint (the
+parameters, the AdamW state and the data iterator's step) every
+``ckpt_every`` steps, before the straggler check; SIGTERM/SIGINT end the
+loop after the current step with a blocking final checkpoint; a straggler
+ends it with none, as the JAX loop's ``break`` does.  Gradient compression
+and telemetry are not yet ported.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core import parallel as P
 from repro_torch.core.parallel import ParallelContext
+from repro_torch.launch import shardings as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -47,6 +54,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 @dataclasses.dataclass
 class TrainConfig:
     steps: int = 100
+    ckpt_every: int = 50
     log_every: int = 10
     grad_accum: int = 1
     straggler_zscore: float = 4.0
@@ -76,22 +84,37 @@ def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
     ``unbind`` a leaf) holds every cycle's gradients until the backward
     reaches the first cycle and then stacks them, a second copy of the layer
     gradients at the end of the backward (4.8 GiB at gpt-2.7b) that the JAX
-    package's scan does not make.  The sums are the same bits (0 + g)."""
+    package's scan does not make.  The sums are the same bits (0 + g).
+
+    Under a mesh ``params`` holds this rank's shards (``launch/
+    shardings.py``): the views are of the local stacked shards, each
+    cycle's ``reduce_scatter_grads`` lands in its slice of the stacked
+    shard gradient (a stack split along its cycles axis is one leaf that
+    every cycle's gather adds into), and grads holds the shard gradients,
+    each summed over the axes its leaf is split on; ``reduce_grads`` sums
+    them over the rest."""
     _, n_cycles, _ = T.layout_of(cfg)
     stacks = tree_leaves(params["cycles"])
     sums = [torch.zeros_like(x) for x in stacks]
-    cycles = []
-    for c in range(n_cycles):
-        views = []
-        for x, g in zip(stacks, sums):
-            v = x[c].detach().requires_grad_(True)
-            v.grad = g[c]  # accumulated into in place by the backward
-            views.append(v)
-        cycles.append(tree_unflatten(params["cycles"], views))
+    plans = SH.plans_of(cfg, par)
+    whole = ([p.splits_cycles for p in tree_leaves(plans["cycles"])] if plans
+             else [False] * len(stacks))
+
+    def leaf(x, g):  # a leaf whose .grad the backward adds into in place
+        v = x.detach().requires_grad_(True)
+        v.grad = g
+        return v
+
+    shared = [leaf(x, g) if w else None for x, g, w in zip(stacks, sums, whole)]
+    cycles = [tree_unflatten(params["cycles"], [v if w else leaf(x[c], g[c]) for x, g, v, w in
+                                                zip(stacks, sums, shared, whole)])
+              for c in range(n_cycles)]
     rest = {k: v for k, v in params.items() if k != "cycles"}
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(rest)]
     total, metrics = T.loss_fn(cfg, par, {**tree_unflatten(rest, leaves), "cycles": cycles}, batch)
-    total.backward(inputs=leaves + [v for cyc in cycles for v in tree_leaves(cyc)])
+    inputs = leaves + [v for v in shared if v is not None] + [
+        v for cyc in cycles for v, w in zip(tree_leaves(cyc), whole) if not w]
+    total.backward(inputs=inputs)
     if any(p.grad is None for p in leaves):
         raise RuntimeError("a parameter outside the layer cycles got no gradient")
     grads = {**tree_unflatten(rest, [p.grad for p in leaves]),
@@ -100,12 +123,19 @@ def value_and_grad(cfg: ModelConfig, par: Optional[ParallelContext], params,
     return metrics["loss"], metrics, grads
 
 
-def reduce_grads(par: Optional[ParallelContext], grads):
-    """Each gradient leaf summed in place over the world (one call a leaf,
-    in ``tree_leaves`` order); the identity without a mesh."""
-    if P.distributed(par):
-        for g in tree_leaves(grads):
-            P.all_reduce_sum(g)
+def reduce_grads(cfg: ModelConfig, par: Optional[ParallelContext], grads):
+    """Each shard gradient summed in place over the axes its leaf is
+    replicated on (``shardings.reduce_axes``: one ``all_reduce_sum`` a leaf
+    over the data or the model group, or over the world where it is split
+    on neither; none where it is split on both), in ``tree_leaves`` order;
+    the identity without a mesh."""
+    plans = SH.plans_of(cfg, par)
+    if plans is None:
+        return grads
+    for plan, g in zip(tree_leaves(plans), tree_leaves(grads)):
+        group = SH.reduce_axes(plan, par)
+        if group is not False:
+            P.all_reduce_sum(g, group)
     return grads
 
 
@@ -131,8 +161,9 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
             metrics = {"loss": lsum / n, "aux": asum / n}
         else:
             lval, metrics, grads = value_and_grad(cfg, par, params, batch)
-        grads = reduce_grads(par, grads)
-        params, opt_state, om = adamw.apply(oc, params, grads, opt_state)
+        grads = reduce_grads(cfg, par, grads)
+        params, opt_state, om = adamw.apply(oc, params, grads, opt_state, par,
+                                            SH.plans_of(cfg, par))
         metrics = dict(metrics)
         metrics.update(om)
         return params, opt_state, metrics
@@ -169,17 +200,20 @@ class HeartbeatMonitor:
 
 
 class TrainLoop:
-    """Runs ``step_fn`` over ``data_iter``; ``on_step(record)`` (optional)
-    is called after each step, once the card is synchronised."""
+    """Runs ``step_fn`` over ``data_iter``, checkpointing through
+    ``ckpt_mgr`` (``checkpoint/manager.py``; optional); ``on_step(record)``
+    (optional) is called after each step, once the card is synchronised."""
 
-    def __init__(self, cfg, par, oc, tc, step_fn, data_iter,
+    def __init__(self, cfg, par, oc, tc, step_fn, data_iter, ckpt_mgr=None,
                  on_step: Optional[Callable[[dict], None]] = None):
         self.cfg, self.par, self.oc, self.tc = cfg, par, oc, tc
         self.step_fn = step_fn
         self.data = data_iter
+        self.ckpt = ckpt_mgr
         self.on_step = on_step
         self.monitor = HeartbeatMonitor(tc.straggler_zscore, tc.straggler_patience)
-        self._stop = False
+        self._stop = False  # a signal asked the loop to stop
+        self._straggler = False  # a straggler stopped it
         self.history: list = []
 
     def _install_signals(self) -> dict:
@@ -208,10 +242,14 @@ class TrainLoop:
             for sig, h in previous.items():
                 signal.signal(sig, h)
 
+    def _save(self, step, params, opt_state, blocking=False):
+        self.ckpt.save(step, {"params": params, "opt": opt_state},
+                       extra={"data_step": self.data.state()}, blocking=blocking)
+
     def _run(self, params, opt_state, start_step, put_batch):
         step = start_step
         self.data.restore(start_step)
-        while step < self.tc.steps and not self._stop:
+        while step < self.tc.steps and not (self._stop or self._straggler):
             t0 = time.perf_counter()
             batch = put_batch(next(self.data))
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
@@ -230,14 +268,20 @@ class TrainLoop:
                 aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""
                 print(f"step {step:6d} loss {rec['loss']:.4f}{aux} gnorm "
                       f"{rec['grad_norm']:.3f} {dt * 1000:.0f}ms", flush=True)
+            if self.ckpt and step % self.tc.ckpt_every == 0:
+                self._save(step, params, opt_state)
             try:
                 self.monitor.record(dt)
             except StragglerAlert as e:
                 print(f"[ft] straggler detected on rank {rank}: {e}; stopping")
-                self._stop = True
-            if P.distributed(self.par):  # every rank stops after the same step
-                flag = torch.tensor([float(self._stop)], device=device)
-                self._stop = bool(P.all_reduce_sum(flag).item())
+                self._straggler = True
+            if P.distributed(self.par):  # every rank stops after the same step, for one cause
+                flags = torch.tensor([float(self._stop), float(self._straggler)], device=device)
+                flags = P.all_reduce_sum(flags).tolist()
+                self._stop, self._straggler = flags[0] > 0, flags[1] > 0
             if self.on_step is not None:
                 self.on_step(rec)
+        if self.ckpt and (self._stop or step >= self.tc.steps):
+            # preemption or completion: blocking final save (none after a straggler)
+            self._save(step, params, opt_state, blocking=True)
         return params, opt_state, step

@@ -46,3 +46,14 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> List[tuple]:
+    """(path, leaf) pairs in ``tree_leaves`` order; a path is the tuple of
+    the dict keys and list indices (as strings) down to the leaf, the names
+    the JAX package's ``launch/shardings.py`` reads."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves_with_path(tree[k], path + (str(k),))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in tree_leaves_with_path(v, path + (str(i),))]
+    return [(path, tree)]

@@ -154,15 +154,26 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         counts = [torch.arange(6, dtype=torch.int32).reshape(3, 2) + 10 * r for r in members]
         out["ok"][f"{name} gather_counts"] = torch.equal(P.gather_counts(counts[me], group),
                                                          torch.stack(counts))
+        # a weight's shard [b, h, c, d] split along dim 2: the whole weight
+        # is every rank's shard in rank order; the adjoint sums this rank's
+        # block of the gradient over the group
+        w = xs[me].clone().requires_grad_(True)
+        whole = P.gather_params(w, [(2, group)])
+        out["ok"][f"{name} gather_params"] = torch.equal(whole, torch.cat(xs, dim=2))
+        whole.backward(full[me])
+        out["ok"][f"{name} gather_params adjoint"] = torch.allclose(
+            w.grad, sum(f[:, :, me * c:(me + 1) * c] for f in full), rtol=1e-6, atol=0)
         sent = b * h * c * d * 4
         out["ok"][f"{name} counts"] = (
             P.calls == {"seq_to_heads": 1, "heads_to_seq": 1, "gather_seq": 1,
                         "reduce_scatter_seq": 1, "all_reduce_sum": 1, "gather_spans": 1,
-                        "reduce_scatter_spans": 1, "gather_counts": 1}
+                        "reduce_scatter_spans": 1, "gather_counts": 1, "gather_params": 1,
+                        "reduce_scatter_grads": 1}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
                              "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
                              "gather_spans": sent, "reduce_scatter_spans": sp * sent,
-                             "gather_counts": 24})
+                             "gather_counts": 24, "gather_params": sent,
+                             "reduce_scatter_grads": sp * sent})
     return out
 
 
@@ -248,6 +259,7 @@ TRAIN_CASES = (("llama3.2-1b", "ulysses"), ("llama3.2-1b", "cp"), ("gpt-2.7b", "
                ("recurrentgemma-9b", "ulysses"), ("falcon-mamba-7b", "auto"))
 TRAIN_B, TRAIN_S, TRAIN_U, TRAIN_STEPS = 2, 32, 2, 2
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+CKPT_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
 
 def train_cfg(cfgs, arch: str, impl: str = "auto"):
@@ -270,9 +282,11 @@ def _digest(torch, leaves) -> str:
 
 def task_train(rank: int, world: int, tmp: Path) -> dict:
     """On a 2 x 2 mesh, per case: the world-summed gradients of the first
-    batch against JAX's, a TRAIN_STEPS trajectory of make_train_step, and a
-    digest of the parameters after it; for the recurrent archs, the first
-    batch's gradients under remat offload against remat full, bit for bit."""
+    batch (the rank's ZeRO-3 shards, gathered) against JAX's, a TRAIN_STEPS
+    trajectory of make_train_step, and a digest of the parameters (gathered
+    from the rank's shards) after it; for the recurrent archs, the first
+    batch's gradients under remat offload against remat full, bit for
+    bit."""
     import dataclasses
 
     import numpy as np
@@ -283,6 +297,7 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.core import parallel as P
     from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch import shardings as SH
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as A
@@ -299,9 +314,9 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
         like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         n = len(tree_leaves(like))
 
-        def params():
-            return tree_unflatten(like, [torch.from_numpy(ref[f"{arch}/p{i}"].copy())
-                                         for i in range(n)])
+        def params():  # this rank's shards
+            return SH.shard_params(cfg, par, tree_unflatten(
+                like, [torch.from_numpy(ref[f"{arch}/p{i}"].copy()) for i in range(n)]))
 
         batch_fn = make_batch_fn(cfg, ShapeConfig("t", TRAIN_S, TRAIN_B, "train"))
 
@@ -319,7 +334,7 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
                                     local(0))[2]
             out[case]["remat_offload_same_bits"] = all(
                 torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(off)))
-        grads = tree_leaves(TL.reduce_grads(par, grads))
+        grads = tree_leaves(SH.gather_params_tree(cfg, par, TL.reduce_grads(cfg, par, grads)))
         rel = 0.0
         for i, g in enumerate(grads):
             want = torch.from_numpy(ref[f"{arch}/g{i}"])
@@ -333,7 +348,8 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
             p, state, m = step(p, state, local(s))
             out[case]["steps"].append([float(m["loss"]), float(m["grad_norm"])])
         digests = [None] * world
-        dist.all_gather_object(digests, _digest(torch, tree_leaves(p)))
+        dist.all_gather_object(digests, _digest(torch, tree_leaves(
+            SH.gather_params_tree(cfg, par, p))))
         out[case]["digests"] = digests
     return out
 
@@ -507,10 +523,11 @@ def moe_cfg(cfgs, mlp_chunks: int, remat: str = "full"):
 
 def task_moe(rank: int, world: int, tmp: Path) -> dict:
     """Per MOE_CASES case: the first batch's loss, aux and world-summed
-    gradients against JAX's (``moe.npz``), the gather_counts calls and
-    bytes of that value_and_grad, a digest of the parameters after one
-    train step; on 1x4, remat offload's gradients against remat full's bit
-    for bit (the recompute reruns the counts' gather)."""
+    gradients (the rank's ZeRO-3 shards, gathered) against JAX's
+    (``moe.npz``), the gather_counts calls and bytes of that
+    value_and_grad, a digest of the parameters (gathered from the rank's
+    shards) after one train step; on 1x4, remat offload's gradients against
+    remat full's bit for bit (the recompute reruns the counts' gather)."""
     import dataclasses
 
     import numpy as np
@@ -521,6 +538,7 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.core import parallel as P
     from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch import shardings as SH
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as A
@@ -535,8 +553,9 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
         like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         n = len(tree_leaves(like))
 
-        def params():
-            return tree_unflatten(like, [torch.from_numpy(ref[f"p{i}"].copy()) for i in range(n)])
+        def params():  # this rank's shards
+            return SH.shard_params(cfg, par, tree_unflatten(
+                like, [torch.from_numpy(ref[f"p{i}"].copy()) for i in range(n)]))
 
         batch_fn = make_batch_fn(cfg, ShapeConfig("t", MOE_S, MOE_B, "train"))
         batch = {k: torch.from_numpy(v)
@@ -551,7 +570,8 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
             case["remat_offload_same_bits"] = all(
                 torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(off)))
         rel = 0.0
-        for i, g in enumerate(tree_leaves(TL.reduce_grads(par, grads))):
+        for i, g in enumerate(tree_leaves(SH.gather_params_tree(
+                cfg, par, TL.reduce_grads(cfg, par, grads)))):
             want = torch.from_numpy(ref[f"{label}/g{i}"])
             rel = max(rel, float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30))
         case["grad_rel"] = rel
@@ -559,9 +579,231 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
         p = params()
         p, _, _ = TL.make_train_step(cfg, par, oc, TL.TrainConfig())(p, A.init(oc, p), batch)
         digests = [None] * world
-        dist.all_gather_object(digests, _digest(torch, tree_leaves(p)))
+        dist.all_gather_object(digests, _digest(torch, tree_leaves(
+            SH.gather_params_tree(cfg, par, p))))
         case["digests"] = digests
         out[label] = case
+    return out
+
+
+ZERO_CASES = (("llama3.2-1b", (2, 2)), ("llama3.2-1b", (1, 4)),
+              ("granite-moe-1b-a400m", (2, 2)), ("granite-moe-1b-a400m", (1, 4)))
+# 4 layers: the MoE router's stack [4, d, e] has its cycles axis split over
+# model on both meshes (param_spec's expert rule), so it is gathered whole
+ZERO_B, ZERO_S, ZERO_U, ZERO_LAYERS, ZERO_STEPS = 2, 64, 2, 4, 2
+
+
+def zero_cfg(cfgs, arch: str, remat: str = "full"):
+    """The config of the ZeRO-3 cases, from ``cfgs`` (either package's
+    ``configs`` module)."""
+    import dataclasses
+
+    return dataclasses.replace(cfgs.reduced(cfgs.get_config(arch)), num_layers=ZERO_LAYERS,
+                               param_dtype="float32", fpdt_chunks=ZERO_U,
+                               mlp_chunks=2 * ZERO_U, remat=remat)
+
+
+def task_zero(rank: int, world: int, tmp: Path) -> dict:
+    """Per ZERO_CASES case, on its mesh: what the rank holds after
+    init_params and adamw.init (each leaf its plan's local shape, the
+    shard of the one-rank initialisation, the bytes the plan reckons); the
+    first batch's gradients (gathered) against JAX's (``zero.npz``) and
+    the port's one-rank gradients, remat offload's against remat full's bit
+    for bit, the gather_params / reduce_scatter_grads / all_reduce_sum
+    calls and bytes of the value_and_grad with reduce_grads and of a whole
+    train step; a ZERO_STEPS trajectory (loss, grad norm) and the
+    parameters after it (gathered) against the port's one-rank run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import parallel as P
+    from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    ref = np.load(tmp / "zero.npz")
+    counted = ("gather_params", "reduce_scatter_grads", "all_reduce_sum")
+    out = {}
+    for arch, shape in ZERO_CASES:
+        par = P.ParallelContext(make_mesh(*shape))
+        cfg = zero_cfg(configs, arch)
+        plans = SH.plans_of(cfg, par)
+        oc = A.OptConfig(**TRAIN_OPT)
+        case = {}
+        # what a rank holds
+        whole = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        mine = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", par)
+        opt = A.init(oc, mine)
+        held = [*tree_leaves(mine), opt.step, *tree_leaves(opt.m), *tree_leaves(opt.v)]
+        locals_ = [p.local_shape() for p in tree_leaves(plans)]
+        case["state_is_shards"] = (
+            [tuple(x.shape) for x in tree_leaves(mine)] == locals_
+            and [tuple(x.shape) for x in tree_leaves(opt.m)] == locals_
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(mine), tree_leaves(SH.shard_params(cfg, par, whole))))
+            and sum(x.numel() * x.element_size() for x in held)
+            == SH.state_bytes(plans, torch.float32))
+        case["shard_gather_identity"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(SH.gather_params_tree(cfg, par, mine)), tree_leaves(whole)))
+        n = len(tree_leaves(whole))
+
+        def jax_params():  # whole, fresh: shard() hands an unsplit leaf on as it is
+            return tree_unflatten(whole, [torch.from_numpy(ref[f"{arch}/p{i}"].copy())
+                                          for i in range(n)])
+
+        full = jax_params()
+        batch_fn = make_batch_fn(cfg, ShapeConfig("t", ZERO_S, ZERO_B, "train"))
+
+        def local(step):
+            return {k: torch.from_numpy(v) for k, v in
+                    shard_batch(batch_fn(step), par, cfg.fpdt_chunks).items()}
+
+        def glob(step):
+            return {k: torch.from_numpy(v) for k, v in batch_fn(step).items()}
+
+        # the first batch's gradients
+        _, _, one = TL.value_and_grad(cfg, None, full, glob(0))
+        P.reset_counts()
+        loss, _, grads = TL.value_and_grad(cfg, par, SH.shard_params(cfg, par, full), local(0))
+        grads = TL.reduce_grads(cfg, par, grads)
+        case["grad_counts"] = {k: [P.calls[k], P.nbytes[k]] for k in counted}
+        off = TL.value_and_grad(dataclasses.replace(cfg, remat="offload"), par,
+                                SH.shard_params(cfg, par, full), local(0))[2]
+        off = TL.reduce_grads(cfg, par, off)
+        case["remat_offload_same_bits"] = all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(off)))
+        gathered = tree_leaves(SH.gather_params_tree(cfg, par, grads))
+        case["loss"] = float(loss)
+        case["grad_rel_jax"] = max(
+            float((g - torch.from_numpy(ref[f"{arch}/g{i}"])).abs().max())
+            / max(float(np.abs(ref[f"{arch}/g{i}"]).max()), 1e-30)
+            for i, g in enumerate(gathered))
+        case["grad_rel_one_rank"] = max(
+            float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(gathered, tree_leaves(one)))
+        # the steps, on the mesh and on one rank
+        step = TL.make_train_step(cfg, par, oc, TL.TrainConfig())
+        p = SH.shard_params(cfg, par, jax_params())
+        state = A.init(oc, p)
+        case["steps"] = []
+        for s in range(ZERO_STEPS):
+            P.reset_counts()
+            p, state, m = step(p, state, local(s))
+            if s == 0:
+                case["step_counts"] = {k: [P.calls[k], P.nbytes[k]] for k in counted}
+            case["steps"].append([float(m["loss"]), float(m["grad_norm"])])
+        one_step = TL.make_train_step(cfg, None, oc, TL.TrainConfig())
+        q = jax_params()
+        qs = A.init(oc, q)
+        case["one_rank_steps"] = []
+        for s in range(ZERO_STEPS):
+            q, qs, m = one_step(q, qs, glob(s))
+            case["one_rank_steps"].append([float(m["loss"]), float(m["grad_norm"])])
+        case["param_rel_one_rank"] = max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(tree_leaves(SH.gather_params_tree(cfg, par, p)), tree_leaves(q)))
+        out[f"{arch} {shape[0]}x{shape[1]}"] = case
+    return out
+
+
+CKPT_B, CKPT_S, CKPT_U = 2, 32, 2
+
+
+def ckpt_cfg(cfgs):
+    """The config of the checkpoint cases, from ``cfgs`` (either package's
+    ``configs`` module): reduced llama3.2-1b in fp32."""
+    import dataclasses
+
+    return dataclasses.replace(cfgs.reduced(cfgs.get_config("llama3.2-1b")),
+                               param_dtype="float32", fpdt_chunks=CKPT_U,
+                               mlp_chunks=2 * CKPT_U, remat="full")
+
+
+def task_ckpt(rank: int, world: int, tmp: Path) -> dict:
+    """The checkpoint manager on meshes: the JAX manager's step-2
+    checkpoint (``tmp/jax_ckpt``) restored onto 2 x 2, then steps 3 and 4;
+    a 1 x 4 run that saves step 2 (async, then takes step 3 before the
+    writer is joined) restored onto 2 x 2 (the gathered parameters and
+    moments against the ones saved, bit for bit; step 3 against the 1 x 4
+    run's) and onto 1 x 4 again (step 3 the same bits as the run that went
+    on)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import parallel as P
+    from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.tree import tree_leaves
+
+    cfg = ckpt_cfg(configs)
+    oc = A.OptConfig(**CKPT_OPT)
+    batch_fn = make_batch_fn(cfg, ShapeConfig("t", CKPT_S, CKPT_B, "train"))
+    meshes = {"2x2": P.ParallelContext(make_mesh(2, 2)), "1x4": P.ParallelContext(make_mesh(1, 4))}
+
+    def fresh(par):
+        p = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", par)
+        return {"params": p, "opt": A.init(oc, p)}
+
+    def steps(par, state, first, last):
+        fn = TL.make_train_step(cfg, par, oc, TL.TrainConfig())
+        p, st, out = state["params"], state["opt"], []
+        for s in range(first, last):
+            b = {k: torch.from_numpy(v) for k, v in
+                 shard_batch(batch_fn(s), par, cfg.fpdt_chunks).items()}
+            p, st, m = fn(p, st, b)
+            out.append([float(m["loss"]), float(m["grad_norm"])])
+        return {"params": p, "opt": st}, out
+
+    def whole(par, state):  # every leaf gathered, copies
+        g = lambda t: [x.clone() for x in tree_leaves(SH.gather_params_tree(cfg, par, t))]  # noqa
+        return g(state["params"]) + [state["opt"].step.clone()] + g(state["opt"].m) + g(
+            state["opt"].v)
+
+    out = {}
+    par = meshes["2x2"]
+    mgr = CheckpointManager(str(tmp / "jax_ckpt"), cfg=cfg, par=par)
+    state, extra = mgr.restore(2, fresh(par))
+    out["jax_extra"] = extra
+    out["jax_on_2x2"] = steps(par, state, 2, 4)[1]
+
+    par = meshes["1x4"]
+    state, _ = steps(par, fresh(par), 0, 2)
+    saved = whole(par, state)
+    mgr = CheckpointManager(str(tmp / "ckpt14"), cfg=cfg, par=par)
+    mgr.save(2, state, extra={"data_step": 2})  # async: step 3 updates the tensors in place
+    state, out["1x4_step3"] = steps(par, state, 2, 3)
+    mgr.wait()
+    went_on = whole(par, state)
+
+    par = meshes["2x2"]
+    back, extra = CheckpointManager(str(tmp / "ckpt14"), cfg=cfg, par=par).restore(
+        2, fresh(par))
+    out["1x4_extra"] = extra
+    out["restored_2x2_same_bits"] = all(torch.equal(a, b) for a, b in
+                                        zip(whole(par, back), saved))
+    out["restored_2x2_local_shapes"] = [list(x.shape) for x in tree_leaves(back["params"])] == [
+        list(p.local_shape()) for p in tree_leaves(SH.plans_of(cfg, par))]
+    out["2x2_step3"] = steps(par, back, 2, 3)[1]
+
+    par = meshes["1x4"]
+    back, _ = CheckpointManager(str(tmp / "ckpt14"), cfg=cfg, par=par).restore(2, fresh(par))
+    again, out["1x4_resumed_step3"] = steps(par, back, 2, 3)
+    out["1x4_resume_same_bits"] = all(torch.equal(a, b) for a, b in
+                                      zip(whole(par, again), went_on))
     return out
 
 
@@ -641,7 +883,8 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
 
 
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
-         "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe}
+         "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe,
+         "zero": task_zero, "ckpt": task_ckpt}
 
 
 def main() -> None:

@@ -128,3 +128,21 @@ def test_global_norm_in_slices_is_the_whole_norm(monkeypatch):
     np.testing.assert_allclose(float(A.global_norm(g)), whole, rtol=1e-6)
     want = np.sqrt(sum(np.sum(np.square(v.float().numpy().astype(np.float64))) for v in g.values()))
     np.testing.assert_allclose(whole, want, rtol=1e-6)
+
+
+def test_update_temporaries_are_the_peak_reckoning():
+    """``chip_smoke.py`` reckons AdamW's share of a step's peak as
+    ADAMW_BYTES an element of the largest slice it updates: the bytes of
+    temporaries ``apply`` holds at once, as tools/adamw_temporaries.py
+    counts them."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    mods = {}
+    for name in ("chip_smoke", "tools/adamw_temporaries"):
+        spec = importlib.util.spec_from_file_location(name.replace("/", "_"), root / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    assert mods["tools/adamw_temporaries"].bytes_per_element() == mods["chip_smoke"].ADAMW_BYTES
+    assert mods["chip_smoke"].ADAMW_SLICE == A.UPDATE_SLICE

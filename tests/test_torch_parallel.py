@@ -9,8 +9,10 @@ collective must give what it is defined to give on a model group (4 ranks)
 and a data group (2), with ``seq_to_heads`` and ``heads_to_seq`` inverting
 each other, ``gather_spans`` putting every rank's spans in global order
 and its backward summing each rank's block, ``gather_counts`` stacking
-every rank's integer counts in rank order, and the call and byte counts
-as written.  ``shard_batch`` must
+every rank's integer counts in rank order, ``gather_params``
+concatenating every rank's shard along its split dimension and its
+backward summing each rank's block, and the call and byte counts as
+written.  ``shard_batch`` must
 cover every token of the global batch exactly once, at the global
 positions of the chunk-interleaved layout that FPDT ropes with."""
 import json
@@ -60,7 +62,8 @@ def test_mesh_rank_order_is_the_jax_device_order(ranks, jax_grid):
 @pytest.mark.parametrize("group", ["model", "data"])
 @pytest.mark.parametrize("what", ["seq_to_heads", "heads_to_seq inverts it", "gather_seq",
                                   "reduce_scatter_seq", "all_reduce_sum", "gather_spans",
-                                  "gather_spans adjoint", "gather_counts", "counts"])
+                                  "gather_spans adjoint", "gather_counts", "gather_params",
+                                  "gather_params adjoint", "counts"])
 def test_collectives(ranks, group, what):
     assert all(r["ok"][f"{group} {what}"] for r in ranks)
 
