@@ -84,6 +84,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 same loss and gradients bit for bit; the offloaded chunks are
                 pinned host tensors; in fp32 weights the loss and every
                 gradient leaf at u = 4 are within 5e-4 of u = 1;
+  6a. CLI     — the train CLI's main in this process on llama3.2-1b as 6
+                trains it, with --compress-grads --trace-out --metrics-out:
+                the trace's train.step spans (their durations the history's
+                dt) and the Prometheus series, B1-B3's launches as 6's,
+                step 1's loss 6's bits, the residuals' bytes (4 a
+                parameter), the peak beside its reckoning, the quantizer's
+                device ms (CUDA events), steps 2-3 beside 6's; the
+                quantizer on the card against the CPU, bit for bit, at
+                llama's and granite's tables, a norm stack and a short leaf;
   6b. hybrid  — recurrentgemma-9b at full width and 8 layers (two stacked
                 (rglru, rglru, local_attn) cycles and a 2-layer rglru tail;
                 random bf16 weights from a seeded generator): the same as 6 —
@@ -137,7 +146,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 and offload off bit for bit; the recurrent mixers alone
                 at full width (RG-LRU 4096 channels, Mamba d_inner 8192
                 d_state 16), fp32 and bf16, two ranks against one;
-                llama3.2-1b at full width (8 of its 16 layers), mesh
+                llama3.2-1b at full width (4 of its 16 layers), mesh
                 1 x 2, b1 s 16384 u 8 remat full offload on, 2 AdamW
                 steps under ulysses and 1 under cp, then recurrentgemma-9b
                 (3 layers: one rglru, rglru, local_attn cycle) and
@@ -158,7 +167,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 both ranks, peak memory beside its reckoning and step ms
                 a rank (gloo through the host on one shared card, not a
                 multi-card speed); then, on a 2 x 1 mesh of the same
-                ranks, ZeRO-3 data-parallel: llama3.2-1b at 8 layers, b2
+                ranks, ZeRO-3 data-parallel: llama3.2-1b at 4 layers, b2
                 (a row a rank) s 8192 u 4, the same checks against a
                 one-rank b2 step, and what a rank holds after init (the
                 shards' bytes to the byte, about half of one rank's) and
@@ -167,7 +176,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 on 2 x 1 after step 1, restored there (step 2 the same
                 bits), onto 1 x 2 and in this process onto one rank (the
                 saved bits; step 2 as the other bf16 steps on a mesh are
-                held), with its bytes and seconds;
+                held), with its bytes and seconds; and on both meshes the
+                sharded int8 quantizer on random shard gradients laid out
+                by llama3.2-1b's and granite's plans (2 layers each) against
+                one rank's quantization of each whole leaf, bit for bit,
+                the blocks that straddle shards counted, then one
+                compressed step of llama3.2-1b (2 layers, b2) on 2 x 1
+                against one rank's (loss, parameter-leaf norms, the
+                elements quantized to another integer, all_reduce_max as
+                reckoned);
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
@@ -186,8 +203,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
-                (launches_by_path: the four serve paths, five trainings
-                and the five distributed trainings, per rank);
+                (launches_by_path: the four serve paths, five trainings,
+                the CLI's compressed training and the five distributed
+                trainings, per rank);
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -1387,7 +1405,7 @@ def _pinned_residuals(torch, M, cfg, params, seq, batch):
 
 
 def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None,
-               same_bits=()):
+               same_bits=(), readings=None):
     """A model's training phase at b1, seq 8192, u=4, mlp_chunks 8, remat
     full (offload as ``cfg`` has it): offload off and each ``same_bits``
     variant against ``cfg`` bit for bit (``_same_bits``);
@@ -1398,7 +1416,8 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     u=1 in fp32 weights at every layer.  A model with no attention layer
     (falcon-mamba-7b) has nothing for FPDT to chunk or offload, so the
     offload and u comparisons are skipped for it.  Returns each kernel's
-    launches over the 3 steps."""
+    launches over the 3 steps; ``readings`` (a dict) gets the steps'
+    records and the peak."""
     dev = torch.device("cuda")
     seq, batch, steps = TRAIN_SEQ, 1, 3
     t0 = time.perf_counter()
@@ -1433,8 +1452,8 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     torch.cuda.reset_peak_memory_stats()
     off.reset_counts()
     _reset_counts(M.K, M.SK)
-    params, opt_state, _ = M.TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
-                                               on_step=on_step)
+    params, opt_state, *_ = M.TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
+                                                on_step=on_step)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     flops = _model_flops(cfg, batch, seq)
     want = _launches_per_step(cfg, M.F, M.T, M.MB, seq)
@@ -1452,6 +1471,8 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     if len(records) != steps:
         raise AssertionError(f"{len(records)} steps taken, {steps} asked")
     _check_losses(cfg.name, records, card)
+    if readings is not None:
+        readings.update(records=records, peak_gib=peak_gib)
     print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={cfg.fpdt_chunks} "
           f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload="
           f"{'on' if cfg.fpdt_offload else 'off'}: peak device memory "
@@ -1531,12 +1552,157 @@ def _train_cfg(M, name, **overrides):
                                mlp_chunks=8, remat="full", fpdt_offload=True)
 
 
-def phase_train(torch, M, card):
+def phase_train(torch, M, card, readings):
     """llama3.2-1b at full width; profiled with offload off and on; the
     offloaded chunks are pinned host tensors."""
     return _train_run(torch, M, _train_cfg(M, "llama3.2-1b"), card, profile_offload=(False, True),
                       extra_check=lambda cfg, params, _: _pinned_residuals(torch, M, cfg, params,
-                                                                           TRAIN_SEQ, 1))
+                                                                           TRAIN_SEQ, 1),
+                      readings=readings)
+
+
+# The train CLI with the three flags it took last (6a): llama3.2-1b as phase
+# 6 trains it (the CLI's --chunks 4 is u 4, mlp_chunks 8), with
+# --compress-grads, --trace-out and --metrics-out.
+CLI_ARGV = ("--arch llama3.2-1b --steps 3 --batch 1 --seq 8192 --chunks 4 --offload "
+            "--remat full --compress-grads --log-every 1").split()
+# The quantizer's fp32 temporaries an element of the slab it works on
+# (optim/compression.py::quantize_with_feedback_: the target, its
+# magnitudes or target / scale, q in int8, g_hat), 13 bytes at most.
+QUANT_BYTES = 13
+# The quantizer on the card against the CPU (6a), at these leaf shapes:
+# llama3.2-1b's tied table; granite-moe-1b-a400m's vocabulary by d (the
+# last block padded with 1024 zeros); a norm stack; a leaf shorter than a
+# block.
+QUANT_SHAPES = ((128256, 2048), (49155, 1024), (16, 2048), (1000,))
+
+
+def _quantizer_card_vs_cpu(torch, M, card):
+    """quantize_with_feedback on the card equals the same call on the CPU,
+    bit for bit, in g_hat and the residual: fp32 and bf16 gradients of
+    QUANT_SHAPES, each row's magnitude log-uniform in [1e-6, 1e3], and
+    residuals of a thousandth of that, from a seed."""
+    dev = torch.device("cuda")
+    rows = []
+    for i, shape in enumerate(QUANT_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(100 + i)
+            lead = shape[0] if len(shape) > 1 else 1
+            mag = torch.pow(10.0, torch.rand((lead,) + (1,) * (len(shape) - 1), generator=gen,
+                                             device=dev) * 9 - 6)
+            g = (torch.randn(shape, generator=gen, device=dev) * mag).to(dtype)
+            r = torch.randn(shape, generator=gen, device=dev) * mag * 1e-3
+            on_card = M.C.quantize_with_feedback(g, r)
+            on_cpu = M.C.quantize_with_feedback(g.cpu(), r.cpu())
+            same = [torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)]
+            rows.append(f"{list(shape)} {str(dtype)[6:]}: g_hat {same[0]}, residual {same[1]}")
+            if not all(same):
+                raise AssertionError(f"the quantizer on the card differs from the CPU's at "
+                                     f"{shape} {dtype}")
+            del g, r, on_card, on_cpu
+    torch.cuda.empty_cache()
+    print("quantizer on the card vs the CPU, bit for bit: " + "; ".join(rows) + f" [{card}]")
+
+
+def phase_train_cli(torch, M, card, ref):
+    """The train CLI's main in this process with CLI_ARGV and --trace-out /
+    --metrics-out: all 16 layers of llama3.2-1b at full width, 3 steps.
+    Held: the trace's 3 train.step spans (their durations the history's
+    dt), the Prometheus series, B1-B3's launches a step as phase 6's, step
+    1's loss the same bits as phase 6's (``ref``: the same weights, batch,
+    config and kernels; compression moves only the update) and within
+    LOSS_RTOL of EARLIER_LOSSES, the residuals' bytes 4 a parameter.
+    Printed: steps 2-3 beside phase 6's, the peak beside its reckoning
+    (phase 6's peak, the residuals and the quantizer's largest slab's
+    temporaries), the quantizer's device ms a step for the whole tree
+    (CUDA events around the call).  Then the quantizer on the card against
+    the CPU.  Returns each kernel's launches over the 3 steps."""
+    import tempfile
+
+    cfg = _train_cfg(M, "llama3.2-1b")
+    plans = M.TR.tree_leaves(M.SH.param_plans(cfg, 1, 1))
+    n_params = sum(math.prod(p.shape) for p in plans)
+    transient = QUANT_BYTES * min(M.C.SLAB, max(math.prod(p.shape) for p in plans))
+    reckoned = ref["peak_gib"] + (4 * n_params + transient) / 2**30
+    print(f"reckoned before the run: residuals 4 x {n_params} = {4 * n_params} bytes; peak "
+          f"{reckoned:.2f} GiB (phase 6's {ref['peak_gib']:.2f} + the residuals "
+          f"{4 * n_params / 2**30:.2f} + the quantizer's slab {transient / 2**30:.3f})")
+    want = _launches_per_step(cfg, M.F, M.T, M.MB, TRAIN_SEQ)
+    real_quantize, real_steps = M.C.tree_quantize_with_feedback_, M.TRAIN.train_steps
+    events, runs = [], []
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_quantize(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def kept(*a, **kw):
+        runs.append(real_steps(*a, **kw))
+        return runs[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prom = os.path.join(tmp, "train.json"), os.path.join(tmp, "train.prom")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(M.K, M.SK)
+        M.C.tree_quantize_with_feedback_, M.TRAIN.train_steps = timed, kept
+        try:
+            history = M.TRAIN.main(list(CLI_ARGV) + ["--trace-out", trace, "--metrics-out", prom])
+        finally:
+            M.C.tree_quantize_with_feedback_, M.TRAIN.train_steps = real_quantize, real_steps
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = _counts(M.K, M.SK)
+        with open(trace) as fh:
+            doc = json.load(fh)
+        with open(prom) as fh:
+            text = fh.read()
+    (run,) = runs
+    quant_ms = [a.elapsed_time(b) for a, b in events]
+    residual_bytes = sum(t.numel() * t.element_size() for t in M.TR.tree_leaves(run.residuals))
+    del run, runs
+    torch.cuda.empty_cache()
+    spans = [e for e in doc["traceEvents"] if e["name"] == "train.step" and e["ph"] == "X"]
+    series = ['repro_train_steps{component="train"} 3',
+              'repro_train_step_ms_count{component="train"} 3']
+    base = ref["records"]
+    for rec, b in zip(history, base):
+        print(f"CLI --compress-grads step {rec['step']}: loss {rec['loss']:.6f} grad_norm "
+              f"{rec['grad_norm']:.6f} {rec['dt'] * 1e3:.1f} ms; uncompressed (phase 6) loss "
+              f"{b['loss']:.6f} grad_norm {b['grad_norm']:.6f} {b['dt'] * 1e3:.1f} ms; quantizer "
+              f"{quant_ms[rec['step'] - 1]:.3f} ms device time [{card}]")
+    mean_dt = sum(r["dt"] for r in history) / len(history)
+    print(f"CLI llama3.2-1b ({cfg.num_layers} layers) --compress-grads --trace-out "
+          f"--metrics-out: residuals {residual_bytes} bytes; peak {peak_gib:.2f} GiB (reckoned "
+          f"{reckoned:.2f}; phase 6 {ref['peak_gib']:.2f}); quantizer {min(quant_ms):.3f}-{max(quant_ms):.3f} ms a step, "
+          f"{sum(quant_ms) / len(quant_ms) / (mean_dt * 1e3):.4f} of the mean step; launches "
+          f"{launches} over 3 steps; trace {len(doc['traceEvents'])} events, "
+          f"{len(spans)} train.step spans; Prometheus series present: "
+          f"{[x in text for x in series]} [{card}]")
+    if len(history) != 3 or not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                    for r in history):
+        raise AssertionError("the CLI's history is not 3 finite steps")
+    if history[0]["loss"] != base[0]["loss"]:
+        raise AssertionError(f"step 1's loss {history[0]['loss']!r} is not phase 6's "
+                             f"{base[0]['loss']!r}")
+    early = EARLIER_LOSSES["llama3.2-1b"][0]
+    if abs(history[0]["loss"] - early) > LOSS_RTOL * abs(early):
+        raise AssertionError(f"step 1's loss moves beyond {LOSS_RTOL:.0%} of {early}")
+    if launches != {k: 3 * v for k, v in want.items()}:
+        raise AssertionError(f"launches {launches}, reckoned 3 x {want}")
+    if residual_bytes != 4 * n_params:
+        raise AssertionError(f"residuals of {residual_bytes} bytes, reckoned {4 * n_params}")
+    if len(spans) != 3 or any(
+            not math.isclose(e["dur"], r["dt"] * 1e6, rel_tol=1e-12) or e["args"]["step"]
+            != r["step"] for e, r in zip(spans, history)):
+        raise AssertionError(f"the trace's train.step spans {spans} are not the history's")
+    if not all(x in text for x in series):
+        raise AssertionError(f"the Prometheus text lacks {series}:\n{text}")
+    _quantizer_card_vs_cpu(torch, M, card)
+    return launches
 
 
 def phase_train_hybrid(torch, M, card):
@@ -1824,8 +1990,10 @@ DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16
 # kind.  The ranks' time is gloo's, through the host: it grows with each
 # layer's all-to-alls and gradient bytes and with each step, so the 1 x 2
 # trainings are cut in depth and steps (llama's ulysses and granite take
-# a second step) and keep every check.
-DIST_LLAMA_LAYERS = 8
+# a second step) and keep every check.  llama3.2-1b runs 4 layers here and
+# on 2 x 1 (8 gave the script 770-800 s of its 800 s aim, the gloo steps
+# spreading 40 s between calls).
+DIST_LLAMA_LAYERS = 4
 DIST_STEPS = (("ulysses", 2), ("cp", 1))
 # The first batch's bf16 gradients, two ranks against one, relative in each
 # leaf's norm: FPDT_GRAD_RTOL for every leaf but the tied embedding.  Its
@@ -1860,7 +2028,7 @@ DIST_MIXER_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bf
 
 
 # ZeRO-3 on DIST_RANKS x 1 (``launch/shardings.py``): llama3.2-1b at full
-# width and DIST_LLAMA_LAYERS layers (749 M parameters: 6.98 GiB of bf16
+# width and DIST_LLAMA_LAYERS layers (506 M parameters: 4.71 GiB of bf16
 # weights and fp32 moments on one rank, half that a rank), one b1 s 8192
 # row a data rank, u 4, remat full, FPDT offload on, ZERO_STEPS steps.  A
 # rank's peak must lie within ZERO_PEAK_BAND of its reckoning.
@@ -2030,10 +2198,11 @@ def _mixer_collectives(cfg, kind, sp, b, passes, x_bytes):
             {"gather_spans": passes * sent, "reduce_scatter_spans": sp * sent})
 
 
-def _zero_collectives(M, cfg, dp, sp):
+def _zero_collectives(M, cfg, dp, sp, compress=False):
     """(calls, bytes) of gather_params, reduce_scatter_grads and the
     gradients' all_reduce_sum in one training step's value_and_grad and
-    reduce_grads on a rank of a dp x sp mesh under remat full, as
+    reduce_grads on a rank of a dp x sp mesh under remat full (with
+    ``compress``, and the int8 compression's all_reduce_max), as
     ``launch/shardings.py`` places the leaves: a gather sends the rank's
     shard over data, then what it has over model; its adjoint sends the
     whole gradient over model, then what is left over data.  A cycle's leaf
@@ -2041,10 +2210,15 @@ def _zero_collectives(M, cfg, dp, sp):
     cycle's view, or the whole stack where its cycles axis is split) and
     reduce-scattered once; the tied table twice (lookup and head), every
     other leaf once.  Each leaf replicated on an axis with ranks is summed
-    once (over the world where it is split on neither)."""
+    once (over the world where it is split on neither).  Compression
+    reduces the block maxima of every leaf whose shards' runs of the whole
+    flat leaf (``SH.run_length``) are not whole 2048-element blocks with
+    MAX, one call for each of the data, model and both groups such leaves
+    are split over, 4 bytes a block of those leaves."""
     _, n_cycles, _ = M.T.layout_of(cfg)
-    names = ("gather_params", "reduce_scatter_grads", "all_reduce_sum")
+    names = ("gather_params", "reduce_scatter_grads", "all_reduce_sum", "all_reduce_max")
     calls, nbytes = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    groups = set()
     for path, plan in M.SH.by_path(M.SH.param_plans(cfg, dp, sp)).items():
         full, local = math.prod(plan.shape) * plan.dtype.itemsize, plan.local_bytes()
         uses, passes = 1, 1
@@ -2067,10 +2241,15 @@ def _zero_collectives(M, cfg, dp, sp):
         if (dp > 1 and not plan.data_split) or (sp > 1 and not plan.model_split):
             calls["all_reduce_sum"] += 1
             nbytes["all_reduce_sum"] += plan.local_bytes()
+        if (compress and (plan.data_split or plan.model_split)
+                and M.SH.run_length(plan) % M.C.BLOCK):
+            groups.add((plan.data_split, plan.model_split))
+            nbytes["all_reduce_max"] += 4 * -(-math.prod(plan.shape) // M.C.BLOCK)
+    calls["all_reduce_max"] = len(groups)
     return calls, nbytes
 
 
-def _train_collectives(M, cfg, kind, dp, sp, b, seq):
+def _train_collectives(M, cfg, kind, dp, sp, b, seq, compress=False):
     """(calls, bytes) of each collective a training step hands in on a rank
     of a dp x sp mesh under remat full (``b`` rows of ``seq`` tokens a data
     rank): every attention or recurrent layer of a cycle runs two forwards
@@ -2081,7 +2260,9 @@ def _train_collectives(M, cfg, kind, dp, sp, b, seq):
     gathers, reduce-scatters and gradient sums (``_zero_collectives``); the
     global norm sums 8 bytes over data and 4 over model where the axis has
     ranks; the loop sums its two stop flags once (8 bytes).  A data-only
-    mesh attends locally (``T.attn_kind``): no FPDT collective."""
+    mesh attends locally (``T.attn_kind``): no FPDT collective.
+    ``compress``: and the compression's block maxima
+    (``_zero_collectives``)."""
     P = M.P
     pat, n_cycles, tail = M.T.layout_of(cfg)
     calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
@@ -2106,7 +2287,7 @@ def _train_collectives(M, cfg, kind, dp, sp, b, seq):
         for name in c:
             calls[name] += c[name]
             nbytes[name] += n[name]
-    c, n = _zero_collectives(M, cfg, dp, sp)
+    c, n = _zero_collectives(M, cfg, dp, sp, compress)
     for name in c:
         calls[name] += c[name]
         nbytes[name] += n[name]
@@ -2255,8 +2436,8 @@ def _dist_train_reference(torch, M, card, cfg, bf16_grads=False, batch=1, seq=DI
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", seq, batch, "train"))
     torch.cuda.reset_peak_memory_stats()
-    _, _, hist = M.TRAIN.train_steps(cfg, params, M.TRAIN.opt_config(cfg, 3e-4, 1),
-                                     M.TL.TrainConfig(steps=1, log_every=2), batch_fn, dev)
+    hist = M.TRAIN.train_steps(cfg, params, M.TRAIN.opt_config(cfg, 3e-4, 1),
+                               M.TL.TrainConfig(steps=1, log_every=2), batch_fn, dev).history
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = hist[0]
     del params, hist
@@ -2354,6 +2535,7 @@ def _dist_rank(rank, world, tmp, spawned_at):
         out["train"][label] = timed(label, _dist_train_case, torch, M, zpar, dev, _zero_cfg(M),
                                     ZERO_STEPS, True, ZERO_BATCH, ZERO_SEQ)
         out["ckpt"] = timed("checkpoint", _dist_ckpt, torch, M, zpar, par, dev, tmp)
+        out["compress"] = timed("compress", _dist_compress, torch, M, zpar, par, dev)
         out["seconds"] = seconds
     finally:
         dist.destroy_process_group()
@@ -2550,7 +2732,7 @@ def _dist_train(torch, M, par, dev, cfg, steps, batch=1, seq=DIST_SEQ):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(M.K, M.SK)
     M.P.reset_counts()
-    params, opt_state, _ = M.TRAIN.train_steps(
+    params, opt_state, *_ = M.TRAIN.train_steps(
         cfg, params, oc, M.TL.TrainConfig(steps=steps, log_every=steps + 1), batch_fn, dev,
         par=par, opt_state=opt_state, on_step=on_step)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2640,6 +2822,151 @@ def _dist_ckpt(torch, M, zpar, par, dev, tmp):
             "files": len(list(files.iterdir())), "params": cfg.num_params(),
             "save_s": t_save, "write_s": t_write, "restore_s": t_restore,
             "restore_other_s": t_other}
+
+
+# The compression case on both meshes of the ranks (1 x DIST_RANKS and
+# DIST_RANKS x 1): the sharded quantizer on random shard gradients laid out
+# by the plans of COMPRESS_ARCHS (arch, layers), against one rank's
+# quantization of each whole leaf; then one compressed step of llama3.2-1b
+# at CKPT_LAYERS layers, b ZERO_BATCH (a row a rank) s ZERO_SEQ, on
+# DIST_RANKS x 1 against one rank's compressed step on the whole batch.
+COMPRESS_ARCHS = (("llama3.2-1b", 2), (GRANITE, 2))
+
+
+def _dist_compress(torch, M, zpar, par, dev):
+    """This rank's part of the compression case: per mesh and arch,
+    whether every leaf's sharded quantization is this rank's shard of the
+    whole leaf's, bit for bit, and the blocks that straddle shards; the
+    compressed step on ``zpar`` and one rank's (run here on the whole
+    batch): loss, grad norm, each parameter leaf's norm and update norm
+    (gathered) against one rank's, the elements whose int8 value differs
+    between the two (the gradients before quantization captured in the
+    step), the collectives of the mesh step and their reckoning."""
+    C = M.C
+    out = {"quantizer": {}}
+    for mesh, mp in ((f"1x{par.sp}", par), (f"{zpar.dp}x1", zpar)):
+        for arch, layers in COMPRESS_ARCHS:
+            cfg = M.cfg_mod.get_config(arch, num_layers=layers)
+            plans = M.TR.tree_leaves(M.SH.param_plans(cfg, mp.dp, mp.sp))
+            same, straddling = True, 0
+            for i, plan in enumerate(plans):
+                gen = torch.Generator(device=dev).manual_seed(1000 + i)
+                g = (torch.randn(plan.shape, generator=gen, device=dev) * 1e-3).to(plan.dtype)
+                r = torch.randn(plan.shape, generator=gen, device=dev) * 1e-6
+                want = [M.SH.shard(plan, x, mp) for x in C.quantize_with_feedback(g, r)]
+                got = C.quantize_with_feedback_sharded(plan, M.SH.shard(plan, g, mp),
+                                                       M.SH.shard(plan, r, mp), mp)
+                same = same and all(torch.equal(a, b) for a, b in zip(got, want))
+                straddling += M.SH.straddling_blocks(plan, C.BLOCK)
+                del g, r, want, got
+            out["quantizer"][f"{arch} ({layers} layers) {mesh}"] = {
+                "same": same, "straddling": straddling, "leaves": len(plans)}
+    torch.cuda.empty_cache()
+
+    cfg = _ckpt_cfg(M)
+    oc = M.TRAIN.opt_config(cfg, 3e-4, 1)
+    tc = M.TL.TrainConfig(steps=1, log_every=2, compress_grads=True)
+    batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("compress", ZERO_SEQ, ZERO_BATCH,
+                                                             "train"))
+    real, seen = C.tree_quantize_with_feedback_, []
+
+    def capture(grads, residuals, *a):
+        seen.append([g.clone() for g in M.TR.tree_leaves(grads)])
+        return real(grads, residuals, *a)
+
+    def fresh(p_):
+        return M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, p_)
+
+    C.tree_quantize_with_feedback_ = capture
+    try:
+        one = M.TRAIN.train_steps(cfg, fresh(None), oc, tc, batch_fn, dev)
+        records = []
+
+        def on_step(rec):
+            rec["collectives"] = _collective_counts(M.P)
+            records.append(rec)
+
+        shards = fresh(zpar)
+        M.P.reset_counts()
+        mesh = M.TRAIN.train_steps(cfg, shards, oc, tc, batch_fn, dev, par=zpar,
+                                   on_step=on_step)
+    finally:
+        C.tree_quantize_with_feedback_ = real
+    plans = M.SH.plans_of(cfg, zpar)
+    init = M.TR.tree_leaves(fresh(None))
+    with torch.no_grad():
+        flips = sum(int((C.compress(M.SH.gather(p, g, zpar)).q != C.compress(w).q).sum())
+                    for p, g, w in zip(M.TR.tree_leaves(plans), seen[1], seen[0]))
+        got = M.TR.tree_leaves(M.SH.gather_params_tree(cfg, zpar, mesh.params))
+        want = M.TR.tree_leaves(one.params)
+        norm = lambda x: float(x.float().norm())  # noqa: E731
+        param_rel = [abs(norm(a) - norm(b)) / norm(b) for a, b in zip(got, want)]
+        update_rel = [norm(a.float() - b.float()) / max(norm(b.float() - c.float()), 1e-30)
+                      for a, b, c in zip(got, want, init)]
+    c, nb = _train_collectives(M, cfg, M.T.attn_kind(cfg, zpar), zpar.dp, zpar.sp,
+                               ZERO_BATCH // zpar.dp, ZERO_SEQ, compress=True)
+    out["step"] = {
+        "mesh": f"{zpar.dp}x1", "loss": mesh.history[0]["loss"],
+        "grad_norm": mesh.history[0]["grad_norm"], "one_loss": one.history[0]["loss"],
+        "one_grad_norm": one.history[0]["grad_norm"], "param_rel": param_rel,
+        "update_rel": update_rel, "flips": flips, "elements": cfg.num_params(),
+        "embed_leaf": next(i for i, x in enumerate(M.TR.tree_leaves(one.params))
+                           if x is one.params["embed"]),
+        "collectives": records[0]["collectives"],
+        "want_collectives": {k: [c[k], nb[k]] for k in M.P.COLLECTIVES},
+        "residual_bytes": sum(t.numel() * t.element_size()
+                              for t in M.TR.tree_leaves(mesh.residuals)),
+        "reckoned_residual_bytes": M.SH.state_bytes(plans, torch.float32, residuals=True)
+        - M.SH.state_bytes(plans, torch.float32)}
+    del one, mesh, shards, seen, got, want, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_compress(ranks, card):
+    """The compression case of every rank: each mesh's sharded quantizer
+    the shards of one rank's, bit for bit, with straddling blocks on each
+    mesh; the compressed DIST_RANKS x 1 step against one rank's as the
+    other bf16 steps on a mesh are held (its loss within FPDT_GRAD_RTOL;
+    each parameter leaf's norm within DIST_BF16_EMBED_RTOL for the
+    embedding and FPDT_GRAD_RTOL for the others), its collectives as
+    reckoned, the residuals a rank holds 4 bytes an element of its shards;
+    the elements quantized to another integer and each leaf's update norm
+    printed."""
+    for r, got in enumerate(ranks):
+        q, st = got["compress"]["quantizer"], got["compress"]["step"]
+        for case, v in q.items():
+            print(f"  rank {r} sharded quantizer, {case}: {v['leaves']} leaves the shards of "
+                  f"one rank's bit for bit: {v['same']}; blocks that straddle shards "
+                  f"{v['straddling']}")
+        for mesh in sorted({c.split()[-1] for c in q}):
+            if sum(v["straddling"] for c, v in q.items() if c.endswith(mesh)) <= 0:
+                raise AssertionError(f"rank {r}: no block straddles shards on {mesh}")
+        if not all(v["same"] for v in q.values()):
+            raise AssertionError(f"rank {r}: a sharded quantization differs from one rank's")
+        emb = st["embed_leaf"]
+        loss_rel = abs(st["loss"] - st["one_loss"]) / abs(st["one_loss"])
+        others = max(x for i, x in enumerate(st["param_rel"]) if i != emb)
+        print(f"  rank {r} compressed step, llama3.2-1b ({CKPT_LAYERS} layers) b{ZERO_BATCH} "
+              f"s{ZERO_SEQ} on {st['mesh']} vs one rank: loss {st['loss']:.6f} vs "
+              f"{st['one_loss']:.6f} (rel {loss_rel:.3e}), grad_norm {st['grad_norm']:.6f} vs "
+              f"{st['one_grad_norm']:.6f}; parameter-leaf norms rel: embedding "
+              f"{st['param_rel'][emb]:.3e} (limit {DIST_BF16_EMBED_RTOL}), the others at most "
+              f"{others:.3e} (limit {FPDT_GRAD_RTOL}); update norms rel "
+              + ", ".join(f"{x:.2e}" for x in st["update_rel"])
+              + f"; elements quantized to another integer {st['flips']} of {st['elements']}; "
+              f"residuals {st['residual_bytes']} bytes (reckoned "
+              f"{st['reckoned_residual_bytes']}); all_reduce_max "
+              f"{st['collectives']['all_reduce_max']} (reckoned "
+              f"{st['want_collectives']['all_reduce_max']}) [{card}]")
+        if loss_rel > FPDT_GRAD_RTOL or st["param_rel"][emb] > DIST_BF16_EMBED_RTOL or (
+                others > FPDT_GRAD_RTOL):
+            raise AssertionError(f"rank {r}: the compressed mesh step differs from one rank's")
+        if st["collectives"] != st["want_collectives"]:
+            raise AssertionError(f"rank {r} compressed step: collectives {st['collectives']}, "
+                                 f"reckoned {st['want_collectives']}")
+        if st["residual_bytes"] != st["reckoned_residual_bytes"]:
+            raise AssertionError(f"rank {r}: residuals of {st['residual_bytes']} bytes")
 
 
 def _check_zero_state(r, case, t, card):
@@ -2964,6 +3291,7 @@ def phase_dist(torch, M, card):
         totals[f"train {arch} {t0['mesh']}{kind} (per rank)"] = {
             k: sum(rec["launches"][k] for rec in t0["records"]) for k in t0["want_launches"]}
     _check_ckpt(ranks, one_rank_ckpt, card)
+    _check_compress(ranks, card)
     return totals
 
 
@@ -3300,12 +3628,13 @@ def _modules():
     from repro_torch.models import rglru as R
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as C
     from repro_torch.runtime import placement as PL
     from repro_torch.runtime import train_loop as TL
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
-                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT)
+                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C)
 
 
 def main():
@@ -3339,7 +3668,10 @@ def main():
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
     serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
              for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE)}
-    train = phase("train llama3.2-1b", phase_train, torch, M, card)
+    train_ref = {}
+    train = phase("train llama3.2-1b", phase_train, torch, M, card, train_ref)
+    cli = phase("train CLI llama3.2-1b --compress-grads --trace-out --metrics-out",
+                phase_train_cli, torch, M, card, train_ref)
     hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, M, card)
     gpt = phase("train gpt-2.7b", phase_train_gpt, torch, M, card)
     falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
@@ -3409,7 +3741,8 @@ def main():
         if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
             fail(f"non-finite timing of {kname}")
         by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
-                   "train llama3.2-1b": train[kname], "train recurrentgemma-9b": hybrid[kname],
+                   "train llama3.2-1b": train[kname], "train llama3.2-1b compress": cli[kname],
+                   "train recurrentgemma-9b": hybrid[kname],
                    "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],
                    f"train {GRANITE}": granite[kname],
                    **{path: d[kname] for path, d in dist.items()}}

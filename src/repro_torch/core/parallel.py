@@ -20,6 +20,8 @@ The collectives work on the kernels' head-major layout [b, h, s, dh]:
   gather_seq          [b, h, C/sp, dh] -> [b, h, C, dh]       (all_gather_into_tensor)
   reduce_scatter_seq  [b, h, C, dh] -> [b, h, C/sp, dh] summed (reduce_scatter_tensor)
   all_reduce_sum      in place, over a group or the world      (all_reduce)
+  all_reduce_max      the same with MAX: the int8 gradient compression's
+                      block maxima under ZeRO-3 (``optim/compression.py``)
 
 and, for the recurrent mixers' two-pass scans (``models/mamba.py``,
 ``models/rglru.py``), one collective that autograd differentiates:
@@ -61,8 +63,8 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
-               "all_reduce_sum", "gather_spans", "reduce_scatter_spans", "gather_counts",
-               "gather_params", "reduce_scatter_grads")
+               "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
+               "gather_counts", "gather_params", "reduce_scatter_grads")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -181,6 +183,16 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError("all_reduce_sum: the tensor must be contiguous")
     _count("all_reduce_sum", x)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``group`` (None: the world), in
+    place; returns ``x``.  Exact, whatever the order."""
+    if not x.is_contiguous():
+        raise ValueError("all_reduce_max: the tensor must be contiguous")
+    _count("all_reduce_max", x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 

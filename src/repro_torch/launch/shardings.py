@@ -31,6 +31,12 @@ A leaf of ``params["cycles"]`` is gathered one cycle at a time, its view
 of the stack (the split dimensions one further in); the router's stack,
 whose cycles axis the MoE rule may split over model, is gathered whole
 and sliced at its cycle (``splits_cycles``).
+
+Where a shard's elements lie in the whole leaf's row-major flat order
+(``offsets``, ``flat_index``, ``run_length``, ``straddling_blocks``) is
+what the int8 gradient compression needs to cut the whole leaf's blocks
+(``optim/compression.py``); ``state_bytes(..., residuals=True)`` counts its
+fp32 residuals in a rank's state.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
@@ -262,8 +269,76 @@ def reduce_axes(plan: LeafPlan, par) -> Optional[Any]:
     return False
 
 
-def state_bytes(plans, state_dtype: torch.dtype) -> int:
+def state_bytes(plans, state_dtype: torch.dtype, residuals: bool = False) -> int:
     """A rank's bytes of the parameters under ``plans``, of their two AdamW
-    moments in ``state_dtype`` and of the int32 step counter."""
-    return 4 + sum(p.local_bytes() + 2 * math.prod(p.local_shape()) * state_dtype.itemsize
-                   for p in tree_leaves(plans))
+    moments in ``state_dtype`` and of the int32 step counter; with
+    ``residuals`` (``--compress-grads``) also of the fp32 error-feedback
+    residuals, 4 bytes an element of the rank's shards."""
+    per = 2 * state_dtype.itemsize + (4 if residuals else 0)
+    return 4 + sum(p.local_bytes() + per * math.prod(p.local_shape()) for p in tree_leaves(plans))
+
+
+# ---------------------------------------------------------------------------
+# where a shard's elements lie in the whole leaf's row-major flat order
+# ---------------------------------------------------------------------------
+
+
+def offsets(plan: LeafPlan, dp_rank: int, sp_rank: int) -> Tuple[int, ...]:
+    """The whole leaf's index, along each dimension, of the first element
+    of the shard that rank (``dp_rank``, ``sp_rank``) holds."""
+    local = plan.local_shape()
+    out = [0] * len(plan.shape)
+    if plan.data_split:
+        out[plan.data_dim] = dp_rank * local[plan.data_dim]
+    if plan.model_split:
+        out[plan.model_dim] = sp_rank * local[plan.model_dim]
+    return tuple(out)
+
+
+def flat_index(plan: LeafPlan, dp_rank: int, sp_rank: int, start: int = 0,
+               stop: Optional[int] = None, device=None) -> torch.Tensor:
+    """int64 [stop - start, *local_shape()[1:]]: the whole leaf's row-major
+    flat index of each element of rows ``start:stop`` (along dimension 0)
+    of rank (``dp_rank``, ``sp_rank``)'s shard."""
+    local = plan.local_shape()
+    stop = local[0] if stop is None else stop
+    strides = [math.prod(plan.shape[d + 1:]) for d in range(len(plan.shape))]
+    out = None
+    for d, (n, off, stride) in enumerate(zip(local, offsets(plan, dp_rank, sp_rank), strides)):
+        lo, hi = (start, stop) if d == 0 else (0, n)
+        a = (torch.arange(lo, hi, dtype=torch.int64, device=device) + off) * stride
+        a = a.view([-1 if e == d else 1 for e in range(len(local))])
+        out = a if out is None else out + a
+    return out
+
+
+def run_length(plan: LeafPlan) -> int:
+    """The length of the runs of consecutive flat indices of the whole leaf
+    that a shard holds: the whole leaf's row-major flat order is cut into
+    runs of this many elements, consecutive runs on different shards (the
+    whole leaf where nothing is split)."""
+    dims = [d for d, on in ((plan.data_dim, plan.data_split), (plan.model_dim, plan.model_split))
+            if on]
+    if not dims:
+        return math.prod(plan.shape)
+    d = max(dims)
+    return plan.local_shape()[d] * math.prod(plan.shape[d + 1:])
+
+
+def straddling_blocks(plan: LeafPlan, block: int) -> int:
+    """How many of the whole leaf's flat blocks of ``block`` elements
+    (``optim/compression.py``'s quantisation blocks) hold elements of more
+    than one shard."""
+    run, n = run_length(plan), math.prod(plan.shape)
+    if run % block == 0:
+        return 0
+    cuts = np.arange(run, n, run, dtype=np.int64)
+    return int(np.unique(cuts[cuts % block != 0] // block).size)
+
+
+def split_group(plan: LeafPlan, par) -> Optional[Any]:
+    """The group whose ranks hold the other shards of a leaf: the data
+    group, the model group, or None (the world) where it is split on both."""
+    if plan.data_split and plan.model_split:
+        return None
+    return par.dp_group if plan.data_split else par.sp_group

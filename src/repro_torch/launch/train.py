@@ -3,9 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --steps 3 --batch 1 --seq 8192 --chunks 4 --offload [--remat full] \\
       [--reduced] [--device cuda|cpu] [--mesh none|host8|DxM] [--dist-backend nccl|gloo] \\
-      [--ckpt-dir DIR [--ckpt-every 50] [--resume auto|N]]
+      [--ckpt-dir DIR [--ckpt-every 50] [--resume auto|N]] [--compress-grads] \\
+      [--trace-out T.json] [--metrics-out M.prom]
 
-The JAX package's flags, plus ``--device`` and ``--dist-backend``.  Weights
+Every flag of the JAX trainer, plus ``--device`` and ``--dist-backend``.  Weights
 are random from ``--seed``; batches come from the port's copy of the data
 pipeline, so they are the JAX trainer's.  The run is on the card unless
 ``--device cpu`` asks for the CPU; with no card it stops instead of falling
@@ -31,8 +32,17 @@ NCCL needs one card a rank, gloo can share one.  Only rank 0 prints.
 after SIGTERM/SIGINT (``checkpoint/manager.py``, the JAX package's layout
 on disk); ``--resume auto`` (the newest step) or ``--resume N`` restores
 before training, onto the mesh this run has, whatever mesh wrote it.
-``--compress-grads`` and telemetry (``--trace-out/--metrics-out``) are not
-yet ported.
+
+``--compress-grads`` quantizes the summed gradients to int8 blocks with
+error feedback before AdamW (``optim/compression.py``; under a mesh with
+the whole leaves' blocks, bit for bit).  Unlike the JAX CLI, whose loop
+never hands its step the residuals and so compresses nothing, the port's
+loop carries them (fp32, 4 bytes a parameter of the rank's shards); they
+are not checkpointed and restart at zero after ``--resume``.
+``--trace-out`` writes the loop's ``train.step`` spans as Chrome
+trace-event JSON and ``--metrics-out`` its metrics registry as Prometheus
+text (``runtime/telemetry.py``), after the run; under ``--mesh`` every
+rank records and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ import multiprocessing.connection
 import os
 import sys
 import tempfile
-from typing import Callable, Optional
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -56,6 +66,7 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.launch.serve import device_name
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.runtime import telemetry as TM
 from repro_torch.runtime.train_loop import TrainConfig, TrainLoop, make_train_step
 
 
@@ -65,17 +76,26 @@ def opt_config(cfg: ModelConfig, lr: float, steps: int) -> adamw.OptConfig:
                            state_dtype=cfg.opt_state_dtype)
 
 
+class TrainRun(NamedTuple):
+    """What ``train_steps`` hands back."""
+
+    params: Any
+    opt_state: adamw.OptState
+    history: List[dict]  # per step: loss, grad_norm, dt (host-clock seconds)[, aux]
+    telemetry: TM.Telemetry  # the loop's
+    residuals: Any  # the error-feedback residuals under tc.compress_grads, else None
+
+
 def train_steps(cfg: ModelConfig, params, oc: adamw.OptConfig, tc: TrainConfig,
                 batch_fn: Callable, device, *, par: Optional[ParallelContext] = None,
                 opt_state=None, on_step: Optional[Callable[[dict], None]] = None,
-                ckpt: Optional[CheckpointManager] = None, start_step: int = 0):
+                ckpt: Optional[CheckpointManager] = None, start_step: int = 0) -> TrainRun:
     """Take AdamW steps ``start_step`` + 1 .. ``tc.steps`` from ``params``
     (updated in place; under a mesh this rank's shards, ``init_params(...,
     par)``) over ``batch_fn``'s batches ``start_step``, ... (under a mesh,
-    each rank's part of them), checkpointing through ``ckpt``.  Returns
-    (params, opt_state, history); each history record holds the step's
-    loss, grad norm and host-clock seconds around work that ends in a
-    device synchronise."""
+    each rank's part of them), checkpointing through ``ckpt``.  Each history
+    record holds the step's loss, grad norm and host-clock seconds around
+    work that ends in a device synchronise."""
     device = torch.device(device)
     if opt_state is None:
         opt_state = adamw.init(oc, params)
@@ -87,14 +107,7 @@ def train_steps(cfg: ModelConfig, params, oc: adamw.OptConfig, tc: TrainConfig,
                 for k, v in shard_batch(b, par, cfg.fpdt_chunks).items()}
 
     params, opt_state, _ = loop.run(params, opt_state, start_step, put_batch=put)
-    return params, opt_state, loop.history
-
-
-NOT_PORTED = {
-    "compress_grads": "--compress-grads: gradient compression",
-    "trace_out": "--trace-out: train telemetry",
-    "metrics_out": "--metrics-out: train telemetry",
-}
+    return TrainRun(params, opt_state, loop.history, loop.telemetry, loop.residuals)
 
 
 def main(argv=None):
@@ -122,14 +135,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", default=None, help="'auto' or a step number")
-    # the JAX trainer's flags that are not yet ported: refused below
-    ap.add_argument("--compress-grads", action="store_true", help="not yet ported")
-    ap.add_argument("--trace-out", default=None, help="not yet ported")
-    ap.add_argument("--metrics-out", default=None, help="not yet ported")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient blocks with error feedback before AdamW")
+    ap.add_argument("--trace-out", default="",
+                    help="write per-step train.step spans as Chrome trace-event JSON "
+                         "(Perfetto-viewable)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the step-timing metrics registry as Prometheus text exposition")
     args = ap.parse_args(argv)
-    for name, what in NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            ap.exit(2, f"{what} is not yet ported\n")
     if min(args.steps, args.batch, args.seq, args.grad_accum, args.ckpt_every) < 1:
         ap.error("--steps, --batch, --seq, --grad-accum and --ckpt-every must be >= 1")
     if args.resume not in (None, "auto") and not args.resume.isdigit():
@@ -246,7 +259,7 @@ def _train(args, par: Optional[ParallelContext], device: torch.device):
     oc = opt_config(cfg, args.lr, args.steps)
     opt_state = adamw.init(oc, params)
     tc = TrainConfig(steps=args.steps, ckpt_every=args.ckpt_every, log_every=args.log_every,
-                     grad_accum=args.grad_accum)
+                     grad_accum=args.grad_accum, compress_grads=args.compress_grads)
     bf = make_batch_fn(cfg, ShapeConfig("cli", args.seq, args.batch, "train"))
     mgr = CheckpointManager(args.ckpt_dir, cfg=cfg, par=par) if args.ckpt_dir else None
     start = 0
@@ -257,15 +270,30 @@ def _train(args, par: Optional[ParallelContext], device: torch.device):
             params, opt_state, start = restored["params"], restored["opt"], step
             if main_rank:
                 print(f"[resume] restored step {step}", flush=True)
-    _, _, history = train_steps(cfg, params, oc, tc, bf, device, par=par, opt_state=opt_state,
-                                ckpt=mgr, start_step=start)
+    run = train_steps(cfg, params, oc, tc, bf, device, par=par, opt_state=opt_state, ckpt=mgr,
+                      start_step=start)
     tokens = args.batch * args.seq
     where = name if par is None else f"{name}, {par.dp * par.sp} ranks"
-    for rec in history if main_rank else ():
+    for rec in run.history if main_rank else ():
         aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""
         print(f"step {rec['step']}: loss {rec['loss']:.4f}{aux} grad_norm {rec['grad_norm']:.4f} "
               f"{rec['dt'] * 1e3:.1f} ms ({tokens / rec['dt']:.1f} tokens/s) on {where}")
-    return history
+    if main_rank and (args.trace_out or args.metrics_out):
+        _write_telemetry(args, run.telemetry, where)
+    return run.history
+
+
+def _write_telemetry(args, telemetry: TM.Telemetry, where: str) -> None:
+    """``--trace-out`` / ``--metrics-out``, and the JAX CLI's three lines."""
+    if args.trace_out:
+        doc = TM.write_chrome_trace(args.trace_out, telemetry)
+        print(f"[telemetry] wrote {len(doc['traceEvents'])} trace events to {args.trace_out}")
+    if args.metrics_out:
+        TM.write_prometheus(args.metrics_out, telemetry)
+        print(f"[telemetry] wrote metrics registry to {args.metrics_out}")
+    h = telemetry.registry.histogram("train_step_ms").summary()
+    print(f"[telemetry] train_step_ms: p50 {h['p50']:.1f} p95 {h['p95']:.1f} mean "
+          f"{h['mean']:.1f} over {h['count']} steps on {where}", flush=True)
 
 
 if __name__ == "__main__":

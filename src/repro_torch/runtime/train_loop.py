@@ -1,10 +1,15 @@
 """Training runtime: the step builder and the loop.
 
-``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
-opt_state, metrics)``: the loss and its gradient through
-``models/transformer.py::loss_fn`` (FPDT attention with its Fig. 7
+``make_train_step`` returns ``step(params, opt_state, batch, residuals=None)
+-> (params, opt_state, metrics[, residuals])``: the loss and its gradient
+through ``models/transformer.py::loss_fn`` (FPDT attention with its Fig. 7
 backward inside), optionally accumulated over ``grad_accum`` micro-batches
 in a Python loop with fp32 gradient sums, then one AdamW update (in place).
+Under ``compress_grads`` the summed (and averaged) gradients are quantized
+to int8 blocks with error feedback before AdamW (``optim/compression.py``,
+as the JAX step does; the reported ``grad_norm`` is that of the
+dequantized gradients), and the new residuals are returned; the step
+refuses to run without residuals then.
 Nothing in a step reads a device value on the host; ``TrainLoop``
 synchronises the card once after each step, then reads the loss.  For an
 MoE model the metrics also hold ``aux``, the load-balancing loss that
@@ -29,8 +34,20 @@ straggler) is summed over the world after each step.
 parameters, the AdamW state and the data iterator's step) every
 ``ckpt_every`` steps, before the straggler check; SIGTERM/SIGINT end the
 loop after the current step with a blocking final checkpoint; a straggler
-ends it with none, as the JAX loop's ``break`` does.  Gradient compression
-and telemetry are not yet ported.
+ends it with none, as the JAX loop's ``break`` does.
+
+Under ``compress_grads`` the loop creates fp32 zero residuals shaped like
+this rank's parameter shards and carries them from step to step.  (The
+JAX loop calls its step without residuals, so its ``--compress-grads``
+compresses nothing; the port does what the flag and the JAX step's
+comment describe.)  The residuals are not checkpointed, since the
+checkpoint keeps the JAX package's layout: after a resume they start
+again from zero.  ``TrainLoop.telemetry`` (``runtime/telemetry.py``)
+records what the JAX loop records, after each step and before the log,
+checkpoint and straggler steps: the ``train_step_ms`` histogram, the
+``train_steps`` counter, the ``train_loss`` gauge and one ``train.step``
+span (step, ``dur_ms``, loss), over the same host-clock interval as the
+history's ``dt``.
 """
 from __future__ import annotations
 
@@ -48,6 +65,8 @@ from repro_torch.core.parallel import ParallelContext
 from repro_torch.launch import shardings as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.optim import compression as comp
+from repro_torch.runtime import telemetry as TM
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -57,6 +76,7 @@ class TrainConfig:
     ckpt_every: int = 50
     log_every: int = 10
     grad_accum: int = 1
+    compress_grads: bool = False  # int8 + error feedback (optim/compression.py)
     straggler_zscore: float = 4.0
     straggler_patience: int = 3
 
@@ -141,10 +161,12 @@ def reduce_grads(cfg: ModelConfig, par: Optional[ParallelContext], grads):
 
 def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
                     oc: adamw.OptConfig, tc: Optional[TrainConfig] = None):
-    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+    """(params, opt_state, batch[, residuals]) -> (params, opt_state,
+    metrics[, residuals])."""
     tc = tc or TrainConfig()
+    plans = SH.plans_of(cfg, par)
 
-    def step(params, opt_state, batch):
+    def step(params, opt_state, batch, residuals=None):
         if tc.grad_accum > 1:
             n = tc.grad_accum
             gsum, lsum, asum = None, None, None
@@ -162,11 +184,16 @@ def make_train_step(cfg: ModelConfig, par: Optional[ParallelContext],
         else:
             lval, metrics, grads = value_and_grad(cfg, par, params, batch)
         grads = reduce_grads(cfg, par, grads)
-        params, opt_state, om = adamw.apply(oc, params, grads, opt_state, par,
-                                            SH.plans_of(cfg, par))
+        if tc.compress_grads:
+            if residuals is None:
+                raise ValueError("compress_grads: the step needs the residuals "
+                                 "(optim/compression.py::init_residuals)")
+            grads, residuals = comp.tree_quantize_with_feedback_(grads, residuals, par, plans)
+        params, opt_state, om = adamw.apply(oc, params, grads, opt_state, par, plans)
         metrics = dict(metrics)
         metrics.update(om)
-        return params, opt_state, metrics
+        out = (params, opt_state, metrics)
+        return out + ((residuals,) if residuals is not None else ())
 
     return step
 
@@ -202,7 +229,9 @@ class HeartbeatMonitor:
 class TrainLoop:
     """Runs ``step_fn`` over ``data_iter``, checkpointing through
     ``ckpt_mgr`` (``checkpoint/manager.py``; optional); ``on_step(record)``
-    (optional) is called after each step, once the card is synchronised."""
+    (optional) is called after each step, once the card is synchronised.
+    Under ``tc.compress_grads`` ``residuals`` holds the error-feedback
+    residuals that ``run`` carries (None before it and without the flag)."""
 
     def __init__(self, cfg, par, oc, tc, step_fn, data_iter, ckpt_mgr=None,
                  on_step: Optional[Callable[[dict], None]] = None):
@@ -215,6 +244,8 @@ class TrainLoop:
         self._stop = False  # a signal asked the loop to stop
         self._straggler = False  # a straggler stopped it
         self.history: list = []
+        self.residuals = None
+        self.telemetry = TM.Telemetry(component="train")
 
     def _install_signals(self) -> dict:
         """Route SIGTERM/SIGINT to a stop flag; returns the handlers replaced."""
@@ -249,10 +280,16 @@ class TrainLoop:
     def _run(self, params, opt_state, start_step, put_batch):
         step = start_step
         self.data.restore(start_step)
+        if self.tc.compress_grads:  # not checkpointed: zero again after a resume
+            self.residuals = comp.init_residuals(params)
         while step < self.tc.steps and not (self._stop or self._straggler):
             t0 = time.perf_counter()
             batch = put_batch(next(self.data))
-            params, opt_state, metrics = self.step_fn(params, opt_state, batch)
+            if self.tc.compress_grads:
+                params, opt_state, metrics, self.residuals = self.step_fn(
+                    params, opt_state, batch, self.residuals)
+            else:
+                params, opt_state, metrics = self.step_fn(params, opt_state, batch)
             device = metrics["loss"].device
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -263,6 +300,10 @@ class TrainLoop:
             if self.cfg.num_experts:
                 rec["aux"] = float(metrics["aux"])
             self.history.append(rec)
+            self.telemetry.registry.histogram("train_step_ms").observe(dt * 1e3)
+            self.telemetry.registry.counter("train_steps").inc()
+            self.telemetry.registry.gauge("train_loss").set(rec["loss"])
+            self.telemetry.event("train.step", step=step, dur_ms=dt * 1e3, loss=rec["loss"])
             rank = self.par.rank if self.par is not None else 0
             if step % self.tc.log_every == 0 and rank == 0:
                 aux = f" aux {rec['aux']:.4f}" if "aux" in rec else ""

@@ -140,6 +140,9 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         y = xs[me].clone()
         out["ok"][f"{name} all_reduce_sum"] = torch.allclose(P.all_reduce_sum(y, group), sum(xs),
                                                              rtol=1e-6, atol=0)
+        y = xs[me].clone()
+        out["ok"][f"{name} all_reduce_max"] = torch.equal(P.all_reduce_max(y, group),
+                                                          torch.stack(xs).amax(0))
         # spans [b, u=h, c, d]: rank m's span i lands at i*sp + m; the
         # backward sums each rank's block of the gradient over the group
         mine = xs[me].clone().requires_grad_(True)
@@ -166,12 +169,14 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         sent = b * h * c * d * 4
         out["ok"][f"{name} counts"] = (
             P.calls == {"seq_to_heads": 1, "heads_to_seq": 1, "gather_seq": 1,
-                        "reduce_scatter_seq": 1, "all_reduce_sum": 1, "gather_spans": 1,
+                        "reduce_scatter_seq": 1, "all_reduce_sum": 1, "all_reduce_max": 1,
+                        "gather_spans": 1,
                         "reduce_scatter_spans": 1, "gather_counts": 1, "gather_params": 1,
                         "reduce_scatter_grads": 1}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
                              "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
-                             "gather_spans": sent, "reduce_scatter_spans": sp * sent,
+                             "all_reduce_max": sent, "gather_spans": sent,
+                             "reduce_scatter_spans": sp * sent,
                              "gather_counts": 24, "gather_params": sent,
                              "reduce_scatter_grads": sp * sent})
     return out
@@ -807,6 +812,110 @@ def task_ckpt(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
+# The compression cases: the quantizer on every leaf of the ZeRO-3 cases'
+# plans (reduced llama3.2-1b and granite at ZERO_LAYERS layers) and on
+# hand-made leaves whose blocks straddle a data split, a model split and
+# both (and one whose shards hold whole blocks), on 2 x 2; then COMPRESS_STEPS
+# compressed steps of reduced llama3.2-1b on 2 x 2.
+COMPRESS_ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+# name: (shape, dtype, data_dim, model_dim) on 2 x 2
+COMPRESS_LEAVES = {"data": ((6, 3002), "bfloat16", 1, None),
+                   "model": ((10, 1000), "float32", None, 1),
+                   "both": ((8, 12, 300), "float32", 1, 2),
+                   "aligned": ((6, 4096), "bfloat16", 1, None)}
+COMPRESS_STEPS = 2
+
+
+def compress_leaves(cfgs, plans_fn):
+    """name -> (shape, dtype name, data_dim, model_dim) of every leaf the
+    quantizer case runs: the ZeRO-3 cases' parameter leaves (``plans_fn(cfg)``
+    their plans' leaves, each with its (shape, data_dim, model_dim)) and
+    COMPRESS_LEAVES.  Every other leaf's gradient is bf16."""
+    out = {}
+    for arch in COMPRESS_ARCHS:
+        for i, (shape, ddim, mdim) in enumerate(plans_fn(zero_cfg(cfgs, arch))):
+            out[f"{arch}/{i}"] = (tuple(shape), "bfloat16" if i % 2 else "float32", ddim, mdim)
+    out.update(COMPRESS_LEAVES)
+    return out
+
+
+def task_compress(rank: int, world: int, tmp: Path) -> dict:
+    """On 2 x 2: each leaf of ``compress_leaves`` quantized from this rank's
+    shard of the whole gradient and residual (``compress.npz``) by
+    ``quantize_with_feedback_sharded``, and all of them at once by
+    ``tree_quantize_with_feedback_`` (the step's), each against the shard
+    of JAX's whole-leaf ``quantize_with_feedback`` bit for bit, with the
+    all_reduce_max calls and bytes of the tree call; then COMPRESS_STEPS
+    compressed steps of reduced llama3.2-1b from JAX's weights: (loss,
+    grad norm) a step, the all_reduce_max counts of the first, and the
+    parameters after them (gathered, on rank 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import parallel as P
+    from repro_torch.data.pipeline import make_batch_fn, shard_batch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.optim import compression as C
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    ref = np.load(tmp / "compress.npz")
+    par = P.ParallelContext(make_mesh(2, 2))
+    leaves = compress_leaves(configs, lambda cfg: [
+        (p.shape, p.data_dim, p.model_dim) for p in tree_leaves(SH.param_plans(cfg, 2, 2))])
+    names = sorted(leaves)
+    plans, g, r, want = [], [], [], []
+    for name in names:
+        shape, dtype, ddim, mdim = leaves[name]
+        plan = SH.LeafPlan(shape, getattr(torch, dtype), 2, 2, ddim, mdim)
+        key = name.replace("/", "_")
+        plans.append(plan)
+        g.append(SH.shard(plan, torch.from_numpy(ref[f"{key}/g"]).to(plan.dtype), par))
+        r.append(SH.shard(plan, torch.from_numpy(ref[f"{key}/r"]), par))
+        want.append((SH.shard(plan, torch.from_numpy(ref[f"{key}/g_hat"]).to(plan.dtype), par),
+                     SH.shard(plan, torch.from_numpy(ref[f"{key}/r_new"]), par)))
+    out = {"one_leaf": {}, "straddling": {}}
+    for name, plan, a, b, (wa, wb) in zip(names, plans, g, r, want):
+        got = C.quantize_with_feedback_sharded(plan, a, b, par)
+        out["one_leaf"][name] = (torch.equal(got[0], wa) and torch.equal(got[1], wb)
+                                 and got[0].dtype == wa.dtype)
+        out["straddling"][name] = SH.straddling_blocks(plan, C.BLOCK)
+    P.reset_counts()
+    gt, rt = [x.clone() for x in g], [x.clone() for x in r]
+    C.tree_quantize_with_feedback_(gt, rt, par, plans)
+    out["tree_counts"] = [P.calls["all_reduce_max"], P.nbytes["all_reduce_max"]]
+    out["tree"] = all(torch.equal(a, wa) and torch.equal(b, wb)
+                      for a, b, (wa, wb) in zip(gt, rt, want))
+
+    cfg = zero_cfg(configs, "llama3.2-1b")
+    whole = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    n = len(tree_leaves(whole))
+    p = SH.shard_params(cfg, par, tree_unflatten(whole, [
+        torch.from_numpy(ref[f"step/p{i}"].copy()) for i in range(n)]))
+    oc = A.OptConfig(**TRAIN_OPT)
+    state, res = A.init(oc, p), C.init_residuals(p)
+    step = TL.make_train_step(cfg, par, oc, TL.TrainConfig(compress_grads=True))
+    batch_fn = make_batch_fn(cfg, ShapeConfig("t", ZERO_S, ZERO_B, "train"))
+    out["steps"] = []
+    for s in range(COMPRESS_STEPS):
+        b = {k: torch.from_numpy(v) for k, v in
+             shard_batch(batch_fn(s), par, cfg.fpdt_chunks).items()}
+        P.reset_counts()
+        p, state, m, res = step(p, state, b, res)
+        if s == 0:
+            out["step_counts"] = [P.calls["all_reduce_max"], P.nbytes["all_reduce_max"]]
+        out["steps"].append([float(m["loss"]), float(m["grad_norm"])])
+    gathered = tree_leaves(SH.gather_params_tree(cfg, par, p))
+    if rank == 0:
+        np.savez(tmp / "compress-params.npz", *[x.numpy() for x in gathered])
+    return out
+
+
 CUDA_CASES = (("ulysses", 8, 2), ("ulysses", 8, 1), ("cp", 6, 2))  # kind, hq, hkv
 CUDA_DTYPES = ("float32", "bfloat16")
 CUDA_S, CUDA_U = 1024, 4
@@ -884,7 +993,7 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
 
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
          "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe,
-         "zero": task_zero, "ckpt": task_ckpt}
+         "zero": task_zero, "ckpt": task_ckpt, "compress": task_compress}
 
 
 def main() -> None:

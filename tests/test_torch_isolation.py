@@ -45,7 +45,8 @@ def test_port_has_modules():
                  "kernels/linear_scan/kernel.py", "kernels/linear_scan/ops.py",
                  "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py",
                  "configs/falcon_mamba_7b.py", "core/parallel.py", "launch/mesh.py",
-                 "models/moe.py", "configs/granite_moe_1b_a400m.py"):
+                 "models/moe.py", "configs/granite_moe_1b_a400m.py", "optim/compression.py",
+                 "runtime/telemetry.py"):
         assert want in names
     assert os.path.exists(SMOKE)
     for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),

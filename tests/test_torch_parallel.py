@@ -9,7 +9,8 @@ collective must give what it is defined to give on a model group (4 ranks)
 and a data group (2), with ``seq_to_heads`` and ``heads_to_seq`` inverting
 each other, ``gather_spans`` putting every rank's spans in global order
 and its backward summing each rank's block, ``gather_counts`` stacking
-every rank's integer counts in rank order, ``gather_params``
+every rank's integer counts in rank order, ``all_reduce_max`` the
+elementwise maximum, ``gather_params``
 concatenating every rank's shard along its split dimension and its
 backward summing each rank's block, and the call and byte counts as
 written.  ``shard_batch`` must
@@ -61,7 +62,8 @@ def test_mesh_rank_order_is_the_jax_device_order(ranks, jax_grid):
 
 @pytest.mark.parametrize("group", ["model", "data"])
 @pytest.mark.parametrize("what", ["seq_to_heads", "heads_to_seq inverts it", "gather_seq",
-                                  "reduce_scatter_seq", "all_reduce_sum", "gather_spans",
+                                  "reduce_scatter_seq", "all_reduce_sum", "all_reduce_max",
+                                  "gather_spans",
                                   "gather_spans adjoint", "gather_counts", "gather_params",
                                   "gather_params adjoint", "counts"])
 def test_collectives(ranks, group, what):

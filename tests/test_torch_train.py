@@ -3,9 +3,12 @@ llama3.2-1b (fp32 parameters, the same converted weights and the same
 pipeline batches): ``loss_fn`` and every gradient leaf at u in {1, 4} with
 remat full and none; a 3-step loss and grad-norm trajectory of
 ``make_train_step`` (and one step with grad_accum 2); the CLI on the CPU,
-and the CLI refusing the flags that are not yet ported (``--mesh`` is
-ported: tests/test_torch_train_dist.py; the checkpoint flags:
-tests/test_torch_checkpoint.py).  The JAX side runs
+with ``--compress-grads`` (alone and with ``--grad-accum 2``), with
+``--trace-out`` and ``--metrics-out`` (their files' spans and series), and
+all three on a 1 x 2 gloo mesh, where rank 0 alone writes (``--mesh``:
+tests/test_torch_train_dist.py; the checkpoint flags:
+tests/test_torch_checkpoint.py; compression against JAX:
+tests/test_torch_compression.py).  The JAX side runs
 attention as ``xla_flash``, which its own tests hold equal to the Pallas
 kernels (tests/test_kernels_flash.py), with host offload off.  Tolerances:
 loss 2e-4 and gradients 5e-4 (tests/test_fpdt.py); the trajectory's losses
@@ -33,6 +36,7 @@ and the CLI, whose log lines print aux.  Reduced llama4-maverick-400b-a17b
 (top-1 of 4 experts, rope theta 5e5, bf16 optimizer state): the loss and
 every leaf, and its full size's parameter counts."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +55,7 @@ from repro_torch.convert import from_jax_params
 from repro_torch.launch import train as CLI
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
+from repro_torch.optim import compression as C
 from repro_torch.runtime import train_loop as TL
 from repro_torch.tree import tree_leaves
 
@@ -227,14 +232,75 @@ def test_hybrid_cli_on_cpu(capsys):
     assert len(lines) == 2 and all(ln.endswith("on cpu") for ln in lines)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--compress-grads"], ["--trace-out", "t.json"], ["--metrics-out", "m.prom"],
-])
-def test_cli_refuses_unported(capsys, flag):
-    with pytest.raises(SystemExit) as ex:
-        CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *flag])
-    assert ex.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+CLI_LLAMA = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--steps", "2",
+             "--batch", "2", "--seq", "32", "--chunks", "4", "--log-every", "1"]
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_cli_compress_grads(monkeypatch, accum):
+    """--compress-grads (with --grad-accum): a finite history, the step
+    quantizes every step, and the residuals it carries are nonzero after
+    step 1 and shaped like the parameters."""
+    real, calls, runs = C.tree_quantize_with_feedback_, [], []
+    real_steps = CLI.train_steps
+
+    def counted(grads, residuals, par=None, plans=None):
+        out = real(grads, residuals, par, plans)
+        calls.append(sum(int(r.count_nonzero()) for r in tree_leaves(residuals)))
+        return out
+
+    def kept(*a, **kw):
+        runs.append(real_steps(*a, **kw))
+        return runs[-1]
+
+    monkeypatch.setattr(C, "tree_quantize_with_feedback_", counted)
+    monkeypatch.setattr(CLI, "train_steps", kept)
+    history = CLI.main(CLI_LLAMA + ["--compress-grads", "--grad-accum", str(accum)])
+    assert [r["step"] for r in history] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in history)
+    assert len(calls) == 2 and calls[0] > 0
+    (run,) = runs
+    assert [tuple(r.shape) for r in tree_leaves(run.residuals)] == [
+        tuple(p.shape) for p in tree_leaves(run.params)]
+    assert all(r.dtype == torch.float32 for r in tree_leaves(run.residuals))
+
+
+def test_cli_trace_and_metrics_out(tmp_path, capsys):
+    """--trace-out: one train.step span a step, its duration the history's
+    dt; --metrics-out: the step counter, the step-time summary and the
+    loss gauge; the JAX CLI's three [telemetry] lines."""
+    trace, prom = tmp_path / "t.json", tmp_path / "m.prom"
+    history = CLI.main(CLI_LLAMA + ["--trace-out", str(trace), "--metrics-out", str(prom)])
+    spans = [e for e in json.loads(trace.read_text())["traceEvents"] if e["name"] == "train.step"]
+    assert [e["ph"] for e in spans] == ["X", "X"]
+    assert [e["args"]["step"] for e in spans] == [1, 2]
+    for e, rec in zip(spans, history):
+        assert e["dur"] == pytest.approx(rec["dt"] * 1e6, rel=1e-12)
+        assert e["args"]["loss"] == rec["loss"]
+    text = prom.read_text()
+    assert 'repro_train_steps{component="train"} 2' in text
+    assert 'repro_train_step_ms_count{component="train"} 2' in text
+    assert f'repro_train_loss{{component="train"}} {history[-1]["loss"]}' in text
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[telemetry]")]
+    assert len(lines) == 3 and lines[0].endswith(str(trace)) and lines[1].endswith(str(prom))
+    assert "over 2 steps on cpu" in lines[2]
+
+
+def test_cli_mesh_compress_and_trace(tmp_path):
+    """--mesh 1x2 with --compress-grads and --trace-out: the two ranks
+    train and rank 0 alone prints and writes the trace."""
+    from _torch_dist import run_cli
+
+    out = run_cli(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--mesh", "1x2",
+                   "--dist-backend", "gloo", "--steps", "2", "--batch", "2", "--seq", "32",
+                   "--chunks", "2", "--compress-grads", "--trace-out", "t.json",
+                   "--log-every", "1"], tmp_path)
+    assert out.count("[telemetry] wrote") == 1 and out.count("[telemetry] train_step_ms") == 1
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == ["t.json"]
+    spans = [e for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+             if e["name"] == "train.step"]
+    assert [e["args"]["step"] for e in spans] == [1, 2]
+    assert all(np.isfinite(e["args"]["loss"]) for e in spans)
 
 
 GRANITE, LLAMA4 = "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"

@@ -72,9 +72,9 @@ def _worker(tree: str, serve_reps: int, train_steps: int) -> dict:
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     steps = 1 + train_steps
     batch_fn = DP.make_batch_fn(cfg, ShapeConfig("ab", 8192, 1, "train"))
-    _, _, history = TRAIN.train_steps(cfg, params, TRAIN.opt_config(cfg, 3e-4, steps),
-                                      TL.TrainConfig(steps=steps, log_every=steps + 1),
-                                      batch_fn, dev)
+    history = TRAIN.train_steps(cfg, params, TRAIN.opt_config(cfg, 3e-4, steps),
+                                TL.TrainConfig(steps=steps, log_every=steps + 1), batch_fn,
+                                dev)[2]
     return {"tree": tree, "prefill_ms": prefill, "decode_ms_per_step": decode,
             "train_step_ms": [r["dt"] * 1e3 for r in history[1:]]}
 
