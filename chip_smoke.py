@@ -151,10 +151,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 steps under ulysses and 1 under cp, then recurrentgemma-9b
                 (3 layers: one rglru, rglru, local_attn cycle) and
                 falcon-mamba-7b (4 layers), 1 step each, and
-                granite-moe-1b-a400m (6 layers, ulysses), 2 steps,
+                granite-moe-1b-a400m (6 layers, ulysses), 1 step,
                 through train_steps, every weight and AdamW moment a
                 ZeRO-3 shard (launch/shardings.py: the tables' d and
-                granite's experts and router stack split over model):
+                granite's experts and router stack split over model;
+                granite expert-parallel, each rank running its 16
+                experts on the slots that dispatch_slots hands it):
                 the first step against a one-rank
                 step run first (the bf16 loss, and in fp32 weights the
                 loss, gradient norm, every leaf's norm (gathered) and
@@ -184,7 +186,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 compressed step of llama3.2-1b (2 layers, b2) on 2 x 1
                 against one rank's (loss, parameter-leaf norms, the
                 elements quantized to another integer, all_reduce_max as
-                reckoned);
+                reckoned); last, one llama4-maverick-400b-a17b MoE FFN
+                layer at full width (128 experts of d 5120 x d_ff 8192,
+                top-1, bf16) on 1 x 2, expert-parallel (64 experts a
+                rank, each made from its own seed), b1 s 8192, forward
+                and backward against one rank's run in this process
+                first: the same routing decisions, y and dx and each
+                expert's gradient norms within the bf16 limit, no
+                gather_params, the slot collectives as reckoned, each
+                rank's peak beside its reckoning and the gathered
+                path's;
   7. timing   — each kernel beside its bound, its plain version and a
                 library call of PyTorch (scaled_dot_product_attention, causal
                 on the diagonal pairs and unmasked off them, and the
@@ -1197,24 +1208,12 @@ def _leaf_rels(TR, got, want):
             for a, b in zip(TR.tree_leaves(got), TR.tree_leaves(want))]
 
 
-def _expert_leaves(params) -> list:
+def _expert_leaves(M, params) -> list:
     """Indices (in ``tree_leaves`` order) of the expert weights: the MoE
     blocks' wu, wg and wd.  Their gradients move by a token's share of an
     expert when a routing decision differs between two runs."""
-    paths = []
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        elif isinstance(t, list):
-            for v in t:
-                walk(v, path)
-        else:
-            paths.append(path)
-
-    walk(params, ())
-    return [i for i, p in enumerate(paths) if "moe" in p and p[-1] in ("wu", "wg", "wd")]
+    return [i for i, (names, _) in enumerate(M.TR.tree_leaves_with_path(params))
+            if M.SH.is_expert_leaf(names)]
 
 
 @contextlib.contextmanager
@@ -1524,7 +1523,7 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     gated = rels
     if cfg.num_experts:
         differ = _decisions_differ(dec4, dec1)
-        experts = set(_expert_leaves(p32))
+        experts = set(_expert_leaves(M, p32))
         if differ:  # a flipped decision moves an expert's gradient by a token's share
             gated = [r for n, r in enumerate(rels) if n not in experts]
         worst = max((r, n) for n, r in enumerate(rels) if n in experts)
@@ -1989,8 +1988,8 @@ DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16
 # llama3.2-1b's 1 x 2 training: its layers (of 16), and AdamW steps by
 # kind.  The ranks' time is gloo's, through the host: it grows with each
 # layer's all-to-alls and gradient bytes and with each step, so the 1 x 2
-# trainings are cut in depth and steps (llama's ulysses and granite take
-# a second step) and keep every check.  llama3.2-1b runs 4 layers here and
+# trainings are cut in depth and steps (llama's ulysses takes a second
+# step) and keep every check.  llama3.2-1b runs 4 layers here and
 # on 2 x 1 (8 gave the script 770-800 s of its 800 s aim, the gloo steps
 # spreading 40 s between calls).
 DIST_LLAMA_LAYERS = 4
@@ -2018,7 +2017,26 @@ DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
 # 2u) is one rank's 1024-token span, so every group is local and no counts
 # are gathered; full depth would add ~2 GB of gloo gradient all-reduce a
 # step and nothing this phase does not already show.
-DIST_MOE = (("granite-moe-1b-a400m", 6, 2),)
+# It runs expert-parallel (its 32 experts split over the two model ranks):
+# every layer moves its chunks' [e, G, cap, d] slots through gloo
+# (``_slot_collectives``: 11.9 GB a bf16 step at 6 layers, twice that for
+# the fp32 first batch), so it takes one step (with two, the script read
+# 848 s on an H100 80GB HBM3 at 700 W, past its 800 s aim).  The step's
+# seconds predicted before the first run on the card, printed beside the
+# reading, not gated.
+DIST_MOE = (("granite-moe-1b-a400m", 6, 1),)
+DIST_MOE_PREDICTED_S = (12.0, 30.0)
+# One llama4-maverick-400b-a17b MoE FFN layer at its published width (d
+# 5120, 128 experts of d_ff 8192, top-1; bf16 with the fp32 router) on
+# 1 x DIST_RANKS, expert-parallel: b1, MAVERICK_SEQ tokens in the
+# chunk-interleaved layout (u = DIST_U, mlp_chunks 2u: each MoE chunk one
+# rank's 512-token span, one group, capacity 5), forward and backward
+# through moe_ffn_chunked, held to one rank's run on the same weights and
+# input in this process first (its stacks 30.0 GiB, as much again of
+# gradients).  Expert j's weights come from seed MAVERICK_SEED + 1 + j, so
+# a rank makes only its own experts.
+MAVERICK = "llama4-maverick-400b-a17b"
+MAVERICK_SEQ, MAVERICK_SEED = 8192, 11
 # the mixers alone, at their archs' full width: mixer, arch
 DIST_MIXERS = (("rglru", "recurrentgemma-9b"), ("mamba", "falcon-mamba-7b"))
 # (output, gradients): the output max |err| / (1 + max |want|), each gradient
@@ -2091,7 +2109,8 @@ def _reckoned_peak_gib(M, cfg, sp, seq=None, dp=1, batch=1):
     of the largest slice it updates at once.  The backward: every cycle's
     saved input (remat full) and the largest of the tail layers'
     activations, one cycle's recompute (under a mesh with its gathered
-    weights and their whole gradients) and the loss's (the head's gradient
+    weights and their whole gradients, the expert stacks under expert
+    parallelism the rank's e/sp experts) and the loss's (the head's gradient
     and a chunk's next one, under a mesh with the gathered table); with per
     token and layer the tensors a block keeps for its backward (counted
     from the code: RG-LRU 4d + 48 di + 6 d_ff bytes, attention 4d + 6 hq dh
@@ -2131,8 +2150,14 @@ def _reckoned_peak_gib(M, cfg, sp, seq=None, dp=1, batch=1):
     adamw = ADAMW_BYTES * max(_adamw_slice(p.local_shape()) for p in leaves)
     meshed = dp * sp > 1
     table = cfg.padded_vocab * d * getattr(torch, cfg.param_dtype).itemsize
-    cycle = (2 * sum(math.prod(p.shape) * p.dtype.itemsize for p in
-                     M.TR.tree_leaves(plans["cycles"])) // n_cycles if meshed else 0)
+    ep = sp > 1 and cfg.num_experts and cfg.num_experts % sp == 0
+
+    def used(names, p):  # a cycle stack's bytes as the model gathers it
+        whole = math.prod(p.shape) * p.dtype.itemsize
+        return whole // sp if ep and M.SH.is_expert_leaf(names) else whole
+
+    cycle = (2 * sum(used(n, p) for n, p in M.TR.tree_leaves_with_path(plans["cycles"]))
+             // n_cycles if meshed else 0)
     backward = n_cycles * tokens * d * 2 + max(layers(pat) + cycle, layers(tail),
                                                (3 if meshed else 2) * table)
     return (state + max(adamw, backward)) / 2**30
@@ -2209,8 +2234,11 @@ def _zero_collectives(M, cfg, dp, sp, compress=False):
     is gathered twice a cycle (the checkpoint's pass and its recompute: its
     cycle's view, or the whole stack where its cycles axis is split) and
     reduce-scattered once; the tied table twice (lookup and head), every
-    other leaf once.  Each leaf replicated on an axis with ranks is summed
-    once (over the world where it is split on neither).  Compression
+    other leaf once.  An MoE expert stack (wu, wg, wd) whose e splits over
+    model (expert parallelism, sp > 1) is gathered and reduce-scattered
+    over data only: the rank runs its e/sp experts.  Each leaf replicated
+    on an axis with ranks is summed once (over the world where it is split
+    on neither).  Compression
     reduces the block maxima of every leaf whose shards' runs of the whole
     flat leaf (``SH.run_length``) are not whole 2048-element blocks with
     MAX, one call for each of the data, model and both groups such leaves
@@ -2219,8 +2247,10 @@ def _zero_collectives(M, cfg, dp, sp, compress=False):
     names = ("gather_params", "reduce_scatter_grads", "all_reduce_sum", "all_reduce_max")
     calls, nbytes = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
     groups = set()
+    ep = sp > 1 and cfg.num_experts and cfg.num_experts % sp == 0
     for path, plan in M.SH.by_path(M.SH.param_plans(cfg, dp, sp)).items():
         full, local = math.prod(plan.shape) * plan.dtype.itemsize, plan.local_bytes()
+        expert = ep and M.SH.is_expert_leaf(path.split("/"))
         uses, passes = 1, 1
         if path.startswith("cycles/"):
             uses, passes = n_cycles, 2
@@ -2233,7 +2263,7 @@ def _zero_collectives(M, cfg, dp, sp, compress=False):
             nbytes["gather_params"] += passes * uses * local
             calls["reduce_scatter_grads"] += uses
             nbytes["reduce_scatter_grads"] += uses * (full // sp if plan.model_split else full)
-        if plan.model_split:
+        if plan.model_split and not expert:
             calls["gather_params"] += passes * uses
             nbytes["gather_params"] += passes * uses * local * (dp if plan.data_split else 1)
             calls["reduce_scatter_grads"] += uses
@@ -2255,7 +2285,8 @@ def _train_collectives(M, cfg, kind, dp, sp, b, seq, compress=False):
     rank): every attention or recurrent layer of a cycle runs two forwards
     (the checkpoint's pass and its recompute), a tail layer one; an MoE
     layer's forward gathers its counts once where a group or a chunk spans
-    ranks (``MOE.mesh_plan``: rows x e int32); loss_fn sums (loss, count)
+    ranks (``MOE.mesh_plan``: rows x e int32), and under expert
+    parallelism moves its slots (``_slot_collectives``); loss_fn sums (loss, count)
     over the world once (8 bytes; 12 with an MoE model's aux); the ZeRO-3
     gathers, reduce-scatters and gradient sums (``_zero_collectives``); the
     global norm sums 8 bytes over data and 4 over model where the axis has
@@ -2271,10 +2302,15 @@ def _train_collectives(M, cfg, kind, dp, sp, b, seq, compress=False):
     if cfg.num_experts:
         n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
         moe_rows = M.MOE.mesh_plan(cfg, seq, b * dp, sp, dp, n, 0).rows
-    for k, passes in [(k, 2) for k in pat for _ in range(n_cycles)] + [(k, 1) for k in tail]:
+    layers = [(k, 2, i == len(pat) - 1) for _ in range(n_cycles) for i, k in enumerate(pat)]
+    for k, passes, last in layers + [(k, 1, False) for k in tail]:
         if k in ("attn", "local_attn") and moe_rows:
             calls["gather_counts"] += passes
             nbytes["gather_counts"] += passes * moe_rows * cfg.num_experts * 4
+        if k in ("attn", "local_attn") and cfg.num_experts:
+            for name, (n, size) in _slot_collectives(cfg, dp, sp, b, seq, passes, last).items():
+                calls[name] += n
+                nbytes[name] += size
         if k in ("attn", "local_attn") and kind != "local":
             c, n = _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes,
                                      cfg.window if k == "local_attn" else 0)
@@ -2294,6 +2330,35 @@ def _train_collectives(M, cfg, kind, dp, sp, b, seq, compress=False):
     calls["all_reduce_sum"] += 2 + (dp > 1) + (sp > 1)
     nbytes["all_reduce_sum"] += (12 if cfg.num_experts else 8) + 8 + 8 * (dp > 1) + 4 * (sp > 1)
     return calls, nbytes
+
+
+def _slot_collectives(cfg, dp, sp, b, seq, passes, last):
+    """{name: (calls, bytes)} of dispatch_slots and combine_slots that one
+    MoE layer hands in on a rank of data rank 0 under expert parallelism
+    (e % sp == 0, sp > 1; none else), ``b`` rows of ``seq`` tokens a data
+    rank (``models/moe.py``): every rank runs every chunk.  A forward
+    dispatches a chunk's slots [e, G, cap, d] in the weights' dtype (G the
+    groups of GROUP_TOKENS (or the chunk's B L tokens) that the model
+    group's rows of the chunk touch; sent whole) and combines its e/sp
+    experts' (a sp-th); the backward goes the other way round.  A chunk
+    runs ``passes`` forwards of the layer plus its own checkpoint's
+    recompute, and one backward; in a remat-full cycle (``passes`` 2) the
+    cycle's recompute (a non-reentrant checkpoint, which stops early) ends
+    once it has saved the inputs of the last chunk of the cycle's last
+    layer (``last``), so that chunk runs one forward less."""
+    out = {"dispatch_slots": (0, 0), "combine_slots": (0, 0)}
+    e = cfg.num_experts
+    if sp == 1 or e % sp:
+        return out
+    n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
+    L, B = seq // n, b * dp
+    tg = min(512, B * L)
+    groups = (b * L - 1) // tg + 1
+    cap = max(4, min(math.ceil(tg * cfg.experts_per_token / e * cfg.moe_capacity_factor), tg))
+    full = e * groups * cap * cfg.d_model * (4 if cfg.param_dtype == "float32" else 2)
+    fwd = n * (passes + 1) - (passes == 2 and last)
+    return {"dispatch_slots": (fwd + n, fwd * full + n * full // sp),
+            "combine_slots": (fwd + n, fwd * full // sp + n * full)}
 
 
 def _collective_counts(P):
@@ -2419,7 +2484,7 @@ def _grad_readings(torch, M, cfg, par, dev, batch=1, seq=DIST_SEQ):
            "embed_leaf": next(i for i, g in enumerate(M.TR.tree_leaves(grads))
                               if g is grads["embed"])}
     if cfg.num_experts:
-        out.update(aux=float(metrics["aux"]), expert_leaves=_expert_leaves(params),
+        out.update(aux=float(metrics["aux"]), expert_leaves=_expert_leaves(M, params),
                    decisions=_moe_decisions(M, cfg, inputs, par))
     del params, grads, batch, inputs
     torch.cuda.empty_cache()
@@ -2485,7 +2550,8 @@ def _dist_rank(rank, world, tmp, spawned_at):
     """One gloo rank of the distributed phase, on the one card: the
     attention-only parity, the recurrent mixers alone, llama3.2-1b's
     1 x world training, then each DIST_RECURRENT and DIST_MOE arch's, then
-    llama3.2-1b's ZeRO-3 training on world x 1 and the checkpoint case.
+    llama3.2-1b's ZeRO-3 training on world x 1, the checkpoint and
+    compression cases and maverick's MoE layer.
     Writes its readings to ``tmp/rank<r>.json``, with each part's seconds
     (its start-up from ``spawned_at``, a ``time.time()``, included) and
     the time its work ended; each part's end also goes to stderr.  On
@@ -2536,6 +2602,8 @@ def _dist_rank(rank, world, tmp, spawned_at):
                                     ZERO_STEPS, True, ZERO_BATCH, ZERO_SEQ)
         out["ckpt"] = timed("checkpoint", _dist_ckpt, torch, M, zpar, par, dev, tmp)
         out["compress"] = timed("compress", _dist_compress, torch, M, zpar, par, dev)
+        out["maverick"] = timed(f"{MAVERICK} MoE layer", _dist_maverick, torch, M, par, dev,
+                                tmp)
         out["seconds"] = seconds
     finally:
         dist.destroy_process_group()
@@ -2552,6 +2620,162 @@ def _dist_train_case(torch, M, par, dev, cfg, steps, bf16_grads, batch=1, seq=DI
             **({"bf16_grads": _grad_readings(torch, M, cfg, par, dev, batch, seq)}
                if bf16_grads else {}),
             **_dist_train(torch, M, par, dev, cfg, steps, batch, seq)}
+
+
+def _maverick_cfg(M):
+    return _dist_cfg(M, MAVERICK, 1)
+
+
+def _maverick_moe(torch, M, cfg, dev, experts):
+    """The MoE FFN's parameters with the experts ``experts`` (a range) in
+    its stacks, each a leaf that requires grad: the fp32 router [d, e] from
+    seed MAVERICK_SEED, expert j's wu, wg [d, ff] and wd [ff, d] in bf16
+    from seed MAVERICK_SEED + 1 + j, at ``init_moe``'s scales."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(MAVERICK_SEED)
+    p = {"router": M.L._dense_init(g, (d, e), torch.float32, dev)}
+    shapes = {"wu": ((d, ff), d), "wg": ((d, ff), d), "wd": ((ff, d), ff)}
+    for k, (shape, _) in shapes.items():
+        p[k] = torch.empty((len(experts), *shape), dtype=torch.bfloat16, device=dev)
+    for i, j in enumerate(experts):
+        g = torch.Generator(device=dev).manual_seed(MAVERICK_SEED + 1 + j)
+        for k, (shape, fan_in) in shapes.items():
+            p[k][i] = M.L._dense_init(g, shape, torch.bfloat16, dev, fan_in=fan_in)
+    return {k: v.requires_grad_(True) for k, v in p.items()}
+
+
+def _maverick_inputs(torch, cfg, dev):
+    """The layer's input x [1, MAVERICK_SEQ, d] (bf16) and the gradient of
+    its output (fp32), from seed MAVERICK_SEED - 1."""
+    g = torch.Generator(device=dev).manual_seed(MAVERICK_SEED - 1)
+    x = torch.randn((1, MAVERICK_SEQ, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    return x, torch.randn((1, MAVERICK_SEQ, cfg.d_model), generator=g, device=dev)
+
+
+def _maverick_run(torch, M, cfg, p, leaves, x, dy, par=None):
+    """moe_ffn_chunked's forward and backward of ``(y * dy).sum() + aux``
+    with the parameters ``p`` (``leaves``' gradients read): on the host y,
+    dx, aux, each expert's gradient norm of wu, wg and wd [3, experts] and
+    the routing decisions of x's tokens."""
+    x = x.detach().requires_grad_(True)
+    y, aux = M.MOE.moe_ffn_chunked(cfg, p, x, cfg.mlp_chunks, par)
+    ((y.float() * dy).sum() + aux).backward()
+    norms = [[float(g.float().norm()) for g in leaves[k].grad] for k in ("wu", "wg", "wd")]
+    return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "aux": float(aux.detach()),
+            "norms": norms, "decisions": _moe_decisions(M, cfg, [(p, x.detach())], par)[0]}
+
+
+def _maverick_peaks_gib(cfg, sp):
+    """A rank's reckoned peak under expert parallelism (its e/sp experts'
+    stacks, their gradients, and one chunk's gradient of one stack before
+    autograd adds it in) and on the gathered path (its shard, the gathered
+    stacks, their whole gradients and one chunk's gradient of one stack),
+    from the shapes; the layer's activations (tens of MB) left out."""
+    stacks = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+    return ((2 * stacks + stacks // 3) / sp / 2**30,
+            (stacks / sp + 2 * stacks + stacks // 3) / 2**30)
+
+
+def _maverick_reference(torch, M, card):
+    """The maverick layer on one rank, in this process: its host readings
+    (``_maverick_run``) and peak; the card freed after."""
+    dev = torch.device("cuda")
+    cfg = _maverick_cfg(M)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = _maverick_moe(torch, M, cfg, dev, range(cfg.num_experts))
+    x, dy = _maverick_inputs(torch, cfg, dev)
+    out = _maverick_run(torch, M, cfg, p, p, x, dy)
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del p, x, dy
+    torch.cuda.empty_cache()
+    print(f"one-rank reference, {MAVERICK} MoE FFN layer ({cfg.num_experts} experts of d "
+          f"{cfg.d_model} x d_ff {cfg.d_ff}, top-{cfg.experts_per_token}, bf16) b1 "
+          f"s{MAVERICK_SEQ}, {cfg.mlp_chunks} chunks: aux {out['aux']:.6f}, peak "
+          f"{out['peak_gib']:.2f} GiB (reckoned {_maverick_peaks_gib(cfg, 1)[0]:.2f}); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+def _dist_maverick(torch, M, par, dev, tmp):
+    """The maverick layer on this rank, expert-parallel: the rank makes its
+    own experts' stacks, the cycle gather hands them on (over data only:
+    no gather on 1 x DIST_RANKS), then the forward and backward on its
+    tokens; its y, dx and routing to ``tmp`` for the parent, its experts'
+    gradient norms, the collectives against their reckoning, its peak."""
+    import torch.distributed as dist
+
+    cfg = _maverick_cfg(M)
+    if not M.SH.expert_parallel(cfg, par):
+        raise AssertionError(f"{MAVERICK} does not run expert-parallel on this mesh")
+    per = cfg.num_experts // par.sp
+    mine = range(par.sp_rank * per, (par.sp_rank + 1) * per)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dist.barrier()  # neither rank allocates while the other still caches its last part
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards = _maverick_moe(torch, M, cfg, dev, mine)
+    pos = torch.from_numpy(M.DP.token_positions(MAVERICK_SEQ, par.sp, par.sp_rank,
+                                                cfg.fpdt_chunks)).to(dev)
+    x, dy = (t[:, pos].contiguous() for t in _maverick_inputs(torch, cfg, dev))
+    plans = M.SH.param_plans(cfg, par.dp, par.sp)["cycles"]["pos0"]
+    M.P.reset_counts()
+    p = M.SH.gather_cycle({"moe": plans["moe"]}, {"moe": shards}, 0, par)["moe"]
+    out = _maverick_run(torch, M, cfg, p, shards, x, dy, par)
+    counts = _collective_counts(M.P)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.save({k: out.pop(k) for k in ("y", "dx", "decisions")},
+               Path(tmp, f"maverick-rank{par.rank}.pt"))
+    del shards, p, x, dy
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(M.P.COLLECTIVES, (0, 0))
+    want.update(_slot_collectives(cfg, par.dp, par.sp, 1, MAVERICK_SEQ, 1, False))
+    ep, gathered = _maverick_peaks_gib(cfg, par.sp)
+    return {**out, "experts": [mine.start, mine.stop], "counts": counts,
+            "want_counts": {k: list(v) for k, v in want.items()}, "peak_gib": peak,
+            "reckoned_peak_gib": ep, "gathered_peak_gib": gathered, "seconds": seconds}
+
+
+def _check_maverick(torch, M, ranks, ref, saved, card):
+    """Each rank's maverick layer against the one-rank reference: the same
+    routing decisions, y and dx within the bf16 limit (max |err| / (1 +
+    |want|)), each of its experts' gradient norms of wu, wg and wd within
+    DIST_TOL's bf16 gradient limit, the collectives (no gather_params, the
+    slot collectives as reckoned) to the byte; its peak printed beside
+    its reckoning and the gathered path's."""
+    tol_y, tol_g = DIST_TOL["bfloat16"]
+    cfg = _maverick_cfg(M)
+    for r, got in enumerate(ranks):
+        a, mine = got["maverick"], saved[r]
+        pos = torch.from_numpy(M.DP.token_positions(MAVERICK_SEQ, DIST_RANKS, r, cfg.fpdt_chunks))
+        errs = {k: _elementwise_err(torch, mine[k], ref[k][:, pos]) for k in ("y", "dx")}
+        topi, keep = ref["decisions"]
+        differ = _decisions_differ([mine["decisions"]], [(topi[:, pos], keep[:, pos])])
+        lo, hi = a["experts"]
+        norm_rel = max(abs(x - w) / max(w, 1e-30) for k in range(3)
+                       for x, w in zip(a["norms"][k], ref["norms"][k][lo:hi]))
+        print(f"  rank {r} {MAVERICK} MoE FFN layer, experts {lo}-{hi - 1} of "
+              f"{cfg.num_experts}, b1 s{MAVERICK_SEQ} (its {MAVERICK_SEQ // DIST_RANKS} tokens), "
+              f"expert-parallel vs one rank: routing decisions that differ {differ}; y "
+              f"{errs['y']:.3e}, dx {errs['dx']:.3e} (max |err| / (1 + |want|), limit {tol_y}); "
+              f"its experts' gradient norms rel {norm_rel:.3e} (limit {tol_g}); aux share "
+              f"{a['aux']:.6f} of one rank's {ref['aux']:.6f}; collectives "
+              f"{ {k: v for k, v in a['counts'].items() if v[0]} } (no gather_params); peak "
+              f"{a['peak_gib']:.2f} GiB (reckoned {a['reckoned_peak_gib']:.2f}; the gathered "
+              f"path {a['gathered_peak_gib']:.2f}); {a['seconds']:.1f} s [{card}]")
+        if differ:
+            raise AssertionError(f"rank {r} {MAVERICK}: {differ} routing decisions differ")
+        if max(errs.values()) > tol_y or norm_rel > tol_g:
+            raise AssertionError(f"rank {r} {MAVERICK}: beyond tolerance")
+        if a["counts"] != a["want_counts"]:
+            raise AssertionError(f"rank {r} {MAVERICK}: collectives {a['counts']}, reckoned "
+                                 f"{a['want_counts']}")
 
 
 def _dist_mixers(torch, M, par, dev):
@@ -3128,8 +3352,9 @@ def phase_dist(torch, M, card):
     mixers alone, llama3.2-1b's 1 x DIST_RANKS training and the
     DIST_RECURRENT archs', each first step against its one-rank reference,
     then llama3.2-1b's ZeRO-3 training on DIST_RANKS x 1 and the checkpoint
-    case (restored onto one rank in this process).  Returns each kernel's
-    launches on rank 0 by training path."""
+    case (restored onto one rank in this process), and maverick's MoE
+    layer expert-parallel against its one-rank run here.  Returns each
+    kernel's launches on rank 0 by training path."""
     import multiprocessing
     import tempfile
 
@@ -3143,6 +3368,7 @@ def phase_dist(torch, M, card):
     refs["llama3.2-1b zero3"] = _dist_train_reference(torch, M, card, _zero_cfg(M),
                                                       bf16_grads=True, batch=ZERO_BATCH,
                                                       seq=ZERO_SEQ)
+    maverick = _maverick_reference(torch, M, card)
     torch.cuda.empty_cache()  # the ranks share the card: this process keeps nothing cached
     print(f"one-rank references: {time.perf_counter() - t0:.1f} s; this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card's memory")
@@ -3160,6 +3386,8 @@ def phase_dist(torch, M, card):
         routing = {arch: [torch.load(Path(tmp, f"routing-{arch}-rank{r}.pt"))
                           for r in range(DIST_RANKS)] for arch, _, _ in DIST_MOE}
         one_rank_ckpt = _ckpt_one_rank(torch, M, card, tmp)
+        maverick_ranks = [torch.load(Path(tmp, f"maverick-rank{r}.pt"))
+                          for r in range(DIST_RANKS)]
     print(f"gloo, {DIST_RANKS} ranks sharing the card: the port hands gloo the CUDA tensors "
           f"(no explicit staging); gloo stages them through host memory; the ranks took "
           f"{time.perf_counter() - t0:.1f} s, rank 0's parts (s): "
@@ -3222,12 +3450,14 @@ def phase_dist(torch, M, card):
             recs = t["records"]
             if "zero3" in case:
                 _check_zero_state(r, case, t, card)
+            pred = (f", predicted {DIST_MOE_PREDICTED_S[0]:.0f}-{DIST_MOE_PREDICTED_S[1]:.0f} s "
+                    "expert-parallel" if arch in {a for a, _, _ in DIST_MOE} else "")
             for rec in recs:
                 print(f"  rank {r} train {case} {t['mesh']} b{t['batch']} s{t['seq']} "
                       f"({t['layers']} layers) step "
                       f"{rec['step']}: loss {rec['loss']:.6f} grad_norm {rec['grad_norm']:.6f} "
-                      f"{rec['dt'] * 1e3:.1f} ms (gloo through the host on one shared card, "
-                      f"not a multi-card speed); launches {rec['launches']}; collectives "
+                      f"{rec['dt'] * 1e3:.1f} ms{pred} (gloo through the host on one shared "
+                      f"card, not a multi-card speed); launches {rec['launches']}; collectives "
                       f"{ {k: v for k, v in rec['collectives'].items() if v[0]} }")
                 if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
                     raise AssertionError(f"rank {r} {case}: non-finite loss or grad norm")
@@ -3292,6 +3522,7 @@ def phase_dist(torch, M, card):
             k: sum(rec["launches"][k] for rec in t0["records"]) for k in t0["want_launches"]}
     _check_ckpt(ranks, one_rank_ckpt, card)
     _check_compress(ranks, card)
+    _check_maverick(torch, M, ranks, maverick, maverick_ranks, card)
     return totals
 
 

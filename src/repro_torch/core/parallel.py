@@ -45,8 +45,20 @@ differentiates:
   reduce_scatter_grads  its adjoint, in the backward: this rank's block of
                       the gradient summed over those groups (reduce_scatter_tensor)
 
+and, for the MoE FFN's expert parallelism over the model group
+(``models/moe.py``), two that autograd differentiates, each the other's
+adjoint, along dim 0 (the expert dimension of the [e, g*cap, d] slots):
+
+  dispatch_slots      [e, ...] -> [e/sp, ...]: this rank's experts' slots
+                      summed over the group (reduce_scatter_tensor); its
+                      backward an all_gather_into_tensor
+  combine_slots       [e/sp, ...] -> [e, ...]: every rank's experts' slots
+                      in rank order (all_gather_into_tensor); its backward a
+                      reduce_scatter_tensor
+
 Each adds one to its call count and the bytes it hands to the collective
-(the tensor it sends) to its byte count, in ``calls`` and ``nbytes``
+(the tensor it sends) to its byte count, in ``calls`` and ``nbytes``; the
+slot collectives count their backward under their own name too
 (``chip_smoke.py`` reads them as it reads the kernels' launches).  Every
 call is synchronous and on the tensors' own device: NCCL moves CUDA tensors
 device to device, and gloo takes CUDA tensors too (it stages them through
@@ -64,7 +76,8 @@ import torch.distributed as dist
 
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
                "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
-               "gather_counts", "gather_params", "reduce_scatter_grads")
+               "gather_counts", "gather_params", "reduce_scatter_grads", "dispatch_slots",
+               "combine_slots")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -78,6 +91,34 @@ def reset_counts() -> None:
 def _count(name: str, t: torch.Tensor) -> None:
     calls[name] += 1
     nbytes[name] += t.numel() * t.element_size()
+
+
+def _all_gather0(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along dim 0 in rank order
+    (as gloo takes it), counted as ``name``."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _count(name, x)
+    with warnings.catch_warnings():  # newer torch renames it all_gather_single
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def _reduce_scatter0(send: torch.Tensor, group, name: str) -> torch.Tensor:
+    """Block ``rank`` of ``send`` along dim 0 summed over ``group``, counted
+    as ``name``."""
+    n = dist.get_world_size(group)
+    if send.shape[0] % n:
+        raise ValueError(f"{name}: {send.shape[0]} rows do not split over {n} ranks")
+    send = send.contiguous()
+    out = send.new_empty((send.shape[0] // n, *send.shape[1:]))
+    _count(name, send)
+    with warnings.catch_warnings():  # newer torch renames it reduce_scatter_single
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=group)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,12 +193,7 @@ def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
     """[b, h, c, dh] -> [b, h, sp*c, dh]: every rank's tokens in rank order."""
     sp = dist.get_world_size(group)
     b, h, c, d = x.shape
-    x = x.contiguous()
-    out = x.new_empty((sp * b, h, c, d))  # concatenated along dim 0, as gloo takes it
-    _count("gather_seq", x)
-    with warnings.catch_warnings():  # newer torch renames it all_gather_single
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x, group=group)
+    out = _all_gather0(x, group, "gather_seq")
     return out.view(sp, b, h, c, d).permute(1, 2, 0, 3, 4).reshape(b, h, sp * c, d)
 
 
@@ -169,12 +205,7 @@ def reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
     if s % sp:
         raise ValueError(f"reduce_scatter_seq: {s} tokens do not split over {sp} ranks")
     send = x.reshape(b, h, sp, s // sp, d).permute(2, 0, 1, 3, 4).reshape(sp * b, h, s // sp, d)
-    out = x.new_empty((b, h, s // sp, d))
-    _count("reduce_scatter_seq", send)
-    with warnings.catch_warnings():  # newer torch renames it reduce_scatter_single
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return _reduce_scatter0(send, group, "reduce_scatter_seq")
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -205,12 +236,7 @@ class _GatherSpans(torch.autograd.Function):
         ctx.group = group
         sp = dist.get_world_size(group)
         b, u, *rest = x.shape
-        x = x.contiguous()
-        out = x.new_empty((sp * b, u, *rest))  # concatenated along dim 0, as gloo takes it
-        _count("gather_spans", x)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.all_gather_into_tensor(out, x, group=group)
+        out = _all_gather0(x, group, "gather_spans")
         return out.view(sp, b, u, *rest).movedim(0, 2).reshape(b, u * sp, *rest)
 
     @staticmethod
@@ -218,13 +244,7 @@ class _GatherSpans(torch.autograd.Function):
         sp = dist.get_world_size(ctx.group)
         b, n, *rest = g.shape
         send = g.reshape(b, n // sp, sp, *rest).movedim(2, 0).reshape(sp * b, n // sp, *rest)
-        send = send.contiguous()
-        out = g.new_empty((b, n // sp, *rest))
-        _count("reduce_scatter_spans", send)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=ctx.group)
-        return out, None
+        return _reduce_scatter0(send, ctx.group, "reduce_scatter_spans"), None
 
 
 def gather_spans(x: torch.Tensor, group) -> torch.Tensor:
@@ -238,44 +258,24 @@ def gather_spans(x: torch.Tensor, group) -> torch.Tensor:
 def gather_counts(x: torch.Tensor, group=None) -> torch.Tensor:
     """[rows, e] (this rank's integer counts) -> [n, rows, e]: every rank's
     counts in rank order over ``group`` (None: the world, n its size)."""
-    n = dist.get_world_size(group)
-    x = x.contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # concatenated along dim 0
-    _count("gather_counts", x)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x, group=group)
-    return out.view(n, *x.shape)
+    return _all_gather0(x, group, "gather_counts").view(dist.get_world_size(group), *x.shape)
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` of ``group`` concatenated along ``dim``, in rank
     order (counted as gather_params)."""
-    n = dist.get_world_size(group)
-    x = x.contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # concatenated along dim 0
-    _count("gather_params", x)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x, group=group)
+    out = _all_gather0(x, group, "gather_params")
     if dim == 0:
         return out
-    return out.view(n, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
+    return out.view(-1, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
 
 
 def _reduce_scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The sum over ``group`` of this rank's block of ``g`` along ``dim``
     (counted as reduce_scatter_grads)."""
     n = dist.get_world_size(group)
-    size = g.shape[dim] // n
-    send = g.unflatten(dim, (n, size)).movedim(dim, 0).contiguous()
-    out = g.new_empty(send.shape[1:])
-    _count("reduce_scatter_grads", send)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, send.view(n * send.shape[1], *send.shape[2:]),
-                                   op=dist.ReduceOp.SUM, group=group)
-    return out
+    send = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(dim, 0).flatten(0, 1)
+    return _reduce_scatter0(send, group, "reduce_scatter_grads")
 
 
 class _GatherParams(torch.autograd.Function):
@@ -304,3 +304,45 @@ def gather_params(x: torch.Tensor, steps) -> torch.Tensor:
     groups of its block of the gradient (``reduce_scatter_grads``, one call
     a step, the last step's first)."""
     return _GatherParams.apply(x, tuple(steps))
+
+
+class _DispatchSlots(torch.autograd.Function):
+    """Reduce-scatter of the slots along dim 0; its adjoint all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter0(x, group, "dispatch_slots")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather0(g, ctx.group, "dispatch_slots"), None
+
+
+class _CombineSlots(torch.autograd.Function):
+    """All-gather of the slots along dim 0; its adjoint reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather0(x, group, "combine_slots")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter0(g, ctx.group, "combine_slots"), None
+
+
+def dispatch_slots(x: torch.Tensor, group) -> torch.Tensor:
+    """[e, ...] (the slots of every expert that this rank filled) ->
+    [e/sp, ...]: the slots of this rank's block of experts, summed over the
+    group.  Where every slot has at most one writer in the group the sum is
+    exact (it adds zeros).  Differentiable: the backward all-gathers the
+    gradient."""
+    return _DispatchSlots.apply(x, group)
+
+
+def combine_slots(x: torch.Tensor, group) -> torch.Tensor:
+    """[e/sp, ...] (this rank's experts' outputs) -> [e, ...]: every rank's,
+    in rank order.  Differentiable: the backward hands this rank the sum
+    over the group of its experts' block of the gradient."""
+    return _CombineSlots.apply(x, group)

@@ -22,10 +22,17 @@ dimension (``shard``: block ``data_rank`` of the data dimension, block
 model gathers a leaf where it uses it (``gather``: ``parallel.
 gather_params`` over each split axis, data first; its adjoint
 ``reduce_scatter_grads`` hands the rank the sum over those axes of its
-block of the gradient).  The gradient of a leaf replicated over an axis
-is summed over that axis after the backward (``reduce_axes``).  An axis
-of size 1 splits nothing, so on one rank, or wherever a split's axis has
-size 1, every function here is the identity and issues no collective.
+block of the gradient).  The expert stacks (``is_expert_leaf``) are the
+exception: where their e is split over model (``expert_parallel``) the
+MoE FFN runs only the rank's e/sp experts and moves the token slots
+instead (``models/moe.py``), so the model gathers them over data only
+(``gather_cycle``, ``gather_tree(..., local_experts=True)``).  The
+gradient of a leaf replicated over an axis is summed over that axis after
+the backward (``reduce_axes``); an expert stack's gradient under expert
+parallelism is whole after the slot exchange, its model split asks no
+sum.  An axis of size 1 splits nothing, so on one rank, or wherever a
+split's axis has size 1, every function here is the identity and issues
+no collective.
 
 A leaf of ``params["cycles"]`` is gathered one cycle at a time, its view
 of the stack (the split dimensions one further in); the router's stack,
@@ -81,6 +88,26 @@ def split_dims(dp: int, sp: int, names, shape) -> Tuple[Optional[int], Optional[
         if _divisible(shape[ax], dp) and shape[ax] >= dp * 4:
             return ax, None
     return None, None
+
+
+EXPERT_LEAVES = ("wu", "wg", "wd")
+
+
+def is_expert_leaf(names) -> bool:
+    """Whether the leaf at path ``names`` is an MoE block's expert stack."""
+    return "moe" in names and names[-1] in EXPERT_LEAVES
+
+
+def expert_parallel(cfg: ModelConfig, par) -> bool:
+    """Whether the MoE FFN runs expert-parallel on ``par``'s mesh: where
+    ``param_spec`` splits the expert stacks' e over a model axis of more
+    than one rank (e % sp == 0), as the JAX ``"expert"`` placement does.
+    Else the stacks are whole on every model rank and each rank runs every
+    expert on its own tokens."""
+    if not P.distributed(par) or not cfg.num_experts or par.sp == 1:
+        return False
+    shape = (cfg.num_experts, cfg.d_model, cfg.d_ff)
+    return split_dims(par.dp, par.sp, ("moe", "wu"), shape)[1] is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,36 +217,42 @@ def shard(plan: LeafPlan, full: torch.Tensor, par) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def gather(plan: Optional[LeafPlan], x: torch.Tensor, par) -> torch.Tensor:
+def gather(plan: Optional[LeafPlan], x: torch.Tensor, par, model: bool = True) -> torch.Tensor:
     """The whole leaf from this rank's shard ``x``, gathered over data,
-    then over model (differentiable: its backward reduce-scatters the
-    gradient); ``x`` itself where nothing is split or there is no plan (no
-    mesh)."""
+    then over model (``model`` False: over data only), differentiable (its
+    backward reduce-scatters the gradient); ``x`` itself where nothing is
+    split or there is no plan (no mesh)."""
     steps = []
     if plan is not None and plan.data_split:
         steps.append((plan.data_dim, par.dp_group))
-    if plan is not None and plan.model_split:
+    if plan is not None and plan.model_split and model:
         steps.append((plan.model_dim, par.sp_group))
     return P.gather_params(x, steps) if steps else x
 
 
-def gather_tree(plans, tree, par):
-    """``gather`` of every leaf of ``tree`` (``plans`` None: ``tree``)."""
+def gather_tree(plans, tree, par, local_experts: bool = False):
+    """``gather`` of every leaf of ``tree`` (``plans`` None: ``tree``);
+    with ``local_experts`` the expert stacks over data only (the model's
+    use of a block: each rank keeps its model rank's experts)."""
     if plans is None:
         return tree
-    return tree_unflatten(tree, [gather(p, x, par)
-                                 for p, x in zip(tree_leaves(plans), tree_leaves(tree))])
+    return tree_unflatten(tree, [
+        gather(p, x, par, model=not (local_experts and is_expert_leaf(names)))
+        for (names, p), x in zip(tree_leaves_with_path(plans), tree_leaves(tree))])
 
 
 def gather_cycle(plans, cyc_p, c: int, par):
-    """Cycle ``c``'s whole parameters from its shards: each leaf a view of
-    the cycle's slice of its stacked shard, or (``splits_cycles``) the
-    whole stacked shard, gathered and sliced at ``c``."""
+    """Cycle ``c``'s parameters from its shards, for the model's use: each
+    leaf a view of the cycle's slice of its stacked shard, or
+    (``splits_cycles``) the whole stacked shard, gathered and sliced at
+    ``c``; the expert stacks over data only (``gather_tree``'s
+    ``local_experts``)."""
     if plans is None:
         return cyc_p
     return tree_unflatten(cyc_p, [
-        gather(p, x, par)[c] if p.splits_cycles else gather(p.cycle(), x, par)
-        for p, x in zip(tree_leaves(plans), tree_leaves(cyc_p))])
+        gather(p, x, par)[c] if p.splits_cycles
+        else gather(p.cycle(), x, par, model=not is_expert_leaf(names))
+        for (names, p), x in zip(tree_leaves_with_path(plans), tree_leaves(cyc_p))])
 
 
 def shard_tree(plans, tree, par, cycle: bool = False):

@@ -26,20 +26,33 @@ atomic accumulation reorders a float sum, forward or backward.
 MoE FFN, each chunk a non-reentrant checkpoint.  Under a mesh
 (``core/parallel.py``) a rank holds the chunk-interleaved spans of its
 rows, and MoE chunk c is global tokens [c*S/n, (c+1)*S/n) of every row, so
-a chunk or a group may lie on several ranks.  The expert stacks are
-stored as the JAX package's ``param_spec`` places them (e over model, the
-second-last dimension over data; ``launch/shardings.py``) and gathered with
-the rest of their layer cycle (``models/transformer.py::_cycle``), so this
-module sees whole weights; the expert FFN is per token, so every rank
-computes its own tokens (the JAX package's expert-parallel dispatch, an
-all-to-all of [e, g, c, d] over model, is not ported);
-only two things cross ranks (``_MeshPlan``): the count of earlier pairs in
-a group that lie on other ranks (the queue offset), and the top-1 counts
-of a chunk (``me``).  Both come from one all-gather of small integer
-counts (``parallel.gather_counts``), made before the chunks and only when
-a group or a chunk spans ranks.  A rank's aux is its share
+a chunk or a group may lie on several ranks.  The routing crosses ranks in
+two things only (``_MeshPlan``): the count of earlier pairs in a group that
+lie on other ranks (the queue offset), and the top-1 counts of a chunk
+(``me``).  Both come from one all-gather of small integer counts
+(``parallel.gather_counts``), made before the chunks and only when a group
+or a chunk spans ranks.  A rank's aux is its share
 ``e/n * sum_c me_c . (its gate sum over chunk c) / N_c``; the shares summed
 over the world are the JAX aux, so the gradient needs no collective.
+
+The expert stacks are stored as the JAX package's ``param_spec`` places
+them (e over model, the second-last dimension over data;
+``launch/shardings.py``).  Where e splits over model
+(``shardings.expert_parallel``) the port runs the JAX ``"expert"``
+placement, [e, g, cap, d] over (model, data): ``p`` holds the rank's e/sp
+experts (gathered over data only), and in every chunk each rank writes its
+kept pairs into the slots [e, G, cap, d] of the G groups its model group
+holds, ``parallel.dispatch_slots`` hands each rank its experts' slots
+summed over the model group, the rank runs its experts on them, and
+``parallel.combine_slots`` gathers every expert's outputs back.  A slot
+has at most one writer in the world, so the sum adds only zeros; where a
+group spans data ranks, a slot that another data rank fills stays zero
+here and gives a zero row that no token reads.  Every rank of the model
+group takes part in every chunk, with its own tokens of it or none, so
+the slot collectives run in chunk order on every rank, in the forward,
+the checkpoint's recompute and the backward.  Where e does not split
+(e % sp != 0) ``p`` holds every expert and each rank runs them on its own
+tokens, with no slot collective.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ModelConfig
 from repro_torch.core import parallel as P
 from repro_torch.data.pipeline import token_positions
+from repro_torch.launch import shardings as SH
 from repro_torch.models.layers import _dense_init
 
 Params = Dict[str, Any]
@@ -130,9 +144,13 @@ class _SlotGather(torch.autograd.Function):
         return g.new_zeros((ctx.rows, g.shape[1])).index_put_((idx,), g), None
 
 
-def _experts(cfg: ModelConfig, p: Params, xt, topv, topi, pos, keep, grp, g: int, cap: int):
+def _experts(cfg: ModelConfig, p: Params, xt, topv, topi, pos, keep, grp, g: int, cap: int,
+             group=None):
     """Dispatch xt [T, d] into the [e, g, cap] slots, run every expert on
-    its slots, and combine each token's k outputs weighted by its gates."""
+    its slots, and combine each token's k outputs weighted by its gates.
+    ``group``: the model group the experts are split over (``p`` holds
+    this rank's block of them); the slots go through ``dispatch_slots`` and
+    ``combine_slots`` around the rank's experts."""
     T, d = xt.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     slots = e * g * cap
@@ -141,29 +159,35 @@ def _experts(cfg: ModelConfig, p: Params, xt, topv, topi, pos, keep, grp, g: int
     src = xt.unsqueeze(1).expand(T, k, d).reshape(T * k, d)
     buf = xt.new_zeros((slots + 1, d)).index_put((idx,), src)  # row ``slots``: the dropped
     ein = buf[:slots].view(e, g * cap, d)
+    if group is not None:
+        ein = P.dispatch_slots(ein, group)
     if cfg.mlp_act == "swiglu":
         h = F.silu(torch.bmm(ein, p["wg"])) * torch.bmm(ein, p["wu"])
     else:
         h = F.gelu(torch.bmm(ein, p["wu"]), approximate="tanh")  # jax.nn.gelu's default
-    out = torch.bmm(h, p["wd"]).reshape(slots, d)
+    out = torch.bmm(h, p["wd"])
+    if group is not None:
+        out = P.combine_slots(out, group)
+    out = out.reshape(slots, d)
     picked = _SlotGather.apply(torch.cat([out, out.new_zeros((1, d))]), idx).view(T, k, d)
     w = (topv * keep).to(xt.dtype)
     return torch.bmm(w.unsqueeze(1), picked).squeeze(1)
 
 
 def _moe_tokens(cfg: ModelConfig, p: Params, xt, grp, seg0, g: int, cap: int, n_tokens: int,
-                offsets=None, me=None):
+                offsets=None, me=None, group=None):
     """Route, dispatch and combine the tokens xt [T, d] of groups ``grp``
-    (local group index) whose runs start at ``seg0``.  Returns (y [T, d],
-    aux): aux is this set of tokens' share of the load-balancing loss of a
-    call over ``n_tokens`` tokens, with ``me`` (the call's top-1 shares,
-    [e]) computed here when not given."""
+    (index into the g groups of the slots) whose runs start at ``seg0``.
+    Returns (y [T, d], aux): aux is this set of tokens' share of the
+    load-balancing loss of a call over ``n_tokens`` tokens, with ``me``
+    (the call's top-1 shares, [e]) computed here when not given.
+    ``group``: as ``_experts``."""
     e = cfg.num_experts
     gates, topv, topi = route(cfg, p, xt)
     onehot = one_hot(topi, e)
     pos = queue_positions(onehot, topi, seg0, offsets)
     keep = pos < cap
-    y = _experts(cfg, p, xt, topv, topi, pos, keep, grp, g, cap)
+    y = _experts(cfg, p, xt, topv, topi, pos, keep, grp, g, cap, group)
     if me is None:
         me = onehot[:, 0].sum(0).float() / n_tokens
     aux = e * torch.sum(me * (gates.sum(0) / n_tokens))
@@ -200,12 +224,14 @@ def moe_ffn_chunked(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int,
     of ``plan_of``, each a ``moe_ffn`` call (a non-reentrant checkpoint
     when grad is enabled), aux the mean over the chunks; one unchunked
     ``moe_ffn`` on one rank in one chunk.  Under a mesh x holds this
-    rank's rows and tokens, and aux is this rank's share (module
-    docstring)."""
+    rank's rows and tokens, aux is this rank's share, and where
+    ``shardings.expert_parallel`` holds ``p``'s expert stacks hold this
+    model rank's e/sp experts (module docstring)."""
     plan = plan_of(cfg, x.shape, n_chunks, par)
     if plan.n == 1 and plan.world == 1:
         return moe_ffn(cfg, p, x)
-    return moe_planned(cfg, p, x, plan)
+    return moe_planned(cfg, p, x, plan, group=par.sp_group if SH.expert_parallel(cfg, par)
+                       else None)
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +243,16 @@ def moe_ffn_chunked(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int,
 class _MeshPlan:
     """One rank's part of a chunked MoE call over the world, from the
     shapes alone.  ``chunks[c]`` is None when the rank holds no token of
-    chunk c, else (lo, hi, grp, seg0, piece, g): its local columns [lo, hi)
-    and, over its tokens of the chunk in row-major order, the local group
-    index, the chunk-local index of the first of its tokens in the same
-    group, and the piece index; g is its count of local groups.  A piece is
-    a run of the rank's tokens that is consecutive in a group's order;
-    ``pieces`` holds (start, end) in the rank's tokens concatenated over
-    its chunks.  ``offset_rows`` [pieces, q] index the gathered counts (a
+    chunk c, else (lo, hi, grp, seg0, piece, g, egrp): its local columns
+    [lo, hi) and, over its tokens of the chunk in row-major order, the
+    local group index, the chunk-local index of the first of its tokens in
+    the same group, and the piece index; g is its count of local groups,
+    and egrp each token's index among the ``ep_groups`` groups of the
+    chunk that its model group's rows touch (the slots' groups under
+    expert parallelism).  A piece is a run of the rank's tokens that is
+    consecutive in a group's order; ``pieces`` holds (start, end) in the
+    rank's tokens concatenated over its chunks.  ``offset_rows`` [pieces,
+    q] index the gathered counts (a
     last zero row pads) of the other ranks' pieces of the same group that
     come before each of this rank's pieces.  The gather sends ``n_pieces``
     rows of piece counts (padded to the largest rank's) when a group spans
@@ -239,6 +268,7 @@ class _MeshPlan:
     n_pieces: int
     gather_pieces: bool
     gather_me: bool
+    ep_groups: int
 
     @property
     def rows(self) -> int:
@@ -307,6 +337,9 @@ def mesh_plan(cfg: ModelConfig, S: int, B: int, sp: int, dp: int, n: int, rank: 
         width = max(1, max(len(x) for x in before))
         offset_rows = np.array([x + [world * rows] * (width - len(x)) for x in before],
                                dtype=np.int64)
+    first = (rank // sp) * (B // dp) * L  # the model group's rows: a run of each chunk's tokens
+    g0 = first // tg
+    ep_groups = (first + (B // dp) * L - 1) // tg - g0 + 1
     chunks, at = [], 0
     for part in parts[rank]:
         if part is None:
@@ -318,12 +351,12 @@ def mesh_plan(cfg: ModelConfig, S: int, B: int, sp: int, dp: int, n: int, rank: 
         grp = np.searchsorted(uniq, groups)
         seg0 = np.searchsorted(groups, uniq)[grp]  # groups rise along f
         piece = np.array(my_piece[at:at + len(f)], dtype=np.int64)
-        chunks.append((lo, hi, grp, seg0, piece, len(uniq)))
+        chunks.append((lo, hi, grp, seg0, piece, len(uniq), groups - g0))
         at += len(f)
     pieces = np.array([[s0, s1] for _, _, s0, s1 in mine], dtype=np.int64)
     return _MeshPlan(n=n, world=world, cap=capacity(tg, cfg), n_tokens=B * L, chunks=tuple(chunks),
                      pieces=pieces, offset_rows=offset_rows, n_pieces=n_pieces,
-                     gather_pieces=gather_pieces, gather_me=gather_me)
+                     gather_pieces=gather_pieces, gather_me=gather_me, ep_groups=ep_groups)
 
 
 @functools.lru_cache(maxsize=64)
@@ -336,8 +369,9 @@ def _on_device(plan: _MeshPlan, device: torch.device):
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
-    chunks = tuple(None if ch is None else (put(ch[2]), put(ch[3]), put(ch[4]))
-                   for ch in plan.chunks)
+    empty = put(np.zeros(0, dtype=np.int64))  # a chunk of no token of this rank's
+    chunks = tuple((empty, empty, empty, empty) if ch is None else
+                   (put(ch[2]), put(ch[3]), put(ch[4]), put(ch[6])) for ch in plan.chunks)
     rows = None if plan.offset_rows is None else put(plan.offset_rows)
     return chunks, put(plan.pieces), rows
 
@@ -379,7 +413,7 @@ def _from_gathered(plan: _MeshPlan, dev_plan, got: torch.Tensor):
     if plan.gather_pieces:
         flat = torch.cat([got.reshape(-1, e), got.new_zeros((1, e))]).long()
         per_piece = flat[offset_rows].sum(1)  # [pieces, e]
-        offsets = [None if ch is None else per_piece[ch[2]] for ch in chunks]
+        offsets = [None if ch is None else per_piece[dc[2]] for ch, dc in zip(plan.chunks, chunks)]
     if plan.gather_me:
         me = list((got[:, -plan.n:].long().sum(0).float() / plan.n_tokens).unbind(0))
     return offsets, me
@@ -417,31 +451,41 @@ def routing(cfg: ModelConfig, p: Params, x: torch.Tensor, n_chunks: int,
     return torch.cat(tops, 1), torch.cat(keeps, 1)
 
 
-def _moe_chunk(cfg: ModelConfig, names, xt, grp, seg0, g, cap, n_tokens, offsets, me, *ws):
-    return _moe_tokens(cfg, dict(zip(names, ws)), xt, grp, seg0, g, cap, n_tokens, offsets, me)
+def _moe_chunk(cfg: ModelConfig, names, xt, grp, seg0, g, cap, n_tokens, offsets, me, group,
+               *ws):
+    return _moe_tokens(cfg, dict(zip(names, ws)), xt, grp, seg0, g, cap, n_tokens, offsets, me,
+                       group)
 
 
 def moe_planned(cfg: ModelConfig, p: Params, x: torch.Tensor, plan: _MeshPlan,
-                gather=P.gather_counts):
+                gather=P.gather_counts, group=None):
     """This rank's part of a chunked MoE call under ``plan``: (y, its aux
     share).  ``gather`` takes ``local_counts`` and returns every rank's
     [world, rows, e]; it is called once, before the chunks, and only when
-    the plan needs it."""
+    the plan needs it.  ``group``: the model group the experts are split
+    over (``p`` holds this rank's block of them), None where ``p`` holds
+    every expert; under it the rank runs every chunk, a chunk of none of
+    its tokens too (its experts serve the other ranks' tokens; the empty
+    output keeps the chunk's backward, and so its collectives, on the
+    graph)."""
     b, s, d = x.shape
     dev_plan = _on_device(plan, x.device)
     offsets, me = _exchange(cfg, p, x, plan, dev_plan, gather)
     ys, auxs = [], []
     for c, ch in enumerate(plan.chunks):
-        if ch is None:
+        if ch is None and group is None:
             continue
-        grp, seg0, _ = dev_plan[0][c]
-        args = (x[:, ch[0]:ch[1]].reshape(-1, d), grp, seg0, ch[5], plan.cap, plan.n_tokens,
-                offsets[c], me[c])
+        lo, hi = (0, 0) if ch is None else ch[:2]
+        grp, seg0, _, egrp = dev_plan[0][c]
+        gi, g = (grp, ch[5]) if group is None else (egrp, plan.ep_groups)  # the slots' groups
+        args = (x[:, lo:hi].reshape(-1, d), gi, seg0, g, plan.cap, plan.n_tokens, offsets[c],
+                me[c], group)
         if torch.is_grad_enabled():  # the weights as tensor arguments: see layers.mlp_chunked
             y, aux = checkpoint(_moe_chunk, cfg, tuple(p), *args, *p.values(),
                                 use_reentrant=False, preserve_rng_state=False)
         else:
             y, aux = _moe_tokens(cfg, p, *args)
-        ys.append(y.view(b, ch[1] - ch[0], d))
-        auxs.append(aux)
+        ys.append(y.view(b, hi - lo, d))
+        if ch is not None:
+            auxs.append(aux)
     return torch.cat(ys, dim=1), torch.stack(auxs).sum() / plan.n

@@ -20,7 +20,9 @@ included, into the loss's ``0.01 * aux``.
 
 Under a mesh every leaf is stored as ``launch/shardings.py`` places it
 (ZeRO-3: ``init_params(..., par)`` keeps only the rank's shards) and is
-gathered where it is used: a cycle's weights inside ``_cycle``, so that
+gathered where it is used (the MoE expert stacks, under expert
+parallelism, over data only: the rank runs its model rank's experts,
+``models/moe.py``): a cycle's weights inside ``_cycle``, so that
 the checkpoint's recompute (remat full) and ``_OffloadedCycle``'s backward
 gather them again and a cycle's whole weights live only while it runs; a
 tail block's and the final norm's at their block; the embedding table at
@@ -252,7 +254,8 @@ def _add_aux(total, aux):
 def _cycle(cfg, par, pat, cyc_p, h, c=0):
     """The blocks of layer cycle ``c``: (h, the sum of their aux or None).
     Under a mesh ``cyc_p`` holds the cycle's shards (``cycle_views``),
-    gathered here."""
+    gathered here (``shardings.gather_cycle``: the expert stacks over data
+    only)."""
     plans = SH.plans_of(cfg, par)
     if plans is not None:
         cyc_p = SH.gather_cycle(plans["cycles"], cyc_p, c, par)
@@ -332,7 +335,7 @@ def hidden_forward(cfg: ModelConfig, par: Optional[ParallelContext], params: Par
             h, aux = _OffloadedCycle.apply(cfg, par, pat, c, cyc_p, h, *tree_leaves(cyc_p))
         total = _add_aux(total, aux)
     for i, kind in enumerate(tail):
-        p = SH.gather_tree(plans and plans["tail"][i], params["tail"][i], par)
+        p = SH.gather_tree(plans and plans["tail"][i], params["tail"][i], par, local_experts=True)
         h, aux = block_apply(cfg, par, kind, p, h)
         total = _add_aux(total, aux)
     if total is None:

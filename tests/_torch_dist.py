@@ -166,19 +166,41 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
         whole.backward(full[me])
         out["ok"][f"{name} gather_params adjoint"] = torch.allclose(
             w.grad, sum(f[:, :, me * c:(me + 1) * c] for f in full), rtol=1e-6, atol=0)
+        # MoE slots [sp*b experts, h, c, d] along dim 0, row i written by
+        # rank i % sp alone: the dispatch hands this rank its block of b
+        # experts, each row its one writer's bits; its adjoint gathers the
+        # gradient in rank order
+        rows = torch.arange(sp * b).view(-1, 1, 1, 1) % sp
+        props = [_rank_input(torch, r, (sp * b, h, c, d)) for r in members]
+        mine = torch.where(rows == me, props[me], 0.0).requires_grad_(True)
+        got = P.dispatch_slots(mine, group)
+        out["ok"][f"{name} dispatch_slots"] = torch.equal(got, torch.stack(
+            [props[i % sp][i] for i in range(me * b, (me + 1) * b)]))
+        got.backward(xs[me])
+        out["ok"][f"{name} dispatch_slots adjoint"] = torch.equal(mine.grad, torch.cat(xs))
+        # the combine gathers every rank's experts' outputs in rank order;
+        # its adjoint sums this rank's block of the gradient over the group
+        w = xs[me].clone().requires_grad_(True)
+        comb = P.combine_slots(w, group)
+        out["ok"][f"{name} combine_slots"] = torch.equal(comb, torch.cat(xs))
+        comb.backward(props[me])
+        out["ok"][f"{name} combine_slots adjoint"] = torch.allclose(
+            w.grad, sum(f[me * b:(me + 1) * b] for f in props), rtol=1e-6, atol=0)
         sent = b * h * c * d * 4
         out["ok"][f"{name} counts"] = (
             P.calls == {"seq_to_heads": 1, "heads_to_seq": 1, "gather_seq": 1,
                         "reduce_scatter_seq": 1, "all_reduce_sum": 1, "all_reduce_max": 1,
                         "gather_spans": 1,
                         "reduce_scatter_spans": 1, "gather_counts": 1, "gather_params": 1,
-                        "reduce_scatter_grads": 1}
+                        "reduce_scatter_grads": 1, "dispatch_slots": 2, "combine_slots": 2}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
                              "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
                              "all_reduce_max": sent, "gather_spans": sent,
                              "reduce_scatter_spans": sp * sent,
                              "gather_counts": 24, "gather_params": sent,
-                             "reduce_scatter_grads": sp * sent})
+                             "reduce_scatter_grads": sp * sent,
+                             "dispatch_slots": (sp + 1) * sent,
+                             "combine_slots": (sp + 1) * sent})
     return out
 
 
@@ -507,32 +529,137 @@ def task_recurrent(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
-# reduced granite-moe-1b-a400m (4 experts, top-2) at b 2, s 64, u 2: label,
-# mesh, mlp_chunks.  At mlp_chunks 2 a MoE chunk is an FPDT chunk (32
+# reduced granite-moe-1b-a400m (top-2) at b 2, s 64, u 2: label, mesh,
+# mlp_chunks, experts.  At mlp_chunks 2 a MoE chunk is an FPDT chunk (32
 # tokens of each row) and its one group of 64 tokens spans the model ranks
 # (1x4) or the data and model ranks (2x2); at 8 a MoE chunk is exactly one
-# rank's 8-token span of both rows, so every group is local.
-MOE_CASES = (("1x4", (1, 4), 2), ("2x2", (2, 2), 2), ("1x4 local", (1, 4), 8))
+# rank's 8-token span of both rows, so every group is local.  4 experts
+# split over the model ranks (expert parallelism); 6 do not split over 4,
+# so the stacks stay whole on every model rank.
+MOE_CASES = (("1x4", (1, 4), 2, 4), ("2x2", (2, 2), 2, 4), ("1x4 local", (1, 4), 8, 4),
+             ("1x4 e6", (1, 4), 2, 6))
 MOE_B, MOE_S, MOE_U = 2, 64, 2
 
 
-def moe_cfg(cfgs, mlp_chunks: int, remat: str = "full"):
+def moe_cfg(cfgs, mlp_chunks: int, remat: str = "full", experts: int = 4):
     """The config of the MoE cases, from ``cfgs`` (either package's
     ``configs`` module)."""
     import dataclasses
 
     return dataclasses.replace(cfgs.reduced(cfgs.get_config("granite-moe-1b-a400m")),
                                param_dtype="float32", fpdt_chunks=MOE_U, mlp_chunks=mlp_chunks,
-                               remat=remat)
+                               remat=remat, num_experts=experts)
+
+
+def _expert_parallel(cfg, sp: int) -> bool:
+    """The expert stacks' e split over sp > 1 model ranks (``param_spec``)."""
+    return sp > 1 and cfg.num_experts > 0 and cfg.num_experts % sp == 0
+
+
+def reckon_zero(cfg, dp: int, sp: int, step: bool = False) -> dict:
+    """{name: [calls, bytes]} of gather_params, reduce_scatter_grads and
+    all_reduce_sum in one value_and_grad + reduce_grads under remat full on
+    a rank of a dp x sp mesh (``step``: a whole train step, with the global
+    norm's sums), from the plans.
+
+    A gather sends the rank's shard over data, then what it has over model;
+    its adjoint sends the whole gradient over model, then what is left over
+    data.  A cycle's leaf is gathered twice a cycle (the checkpoint's pass
+    and the recompute, a view of its cycle, or the whole stack where its
+    cycles axis is split) and reduce-scattered once; the tied table twice
+    (lookup and head), every other leaf once.  Under expert parallelism an
+    expert stack (wu, wg, wd of an MoE block) is gathered and
+    reduce-scattered over data only: the rank runs its e/sp experts.  Each
+    leaf replicated on an axis is all-reduced once (over the world where it
+    is split on neither); loss_fn sums (loss, count[, aux]) once; the
+    step's global norm sums 8 bytes over data and 4 over model where the
+    axis has ranks."""
+    import math
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import transformer as T
+
+    _, n_cycles, _ = T.layout_of(cfg)
+    calls = dict.fromkeys(("gather_params", "reduce_scatter_grads", "all_reduce_sum"), 0)
+    nbytes = dict(calls)
+    for names, plan in SH.by_path(SH.param_plans(cfg, dp, sp)).items():
+        full = math.prod(plan.shape) * plan.dtype.itemsize
+        local = plan.local_bytes()
+        uses = 1
+        if names.startswith("cycles/"):
+            uses = n_cycles
+            if not plan.splits_cycles:
+                full, local = full // n_cycles, local // n_cycles
+        elif names == "embed" and cfg.tie_embeddings:
+            uses = 2
+        passes = 2 if names.startswith("cycles/") else 1
+        path = names.split("/")
+        expert = "moe" in path and path[-1] in ("wu", "wg", "wd")
+        if plan.data_split:
+            calls["gather_params"] += passes * uses
+            nbytes["gather_params"] += passes * uses * local
+            calls["reduce_scatter_grads"] += uses
+            nbytes["reduce_scatter_grads"] += uses * (full // sp if plan.model_split else full)
+        if plan.model_split and not (expert and _expert_parallel(cfg, sp)):
+            calls["gather_params"] += passes * uses
+            nbytes["gather_params"] += passes * uses * local * (dp if plan.data_split else 1)
+            calls["reduce_scatter_grads"] += uses
+            nbytes["reduce_scatter_grads"] += uses * full
+        if (dp > 1 and not plan.data_split) or (sp > 1 and not plan.model_split):
+            calls["all_reduce_sum"] += 1
+            nbytes["all_reduce_sum"] += plan.local_bytes()
+    calls["all_reduce_sum"] += 1
+    nbytes["all_reduce_sum"] += 12 if cfg.num_experts else 8
+    if step:
+        calls["all_reduce_sum"] += (dp > 1) + (sp > 1)
+        nbytes["all_reduce_sum"] += 8 * (dp > 1) + 4 * (sp > 1)
+    return {k: [calls[k], nbytes[k]] for k in calls}
+
+
+def reckon_slots(cfg, dp: int, sp: int, B: int, S: int, data_rank: int) -> dict:
+    """{name: [calls, bytes]} of dispatch_slots and combine_slots in one
+    value_and_grad under remat full on a rank of data rank ``data_rank`` of
+    a dp x sp mesh, global batch [B, S] (none without expert parallelism).
+    Each MoE layer of a cycle runs, on every rank, each chunk's backward
+    once and its forward three times (the cycle's pass, the cycle's
+    recompute, the chunk's recompute), but the last chunk's twice: the
+    cycle's recompute (a non-reentrant checkpoint's, which stops early once
+    it has rebuilt what the cycle's pass saved) ends before it.  A forward
+    dispatches the slots [e, G, cap, d] of the G groups that the model
+    group's rows of the chunk touch (sent whole) and combines e/sp
+    experts' (sent: a sp-th); each backward the other way round."""
+    import math
+
+    from repro_torch.models import transformer as T
+
+    out = {"dispatch_slots": [0, 0], "combine_slots": [0, 0]}
+    if not _expert_parallel(cfg, sp):
+        return out
+    _, n_cycles, tail = T.layout_of(cfg)
+    n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and S % cfg.mlp_chunks == 0 else 1
+    L, b = S // n, B // dp
+    tg = min(512, B * L)
+    first = data_rank * b * L
+    groups = (first + b * L - 1) // tg - first // tg + 1
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = max(4, min(math.ceil(tg * k / e * cfg.moe_capacity_factor), tg))
+    full = e * groups * cap * cfg.d_model * (4 if cfg.param_dtype == "float32" else 2)
+    assert not tail, "a tail layer runs two forwards: not reckoned here"
+    fwd = n_cycles * (3 * n - 1)
+    out["dispatch_slots"] = [fwd + n_cycles * n, fwd * full + n_cycles * n * full // sp]
+    out["combine_slots"] = [fwd + n_cycles * n, fwd * full // sp + n_cycles * n * full]
+    return out
 
 
 def task_moe(rank: int, world: int, tmp: Path) -> dict:
     """Per MOE_CASES case: the first batch's loss, aux and world-summed
     gradients (the rank's ZeRO-3 shards, gathered) against JAX's
-    (``moe.npz``), the gather_counts calls and bytes of that
-    value_and_grad, a digest of the parameters (gathered from the rank's
-    shards) after one train step; on 1x4, remat offload's gradients against
-    remat full's bit for bit (the recompute reruns the counts' gather)."""
+    (``moe.npz``), the calls and bytes of that value_and_grad's
+    gather_counts, slot collectives, gather_params and
+    reduce_scatter_grads, a digest of the parameters (gathered from the
+    rank's shards) after one train step; on 1x4, remat offload's gradients
+    against remat full's bit for bit (the recompute reruns the counts'
+    gather and the slot exchanges)."""
     import dataclasses
 
     import numpy as np
@@ -552,15 +679,15 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
 
     ref = np.load(tmp / "moe.npz")
     out = {}
-    for label, shape, chunks in MOE_CASES:
+    for label, shape, chunks, experts in MOE_CASES:
         par = P.ParallelContext(make_mesh(*shape))
-        cfg = moe_cfg(configs, chunks)
+        cfg = moe_cfg(configs, chunks, experts=experts)
         like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         n = len(tree_leaves(like))
 
         def params():  # this rank's shards
             return SH.shard_params(cfg, par, tree_unflatten(
-                like, [torch.from_numpy(ref[f"p{i}"].copy()) for i in range(n)]))
+                like, [torch.from_numpy(ref[f"{label}/p{i}"].copy()) for i in range(n)]))
 
         batch_fn = make_batch_fn(cfg, ShapeConfig("t", MOE_S, MOE_B, "train"))
         batch = {k: torch.from_numpy(v)
@@ -568,7 +695,9 @@ def task_moe(rank: int, world: int, tmp: Path) -> dict:
         P.reset_counts()
         loss, metrics, grads = TL.value_and_grad(cfg, par, params(), batch)
         case = {"loss": float(loss), "aux": float(metrics["aux"]),
-                "gather_counts": [P.calls["gather_counts"], P.nbytes["gather_counts"]]}
+                **{k: [P.calls[k], P.nbytes[k]] for k in (
+                    "gather_counts", "dispatch_slots", "combine_slots", "gather_params",
+                    "reduce_scatter_grads")}}
         if label == "1x4":
             off = TL.value_and_grad(dataclasses.replace(cfg, remat="offload"), par, params(),
                                     batch)[2]
@@ -635,7 +764,8 @@ def task_zero(rank: int, world: int, tmp: Path) -> dict:
     from repro_torch.tree import tree_leaves, tree_unflatten
 
     ref = np.load(tmp / "zero.npz")
-    counted = ("gather_params", "reduce_scatter_grads", "all_reduce_sum")
+    counted = ("gather_params", "reduce_scatter_grads", "all_reduce_sum", "dispatch_slots",
+               "combine_slots")
     out = {}
     for arch, shape in ZERO_CASES:
         par = P.ParallelContext(make_mesh(*shape))

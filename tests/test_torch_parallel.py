@@ -12,8 +12,11 @@ and its backward summing each rank's block, ``gather_counts`` stacking
 every rank's integer counts in rank order, ``all_reduce_max`` the
 elementwise maximum, ``gather_params``
 concatenating every rank's shard along its split dimension and its
-backward summing each rank's block, and the call and byte counts as
-written.  ``shard_batch`` must
+backward summing each rank's block, ``dispatch_slots`` handing each rank
+its experts' block of slots that one rank each wrote (the bits of the
+writer) and its backward gathering the gradient, ``combine_slots``
+gathering every rank's experts in rank order and its backward summing
+each rank's block, and the call and byte counts as written.  ``shard_batch`` must
 cover every token of the global batch exactly once, at the global
 positions of the chunk-interleaved layout that FPDT ropes with."""
 import json
@@ -65,7 +68,9 @@ def test_mesh_rank_order_is_the_jax_device_order(ranks, jax_grid):
                                   "reduce_scatter_seq", "all_reduce_sum", "all_reduce_max",
                                   "gather_spans",
                                   "gather_spans adjoint", "gather_counts", "gather_params",
-                                  "gather_params adjoint", "counts"])
+                                  "gather_params adjoint", "dispatch_slots",
+                                  "dispatch_slots adjoint", "combine_slots",
+                                  "combine_slots adjoint", "counts"])
 def test_collectives(ranks, group, what):
     assert all(r["ok"][f"{group} {what}"] for r in ranks)
 

@@ -11,7 +11,10 @@ put back together in the mesh's rank order, is the whole tree bit for bit
 (what ``gather`` does, whose collective ``tests/test_torch_parallel.py``
 holds), each shard has its plan's local shape, and the bytes the ranks
 hold sum to the reckoning: each leaf's bytes once for each rank that
-replicates it.  On one rank every plan is the identity."""
+replicates it.  On one rank every plan is the identity.  For the MoE
+archs, the expert parallelism (``expert_parallel``) holds exactly where
+``param_spec`` splits the expert stacks' e over model, and there their
+gradients are summed over no model group (``reduce_axes``)."""
 import types
 
 import jax
@@ -93,6 +96,34 @@ def test_shards_reassemble_and_bytes_add_up(arch, mesh):
         p.local_bytes() for p in tree_leaves(plans))
     assert moments == 2 * 4 * sum(p.local_bytes() // p.dtype.itemsize
                                   for p in tree_leaves(plans))
+
+
+@pytest.mark.parametrize("mesh", MESHES + ((1, 3),), ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch", [a for a in ARCHS if get_config(a).num_experts])
+def test_expert_parallel_is_the_jax_expert_placement(arch, mesh):
+    """``expert_parallel`` holds where ``param_spec`` splits the expert
+    stacks' e over a model axis of more than one rank (the reduced MoE
+    configs' 4 experts: not over 3).  There each expert stack's gradient,
+    whole after the slot exchange, is summed over no model group after its
+    data-only reduce-scatter; elsewhere the stacks are replicated over
+    model and summed there."""
+    dp, sp = mesh
+    cfg = reduced(get_config(arch))
+    par = ParallelContext(Mesh(dp, sp, 0, "gloo", "data group", "model group"))
+    stub = types.SimpleNamespace(dp_axes=SH.DATA, dp=dp, sp_axis=SH.MODEL, sp=sp)
+    plans = SH.by_path(SH.param_plans(cfg, dp, sp))
+    ep = SH.expert_parallel(cfg, par)
+    assert ep == (sp > 1 and cfg.num_experts % sp == 0)
+    experts = [(names, leaf) for names, leaf in _jax_leaves(arch) if SH.is_expert_leaf(names)]
+    assert {names[-1] for names, _ in experts} == {"wu", "wg", "wd"}
+    for names, leaf in experts:
+        spec = tuple(param_spec(None, stub, names, leaf))
+        assert (sp > 1 and spec[len(leaf.shape) - 3] == SH.MODEL) == ep, (names, spec)
+        axes = SH.reduce_axes(plans["/".join(names)], par)
+        over_model = axes is None or axes == "model group"
+        assert over_model == (sp > 1 and not ep), (names, axes)
+    others = [names for names, _ in _jax_leaves(arch) if "router" in names]
+    assert others and not any(SH.is_expert_leaf(n) for n in others)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

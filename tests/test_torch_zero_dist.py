@@ -18,14 +18,17 @@ JAX and against the port on one rank; remat offload's gradients are remat
 full's bits; the trajectory within 5e-4 relative of JAX's and of one
 rank's, and the parameters after it within 5e-4 of one rank's; the
 gather_params, reduce_scatter_grads and all_reduce_sum calls and bytes of
-the gradient and of a whole step as reckoned below from the plans."""
+the gradient and of a whole step as reckoned below from the plans (under
+granite's expert parallelism its expert stacks gathered and
+reduce-scattered over data only), and the slot collectives' as reckoned
+from the shapes."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_dist import (TRAIN_OPT, ZERO_B, ZERO_CASES, ZERO_S, ZERO_STEPS, run_ranks,
-                         zero_cfg)
+from _torch_dist import (TRAIN_OPT, ZERO_B, ZERO_CASES, ZERO_S, ZERO_STEPS, reckon_slots,
+                         reckon_zero, run_ranks, zero_cfg)
 from repro import configs as jconfigs
 from repro.configs import ShapeConfig
 from repro.core.parallel import ParallelContext as JPar
@@ -34,9 +37,6 @@ from repro.models import transformer as JT
 from repro.optim import adamw as JA
 from repro.runtime import train_loop as JTL
 from repro_torch import configs
-from repro_torch.launch import shardings as SH
-from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves
 
 JPAR = JPar(mesh=None, attn_impl="xla_flash", offload_to_host=False)
 TOL = 5e-4
@@ -74,55 +74,16 @@ def readings(tmp_path_factory):
 CASES = [f"{a} {m[0]}x{m[1]}" for a, m in ZERO_CASES]
 
 
-def _reckon(arch, dp, sp, step: bool):
-    """(calls, bytes) of gather_params, reduce_scatter_grads and
-    all_reduce_sum in one value_and_grad + reduce_grads under remat full
-    (``step``: a whole train step, with the global norm's sums).
-
-    A gather sends the rank's shard over data, then what it has over model;
-    its adjoint sends the whole gradient over model, then what is left over
-    data.  A cycle's leaf is gathered twice a cycle (the checkpoint's pass
-    and the recompute, a view of its cycle, or the whole stack where its
-    cycles axis is split) and reduce-scattered once; the tied table twice
-    (lookup and head), every other leaf once.  Each leaf replicated on an
-    axis is all-reduced once (over the world where it is split on
-    neither); loss_fn sums (loss, count[, aux]) once; the step's global
-    norm sums 8 bytes over data and 4 over model where the axis has
-    ranks."""
+def _reckon(arch, dp, sp, data_rank, step: bool):
+    """{name: [calls, bytes]} of gather_params, reduce_scatter_grads and
+    all_reduce_sum (``_torch_dist.reckon_zero``: granite's expert stacks,
+    whose e splits over model, gathered and reduce-scattered over data
+    only) and of the slot collectives (``_torch_dist.reckon_slots``) in one
+    value_and_grad + reduce_grads under remat full (``step``: a whole
+    train step)."""
     cfg = zero_cfg(configs, arch)
-    _, n_cycles, _ = T.layout_of(cfg)
-    calls = dict.fromkeys(("gather_params", "reduce_scatter_grads", "all_reduce_sum"), 0)
-    nbytes = dict(calls)
-    for names, plan in SH.by_path(SH.param_plans(cfg, dp, sp)).items():
-        full = int(np.prod(plan.shape)) * plan.dtype.itemsize
-        local = plan.local_bytes()
-        uses = 1
-        if names.startswith("cycles/"):
-            uses = n_cycles
-            if not plan.splits_cycles:
-                full, local = full // n_cycles, local // n_cycles
-        elif names == "embed" and cfg.tie_embeddings:
-            uses = 2
-        passes = 2 if names.startswith("cycles/") else 1
-        if plan.data_split:
-            calls["gather_params"] += passes * uses
-            nbytes["gather_params"] += passes * uses * local
-            calls["reduce_scatter_grads"] += uses
-            nbytes["reduce_scatter_grads"] += uses * (full // sp if plan.model_split else full)
-        if plan.model_split:
-            calls["gather_params"] += passes * uses
-            nbytes["gather_params"] += passes * uses * local * (dp if plan.data_split else 1)
-            calls["reduce_scatter_grads"] += uses
-            nbytes["reduce_scatter_grads"] += uses * full
-        if (dp > 1 and not plan.data_split) or (sp > 1 and not plan.model_split):
-            calls["all_reduce_sum"] += 1
-            nbytes["all_reduce_sum"] += plan.local_bytes()
-    calls["all_reduce_sum"] += 1
-    nbytes["all_reduce_sum"] += 12 if cfg.num_experts else 8
-    if step:
-        calls["all_reduce_sum"] += (dp > 1) + (sp > 1)
-        nbytes["all_reduce_sum"] += 8 * (dp > 1) + 4 * (sp > 1)
-    return {k: [calls[k], nbytes[k]] for k in calls}
+    return {**reckon_zero(cfg, dp, sp, step),
+            **reckon_slots(cfg, dp, sp, ZERO_B, ZERO_S, data_rank)}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -161,6 +122,6 @@ def test_collectives_as_reckoned(readings, case):
     ranks, _, _ = readings
     arch, mesh = case.split()
     dp, sp = (int(x) for x in mesh.split("x"))
-    for got in ranks:
-        assert got[case]["grad_counts"] == _reckon(arch, dp, sp, False)
-        assert got[case]["step_counts"] == _reckon(arch, dp, sp, True)
+    for r, got in enumerate(ranks):
+        assert got[case]["grad_counts"] == _reckon(arch, dp, sp, r // sp, False)
+        assert got[case]["step_counts"] == _reckon(arch, dp, sp, r // sp, True)
