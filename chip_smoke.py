@@ -36,7 +36,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 distributed path's shapes in fp32 and bf16 (cp's 1024 query
                 rows against a 2048-token key chunk, the diagonal pair at
                 q_offset - k_offset 0 and 1024; ulysses' hq16 hkv4 at
-                2048 x 2048); flash_fwd is held
+                2048 x 2048), and the head layouts of the archs registered
+                last (NEW_LAYOUTS: musicgen-medium hq24 hkv24 d64,
+                internvl2-2b hq16 hkv8 d128, qwen1.5-4b hq20 hkv20 d128,
+                yi-34b hq56 hkv8 d128, mistral-nemo-12b hq32 hkv8 d128),
+                one diagonal 2048 x 2048 pair each in fp32 and bf16 (bf16
+                also against the rounding emulations); flash_fwd is held
                 against its plain version at those same pairs, with carry and
                 offsets; at the u = 4 pairs the bf16 flash_fwd, flash_bwd_dq
                 and flash_bwd_dkv are also held against the plain version
@@ -59,20 +64,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 channels), the forward relative to (1 + max |h|), the fused
                 backward, and two launches of each bit for bit;
   5. serve    — llama3.2-1b, recurrentgemma-9b (38 layers), falcon-mamba-7b
-                (64 layers) and granite-moe-1b-a400m (24 layers, the MoE
-                FFN), each at full size with random weights from a
+                (64 layers), granite-moe-1b-a400m (24 layers, the MoE
+                FFN), musicgen-medium (48 layers, audio frames: its prompt
+                64 frame embeddings, its decode a per-token loop on fresh
+                random frames) and internvl2-2b (24 layers, vision
+                patches: 256 patch embeddings and 64 tokens), each at full
+                size with random weights from a
                 seeded generator, through the CLI's own function
                 (serve_batch): batch 4, prompt 64, gen 32, greedy; the launch
                 counts are reset just before and read just after, and each
                 kernel the arch's blocks run (flash_fwd for attention,
                 linear_scan for RG-LRU and Mamba) must have launched,
                 flash_fwd once a live chunk pair of each attention layer.
-                With attention, a 2048 prompt whose prefill logits at
+                With attention, a 2048-position prompt whose prefill logits at
                 fpdt_chunks=4 must equal fpdt_chunks=1.  Then, the bf16
                 weights released, decode's first step against a prefill of
-                one more token in fp32 weights (an MoE model at a capacity
+                one more token (musicgen: the frame decode is fed) in fp32
+                weights (an MoE model at a capacity
                 that drops no pair, where routing is per token), and a
-                changed first prompt token must move those logits;
+                changed first prompt token (frame) must move those logits;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -124,6 +134,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 counted from the port's routing of both runs' layer inputs
                 (every leaf held at 5e-4 when none differs, else every leaf
                 but the expert weights, the worst of those printed);
+  6f'. frontends and qwen — musicgen-medium (48 layers) and internvl2-2b
+                (24 layers) at full width and depth, qwen1.5-4b at full
+                width and 8 layers (the FPDT backward with the qkv bias):
+                as 6b without its profiled step (internvl's loss counts b
+                (S - 256) tokens, none at a patch; qwen's bq, bk, bv
+                gradients printed in the u = 4 vs u = 1 comparison, held
+                with every other leaf), their losses held to
+                EARLIER_LOSSES;
   6g. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
                 mlp_chunks 2u) at s = 16384 and 32768 under A (FPDT offload
                 off, remat full), B (offload on, remat full) and C (offload
@@ -214,9 +232,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
-                (launches_by_path: the four serve paths, five trainings,
-                the CLI's compressed training and the five distributed
-                trainings, per rank);
+                (launches_by_path: the six serve paths, eight trainings,
+                the CLI's compressed training and the distributed
+                trainings, per rank), the new head layouts' errors;
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -289,10 +307,16 @@ FP32_LOGIT_RTOL = 1e-4
 # recurrentgemma-9b's from this script at commit 6a7ca09 (whose bf16
 # flash_bwd_dq still ran on the CUDA cores), run from a git archive in one
 # chip call with its child; gpt-2.7b's from this script at commit 0fd5e81,
-# where it was first trained.  Each step is held within LOSS_RTOL of them.
+# where it was first trained; musicgen-medium's, internvl2-2b's and
+# qwen1.5-4b's (8 layers) from this script's first card run of them, where
+# their frontends and registration were added.  Each step is held within
+# LOSS_RTOL of them.
 EARLIER_LOSSES = {"llama3.2-1b": (12.1212, 10.8319, 14.2329),
                   "recurrentgemma-9b": (12.8542, 10.5876, 9.7271),
-                  "gpt-2.7b": (11.5631, 19.6821, 19.4709)}
+                  "gpt-2.7b": (11.5631, 19.6821, 19.4709),
+                  "musicgen-medium": (8.0948, 15.8543, 12.9916),
+                  "internvl2-2b": (12.1181, 9.8164, 14.4724),
+                  "qwen1.5-4b": (12.5033, 12.8573, 16.1957)}
 LOSS_RTOL = 0.02
 # Device ms of the earlier kernels that the redesigned ones replaced, at the
 # timed shapes (same card, same script; the "was" figures of PERF.md
@@ -549,6 +573,13 @@ def phase_kernel(torch, K, R, SoftmaxState, finalize):
     return errs
 
 
+# the head layouts of the archs registered last, one training pair each in the
+# backward phase: arch, hq, hkv, head_dim (yi-34b's g = 7 is the first odd
+# group on flash_bwd_dkv's q-head split)
+NEW_LAYOUTS = (("musicgen-medium", 24, 24, 64), ("internvl2-2b", 16, 8, 128),
+               ("qwen1.5-4b", 20, 20, 128), ("yi-34b", 56, 8, 128),
+               ("mistral-nemo-12b", 32, 8, 128))
+
 # the attention layers each serve path runs: model, hq, hkv, head_dim, window
 SERVE_ATTN = (("llama3.2-1b", 32, 8, 64, 0), ("recurrentgemma-9b", 16, 1, 256, 2048))
 
@@ -762,7 +793,49 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
                           for k, w in worst.items()))
         return worst
 
+    def layout_pairs():
+        """The head layouts of musicgen-medium, internvl2-2b, qwen1.5-4b,
+        yi-34b and mistral-nemo-12b (NEW_LAYOUTS), one pair each at the
+        training shape: the diagonal pair (1, 1) of an 8192 prompt at u=4
+        (2048 x 2048, b1, q_offset = k_offset = 2048), fp32 and bf16.
+        flash_fwd against its plain version (bf16 also against its rounding
+        emulation, TOL_TC), then flash_bwd_dq and flash_bwd_dkv from the
+        pair's own L and delta against theirs (bf16 also against the
+        emulations, and two launches of each the same bits)."""
+        nonlocal n
+        out = {}
+        kw = dict(causal=True, q_offset=2048, k_offset=2048)
+        for arch, hq, hkv, d in NEW_LAYOUTS:
+            row = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                errs, acc, ftc, tc = {}, {}, {}, {}
+                fcheck = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, acc, ftc)
+                q = rnd(1, hq, 2048, d).to(dtype)
+                k, v = rnd(1, hkv, 2048, d).to(dtype), rnd(1, hkv, 2048, d).to(dtype)
+                label = f"{arch} layout hq{hq} hkv{hkv} d{d} pair (1,1) {dtype}"
+                st = fcheck(f"flash_fwd {label}", dtype, q, k, v, None, **kw)
+                do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, None, None, g, states=st)
+                w = check(label, q, k, v, do, L, delta, tc, **kw)
+                key = str(dtype).split(".")[-1]
+                row[key] = {"fwd": errs[key], "fwd_acc": acc[key], **w}
+                if dtype == torch.bfloat16:
+                    row[key].update(fwd_tc=ftc["acc"], tc=tc)
+                    deterministic(label, q, k, v, do, L, delta, **kw)
+                n += 1
+                del q, k, v, st, do, L, delta
+            out[arch] = row
+            bf = row["bfloat16"]
+            print(f"{arch} head layout (hq{hq} hkv{hkv} d{d}, g {hq // hkv}), pair (1,1) of an "
+                  f"8192 prompt at u=4: fp32 flash_fwd max abs err of out, m, l "
+                  f"{row['float32']['fwd']:.3e}, dq, dk, dv err / (1 + max|ref|) "
+                  f"{row['float32']['dq']:.3e}, {row['float32']['dk']:.3e}, "
+                  f"{row['float32']['dv']:.3e}; bf16 flash_fwd {bf['fwd']:.3e} (acc, l against "
+                  f"the rounding emulation {bf['fwd_tc']:.3e}, {ftc['l']:.3e}), "
+                  + _bwd_summary(bf, bf["tc"]))
+        return out
+
     dist = dist_pairs()
+    layouts = layout_pairs()
     pairs = {"llama": train_pairs("llama3.2-1b", 32, 8, 64),
              "gpt": train_pairs("gpt-2.7b", 32, 32, 80),
              # window 2048, so pair (i, j) lives only for i - j <= 1
@@ -793,7 +866,7 @@ def phase_kernel_bwd(torch, K, R, F, SoftmaxState, lse, finalize):
           f"{worst_abs['dq']:.3e}, {worst_abs['dk']:.3e}, {worst_abs['dv']:.3e}); "
           f"flash_bwd_dq and flash_bwd_dkv deterministic (two launches each, same bits) at "
           f"{n_det} training pairs")
-    return {"abs": worst_abs, "rel": worst, "pairs": pairs, "dist": dist}
+    return {"abs": worst_abs, "rel": worst, "pairs": pairs, "dist": dist, "layouts": layouts}
 
 
 def _bwd_summary(worst, tc):
@@ -1065,34 +1138,49 @@ KERNEL_OF_KIND = {"attn": "flash_fwd", "local_attn": "flash_fwd", "rglru": "line
                   "ssm": "linear_scan"}
 
 
+def _prompt_words(cfg, s: int) -> str:
+    """A prompt of ``s`` positions, in words."""
+    if cfg.frontend == "audio_frames":
+        return f"{s} frames"
+    if cfg.frontend == "vision_patches":
+        return f"{cfg.num_patches} patches + {s - cfg.num_patches} tokens"
+    return f"{s} tokens"
+
+
 def phase_serve(torch, M, arch, card):
     """``arch`` at full size with random bf16 weights from a seeded
     generator, through the CLI's own function (serve_batch): batch 4,
-    prompt 64, gen 32, greedy, the launch counts reset just before and read
-    just after; each kernel its block kinds run must have launched, and
-    flash_fwd once a live chunk pair of each attention layer.  With
-    attention, a 2048 prompt whose prefill logits at fpdt_chunks=4 must
-    equal fpdt_chunks=1.  Then, with the bf16 weights released, decode's
-    first step against a prefill of one more token in fp32 weights (an MoE
-    model at a capacity factor that drops no pair: decode's dispatch group
-    is the batch's b tokens and the prefill's a chunk's, so only without
-    drops is routing per token and the two comparable), and how far a
-    changed first prompt token moves those logits."""
+    prompt 64 tokens (an audio model's 64 frames; a vision model's patches
+    and 64 tokens), gen 32, greedy (an audio model decodes per token, each
+    step a fresh random frame), the launch counts reset just before and
+    read just after; each kernel its block kinds run must have launched,
+    and flash_fwd once a live chunk pair of each attention layer.  With
+    attention, a 2048-position prompt whose prefill logits at
+    fpdt_chunks=4 must equal fpdt_chunks=1.  Then, with the bf16 weights
+    released, decode's first step against a prefill of one more token (or
+    frame: the one decode is fed) in fp32 weights (an MoE model at a
+    capacity factor that drops no pair: decode's dispatch group is the
+    batch's b tokens and the prefill's a chunk's, so only without drops is
+    routing per token and the two comparable), and how far a changed first
+    prompt token (or frame) moves those logits."""
     dev = torch.device("cuda")
     cfg = M.cfg_mod.get_config(arch)
+    audio = cfg.frontend == "audio_frames"
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = M.T.init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     print(f"init_params {cfg.name} ({cfg.num_layers} layers, {cfg.num_params() / 1e9:.3f} B "
           f"params, {cfg.param_dtype}) in {time.perf_counter() - t0:.1f} s")
-    b, s, new = 4, 64, 32
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
-    M.CLI.serve_batch(cfg, params, tokens, gen=new)  # warm-up: cuBLAS and allocator set-up
+    b, s, new = 4, 64 + cfg.num_patches, 32
+    prompt = M.CLI.random_prompt(cfg, b, s, gen, dev)
+    frames = M.CLI.random_prompt(cfg, b, new - 1, gen, dev)["frame_embeds"] if audio else None
+    # warm-up: cuBLAS and allocator set-up
+    M.CLI.serve_batch(cfg, params, prompt, gen=new, frames=frames)
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(M.K, M.SK)
-    out = M.CLI.serve_batch(cfg, params, tokens, gen=new)
+    out = M.CLI.serve_batch(cfg, params, prompt, gen=new, frames=frames)
     counts = _counts(M.K, M.SK)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     logits, toks = out["prefill_logits"], out["tokens"]
@@ -1112,59 +1200,67 @@ def phase_serve(torch, M, arch, card):
     if tuple(toks.shape) != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     steps = out["steps"]
-    print(f"serve {cfg.name} ({cfg.num_layers} layers) b={b} prompt={s} gen={new}: launches "
-          f"{counts}; prefill {out['prefill_ms']:.2f} ms; decode "
-          f"{out['decode_ms'] / steps:.3f} ms/step, {steps * b / (out['decode_ms'] / 1e3):.1f} "
-          f"tok/s; peak {peak_gib:.2f} GiB [{card}]")
+    print(f"serve {cfg.name} ({cfg.num_layers} layers) b={b} prompt={_prompt_words(cfg, s)} "
+          f"gen={new} (decode: {out['mode']}): launches {counts}; prefill "
+          f"{out['prefill_ms']:.2f} ms; decode {out['decode_ms'] / steps:.3f} ms/step, "
+          f"{steps * b / (out['decode_ms'] / 1e3):.1f} tok/s; peak {peak_gib:.2f} GiB [{card}]")
     print("generated ids (row 0):", toks[0].tolist())
 
     if M.T.has_attention(cfg):  # a 2048 prompt: FPDT with u=4 computes what u=1 computes
         s2 = 2048
-        tokens2 = torch.randint(0, cfg.vocab_size, (b, s2), generator=gen, device=dev)
+        prompt2 = M.CLI.random_prompt(cfg, b, s2, gen, dev)
         res = {}
         for u in (1, 4):
             cu = dataclasses.replace(cfg, fpdt_chunks=u)
-            M.SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)  # warm-up
+            M.SV.prefill_step(cu, None, params, prompt2, max_len=s2)  # warm-up
             _reset_counts(M.K, M.SK)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, _ = M.SV.prefill_step(cu, None, params, {"tokens": tokens2}, max_len=s2)
+            lg, _ = M.SV.prefill_step(cu, None, params, prompt2, max_len=s2)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             res[u] = lg
             if not torch.isfinite(lg).all() or M.K.launches <= 0:
                 raise AssertionError(f"u={u}: non-finite logits or no kernel launch")
-            print(f"prefill {cfg.name} b={b} prompt={s2} fpdt_chunks={u}: {ms:.2f} ms, "
-                  f"launches {_counts(M.K, M.SK)} [{card}]")
+            print(f"prefill {cfg.name} b={b} prompt={_prompt_words(cfg, s2)} fpdt_chunks={u}: "
+                  f"{ms:.2f} ms, launches {_counts(M.K, M.SK)} [{card}]")
         diff = float((res[4] - res[1]).abs().max())
         print(f"u=4 vs u=1 prefill logits: max |diff| = {diff:.3e} (must be 0)")
         if diff != 0.0:
             raise AssertionError("u=4 prefill differs from u=1")
-        del res, lg
+        del res, lg, prompt2
     del params, out, logits
     torch.cuda.empty_cache()
 
     # decode agrees with prefill (the repo's own check): the first decode
     # step's logits == the last logits of a prefill over the prompt plus that
-    # token.  In fp32 weights, so the two orders of summation differ by fp32
-    # rounding only; beside it, how far the same logits move when only the
-    # first prompt token changes, which reaches them through attention or
-    # the recurrent state alone.
+    # token (an audio model's: that frame).  In fp32 weights, so the two
+    # orders of summation differ by fp32 rounding only; beside it, how far
+    # the same logits move when only the first prompt token (frame) changes,
+    # which reaches them through attention or the recurrent state alone.
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     if cfg.num_experts:  # capacity for every pair: routing is then per token, as decode's
         cfg32 = dataclasses.replace(cfg32, moe_capacity_factor=cfg.num_experts
                                     / cfg.experts_per_token)
     params32 = M.T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    nxt = toks[:, :1]
-    other = tokens.clone()
-    other[:, 0] = (other[:, 0] + 1) % cfg.vocab_size
+    prompt = {k: v.float() if v.is_floating_point() else v for k, v in prompt.items()}
+    key = "frame_embeds" if audio else "tokens"
+    nxt = frames[:, :1].float() if audio else toks[:, :1]
+    other = dict(prompt)
+    other[key] = prompt[key].clone()
+    if audio:
+        other[key][:, 0] = -other[key][:, 0]
+    else:
+        other[key][:, 0] = (other[key][:, 0] + 1) % cfg.vocab_size
     with torch.no_grad():
-        _, cache = M.SV.prefill_step(cfg32, None, params32, {"tokens": tokens}, max_len=s + 1)
-        dec, _ = M.SV.decode_step(cfg32, None, params32, cache, {"tokens": nxt}, s)
+        _, cache = M.SV.prefill_step(cfg32, None, params32, prompt, max_len=s + 1)
+        dec, _ = M.SV.decode_step(cfg32, None, params32, cache, {key: nxt}, s)
         full, _ = M.SV.prefill_step(cfg32, None, params32,
-                                    {"tokens": torch.cat([tokens, nxt], dim=1)}, max_len=s + 1)
+                                    {**prompt, key: torch.cat([prompt[key], nxt], dim=1)},
+                                    max_len=s + 1)
         moved, _ = M.SV.prefill_step(cfg32, None, params32,
-                                     {"tokens": torch.cat([other, nxt], dim=1)}, max_len=s + 1)
+                                     {**other, key: torch.cat([other[key], nxt], dim=1)},
+                                     max_len=s + 1)
     scale = float(full.abs().max())
     rel = float((dec - full).abs().max()) / scale
     signal = float((moved - full).abs().max()) / scale
@@ -1174,8 +1270,10 @@ def phase_serve(torch, M, arch, card):
         print(f"{cfg.name}: the decode-vs-prefill check runs at capacity factor "
               f"{cfg32.moe_capacity_factor:g} (no pair dropped): decode's group is the batch's "
               f"{b} tokens, the prefill's its chunk's, and only without drops is routing per token")
+    first = {"audio_frames": "frame 0 (negated)", "vision_patches": "token 0 (after the patches)"
+             }.get(cfg.frontend, "token 0")
     print(f"{cfg.name} decode-vs-prefill fp32 logits ({cfg.num_layers} layers): max |diff| / "
-          f"max |logit| = {rel:.3e} (tolerance {FP32_LOGIT_RTOL}); changing prompt token 0 "
+          f"max |logit| = {rel:.3e} (tolerance {FP32_LOGIT_RTOL}); changing prompt {first} "
           f"moves them {signal:.3e}")
     if not rel <= FP32_LOGIT_RTOL:
         raise AssertionError("decode step disagrees with prefill")
@@ -1520,6 +1618,10 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
             f"rel {loss_rel:.3e}); largest gradient-leaf "
             f"error / leaf max {grad_rel:.3e} (leaf {leaf} of {len(rels)}); tolerance "
             f"{FPDT_GRAD_RTOL}")
+    if cfg.qkv_bias:  # the biases' gradients, held with the other leaves
+        names = ["/".join(n) for n, _ in M.TR.tree_leaves_with_path(g4)]
+        line += "; " + ", ".join(f"{n} {r:.3e}" for n, r in zip(names, rels)
+                                 if n.rsplit("/", 1)[-1] in ("bq", "bk", "bv"))
     gated = rels
     if cfg.num_experts:
         differ = _decisions_differ(dec4, dec1)
@@ -1726,6 +1828,40 @@ def phase_train_granite(torch, M, card):
     that differ counted."""
     return _train_run(torch, M, _train_cfg(M, GRANITE), card,
                       same_bits=[("a second run", {}), ("remat offload", {"remat": "offload"})])
+
+
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-2b")
+QWEN, QWEN_LAYERS = "qwen1.5-4b", 8  # of 40: 1.412 B parameters, 16.9 GB of training state
+
+
+def phase_train_frontend(torch, M, card, arch):
+    """musicgen-medium (48 layers, audio frames) or internvl2-2b (24 layers,
+    vision patches) at full width and depth: as 6b without the profiled
+    step; internvl's loss of the first batch counts its b (S - num_patches)
+    labelled tokens, none at a patch position."""
+    cfg = _train_cfg(M, arch)
+
+    def no_patch_loss(cfg, params, batch):
+        with torch.no_grad():
+            _, metrics = M.T.loss_fn(cfg, None, params, batch)
+        b, seq = batch["tokens"].shape[0], TRAIN_SEQ
+        want = b * (seq - cfg.num_patches)
+        print(f"{cfg.name}: the loss counts {float(metrics['tokens']):.0f} tokens of the "
+              f"{b} x {seq} positions, b (S - {cfg.num_patches} patches) = {want} [{card}]")
+        if float(metrics["tokens"]) != want:
+            raise AssertionError("the vision model's loss counts patch positions")
+
+    vision = cfg.frontend == "vision_patches"
+    return _train_run(torch, M, cfg, card, profile_offload=(),
+                      extra_check=no_patch_loss if vision else None)
+
+
+def phase_train_qwen(torch, M, card):
+    """qwen1.5-4b at full width and 8 layers: the FPDT backward with the qkv
+    bias, whose gradients the u=4 vs u=1 comparison holds with every other
+    leaf; as 6b without the profiled step."""
+    return _train_run(torch, M, _train_cfg(M, QWEN, num_layers=QWEN_LAYERS), card,
+                      profile_offload=())
 
 
 MOE_LAYER_ITERS = 10
@@ -3898,7 +4034,8 @@ def main():
                 finalize)
     scan = phase("linear_scan vs plain", phase_scan, torch, SK, SR, SO)
     serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
-             for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE)}
+             for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE,
+                          *FRONTEND_ARCHS)}
     train_ref = {}
     train = phase("train llama3.2-1b", phase_train, torch, M, card, train_ref)
     cli = phase("train CLI llama3.2-1b --compress-grads --trace-out --metrics-out",
@@ -3909,6 +4046,9 @@ def main():
                    M, card)
     phase("granite MoE layer under set_sync_debug_mode('error')", phase_moe_layer, torch, M, card)
     granite = phase(f"train {GRANITE}", phase_train_granite, torch, M, card)
+    frontends = {arch: phase(f"train {arch}", phase_train_frontend, torch, M, card, arch)
+                 for arch in FRONTEND_ARCHS}
+    qwen = phase(f"train {QWEN} ({QWEN_LAYERS} layers)", phase_train_qwen, torch, M, card)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
     dist = phase("distribution (ulysses, cp, the recurrent mixers)", phase_dist, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
@@ -3921,6 +4061,7 @@ def main():
     scan_src = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
     replaces = "src/repro/kernels/flash_attention/kernel.py:"
     pairs = bwd["pairs"]
+    layouts = {arch: row["bfloat16"] for arch, row in bwd["layouts"].items()}  # the path's dtype
     entries = [
         ("flash_fwd", flash + "flash_fwd.cu", replaces + "134",
          max(*errs.values(), *(p["fwd"] for p in pairs.values())),
@@ -3929,6 +4070,8 @@ def main():
           **{f"max_acc_rel_err_{m}_pairs": p["fwd_acc"] for m, p in pairs.items()},
           **{f"tc_rel_err_acc_{m}_pairs": p["fwd_tc"]["acc"] for m, p in pairs.items()},
           **{f"max_err_dist_pairs_{k}": w["fwd"] for k, w in bwd["dist"].items()},
+          **{f"max_err_{a}_layout_pair": w["fwd"] for a, w in layouts.items()},
+          **{f"tc_rel_err_acc_{a}_layout_pair": w["fwd_tc"] for a, w in layouts.items()},
           "library": timing["flash_fwd"]["library"],
           **at("flash_fwd_gpt_diagonal", "gpt_diagonal_pair"),
           **at("flash_fwd_train", "llama_train_pair"), **at("flash_fwd_hybrid", "hybrid_pair"),
@@ -3938,6 +4081,7 @@ def main():
           **{f"max_rel_err_dist_pairs_{k}": w["dq"] for k, w in bwd["dist"].items()},
           **{f"max_rel_err_{m}_pairs": p["worst"]["dq"] for m, p in pairs.items()},
           **{f"tc_rel_err_{m}_pairs": p["tc"]["dq"] for m, p in pairs.items()},
+          **{f"max_rel_err_{a}_layout_pair": w["dq"] for a, w in layouts.items()},
           **at("flash_bwd_dq_gpt_diagonal", "gpt_diagonal_pair"),
           **at("flash_bwd_dq_train", "llama_train_pair"),
           **at("flash_bwd_dq_hybrid", "hybrid_pair")}),
@@ -3949,6 +4093,8 @@ def main():
           **{f"max_rel_err_dk_{m}_pairs": p["worst"]["dk"] for m, p in pairs.items()},
           **{f"max_rel_err_dv_{m}_pairs": p["worst"]["dv"] for m, p in pairs.items()},
           **{f"tc_rel_err_dk_{m}_pairs": p["tc"]["dk"] for m, p in pairs.items()},
+          **{f"max_rel_err_{p}_{a}_layout_pair": w[p] for a, w in layouts.items()
+             for p in ("dk", "dv")},
           "n_split": timing["flash_bwd_dkv"]["n_split"],
           "n_split_llama_train_pair": timing["flash_bwd_dkv_train"]["n_split"],
           "n_split_hybrid_pair": timing["flash_bwd_dkv_hybrid"]["n_split"],
@@ -3976,6 +4122,8 @@ def main():
                    "train recurrentgemma-9b": hybrid[kname],
                    "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],
                    f"train {GRANITE}": granite[kname],
+                   **{f"train {arch}": d[kname] for arch, d in frontends.items()},
+                   f"train {QWEN}": qwen[kname],
                    **{path: d[kname] for path, d in dist.items()}}
         # each kernel's own path: gpt-2.7b's training for the attention
         # kernels, this slice's falcon-mamba-7b training for the scan

@@ -1,11 +1,11 @@
 """Model configs and the registry of ported architectures.
 
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
-``reduced`` (the port imports nothing from it).  Only architectures the
-port trains are registered: llama3.2-1b, recurrentgemma-9b,
-falcon-mamba-7b, granite-moe-1b-a400m, llama4-maverick-400b-a17b (778 B
-parameters: only its reduced form fits a card) and the paper's models
-(``PAPER_ARCHS``); ``get_config`` raises for every other one.
+``reduced`` (the port imports nothing from it).  The JAX package's 16
+architectures are registered, its ten and the paper's models
+(``PAPER_ARCHS``); ``get_config`` raises for any other name.  Some fit one
+card only cut in depth or reduced (llama4-maverick-400b-a17b's 778 B
+parameters, yi-34b's and mistral-nemo-12b's training state).
 """
 from __future__ import annotations
 
@@ -162,7 +162,7 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 # --------------------------------------------------------------------------
-# Registry: only the architectures the port trains
+# Registry: the JAX package's architectures
 # --------------------------------------------------------------------------
 
 PAPER_ARCHS = (
@@ -180,6 +180,11 @@ _MODULE_FOR = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "musicgen-medium": "musicgen_medium",
+    "yi-34b": "yi_34b",
+    "qwen1.5-4b": "qwen1p5_4b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "internvl2-2b": "internvl2_2b",
     "gpt-2.7b": "gpt_paper",
     "gpt-6.7b": "gpt_paper",
     "gpt-13b": "gpt_paper",
@@ -195,8 +200,7 @@ def list_configs():
 
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in _MODULE_FOR:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch; ported: {list_configs()}")
+        raise KeyError(f"unknown arch {name!r}; known: {list_configs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[name]}")
     cfg = mod.config(name) if name in PAPER_ARCHS else mod.config()
     if overrides:

@@ -1,11 +1,11 @@
 """Deterministic, checkpointable data pipeline (numpy only).
 
-The port's own copy of the JAX package's ``data/pipeline.py`` for the token
-frontend: ``batch(step)`` is a pure function of (seed, step, layout), so
-the same seed and step give exactly the JAX package's batches, and the
-iterator's state is the step counter.  Under a mesh each rank takes its
-part of the global batch (``shard_batch``).  The audio and vision frontends come
-with their model slices.
+The port's own copy of the JAX package's ``data/pipeline.py``, its three
+frontends included (tokens, audio frames, vision patches): ``batch(step)``
+is a pure function of (seed, step, layout), so the same seed and step give
+exactly the JAX package's batches, and the iterator's state is the step
+counter.  Under a mesh each rank takes its part of the global batch
+(``shard_batch``).
 """
 from __future__ import annotations
 
@@ -52,12 +52,34 @@ class TokenSource:
 
 
 def make_batch_fn(cfg: ModelConfig, shape: ShapeConfig, dc: Optional[DataConfig] = None):
-    """Returns batch(step) -> {"tokens" [B, S], "labels" [B, S]} int32 numpy."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not yet ported")
+    """Returns batch(step) -> dict of numpy arrays: {"tokens" [B, S] int32,
+    "labels" [B, S] int32}; for the audio frontend {"frame_embeds" [B, S,
+    d] float32, "labels"}; for the vision frontend {"patch_embeds" [B, P,
+    d] float32, "tokens" and "labels" [B, S - P]} (P = ``num_patches``).
+    The frontends' embeddings are the JAX package's stubs: standard normal
+    * 0.02 from ``SeedSequence([seed, step, 7])``."""
     dc = dc or DataConfig(vocab_size=cfg.vocab_size)
     dc.vocab_size = cfg.vocab_size
     B, S = shape.global_batch, shape.seq_len
+
+    def stub(step: int, n: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([dc.seed, step, 7]))
+        return rng.standard_normal((B, n, cfg.d_model), dtype=np.float32) * 0.02
+
+    if cfg.frontend == "audio_frames":
+        def batch(step: int) -> Dict[str, np.ndarray]:
+            toks = TokenSource(dc, B, S).batch(step)
+            return {"frame_embeds": stub(step, S), "labels": toks[:, 1 : S + 1]}
+        return batch
+
+    if cfg.frontend == "vision_patches":
+        St = S - cfg.num_patches
+
+        def batch(step: int) -> Dict[str, np.ndarray]:
+            toks = TokenSource(dc, B, St).batch(step)
+            return {"patch_embeds": stub(step, cfg.num_patches), "tokens": toks[:, :St],
+                    "labels": toks[:, 1 : St + 1]}
+        return batch
 
     def batch(step: int) -> Dict[str, np.ndarray]:
         toks = TokenSource(dc, B, S).batch(step)
@@ -79,20 +101,27 @@ def token_positions(seq_len: int, sp: int, sp_rank: int, u: int) -> np.ndarray:
 
 
 def shard_batch(batch: Dict[str, np.ndarray], par, u: int) -> Dict[str, np.ndarray]:
-    """This rank's part of a global batch ({"tokens", "labels"} [B, S]): its
-    data rank's rows and its model rank's tokens (``token_positions``).
-    Every rank builds the global batch from the same seed and takes its
-    part.  Without a mesh the batch is returned as it is."""
+    """This rank's part of a global batch: its data rank's rows and its
+    model rank's positions (``token_positions``) of the [B, S] sequence.
+    Under the vision frontend the sequence is the P patches and then the
+    tokens, so the rank's patch positions (< P) index ``patch_embeds`` and
+    its others, less P, ``tokens`` and ``labels``; the positions increase,
+    so its patches come first in its slice (a rank may hold none, or only
+    patches).  Every rank builds the global batch from the same seed and
+    takes its part.  Without a mesh the batch is returned as it is."""
     if par is None or par.mesh is None:
         return batch
     rows = next(iter(batch.values())).shape[0]
     if rows % par.dp:
         raise ValueError(f"global batch {rows} does not split over dp={par.dp}")
     r = rows // par.dp
-    seq = next(iter(batch.values())).shape[1]
-    pos = token_positions(seq, par.sp, par.sp_rank, u)
     lo = par.dp_rank * r
-    return {k: np.ascontiguousarray(v[lo:lo + r][:, pos]) for k, v in batch.items()}
+    n_patch = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    seq = n_patch + next(v for k, v in batch.items() if k != "patch_embeds").shape[1]
+    pos = token_positions(seq, par.sp, par.sp_rank, u)
+    take = {"patch_embeds": pos[pos < n_patch]}
+    return {k: np.ascontiguousarray(v[lo:lo + r][:, take.get(k, pos[pos >= n_patch] - n_patch)])
+            for k, v in batch.items()}
 
 
 class CheckpointableIterator:

@@ -1,4 +1,5 @@
-"""Common model layers: norms, RoPE, attention projections, MLP.
+"""Common model layers: norms, RoPE, the sinusoidal table, attention
+projections, MLP.
 
 Plain functions over explicit parameter dicts, in the JAX package's
 layouts (``x @ w`` with ``w [d_in, d_out]``), so converted parameters drop
@@ -70,6 +71,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(seq_len, d_model: int, offset: int = 0, device=None) -> torch.Tensor:
+    """The fp32 sinusoidal table: sin on the even columns, cos on the odd
+    ones, at positions ``offset .. offset + seq_len - 1`` -> [seq_len,
+    d_model]; ``seq_len`` may instead be a tensor of positions of any shape
+    [...] (a decode step's per-row positions, a rank's global positions
+    under a mesh) -> [..., d_model]."""
+    if isinstance(seq_len, torch.Tensor):
+        pos, device = seq_len.float(), seq_len.device
+    else:
+        pos = torch.arange(offset, offset + seq_len, dtype=torch.float32, device=device)
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    ang = pos[..., None] / torch.pow(torch.tensor(10000.0, device=device), dim / d_model)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(*pos.shape, d_model)
 
 
 # ---------------------------------------------------------------------------

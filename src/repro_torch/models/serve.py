@@ -24,8 +24,11 @@ per step) and returns the same cache dict.  An MoE model's attention
 blocks run the MoE FFN as the JAX package's do: unchunked ``moe_ffn`` in
 decode (the batch's b tokens are one group) and ``moe_ffn_chunked`` over
 ``cfg.mlp_chunks`` in prefill, where a padded prompt's pad tokens route
-and take queue places too.  Host-streamed KV chunks and the paged pool
-are not yet ported.
+and take queue places too.  The modality frontends are the JAX package's
+stubs: an audio model's prompt and decode steps take frame embeddings
+(decode adds the sinusoidal table at each row's position), a vision
+model's prompt puts its patch embeddings before its tokens and decodes
+tokens.  Host-streamed KV chunks and the paged pool are not yet ported.
 """
 from __future__ import annotations
 
@@ -156,7 +159,10 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
     """One decode step: advance every sequence in the batch by one token.
 
     Contract:
-      inp    — {"tokens": [b, 1] integer ids}.
+      inp    — {"tokens": [b, 1] integer ids} or, for the audio frontend,
+               {"frame_embeds": [b, 1, d]}: the frame plus the fp32
+               sinusoidal table at each row's position, cast to the
+               frame's dtype.
       pos    — scalar or integer [b]: the position each sequence's incoming
                token occupies.  The token is written into its cache slot
                (``kpos[slot] = pos``) and attends to entries with
@@ -167,10 +173,14 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
                every recurrent layer's state.
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
-    tokens = inp["tokens"]
-    b = tokens.shape[0]
-    pos = _positions(pos, b, tokens.device)
-    h = params["embed"][tokens].to(getattr(torch, cfg.param_dtype))
+    if cfg.frontend == "audio_frames":
+        h = inp["frame_embeds"]
+        pos = _positions(pos, h.shape[0], h.device)
+        h = h + L.sinusoidal_pos_emb(pos, cfg.d_model).to(h.dtype)[:, None]
+    else:
+        tokens = inp["tokens"]
+        pos = _positions(pos, tokens.shape[0], tokens.device)
+        h = params["embed"][tokens].to(getattr(torch, cfg.param_dtype))
     pat, n_cycles, tail = T.layout_of(cfg)
     for c in range(n_cycles):
         cyc_p, cyc_cache = T.cycle(params["cycles"], c), T.cycle(
@@ -196,7 +206,10 @@ def prefill_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Param
     """Forward over the prompt batch, returning (logits, filled cache).
 
     Contract:
-      batch   — {"tokens": [b, s]}; every row runs the full s-length forward.
+      batch   — {"tokens": [b, s]} or a frontend's ({"frame_embeds": [b, s,
+                d]}; {"patch_embeds": [b, P, d], "tokens": [b, s - P]}, the
+                patches first: ``transformer.embed_input``); every row runs
+                the full s-length forward.
       max_len — cache capacity (prompt + generation budget); the returned
                 cache is ready for ``decode_step`` at ``pos = s`` (or
                 ``pos = lengths`` per row).

@@ -13,10 +13,11 @@ pytree's shapes; ``remat="full"`` wraps each cycle in a non-reentrant
 cycle's input in pinned host memory between the forward and the backward
 (the JAX package's ``block_in`` offload policy).  The ported block kinds are
 attention (attn, local_attn), RG-LRU (rglru) and Mamba-1 (ssm), with the
-token frontend; an attention block of an MoE config (``num_experts``)
-runs the MoE FFN (``models/moe.py``) in place of its MLP, and its
-load-balancing aux rides beside h through every cycle, remat form
-included, into the loss's ``0.01 * aux``.
+token, audio-frame and vision-patch frontends (``embed_input``; an audio
+model has no ``embed`` table); an attention block of an MoE config
+(``num_experts``) runs the MoE FFN (``models/moe.py``) in place of its
+MLP, and its load-balancing aux rides beside h through every cycle, remat
+form included, into the loss's ``0.01 * aux``.
 
 Under a mesh every leaf is stored as ``launch/shardings.py`` places it
 (ZeRO-3: ``init_params(..., par)`` keeps only the rank's shards) and is
@@ -43,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ModelConfig
 from repro_torch.core import fpdt
 from repro_torch.core import parallel as P
-from repro_torch.core.chunked_loss import auto_chunks, softmax_xent_chunked
+from repro_torch.core.chunked_loss import IGNORE, auto_chunks, softmax_xent_chunked
+from repro_torch.data.pipeline import token_positions
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.launch import shardings as SH
 from repro_torch.models import layers as L
@@ -63,8 +65,6 @@ def _check_ported(cfg: ModelConfig):
     bad = sorted({k for k in (*pat, *tail) if k not in PORTED_KINDS})
     if bad:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not yet ported")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not yet ported")
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype, device) -> Params:
@@ -155,9 +155,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda",
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = layout_of(cfg)
     plans = SH.plans_of(cfg, par) or {}
-    embed = (0.02 * torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
-                                device=device)).to(dtype)
-    params: Params = {"embed": SH.shard_tree(plans.get("embed"), embed, par)}
+    params: Params = {}
+    if cfg.frontend != "audio_frames":  # the audio frontend embeds frames, not tokens
+        embed = (0.02 * torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                                    device=device)).to(dtype)
+        params["embed"] = SH.shard_tree(plans.get("embed"), embed, par)
     params["cycles"] = SH.shard_cycles_axis(plans.get("cycles"), _stack([
         SH.shard_tree(plans.get("cycles"), {f"pos{i}": _init_block(cfg, kind, gen, dtype, device)
                                             for i, kind in enumerate(pat)}, par, cycle=True)
@@ -186,12 +188,28 @@ def head_matrix(cfg: ModelConfig, params: Params,
 
 def embed_input(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                 par: Optional[ParallelContext] = None):
-    """Token embeddings of ``batch["tokens"] [b, s]`` (under a mesh from the
-    table gathered from this rank's shard)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"the {cfg.frontend} frontend is not yet ported")
+    """The input hidden sequence (the modality frontends are stubs, as in
+    the JAX package): token embeddings of ``batch["tokens"] [b, s]`` (under
+    a mesh from the table gathered from this rank's shard); for the audio
+    frontend ``batch["frame_embeds"] [b, s, d]`` plus the sinusoidal table
+    cast to the frames' dtype, at each token's global position (under a
+    mesh the rank's chunk-interleaved positions,
+    ``data/pipeline.py::token_positions``); for the vision frontend
+    ``batch["patch_embeds"] [b, P, d]`` cast to the table's dtype before
+    the token embeddings (under a mesh the rank's patches and tokens, the
+    patches first: ``shard_batch``)."""
+    if cfg.frontend == "audio_frames":
+        h = batch["frame_embeds"]
+        pos = torch.arange(h.shape[1], device=h.device)
+        if P.distributed(par):
+            pos = torch.from_numpy(token_positions(h.shape[1] * par.sp, par.sp, par.sp_rank,
+                                                   cfg.fpdt_chunks)).to(h.device)
+        return h + L.sinusoidal_pos_emb(pos, cfg.d_model).to(h.dtype)[None]
     plans = SH.plans_of(cfg, par) or {}
-    return SH.gather(plans.get("embed"), params["embed"], par)[batch["tokens"]]
+    tok = SH.gather(plans.get("embed"), params["embed"], par)[batch["tokens"]]
+    if cfg.frontend == "vision_patches":
+        return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
+    return tok
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +382,12 @@ def loss_fn(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
     h = L.apply_norm(cfg, SH.gather_tree(plans.get("final_norm"), params["final_norm"], par), h)
     sp = par.sp if par is not None else 1
     n_chunks = cfg.loss_chunks or auto_chunks(cfg, h.shape[1] * sp, sp)
-    loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params, par), batch["labels"],
-                                           n_chunks)
+    labels = batch["labels"]
+    if cfg.frontend == "vision_patches":  # no loss on patch positions
+        pad = torch.full(batch["patch_embeds"].shape[:2], IGNORE, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss_sum, count = softmax_xent_chunked(h, head_matrix(cfg, params, par), labels, n_chunks)
     moe = bool(cfg.num_experts)
     if P.distributed(par):
         sums = [loss_sum.detach(), count] + ([aux.detach()] if moe else [])

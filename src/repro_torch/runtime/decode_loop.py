@@ -70,13 +70,18 @@ def decode_tokens(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
                    (the stop token itself is emitted).
 
     Step t feeds ``tok`` at ``pos``, samples from the resulting logits, and
-    emits the SAMPLED token.
+    emits the SAMPLED token.  An audio model, which feeds frame embeddings,
+    is refused (ValueError), as in the JAX package.
 
     Returns ``(tokens [b, num_steps] int32, aux)`` with
     ``aux = {cache, tok, pos, generator, done, remaining[, logits]}`` — the
     carry, so calls chain; ``collect_logits`` adds the per-step
     pre-sampling logits ``[num_steps, b, vocab]``.
     """
+    if cfg.frontend == "audio_frames":
+        raise ValueError("decode_tokens feeds token ids; the audio_frames "
+                         "frontend consumes frame embeddings — drive "
+                         "decode_step directly for frame synthesis")
     b = tok.shape[0]
     device = tok.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=device).expand(b).clone()

@@ -283,8 +283,12 @@ def task_fpdt(rank: int, world: int, tmp: Path) -> dict:
 
 # arch, attention kind (through attn_impl; falcon-mamba-7b has no attention)
 TRAIN_CASES = (("llama3.2-1b", "ulysses"), ("llama3.2-1b", "cp"), ("gpt-2.7b", "ulysses"),
-               ("recurrentgemma-9b", "ulysses"), ("falcon-mamba-7b", "auto"))
+               ("recurrentgemma-9b", "ulysses"), ("falcon-mamba-7b", "auto"),
+               ("musicgen-medium", "cp"), ("internvl2-2b", "ulysses"))
 TRAIN_B, TRAIN_S, TRAIN_U, TRAIN_STEPS = 2, 32, 2, 2
+# the vision cases' patches: one model rank's span of a chunk (TRAIN_S / TRAIN_U / 2),
+# so on 2 x 2 model rank 0 holds a chunk span of patches only and model rank 1 none
+TRAIN_PATCHES = 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 CKPT_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
@@ -294,9 +298,10 @@ def train_cfg(cfgs, arch: str, impl: str = "auto"):
     ``configs`` module)."""
     import dataclasses
 
-    return dataclasses.replace(cfgs.reduced(cfgs.get_config(arch)), param_dtype="float32",
-                               fpdt_chunks=TRAIN_U, mlp_chunks=2 * TRAIN_U, remat="full",
-                               attn_impl=impl)
+    cfg = cfgs.reduced(cfgs.get_config(arch))
+    patches = {"num_patches": TRAIN_PATCHES} if cfg.frontend == "vision_patches" else {}
+    return dataclasses.replace(cfg, param_dtype="float32", fpdt_chunks=TRAIN_U,
+                               mlp_chunks=2 * TRAIN_U, remat="full", attn_impl=impl, **patches)
 
 
 def _digest(torch, leaves) -> str:
@@ -309,7 +314,8 @@ def _digest(torch, leaves) -> str:
 
 def task_train(rank: int, world: int, tmp: Path) -> dict:
     """On a 2 x 2 mesh, per case: the world-summed gradients of the first
-    batch (the rank's ZeRO-3 shards, gathered) against JAX's, a TRAIN_STEPS
+    batch (the rank's ZeRO-3 shards, gathered) against JAX's, the world's
+    labelled tokens (and a vision case's patches on this rank), a TRAIN_STEPS
     trajectory of make_train_step, and a digest of the parameters (gathered
     from the rank's shards) after it; for the recurrent archs, the first
     batch's gradients under remat offload against remat full, bit for
@@ -351,9 +357,12 @@ def task_train(rank: int, world: int, tmp: Path) -> dict:
             return {k: torch.from_numpy(v) for k, v in
                     shard_batch(batch_fn(step), par, cfg.fpdt_chunks).items()}
 
-        loss, _, grads = TL.value_and_grad(cfg, par, params(), local(0))
+        first = local(0)
+        loss, metrics, grads = TL.value_and_grad(cfg, par, params(), first)
         case = f"{arch} {impl}"
-        out[case] = {}
+        out[case] = {"tokens": float(metrics["tokens"])}
+        if "patch_embeds" in first:  # the patch positions this rank holds
+            out[case]["patches"] = first["patch_embeds"].shape[1]
         if not T.has_attention(cfg) or "rglru" in cfg.layer_kinds():
             # remat offload recomputes each cycle, its collectives included,
             # in the backward: the same bits as remat full

@@ -1,6 +1,7 @@
 """repro_torch.models.layers against the JAX package's layers on the same
-numpy inputs: norms, rope on [s] and [b, s] positions, qkv projection with
-and without bias, and the MLP (whole and sequence-chunked)."""
+numpy inputs (and the config registry against the JAX one): norms, rope
+on [s] and [b, s] positions, qkv projection with and without bias, and the
+MLP (whole and sequence-chunked)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -8,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as j_get_config, reduced as j_reduced
+from repro.configs import get_config as j_get_config, list_configs as j_list_configs
+from repro.configs import reduced as j_reduced
 from repro.models import layers as JL
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.convert import from_jax_params
 from repro_torch.models import layers as L
 
@@ -32,12 +34,16 @@ def _close(t, j, tol=TOL):
 
 
 def test_configs_match_the_jax_registry():
-    jc, tc = j_get_config("llama3.2-1b"), get_config("llama3.2-1b")
-    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
-    assert dataclasses.asdict(j_reduced(jc)) == dataclasses.asdict(reduced(tc))
-    assert tc.num_params() == jc.num_params()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("qwen1.5-4b")
+    """Every JAX arch is registered, field for field, reduced too; an
+    unknown name raises as the JAX registry's does."""
+    assert list_configs() == j_list_configs()
+    for name in j_list_configs():
+        jc, tc = j_get_config(name), get_config(name)
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc), name
+        assert dataclasses.asdict(j_reduced(jc)) == dataclasses.asdict(reduced(tc)), name
+        assert tc.num_params() == jc.num_params(), name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-1t")
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])

@@ -2,7 +2,9 @@
 package's single-device train step.
 
 In this process JAX computes, for reduced llama3.2-1b, gpt-2.7b,
-recurrentgemma-9b and falcon-mamba-7b (fp32, u = 2, remat full), the loss
+recurrentgemma-9b, falcon-mamba-7b, musicgen-medium (audio frames) and
+internvl2-2b (vision patches, 8 of them: one model rank's span of a chunk)
+(fp32, u = 2, remat full), the loss, the labelled tokens
 and every gradient leaf of the first pipeline batch and a 2-step
 ``make_train_step`` trajectory (``xla_flash`` attention, offload off, as
 tests/test_torch_train.py runs it).  One spawn of 4 gloo ranks
@@ -11,7 +13,10 @@ the same weights and batches, each rank on its rows and tokens: the
 world-summed gradients, within 5e-4 of each leaf's largest magnitude, and
 the trajectory's losses and gradient norms within 5e-4 relative, under
 ``ulysses`` (llama, gpt, and the hybrid's MQA local attention with its kv
-head gathered) and ``cp`` (llama, forced through ``attn_impl``); the
+head gathered, and internvl, whose model rank 0 holds every patch and
+model rank 1 none) and ``cp`` (llama, forced through ``attn_impl``, and
+musicgen, whose sinusoidal table each rank adds at its tokens' global
+positions); the
 hybrid's RG-LRU and falcon's Mamba layers run their two-pass scans with
 the conv halo over the model group, and remat offload gives remat full's
 gradients bit for bit there; after the steps the parameters are the same
@@ -23,8 +28,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_dist import (TRAIN_B, TRAIN_CASES, TRAIN_OPT, TRAIN_S, TRAIN_STEPS, run_cli,
-                         run_ranks, train_cfg)
+from _torch_dist import (TRAIN_B, TRAIN_CASES, TRAIN_OPT, TRAIN_PATCHES, TRAIN_S, TRAIN_STEPS,
+                         run_cli, run_ranks, train_cfg)
 from repro import configs as jconfigs
 from repro.configs import ShapeConfig
 from repro.core.parallel import ParallelContext as JPar
@@ -42,7 +47,7 @@ def _reference(arch):
     params = JT.init_params(cfg, jax.random.PRNGKey(0))
     batch_fn = make_batch_fn(cfg, ShapeConfig("t", TRAIN_S, TRAIN_B, "train"))
     b0 = {k: jnp.asarray(v) for k, v in batch_fn(0).items()}
-    (loss, _), grads = jax.jit(jax.value_and_grad(
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p, b: JT.loss_fn(cfg, JPAR, p, b), has_aux=True))(params, b0)
     oc = JA.OptConfig(**TRAIN_OPT)
     step = jax.jit(JTL.make_train_step(cfg, JPAR, oc, JTL.TrainConfig()))
@@ -52,7 +57,7 @@ def _reference(arch):
         steps.append([float(m["loss"]), float(m["grad_norm"])])
     out = {f"{arch}/p{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))}
     out.update({f"{arch}/g{i}": np.asarray(g) for i, g in enumerate(jax.tree.leaves(grads))})
-    return out, float(loss), steps
+    return out, (float(loss), float(metrics["tokens"])), steps
 
 
 @pytest.fixture(scope="module")
@@ -72,10 +77,24 @@ CASES = [f"{a} {k}" for a, k in TRAIN_CASES]
 @pytest.mark.parametrize("case", CASES)
 def test_first_batch_loss_and_grads_match_jax(readings, case):
     ranks, losses, _ = readings
-    want = losses[case.split()[0]]
+    want = losses[case.split()[0]][0]
     for got in ranks:
         np.testing.assert_allclose(got[case]["loss"], want, rtol=TOL)
         assert got[case]["grad_rel"] <= TOL, got[case]["grad_rel"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_world_token_count_matches_jax(readings, case):
+    """Every rank's loss counts the world's labelled tokens, JAX's count
+    (the vision case's: B (S - TRAIN_PATCHES)); there model rank 0 (ranks 0
+    and 2) holds all the patches, a whole chunk span of them, and model
+    rank 1 none."""
+    ranks, losses, _ = readings
+    want = losses[case.split()[0]][1]
+    assert all(got[case]["tokens"] == want for got in ranks)
+    if case.startswith("internvl2-2b"):
+        assert want == TRAIN_B * (TRAIN_S - TRAIN_PATCHES)
+        assert [got[case]["patches"] for got in ranks] == [TRAIN_PATCHES, 0] * 2
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -33,11 +33,20 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
+
+
+def _prompt(SERVE, tokens):
+    """``serve_batch``'s prompt argument: the batch dict {"tokens": ...},
+    or in a tree whose ``serve_batch`` still takes a tokens tensor, the
+    tensor itself."""
+    return tokens if "tokens" in inspect.signature(SERVE.serve_batch).parameters else {
+        "tokens": tokens}
 
 
 def _worker(tree: str, serve_reps: int, train_steps: int) -> dict:
@@ -56,12 +65,12 @@ def _worker(tree: str, serve_reps: int, train_steps: int) -> dict:
     cfg = dataclasses.replace(get_config(arch), remat="none")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(cfg, gen, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
+    prompt = _prompt(SERVE, torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev))
     for _ in range(2):
-        SERVE.serve_batch(cfg, params, tokens, gen=32)
+        SERVE.serve_batch(cfg, params, prompt, gen=32)
     prefill, decode = [], []
     for _ in range(serve_reps):
-        out = SERVE.serve_batch(cfg, params, tokens, gen=32)
+        out = SERVE.serve_batch(cfg, params, prompt, gen=32)
         prefill.append(out["prefill_ms"])
         decode.append(out["decode_ms"] / out["steps"])
     del params, out
@@ -104,9 +113,9 @@ def _op_counts(tree: str) -> dict:
     cfg = dataclasses.replace(base, remat="none")
     gen = torch.Generator().manual_seed(0)
     params = T.init_params(cfg, gen, "cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
+    prompt = _prompt(SERVE, torch.randint(0, cfg.vocab_size, (4, 64), generator=gen))
     with Count() as serve:
-        SERVE.serve_batch(cfg, params, tokens, gen=4)
+        SERVE.serve_batch(cfg, params, prompt, gen=4)
     cfg = dataclasses.replace(base, fpdt_chunks=4, mlp_chunks=8, remat="full", fpdt_offload=True)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with Count() as train:
