@@ -83,6 +83,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 weights (an MoE model at a capacity
                 that drops no pair, where routing is per token), and a
                 changed first prompt token (frame) must move those logits;
+  5b. engines — continuous batching through the CLI's own run_engine, in
+                fp32 weights at full width and depth: llama3.2-1b's fused
+                engine (ServeEngine: 8 requests of 67-228 tokens over 4
+                slots, prefill chunk 64, segment 8, 16 new tokens), its
+                first segment under set_sync_debug_mode("error"); each
+                request's tokens equal to its solo generation (prefill_step
+                + decode_tokens), its first-token logits the solo prefill's
+                within FP32_LOGIT_RTOL, a stop token cutting every request
+                where its solo run would; the BlockingServeEngine on the
+                same workload (the fused engine's tokens, flash_fwd launched
+                as reckoned for its batched prefill and each refill); both
+                engines' steady p50 and refill-active p95 dispatch ms; then
+                recurrentgemma-9b (38 layers) and falcon-mamba-7b (64) on 6
+                requests of 35-114 tokens (each ending in a partial chunk),
+                8 new tokens: tokens equal to solo generation, and at the
+                chunk step that ends each prompt its logits and its slot's
+                recurrent state leaves the solo prefill's within
+                FP32_LOGIT_RTOL, linear_scan launched; last, host-streamed
+                decode KV: llama3.2-1b b2, a 65536-position cache, a
+                32768-token FPDT prefill, 8 greedy decode steps with the
+                full-attention k and v in pinned host memory in 16 slabs
+                against on-device decode of the same cache: the same
+                tokens, logits within FP32_LOGIT_RTOL, 9 of 16 slabs merged
+                a layer and step, the bytes fetched as reckoned, no k or v
+                byte on the card, ms a step beside the host link's rate;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -114,7 +139,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
   6c. gpt     — gpt-2.7b (the paper's GPT) at full width and depth, 32
                 layers, B1-B3 at head_dim 80: the same as 6b (u = 4 vs u = 1 at
                 all 32 layers), its losses held to EARLIER_LOSSES;
-  6d. falcon  — falcon-mamba-7b at full width and 16 of its 64 layers, the
+  6d. falcon  — falcon-mamba-7b at full width and 8 of its 64 layers, the
                 selective scan on linear_scan in 256-token blocks: remat
                 offload == remat full bit for bit, then 3 steps through
                 train_steps (remat full, no attention so no FPDT offload) with
@@ -126,8 +151,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 8192 tokens, mlp_chunks 8, bf16): forward and backward under
                 torch.cuda.set_sync_debug_mode("error") (no host read of a
                 device value), a second run the same bits, its device time;
-  6f. granite — granite-moe-1b-a400m at full width and depth (24 layers, 32
-                experts, top-8): as 6b, with two runs of the first step and
+  6f. granite — granite-moe-1b-a400m at full width and 12 of its 24 layers
+                (32 experts, top-8): as 6b, with two runs of the first step and
                 remat offload == remat full bit for bit, the steps' aux
                 printed, MFU over the active parameters, and in the u = 4
                 vs u = 1 fp32 comparison the routing decisions that differ
@@ -165,8 +190,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 at full width (RG-LRU 4096 channels, Mamba d_inner 8192
                 d_state 16), fp32 and bf16, two ranks against one;
                 llama3.2-1b at full width (4 of its 16 layers), mesh
-                1 x 2, b1 s 16384 u 8 remat full offload on, 2 AdamW
-                steps under ulysses and 1 under cp, then recurrentgemma-9b
+                1 x 2, b1 s 16384 u 8 remat full offload on, 1 AdamW
+                step under ulysses and 1 under cp, then recurrentgemma-9b
                 (3 layers: one rglru, rglru, local_attn cycle) and
                 falcon-mamba-7b (4 layers), 1 step each, and
                 granite-moe-1b-a400m (6 layers, ulysses), 1 step,
@@ -232,7 +257,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 kernels' top-level figures at gpt-2.7b's off-diagonal pair and
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
-                (launches_by_path: the six serve paths, eight trainings,
+                (launches_by_path: the six serve paths, the five engine and
+                host-KV paths, eight trainings,
                 the CLI's compressed training and the distributed
                 trainings, per rank), the new head layouts' errors;
   9. last line: {"ok": true, "device": {...}}.
@@ -1147,6 +1173,16 @@ def _prompt_words(cfg, s: int) -> str:
     return f"{s} tokens"
 
 
+def _prefill_launches(M, cfg, s: int) -> int:
+    """flash_fwd launches of one prefill of ``s`` positions: one a live chunk
+    pair (u = fpdt_chunks) of each attention layer."""
+    u = cfg.fpdt_chunks
+    return sum(M.F.pair_live(i, j, cq=s // u, window=cfg.window if k == "local_attn" else 0,
+                             sparsity=cfg.attn_sparsity)
+               for k in cfg.layer_kinds() if k in ("attn", "local_attn")
+               for i in range(u) for j in range(i + 1))
+
+
 def phase_serve(torch, M, arch, card):
     """``arch`` at full size with random bf16 weights from a seeded
     generator, through the CLI's own function (serve_batch): batch 4,
@@ -1187,11 +1223,7 @@ def phase_serve(torch, M, arch, card):
     for kname in sorted({KERNEL_OF_KIND[k] for k in cfg.layer_kinds()}):
         if counts[kname] <= 0:
             raise AssertionError(f"the {arch} serve path launched {kname} no time")
-    u = cfg.fpdt_chunks  # the prefill's flash_fwd: one launch a live chunk pair a layer
-    want_fwd = sum(M.F.pair_live(i, j, cq=s // u, window=cfg.window if k == "local_attn" else 0,
-                                 sparsity=cfg.attn_sparsity)
-                   for k in cfg.layer_kinds() if k in ("attn", "local_attn")
-                   for i in range(u) for j in range(i + 1))
+    want_fwd = _prefill_launches(M, cfg, s)
     if counts["flash_fwd"] != want_fwd:
         raise AssertionError(f"the {arch} serve path launched flash_fwd {counts['flash_fwd']} "
                              f"times, reckoned {want_fwd}")
@@ -1820,13 +1852,19 @@ def phase_train_gpt(torch, M, card):
 GRANITE = "granite-moe-1b-a400m"
 
 
+# granite's training depth: 12 of its 24 layers (served at 24 in phase 5).
+# Cut from 24 to make room for the serve engines' phases (5b); every check
+# of the phase runs at this depth.
+GRANITE_TRAIN_LAYERS = 12
+
+
 def phase_train_granite(torch, M, card):
-    """granite-moe-1b-a400m at full width and depth (24 layers; 32 experts,
-    top-8): offload on == off, two runs of the first step and remat
+    """granite-moe-1b-a400m at full width and GRANITE_TRAIN_LAYERS layers (32
+    experts, top-8): offload on == off, two runs of the first step and remat
     offload == remat full, each bit for bit; the training run, profiled
     with offload on; u=4 vs u=1 in fp32 weights with the routing decisions
     that differ counted."""
-    return _train_run(torch, M, _train_cfg(M, GRANITE), card,
+    return _train_run(torch, M, _train_cfg(M, GRANITE, num_layers=GRANITE_TRAIN_LAYERS), card,
                       same_bits=[("a second run", {}), ("remat offload", {"remat": "offload"})])
 
 
@@ -1928,7 +1966,9 @@ def phase_moe_layer(torch, M, card):
     return {"fwd_ms": fwd, "fwd_bwd_ms": both}
 
 
-FALCON_LAYERS = 16  # of 64: 2.218 B parameters, 24.8 GiB of weights, gradients, AdamW state
+# of 64: 1.375 B parameters (16 layers, 2.218 B, ran until the serve
+# engines' phases needed the room; every check runs at this depth)
+FALCON_LAYERS = 8
 
 
 def phase_train_falcon(torch, M, card):
@@ -2103,6 +2143,437 @@ def phase_long_context(torch, M, card):
 
 
 # ---------------------------------------------------------------------------
+# continuous batching: the serve engines and host-streamed decode KV
+# ---------------------------------------------------------------------------
+
+# The engines' workloads, through the CLI's own functions (engine_prompts,
+# run_engine): 4 slots, 64-token prefill chunks, 8 steps a dispatch; then
+# requests, --prompt-len (the CLI draws each length in [prompt_len // 4,
+# prompt_len] from seed 0) and new tokens a request.  fp32 weights, so
+# that the chunked path and the solo FPDT prefill differ by fp32 rounding
+# only and greedy tokens are comparable.
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_SEGMENT = 4, 64, 8
+ENGINE_LLAMA = (8, 256, 16)
+ENGINE_RECURRENT = (6, 128, 8)
+# Host-streamed decode KV: rows, cache capacity, prompt, slabs, decode
+# steps.  fp32 weights: a bf16 model's logits come out of a bf16 product,
+# so the merge order alone moves some by a bf16 ulp (4e-3 of a logit), past
+# FP32_LOGIT_RTOL, as phase_serve's decode-vs-prefill check runs in fp32
+# for the same reason.  The prompt is prefilled in 4096-token FPDT chunks.
+HOST_KV = (2, 65536, 32768, 16, 8)
+
+
+def _fp32_cfg(M, arch, **over):
+    return dataclasses.replace(M.cfg_mod.get_config(arch), param_dtype="float32",
+                               remat="none", **over)
+
+
+def _state_leaves(cache):
+    """(name, leaf, batch axis) of every recurrent state leaf of a cache."""
+    for key, blocks in cache.items():
+        for i, bc in enumerate(blocks if key == "tail" else [blocks]):
+            for name, leaf in bc.items():
+                if name in ("conv", "h", "ssm"):
+                    yield (f"tail/{i}/{name}" if key == "tail" else f"{key}/{name}",
+                           leaf, 0 if key == "tail" else 1)
+
+
+@contextlib.contextmanager
+def _engine_probe(torch, M, states=False):
+    """Records what a ServeEngine run computes, for the checks: each
+    dispatch's schedule (``segment_schedule``'s return), each chunk step's
+    logits and, with ``states``, a copy of every recurrent state leaf after
+    each chunk step.  It wraps the module functions the engine calls and
+    adds no host read."""
+    rec = {"schedules": [], "logits": [], "states": []}
+    real_sched, real_chunk = M.DL.segment_schedule, M.SV.chunk_step
+
+    def sched(*a, **k):
+        rec["schedules"].append(real_sched(*a, **k))
+        return rec["schedules"][-1]
+
+    def chunk(cfg, par, params, cache, *a, **k):
+        logits, cache = real_chunk(cfg, par, params, cache, *a, **k)
+        rec["logits"].append(logits)
+        if states:
+            rec["states"].append({n: leaf.clone() for n, leaf, _ in _state_leaves(cache)})
+        return logits, cache
+
+    M.DL.segment_schedule, M.SV.chunk_step = sched, chunk
+    try:
+        yield rec
+    finally:
+        M.DL.segment_schedule, M.SV.chunk_step = real_sched, real_chunk
+
+
+@contextlib.contextmanager
+def _sync_checked_first_segment(torch, M):
+    """The engine's first segment (``mixed_segment``: its chunk and decode
+    steps, sampling and state updates) under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that any host read of
+    a device value inside it raises; the state's upload before it and the
+    harvest after it stay outside."""
+    real = M.DL.mixed_segment
+    ran = {"segments": 0}
+
+    def checked(*a, **k):
+        if ran["segments"]:
+            return real(*a, **k)
+        ran["segments"] = 1
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    M.DL.mixed_segment = checked
+    try:
+        yield ran
+    finally:
+        M.DL.mixed_segment = real
+
+
+def _prompt_ends(rec, engine, prompts, segment, cp):
+    """request -> (index into rec["logits"], slot) of the chunk step that
+    ended its prompt.  A request admitted before dispatch d (its
+    request.admit event) into slot s prefills one chunk a step from that
+    dispatch's first step, so its last chunk is global step d * segment +
+    ceil(n / cp) - 1; the recorded chunk steps are the global steps whose
+    schedule prefills."""
+    chunk_of = {}
+    for d, sched in enumerate(rec["schedules"]):
+        for t, (any_pf, _) in enumerate(sched):
+            if any_pf:
+                chunk_of[d * segment + t] = len(chunk_of)
+    ends = {}
+    for e in engine.telemetry.tracer.events:
+        if e["kind"] == "request.admit":
+            g = e["step"] * segment + -(-len(prompts[e["request"]]) // cp) - 1
+            ends[e["request"]] = (chunk_of[g], e["slot"])
+    return ends
+
+
+def _solo(torch, M, cfg, params, prompt, gen, dev, states=False):
+    """One prompt alone: prefill_step at its exact length (one FPDT chunk)
+    and decode_tokens, greedy.  Returns (its gen tokens, the prefill's
+    logits [padded_vocab], the recurrent state leaves after the prompt)."""
+    c1 = dataclasses.replace(cfg, fpdt_chunks=1, mlp_chunks=1)
+    logits, cache = M.SV.prefill_step(c1, None, params,
+                                      {"tokens": torch.tensor([prompt], device=dev)},
+                                      max_len=len(prompt) + gen)
+    st = {n: leaf.clone() for n, leaf, _ in _state_leaves(cache)} if states else None
+    tok0 = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(torch.int32)
+    ids, _ = M.DL.decode_tokens(c1, None, params, cache, tok0[:, None], len(prompt),
+                                num_steps=gen - 1)
+    return [int(tok0[0])] + ids[0].tolist(), logits[0], st
+
+
+def _rel_max(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _trunc(g, stop):
+    return g[: g.index(stop) + 1] if stop in g else g
+
+
+def _engine_line(name, run, card):
+    sm = run["summary"] or {}
+    total = sum(len(o) for o in run["outs"])
+    p50, p95, r50 = (sm.get(k, float("nan")) for k in ("steady_p50_ms", "refill_p95_ms",
+                                                         "refill_p50_ms"))
+    print(f"  {name}: {total} tokens in {run['ms']:.1f} ms, {len(run['engine'].last_stats['steps'])}"
+          f" dispatches; steady p50 {p50:.2f} ms, refill-active p95 {p95:.2f} ms, "
+          f"stall_factor_p50 {r50 / p50:.3f} [{card}]")
+    return {"steady_p50_ms": p50, "refill_p95_ms": p95, "stall_factor_p50": r50 / p50}
+
+
+def _serve_peak_gib(torch, cfg, b, S, cp, host_kv=False):
+    """Peak device memory of a serving run, reckoned from the shapes: the
+    weights, the cache (init_cache's leaves; under host_kv the
+    full-attention k and v in pinned memory instead) and the largest
+    transient of a step, which is the fp32 K and V expanded to the q heads
+    over the cache (two [b, S, hq, dh]) and the scores of a cp-token window
+    ([b, hq, cp, S] twice), or the MLP's fp32 [b, cp, d_ff] three times.
+    An estimate printed beside the reading; the pinned bytes returned
+    beside it."""
+    item = getattr(torch, cfg.param_dtype).itemsize
+    kinds = cfg.layer_kinds()
+    kv = 2 * b * cfg.num_kv_heads * cfg.head_dim * item
+    full = sum(k == "attn" for k in kinds) * S * kv
+    ring = sum(k == "local_attn" for k in kinds) * min(cfg.window, S) * kv
+    states = sum({"rglru": b * cfg.d_inner * ((cfg.d_conv - 1) * item + 4),
+                  "ssm": b * cfg.d_inner * ((cfg.d_conv - 1) * item + 4 * cfg.ssm_state)
+                  }.get(k, 0) for k in kinds)
+    span = S if "attn" in kinds else min(cfg.window, S) if "local_attn" in kinds else 0
+    attn = 4 * b * span * cfg.num_heads * (2 * cfg.head_dim + 2 * cp)
+    mlp = 3 * 4 * b * cp * max(cfg.d_ff, cfg.d_inner * cfg.ssm_state)
+    pinned = full if host_kv else 0
+    dev = cfg.num_params() * item + full + ring + states - pinned + max(attn, mlp)
+    return dev / 2**30, pinned / 2**30
+
+
+def _init_fp32(torch, M, cfg, dev):
+    t0 = time.perf_counter()
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    print(f"init_params {cfg.name} ({cfg.num_layers} layers, {cfg.num_params() / 1e9:.3f} B "
+          f"params, fp32) in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def phase_engine(torch, M, card):
+    """llama3.2-1b at full width and depth in fp32 weights through the CLI's
+    run_engine: ENGINE_LLAMA's 8 requests over 4 slots, prefill chunk 64,
+    segment 8, greedy, 16 new tokens; the first segment under
+    set_sync_debug_mode("error").  Each request's tokens equal its solo
+    generation (prefill_step + decode_tokens) and its first-token logits the
+    solo prefill's within FP32_LOGIT_RTOL; with a stop token from solo run
+    0 every request is cut where its solo run would be.  Then the
+    BlockingServeEngine on the same workload (bucket 256): the fused
+    engine's tokens, and flash_fwd launched once a live chunk pair of each
+    layer for each of its prefills (the batched one and every refill)."""
+    dev = torch.device("cuda")
+    cfg = _fp32_cfg(M, "llama3.2-1b")
+    params = _init_fp32(torch, M, cfg, dev)
+    n_req, plen, gen = ENGINE_LLAMA
+    prompts, lens = M.CLI.engine_prompts(cfg, n_req, plen)
+    kw = dict(slots=ENGINE_SLOTS, bucket=plen, gen=gen, segment=ENGINE_SEGMENT,
+              prefill_chunk=ENGINE_CHUNK)
+    print(f"workload: {n_req} requests of {sorted(lens.tolist())} tokens, {gen} new each, "
+          f"{ENGINE_SLOTS} slots, prefill chunk {ENGINE_CHUNK}, segment {ENGINE_SEGMENT}")
+    M.CLI.run_engine(cfg, params, prompts[:2], **kw)  # warm-up: cuBLAS and the allocator
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(M.K, M.SK)
+    with _engine_probe(torch, M) as rec, _sync_checked_first_segment(torch, M) as checked:
+        fused = M.CLI.run_engine(cfg, params, prompts, **kw)
+    counts = _counts(M.K, M.SK)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    first = rec["schedules"][0]
+    if checked["segments"] != 1:
+        raise AssertionError("the first segment did not run under the sync check")
+    print(f"segment 1 ({sum(p for p, _ in first)} chunk steps, "
+          f"{sum(not p for p, _ in first)} decode steps) ran under "
+          "set_sync_debug_mode('error'): no host read")
+    S = fused["engine"].last_stats["capacity"]
+    want_peak, _ = _serve_peak_gib(torch, cfg, ENGINE_SLOTS, S, ENGINE_CHUNK)
+    summary = {"fused": _engine_line("fused", fused, card)}
+    print(f"  launches {counts}; peak {peak:.2f} GiB (reckoned {want_peak:.2f}) [{card}]")
+
+    ends = _prompt_ends(rec, fused["engine"], prompts, ENGINE_SEGMENT, ENGINE_CHUNK)
+    solos, worst = [], 0.0
+    for r, p in enumerate(prompts):
+        toks, logits, _ = _solo(torch, M, cfg, params, p, gen, dev)
+        solos.append(toks)
+        k, slot = ends[r]
+        worst = max(worst, _rel_max(rec["logits"][k][slot], logits))
+        if fused["outs"][r] != toks:
+            raise AssertionError(f"request {r}: engine {fused['outs'][r]} != solo {toks}")
+    print(f"tokens of all {n_req} requests equal their solo generation; first-token logits "
+          f"vs the solo prefill's: max |diff| / max |logit| = {worst:.3e} "
+          f"(tolerance {FP32_LOGIT_RTOL})")
+    if not worst <= FP32_LOGIT_RTOL:
+        raise AssertionError("the engine's first-token logits disagree with the solo prefill")
+    stop = solos[0][2]
+    stopped = M.CLI.run_engine(cfg, params, prompts, stop_tokens=(stop,), **kw)["outs"]
+    if stopped != [_trunc(g, stop) for g in solos]:
+        raise AssertionError("with a stop token the engine does not cut as solo runs would")
+    print(f"stop token {stop}: outputs of {[len(g) for g in stopped]} tokens, each cut where "
+          "its solo run would be")
+
+    _reset_counts(M.K, M.SK)
+    blk = M.CLI.run_engine(cfg, params, prompts, blocking=True, **kw)
+    bcounts = _counts(M.K, M.SK)
+    refills = blk["engine"].last_stats["refills"]
+    want = (1 + refills) * _prefill_launches(M, cfg, plen)
+    summary["blocking"] = _engine_line("blocking", blk, card)
+    print(f"  blocking: {refills} refills, launches {bcounts} (flash_fwd reckoned {want}: "
+          f"{1 + refills} prefills of the {plen}-token bucket)")
+    if refills != n_req - ENGINE_SLOTS or bcounts["flash_fwd"] != want:
+        raise AssertionError("the blocking engine's prefills are not as reckoned")
+    if blk["outs"] != fused["outs"]:
+        raise AssertionError("the blocking engine's tokens differ from the fused engine's")
+    print("blocking engine tokens == fused engine tokens; refill-active p95 / steady p50: "
+          f"fused {summary['fused']['refill_p95_ms'] / summary['fused']['steady_p50_ms']:.2f}, "
+          f"blocking {summary['blocking']['refill_p95_ms'] / summary['blocking']['steady_p50_ms']:.2f}"
+          " (not gated)")
+    del params, fused, blk, rec
+    torch.cuda.empty_cache()
+    return {"engine": counts, "blocking": bcounts, "summary": summary}
+
+
+def phase_engine_recurrent(torch, M, card, arch):
+    """``arch`` (recurrentgemma-9b, 38 layers; falcon-mamba-7b, 64) at full
+    width and depth in fp32 weights through run_engine: ENGINE_RECURRENT's
+    6 requests (no length a multiple of the chunk, so every prompt ends in
+    a partial chunk: the state-at-length gather) over 4 slots, 8 new
+    tokens.  Tokens equal solo generation; at the chunk step that ends
+    each prompt, its logits and its slot's every recurrent state leaf
+    (conv, h or ssm) are the solo prefill's within FP32_LOGIT_RTOL; the
+    scan kernel launched."""
+    dev = torch.device("cuda")
+    cfg = _fp32_cfg(M, arch)
+    params = _init_fp32(torch, M, cfg, dev)
+    n_req, plen, gen = ENGINE_RECURRENT
+    prompts, lens = M.CLI.engine_prompts(cfg, n_req, plen)
+    if any(n % ENGINE_CHUNK == 0 for n in lens):
+        raise AssertionError(f"prompt lengths {lens.tolist()}: one ends on a whole chunk")
+    kw = dict(slots=ENGINE_SLOTS, bucket=plen, gen=gen, segment=ENGINE_SEGMENT,
+              prefill_chunk=ENGINE_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(M.K, M.SK)
+    with _engine_probe(torch, M, states=True) as rec:
+        run = M.CLI.run_engine(cfg, params, prompts, **kw)
+    counts = _counts(M.K, M.SK)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    S = run["engine"].last_stats["capacity"]
+    want_peak, _ = _serve_peak_gib(torch, cfg, ENGINE_SLOTS, S, ENGINE_CHUNK)
+    print(f"workload: {n_req} requests of {sorted(lens.tolist())} tokens, {gen} new each")
+    _engine_line("fused", run, card)
+    print(f"  launches {counts}; peak {peak:.2f} GiB (reckoned {want_peak:.2f} + the state "
+          f"copies this check keeps) [{card}]")
+    if counts["linear_scan"] <= 0:
+        raise AssertionError(f"the {arch} engine launched linear_scan no time")
+    ends = _prompt_ends(rec, run["engine"], prompts, ENGINE_SEGMENT, ENGINE_CHUNK)
+    worst_logit, worst_state = 0.0, {}
+    for r, p in enumerate(prompts):
+        toks, logits, st = _solo(torch, M, cfg, params, p, gen, dev, states=True)
+        if run["outs"][r] != toks:
+            raise AssertionError(f"request {r}: engine {run['outs'][r]} != solo {toks}")
+        k, slot = ends[r]
+        worst_logit = max(worst_logit, _rel_max(rec["logits"][k][slot], logits))
+        for name, leaf in rec["states"][k].items():
+            ax = 0 if name.startswith("tail/") else 1
+            rel = _rel_max(leaf.select(ax, slot), st[name].select(ax, 0))
+            kind = name.rsplit("/", 1)[1]
+            worst_state[kind] = max(worst_state.get(kind, 0.0), rel)
+    del rec, run
+    print(f"tokens of all {n_req} requests equal their solo generation; at each prompt's last "
+          f"chunk, max |diff| / max |value| against the solo prefill: logits {worst_logit:.3e}, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst_state.items()))
+          + f" (tolerance {FP32_LOGIT_RTOL})")
+    if not max(worst_logit, *worst_state.values()) <= FP32_LOGIT_RTOL:
+        raise AssertionError("the state at the prompt's length disagrees with the solo prefill")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _h2d_gbps(torch, nbytes=1 << 30, reps=3) -> float:
+    """The host link's rate (GB/s) from pinned memory, CUDA events around
+    ``reps`` copies of ``nbytes``."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return reps * nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+
+
+def phase_host_kv(torch, M, card):
+    """FPDT host-streamed decode KV: llama3.2-1b at full width and depth in
+    fp32 weights, b2, cache capacity 65536, a 32768-token prompt prefilled
+    by FPDT (4096-token chunks), then HOST_KV's 8 greedy decode steps with
+    the full-attention k and v in pinned host memory, streamed in 16 slabs
+    of 4096 positions, against on-device decode of the same cache: the
+    same tokens, logits within FP32_LOGIT_RTOL, slabs 0..8 merged a layer
+    and step (9 of 16; the rest skipped), the bytes fetched as reckoned, no
+    k or v byte resident on the card; ms a step of both beside the host
+    link's rate."""
+    dev = torch.device("cuda")
+    b, S, s, n, steps = HOST_KV
+    cfg = _fp32_cfg(M, "llama3.2-1b", fpdt_chunks=s // LONG_CHUNK, mlp_chunks=16)
+    params = _init_fp32(torch, M, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    gbps = _h2d_gbps(torch)
+    cs = S // n
+    # step t decodes position s + t: slabs 0 .. (s + t) // cs are live
+    live = [(s + t) // cs + 1 for t in range(steps)]
+    n_full = sum(k == "attn" for k in cfg.layer_kinds())
+    slab = b * cs * cfg.num_kv_heads * cfg.head_dim * 4
+    step_bytes = max(live) * n_full * 2 * slab
+    print(f"host link (pinned -> card, CUDA events): {gbps:.2f} GB/s; a streamed step fetches "
+          f"{max(live)} slabs x {n_full} layers x 2 (k, v) x {slab} B = {step_bytes / 1e9:.3f} "
+          f"GB, reckoned {step_bytes / gbps / 1e6:.1f} ms over the link [{card}]")
+
+    _reset_counts(M.K, M.SK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.SV.prefill_step(cfg, None, params, {"tokens": tokens}, max_len=S)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = _counts(M.K, M.SK)
+    want = _prefill_launches(M, cfg, s)
+    print(f"prefill b{b} {s} tokens (u={cfg.fpdt_chunks}) into a {S}-position cache: "
+          f"{prefill_s:.2f} s, launches {counts} (flash_fwd reckoned {want}) [{card}]")
+    if counts["flash_fwd"] != want:
+        raise AssertionError("the prefill's flash_fwd launches are not as reckoned")
+    tok0 = torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
+    # the same cache with its full-attention k and v in pinned host memory
+    host = {key: {name: leaf.clone() if name == "kpos" else leaf for name, leaf in bc.items()}
+            for key, bc in cache.items()}
+    t0 = time.perf_counter()
+    M.SV.offload_kv(cfg, host, dev)
+    torch.cuda.synchronize()
+    kv = [bc[name] for bc in M.SV._full_attn_blocks(cfg, host) for name in ("k", "v")]
+    pinned = sum(t.numel() * t.element_size() for t in kv)
+    resident = sum(t.numel() * t.element_size() for t in kv if t.device.type == "cuda")
+    print(f"offload_kv: {len(kv)} k and v tensors, {pinned / 2**30:.3f} GiB pinned in "
+          f"{time.perf_counter() - t0:.2f} s, {resident} B of them on the card")
+    if resident or not all(t.is_pinned() for t in kv):
+        raise AssertionError("the host-streamed cache's k and v are not all in pinned memory")
+
+    policy = M.PL.host_offload(dev)
+    want_peak, _ = _serve_peak_gib(torch, cfg, b, S, 1, host_kv=True)
+    print(f"reckoned peak of the streamed decode {want_peak:.2f} GiB (on-device: "
+          f"{_serve_peak_gib(torch, cfg, b, S, 1)[0]:.2f})")
+    runs, caches = {}, {"on-device": cache, "host-streamed": host}
+    del cache, host
+    for label, nh in (("on-device", 0), ("host-streamed", n)):
+        c = caches.pop(label)
+        M.DL.decode_tokens(cfg, None, params, c, tok0, s, num_steps=1, n_host_chunks=nh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        policy.reset_counts()
+        M.SV.reset_host_kv()
+        t0 = time.perf_counter()
+        toks, aux = M.DL.decode_tokens(cfg, None, params, c, tok0, s, num_steps=steps,
+                                       n_host_chunks=nh, collect_logits=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        runs[label] = (toks, aux["logits"], dict(M.SV.host_kv), policy.to_device_bytes,
+                       policy.to_host_bytes)
+        print(f"  decode {label}: {ms:.2f} ms a step, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB, slabs {M.SV.host_kv}, {policy.to_device_bytes / steps / 1e9:.3f} GB a "
+              f"step to the card, {policy.to_host_bytes} B written back [{card}]")
+        del c, aux  # the on-device cache goes before the streamed run
+        torch.cuda.empty_cache()
+    (t_dev, l_dev, _, _, _), (t_host, l_host, slabs, fetched, _) = (runs["on-device"],
+                                                                     runs["host-streamed"])
+    rel = _rel_max(l_host, l_dev)
+    print(f"host-streamed vs on-device: tokens {t_host.tolist()} "
+          f"{'==' if torch.equal(t_host, t_dev) else '!='} {t_dev.tolist()}; logits max |diff| "
+          f"/ max |logit| = {rel:.3e} (tolerance {FP32_LOGIT_RTOL})")
+    want_slabs = {"fetched": n_full * sum(live), "skipped": n_full * (steps * n - sum(live))}
+    if slabs != want_slabs:
+        raise AssertionError(f"slabs {slabs}, reckoned {want_slabs}")
+    if fetched != n_full * sum(live) * 2 * slab:
+        raise AssertionError(f"{fetched} B fetched, reckoned {n_full * sum(live) * 2 * slab}")
+    if not torch.equal(t_host, t_dev) or not rel <= FP32_LOGIT_RTOL:
+        raise AssertionError("host-streamed decode disagrees with on-device decode")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # distribution: FPDT's ulysses and cp kinds on torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2124,12 +2595,12 @@ DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16
 # llama3.2-1b's 1 x 2 training: its layers (of 16), and AdamW steps by
 # kind.  The ranks' time is gloo's, through the host: it grows with each
 # layer's all-to-alls and gradient bytes and with each step, so the 1 x 2
-# trainings are cut in depth and steps (llama's ulysses takes a second
-# step) and keep every check.  llama3.2-1b runs 4 layers here and
+# trainings are cut in depth and steps (one step each since the serve
+# engines' phases needed the room) and keep every check.  llama3.2-1b runs 4 layers here and
 # on 2 x 1 (8 gave the script 770-800 s of its 800 s aim, the gloo steps
 # spreading 40 s between calls).
 DIST_LLAMA_LAYERS = 4
-DIST_STEPS = (("ulysses", 2), ("cp", 1))
+DIST_STEPS = (("ulysses", 1), ("cp", 1))
 # The first batch's bf16 gradients, two ranks against one, relative in each
 # leaf's norm: FPDT_GRAD_RTOL for every leaf but the tied embedding.  Its
 # head part sums 64 loss chunks' gradients in bf16 and loses small
@@ -3996,10 +4467,11 @@ def _modules():
     from repro_torch.models import serve as SV
     from repro_torch.models import transformer as T
     from repro_torch.optim import compression as C
+    from repro_torch.runtime import decode_loop as DL
     from repro_torch.runtime import placement as PL
     from repro_torch.runtime import train_loop as TL
 
-    return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL,
+    return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DL=DL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
                                  MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C)
 
@@ -4036,6 +4508,19 @@ def main():
     serve = {arch: phase(f"serve {arch}", phase_serve, torch, M, arch, card)
              for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE,
                           *FRONTEND_ARCHS)}
+    engines = phase("engines llama3.2-1b (fused, blocking)", phase_engine, torch, M, card)
+    serve_paths = {"engine llama3.2-1b": engines["engine"],
+                   "blocking llama3.2-1b": engines["blocking"],
+                   **{f"engine {arch}": phase(f"engine {arch}", phase_engine_recurrent, torch,
+                                              M, card, arch)
+                      for arch in ("recurrentgemma-9b", "falcon-mamba-7b")},
+                   "host-kv llama3.2-1b": phase("host-streamed decode KV llama3.2-1b",
+                                                phase_host_kv, torch, M, card)}
+    for path, kname in (("blocking llama3.2-1b", "flash_fwd"), ("host-kv llama3.2-1b", "flash_fwd"),
+                        ("engine recurrentgemma-9b", "linear_scan"),
+                        ("engine falcon-mamba-7b", "linear_scan")):
+        if serve_paths[path][kname] <= 0:
+            fail(f"the {path} path launched {kname} no time")
     train_ref = {}
     train = phase("train llama3.2-1b", phase_train, torch, M, card, train_ref)
     cli = phase("train CLI llama3.2-1b --compress-grads --trace-out --metrics-out",
@@ -4118,6 +4603,7 @@ def main():
         if not all(math.isfinite(x) for x in (row["ms"], row["plain_ms"])):
             fail(f"non-finite timing of {kname}")
         by_path = {**{f"serve {arch}": counts[kname] for arch, counts in serve.items()},
+                   **{path: counts[kname] for path, counts in serve_paths.items()},
                    "train llama3.2-1b": train[kname], "train llama3.2-1b compress": cli[kname],
                    "train recurrentgemma-9b": hybrid[kname],
                    "train gpt-2.7b": gpt[kname], "train falcon-mamba-7b": falcon[kname],

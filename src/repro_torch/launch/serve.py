@@ -1,21 +1,41 @@
-"""Serving CLI: batched FPDT prefill + multi-token decode, on the card.
+"""Serving CLI: batched FPDT prefill + multi-token decode, or continuous
+batching, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --batch 4 --prompt-len 64 --gen 32 [--temperature 0.8 --top-k 40] \
-      [--per-token] [--reduced] [--device cuda|cpu]
+      [--per-token] [--host-kv-chunks 8] [--reduced] [--device cuda|cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --engine [--blocking] --requests 8 --batch 4 --prompt-len 64 --gen 16 \
+      [--segment 8] [--prefill-chunk 64] [--shared-prefix 16] \
+      [--host-kv-chunks 4] [--trace-out t.json] [--metrics-out m.prom]
 
-The same flags as the JAX package's non-engine serve path, ``--per-token``
-included.  Weights and prompts are random, from ``--seed``; an audio
-model's prompt is ``--prompt-len`` frame embeddings and its decode steps
-feed fresh random frames (a per-token loop), a vision model's prompt is
-its ``num_patches`` patch embeddings and ``--prompt-len`` minus those in
-tokens.  The run is on the card unless
+The same flags as the JAX package's serve CLI.  Weights and prompts are
+random, from ``--seed``; an audio model's prompt is ``--prompt-len`` frame
+embeddings and its decode steps feed fresh random frames (a per-token
+loop), a vision model's prompt is its ``num_patches`` patch embeddings and
+``--prompt-len`` minus those in tokens.  The run is on the card unless
 ``--device cpu`` asks for the CPU; with no card it stops instead of
 falling back.  Every time it prints names the device it was taken on.
-Every registered arch serves, the recurrent ones (recurrentgemma-9b,
-falcon-mamba-7b) and the frontends' (musicgen-medium, internvl2-2b)
-included.  ``--engine`` (continuous batching) and
-``--host-kv-chunks`` are not yet ported: the CLI exits 2.
+Every registered arch serves.
+
+``--host-kv-chunks N`` keeps the full-attention KV cache in pinned host
+memory and streams it through decode in N slabs (FPDT's pipeline applied
+to inference, ``models/serve.py``); N must divide the cache length.
+``--engine`` serves ``--requests`` prompts of ``--prompt-len // 4`` to
+``--prompt-len`` tokens (``numpy.random.default_rng(seed)``, as the JAX
+CLI draws them, after a ``--shared-prefix`` common to all) over
+``--batch`` slots through the fused mixed-step scheduler
+(``runtime/decode_loop.ServeEngine``: ``--prefill-chunk`` prompt tokens
+stream into a refilling slot a step while the others decode, ``--segment``
+steps a dispatch), or with ``--blocking`` the stop-the-world baseline
+(``BlockingServeEngine``), and prints the dispatch times (steady p50,
+refill-active p95).  ``--trace-out`` / ``--metrics-out`` write the
+engine's telemetry (a Chrome trace with the ``request.*`` events;
+Prometheus text).  The paged pool, the SLO scheduler, the KV store,
+meshes, replicas, the router and its faults (``--paged``, ``--sched``,
+``--spill-pages``, ``--kv-store``, ``--mesh``, ``--replicas``,
+``--router``, ``--fault-plan``, ``--retry``, ``--dispatch-timeout``,
+``--shared-kv-store``) are not yet ported: the CLI exits 2.
 """
 from __future__ import annotations
 
@@ -25,12 +45,20 @@ import sys
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.models import serve as SV
 from repro_torch.models import transformer as T
 from repro_torch.runtime import decode_loop as DL
+from repro_torch.runtime import telemetry as TM
+
+# engine flags of the JAX CLI that this port does not serve yet, with
+# their defaults: set to anything else, the CLI exits 2
+UNPORTED = {"paged": False, "sched": "", "spill_pages": 0, "kv_store": "", "mesh": "",
+            "replicas": 1, "router": "affine", "fault_plan": "", "retry": 1,
+            "dispatch_timeout": 0.0, "shared_kv_store": ""}
 
 
 def device_name(device: torch.device) -> str:
@@ -45,7 +73,8 @@ def _sync(device: torch.device):
 def serve_batch(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor], *, gen: int,
                 sampling: DL.SamplingConfig = DL.GREEDY,
                 generator: Optional[torch.Generator] = None, per_token: bool = False,
-                frames: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                frames: Optional[torch.Tensor] = None, n_host_chunks: int = 0
+                ) -> Dict[str, Any]:
     """Prefill the prompt batch (``models/serve.py::prefill_step``'s:
     {"tokens" [b, s]}, {"frame_embeds" [b, s, d]} or {"patch_embeds" [b,
     P, d], "tokens" [b, s - P]}) and generate ``gen`` tokens per row (the
@@ -54,7 +83,10 @@ def serve_batch(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor], *, ge
     ``decode_loop.decode_tokens`` or, with ``per_token`` and always for the
     audio frontend, a loop over ``decode_step`` that samples each token on
     the way; an audio model's step t feeds ``frames[:, t]`` ([b, gen - 1,
-    d], the caller's), as the JAX CLI feeds fresh random frames.
+    d], the caller's), as the JAX CLI feeds fresh random frames.  With
+    ``n_host_chunks`` the prefilled cache's full-attention KV moves to
+    pinned host memory (``SV.offload_kv``, before the decode timer starts)
+    and decode streams it in that many slabs.
 
     Returns {"tokens" [b, gen], "prefill_logits" [b, padded_vocab],
     "prefill_ms", "decode_ms", "steps", "mode"}."""
@@ -72,18 +104,24 @@ def serve_batch(cfg: ModelConfig, params, prompt: Dict[str, torch.Tensor], *, ge
     _sync(device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok0 = DL.sample_token(logits[:, : cfg.vocab_size], generator, sampling)
+    if n_host_chunks:
+        SV.offload_kv(cfg, cache, device)
+        _sync(device)
     t0 = time.perf_counter()
     if per_token or audio:
         outs = [tok0[:, None]]
         for i in range(steps):
             inp = {"frame_embeds": frames[:, i:i + 1]} if audio else {"tokens": outs[-1]}
-            lg, cache = SV.decode_step(cfg, None, params, cache, inp, s + i)
+            lg, cache = SV.decode_step(cfg, None, params, cache, inp, s + i,
+                                       n_host_chunks=n_host_chunks,
+                                       bounds=[(s + i, s + i)] * b)
             outs.append(DL.sample_token(lg[:, : cfg.vocab_size], generator, sampling)[:, None])
         toks, mode = torch.cat(outs, dim=1), "per-token loop"
     else:
-        toks, _ = DL.decode_tokens(cfg, None, params, cache, tok0[:, None],
-                                   torch.full((b,), s, dtype=torch.int32, device=device),
-                                   num_steps=steps, sampling=sampling, generator=generator)
+        # the positions as a host int: host-streamed KV bounds each step by them
+        toks, _ = DL.decode_tokens(cfg, None, params, cache, tok0[:, None], s,
+                                   num_steps=steps, n_host_chunks=n_host_chunks,
+                                   sampling=sampling, generator=generator)
         toks, mode = torch.cat([tok0[:, None], toks], dim=1), "loop"
     _sync(device)
     decode_ms = (time.perf_counter() - t0) * 1e3
@@ -113,6 +151,95 @@ def random_prompt(cfg: ModelConfig, b: int, prompt_len: int, gen: torch.Generato
     return {"tokens": tokens(prompt_len)}
 
 
+def engine_prompts(cfg: ModelConfig, requests: int, prompt_len: int, shared_prefix: int = 0,
+                   seed: int = 0):
+    """The engine's workload as the JAX CLI draws it: a shared prefix of
+    ``shared_prefix`` tokens, then per request ``prompt_len // 4`` to
+    ``prompt_len`` tokens (``numpy.random.default_rng(seed)``).  Returns
+    (prompts, lengths without the prefix)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, size=shared_prefix).tolist()
+    lens = rng.integers(max(1, prompt_len // 4), prompt_len + 1, size=requests)
+    return [shared + rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens], lens
+
+
+def dispatch_summary(steps) -> Optional[Dict[str, float]]:
+    """Steady p50 and refill-active p50 and p95 dispatch ms of an engine's
+    step records, as the JAX CLI reads them (the first dispatch dropped),
+    or None when either kind is missing."""
+    steps = list(steps)[1:]
+    refill = [st["ms"] for st in steps if st["prefilling"]]
+    steady = [st["ms"] for st in steps if not st["prefilling"]]
+    if not (refill and steady):
+        return None
+    return {"steady_p50_ms": float(np.percentile(steady, 50)),
+            "refill_p50_ms": float(np.percentile(refill, 50)),
+            "refill_p95_ms": float(np.percentile(refill, 95)),
+            "refill_dispatches": len(refill), "dispatches": len(steps)}
+
+
+def run_engine(cfg: ModelConfig, params, prompts, *, slots: int, bucket: int, gen: int,
+               blocking: bool = False, segment: int = 8, prefill_chunk: int = 0,
+               n_host_chunks: int = 0, sampling: DL.SamplingConfig = DL.GREEDY,
+               stop_tokens=(), generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Serve ``prompts`` through ``ServeEngine`` (or with ``blocking`` the
+    ``BlockingServeEngine``), timed on the host clock around a run that
+    ends in a device synchronise.  Returns {"outs", "engine", "name",
+    "ms", "summary" (``dispatch_summary``)}."""
+    kw = dict(slots=slots, bucket=bucket, max_new_tokens=gen, segment=segment,
+              n_host_chunks=n_host_chunks, sampling=sampling, stop_tokens=stop_tokens)
+    if blocking:
+        engine, name = DL.BlockingServeEngine(cfg, params, **kw), "blocking baseline"
+    else:
+        engine = DL.ServeEngine(cfg, params, prefill_chunk=prefill_chunk, **kw)
+        name = f"fused scheduler (prefill_chunk={engine.cp})"
+    device = engine.device
+    _sync(device)
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, generator=generator)
+    _sync(device)
+    return {"outs": outs, "engine": engine, "name": name,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "summary": dispatch_summary(engine.last_stats["steps"])}
+
+
+def _export_telemetry(args, telemetries):
+    """--trace-out / --metrics-out: dump the run's telemetry to disk."""
+    if args.trace_out:
+        doc = TM.write_chrome_trace(args.trace_out, telemetries)
+        print(f"[telemetry] wrote {len(doc['traceEvents'])} trace events "
+              f"to {args.trace_out} (open in Perfetto / chrome://tracing)")
+    if args.metrics_out:
+        TM.write_prometheus(args.metrics_out, telemetries)
+        print(f"[telemetry] wrote metrics registry to {args.metrics_out}")
+
+
+def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torch.Generator):
+    """--engine: the twin of the JAX CLI's non-mesh, non-paged engine run."""
+    name = device_name(device)
+    prompts, lens = engine_prompts(cfg, args.requests, args.prompt_len, args.shared_prefix,
+                                   args.seed)
+    run = run_engine(cfg, params, prompts, slots=args.batch,
+                     bucket=args.prompt_len + args.shared_prefix, gen=args.gen,
+                     blocking=args.blocking, segment=args.segment,
+                     prefill_chunk=args.prefill_chunk, n_host_chunks=args.host_kv_chunks,
+                     sampling=DL.SamplingConfig(temperature=args.temperature, top_k=args.top_k),
+                     generator=gen)
+    total = sum(len(o) for o in run["outs"])
+    dt = run["ms"] / 1e3
+    shared = f" +{args.shared_prefix} shared" if args.shared_prefix else ""
+    print(f"[{run['name']}] {args.requests} requests (prompt {lens.min()}-{lens.max()}{shared}) "
+          f"over {args.batch} slots: {total} tokens in {run['ms']:.0f} ms "
+          f"({total / max(dt, 1e-9):.1f} tok/s) on {name}")
+    sm = run["summary"]
+    if sm:
+        print(f"  dispatch wall-clock: steady p50 {sm['steady_p50_ms']:.2f} ms, refill-active "
+              f"p95 {sm['refill_p95_ms']:.2f} ms ({sm['refill_dispatches']}/"
+              f"{sm['dispatches']} dispatches overlapped a refill) on {name}")
+    _export_telemetry(args, run["engine"].telemetry)
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -121,7 +248,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--host-kv-chunks", type=int, default=0,
-                    help="FPDT-for-inference host KV streaming (not yet ported)")
+                    help="FPDT-for-inference: stream the KV cache from pinned host "
+                         "memory in N slabs")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy; > 0 samples at this temperature")
     ap.add_argument("--top-k", type=int, default=0,
@@ -130,17 +258,55 @@ def main(argv=None):
                     help="a Python loop over decode_step, sampling each token on the way, "
                          "in place of decode_tokens (always for the audio frontend)")
     ap.add_argument("--engine", action="store_true",
-                    help="continuous batching (not yet ported)")
+                    help="continuous batching via the fused mixed-step scheduler "
+                         "(ServeEngine) instead of one batch")
+    ap.add_argument("--blocking", action="store_true",
+                    help="with --engine: the stop-the-world refill baseline")
+    ap.add_argument("--requests", type=int, default=8, help="with --engine: queued prompts")
+    ap.add_argument("--segment", type=int, default=8,
+                    help="with --engine: mixed steps per dispatch")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="with --engine: prompt tokens streamed into a refilling slot "
+                         "per mixed step (0 = auto)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="with --engine: prepend a common system prompt of this many tokens")
+    ap.add_argument("--trace-out", default="",
+                    help="with --engine: write the run's lifecycle spans as Chrome "
+                         "trace-event JSON")
+    ap.add_argument("--metrics-out", default="",
+                    help="with --engine: write the metrics registry as Prometheus text")
+    # the JAX CLI's paged, mesh and router flags: parsed, not yet ported
+    ap.add_argument("--paged", action="store_true", help="not yet ported")
+    ap.add_argument("--spill-pages", type=int, default=0, help="not yet ported")
+    ap.add_argument("--kv-store", default="", help="not yet ported")
+    ap.add_argument("--sched", default="", choices=["", "fifo", "slo"], help="not yet ported")
+    ap.add_argument("--mesh", default="", help="not yet ported")
+    ap.add_argument("--replicas", type=int, default=1, help="not yet ported")
+    ap.add_argument("--router", default="affine", choices=["affine", "rr"],
+                    help="not yet ported")
+    ap.add_argument("--fault-plan", default="", help="not yet ported")
+    ap.add_argument("--retry", type=int, default=1, help="not yet ported")
+    ap.add_argument("--dispatch-timeout", type=float, default=0.0, help="not yet ported")
+    ap.add_argument("--shared-kv-store", default="", help="not yet ported")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, on the CPU")
     args = ap.parse_args(argv)
-    if args.engine:
-        ap.exit(2, "--engine: the continuous-batching engine is not yet ported\n")
-    if args.host_kv_chunks > 0:
-        ap.exit(2, "--host-kv-chunks: host-streamed KV decode is not yet ported\n")
+    unported = sorted("--" + k.replace("_", "-") for k, v in UNPORTED.items()
+                      if getattr(args, k) != v)
+    if unported:
+        ap.exit(2, f"{', '.join(unported)}: the paged pool, the SLO scheduler, the KV store, "
+                   "meshes and replicas are not yet ported\n")
+    if (args.trace_out or args.metrics_out) and not args.engine:
+        ap.error("--trace-out/--metrics-out export engine telemetry; they require --engine")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
+    if args.host_kv_chunks < 0:
+        ap.error("--host-kv-chunks must be >= 0")
+    if (not args.engine and args.host_kv_chunks
+            and (args.prompt_len + args.gen) % args.host_kv_chunks):
+        ap.error(f"--host-kv-chunks {args.host_kv_chunks} must divide the cache length "
+                 f"prompt-len+gen={args.prompt_len + args.gen}")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.exit(1, "no CUDA device is available; pass --device cpu to run on the CPU\n")
     device = torch.device(args.device)
@@ -155,19 +321,28 @@ def main(argv=None):
         ap.error(f"--prompt-len {args.prompt_len} counts the {cfg.num_patches} image patches "
                  "and the tokens after them: it must exceed the patches")
     params = T.init_params(cfg, gen, device)
+    if args.engine:
+        return _engine_main(args, cfg, params, device, gen)
     prompt = random_prompt(cfg, args.batch, args.prompt_len, gen, device)
     frames = None
     if cfg.frontend == "audio_frames":  # the decode steps' frames, fresh random ones
         frames = random_prompt(cfg, args.batch, args.gen - 1, gen, device)["frame_embeds"]
     sampling = DL.SamplingConfig(temperature=args.temperature, top_k=args.top_k)
+    SV.reset_host_kv()
     out = serve_batch(cfg, params, prompt, gen=args.gen, sampling=sampling, generator=gen,
-                      per_token=args.per_token, frames=frames)
+                      per_token=args.per_token, frames=frames,
+                      n_host_chunks=args.host_kv_chunks)
     b, steps = args.batch, out["steps"]
     print(f"prefill {args.prompt_len} tokens x {b} seqs: {out['prefill_ms']:.1f} ms on {name}")
     dt = out["decode_ms"] / 1e3
     print(f"decode [{out['mode']}] {steps} steps x {b} seqs: {out['decode_ms']:.1f} ms "
           f"({out['decode_ms'] / max(1, steps):.2f} ms/step, "
           f"{steps * b / max(dt, 1e-9):.1f} tok/s) on {name}")
+    if args.host_kv_chunks:
+        S = args.prompt_len + args.gen
+        print(f"host KV: {args.host_kv_chunks} slabs of {S // args.host_kv_chunks} positions a "
+              f"layer; merged {SV.host_kv['fetched']}, skipped {SV.host_kv['skipped']} "
+              f"(all layers, all steps)")
     print("generated token ids (first seq):", out["tokens"][0].tolist())
     return out
 

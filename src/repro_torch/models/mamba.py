@@ -30,8 +30,14 @@ JAX package's two-pass ``selective_scan_dist`` over those n spans:
     its own spans (``span_entry_states``);
   * pass 2: each span is scanned again from its entering state (the
     ``linear_scan`` op's h0, whose gradient the op returns).
-The new state is the global last span's, on every rank.  ``mamba_chunk_step``
-(chunked prefill) is not yet ported.
+The new state is the global last span's, on every rank.
+
+``mamba_chunk_step`` is the continuous-batching engine's chunked prefill
+(``models/serve.py::chunk_step``): a window of cp tokens of which ``live``
+are real, pad positions made identity transitions (dt = 0) so the scan's
+last state (through ``selective_scan`` with the cached state as h0: the
+CUDA ``linear_scan`` on the card) is the state after exactly ``live``
+tokens, and the conv carry gathered at ``live`` (``_conv_state_at``).
 """
 from __future__ import annotations
 
@@ -258,6 +264,53 @@ def mamba_mixer(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = y + p["D"] * xc.float()
     out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
     return out, {"conv": conv_state, "ssm": h_last}
+
+
+def _conv_state_at(xp: torch.Tensor, live: torch.Tensor, k: int) -> torch.Tensor:
+    """State-at-length gather for the causal-conv carry.
+
+    ``xp`` [b, k-1+s, c] is the conv input with the previous state
+    prepended (index i holds chunk position i-(k-1)); after consuming
+    ``live`` [b] tokens of the chunk the carry is the k-1 inputs ending at
+    position ``live - 1``, i.e. ``xp[:, live : live+k-1]`` per row (``live
+    = 0`` gives back the incoming state).  A ``torch.gather`` on the
+    device: no host read."""
+    b, _, c = xp.shape
+    idx = live.long()[:, None] + torch.arange(k - 1, device=xp.device)[None, :]  # [b, k-1]
+    return torch.gather(xp, 1, idx[..., None].expand(b, k - 1, c))
+
+
+def _dead(live: torch.Tensor, s: int) -> torch.Tensor:
+    """[b, s] bool: the window positions at or past each row's ``live``."""
+    return torch.arange(s, device=live.device)[None, :] >= live[:, None]
+
+
+def mamba_chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
+                     live: torch.Tensor):
+    """Chunked prefill step with state-at-length gather.
+
+    x [b, cp, d]; state {"conv": [b, k-1, di], "ssm": [b, di, ds]}; live
+    [b] integer: the leading tokens of the window that are real (the rest
+    is right padding).  Returns (y [b, cp, d], new_state), ``new_state``
+    the recurrent state after exactly ``live`` tokens: pad positions are
+    identity transitions (dt = 0 -> a = exp(0) = 1, b-term = 0), so the
+    scan's last state is the state at the true length, and the conv carry
+    is gathered at ``live``.  Outputs at pad positions are garbage for
+    the caller to mask."""
+    dtr, ds = cfg.dt_rank_actual, cfg.ssm_state
+    s, k = x.shape[1], cfg.d_conv
+    xin, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    xp = torch.cat([state["conv"].to(xin.dtype), xin], dim=1)
+    xc = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+    new_conv = _conv_state_at(xp, live, k)
+    xc = F.silu(xc)
+    dbc = xc @ p["w_x"]
+    dt = _softplus(dbc[..., :dtr] @ p["w_dt"] + p["b_dt"])
+    dt = torch.where(_dead(live, s)[..., None], torch.zeros_like(dt), dt)
+    y, h_last = selective_scan(xc, dt, p["A_log"], dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:],
+                               state["ssm"])
+    y = y + p["D"] * xc.float()
+    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"], {"conv": new_conv, "ssm": h_last}
 
 
 def mamba_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):

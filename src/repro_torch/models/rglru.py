@@ -17,7 +17,14 @@ sum of log a and last h; one gather of those summaries and a prefix
 combine in global order give each span's entering state
 (``span_entry_states``, the transition exp(sum log a)); pass 2 rescans
 each span from it through the op's h0.  The new state is the global last
-span's.  ``rglru_chunk_step`` (chunked prefill) is not yet ported.
+span's.
+
+``rglru_chunk_step`` is the continuous-batching engine's chunked prefill
+(``models/serve.py::chunk_step``): pad positions of the window get a = 1
+and a gated input of 0, so the scan from the cached h (``linear_scan``
+with h0: the CUDA kernel on the card, the plain version on the CPU) ends
+at the state after exactly ``live`` tokens, and the conv carry is
+gathered at ``live`` (``mamba._conv_state_at``).
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.layers import _dense_init
-from repro_torch.models.mamba import (_conv, _softplus, _spans, causal_conv1d, sharded,
-                                      span_entry_states)
+from repro_torch.models.mamba import (_conv, _conv_state_at, _dead, _softplus, _spans,
+                                      causal_conv1d, sharded, span_entry_states)
 
 Params = Dict[str, Any]
 C_FACTOR = 8.0
@@ -110,6 +117,29 @@ def rglru_mixer(cfg: ModelConfig, p: Params, x: torch.Tensor,
         h_last = h[:, -1]
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, {"conv": conv_state, "h": h_last}
+
+
+def rglru_chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
+                     live: torch.Tensor):
+    """Chunked prefill step with state-at-length gather (the contract of
+    ``mamba.mamba_chunk_step``): x [b, cp, d], state {conv, h}, live [b].
+    Pad positions are identity transitions (a = 1, gated input = 0), so
+    the scan's last state is the state after exactly ``live`` real tokens;
+    the conv carry is gathered at ``live``.  Pad-position outputs are
+    garbage."""
+    s, k = x.shape[1], cfg.d_conv
+    y = x @ p["w_y"]
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    xp = torch.cat([state["conv"].to(y.dtype), y], dim=1)
+    y = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+    new_conv = _conv_state_at(xp, live, k)
+    a, gated, _ = _gates(p, y)
+    dead = _dead(live, s)[..., None]  # [b, cp, 1]
+    a = torch.where(dead, torch.ones_like(a), a)
+    gated = torch.where(dead, torch.zeros_like(gated), gated)
+    h = scan_ops.linear_scan(a, gated, state["h"])  # [b, cp, di] fp32
+    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    return out, {"conv": new_conv, "h": h[:, -1]}
 
 
 def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):

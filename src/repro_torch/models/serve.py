@@ -28,7 +28,37 @@ and take queue places too.  The modality frontends are the JAX package's
 stubs: an audio model's prompt and decode steps take frame embeddings
 (decode adds the sinusoidal table at each row's position), a vision
 model's prompt puts its patch embeddings before its tokens and decodes
-tokens.  Host-streamed KV chunks and the paged pool are not yet ported.
+tokens.
+
+``chunk_step`` is the continuous-batching engines' fused mixed step
+(``runtime/decode_loop.py``): every row takes a window of cp tokens at
+its own offset, ``live`` of them real (a prefill chunk, a decode token
+at live 1, or nothing at live 0).  Its attention is plain PyTorch, as the
+JAX package's is jnp: the window against the pre-write cache, masked on
+``kpos``, merged with the window against its own live keys under a causal
+mask; only then are the live keys written, at fixed shapes and with no
+host read (``_write_rows``: a dead, evicted or out-of-capacity column
+writes back the value its slot already holds, and no two columns of a
+pass share a slot, so the scatter has no collision).  The recurrent
+blocks take ``mamba_chunk_step`` / ``rglru_chunk_step`` (the
+state-at-length gather), so every layout joins variable-length
+continuous batching.
+
+Host-streamed decode KV (``n_host_chunks > 0``, FPDT's Fig. 6 pipeline
+applied to inference): the full-attention layers' ``k`` and ``v`` live in
+pinned host memory (``offload_kv``, through ``runtime/placement.py``'s
+``HostOffload``; ``kpos`` stays on the device) and ``decode_step`` and
+``chunk_step`` stream them in ``n_host_chunks`` slabs of S / n positions,
+slab c + 1's copy running under slab c's merge (``double_buffered``).
+A slab whose first position lies past every row's highest position is
+neither fetched nor merged: a fully masked slab is the merge's identity,
+so any upper bound is exact.  The bound and each row's write span come
+from ``bounds``, positions the caller knows on the host; the new keys are
+written into the device copy of the slab that holds them as it passes
+and copied back into the pinned rows on the copy stream, before any later
+fetch.  On the CPU the offload is the identity but the slab loop, the
+live skip and the write-back still run.  ``host_kv`` counts the slabs.
+The paged pool is not yet ported.
 """
 from __future__ import annotations
 
@@ -38,15 +68,24 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import fpdt
-from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize
+from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize, merge, zero_state
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
+from repro_torch.runtime import placement as PL
 
 Params = Dict[str, Any]
+
+# slabs of host-streamed KV merged ("fetched") and skipped by the live
+# bound, over every attention layer, since the last ``reset_host_kv``
+host_kv = {"fetched": 0, "skipped": 0}
+
+
+def reset_host_kv():
+    host_kv.update(fetched=0, skipped=0)
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +126,156 @@ def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda") -> Params:
     return cache
 
 
+def _full_attn_blocks(cfg: ModelConfig, cache: Params):
+    """The cache dicts of the full-attention ("attn") blocks: the only ones
+    whose KV streams from the host (a local_attn ring is small)."""
+    pat, _, tail = T.layout_of(cfg)
+    yield from (cache[f"pos{i}"] for i, kind in enumerate(pat) if kind == "attn")
+    yield from (c for c, kind in zip(cache.get("tail", []), tail) if kind == "attn")
+
+
+def offload_kv(cfg: ModelConfig, cache: Params, device) -> Params:
+    """Move the full-attention blocks' ``k`` and ``v`` to pinned host memory
+    (``HostOffload.to_host``; the identity on the CPU), in place in
+    ``cache``, for host-streamed decode (``n_host_chunks``).  ``kpos`` and
+    every recurrent state stay on ``device``."""
+    policy = PL.host_offload(device)
+    for bc in _full_attn_blocks(cfg, cache):
+        bc["k"], bc["v"] = policy.to_host(bc["k"]), policy.to_host(bc["v"])
+    return cache
+
+
+def _write_rows(buf: torch.Tensor, base: int, slot: torch.Tensor, val: torch.Tensor,
+                mask: torch.Tensor):
+    """``buf[i, slot[i, j] - base] = val[i, j]`` wherever ``mask[i, j]`` and
+    the slot falls in buf's positions [base, base + n) (buf [b, n, ...],
+    slot and mask [b, w], val [b, w, ...]), in place.
+
+    The columns go in passes of n, and every column of a pass points at
+    slot mod n, so as long as a pass's slots are distinct mod n (each
+    window's positions are consecutive, a ring's are positions mod its
+    size) no two of its writes share an index; a masked column writes
+    back what its index already holds (``torch.where``).  No boolean
+    indexing, no ``nonzero``: nothing is read on the host."""
+    b, n = buf.shape[:2]
+    bi = torch.arange(b, device=buf.device)[:, None]
+    for j0 in range(0, slot.shape[1], n):
+        sl = slot[:, j0:j0 + n] - base
+        m = mask[:, j0:j0 + n] & (sl >= 0) & (sl < n)
+        idx = torch.remainder(sl, n)
+        old = buf[bi, idx]
+        m = m.reshape(*m.shape, *([1] * (old.dim() - 2)))
+        buf[bi, idx] = torch.where(m, val[:, j0:j0 + n].to(buf.dtype), old)
+
+
+def _expand(t: torch.Tensor, g: int) -> torch.Tensor:
+    """fp32 K or V [b, s, hkv, d] with each kv head repeated for its g q heads."""
+    t = t.float()
+    if g == 1:
+        return t
+    b, s, h, d = t.shape  # expand + reshape: repeat_interleave may read its count on the host
+    return t[:, :, :, None].expand(b, s, h, g, d).reshape(b, s, h * g, d)
+
+
+def _masked_state(s: torch.Tensor, ok: torch.Tensor, ve: torch.Tensor, eq: str):
+    """Partial online-softmax state of scores ``s`` under mask ``ok``."""
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    pr = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m[..., None]))
+    return SoftmaxState(torch.einsum(eq, pr, ve), m, pr.sum(dim=-1))
+
+
+def _spans(bounds, lo: int, hi: int):
+    """(row, start, end) of each row's write span [a, e] in ``bounds``
+    clipped to positions [lo, hi), end exclusive; empty ones dropped."""
+    out = []
+    for i, (a, e) in enumerate(bounds):
+        a, e = max(a, lo), min(e + 1, hi)
+        if a < e:
+            out.append((i, a, e))
+    return out
+
+
+def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
+               writes=None, write_first: bool = False) -> SoftmaxState:
+    """FPDT-for-inference: the merge of ``attend(k slab, v slab, kpos
+    slab)`` over the live slabs of ``cache``'s [b, S] rows in order, each
+    slab's host copy started one slab ahead (``double_buffered``).
+
+    ``bounds`` holds per row the span [lo, hi] of positions the step may
+    write (host ints; lo > hi for none): a slab starting past every hi is
+    skipped.  ``writes`` (slot [b, w], k, v [b, w, hkv, d], mask [b, w])
+    go into each slab's device copy before its attend (``write_first``:
+    decode) or after it (a chunk's pre-write history), and the rows' spans
+    of that slab are copied back to the host cache.  ``zero`` is the
+    merge's identity."""
+    ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+    S = ck.shape[1]
+    cs = S // n_host_chunks
+    hi = max((e for a, e in bounds if a <= e), default=-1)
+    live = [c for c in range(n_host_chunks) if c * cs <= hi]
+    host_kv["fetched"] += len(live)
+    host_kv["skipped"] += n_host_chunks - len(live)
+    policy = PL.host_offload(device)
+    # a cache resident on the card streams as views of itself, written in
+    # place; a host cache (and on the CPU any cache) through the policy
+    resident = ck.device.type == "cuda"
+
+    def fetch(c):
+        if resident:
+            return ck[:, c * cs:(c + 1) * cs], cv[:, c * cs:(c + 1) * cs]
+        return policy.fetch_rows(ck, c * cs, cs), policy.fetch_rows(cv, c * cs, cs)
+
+    def write(c, kc, vc):
+        slot, k, v, mask = writes
+        _write_rows(kc, c * cs, slot, k, mask)
+        _write_rows(vc, c * cs, slot, v, mask)
+        spans = _spans(bounds, c * cs, (c + 1) * cs)
+        if spans and not resident:
+            policy.write_rows(ck, kc, spans, c * cs)
+            policy.write_rows(cv, vc, spans, c * cs)
+
+    state = zero
+    for c, (kc, vc) in zip(live, PL.double_buffered(live, fetch)):
+        if writes is not None and write_first:
+            write(c, kc, vc)
+        state = merge(state, attend(kc, vc, kpos[:, c * cs:(c + 1) * cs]))
+        if writes is not None and not write_first:
+            write(c, kc, vc)
+    return state
+
+
+def _streams(cache: Params, n_host_chunks: int, window: int, device) -> bool:
+    """Does this attention block stream its KV from the host?  As in the
+    JAX package: a full-attention block whose S the chunk count divides;
+    a cache held on the host must (ValueError otherwise)."""
+    S = cache["k"].shape[1]
+    on_host = cache["k"].device != torch.device(device)
+    if n_host_chunks and not window and S % n_host_chunks == 0:
+        return True
+    if on_host:
+        raise ValueError(f"the KV cache lives on the host but n_host_chunks={n_host_chunks} "
+                         f"does not stream it (it must divide the cache length {S})")
+    return False
+
+
+def _default_bounds(b: int, S: int):
+    """Every position of every row: no slab skipped, whole rows written back."""
+    return [(0, S - 1)] * b
+
+
 # ---------------------------------------------------------------------------
 # decode attention (single new token against the cache)
 # ---------------------------------------------------------------------------
 
 
 def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params,
-                      x: torch.Tensor, cache: Params, pos: torch.Tensor, *, window: int = 0):
+                      x: torch.Tensor, cache: Params, pos: torch.Tensor, *, window: int = 0,
+                      n_host_chunks: int = 0, bounds=None):
     """x [b, 1, d]; pos int64 [b]; writes the token into ``cache`` in place.
-    Returns attn_out [b, 1, d]."""
+    With ``n_host_chunks`` (full attention only) the KV streams from the
+    host in slabs (``_stream_kv``); ``bounds`` are the rows' host-known
+    position spans.  Returns attn_out [b, 1, d]."""
     b = x.shape[0]
     q, k, v = L.qkv_proj(cfg, p, x)  # [b, 1, h, dh]
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -104,22 +284,32 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
     S = ck.shape[1]
     slot = pos % S if window > 0 else torch.clamp(pos, max=S - 1)  # [b]
     bi = torch.arange(b, device=x.device)
-    ck[bi, slot] = k[:, 0].to(ck.dtype)
-    cv[bi, slot] = v[:, 0].to(cv.dtype)
     kpos[bi, slot] = pos.to(kpos.dtype)
 
     g = cfg.num_heads // cfg.num_kv_heads
     qf = q[:, 0].float()  # [b, hq, dh]
-    ke = ck.float().repeat_interleave(g, dim=2) if g > 1 else ck.float()
-    ve = cv.float().repeat_interleave(g, dim=2) if g > 1 else cv.float()
-    s = torch.einsum("bhd,bshd->bhs", qf, ke) * cfg.head_dim ** -0.5
-    ok = (kpos >= 0) & (kpos <= pos[:, None])
-    if window:
-        ok = ok & (kpos > (pos - window)[:, None])
-    s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)
-    pr = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m[..., None]))
-    st = SoftmaxState(torch.einsum("bhs,bshd->bhd", pr, ve), m, pr.sum(dim=-1))
+    scale = cfg.head_dim ** -0.5
+
+    def attend(kc, vc, kp):
+        """Partial state [b, hq, dh] of the token against a KV slab."""
+        s = torch.einsum("bhd,bshd->bhs", qf, _expand(kc, g)) * scale
+        ok = (kp >= 0) & (kp <= pos[:, None])
+        if window:
+            ok = ok & (kp > (pos - window)[:, None])
+        return _masked_state(s, ok[:, None, :], _expand(vc, g), "bhs,bshd->bhd")
+
+    if _streams(cache, n_host_chunks, window, x.device):
+        bounds = _default_bounds(b, S) if bounds is None else [
+            (min(a, S - 1), min(e, S - 1)) for a, e in bounds]
+        ones = torch.ones((b, 1), dtype=torch.bool, device=x.device)
+        zero = SoftmaxState(qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF),
+                            qf.new_zeros(qf.shape[:2]))
+        st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
+                        writes=(slot[:, None], k, v, ones), write_first=True)
+    else:
+        ck[bi, slot] = k[:, 0].to(ck.dtype)
+        cv[bi, slot] = v[:, 0].to(cv.dtype)
+        st = attend(ck, cv, kpos)
     o = finalize(st).reshape(b, 1, cfg.q_dim).to(x.dtype)
     return o @ p["wo"]
 
@@ -130,7 +320,16 @@ def _keep_state(cache: Params, state: Params):
         cache[k].copy_(v)
 
 
-def _decode_block(cfg, par, kind, p, h, cache, pos):
+def _ffn(cfg, p, h):
+    """The attention block's second half: norm2, then the MoE FFN (unchunked,
+    as the JAX package's decode and chunk steps run it) or the MLP."""
+    hn2 = L.apply_norm(cfg, p["norm2"], h)
+    if "moe" in p:
+        return h + MOE.moe_ffn(cfg, p["moe"], hn2)[0]
+    return h + L.mlp_block(cfg, p["mlp"], hn2)
+
+
+def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None):
     if kind == "ssm":
         y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache)
         _keep_state(cache, st)
@@ -142,11 +341,10 @@ def _decode_block(cfg, par, kind, p, h, cache, pos):
         h = h + y
     else:
         window = cfg.window if kind == "local_attn" else 0
-        h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window)
-    hn2 = L.apply_norm(cfg, p["norm2"], h)
-    if "moe" in p:
-        return h + MOE.moe_ffn(cfg, p["moe"], hn2)[0]
-    return h + L.mlp_block(cfg, p["mlp"], hn2)
+        h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window,
+                                  n_host_chunks=0 if window else n_host_chunks,
+                                  bounds=bounds)
+    return _ffn(cfg, p, h)
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -155,7 +353,8 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
-                cache: Params, inp: Dict[str, torch.Tensor], pos):
+                cache: Params, inp: Dict[str, torch.Tensor], pos, n_host_chunks: int = 0,
+                bounds=None):
     """One decode step: advance every sequence in the batch by one token.
 
     Contract:
@@ -171,6 +370,13 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
       cache  — dict from ``init_cache``/``prefill_step``, updated in place
                at exactly the ``pos`` slot of every attention layer and in
                every recurrent layer's state.
+      n_host_chunks — stream each full-attention layer's KV in this many
+               slabs (0 = on-device attention; a count that does not divide
+               the cache length attends on the device, as in the JAX
+               package, and raises if the KV is on the host).
+      bounds — with n_host_chunks: per row (lo, hi), host ints, the span
+               its ``pos`` lies in; slabs past every hi are skipped and
+               each row's span is written back.  None: every position.
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
     if cfg.frontend == "audio_frames":
@@ -186,11 +392,153 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
         cyc_p, cyc_cache = T.cycle(params["cycles"], c), T.cycle(
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
-            h = _decode_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], pos)
+            h = _decode_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], pos,
+                              n_host_chunks, bounds)
     for i, kind in enumerate(tail):
-        h = _decode_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], pos)
+        h = _decode_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], pos,
+                          n_host_chunks, bounds)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = (h[:, 0] @ T.head_matrix(cfg, params)).float()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# fused mixed step: one prefill chunk OR one decode token per batch row
+# ---------------------------------------------------------------------------
+
+
+def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params,
+                     x: torch.Tensor, cache: Params, qpos: torch.Tensor, live: torch.Tensor,
+                     *, window: int = 0, n_host_chunks: int = 0, bounds=None):
+    """Chunk-window attention against the cache at per-row offsets.
+
+    x [b, cp, d]; qpos [b, cp] int64 the position of each window token;
+    live [b] how many leading window tokens are real (0: the row is a
+    no-op).  The online-softmax merge of (a) the PRE-write cache masked on
+    ``kpos`` (host-streamed in slabs under ``n_host_chunks``) and (b) the
+    window against its own live keys under an intra-window causal mask;
+    then the live keys are written (ring buffers keep only the last S
+    live tokens).  Returns attn out [b, cp, d]; the cache is updated in
+    place."""
+    b, cp, _ = x.shape
+    q, k, v = L.qkv_proj(cfg, p, x)  # [b, cp, h, dh]
+    q = L.apply_rope(q, qpos, cfg.rope_theta)
+    k = L.apply_rope(k, qpos, cfg.rope_theta)
+    S = cache["k"].shape[1]
+    if window:
+        window = min(window, S)  # ring capacity bounds the visible window
+    g = cfg.num_heads // cfg.num_kv_heads
+    qt = q.float().transpose(1, 2)  # [b, hq, cp, dh]
+    scale = cfg.head_dim ** -0.5
+    col = torch.arange(cp, device=x.device)[None, :]
+    key_live = col < live[:, None]  # [b, cp]
+
+    def attend(kc, vc, kp):
+        """Partial state [b, hq, cp, dh] of the window queries vs a KV slab."""
+        s_ = torch.einsum("bhqd,bshd->bhqs", qt, _expand(kc, g)) * scale
+        ok = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qpos[:, :, None])
+        if window:
+            ok = ok & (kp[:, None, :] > (qpos[:, :, None] - window))
+        return _masked_state(s_, ok[:, None], _expand(vc, g), "bhqs,bshd->bhqd")
+
+    def attend_intra():
+        """The window against its own live, causal keys: not in the cache
+        yet, so the pre-write pass counts nothing twice and a ring's
+        eviction cannot clobber history an earlier window token needs."""
+        s_ = torch.einsum("bhqd,bkhd->bhqk", qt, _expand(k, g)) * scale
+        ok = key_live[:, None, :] & (qpos[:, None, :] <= qpos[:, :, None])
+        if window:
+            ok = ok & (qpos[:, None, :] > (qpos[:, :, None] - window))
+        return _masked_state(s_, ok[:, None], _expand(v, g), "bhqk,bkhd->bhqd")
+
+    # the live window's slots: ring buffers drop all but the last S live
+    # tokens; full attention drops positions past its capacity
+    if window:
+        wmask = key_live & (col >= (live[:, None] - S))
+    else:
+        wmask = key_live & (qpos < S)
+    slot = qpos % S
+    if _streams(cache, n_host_chunks, window, x.device):
+        bounds = _default_bounds(b, S) if bounds is None else bounds
+        hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend,
+                          zero_state((b, cfg.num_heads, cp, cfg.head_dim), device=x.device),
+                          writes=(slot, k, v, wmask))
+    else:
+        hist = attend(cache["k"], cache["v"], cache["kpos"])
+        _write_rows(cache["k"], 0, slot, k, wmask)
+        _write_rows(cache["v"], 0, slot, v, wmask)
+    _write_rows(cache["kpos"], 0, slot, qpos.to(torch.int32), wmask)
+    o = finalize(merge(hist, attend_intra()))  # [b, hq, cp, dh]
+    o = o.transpose(1, 2).reshape(b, cp, cfg.q_dim).to(x.dtype)
+    return o @ p["wo"]
+
+
+def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bounds=None):
+    if kind == "ssm":
+        y, st = M.mamba_chunk_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache,
+                                   live)
+        _keep_state(cache, st)
+        return h + y
+    hn = L.apply_norm(cfg, p["norm1"], h)
+    if kind == "rglru":
+        y, st = R.rglru_chunk_step(cfg, p["mixer"], hn, cache, live)
+        _keep_state(cache, st)
+        h = h + y
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        h = h + _chunk_attention(cfg, par, p["attn"], hn, cache, qpos, live, window=window,
+                                 n_host_chunks=0 if window else n_host_chunks, bounds=bounds)
+    return _ffn(cfg, p, h)
+
+
+@torch.no_grad()
+def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
+               cache: Params, toks: torch.Tensor, offset, live, n_host_chunks: int = 0,
+               bounds=None):
+    """One fused mixed step: every batch row processes a ``cp``-token window.
+
+    Contract (the JAX package's):
+      toks   — [b, cp] integer window tokens.  A row consuming a prefill
+               chunk passes the chunk (``live`` real tokens, the rest
+               padding); a decoding row passes its next token in column 0
+               (``live=1``); an idle row passes anything (``live=0``: its
+               cache rows, recurrent state and ring are untouched).
+      offset — scalar or integer [b]: the position of each row's first
+               window token.
+      live   — scalar or integer [b] in [0, cp]: real tokens per row.
+      cache  — dict from ``init_cache``, updated in place at the live
+               positions only, at fixed shapes.
+      n_host_chunks, bounds — host-streamed KV, as ``decode_step``'s;
+               ``bounds`` per row the span of positions its live window
+               covers.
+
+    Recurrent blocks (ssm, rglru, the local_attn ring) take the
+    state-at-length gather (``mamba.mamba_chunk_step`` /
+    ``rglru.rglru_chunk_step``), so chunked prefill of any length is exact
+    for them.  Returns (logits [b, padded_vocab] fp32 at each row's LAST
+    live token, cache)."""
+    if cfg.frontend == "audio_frames":
+        raise ValueError("chunk_step feeds token ids; the audio_frames "
+                         "frontend consumes frame embeddings")
+    b, cp = toks.shape
+    device = toks.device
+    offset = _positions(offset, b, device)
+    live = _positions(live, b, device)
+    qpos = offset[:, None] + torch.arange(cp, device=device)[None, :]  # [b, cp]
+    h = params["embed"][toks].to(getattr(torch, cfg.param_dtype))
+    pat, n_cycles, tail = T.layout_of(cfg)
+    for c in range(n_cycles):
+        cyc_p, cyc_cache = T.cycle(params["cycles"], c), T.cycle(
+            {k: cache[k] for k in cache if k != "tail"}, c)
+        for i, kind in enumerate(pat):
+            h = _chunk_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], qpos,
+                             live, n_host_chunks, bounds)
+    for i, kind in enumerate(tail):
+        h = _chunk_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], qpos, live,
+                         n_host_chunks, bounds)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    last = h[torch.arange(b, device=device), torch.clamp(live - 1, 0, cp - 1)]
+    logits = (last @ T.head_matrix(cfg, params)).float()
     return logits, cache
 
 

@@ -31,6 +31,15 @@ one.  ``no_offload()`` turns the offload off in a forward whose saved
 tensors are thrown away (the first pass of a non-reentrant checkpoint).
 Eager PyTorch has one loop, so the JAX package's scan-carry variant
 (``fori_double_buffered``) has no twin here.
+
+Serving's host-streamed decode KV (``models/serve.py``) keeps a cache
+leaf ``[b, S, ...]`` in pinned memory (``to_host``) and reads and writes
+it by rows: ``fetch_rows`` starts copying positions [start, start + n)
+of every row to the device (one contiguous copy a row, so the copy is a
+DMA from pinned memory and never a staged host copy), and
+``write_rows`` copies spans of a device slab back into the pinned rows
+after the compute stream's writes to it.  Both run on the copy stream,
+so a span written back is ordered before any later fetch of it.
 """
 from __future__ import annotations
 
@@ -181,6 +190,62 @@ class HostOffload:
         out.record_stream(compute)  # allocated on the copy stream, used on compute
         self._count("to_device_bytes", t)
         return Pending(out, done)
+
+
+    def fetch_rows(self, t: torch.Tensor, start: int, n: int) -> Pending:
+        """Starts copying positions [start, start + n) of every row of the
+        pinned host tensor ``t`` [b, S, ...] to the device as one [b, n,
+        ...] tensor, a contiguous copy a row (the CPU: a copy of the
+        slice, so that the caller's writes to it reach ``t`` only through
+        ``write_rows``, as on the card)."""
+        if not self.on_card:
+            return Pending(t[:, start:start + n].clone())
+        if t.device.type != "cpu" or not t.is_pinned():
+            raise ValueError("fetch_rows takes a pinned host tensor made by to_host")
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream()
+        with torch.cuda.stream(copy):
+            out = torch.empty((t.shape[0], n, *t.shape[2:]), dtype=t.dtype, device=self.device)
+            for i in range(t.shape[0]):
+                out[i].copy_(t[i, start:start + n], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copy)
+        out.record_stream(compute)
+        self._count("to_device_bytes", out)
+        return Pending(out, done)
+
+    def write_rows(self, dst: torch.Tensor, src: torch.Tensor, spans, offset: int):
+        """``dst[i, a:e] = src[i, a - offset : e - offset]`` for each (i,
+        a, e) of ``spans``: ``dst`` the pinned host tensor [b, S, ...],
+        ``src`` a device slab of it that starts at position ``offset``,
+        copied after what the compute stream has queued (its writes to
+        ``src``).  On the CPU a plain copy."""
+        if not self.on_card:
+            for i, a, e in spans:
+                dst[i, a:e].copy_(src[i, a - offset:e - offset])
+            return
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream()
+        copy.wait_stream(compute)
+        with torch.cuda.stream(copy):
+            for i, a, e in spans:
+                dst[i, a:e].copy_(src[i, a - offset:e - offset], non_blocking=True)
+                self._count("to_host_bytes", dst[i, a:e])
+        src.record_stream(copy)
+
+    def copy_to_host(self, dst: torch.Tensor, src: torch.Tensor):
+        """``dst.copy_(src)``: ``dst`` a contiguous view of a pinned host
+        tensor, ``src`` a device tensor, copied on the copy stream after
+        what the compute stream has queued (the CPU: a plain copy)."""
+        if not self.on_card:
+            dst.copy_(src)
+            return
+        copy = self._copy_stream()
+        copy.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(copy):
+            dst.copy_(src, non_blocking=True)
+        src.record_stream(copy)
+        self._count("to_host_bytes", src)
 
 
 _POLICIES: Dict[torch.device, HostOffload] = {}

@@ -175,12 +175,76 @@ def test_cli_on_cpu(capsys):
     assert len(timed) == 2 and all(ln.endswith("on cpu") for ln in timed)
 
 
-@pytest.mark.parametrize("flag", [["--engine"], ["--host-kv-chunks", "4"]])
+@pytest.mark.parametrize("flag", [["--engine", "--paged"], ["--engine", "--mesh", "1x2"],
+                                  ["--engine", "--sched", "slo"]])
 def test_cli_refuses_unported(capsys, flag):
     with pytest.raises(SystemExit) as ex:
         CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *flag])
     assert ex.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+_ENGINE_OUTS = {}  # the first mode's tokens, which every other mode must give
+ENGINE_ARGV = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "16", "--gen",
+               "4", "--requests", "5", "--segment", "2", "--prefill-chunk", "4"]
+
+
+@pytest.mark.parametrize("mode", [[], ["--blocking"], ["--host-kv-chunks", "4"],
+                                  ["--blocking", "--host-kv-chunks", "4"]])
+def test_cli_engine_on_cpu(capsys, mode):
+    """--engine (fused, blocking, with host-streamed KV): every request gets
+    its --gen tokens (no stop token), the same tokens in every mode, and
+    the summary and dispatch lines name the CPU."""
+    run = CLI.main(["--arch", "llama3.2-1b", "--engine", *ENGINE_ARGV, *mode])
+    text = capsys.readouterr().out
+    prompts, lens = CLI.engine_prompts(run["engine"].cfg, 5, 16)
+    assert [len(p) for p in prompts] == lens.tolist() and 4 <= min(lens) <= max(lens) <= 16
+    assert [len(o) for o in run["outs"]] == [4] * 5
+    _ENGINE_OUTS.setdefault(run["engine"].cfg.name, run["outs"])
+    assert run["outs"] == _ENGINE_OUTS[run["engine"].cfg.name]  # every mode, the same tokens
+    timed = [ln for ln in text.splitlines() if " ms" in ln]
+    assert len(timed) == 2 and all(ln.endswith("on cpu") for ln in timed)
+    assert "steady p50" in timed[1] and "refill-active p95" in timed[1]
+
+
+def test_cli_host_kv_without_engine(capsys):
+    """--host-kv-chunks on the one-batch path: the tokens of on-device
+    decode, slabs counted; a count that does not divide prompt + gen exits 2."""
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "16", "--gen", "4"]
+    out = CLI.main([*argv, "--host-kv-chunks", "4"])
+    text = capsys.readouterr().out
+    assert out["tokens"].tolist() == CLI.main(argv)["tokens"].tolist()
+    assert "host KV: 4 slabs of 5 positions" in text
+    with pytest.raises(SystemExit) as ex:
+        CLI.main([*argv, "--host-kv-chunks", "3"])
+    assert ex.value.code == 2
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cli_engine_recurrent_arch_on_cpu(capsys, arch):
+    run = CLI.main(["--arch", arch, "--engine", *ENGINE_ARGV])
+    assert [len(o) for o in run["outs"]] == [4] * 5
+    assert capsys.readouterr().out.splitlines()[0].endswith("on cpu")
+
+
+def test_cli_engine_telemetry(tmp_path, capsys):
+    """--trace-out / --metrics-out: a Chrome trace holding each request's
+    admit, emit and complete events, and the Prometheus series; both need
+    --engine."""
+    import json
+
+    trace, prom = tmp_path / "t.json", tmp_path / "m.prom"
+    CLI.main(["--arch", "llama3.2-1b", "--engine", *ENGINE_ARGV, "--trace-out", str(trace),
+              "--metrics-out", str(prom)])
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]]
+    assert names.count("request.admit") == names.count("request.complete") == 5
+    assert names.count("request.emit") >= 5
+    assert "dispatch_ms" in prom.read_text()
+    with pytest.raises(SystemExit) as ex:
+        CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--trace-out",
+                  str(trace)])
+    assert ex.value.code == 2
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
