@@ -108,6 +108,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 tokens, logits within FP32_LOGIT_RTOL, 9 of 16 slabs merged
                 a layer and step, the bytes fetched as reckoned, no k or v
                 byte on the card, ms a step beside the host link's rate;
+  5c. paged   — the paged pool (runtime/paged.py) through run_engine, with
+                5b's llama3.2-1b weights, settings and solo tokens, 16
+                tokens a page: (a) 5b's 8 requests through PagedServeEngine,
+                segment 1 under set_sync_debug_mode("error"), the fused
+                engine's and solo tokens, pages_peak between the first four
+                reserves and the pool, the device peak within 10% of its
+                reckoning; (b) 8 requests behind a 512-token shared prompt,
+                radix on and off: the same tokens, 2048 prefix-hit tokens
+                (the four refills' shared pages) and as many fewer
+                prefilled; (c) a 120-page pool with a spill tier, (b) twice:
+                (b)'s tokens, a deferral, a demotion, a promote; (d) (b)'s
+                tree saved and restored into a new engine: (b)'s tokens,
+                every admission hitting the restored prefix; (e)
+                SLOPagedServeEngine: a decoding priority-1 request
+                preempted by a priority-0 arrival and fifo, both the solo
+                tokens, and a prefill-budget pause, the solo tokens;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -258,7 +274,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 their launches on its training path, the scan kernels' on
                 falcon-mamba-7b's, every path's launches beside them
                 (launches_by_path: the six serve paths, the five engine and
-                host-KV paths, eight trainings,
+                host-KV paths, the paged and SLO paths, eight trainings,
                 the CLI's compressed training and the distributed
                 trainings, per rank), the new head layouts' errors;
   9. last line: {"ok": true, "device": {...}}.
@@ -2333,7 +2349,8 @@ def phase_engine(torch, M, card):
     0 every request is cut where its solo run would be.  Then the
     BlockingServeEngine on the same workload (bucket 256): the fused
     engine's tokens, and flash_fwd launched once a live chunk pair of each
-    layer for each of its prefills (the batched one and every refill)."""
+    layer for each of its prefills (the batched one and every refill).  The
+    weights, prompts and solo tokens go on to ``phase_paged``."""
     dev = torch.device("cuda")
     cfg = _fp32_cfg(M, "llama3.2-1b")
     params = _init_fp32(torch, M, cfg, dev)
@@ -2399,9 +2416,210 @@ def phase_engine(torch, M, card):
           f"fused {summary['fused']['refill_p95_ms'] / summary['fused']['steady_p50_ms']:.2f}, "
           f"blocking {summary['blocking']['refill_p95_ms'] / summary['blocking']['steady_p50_ms']:.2f}"
           " (not gated)")
-    del params, fused, blk, rec
+    del fused, blk, rec
     torch.cuda.empty_cache()
-    return {"engine": counts, "blocking": bcounts, "summary": summary}
+    return {"engine": counts, "blocking": bcounts, "summary": summary,
+            "paged_inputs": {"cfg": cfg, "params": params, "prompts": prompts, "solos": solos}}
+
+
+# The paged engines' phase: tokens a page, the shared system prompt of (b)
+# to (d), the pool of (c) (it holds the first two of (b)'s requests, 38 + 48
+# pages, not a third's 49, and four at once would take 173) and the spill
+# tier of (c) and (d) (256 pages; (b) leaves ~150 in its tree)
+PAGE_SIZE, SHARED_PREFIX, PRESSURE_PAGES, SPILL_PAGES = 16, 512, 120, 256
+# (e): the SLO engine's segment, short enough that a prefill spans dispatches
+SLO_SEGMENT = 2
+
+
+def _page_bytes(cfg) -> int:
+    """One page of the pool over every attention layer: k and v, and pkpos."""
+    item = 4 if cfg.param_dtype == "float32" else 2
+    layers = sum(k == "attn" for k in cfg.layer_kinds())
+    return layers * PAGE_SIZE * (2 * cfg.num_kv_heads * cfg.head_dim * item + 4)
+
+
+def _reserve(prompt, gen) -> int:
+    """Pages a request reserves at admission: its prompt and budget."""
+    return -(-(len(prompt) + gen) // PAGE_SIZE)
+
+
+def _paged_line(name, run, card):
+    st = run["engine"].last_stats
+    sm = run["summary"] or {}
+    print(f"  {name}: {sum(len(o) for o in run['outs'])} tokens in {run['ms']:.1f} ms, "
+          f"{st['dispatches']} dispatches, steady p50 {sm.get('steady_p50_ms', float('nan')):.2f} "
+          f"ms, refill-active p95 {sm.get('refill_p95_ms', float('nan')):.2f} ms; prefix hits "
+          f"{st['prefix_hit_tokens']}/{st['prompt_tokens']}, {st['prefilled_tokens']} prefilled, "
+          f"{st['cow_copies']} COW, {st['deferrals']} deferrals, pages peak "
+          f"{st['pages_peak']}/{run['engine'].n_pages}, radix {st['radix_pages']}, spilled "
+          f"{st['spilled_pages']}, promoted {st['spill_promotes']} [{card}]")
+
+
+def phase_paged(torch, M, card, base):
+    """The paged engines (``runtime/paged.py``) through the CLI's run_engine,
+    llama3.2-1b at full width and depth in fp32, with phase_engine's
+    weights and settings (4 slots, chunk 64, segment 8, 16 new tokens,
+    greedy), PAGE_SIZE 16:
+      (a) ENGINE_LLAMA's 8 requests through PagedServeEngine, its first
+          segment under set_sync_debug_mode("error"): the fused engine's and
+          the solo runs' tokens; pages_peak between the four first reserves
+          and the pool; the pool's bytes and the device peak beside their
+          reckoning (the peak gated within 10%);
+      (b) 8 requests behind a 512-token shared prompt, radix on and off: the
+          same tokens; the four refills each map the 512 shared tokens, so
+          prefix_hit_tokens is 2048 and prefilled_tokens drops by as many;
+      (c) the pool cut to PRESSURE_PAGES with a spill tier, (b)'s workload
+          twice: (b)'s tokens both times; a deferral, a demotion and a
+          promote from the tier;
+      (d) (b)'s radix-on tree saved (save_kv_store) and restored into a new
+          engine: (b)'s tokens, every admission hitting the restored prefix;
+      (e) SLOPagedServeEngine at SLO_SEGMENT: one slot, a priority-1 request
+          decoding preempted by a priority-0 arrival, both the solo tokens;
+          fifo the same tokens without preempting; two slots and a prefill
+          budget of 1: a pause, the solo tokens.
+    Launches are read around (a) and around (e)."""
+    import tempfile
+
+    cfg, params = base["cfg"], base["params"]
+    prompts, solos = base["prompts"], base["solos"]
+    n_req, plen, gen = ENGINE_LLAMA
+    kw = dict(slots=ENGINE_SLOTS, bucket=plen, gen=gen, segment=ENGINE_SEGMENT,
+              prefill_chunk=ENGINE_CHUNK)
+    page = _page_bytes(cfg)
+    print(f"a page: {page} B over {cfg.num_layers} layers (k, v {PAGE_SIZE} x "
+          f"{cfg.num_kv_heads} x {cfg.head_dim} fp32 and pkpos)")
+
+    # (a)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(M.K, M.SK)
+    with _sync_checked_first_segment(torch, M) as checked:
+        a = M.CLI.run_engine(cfg, params, prompts, paged=dict(page_size=PAGE_SIZE), **kw)
+    counts = {"paged": _counts(M.K, M.SK)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng, st = a["engine"], a["engine"].last_stats
+    if checked["segments"] != 1:
+        raise AssertionError("the first paged segment did not run under the sync check")
+    if a["outs"] != solos:
+        raise AssertionError(f"paged engine {a['outs']} != the solo and fused tokens {solos}")
+    lo = sum(_reserve(p, gen) for p in prompts[:ENGINE_SLOTS])
+    hi = min(eng.n_pages, sum(_reserve(p, gen) for p in prompts))
+    S = st["max_pages"] * PAGE_SIZE
+    dense_gib, _ = _serve_peak_gib(torch, cfg, ENGINE_SLOTS, S, ENGINE_CHUNK)
+    want_gib = dense_gib + ((eng.n_pages + 1) * page - ENGINE_SLOTS * S * page // PAGE_SIZE) / 2**30
+    _paged_line("(a) paged", a, card)
+    print(f"  tokens equal the fused engine's and the solo runs'; segment 1 ran under "
+          f"set_sync_debug_mode('error'); pages_peak {st['pages_peak']} in [{lo}, {hi}] "
+          f"(the first four reserves, the pool or all reserves): {st['pages_peak'] * page / 2**20:.2f}"
+          f" MiB of the pool's {(eng.n_pages + 1) * page / 2**20:.2f} MiB, against the dense "
+          f"engine's {ENGINE_SLOTS} x {S} rows, {ENGINE_SLOTS * S * page / PAGE_SIZE / 2**20:.2f} "
+          f"MiB; peak {peak:.3f} GiB (reckoned {want_gib:.3f}); launches {counts['paged']} [{card}]")
+    if not lo <= st["pages_peak"] <= hi:
+        raise AssertionError(f"pages_peak {st['pages_peak']} outside [{lo}, {hi}]")
+    if not 0.9 <= peak / want_gib <= 1.1:
+        raise AssertionError(f"peak {peak:.3f} GiB is not within 10% of the reckoned {want_gib:.3f}")
+    del a, eng
+
+    # (b)
+    shared_prompts, lens = M.CLI.engine_prompts(cfg, n_req, plen, shared_prefix=SHARED_PREFIX)
+    kw_b = dict(kw, bucket=plen + SHARED_PREFIX)
+    print(f"(b) {n_req} requests of {SHARED_PREFIX} shared + {sorted(lens.tolist())} tokens")
+    runs = {}
+    for radix in (False, True):
+        runs[radix] = M.CLI.run_engine(cfg, params, shared_prompts,
+                                       paged=dict(page_size=PAGE_SIZE, radix=radix), **kw_b)
+        _paged_line(f"(b) radix {'on' if radix else 'off'}", runs[radix], card)
+    ref = runs[False]["outs"]
+    on, off = runs[True]["engine"].last_stats, runs[False]["engine"].last_stats
+    want_hits = SHARED_PREFIX * (n_req - ENGINE_SLOTS)
+    if runs[True]["outs"] != ref:
+        raise AssertionError("radix on and off give different tokens")
+    if on["prefix_hit_tokens"] != want_hits or off["prefix_hit_tokens"] != 0:
+        raise AssertionError(f"prefix hits {on['prefix_hit_tokens']} / {off['prefix_hit_tokens']}"
+                             f", reckoned {want_hits} / 0")
+    if off["prefilled_tokens"] - on["prefilled_tokens"] != want_hits:
+        raise AssertionError("the prefilled tokens did not drop by the hits")
+    print(f"  radix on and off: the same tokens; the four refills map {SHARED_PREFIX} tokens "
+          f"each: {on['prefix_hit_tokens']} hits, prefilled {off['prefilled_tokens']} -> "
+          f"{on['prefilled_tokens']}; run {runs[False]['ms']:.1f} -> {runs[True]['ms']:.1f} ms "
+          f"(not gated) [{card}]")
+
+    # (c)
+    tight = M.CLI.make_engine(cfg, params, paged=dict(page_size=PAGE_SIZE, n_pages=PRESSURE_PAGES,
+                                                      spill_pages=SPILL_PAGES), **kw_b)
+    seen = []
+    for rnd in (1, 2):
+        c = M.CLI.run_engine(cfg, params, shared_prompts, engine=tight)
+        _paged_line(f"(c) {PRESSURE_PAGES} pages, run {rnd}", c, card)
+        if c["outs"] != ref:
+            raise AssertionError(f"under pool pressure (run {rnd}) the tokens differ from (b)'s")
+        seen.append({k: tight.last_stats[k]
+                     for k in ("deferrals", "spilled_pages", "spill_promotes")})
+    print(f"  both runs (b)'s tokens; per run {seen}; demotions "
+          f"{tight.telemetry.registry.value('pool_demotions')}, evictions "
+          f"{tight.telemetry.registry.value('pool_evictions')}")
+    if not (seen[0]["deferrals"] >= 1 and seen[0]["spilled_pages"] >= 1
+            and seen[1]["spill_promotes"] >= 1):
+        raise AssertionError("pool pressure did not defer and spill (run 1) and promote (run 2)")
+    del tight, c
+
+    # (d)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "kv.npz")
+        t0 = time.perf_counter()
+        saved = runs[True]["engine"].save_kv_store(store)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(store)
+        fresh = M.CLI.make_engine(cfg, params, paged=dict(page_size=PAGE_SIZE,
+                                                          spill_pages=SPILL_PAGES), **kw_b)
+        t0 = time.perf_counter()
+        restored = fresh.restore_kv_store(store)
+        t_restore = time.perf_counter() - t0
+    d = M.CLI.run_engine(cfg, params, shared_prompts, engine=fresh)
+    _paged_line("(d) restored", d, card)
+    hits = [e["args"]["prefix_hit"] for e in fresh.telemetry.tracer.events
+            if e["kind"] == "request.admit"]
+    print(f"  saved {saved} pages ({size} B) in {t_save * 1e3:.1f} ms, restored {restored} in "
+          f"{t_restore * 1e3:.1f} ms; prefix hit at each admission {hits} [{card}]")
+    if d["outs"] != ref or restored != saved or min(hits) < SHARED_PREFIX:
+        raise AssertionError("the restored store does not serve (b)'s prefix and tokens")
+    del runs, fresh, d
+
+    # (e)
+    _reset_counts(M.K, M.SK)
+    short = min(range(n_req), key=lambda i: len(prompts[i]))
+    long_ = max(range(n_req), key=lambda i: len(prompts[i]))
+    other = next(i for i in range(n_req) if i not in (short, long_))
+    slo = dict(page_size=PAGE_SIZE, spill_pages=SPILL_PAGES)
+    kw_e = dict(kw, segment=SLO_SEGMENT)
+    reqs = [M.DL.Request(tokens=tuple(prompts[short]), priority=1, arrival=0),
+            M.DL.Request(tokens=tuple(prompts[other]), priority=0, arrival=2)]
+    outs = {}
+    for policy in ("slo", "fifo"):
+        e = M.CLI.run_engine(cfg, params, reqs, paged=dict(slo, policy=policy, prefill_budget=0),
+                             **dict(kw_e, slots=1))
+        outs[policy] = e["outs"]
+        est = e["engine"].last_stats
+        print(f"  (e) {policy}, 1 slot: {e['ms']:.1f} ms, preemptions {est['preemptions']}, "
+              f"request 0 preempted {est['requests'][0]['preemptions']}, prefix hits "
+              f"{est['prefix_hit_tokens']} [{card}]")
+        if e["outs"] != [solos[short], solos[other]]:
+            raise AssertionError(f"{policy}: the scheduled tokens differ from the solo runs'")
+        if (est["preemptions"] >= 1) != (policy == "slo"):
+            raise AssertionError(f"{policy}: preemptions {est['preemptions']}")
+    reqs = [M.DL.Request(tokens=tuple(prompts[short]), priority=0, arrival=0),
+            M.DL.Request(tokens=tuple(prompts[long_]), priority=1, arrival=1)]
+    e = M.CLI.run_engine(cfg, params, reqs, paged=dict(slo, policy="slo", prefill_budget=1),
+                         **dict(kw_e, slots=2))
+    est = e["engine"].last_stats
+    print(f"  (e) slo, 2 slots, prefill budget 1: {e['ms']:.1f} ms, pauses "
+          f"{est['prefill_pauses']} [{card}]")
+    if est["prefill_pauses"] < 1 or e["outs"] != [solos[short], solos[long_]]:
+        raise AssertionError("the budgeted prefill did not pause, or its tokens differ")
+    counts["slo"] = _counts(M.K, M.SK)
+    print(f"  launches {counts['slo']}")
+    del base["params"], params, e
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_engine_recurrent(torch, M, card, arch):
@@ -4509,8 +4727,11 @@ def main():
              for arch in ("llama3.2-1b", "recurrentgemma-9b", "falcon-mamba-7b", GRANITE,
                           *FRONTEND_ARCHS)}
     engines = phase("engines llama3.2-1b (fused, blocking)", phase_engine, torch, M, card)
+    paged = phase("paged engines llama3.2-1b", phase_paged, torch, M, card,
+                  engines.pop("paged_inputs"))
     serve_paths = {"engine llama3.2-1b": engines["engine"],
                    "blocking llama3.2-1b": engines["blocking"],
+                   "paged llama3.2-1b": paged["paged"], "slo llama3.2-1b": paged["slo"],
                    **{f"engine {arch}": phase(f"engine {arch}", phase_engine_recurrent, torch,
                                               M, card, arch)
                       for arch in ("recurrentgemma-9b", "falcon-mamba-7b")},

@@ -8,6 +8,9 @@ batching, on the card.
       --engine [--blocking] --requests 8 --batch 4 --prompt-len 64 --gen 16 \
       [--segment 8] [--prefill-chunk 64] [--shared-prefix 16] \
       [--host-kv-chunks 4] [--trace-out t.json] [--metrics-out m.prom]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --engine --paged [--page-size 16] [--n-pages 0] [--spill-pages 64] \
+      [--kv-store kv.npz] [--sched slo|fifo] [--prefill-budget 2] ...
 
 The same flags as the JAX package's serve CLI.  Weights and prompts are
 random, from ``--seed``; an audio model's prompt is ``--prompt-len`` frame
@@ -31,9 +34,22 @@ steps a dispatch), or with ``--blocking`` the stop-the-world baseline
 (``BlockingServeEngine``), and prints the dispatch times (steady p50,
 refill-active p95).  ``--trace-out`` / ``--metrics-out`` write the
 engine's telemetry (a Chrome trace with the ``request.*`` events;
-Prometheus text).  The paged pool, the SLO scheduler, the KV store,
-meshes, replicas, the router and its faults (``--paged``, ``--sched``,
-``--spill-pages``, ``--kv-store``, ``--mesh``, ``--replicas``,
+Prometheus text).
+
+``--paged`` serves through the slot-shared paged pool with radix prefix
+reuse (``runtime/paged.PagedServeEngine``): ``--page-size`` tokens a
+page, ``--n-pages`` physical pages (0: the dense engine's capacity),
+``--shared-prefix`` for radix hits; the run prints prefix hits and page
+occupancy.  ``--spill-pages N`` adds the host spill tier, and
+``--kv-store PATH`` restores the prefix cache from PATH at start when the
+file exists and saves it after the run (with no ``--spill-pages``, a tier
+of 4 x ``--n-pages`` pages, or 64).  ``--sched slo`` (with ``--paged``)
+serves through ``SLOPagedServeEngine``: the prompts no longer than the
+median are the priority-0 interactive tier, arriving one a step, the
+others best-effort; ``--prefill-budget N`` pauses a prefill after N
+chunks while others decode; ``--sched fifo`` is the arrival-order
+baseline.  The host-streamed pool (``--paged --host-kv-chunks``), meshes,
+replicas, the router and its faults (``--mesh``, ``--replicas``,
 ``--router``, ``--fault-plan``, ``--retry``, ``--dispatch-timeout``,
 ``--shared-kv-store``) are not yet ported: the CLI exits 2.
 """
@@ -41,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from typing import Any, Dict, Optional
@@ -52,12 +69,12 @@ from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.models import serve as SV
 from repro_torch.models import transformer as T
 from repro_torch.runtime import decode_loop as DL
+from repro_torch.runtime import paged as PG
 from repro_torch.runtime import telemetry as TM
 
 # engine flags of the JAX CLI that this port does not serve yet, with
 # their defaults: set to anything else, the CLI exits 2
-UNPORTED = {"paged": False, "sched": "", "spill_pages": 0, "kv_store": "", "mesh": "",
-            "replicas": 1, "router": "affine", "fault_plan": "", "retry": 1,
+UNPORTED = {"mesh": "", "replicas": 1, "router": "affine", "fault_plan": "", "retry": 1,
             "dispatch_timeout": 0.0, "shared_kv_store": ""}
 
 
@@ -178,29 +195,92 @@ def dispatch_summary(steps) -> Optional[Dict[str, float]]:
             "refill_dispatches": len(refill), "dispatches": len(steps)}
 
 
-def run_engine(cfg: ModelConfig, params, prompts, *, slots: int, bucket: int, gen: int,
-               blocking: bool = False, segment: int = 8, prefill_chunk: int = 0,
-               n_host_chunks: int = 0, sampling: DL.SamplingConfig = DL.GREEDY,
-               stop_tokens=(), generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """Serve ``prompts`` through ``ServeEngine`` (or with ``blocking`` the
-    ``BlockingServeEngine``), timed on the host clock around a run that
-    ends in a device synchronise.  Returns {"outs", "engine", "name",
-    "ms", "summary" (``dispatch_summary``)}."""
+def engine_name(engine) -> str:
+    """The engine's label in the CLI's prints, as the JAX CLI's."""
+    if isinstance(engine, PG.SLOPagedServeEngine):
+        return (f"SLO scheduler (policy={engine.policy}, page_size={engine.page_size}, "
+                f"prefill_budget={engine.prefill_budget})")
+    if isinstance(engine, PG.PagedServeEngine):
+        spill = engine.kv.spill
+        return (f"paged pool (page_size={engine.page_size}, n_pages={engine.n_pages}, "
+                f"prefill_chunk={engine.cp}"
+                + (f", spill_pages={spill.n_spill}" if spill is not None else "") + ")")
+    if isinstance(engine, DL.BlockingServeEngine):
+        return "blocking baseline"
+    return f"fused scheduler (prefill_chunk={engine.cp})"
+
+
+def make_engine(cfg: ModelConfig, params, *, slots: int, bucket: int, gen: int,
+                blocking: bool = False, segment: int = 8, prefill_chunk: int = 0,
+                n_host_chunks: int = 0, sampling: DL.SamplingConfig = DL.GREEDY,
+                stop_tokens=(), paged: Optional[Dict[str, Any]] = None):
+    """``ServeEngine``, with ``blocking`` the ``BlockingServeEngine``, or
+    with ``paged`` (``PagedServeEngine``'s keywords: ``page_size``,
+    ``n_pages``, ``radix``, ``spill_pages``; with ``policy`` and
+    ``prefill_budget`` too the ``SLOPagedServeEngine``) a paged one."""
     kw = dict(slots=slots, bucket=bucket, max_new_tokens=gen, segment=segment,
               n_host_chunks=n_host_chunks, sampling=sampling, stop_tokens=stop_tokens)
+    if paged is not None:
+        cls = PG.SLOPagedServeEngine if "policy" in paged else PG.PagedServeEngine
+        return cls(cfg, params, prefill_chunk=prefill_chunk, **paged, **kw)
     if blocking:
-        engine, name = DL.BlockingServeEngine(cfg, params, **kw), "blocking baseline"
-    else:
-        engine = DL.ServeEngine(cfg, params, prefill_chunk=prefill_chunk, **kw)
-        name = f"fused scheduler (prefill_chunk={engine.cp})"
+        return DL.BlockingServeEngine(cfg, params, **kw)
+    return DL.ServeEngine(cfg, params, prefill_chunk=prefill_chunk, **kw)
+
+
+def run_engine(cfg: ModelConfig, params, prompts, *, engine=None,
+               generator: Optional[torch.Generator] = None, **kw) -> Dict[str, Any]:
+    """Serve ``prompts`` (token lists or ``Request``s) through ``engine``,
+    or a new one from ``make_engine(cfg, params, **kw)``, timed on the host
+    clock around a run that ends in a device synchronise.  Returns
+    {"outs", "engine", "name", "ms", "summary" (``dispatch_summary``)}."""
+    engine = make_engine(cfg, params, **kw) if engine is None else engine
     device = engine.device
     _sync(device)
     t0 = time.perf_counter()
     outs = engine.generate(prompts, generator=generator)
     _sync(device)
-    return {"outs": outs, "engine": engine, "name": name,
+    return {"outs": outs, "engine": engine, "name": engine_name(engine),
             "ms": (time.perf_counter() - t0) * 1e3,
             "summary": dispatch_summary(engine.last_stats["steps"])}
+
+
+def slo_requests(prompts, lens):
+    """The JAX CLI's QoS tiers for ``--sched``: the prompts no longer than
+    the median are priority 0 (interactive, an ITL deadline of 8 steps),
+    the rest priority 1 (batch); request i arrives at step i."""
+    med = int(np.median(lens))
+    return [DL.Request(tokens=tuple(p), arrival=i, priority=0 if lens[i] <= med else 1,
+                       itl_slo=8.0 if lens[i] <= med else float("inf"),
+                       tier="interactive" if lens[i] <= med else "batch")
+            for i, p in enumerate(prompts)]
+
+
+def _paged_report(args, engine):
+    """The paged pool's, the spill tier's and the scheduler's figures after a
+    run, as the JAX CLI prints them."""
+    st = engine.last_stats
+    hit = st["prefix_hit_tokens"] / max(st["prompt_tokens"], 1)
+    print(f"  paged pool: prefix hits {st['prefix_hit_tokens']}/{st['prompt_tokens']} prompt "
+          f"tokens ({hit:.0%}), {st['prefilled_tokens']} prefilled, {st['cow_copies']} COW "
+          f"copies, peak occupancy {st['pages_peak']}/{engine.n_pages} pages "
+          f"({st['radix_pages']} retained in the radix tree)")
+    if st.get("spill_pages"):
+        print(f"  spill tier: {st['spilled_pages']}/{st['spill_pages']} host pages held, "
+              f"{st['spill_promotes']} promoted back on-device this run")
+    if args.sched:
+        pre = [r for r in st["requests"] if r["preemptions"]]
+        print(f"  scheduler [{st['policy']}]: {st['preemptions']} preemptions "
+              f"({len(pre)} requests), {st['prefill_pauses']} prefill pauses, "
+              f"{st['deferrals']} deferrals")
+        if args.trace_out:  # a line a request, from the trace alone
+            summ = engine.telemetry.request_summaries()
+            for r in sorted(summ):
+                s = summ[r]
+                print(f"  req {r}: ttft {s['ttft']} steps, itl p50/p95 {s['itl_p50']}/"
+                      f"{s['itl_p95']}, queue wait {s['queue_wait']}, {s['n_emitted']} "
+                      f"tokens, {s['preemptions']} preemptions, {s['prefix_hit_tokens']} "
+                      f"prefix-hit")
 
 
 def _export_telemetry(args, telemetries):
@@ -215,16 +295,30 @@ def _export_telemetry(args, telemetries):
 
 
 def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torch.Generator):
-    """--engine: the twin of the JAX CLI's non-mesh, non-paged engine run."""
+    """--engine: the twin of the JAX CLI's non-mesh engine run."""
     name = device_name(device)
     prompts, lens = engine_prompts(cfg, args.requests, args.prompt_len, args.shared_prefix,
                                    args.seed)
-    run = run_engine(cfg, params, prompts, slots=args.batch,
-                     bucket=args.prompt_len + args.shared_prefix, gen=args.gen,
-                     blocking=args.blocking, segment=args.segment,
-                     prefill_chunk=args.prefill_chunk, n_host_chunks=args.host_kv_chunks,
-                     sampling=DL.SamplingConfig(temperature=args.temperature, top_k=args.top_k),
-                     generator=gen)
+    paged = None
+    if args.paged:
+        spill = args.spill_pages
+        if args.kv_store and not spill:
+            spill = 4 * args.n_pages if args.n_pages else 64  # the restore's target
+        paged = dict(page_size=args.page_size, n_pages=args.n_pages, spill_pages=spill)
+        if args.sched:
+            paged.update(policy=args.sched, prefill_budget=args.prefill_budget)
+            prompts = slo_requests(prompts, lens)
+    engine = make_engine(cfg, params, slots=args.batch,
+                         bucket=args.prompt_len + args.shared_prefix, gen=args.gen,
+                         blocking=args.blocking, segment=args.segment,
+                         prefill_chunk=args.prefill_chunk, n_host_chunks=args.host_kv_chunks,
+                         sampling=DL.SamplingConfig(temperature=args.temperature,
+                                                    top_k=args.top_k),
+                         paged=paged)
+    if args.kv_store and os.path.exists(args.kv_store):
+        n = engine.restore_kv_store(args.kv_store)
+        print(f"[kv-store] restored {n} prefix pages from {args.kv_store}")
+    run = run_engine(cfg, params, prompts, engine=engine, generator=gen)
     total = sum(len(o) for o in run["outs"])
     dt = run["ms"] / 1e3
     shared = f" +{args.shared_prefix} shared" if args.shared_prefix else ""
@@ -236,7 +330,12 @@ def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torc
         print(f"  dispatch wall-clock: steady p50 {sm['steady_p50_ms']:.2f} ms, refill-active "
               f"p95 {sm['refill_p95_ms']:.2f} ms ({sm['refill_dispatches']}/"
               f"{sm['dispatches']} dispatches overlapped a refill) on {name}")
-    _export_telemetry(args, run["engine"].telemetry)
+    if args.paged:
+        _paged_report(args, engine)
+        if args.kv_store:
+            n = engine.save_kv_store(args.kv_store)
+            print(f"[kv-store] saved {n} prefix pages to {args.kv_store}")
+    _export_telemetry(args, engine.telemetry)
     return run
 
 
@@ -275,11 +374,26 @@ def main(argv=None):
                          "trace-event JSON")
     ap.add_argument("--metrics-out", default="",
                     help="with --engine: write the metrics registry as Prometheus text")
-    # the JAX CLI's paged, mesh and router flags: parsed, not yet ported
-    ap.add_argument("--paged", action="store_true", help="not yet ported")
-    ap.add_argument("--spill-pages", type=int, default=0, help="not yet ported")
-    ap.add_argument("--kv-store", default="", help="not yet ported")
-    ap.add_argument("--sched", default="", choices=["", "fifo", "slo"], help="not yet ported")
+    ap.add_argument("--paged", action="store_true",
+                    help="with --engine: the slot-shared paged KV pool with radix prefix "
+                         "reuse (PagedServeEngine)")
+    ap.add_argument("--page-size", type=int, default=16, help="with --paged: tokens a page")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="with --paged: physical pages in the pool (0 = the dense "
+                         "engine's capacity)")
+    ap.add_argument("--spill-pages", type=int, default=0,
+                    help="with --paged: host spill tier pages (evicted radix pages demote "
+                         "there instead of being dropped; 0 = no tier)")
+    ap.add_argument("--kv-store", default="",
+                    help="with --paged: the prefix cache's file, restored at start when it "
+                         "exists and saved after the run (implies a spill tier)")
+    ap.add_argument("--sched", default="", choices=["", "fifo", "slo"],
+                    help="with --paged: SLO-aware admission (SLOPagedServeEngine); 'slo' "
+                         "preempts less urgent slots, 'fifo' is the arrival-order baseline")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="with --sched slo: prefill chunks a request may take before it "
+                         "pauses while others decode (0 = unbounded)")
+    # the JAX CLI's mesh and router flags: parsed, not yet ported
     ap.add_argument("--mesh", default="", help="not yet ported")
     ap.add_argument("--replicas", type=int, default=1, help="not yet ported")
     ap.add_argument("--router", default="affine", choices=["affine", "rr"],
@@ -295,8 +409,15 @@ def main(argv=None):
     unported = sorted("--" + k.replace("_", "-") for k, v in UNPORTED.items()
                       if getattr(args, k) != v)
     if unported:
-        ap.exit(2, f"{', '.join(unported)}: the paged pool, the SLO scheduler, the KV store, "
-                   "meshes and replicas are not yet ported\n")
+        ap.exit(2, f"{', '.join(unported)}: meshes, replicas, the router and its faults "
+                   "are not yet ported\n")
+    if args.paged and args.host_kv_chunks:
+        ap.exit(2, "--paged --host-kv-chunks: the host-streamed page pool is not yet ported "
+                   "(ROADMAP Queue A item 2, with serving over a mesh)\n")
+    if args.paged and not args.engine:
+        ap.error("--paged requires --engine")
+    if args.sched and not args.paged:
+        ap.error("--sched requires --paged (preemption spills KV pages)")
     if (args.trace_out or args.metrics_out) and not args.engine:
         ap.error("--trace-out/--metrics-out export engine telemetry; they require --engine")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:

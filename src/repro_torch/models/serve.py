@@ -58,7 +58,23 @@ written into the device copy of the slab that holds them as it passes
 and copied back into the pinned rows on the copy stream, before any later
 fetch.  On the CPU the offload is the identity but the slab loop, the
 live skip and the write-back still run.  ``host_kv`` counts the slabs.
-The paged pool is not yet ported.
+
+Paged layout (``init_paged_cache`` and ``table=...`` on ``decode_step``
+and ``chunk_step``; ``runtime/paged.py`` owns the tables): the
+full-attention blocks swap their per-slot ``[b, S]`` rows for one
+slot-shared pool ``pk``/``pv`` ``[C, n_pages + 1, page_size, hkv, dh]``
+(+ ``pkpos [C, n_pages + 1, page_size]``) read through a per-slot page
+table ``[b, max_pages]`` (``-1``: unmapped, masked out of attention).
+The last physical page is the trash page: a FREE slot's row points every
+logical page at it.  Attention gathers the mapped range in one index per
+leaf, as the JAX package's on-device branch does; a chunk's history
+reads the pool before the window is written.  JAX drops dead and
+unmapped writes (``mode="drop"``, an out-of-bounds index); here they go
+to the trash page, which only FREE or paused rows map and whose outputs
+are thrown away, so an index never leaves the pool and no mask is read
+on the host; two live writes never share a page (copy-on-write).  The
+local_attn rings and the recurrent states stay dense per slot.  The
+host-streamed pool (``n_host_chunks`` with a table) is not ported.
 """
 from __future__ import annotations
 
@@ -76,6 +92,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 from repro_torch.runtime import placement as PL
+from repro_torch.tree import tree_leaves_with_path
 
 Params = Dict[str, Any]
 
@@ -124,6 +141,63 @@ def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda") -> Params:
     if tail:
         cache["tail"] = [_block_cache(cfg, kind, b, max_len, dtype, device) for kind in tail]
     return cache
+
+
+def _paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype, device, lead=()):
+    """Slot-shared page pool of one attention layer: ``n_pages + 1``
+    physical pages, the last one the trash page; ``pkpos = -1`` marks
+    unfilled entries, as the dense ``kpos`` does."""
+    shape = (*lead, n_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"pk": torch.zeros(shape, dtype=dtype, device=device),
+            "pv": torch.zeros(shape, dtype=dtype, device=device),
+            "pkpos": torch.full(shape[:-2], -1, dtype=torch.int32, device=device)}
+
+
+def init_paged_cache(cfg: ModelConfig, b: int, n_pages: int, page_size: int,
+                     device="cuda") -> Params:
+    """Paged twin of ``init_cache``: the full-attention blocks share one
+    page pool across the ``b`` slots (bytes scale with the pages mapped,
+    not ``slots x worst-case length``); the local_attn rings and the
+    recurrent states keep their per-slot layouts, a ring bounded by the
+    pool's token capacity."""
+    dtype = getattr(torch, cfg.param_dtype)
+    pat, n_cycles, tail = T.layout_of(cfg)
+    cap = n_pages * page_size
+
+    def make(kind, lead):
+        if kind == "attn":
+            return _paged_attn_cache(cfg, n_pages, page_size, dtype, device, lead)
+        return _block_cache(cfg, kind, b, cap, dtype, device, lead)
+
+    cache = {f"pos{i}": make(kind, (n_cycles,)) for i, kind in enumerate(pat)}
+    if tail:
+        cache["tail"] = [make(kind, ()) for kind in tail]
+    return cache
+
+
+def pool_leaves(cache: Params):
+    """(key, leaf, stacked) of every page-pool leaf (``pk``, ``pv``,
+    ``pkpos``) in the JAX package's leaf order.  ``key`` is the JAX
+    ``pool_leaf_key`` (``pos0/pk``, ``tail/0/pkpos``): the spill tier's and
+    the ``.npz`` store's names.  A stacked leaf's page dim is 1, a tail
+    leaf's 0."""
+    for path, leaf in tree_leaves_with_path(cache):
+        if path[-1] in ("pk", "pv", "pkpos"):
+            yield "/".join(path), leaf, path[0] != "tail"
+
+
+def page_of(leaf: torch.Tensor, stacked: bool, pid):
+    """Physical page ``pid`` of a pool leaf (a view)."""
+    return leaf[:, pid] if stacked else leaf[pid]
+
+
+def page_rows(cache: Params, pid: int) -> Dict[str, torch.Tensor]:
+    """One physical page's payload as CPU tensors keyed by pool leaf
+    (``[C, ps, hkv, dh]`` / ``[C, ps]``, tail leaves without ``C``): the
+    spill tier's demotion read and the store's.  A device-to-host copy,
+    so it waits for the work queued on the pool."""
+    return {key: page_of(leaf, stacked, int(pid)).to("cpu", copy=True)
+            for key, leaf, stacked in pool_leaves(cache)}
 
 
 def _full_attn_blocks(cfg: ModelConfig, cache: Params):
@@ -314,6 +388,66 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
     return o @ p["wo"]
 
 
+def _paged_write_ids(table: torch.Tensor, pos: torch.Tensor, page_size: int, trash: int,
+                     live: Optional[torch.Tensor] = None):
+    """(physical page, in-page offset) of writes at positions ``pos`` ([b]
+    or [b, w]) through the page table [b, max_pages].  An unmapped entry
+    (-1), and a dead column where ``live`` [b, w] is false, go to the
+    ``trash`` page, where JAX's ``mode="drop"`` scatter drops them: live
+    positions are always mapped (the manager reserves a slot's pages at
+    admission), so no live page takes a dead write."""
+    b, max_pages = table.shape
+    j = torch.clamp(torch.div(pos, page_size, rounding_mode="floor"), max=max_pages - 1)
+    pid = torch.gather(table, 1, j.reshape(b, -1)).reshape(pos.shape)
+    dead = pid < 0 if live is None else (pid < 0) | ~live
+    return torch.where(dead, trash, pid), pos % page_size
+
+
+def _paged_gather(cache: Params, table: torch.Tensor):
+    """The mapped range of every row, one index per leaf: k and v [b,
+    max_pages * ps, hkv, dh], their positions and the mapped mask [b,
+    max_pages * ps] (an unmapped entry reads page 0, masked out here)."""
+    b, max_pages = table.shape
+    ps = cache["pkpos"].shape[1]
+    safe = torch.clamp(table, min=0)
+
+    def take(leaf):
+        return leaf[safe].reshape(b, max_pages * ps, *leaf.shape[2:])
+
+    mapped = (table >= 0)[:, :, None].expand(b, max_pages, ps).reshape(b, max_pages * ps)
+    return take(cache["pk"]), take(cache["pv"]), take(cache["pkpos"]), mapped
+
+
+def _paged_write(cache: Params, pid: torch.Tensor, off: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, pos: torch.Tensor):
+    cache["pk"][pid, off] = k.to(cache["pk"].dtype)
+    cache["pv"][pid, off] = v.to(cache["pv"].dtype)
+    cache["pkpos"][pid, off] = pos.to(torch.int32)
+
+
+def _decode_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
+                            pos: torch.Tensor, table: torch.Tensor):
+    """Paged twin of ``_decode_attention``: the token's K/V go into its
+    page (the trash page for a row whose position is unmapped), then it
+    attends to its row's gathered pages.  x [b, 1, d]; pos int64 [b];
+    table [b, max_pages].  Returns attn_out [b, 1, d]."""
+    b = x.shape[0]
+    q, k, v = L.qkv_proj(cfg, p, x)  # [b, 1, h, dh]
+    q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+    n_phys, ps = cache["pkpos"].shape
+    pid, off = _paged_write_ids(table, pos, ps, n_phys - 1)
+    _paged_write(cache, pid, off, k[:, 0], v[:, 0], pos)
+    kall, vall, kpall, mapped = _paged_gather(cache, table)
+    g = cfg.num_heads // cfg.num_kv_heads
+    qf = q[:, 0].float()  # [b, hq, dh]
+    s = torch.einsum("bhd,bshd->bhs", qf, _expand(kall, g)) * cfg.head_dim ** -0.5
+    ok = mapped & (kpall >= 0) & (kpall <= pos[:, None])
+    st = _masked_state(s, ok[:, None, :], _expand(vall, g), "bhs,bshd->bhd")
+    o = finalize(st).reshape(b, 1, cfg.q_dim).to(x.dtype)
+    return o @ p["wo"]
+
+
 def _keep_state(cache: Params, state: Params):
     """Copy a recurrent mixer's new state into its cache tensors in place."""
     for k, v in state.items():
@@ -329,7 +463,7 @@ def _ffn(cfg, p, h):
     return h + L.mlp_block(cfg, p["mlp"], hn2)
 
 
-def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None):
+def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None, table=None):
     if kind == "ssm":
         y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache)
         _keep_state(cache, st)
@@ -339,6 +473,8 @@ def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None
         y, st = R.rglru_decode_step(cfg, p["mixer"], hn, cache)
         _keep_state(cache, st)
         h = h + y
+    elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
+        h = h + _decode_attention_paged(cfg, p["attn"], hn, cache, pos, table)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window,
@@ -351,10 +487,17 @@ def _positions(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int64, device=device).expand(b)
 
 
+def _check_table(table, n_host_chunks: int):
+    if table is not None and n_host_chunks:
+        raise ValueError("the host-streamed page pool (a page table with n_host_chunks > 0) "
+                         "is not ported; ROADMAP Queue A item 2 keeps it with serving over "
+                         "a mesh")
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                 cache: Params, inp: Dict[str, torch.Tensor], pos, n_host_chunks: int = 0,
-                bounds=None):
+                bounds=None, table: Optional[torch.Tensor] = None):
     """One decode step: advance every sequence in the batch by one token.
 
     Contract:
@@ -377,8 +520,12 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
       bounds — with n_host_chunks: per row (lo, hi), host ints, the span
                its ``pos`` lies in; slabs past every hi are skipped and
                each row's span is written back.  None: every position.
+      table  — optional integer [b, max_pages] page table on the cache's
+               device: the attention blocks read and write the paged pool
+               (``init_paged_cache``) through it.
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
+    _check_table(table, n_host_chunks)
     if cfg.frontend == "audio_frames":
         h = inp["frame_embeds"]
         pos = _positions(pos, h.shape[0], h.device)
@@ -393,10 +540,10 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _decode_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], pos,
-                              n_host_chunks, bounds)
+                              n_host_chunks, bounds, table)
     for i, kind in enumerate(tail):
         h = _decode_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], pos,
-                          n_host_chunks, bounds)
+                          n_host_chunks, bounds, table)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = (h[:, 0] @ T.head_matrix(cfg, params)).float()
     return logits, cache
@@ -441,16 +588,6 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
             ok = ok & (kp[:, None, :] > (qpos[:, :, None] - window))
         return _masked_state(s_, ok[:, None], _expand(vc, g), "bhqs,bshd->bhqd")
 
-    def attend_intra():
-        """The window against its own live, causal keys: not in the cache
-        yet, so the pre-write pass counts nothing twice and a ring's
-        eviction cannot clobber history an earlier window token needs."""
-        s_ = torch.einsum("bhqd,bkhd->bhqk", qt, _expand(k, g)) * scale
-        ok = key_live[:, None, :] & (qpos[:, None, :] <= qpos[:, :, None])
-        if window:
-            ok = ok & (qpos[:, None, :] > (qpos[:, :, None] - window))
-        return _masked_state(s_, ok[:, None], _expand(v, g), "bhqk,bkhd->bhqd")
-
     # the live window's slots: ring buffers drop all but the last S live
     # tokens; full attention drops positions past its capacity
     if window:
@@ -468,12 +605,53 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
         _write_rows(cache["k"], 0, slot, k, wmask)
         _write_rows(cache["v"], 0, slot, v, wmask)
     _write_rows(cache["kpos"], 0, slot, qpos.to(torch.int32), wmask)
-    o = finalize(merge(hist, attend_intra()))  # [b, hq, cp, dh]
+    o = finalize(merge(hist, _intra_state(cfg, qt, k, v, qpos, key_live, window)))
     o = o.transpose(1, 2).reshape(b, cp, cfg.q_dim).to(x.dtype)
     return o @ p["wo"]
 
 
-def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bounds=None):
+def _intra_state(cfg: ModelConfig, qt, k, v, qpos, key_live, window: int = 0) -> SoftmaxState:
+    """Partial state [b, hq, cp, dh] of the window queries qt against the
+    window's own live, causal keys: not in the cache yet, so the pre-write
+    pass counts nothing twice and a ring's eviction cannot clobber history
+    an earlier window token needs."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    s_ = torch.einsum("bhqd,bkhd->bhqk", qt, _expand(k, g)) * cfg.head_dim ** -0.5
+    ok = key_live[:, None, :] & (qpos[:, None, :] <= qpos[:, :, None])
+    if window:
+        ok = ok & (qpos[:, None, :] > (qpos[:, :, None] - window))
+    return _masked_state(s_, ok[:, None], _expand(v, g), "bhqk,bkhd->bhqd")
+
+
+def _chunk_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
+                           qpos: torch.Tensor, live: torch.Tensor, table: torch.Tensor):
+    """Paged twin of ``_chunk_attention``: the window against its rows'
+    gathered pages of the PRE-write pool, merged with the window against
+    its own live keys; then the live keys go into their pages and the dead
+    columns to the trash page.  Pages a row shares (radix prefixes) are
+    only read: the manager gives every written page one owner.  Returns
+    attn out [b, cp, d]; the pool is updated in place."""
+    b, cp, _ = x.shape
+    q, k, v = L.qkv_proj(cfg, p, x)  # [b, cp, h, dh]
+    q = L.apply_rope(q, qpos, cfg.rope_theta)
+    k = L.apply_rope(k, qpos, cfg.rope_theta)
+    g = cfg.num_heads // cfg.num_kv_heads
+    qt = q.float().transpose(1, 2)  # [b, hq, cp, dh]
+    key_live = torch.arange(cp, device=x.device)[None, :] < live[:, None]  # [b, cp]
+    kall, vall, kpall, mapped = _paged_gather(cache, table)
+    s_ = torch.einsum("bhqd,bshd->bhqs", qt, _expand(kall, g)) * cfg.head_dim ** -0.5
+    ok = (mapped & (kpall >= 0))[:, None, :] & (kpall[:, None, :] <= qpos[:, :, None])
+    hist = _masked_state(s_, ok[:, None], _expand(vall, g), "bhqs,bshd->bhqd")
+    n_phys, ps = cache["pkpos"].shape
+    pid, off = _paged_write_ids(table, qpos, ps, n_phys - 1, key_live)
+    _paged_write(cache, pid, off, k, v, qpos)
+    o = finalize(merge(hist, _intra_state(cfg, qt, k, v, qpos, key_live)))
+    o = o.transpose(1, 2).reshape(b, cp, cfg.q_dim).to(x.dtype)
+    return o @ p["wo"]
+
+
+def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bounds=None,
+                 table=None):
     if kind == "ssm":
         y, st = M.mamba_chunk_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache,
                                    live)
@@ -484,6 +662,8 @@ def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bound
         y, st = R.rglru_chunk_step(cfg, p["mixer"], hn, cache, live)
         _keep_state(cache, st)
         h = h + y
+    elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
+        h = h + _chunk_attention_paged(cfg, p["attn"], hn, cache, qpos, live, table)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _chunk_attention(cfg, par, p["attn"], hn, cache, qpos, live, window=window,
@@ -494,7 +674,7 @@ def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bound
 @torch.no_grad()
 def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                cache: Params, toks: torch.Tensor, offset, live, n_host_chunks: int = 0,
-               bounds=None):
+               bounds=None, table: Optional[torch.Tensor] = None):
     """One fused mixed step: every batch row processes a ``cp``-token window.
 
     Contract (the JAX package's):
@@ -511,6 +691,7 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
       n_host_chunks, bounds — host-streamed KV, as ``decode_step``'s;
                ``bounds`` per row the span of positions its live window
                covers.
+      table  — optional page table for the paged pool, as ``decode_step``'s.
 
     Recurrent blocks (ssm, rglru, the local_attn ring) take the
     state-at-length gather (``mamba.mamba_chunk_step`` /
@@ -520,6 +701,7 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
     if cfg.frontend == "audio_frames":
         raise ValueError("chunk_step feeds token ids; the audio_frames "
                          "frontend consumes frame embeddings")
+    _check_table(table, n_host_chunks)
     b, cp = toks.shape
     device = toks.device
     offset = _positions(offset, b, device)
@@ -532,10 +714,10 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _chunk_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], qpos,
-                             live, n_host_chunks, bounds)
+                             live, n_host_chunks, bounds, table)
     for i, kind in enumerate(tail):
         h = _chunk_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], qpos, live,
-                         n_host_chunks, bounds)
+                         n_host_chunks, bounds, table)
     h = L.apply_norm(cfg, params["final_norm"], h)
     last = h[torch.arange(b, device=device), torch.clamp(live - 1, 0, cp - 1)]
     logits = (last @ T.head_matrix(cfg, params)).float()

@@ -18,6 +18,12 @@
 * ``BlockingServeEngine`` — the stop-the-world baseline: a batched
   prefill (FPDT), ``decode_tokens`` segments, and a synchronous refill
   prefill of one row written in by ``insert_slot``.
+* ``Request`` — a prompt and its QoS contract (priority, arrival, ITL
+  deadline, prefill budget), which every engine's ``generate`` takes
+  beside raw token lists; only ``runtime/paged.SLOPagedServeEngine``
+  reads the QoS fields.  ``runtime/paged.PagedServeEngine`` swaps the
+  dense cache for the paged pool through ``ServeEngine``'s hooks, its page
+  ``table`` riding ``mixed_segment`` into both step bodies.
 
 The JAX engines count their XLA compilations (``per_engine``,
 ``compiled_programs()``); eager PyTorch compiles nothing, so those are
@@ -35,7 +41,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +80,44 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         logits = torch.where(logits < kth, torch.full_like(logits, -torch.inf), logits)
     probs = torch.softmax(logits / sc.temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One queued generation request and its QoS contract (the JAX
+    package's).  Every engine's ``generate`` takes these or raw token
+    sequences (``as_request``); the fields past ``tokens`` matter only to
+    ``runtime/paged.py::SLOPagedServeEngine``:
+
+      priority       — admission class, LOWER is more urgent (0: the
+                       interactive tier); a waiting request may preempt a
+                       strictly less urgent one;
+      arrival        — the dispatch step at which the scheduler first sees
+                       the request (0: already queued);
+      itl_slo        — inter-token-latency deadline in dispatch steps, the
+                       tie-break within a priority (``inf``: none);
+      prefill_chunks — prefill chunks a burst may take before the
+                       scheduler pauses the prefill for a segment (0: the
+                       engine's ``prefill_budget``);
+      tier           — a label carried into the per-request records;
+      session        — routing affinity for a replica router; engines
+                       ignore it."""
+
+    tokens: Tuple[int, ...]
+    priority: int = 1
+    arrival: int = 0
+    itl_slo: float = math.inf
+    prefill_chunks: int = 0
+    tier: str = ""
+    session: Optional[str] = None
+
+
+def as_request(r: Union[Request, Sequence[int]]) -> Request:
+    """A raw prompt (token sequence) as a default ``Request``; a ``Request``
+    as it is."""
+    if isinstance(r, Request):
+        return r
+    return Request(tokens=tuple(int(t) for t in r))
 
 
 def _host_positions(pos, b: int) -> Optional[List[int]]:
@@ -265,7 +310,8 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
                   generator: Optional[torch.Generator], rem: torch.Tensor, pfill: torch.Tensor,
                   pend: torch.Tensor, plen: torch.Tensor, *, schedule, prefill_chunk: int,
                   n_host_chunks: int = 0, sampling: SamplingConfig = GREEDY,
-                  stop: Optional[torch.Tensor] = None, pad_id: int = 0):
+                  stop: Optional[torch.Tensor] = None, pad_id: int = 0,
+                  table: Optional[torch.Tensor] = None):
     """Run ``len(schedule)`` fused mixed steps (the JAX package's one
     ``lax.scan``; here a loop that reads nothing on the host).
 
@@ -286,7 +332,9 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
     by ``schedule`` (``segment_schedule``: the host's view of the same
     state, which also gives host-streamed KV its spans).  State tensors
     (mode, tok [b, 1], pos, rem, pfill int32; the staged prompts pend [b,
-    P] and plen) live on the cache's device.  Returns ``(emit [b, steps],
+    P] and plen; the paged pool's page ``table`` [b, max_pages], which
+    both step bodies read and write K/V through) live on the cache's
+    device.  Returns ``(emit [b, steps],
     valid [b, steps], aux)`` with ``aux`` the final state {cache, mode,
     tok, pos, rem, pfill}."""
     b = tok.shape[0]
@@ -307,10 +355,12 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
             idx = torch.clamp(off[:, None].long() + cols, 0, P - 1)
             toks = torch.where(is_pf[:, None], torch.gather(pend, 1, idx), tok)
             logits, cache = SV.chunk_step(cfg, par, params, cache, toks, off, live,
-                                          n_host_chunks=n_host_chunks, bounds=spans)
+                                          n_host_chunks=n_host_chunks, bounds=spans,
+                                          table=table)
         else:
             logits, cache = SV.decode_step(cfg, par, params, cache, {"tokens": tok}, pos,
-                                           n_host_chunks=n_host_chunks, bounds=spans)
+                                           n_host_chunks=n_host_chunks, bounds=spans,
+                                           table=table)
         nxt = sample_token(logits[:, :V], generator, sampling)
         pfill = torch.where(is_pf, torch.minimum(pfill + cp, plen), pfill)
         fin_pf = is_pf & (pfill >= plen)  # prompt exhausted this step
@@ -329,6 +379,20 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
     aux = {"cache": cache, "mode": mode, "tok": tok, "pos": pos, "rem": rem, "pfill": pfill}
     return (torch.stack(emits, dim=1) if emits else empty,
             torch.stack(valids, dim=1) if valids else empty.bool(), aux)
+
+
+def harvest(aux, emits: torch.Tensor, valids: torch.Tensor):
+    """A segment's one device-to-host copy: its final state and outputs as
+    numpy (mode, tok [b, 1], pos, rem, pfill, emit [b, steps], valid [b,
+    steps])."""
+    B = emits.shape[0]
+    flat = torch.cat([aux["mode"], aux["tok"][:, 0], aux["pos"], aux["rem"], aux["pfill"],
+                      emits.flatten().to(torch.int32),
+                      valids.flatten().to(torch.int32)]).cpu().numpy()
+    mode, tok0, pos, rem, pfill = (flat[k * B:(k + 1) * B].copy() for k in range(5))
+    em = flat[5 * B:5 * B + emits.numel()].reshape(B, -1)
+    va = flat[5 * B + emits.numel():].reshape(B, -1).astype(bool)
+    return mode, tok0[:, None], pos, rem, pfill, em, va
 
 
 def _sync(device: torch.device):
@@ -376,11 +440,11 @@ class ServeEngine:
 
         # closes over the settings, not the engine: no reference cycle keeps
         # an engine (and its weights) alive after its last user drops it
-        def seg(cache, mode, tok, pos, gen, rem, pfill, pend, plen, schedule):
+        def seg(cache, mode, tok, pos, gen, rem, pfill, pend, plen, schedule, table=None):
             return mixed_segment(cfg, par, params, cache, mode, tok, pos, gen, rem, pfill,
                                  pend, plen, schedule=schedule, prefill_chunk=cp,
                                  n_host_chunks=n_host_chunks, sampling=sampling,
-                                 stop=stop, pad_id=pad_id)
+                                 stop=stop, pad_id=pad_id, table=table)
 
         self._segment = seg
 
@@ -423,10 +487,11 @@ class ServeEngine:
         self.last_stats["resets"] += 1
         return reset_slot(cache, s), 0
 
-    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen):
+    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None):
         """One segment: the state's integers (numpy, the host's) go to the
         device, the segment runs on it (``_segment``).  ``pend`` is the
-        device's staged prompts, ``plen`` their lengths as (device, host)."""
+        device's staged prompts, ``plen`` their lengths as (device, host);
+        ``table`` the paged pool's page table on the device."""
         plen_dev, plen_host = plen
         schedule = segment_schedule(mode, pos, pfill, plen_host, num_steps=self.segment,
                                     prefill_chunk=self.cp)
@@ -435,7 +500,15 @@ class ServeEngine:
             return torch.as_tensor(x, dtype=torch.int32, device=self.device)
 
         return self._segment(cache, up(mode), up(tok), up(pos), gen, up(rem), up(pfill),
-                             pend, plen_dev, schedule)
+                             pend, plen_dev, schedule, table)
+
+    def _stage(self, pend: torch.Tensor, plen: torch.Tensor, s: int, prompt) -> None:
+        """Stage slot ``s``'s prompt on the device at admission: its pending
+        row (pad-filled) and length."""
+        row = np.full(pend.shape[1], self.pad_id, np.int32)
+        row[:len(prompt)] = list(prompt)
+        pend[s] = torch.from_numpy(row).to(self.device)
+        plen[s] = len(prompt)
 
     def _post_dispatch(self, mode, pfill, plen, pend, owner) -> None:
         """Host-side bookkeeping after each segment."""
@@ -447,15 +520,18 @@ class ServeEngine:
         """Workload drained (every slot released)."""
 
     # -- the scheduler ---------------------------------------------------
-    def generate(self, prompts: Sequence[Sequence[int]],
+    def generate(self, prompts: Sequence[Union[Request, Sequence[int]]],
                  generator: Optional[torch.Generator] = None) -> List[List[int]]:
-        """Run every prompt to completion (stop token or ``max_new_tokens``),
-        re-using slots as sequences finish.  Returns one generated-token
-        list per prompt (stop token included when one fired), in order.
+        """Run every prompt (a token sequence or a ``Request``, whose QoS
+        fields this engine ignores) to completion (stop token or
+        ``max_new_tokens``), re-using slots as sequences finish.  Returns
+        one generated-token list per prompt (stop token included when one
+        fired), in order.
 
         Per-dispatch timing and occupancy land in ``self.last_stats``:
         ``steps`` is a list of ``{ms, prefilling, emitted}`` records (one a
         segment), with ``dispatches`` and ``resets`` counters."""
+        prompts = [list(as_request(p).tokens) for p in prompts]
         self._validate(prompts)
         queue = collections.deque(enumerate(prompts))
         out: List[List[int]] = [[] for _ in prompts]
@@ -493,10 +569,7 @@ class ServeEngine:
                     "request.admit", request=idx, slot=s,
                     step=stats["dispatches"], prompt_len=n,
                     prefix_hit=int(resume))
-                row = np.full(P, self.pad_id, np.int32)
-                row[:n] = list(prompt)
-                pend_dev[s] = torch.from_numpy(row).to(self.device)  # staged at admission
-                plen_dev[s] = n
+                self._stage(pend_dev, plen_dev, s, prompt)
                 plen[s], pfill[s], mode[s] = n, resume, PREFILL
                 rem[s], pos[s], tok[s] = self.max_new, 0, self.pad_id
             if all(o is None for o in owner):
@@ -507,14 +580,7 @@ class ServeEngine:
                 emits, valids, aux = self._dispatch(
                     cache, mode, tok, pos, generator, rem, pfill, pend_dev, (plen_dev, plen))
                 cache = aux["cache"]
-                # the harvest: the segment's one device-to-host copy
-                flat = torch.cat([aux["mode"], aux["tok"][:, 0], aux["pos"], aux["rem"],
-                                  aux["pfill"], emits.flatten().to(torch.int32),
-                                  valids.flatten().to(torch.int32)]).cpu().numpy()
-                mode, tok0, pos, rem, pfill = (flat[k * B:(k + 1) * B].copy() for k in range(5))
-                tok = tok0[:, None]
-                em = flat[5 * B:5 * B + emits.numel()].reshape(B, -1)
-                va = flat[5 * B + emits.numel():].reshape(B, -1).astype(bool)
+                mode, tok, pos, rem, pfill, em, va = harvest(aux, emits, valids)
                 td.emitted = int(va.sum())
             self._post_dispatch(mode, pfill, plen, pend_dev, owner)
             for s in range(B):
@@ -594,11 +660,13 @@ class BlockingServeEngine:
             dtype=torch.int32, device=self.device)
         return toks, torch.as_tensor(lengths, dtype=torch.int32, device=self.device)
 
-    def generate(self, prompts: Sequence[Sequence[int]],
+    def generate(self, prompts: Sequence[Union[Request, Sequence[int]]],
                  generator: Optional[torch.Generator] = None) -> List[List[int]]:
-        """Run every prompt to completion (stop token or ``max_new_tokens``),
-        re-using slots as sequences finish.  Returns one generated-token
-        list per prompt (stop token included when one fired), in order."""
+        """Run every prompt (a token sequence or a ``Request``) to completion
+        (stop token or ``max_new_tokens``), re-using slots as sequences
+        finish.  Returns one generated-token list per prompt (stop token
+        included when one fired), in order."""
+        prompts = [list(as_request(p).tokens) for p in prompts]
         queue = collections.deque(enumerate(prompts))
         out: List[List[int]] = [[] for _ in prompts]
         B, V = self.slots, self.cfg.vocab_size

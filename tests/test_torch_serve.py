@@ -175,8 +175,8 @@ def test_cli_on_cpu(capsys):
     assert len(timed) == 2 and all(ln.endswith("on cpu") for ln in timed)
 
 
-@pytest.mark.parametrize("flag", [["--engine", "--paged"], ["--engine", "--mesh", "1x2"],
-                                  ["--engine", "--sched", "slo"]])
+@pytest.mark.parametrize("flag", [["--engine", "--paged", "--host-kv-chunks", "4"],
+                                  ["--engine", "--mesh", "1x2"], ["--engine", "--replicas", "2"]])
 def test_cli_refuses_unported(capsys, flag):
     with pytest.raises(SystemExit) as ex:
         CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *flag])
