@@ -124,6 +124,28 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 SLOPagedServeEngine: a decoding priority-1 request
                 preempted by a priority-0 arrival and fifo, both the solo
                 tokens, and a prefill-budget pause, the solo tokens;
+  5d. mesh    — serving over a mesh: (a) 5c's (b) workload on a 1 x 2
+                serve mesh of two gloo ranks sharing the card (llama3.2-1b,
+                16 layers, fp32, its 8 kv heads split 4 a rank): 5c's
+                tokens, a rank's pool (n_pages + 1) x (524288 + 1024) B
+                (half of one rank's k and v, the whole pkpos), its peak
+                within 10% of the weights, the pool and a step's
+                transient, gather_heads one a layer a step at its reckoned
+                bytes, the first segment under set_sync_debug_mode("error")
+                (gloo's own staging exempt), flash_fwd launched no time,
+                the gathers' share of the run; then its prefix store saved
+                on the mesh (gather_pages at its reckoned calls and bytes)
+                and restored on one rank: 5c's tokens, every admission a
+                hit; (b) after the ranks, the replica tier in this process:
+                tests/test_faults.py's seeded crash at full depth (two 1 x 1
+                paged replicas, two rounds of four sessions, the first
+                session's home replica dying on its second dispatch, a
+                shared store): the no-fault tokens, one death, pages and
+                prefix tokens recovered through the store; (c) the serve
+                CLI, --mesh 1x2 --replicas 2 --paged --fault-plan R:raise@0
+                --shared-kv-store at 4 layers, R a replica the workload
+                routes to: every request's tokens, one death, R's requests
+                re-homed;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -210,7 +232,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 step under ulysses and 1 under cp, then recurrentgemma-9b
                 (3 layers: one rglru, rglru, local_attn cycle) and
                 falcon-mamba-7b (4 layers), 1 step each, and
-                granite-moe-1b-a400m (6 layers, ulysses), 1 step,
+                granite-moe-1b-a400m (3 layers, ulysses), 1 step,
                 through train_steps, every weight and AdamW moment a
                 ZeRO-3 shard (launch/shardings.py: the tables' d and
                 granite's experts and router stack split over model;
@@ -2617,9 +2639,366 @@ def phase_paged(torch, M, card, base):
         raise AssertionError("the budgeted prefill did not pause, or its tokens differ")
     counts["slo"] = _counts(M.K, M.SK)
     print(f"  launches {counts['slo']}")
-    del base["params"], params, e
-    torch.cuda.empty_cache()
+    del e
+    counts["mesh_inputs"] = {"cfg": cfg, "params": base.pop("params"), "prompts": shared_prompts,
+                             "lens": sorted(lens.tolist()), "tokens": ref}
     return counts
+
+
+# The serve mesh (runtime/paged.py and models/serve.py on a serve_mesh):
+# (a) phase_paged's (b) workload on 1 x MESH_RANKS gloo ranks sharing the
+# card, kv heads over model; (b) the replica tier in this process,
+# tests/test_faults.py's engines (make_engine) and two-round session
+# workload at full depth; (c) the serve CLI over MESH_CLI_REPLICAS replicas
+# of 1 x MESH_RANKS at MESH_CLI_LAYERS layers (full width, bf16), a fault
+# on a replica the workload routes to.
+MESH_RANKS = 2
+MESH_JOIN_S = 300  # the ranks' whole run, start-up included
+FAULT_ENGINE = dict(slots=2, bucket=24, max_new_tokens=4, page_size=4, segment=1,
+                    spill_pages=32)
+MESH_CLI_REPLICAS, MESH_CLI_LAYERS = 2, 4
+MESH_CLI = (8, 256, 16)  # requests, --prompt-len, --gen (over --batch 4, chunk 64)
+MESH_CLI_S = 300
+
+
+def _mesh_page_bytes(cfg, sp: int) -> int:
+    """One page on a rank of 1 x sp with the kv heads split: its heads' k
+    and v, and the whole pkpos, over every attention layer."""
+    layers = sum(k == "attn" for k in cfg.layer_kinds())
+    return layers * PAGE_SIZE * (2 * cfg.num_kv_heads // sp * cfg.head_dim * 4 + 4)
+
+
+def _mesh_peak_gib(cfg, n_pages: int, max_pages: int, sp: int) -> float:
+    """A 1 x sp rank's reckoned peak: the whole fp32 weight tree, its pool,
+    and the larger transient of a chunk step over its q heads (the gathered
+    pages' k and v expanded to them, the scores twice) or of the MLP."""
+    S, hq = max_pages * PAGE_SIZE, cfg.num_heads // sp
+    attn = 4 * ENGINE_SLOTS * S * hq * (2 * cfg.head_dim + 2 * ENGINE_CHUNK)
+    mlp = 3 * 4 * ENGINE_SLOTS * ENGINE_CHUNK * cfg.d_ff
+    return (cfg.num_params() * 4 + (n_pages + 1) * _mesh_page_bytes(cfg, sp)
+            + max(attn, mlp)) / 2**30
+
+
+@contextlib.contextmanager
+def _gloo_staging_exempt(torch):
+    """gloo stages a CUDA tensor through host memory inside the collective
+    (a stream synchronise of its own): that call runs outside
+    set_sync_debug_mode, so the sync check holds the port's code alone.
+    Each call is timed on the host clock between two device synchronises
+    (the work queued before it waits outside the timer): yields
+    {"calls", "s"}."""
+    import torch.distributed as dist
+
+    real, timed = dist.all_gather_into_tensor, {"calls": 0, "s": 0.0}
+
+    def staged(*a, **k):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            timed["calls"] += 1
+            timed["s"] += time.perf_counter() - t0
+            return out
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    dist.all_gather_into_tensor = staged
+    try:
+        yield timed
+    finally:
+        dist.all_gather_into_tensor = real
+
+
+def _mesh_rank(rank, world, tmp, spawned_at):
+    """One gloo rank of phase_serve_mesh's (a): llama3.2-1b at full depth in
+    fp32 (phase_engine's seeded weights, made again here) on a 1 x world
+    serve mesh, the paged engine over ``tmp/inputs.json``'s prompts, its
+    first segment under set_sync_debug_mode("error"), its all-gathers
+    timed; then the prefix store saved on the mesh (gather_pages, rank 0
+    writing ``tmp/mesh_kv.npz``); writes its tokens, pool bytes, peak,
+    launches, collectives, gathers' time, steps and store to
+    ``tmp/rank<r>.json``."""
+    import faulthandler
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    M = _modules()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      **{M.MESH.INIT_METHOD_ENV: f"file://{tmp}/store"})
+    M.MESH.init_from_env("gloo")
+    try:
+        dev = M.MESH.rank_device("cuda", rank)
+        torch.cuda.set_device(dev)
+        par = M.MESH.serve_mesh(1, world)
+        inp = json.loads(Path(tmp, "inputs.json").read_text())
+        cfg = _fp32_cfg(M, "llama3.2-1b")
+        params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        started = time.time() - spawned_at  # spawn to the weights on the card
+        eng = M.PG.PagedServeEngine(cfg, params, par=par, slots=ENGINE_SLOTS,
+                                    bucket=inp["bucket"], max_new_tokens=inp["gen"],
+                                    segment=ENGINE_SEGMENT, prefill_chunk=ENGINE_CHUNK,
+                                    page_size=PAGE_SIZE)
+        steps = {"chunk": 0, "decode": 0}
+        real = {"chunk": M.SV.chunk_step, "decode": M.SV.decode_step}
+
+        def counted(kind):
+            def run(*a, **k):
+                steps[kind] += 1
+                return real[kind](*a, **k)
+            return run
+
+        M.SV.chunk_step, M.SV.decode_step = counted("chunk"), counted("decode")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(M.K, M.SK)
+        M.P.reset_counts()
+        with _sync_checked_first_segment(torch, M) as checked, \
+                _gloo_staging_exempt(torch) as gathers:
+            run = M.CLI.run_engine(cfg, params, inp["prompts"], engine=eng)
+        st = eng.last_stats
+        out = {"start-up": started, "tokens": run["outs"], "ms": run["ms"],
+               "summary": run["summary"], "launches": _counts(M.K, M.SK),
+               "collectives": {k: [M.P.calls[k], M.P.nbytes[k]] for k in M.P.COLLECTIVES
+                               if M.P.calls[k]},
+               "steps": steps, "checked": checked["segments"], "gathers": gathers,
+               "peak": torch.cuda.max_memory_allocated(),
+               "pool": sum(x.numel() * x.element_size()
+                           for _, x, _ in M.SV.pool_leaves(eng._pool)),
+               "n_pages": eng.n_pages, "max_pages": st["max_pages"],
+               "stats": {k: v for k, v in st.items() if isinstance(v, (int, float))}}
+        M.P.reset_counts()
+        t0 = time.perf_counter()
+        saved = eng.save_kv_store(str(Path(tmp, "mesh_kv.npz")))
+        out["store"] = {"saved": saved, "ms": (time.perf_counter() - t0) * 1e3,
+                        "collectives": {k: [M.P.calls[k], M.P.nbytes[k]]
+                                        for k in M.P.COLLECTIVES if M.P.calls[k]}}
+    finally:
+        dist.destroy_process_group()
+    Path(tmp, f"rank{rank}.part").write_text(json.dumps(out))
+    os.replace(Path(tmp, f"rank{rank}.part"), Path(tmp, f"rank{rank}.json"))
+
+
+def _replica_tier(torch, M, card, cfg, params):
+    """(b): tests/test_faults.py's seeded crash at full depth: two one-rank
+    paged replicas (sharing the weights), two rounds of the four sessions,
+    the first session's home replica dying on its second dispatch, a
+    shared store; against the no-fault run of two fresh replicas."""
+    import tempfile
+
+    from repro_torch.launch import faults as FLT
+    from repro_torch.launch import kvstore as KVS
+    import numpy as np
+
+    from repro_torch.launch import router as RT
+
+    rng = np.random.default_rng(0)
+    shared = [int(t) for t in rng.integers(0, cfg.vocab_size, 8)]
+    prompts = [shared + [int(t) for t in rng.integers(0, cfg.vocab_size, 8)] for _ in range(4)]
+    sessions = [f"tenant-{s}" for s in range(4)]
+
+    def replicas():
+        return [M.PG.PagedServeEngine(cfg, params, **FAULT_ENGINE) for _ in range(2)]
+
+    t0 = time.perf_counter()
+    ref_rt = RT.ReplicaRouter(replicas(), warn=lambda m: None)
+    ref = [ref_rt.generate(prompts, sessions=sessions) for _ in range(2)]
+    t_ref = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        engines = replicas()
+        rt = RT.ReplicaRouter(engines, max_retries=1, kv_store=KVS.SharedKVStore(tmp),
+                              warn=lambda m: None)
+        victim = rt.home_of(prompts[0], sessions[0])
+        rt.replicas[victim] = FLT.FaultyReplica(engines[victim], [FLT.Fault("raise", 1)],
+                                                name=f"replica{victim}")
+        t0 = time.perf_counter()
+        got = [rt.generate(prompts, sessions=sessions) for _ in range(2)]
+        t_got = time.perf_counter() - t0
+    fo = rt.last_stats["failover"]
+    print(f"(b) 2 replicas of 1 x 1 (full depth, fp32), 4 sessions x 2 rounds, replica {victim} "
+          f"dying on its 2nd dispatch, a shared store: {fo['deaths']} death, "
+          f"{fo['retries']} retries, {fo['rehomed_requests']} requests re-homed "
+          f"({fo['rehomed_sessions']} sessions), {fo['recovered_pages']} pages restored, "
+          f"{fo['recovered_prefix_tokens']} prefix tokens recovered; {t_got * 1e3:.1f} ms "
+          f"against the no-fault run's {t_ref * 1e3:.1f} [{card}]")
+    if got != ref:
+        raise AssertionError(f"the failover run's tokens {got} != the no-fault run's {ref}")
+    if not (fo["deaths"] == 1 and fo["rehomed_requests"] > 0 and fo["recovered_pages"] > 0
+            and fo["recovered_prefix_tokens"] > 0):
+        raise AssertionError(f"the failover did not recover through the store: {fo}")
+    print("  every request got the no-fault tokens")
+    return {"ms": t_got * 1e3, "no_fault_ms": t_ref * 1e3, **fo}
+
+
+def _mesh_cli(M, card):
+    """(c): the serve CLI, MESH_CLI_REPLICAS replicas of 1 x MESH_RANKS
+    (gloo ranks sharing the card), --paged, a permanent raise on its first
+    dispatch for a replica the workload routes to, a shared store."""
+    import tempfile
+
+    from repro_torch.launch import router as RT
+
+    n_req, plen, gen = MESH_CLI
+    cfg = M.cfg_mod.get_config("llama3.2-1b", num_layers=MESH_CLI_LAYERS)
+    prompts, _ = M.CLI.engine_prompts(cfg, n_req, plen)
+    homes = [RT.ReplicaRouter([None] * MESH_CLI_REPLICAS).home_of(p) for p in prompts]
+    victim = homes[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", "llama3.2-1b", "--layers", str(MESH_CLI_LAYERS), "--engine", "--paged",
+                "--mesh", f"1x{MESH_RANKS}", "--replicas", str(MESH_CLI_REPLICAS),
+                "--fault-plan", f"{victim}:raise@0", "--shared-kv-store", tmp,
+                "--dist-backend", "gloo", "--requests", str(n_req), "--batch",
+                str(ENGINE_SLOTS), "--prompt-len", str(plen), "--gen", str(gen),
+                "--prefill-chunk", str(ENGINE_CHUNK)]
+        print("(c) python -m repro_torch.launch.serve " + " ".join(argv))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                                env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=tmp,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=MESH_CLI_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            raise AssertionError(f"the CLI did not end within {MESH_CLI_S} s:\n{err[-3000:]}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+        secs = time.perf_counter() - t0
+    for line in out.splitlines():
+        print("  | " + line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited with {proc.returncode}:\n{err[-3000:]}")
+    total = next((ln for ln in out.splitlines() if "mesh replicas" in ln), "")
+    fo = next((ln for ln in out.splitlines() if "failover:" in ln), "")
+    moved = homes.count(victim)
+    if not (f"{n_req} requests: {n_req * gen} tokens" in total and "1 deaths" in fo
+            and f"dead=[{victim}]" in fo
+            and f"{moved} requests re-homed" in fo):
+        raise AssertionError(f"the CLI's run is not as reckoned ({n_req * gen} tokens, replica "
+                             f"{victim} dead, its {moved} requests re-homed)")
+    print(f"  the CLI ran {secs:.1f} s (its ranks' start-up included): every request's {gen} "
+          f"tokens, replica {victim} dead and its {moved} requests re-homed [{card}]")
+    return {"s": secs, "victim": victim, "rehomed": moved}
+
+
+def phase_serve_mesh(torch, M, card, base):
+    """Serving over a mesh and the replica tier:
+      (a) phase_paged's (b) workload (8 requests of 512 shared + 66–251
+          tokens) on a 1 x MESH_RANKS serve mesh of gloo ranks sharing the
+          card, llama3.2-1b at full depth in fp32, kv heads over model: the
+          one-rank tokens; a rank's pool the reckoned (n_pages + 1) x its
+          page (its heads' k and v, the whole pkpos: half of one rank's
+          pool in k and v); its peak within 10% of the weights, the pool
+          and a chunk step's transient; gather_heads one a layer a step at
+          its reckoned bytes, no other serve collective; the first segment
+          under set_sync_debug_mode("error") (gloo's staging exempt);
+          flash_fwd 0 launches; the gloo all-gathers' share of the run;
+          then the prefix store saved on the mesh (gather_pages at its
+          reckoned calls and bytes, rank 0 writing whole pages) restored
+          into a one-rank engine: the tokens, every admission a hit;
+      (b) the replica tier (``_replica_tier``), once the ranks are done;
+      (c) the serve CLI (``_mesh_cli``).
+    Returns rank 0's launches of (a)."""
+    import multiprocessing
+    import tempfile
+
+    cfg, params = base["cfg"], base["params"]
+    n_req, plen, gen = ENGINE_LLAMA
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "inputs.json").write_text(json.dumps(
+            {"prompts": base["prompts"], "bucket": plen + SHARED_PREFIX, "gen": gen}))
+        procs = [ctx.Process(target=_mesh_rank, args=(r, MESH_RANKS, tmp, time.time()))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        _join_ranks(procs, min(MESH_JOIN_S, BUDGET_S - (time.monotonic() - STARTED)), tmp)
+        secs = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+        fresh = M.CLI.make_engine(cfg, params, slots=ENGINE_SLOTS, bucket=plen + SHARED_PREFIX,
+                                  gen=gen, segment=ENGINE_SEGMENT, prefill_chunk=ENGINE_CHUNK,
+                                  paged=dict(page_size=PAGE_SIZE, spill_pages=SPILL_PAGES))
+        restored = fresh.restore_kv_store(str(Path(tmp, "mesh_kv.npz")))
+    d = M.CLI.run_engine(cfg, params, base["prompts"], engine=fresh)
+    hits = [e["args"]["prefix_hit"] for e in fresh.telemetry.tracer.events
+            if e["kind"] == "request.admit"]
+    tier = _replica_tier(torch, M, card, cfg, params)
+    del base["params"], params, fresh
+    torch.cuda.empty_cache()
+    one_page, page = _page_bytes(cfg), _mesh_page_bytes(cfg, MESH_RANKS)
+    layers = cfg.num_layers
+    print(f"(a) {n_req} requests of {SHARED_PREFIX} shared + {base['lens']} tokens on 1 x "
+          f"{MESH_RANKS} (gloo ranks sharing the card, {cfg.num_kv_heads // MESH_RANKS} kv heads "
+          f"a rank); the ranks took {secs:.1f} s alone on the card")
+    for r, got in enumerate(ranks):
+        n_pages, max_pages = got["n_pages"], got["max_pages"]
+        want_pool = (n_pages + 1) * page
+        want_peak = _mesh_peak_gib(cfg, n_pages, max_pages, MESH_RANKS)
+        hb = ENGINE_SLOTS * (cfg.num_heads // MESH_RANKS) * cfg.head_dim * 4
+        n_chunk, n_dec = got["steps"]["chunk"], got["steps"]["decode"]
+        want_coll = {"gather_heads": [layers * (n_chunk + n_dec),
+                                      layers * hb * (n_chunk * ENGINE_CHUNK + n_dec)]}
+        st = got["stats"]
+        sm = got["summary"] or {}
+        print(f"  rank {r}: {sum(len(o) for o in got['tokens'])} tokens in {got['ms']:.1f} ms, "
+              f"{st['dispatches']} dispatches ({n_chunk} chunk and {n_dec} decode steps), "
+              f"steady p50 {sm.get('steady_p50_ms', float('nan')):.2f} ms, refill-active p95 "
+              f"{sm.get('refill_p95_ms', float('nan')):.2f} ms; prefix hits "
+              f"{st['prefix_hit_tokens']}/{st['prompt_tokens']}; pool {got['pool']} B "
+              f"(reckoned {want_pool} = {n_pages + 1} x {page}; one rank's {(n_pages + 1) * one_page}"
+              f"); peak {got['peak'] / 2**30:.3f} GiB (reckoned {want_peak:.3f}); collectives "
+              f"{got['collectives']} (reckoned {want_coll}); launches {got['launches']}; spawn to "
+              f"weights on the card {got['start-up']:.1f} s [{card}]")
+        if got["tokens"] != base["tokens"]:
+            raise AssertionError(f"rank {r}: the 1 x {MESH_RANKS} tokens differ from one rank's")
+        if got["pool"] != want_pool or 2 * (page - layers * PAGE_SIZE * 4) != (
+                one_page - layers * PAGE_SIZE * 4):
+            raise AssertionError(f"rank {r}: the pool is not the reckoned half")
+        if not 0.9 <= got["peak"] / 2**30 / want_peak <= 1.1:
+            raise AssertionError(f"rank {r}: peak not within 10% of the reckoned {want_peak:.3f}")
+        if got["collectives"] != want_coll:
+            raise AssertionError(f"rank {r}: collectives {got['collectives']} != {want_coll}")
+        if got["checked"] != 1 or any(got["launches"].values()):
+            raise AssertionError(f"rank {r}: the sync check did not run or a kernel launched")
+        g = got["gathers"]
+        print(f"  rank {r}: the gloo all-gathers {g['calls']} calls, {g['s'] * 1e3:.1f} ms of the "
+              f"run's {got['ms']:.1f} ms ({g['s'] * 1e3 / got['ms']:.1%}), each timed between two "
+              f"device synchronises")
+        sv = got["store"]
+        slice_b = sv["saved"] * layers * PAGE_SIZE * (cfg.num_kv_heads // MESH_RANKS) * (
+            cfg.head_dim * 4)
+        want_pages = {"gather_pages": [2, 2 * slice_b]}  # pk and pv; pkpos is whole
+        print(f"  rank {r}: the store saved on the mesh: {sv['saved']} pages in {sv['ms']:.1f} ms,"
+              f" collectives {sv['collectives']} (reckoned {want_pages}) [{card}]")
+        if g["calls"] != got["collectives"]["gather_heads"][0]:
+            raise AssertionError(f"rank {r}: {g['calls']} all-gathers timed, not every gather")
+        if sv["collectives"] != want_pages or sv["saved"] != ranks[0]["store"]["saved"]:
+            raise AssertionError(f"rank {r}: the mesh's store save is not as reckoned")
+    print(f"  both ranks: phase_paged (b)'s tokens; the first segment ran under "
+          f"set_sync_debug_mode('error') (no host read but gloo's own staging); flash_fwd 0")
+    _paged_line("(a) the mesh's store on one rank", d, card)
+    print(f"  restored {restored} of the mesh's {ranks[0]['store']['saved']} pages; prefix hit at "
+          f"each admission {hits}")
+    if d["outs"] != base["tokens"] or restored != ranks[0]["store"]["saved"] or (
+            min(hits) < SHARED_PREFIX):
+        raise AssertionError("the store saved on the mesh does not serve (b)'s prefix and tokens "
+                             "on one rank")
+    cli = _mesh_cli(M, card)
+    return {"launches": ranks[0]["launches"], "tier": tier, "cli": cli,
+            "ranks_s": secs, "rank0": {k: ranks[0][k] for k in ("ms", "summary", "peak", "pool",
+                                                                "collectives", "start-up",
+                                                                "gathers", "store")}}
 
 
 def phase_engine_recurrent(torch, M, card, arch):
@@ -2816,7 +3195,8 @@ DIST_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bfloat16
 # trainings are cut in depth and steps (one step each since the serve
 # engines' phases needed the room) and keep every check.  llama3.2-1b runs 4 layers here and
 # on 2 x 1 (8 gave the script 770-800 s of its 800 s aim, the gloo steps
-# spreading 40 s between calls).
+# spreading 40 s between calls; at 2 the first batch's bf16 gradient of the
+# final norm read 5.39e-4 from one rank's, past FPDT_GRAD_RTOL).
 DIST_LLAMA_LAYERS = 4
 DIST_STEPS = (("ulysses", 1), ("cp", 1))
 # The first batch's bf16 gradients, two ranks against one, relative in each
@@ -2838,7 +3218,8 @@ DIST_EXIT_S = 60  # from a rank's readings written to its exit
 # 4 layers 0.95 B, 11 GiB.  Their fp32-weight checks run at the same depth.
 DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
 # granite-moe-1b-a400m trained on 1 x DIST_RANKS the same way (ulysses: 8 q
-# / 4 kv heads a rank), cut to 6 of its 24 layers: each MoE chunk (mlp_chunks
+# / 4 kv heads a rank), cut to 3 of its 24 layers (6 until the serve mesh's
+# phase 5d needed the room): each MoE chunk (mlp_chunks
 # 2u) is one rank's 1024-token span, so every group is local and no counts
 # are gathered; full depth would add ~2 GB of gloo gradient all-reduce a
 # step and nothing this phase does not already show.
@@ -2849,7 +3230,7 @@ DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
 # 848 s on an H100 80GB HBM3 at 700 W, past its 800 s aim).  The step's
 # seconds predicted before the first run on the card, printed beside the
 # reading, not gated.
-DIST_MOE = (("granite-moe-1b-a400m", 6, 1),)
+DIST_MOE = (("granite-moe-1b-a400m", 3, 1),)
 DIST_MOE_PREDICTED_S = (12.0, 30.0)
 # One llama4-maverick-400b-a17b MoE FFN layer at its published width (d
 # 5120, 128 experts of d_ff 8192, top-1; bf16 with the fp32 router) on
@@ -4686,12 +5067,13 @@ def _modules():
     from repro_torch.models import transformer as T
     from repro_torch.optim import compression as C
     from repro_torch.runtime import decode_loop as DL
+    from repro_torch.runtime import paged as PG
     from repro_torch.runtime import placement as PL
     from repro_torch.runtime import train_loop as TL
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DL=DL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
-                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C)
+                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C, PG=PG)
 
 
 def main():
@@ -4729,9 +5111,12 @@ def main():
     engines = phase("engines llama3.2-1b (fused, blocking)", phase_engine, torch, M, card)
     paged = phase("paged engines llama3.2-1b", phase_paged, torch, M, card,
                   engines.pop("paged_inputs"))
+    mesh = phase("serve mesh llama3.2-1b (1 x 2 ranks, the replica tier, the CLI)",
+                 phase_serve_mesh, torch, M, card, paged.pop("mesh_inputs"))
     serve_paths = {"engine llama3.2-1b": engines["engine"],
                    "blocking llama3.2-1b": engines["blocking"],
                    "paged llama3.2-1b": paged["paged"], "slo llama3.2-1b": paged["slo"],
+                   "mesh 1x2 llama3.2-1b": mesh["launches"],
                    **{f"engine {arch}": phase(f"engine {arch}", phase_engine_recurrent, torch,
                                               M, card, arch)
                       for arch in ("recurrentgemma-9b", "falcon-mamba-7b")},

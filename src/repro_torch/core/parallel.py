@@ -56,6 +56,20 @@ adjoint, along dim 0 (the expert dimension of the [e, g*cap, d] slots):
                       in rank order (all_gather_into_tensor); its backward a
                       reduce_scatter_tensor
 
+and, for serving over a mesh (``models/serve.py``, ``runtime/decode_loop.py``,
+``runtime/paged.py``), outside autograd, each an all_gather_into_tensor
+concatenating along dim 0 in rank order:
+
+  gather_heads        [b, s, w] -> [b, s, sp*w]: every model rank's heads'
+                      attention outputs (an exact concatenation)
+  gather_state        [n, ...] -> [sp, n, ...]: every model rank's partial
+                      online-softmax state over its positions
+  gather_rows         [b, ...] -> [dp*b, ...]: every data rank's rows (the
+                      pool writes, the MoE FFN's input, the logits)
+  gather_harvest      the same, a segment's harvest
+  gather_pages        [n, ...] -> [sp*n, ...]: every model rank's slice of
+                      a prefix cache's pages (the store's save)
+
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``; the
 slot collectives count their backward under their own name too
@@ -77,7 +91,8 @@ import torch.distributed as dist
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
                "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
                "gather_counts", "gather_params", "reduce_scatter_grads", "dispatch_slots",
-               "combine_slots")
+               "combine_slots", "gather_heads", "gather_state", "gather_rows", "gather_harvest",
+               "gather_pages")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -346,3 +361,24 @@ def combine_slots(x: torch.Tensor, group) -> torch.Tensor:
     in rank order.  Differentiable: the backward hands this rank the sum
     over the group of its experts' block of the gradient."""
     return _CombineSlots.apply(x, group)
+
+
+def gather_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, s, w] (this rank's heads' outputs, head-major) -> [b, s, sp*w]:
+    every rank's in rank order, which is head order."""
+    sp = dist.get_world_size(group)
+    b, s, w = x.shape
+    out = _all_gather0(x, group, "gather_heads")
+    return out.view(sp, b, s, w).permute(1, 2, 0, 3).reshape(b, s, sp * w)
+
+
+def gather_state(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, ...] (this rank's partial softmax state, packed) -> [sp, n, ...]."""
+    return _all_gather0(x, group, "gather_state").view(dist.get_world_size(group), *x.shape)
+
+
+def gather_rows(x: torch.Tensor, group, name: str = "gather_rows") -> torch.Tensor:
+    """[b, ...] (this data rank's rows) -> [dp*b, ...]: every data rank's
+    rows in rank order, which is row order; counted as ``name``
+    (``gather_rows``, ``gather_harvest`` or ``gather_pages``)."""
+    return _all_gather0(x, group, name)

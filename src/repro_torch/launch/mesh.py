@@ -6,7 +6,12 @@
 ``model`` group per data rank (the sequence-parallel group: FPDT's
 all-to-all and gathers) and one ``data`` group per model rank, every rank
 calling ``new_group`` for every group in the same order, as
-``torch.distributed`` requires.
+``torch.distributed`` requires.  With ``replicas > 1`` the world is that
+many blocks of ``data * model`` ranks, block r the ranks ``[r * data *
+model, (r + 1) * data * model)``, each its own mesh with its own groups
+(every rank still creates every block's groups, in block order); a rank
+gets its block's mesh.  ``serve_mesh`` wraps it in a ``ParallelContext``:
+one serve replica's mesh (``launch/serve.py`` runs a replica a block).
 
 ``init_from_env(backend)`` joins the world that ``RANK``, ``WORLD_SIZE``
 and ``LOCAL_RANK`` describe, through ``MASTER_ADDR``/``MASTER_PORT`` (what
@@ -19,19 +24,26 @@ Serving over a mesh waits for the serve engines.
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing.connection
 import os
-from typing import Any, Tuple
+import tempfile
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.core.parallel import ParallelContext
 
 INIT_METHOD_ENV = "DIST_INIT_METHOD"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """This rank's view of a ``data`` x ``model`` mesh."""
+    """This rank's view of a ``data`` x ``model`` mesh: ``rank`` is its
+    place in the mesh, ``first`` the world rank of the mesh's rank 0 (a
+    block of a larger world), ``block`` the block's index."""
 
     data: int
     model: int
@@ -39,6 +51,8 @@ class Mesh:
     backend: str
     data_group: Any
     model_group: Any
+    first: int = 0
+    block: int = 0
 
     @property
     def data_rank(self) -> int:
@@ -49,31 +63,44 @@ class Mesh:
         return self.rank % self.model
 
     def ranks(self) -> np.ndarray:
-        """[data, model] global ranks: the device order of the JAX mesh."""
-        return np.arange(self.data * self.model).reshape(self.data, self.model)
+        """[data, model] world ranks: the device order of the JAX mesh."""
+        return self.first + np.arange(self.data * self.model).reshape(self.data, self.model)
 
 
-def make_mesh(data: int, model: int) -> Mesh:
-    """The mesh over the initialised world, whose size must be data * model."""
+def make_mesh(data: int, model: int, replicas: int = 1) -> Mesh:
+    """This rank's mesh over the initialised world, whose size must be
+    replicas * data * model: the ``data`` x ``model`` mesh of its block."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed world "
                            "(init_from_env or init_process_group)")
     world = dist.get_world_size()
-    if data < 1 or model < 1 or world != data * model:
-        raise ValueError(f"a {data} x {model} mesh needs {data * model} ranks; the world has "
-                         f"{world}")
+    per = data * model
+    if data < 1 or model < 1 or replicas < 1 or world != replicas * per:
+        raise ValueError(f"{replicas} x a {data} x {model} mesh needs {replicas * per} ranks; "
+                         f"the world has {world}")
     rank = dist.get_rank()
-    grid = np.arange(world).reshape(data, model)
-    model_group = data_group = None
-    for row in grid:  # every rank creates every group, in one order
-        g = dist.new_group(row.tolist())
-        if rank in row:
-            model_group = g
-    for col in grid.T:
-        g = dist.new_group(col.tolist())
-        if rank in col:
-            data_group = g
-    return Mesh(data, model, rank, dist.get_backend(), data_group, model_group)
+    block, model_group, data_group = rank // per, None, None
+    for b in range(replicas):  # every rank creates every group, in one order
+        grid = b * per + np.arange(per).reshape(data, model)
+        for row in grid:
+            g = dist.new_group(row.tolist())
+            if rank in row:
+                model_group = g
+        for col in grid.T:
+            g = dist.new_group(col.tolist())
+            if rank in col:
+                data_group = g
+    return Mesh(data, model, rank - block * per, dist.get_backend(), data_group, model_group,
+                first=block * per, block=block)
+
+
+def serve_mesh(data: int, model: int, replicas: int = 1):
+    """One serve replica's mesh (the JAX package's ``serve_mesh``): this
+    rank's block of ``data`` x ``model`` ranks as a ``ParallelContext``.
+    ``models/serve.py::cache_shardings`` then splits the attention KV over
+    ``model`` (kv heads, else positions) and the per-slot rows over
+    ``data``."""
+    return ParallelContext(make_mesh(data, model, replicas))
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:
@@ -112,3 +139,37 @@ def rank_device(kind: str, local_rank: int) -> torch.device:
     if kind == "cpu":
         return torch.device("cpu")
     return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def _spawned_rank(main: Callable, argv: List[str], rank: int, world: int, init_method: str):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), **{INIT_METHOD_ENV: init_method})
+    main(argv)
+
+
+def spawn(main: Callable, argv: List[str], world: int) -> int:
+    """Run ``world`` ranks of a CLI's ``main(argv)`` (spawned processes, a
+    ``file://`` store in a temporary directory, ``RANK`` and ``WORLD_SIZE``
+    in their environment); the first rank to fail ends them all.  Returns
+    0, or the exit code of a failed rank."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_spawned_rank, args=(main, argv, r, world, init))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            alive = list(procs)
+            while alive:
+                multiprocessing.connection.wait([p.sentinel for p in alive])
+                alive = [p for p in alive if p.exitcode is None]
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed:
+                    return failed[0] if failed[0] > 0 else 1
+            return 0
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()

@@ -11,6 +11,10 @@ batching, on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --engine --paged [--page-size 16] [--n-pages 0] [--spill-pages 64] \
       [--kv-store kv.npz] [--sched slo|fifo] [--prefill-budget 2] ...
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --engine [--paged] --mesh 1x2 [--replicas 2] [--router affine|rr] \
+      [--fault-plan "1:raise@0"] [--retry 1] [--dispatch-timeout 0] \
+      [--shared-kv-store DIR] [--dist-backend nccl|gloo] [--layers N] ...
 
 The same flags as the JAX package's serve CLI.  Weights and prompts are
 random, from ``--seed``; an audio model's prompt is ``--prompt-len`` frame
@@ -48,35 +52,54 @@ serves through ``SLOPagedServeEngine``: the prompts no longer than the
 median are the priority-0 interactive tier, arriving one a step, the
 others best-effort; ``--prefill-budget N`` pauses a prefill after N
 chunks while others decode; ``--sched fifo`` is the arrival-order
-baseline.  The host-streamed pool (``--paged --host-kv-chunks``), meshes,
-replicas, the router and its faults (``--mesh``, ``--replicas``,
-``--router``, ``--fault-plan``, ``--retry``, ``--dispatch-timeout``,
-``--shared-kv-store``) are not yet ported: the CLI exits 2.
+baseline.
+
+``--mesh DxM`` (with ``--engine``) serves each engine sharded over D data
+x M model ranks (``models/serve.py::cache_shardings``: kv heads, else
+positions, over model; slots over data) and ``--replicas N`` runs N such
+engines behind the session-affine router (``launch/router.py``; ``--router
+rr`` is the round-robin baseline), even at N = 1, as the JAX CLI does.
+``--fault-plan`` injects deterministic faults (``launch/faults.py``),
+``--retry`` and ``--dispatch-timeout`` tune the router's retries and its
+stall deadline (read on rank 0's clock alone), and ``--shared-kv-store
+DIR`` gives the replicas a shared prefix-cache directory
+(``launch/kvstore.py``) from which a dead replica's pages restore into
+the survivors.  At ``--mesh 1x1`` every replica is an engine in this
+process, replica r on cuda:(r % cards).  Otherwise the CLI runs N x D x M
+ranks (spawned through a ``file://`` store, or the ``torchrun`` world it
+finds; ``--dist-backend`` nccl needs a card a rank, gloo shares one):
+replica r owns ranks [r D M, (r + 1) D M), every rank holds the whole
+weight tree, and world rank 0 runs the router over proxies that hand
+each command (generate, save_kv_store, restore_kv_store, stop) to their
+replica's ranks; the replica's first rank answers, and at stop hands over
+its telemetry.  The run prints each replica's requests and prefix hits,
+the spills, the failover line, and the tokens' digest.  ``--layers N``
+cuts the model to N layers (0: the config's).  The host-streamed pool
+(``--paged --host-kv-chunks``, and ``--host-kv-chunks`` with ``--mesh``)
+is not yet ported: the CLI exits 2.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
 import os
 import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ModelConfig, get_config, reduced
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import serve as SV
 from repro_torch.models import transformer as T
 from repro_torch.runtime import decode_loop as DL
 from repro_torch.runtime import paged as PG
 from repro_torch.runtime import telemetry as TM
-
-# engine flags of the JAX CLI that this port does not serve yet, with
-# their defaults: set to anything else, the CLI exits 2
-UNPORTED = {"mesh": "", "replicas": 1, "router": "affine", "fault_plan": "", "retry": 1,
-            "dispatch_timeout": 0.0, "shared_kv_store": ""}
-
 
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -213,13 +236,15 @@ def engine_name(engine) -> str:
 def make_engine(cfg: ModelConfig, params, *, slots: int, bucket: int, gen: int,
                 blocking: bool = False, segment: int = 8, prefill_chunk: int = 0,
                 n_host_chunks: int = 0, sampling: DL.SamplingConfig = DL.GREEDY,
-                stop_tokens=(), paged: Optional[Dict[str, Any]] = None):
+                stop_tokens=(), paged: Optional[Dict[str, Any]] = None, par=None):
     """``ServeEngine``, with ``blocking`` the ``BlockingServeEngine``, or
     with ``paged`` (``PagedServeEngine``'s keywords: ``page_size``,
     ``n_pages``, ``radix``, ``spill_pages``; with ``policy`` and
-    ``prefill_budget`` too the ``SLOPagedServeEngine``) a paged one."""
+    ``prefill_budget`` too the ``SLOPagedServeEngine``) a paged one;
+    sharded over ``par``'s mesh when it is given."""
     kw = dict(slots=slots, bucket=bucket, max_new_tokens=gen, segment=segment,
-              n_host_chunks=n_host_chunks, sampling=sampling, stop_tokens=stop_tokens)
+              n_host_chunks=n_host_chunks, sampling=sampling, stop_tokens=stop_tokens,
+              par=par)
     if paged is not None:
         cls = PG.SLOPagedServeEngine if "policy" in paged else PG.PagedServeEngine
         return cls(cfg, params, prefill_chunk=prefill_chunk, **paged, **kw)
@@ -294,27 +319,34 @@ def _export_telemetry(args, telemetries):
         print(f"[telemetry] wrote metrics registry to {args.metrics_out}")
 
 
+def _engine_kw(args, store: str) -> Dict[str, Any]:
+    """``make_engine``'s keywords from the flags, as the JAX CLI builds its
+    engines.  With ``store`` (a prefix store the engine restores) and no
+    ``--spill-pages``, a paged engine gets a spill tier of 4 x
+    ``--n-pages`` pages, or 64, for the restore to land in."""
+    paged = None
+    if args.paged:
+        spill = args.spill_pages
+        if store and not spill:
+            spill = 4 * args.n_pages if args.n_pages else 64
+        paged = dict(page_size=args.page_size, n_pages=args.n_pages, spill_pages=spill)
+        if args.sched:
+            paged.update(policy=args.sched, prefill_budget=args.prefill_budget)
+    return dict(slots=args.batch, bucket=args.prompt_len + args.shared_prefix, gen=args.gen,
+                blocking=args.blocking, segment=args.segment, prefill_chunk=args.prefill_chunk,
+                n_host_chunks=args.host_kv_chunks,
+                sampling=DL.SamplingConfig(temperature=args.temperature, top_k=args.top_k),
+                paged=paged)
+
+
 def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torch.Generator):
     """--engine: the twin of the JAX CLI's non-mesh engine run."""
     name = device_name(device)
     prompts, lens = engine_prompts(cfg, args.requests, args.prompt_len, args.shared_prefix,
                                    args.seed)
-    paged = None
-    if args.paged:
-        spill = args.spill_pages
-        if args.kv_store and not spill:
-            spill = 4 * args.n_pages if args.n_pages else 64  # the restore's target
-        paged = dict(page_size=args.page_size, n_pages=args.n_pages, spill_pages=spill)
-        if args.sched:
-            paged.update(policy=args.sched, prefill_budget=args.prefill_budget)
-            prompts = slo_requests(prompts, lens)
-    engine = make_engine(cfg, params, slots=args.batch,
-                         bucket=args.prompt_len + args.shared_prefix, gen=args.gen,
-                         blocking=args.blocking, segment=args.segment,
-                         prefill_chunk=args.prefill_chunk, n_host_chunks=args.host_kv_chunks,
-                         sampling=DL.SamplingConfig(temperature=args.temperature,
-                                                    top_k=args.top_k),
-                         paged=paged)
+    if args.sched:
+        prompts = slo_requests(prompts, lens)
+    engine = make_engine(cfg, params, **_engine_kw(args, args.kv_store))
     if args.kv_store and os.path.exists(args.kv_store):
         n = engine.restore_kv_store(args.kv_store)
         print(f"[kv-store] restored {n} prefix pages from {args.kv_store}")
@@ -337,6 +369,250 @@ def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torc
             print(f"[kv-store] saved {n} prefix pages to {args.kv_store}")
     _export_telemetry(args, engine.telemetry)
     return run
+
+
+# ---------------------------------------------------------------------------
+# replicas over a mesh behind the router (the JAX CLI's _mesh_engine_main)
+# ---------------------------------------------------------------------------
+
+
+class MeshReplica:
+    """One replica's engine on this rank, the router's seat for it (the
+    JAX CLI's ``_MeshReplica``): every dispatch draws from the replica's
+    own generator (seeded alike on each of its ranks, so sampling agrees),
+    and the stats and the prefix store pass through."""
+
+    def __init__(self, engine, generator: Optional[torch.Generator] = None):
+        self.engine, self.generator = engine, generator
+
+    def generate(self, prompts):
+        return self.engine.generate(prompts, generator=self.generator)
+
+    def save_kv_store(self, path):
+        return self.engine.save_kv_store(path)
+
+    def restore_kv_store(self, path):
+        return self.engine.restore_kv_store(path)
+
+    @property
+    def last_stats(self):
+        return self.engine.last_stats
+
+    @property
+    def telemetry(self):
+        return self.engine.telemetry
+
+
+def _answer(rep: MeshReplica, cmd: str, args):
+    """What a replica's ranks do for one command (every rank of it runs
+    the collectives; its first rank's answer is the replica's)."""
+    if cmd == "generate":
+        outs = rep.generate(*args)
+        return outs, {k: v for k, v in rep.last_stats.items() if isinstance(v, (int, float))}
+    if cmd == "save_kv_store":
+        return rep.save_kv_store(*args)
+    if cmd == "restore_kv_store":
+        return rep.restore_kv_store(*args)
+    if cmd == "stop":
+        return rep.telemetry
+    raise ValueError(f"unknown replica command {cmd!r}")
+
+
+class RankProxy:
+    """World rank 0's seat for a replica of a multi-rank run: a call
+    broadcasts its command over the control group (rank 0 and the
+    replica's ranks) and the replica's first rank broadcasts the answer
+    back.  ``local`` is rank 0's own ``MeshReplica`` when rank 0 is that
+    first rank (replica 0)."""
+
+    def __init__(self, group, first: int, local: Optional[MeshReplica] = None):
+        self.group, self.first, self.local = group, first, local
+        self.last_stats: Dict[str, Any] = {}
+        self.telemetry = None
+
+    def _call(self, cmd: str, *args):
+        dist.broadcast_object_list([(cmd, args)], src=0, group=self.group)
+        ans = [_answer(self.local, cmd, args) if self.local is not None else None]
+        dist.broadcast_object_list(ans, src=self.first, group=self.group)
+        return ans[0]
+
+    def generate(self, prompts):
+        outs, self.last_stats = self._call("generate", list(prompts))
+        return outs
+
+    def save_kv_store(self, path):
+        return self._call("save_kv_store", path)
+
+    def restore_kv_store(self, path):
+        return self._call("restore_kv_store", path)
+
+    def stop(self):
+        self.telemetry = self._call("stop")
+
+
+def _serve_commands(rep: MeshReplica, group, first: int) -> None:
+    """A replica rank's loop (every rank but world rank 0): run each
+    command rank 0 broadcasts, the first rank answering, until stop."""
+    rank = dist.get_rank()
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, group=group)
+        cmd, args = msg[0]
+        ans = _answer(rep, cmd, args)
+        dist.broadcast_object_list([ans if rank == first else None], src=first, group=group)
+        if cmd == "stop":
+            return
+
+
+def _serve_cfg(args) -> ModelConfig:
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    over = {"remat": "none"}
+    if args.layers:
+        over["num_layers"] = args.layers
+    return dataclasses.replace(cfg, **over)
+
+
+def _replica(args, cfg: ModelConfig, device: torch.device, par=None) -> MeshReplica:
+    """One replica's engine on ``device`` (on ``par``'s mesh): weights from
+    ``--seed``, whose generator then draws the samples."""
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device)
+    return MeshReplica(make_engine(cfg, params, par=par,
+                                   **_engine_kw(args, args.shared_kv_store)), gen)
+
+
+def _route(args, cfg: ModelConfig, replicas: List[Any], name: str, mesh):
+    """Rank 0's part of a mesh run: the router over ``replicas`` (engines
+    or proxies, fault-wrapped by ``--fault-plan``) serves the workload and
+    the run's figures print as the JAX CLI prints them."""
+    from repro_torch.launch.faults import FaultyReplica, parse_fault_plan
+    from repro_torch.launch.kvstore import SharedKVStore
+    from repro_torch.launch.router import ReplicaRouter
+
+    data, model = mesh
+    n = args.replicas
+    plan = parse_fault_plan(args.fault_plan) if args.fault_plan else {}
+    seats = [FaultyReplica(rep, plan[r], name=f"replica{r}") if r in plan else rep
+             for r, rep in enumerate(replicas)]
+    kv_store = SharedKVStore(args.shared_kv_store) if args.shared_kv_store else None
+    router = ReplicaRouter(seats, policy=args.router, max_retries=args.retry,
+                           dispatch_timeout=args.dispatch_timeout or None, kv_store=kv_store)
+    prompts, _ = engine_prompts(cfg, args.requests, args.prompt_len, args.shared_prefix,
+                                args.seed)
+    t0 = time.perf_counter()
+    outs = router.generate(prompts)
+    dt = time.perf_counter() - t0
+    total = sum(len(o) for o in outs)
+    st = router.last_stats
+    print(f"[{n} x ({data} data x {model} model) mesh replicas, router={args.router}] "
+          f"{len(prompts)} requests: {total} tokens in {dt * 1e3:.0f} ms "
+          f"({total / max(dt, 1e-9):.1f} tok/s) on {name}")
+    for rs in st["per_replica"]:
+        line = f"  replica {rs['replica']}: {rs['requests']} requests"
+        if "prompt_tokens" in rs:
+            hit = rs.get("prefix_hit_tokens", 0)
+            line += (f", {rs['prompt_tokens']} prompt tokens"
+                     + (f", {hit} prefix-hit" if args.paged else ""))
+        print(line)
+    if args.router == "affine" and st["spilled"]:
+        print(f"  {st['spilled']} requests spilled off their home replica")
+    fo = st.get("failover")
+    if fo and (fo["deaths"] or fo["retries"] or fo["timeouts"]):
+        print(f"  failover: {fo['deaths']} deaths (dead={fo['dead']}), {fo['retries']} "
+              f"retries, {fo['timeouts']} timeouts, {fo['rehomed_requests']} requests "
+              f"re-homed ({fo['rehomed_sessions']} sessions), "
+              f"{fo['recovered_prefix_tokens']} prefix tokens recovered via the shared store "
+              f"({fo['recovered_pages']} pages restored), {fo['live']}/{n} replicas live")
+    elif fo:
+        print(f"  failover: clean run, {fo['live']}/{n} replicas live")
+    digest = hashlib.sha256(json.dumps(outs).encode()).hexdigest()[:16]
+    print(f"  tokens sha256 {digest}; first request's: {outs[0]}")
+    return router, outs, kv_store
+
+
+def _export_mesh_telemetry(args, router, telemetries, kv_store):
+    """The router's telemetry, every replica's (labelled ``replica=r``)
+    and the store's, as the JAX CLI writes them."""
+    if not (args.trace_out or args.metrics_out):
+        return
+    tels = [router.telemetry]
+    for r, tel in enumerate(telemetries):
+        tel.replica = r
+        tels.append(tel)
+    if kv_store is not None:
+        tels.append(kv_store.telemetry)
+    _export_telemetry(args, tels)
+
+
+def _mesh_engine_main(args, argv, mesh):
+    """--mesh: sharded engine replicas behind the router; ``mesh`` is
+    (data, model)."""
+    per, n = mesh[0] * mesh[1], args.replicas
+    if args.fault_plan:
+        from repro_torch.launch.faults import parse_fault_plan
+
+        bad = [r for r in parse_fault_plan(args.fault_plan) if r >= n]
+        if bad:
+            raise SystemExit(f"--fault-plan names replicas {bad} but only {n} exist")
+    if args.shared_kv_store and not args.paged:
+        raise SystemExit("--shared-kv-store needs --paged (the prefix cache lives in the "
+                         "radix tree)")
+    cfg = _serve_cfg(args)
+    if per > 1:  # before any rank starts
+        SV.check_mesh(cfg)
+    if per == 1:  # every replica an engine in this process
+        cards = torch.cuda.device_count() if args.device == "cuda" else 0
+        devices = [torch.device("cuda", r % cards) if cards else torch.device("cpu")
+                   for r in range(n)]
+        reps = [_replica(args, cfg, d) for d in devices]
+        router, outs, store = _route(args, cfg, reps, device_name(devices[0]), mesh)
+        _export_mesh_telemetry(args, router, [rep.telemetry for rep in reps], store)
+        return outs
+    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, spawn)
+        return _mesh_rank(args, cfg, mesh)
+    world = n * per
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise SystemExit(f"nccl needs one card a rank: {world} ranks, "
+                         f"{torch.cuda.device_count()} cards (gloo can share a card: "
+                         "--dist-backend gloo)")
+    code = MESH.spawn(main, argv, world)
+    if code:
+        sys.exit(code)
+    return None
+
+
+def _mesh_rank(args, cfg: ModelConfig, mesh):
+    """One rank of a multi-rank mesh run: join the world, build every
+    replica's (data, model) ``mesh`` and the control groups, then route
+    (world rank 0) or serve its replica's commands."""
+    data, model = mesh
+    per, n = data * model, args.replicas
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    rank, world, local_rank = MESH.init_from_env(backend)
+    try:
+        device = MESH.rank_device(args.device, local_rank)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        par = MESH.serve_mesh(data, model, replicas=n)
+        ctl = [dist.new_group(sorted({0, *range(r * per, (r + 1) * per)})) for r in range(n)]
+        rep = _replica(args, cfg, device, par)
+        me = rank // per
+        if rank != 0:
+            _serve_commands(rep, ctl[me], me * per)
+            return None
+        proxies = [RankProxy(ctl[r], r * per, rep if r == 0 else None) for r in range(n)]
+        router, outs, store = _route(args, cfg, proxies, device_name(device), mesh)
+        for px in proxies:
+            px.stop()
+        _export_mesh_telemetry(args, router, [px.telemetry for px in proxies], store)
+        return outs
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -393,33 +669,65 @@ def main(argv=None):
     ap.add_argument("--prefill-budget", type=int, default=0,
                     help="with --sched slo: prefill chunks a request may take before it "
                          "pauses while others decode (0 = unbounded)")
-    # the JAX CLI's mesh and router flags: parsed, not yet ported
-    ap.add_argument("--mesh", default="", help="not yet ported")
-    ap.add_argument("--replicas", type=int, default=1, help="not yet ported")
+    ap.add_argument("--mesh", default="",
+                    help="with --engine: shard each engine over a DxM (data x model) mesh of "
+                         "ranks, e.g. 1x2 or 2x2 (host8: 2x4), behind the replica router")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --mesh: engine replicas, each on its own D*M ranks")
     ap.add_argument("--router", default="affine", choices=["affine", "rr"],
-                    help="not yet ported")
-    ap.add_argument("--fault-plan", default="", help="not yet ported")
-    ap.add_argument("--retry", type=int, default=1, help="not yet ported")
-    ap.add_argument("--dispatch-timeout", type=float, default=0.0, help="not yet ported")
-    ap.add_argument("--shared-kv-store", default="", help="not yet ported")
+                    help="with --replicas: session-affine dispatch or round-robin")
+    ap.add_argument("--fault-plan", default="",
+                    help="with --replicas: deterministic faults, ';'-separated "
+                         "R:KIND@N[xC][~S] items (KIND raise, transient or hang), e.g. "
+                         "'1:raise@2' kills replica 1 on its 3rd dispatch")
+    ap.add_argument("--retry", type=int, default=1,
+                    help="with --replicas: dispatch retries before a faulting replica is "
+                         "declared dead")
+    ap.add_argument("--dispatch-timeout", type=float, default=0.0,
+                    help="with --replicas: seconds after which a dispatch counts as a fault "
+                         "and its late result is discarded (0 = none)")
+    ap.add_argument("--shared-kv-store", default="",
+                    help="with --replicas and --paged: a shared prefix-cache directory (one "
+                         "npz a replica); a dead replica's cache restores into the survivors")
+    ap.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                    help="with --mesh over several ranks: nccl (the card's default; a card a "
+                         "rank) or gloo (the CPU's; ranks may share a card)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = the config's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, on the CPU")
     args = ap.parse_args(argv)
-    unported = sorted("--" + k.replace("_", "-") for k, v in UNPORTED.items()
-                      if getattr(args, k) != v)
-    if unported:
-        ap.exit(2, f"{', '.join(unported)}: meshes, replicas, the router and its faults "
-                   "are not yet ported\n")
     if args.paged and args.host_kv_chunks:
         ap.exit(2, "--paged --host-kv-chunks: the host-streamed page pool is not yet ported "
-                   "(ROADMAP Queue A item 2, with serving over a mesh)\n")
+                   "(ROADMAP Queue A item 2)\n")
+    if args.mesh and args.host_kv_chunks:
+        ap.exit(2, "--mesh --host-kv-chunks: host-streamed KV on a serve mesh is not yet "
+                   "ported (ROADMAP Queue A item 2, the next slice)\n")
+    if args.mesh and not args.engine:
+        ap.error("--mesh requires --engine")
     if args.paged and not args.engine:
         ap.error("--paged requires --engine")
-    if args.sched and not args.paged:
-        ap.error("--sched requires --paged (preemption spills KV pages)")
     if (args.trace_out or args.metrics_out) and not args.engine:
         ap.error("--trace-out/--metrics-out export engine telemetry; they require --engine")
+    if (args.fault_plan or args.shared_kv_store) and not args.mesh:
+        ap.error("--fault-plan/--shared-kv-store act on the replica router; they require "
+                 "--mesh (and --replicas > 1 to have anywhere to fail over to)")
+    if args.sched and not args.paged:
+        ap.error("--sched requires --paged (preemption spills KV pages)")
+    if args.sched and args.mesh:
+        ap.error("--sched is single-engine for now; route QoS requests to sharded replicas "
+                 "via launch/router.py instead")
+    if args.mesh:
+        try:
+            mesh = MESH.parse_mesh(args.mesh)
+        except ValueError:
+            ap.error(f"--mesh must look like AxB, got {args.mesh!r}")
+        if args.replicas < 1:
+            ap.error("--mesh sizes and --replicas must be >= 1")
+        if args.blocking or args.kv_store:
+            ap.error("--blocking and --kv-store are the single engine's; with --mesh the "
+                     "replicas run the fused (or --paged) engine and share --shared-kv-store")
     if args.gen < 1 or args.prompt_len < 1 or args.batch < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
     if args.host_kv_chunks < 0:
@@ -430,13 +738,12 @@ def main(argv=None):
                  f"prompt-len+gen={args.prompt_len + args.gen}")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.exit(1, "no CUDA device is available; pass --device cpu to run on the CPU\n")
+    if args.mesh:
+        return _mesh_engine_main(args, list(argv if argv is not None else sys.argv[1:]), mesh)
     device = torch.device(args.device)
     name = device_name(device)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
-    cfg = dataclasses.replace(cfg, remat="none")
+    cfg = _serve_cfg(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if cfg.frontend == "vision_patches" and args.prompt_len <= cfg.num_patches:
         ap.error(f"--prompt-len {args.prompt_len} counts the {cfg.num_patches} image patches "

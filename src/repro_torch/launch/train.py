@@ -48,15 +48,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import multiprocessing.connection
 import os
 import sys
-import tempfile
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ModelConfig, ShapeConfig, get_config, reduced
@@ -158,13 +155,13 @@ def main(argv=None):
     backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
     if args.device == "cpu" and backend == "nccl":
         ap.error("nccl runs on the card: --device cpu takes --dist-backend gloo")
-    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, _spawn)
+    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, spawn)
         return _rank_main(args, shape, backend)
     world = shape[0] * shape[1]
     if backend == "nccl" and world > torch.cuda.device_count():
         ap.exit(2, f"nccl needs one card a rank: {world} ranks, {torch.cuda.device_count()} "
                    "cards (gloo can share a card: --dist-backend gloo)\n")
-    code = _spawn(list(argv if argv is not None else sys.argv[1:]), world)
+    code = MESH.spawn(main, list(argv if argv is not None else sys.argv[1:]), world)
     if code:
         sys.exit(code)
     return None
@@ -183,39 +180,6 @@ def _rank_main(args, shape, backend):
         return _train(args, par, device)
     finally:
         dist.destroy_process_group()
-
-
-def _spawned_rank(argv, rank: int, world: int, init_method: str):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(world), **{MESH.INIT_METHOD_ENV: init_method})
-    main(argv)
-
-
-def _spawn(argv, world: int) -> int:
-    """Run ``world`` ranks of this CLI (spawned processes, a ``file://``
-    store in a temporary directory); the first rank to fail ends them all.
-    Returns 0, or the exit code of a failed rank."""
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        init = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_spawned_rank, args=(argv, r, world, init))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        try:
-            alive = list(procs)
-            while alive:
-                multiprocessing.connection.wait([p.sentinel for p in alive])
-                alive = [p for p in alive if p.exitcode is None]
-                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                if failed:
-                    return failed[0] if failed[0] > 0 else 1
-            return 0
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                p.join()
 
 
 def _layout(cfg: ModelConfig, par: ParallelContext, seq: int) -> str:

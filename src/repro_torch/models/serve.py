@@ -75,16 +75,39 @@ are thrown away, so an index never leaves the pool and no mask is read
 on the host; two live writes never share a page (copy-on-write).  The
 local_attn rings and the recurrent states stay dense per slot.  The
 host-streamed pool (``n_host_chunks`` with a table) is not ported.
+
+On a mesh (``Shard``: a replica's ``data`` x ``model`` ranks, every rank
+holding the whole weight tree as the JAX serve programs do) a rank holds
+the cache that ``cache_shardings`` gives it, the JAX package's placement
+written out as (data dim, model dim) per leaf: the per-slot rows over
+``data`` when the data ranks divide the slots, the attention KV over
+``model`` by kv heads when the model ranks divide them, else by position
+(a dense row's positions, a page's in-page positions); the paged pool is
+whole over ``data``.  Where the KV splits by heads a rank computes q, k
+and v for its heads from their weight columns, attends over them and
+all-gathers the heads' outputs over ``model`` (an exact concatenation)
+before the whole ``wo``; where it splits by position a rank attends over
+its positions and the partial online-softmax states are all-gathered and
+merged in rank order, and only the rank that holds a position writes it
+(the others send the write to the trash page, or mask it).  With the rows
+split, a rank steps its own rows; the pool's writes of every row reach
+every data rank's copy through one all-gather over ``data`` a layer, and
+the MoE FFN runs on every row (gathered), as its groups and capacity are
+the batch's.  Norms, the FFN, logits and sampling are replicated over
+``model``, so every rank holds the same tokens.  The recurrent blocks and
+host-streamed KV are not ported to a mesh (ValueError).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.core import fpdt
 from repro_torch.core.online_softmax import NEG_INF, SoftmaxState, finalize, merge, zero_state
+from repro_torch.core import parallel as P
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -92,7 +115,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 from repro_torch.runtime import placement as PL
-from repro_torch.tree import tree_leaves_with_path
+from repro_torch.tree import tree_leaves_with_path, tree_map
 
 Params = Dict[str, Any]
 
@@ -133,7 +156,12 @@ def _block_cache(cfg: ModelConfig, kind: str, b: int, max_len: int, dtype, devic
     raise ValueError(kind)
 
 
-def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda") -> Params:
+def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda",
+               par: Optional[ParallelContext] = None) -> Params:
+    """The dense cache of ``b`` rows of ``max_len`` positions; on ``par``'s
+    mesh only this rank's shard (``cache_shardings``)."""
+    if P.distributed(par):
+        return _local_cache(cfg, par, init_cache(cfg, b, max_len, "meta"), device)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = T.layout_of(cfg)
     cache = {f"pos{i}": _block_cache(cfg, kind, b, max_len, dtype, device, lead=(n_cycles,))
@@ -154,12 +182,15 @@ def _paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype, dev
 
 
 def init_paged_cache(cfg: ModelConfig, b: int, n_pages: int, page_size: int,
-                     device="cuda") -> Params:
+                     device="cuda", par: Optional[ParallelContext] = None) -> Params:
     """Paged twin of ``init_cache``: the full-attention blocks share one
     page pool across the ``b`` slots (bytes scale with the pages mapped,
     not ``slots x worst-case length``); the local_attn rings and the
     recurrent states keep their per-slot layouts, a ring bounded by the
-    pool's token capacity."""
+    pool's token capacity.  On ``par``'s mesh only this rank's shard."""
+    if P.distributed(par):
+        return _local_cache(cfg, par, init_paged_cache(cfg, b, n_pages, page_size, "meta"),
+                            device)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = T.layout_of(cfg)
     cap = n_pages * page_size
@@ -173,6 +204,192 @@ def init_paged_cache(cfg: ModelConfig, b: int, n_pages: int, page_size: int,
     if tail:
         cache["tail"] = [make(kind, ()) for kind in tail]
     return cache
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh (the JAX package's cache_shardings)
+# ---------------------------------------------------------------------------
+
+
+def _splits(n: int, parts: int) -> bool:
+    """The JAX rule: a dimension splits over an axis whose size divides it."""
+    return n % parts == 0 and n >= parts
+
+
+def dense_kv_spec(dp: int, sp: int, shape) -> Tuple[Optional[int], Optional[int]]:
+    """(data dim, model dim) of one dense K/V leaf [b, s, h, dh]: rows over
+    data and kv heads over model when they divide, else positions over
+    model (context parallel); a dimension nothing divides stays whole."""
+    b, s, h, _ = shape
+    d = 0 if _splits(b, dp) else None
+    if _splits(h, sp):
+        return d, 2
+    return d, (1 if _splits(s, sp) else None)
+
+
+def paged_pool_spec(sp: int, page_size: int, hkv: int) -> Optional[int]:
+    """Model dim of one pool K/V leaf [n_pages + 1, page_size, hkv, dh]: kv
+    heads when the model ranks divide them, else the in-page positions,
+    else none.  The page dim never splits (the table maps pages to slots
+    freely) and the pool is whole over data."""
+    if _splits(hkv, sp):
+        return 2
+    if _splits(page_size, sp):
+        return 1
+    return None
+
+
+def cache_shardings(cfg: ModelConfig, dp: int, sp: int, cache) -> Any:
+    """(data dim, model dim) of every leaf of ``cache`` (global shapes; a
+    ``device="meta"`` cache will do) on a dp x sp mesh, in ``cache``'s
+    structure: the JAX package's ``cache_shardings``.  ``pk``/``pv``
+    follow ``paged_pool_spec`` and ``pkpos`` co-splits their in-page dim;
+    ``kpos`` splits its rows only (a dense row's positions stay whole);
+    the recurrent states split rows over data and channels over model."""
+
+    def spec(path, leaf):
+        stacked = path[0] != "tail"
+        off = 1 if stacked else 0
+        shape, name = tuple(leaf.shape[off:]), path[-1]
+
+        def at(d, m):
+            return (None if d is None else d + off, None if m is None else m + off)
+
+        rows = 0 if _splits(shape[0], dp) else None
+        if name in ("pk", "pv"):
+            return at(None, paged_pool_spec(sp, shape[1], shape[2]))
+        if name == "pkpos":
+            return at(None, 1 if paged_pool_spec(sp, shape[1], cfg.num_kv_heads) == 1 else None)
+        if name == "kpos":
+            return at(rows, None)
+        if name in ("k", "v"):
+            return at(*dense_kv_spec(dp, sp, shape))
+        if name == "conv":
+            return at(rows, 2 if _splits(shape[2], sp) else None)
+        if name == "ssm":
+            return at(rows, 1 if _splits(shape[1], sp) else None)
+        if name == "h":
+            return at(rows, 1 if _splits(shape[1], sp) else None)
+        return None, None
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+        return spec(path, tree)
+
+    return walk(cache, ())
+
+
+def local_shape(shape, dims, dp: int, sp: int) -> Tuple[int, ...]:
+    """A leaf's shape on one rank under its (data dim, model dim)."""
+    out = list(shape)
+    d, m = dims
+    if d is not None:
+        out[d] //= dp
+    if m is not None:
+        out[m] //= sp
+    return tuple(out)
+
+
+def _local_cache(cfg: ModelConfig, par: ParallelContext, meta: Params, device) -> Params:
+    """This rank's shard of the cache ``meta`` describes: each leaf at its
+    local shape, positions -1 and the rest 0, as ``init_cache`` fills them."""
+    plan = cache_shardings(cfg, par.dp, par.sp, meta)
+    return tree_map(lambda leaf, dims: torch.full(
+        local_shape(leaf.shape, dims, par.dp, par.sp), -1 if leaf.dtype == torch.int32 else 0,
+        dtype=leaf.dtype, device=device), meta, plan)
+
+
+def check_mesh(cfg: ModelConfig, n_host_chunks: int = 0) -> None:
+    """Raise ValueError for what a serve mesh does not run yet: a
+    recurrent block (its states split over channels, which needs split
+    mixer projections) and host-streamed KV."""
+    kinds = sorted({k for k in cfg.layer_kinds() if k not in ("attn", "local_attn")})
+    if kinds:
+        raise ValueError(f"serving {cfg.name} over a mesh: its {kinds} blocks are not ported "
+                         "to a serve mesh (ROADMAP Queue A item 2); serve it on one rank")
+    if n_host_chunks:
+        raise ValueError("host-streamed KV (n_host_chunks > 0) on a serve mesh is not ported "
+                         "(ROADMAP Queue A item 2)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A serve step's place on a mesh: ``par`` the replica's mesh, ``slots``
+    the engine's rows, ``page_size`` the pool's (0: a dense cache).  A rank
+    steps rows [r0, r1): its block when the data ranks divide the slots
+    (``rows_split``), else every row.  The KV splits over model by kv heads
+    where the model ranks divide them (``heads``), else by position."""
+
+    par: ParallelContext
+    slots: int
+    page_size: int = 0
+
+    @property
+    def rows_split(self) -> bool:
+        return self.par.dp > 1 and _splits(self.slots, self.par.dp)
+
+    @property
+    def r0(self) -> int:
+        return self.par.dp_rank * self.slots // self.par.dp if self.rows_split else 0
+
+    @property
+    def r1(self) -> int:
+        return self.r0 + (self.slots // self.par.dp if self.rows_split else self.slots)
+
+    def heads(self, cfg: ModelConfig) -> Optional[Tuple[int, int, int, int]]:
+        """This model rank's q heads [q0, q1) and kv heads [k0, k1) when the
+        KV splits by heads, else None."""
+        sp = self.par.sp
+        if sp == 1 or not _splits(cfg.num_kv_heads, sp):
+            return None
+        m, kl, ql = self.par.sp_rank, cfg.num_kv_heads // sp, cfg.num_heads // sp
+        return m * ql, (m + 1) * ql, m * kl, (m + 1) * kl
+
+
+def _on_mesh(sh: Optional[Shard]) -> bool:
+    return sh is not None and P.distributed(sh.par)
+
+
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, heads):
+    """``qkv_proj`` for the q heads [q0, q1) and kv heads [k0, k1) of
+    ``heads`` from their weight columns (all heads when None)."""
+    if heads is None:
+        return L.qkv_proj(cfg, p, x)
+    q0, q1, k0, k1 = heads
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = x @ p["wq"][:, q0 * dh:q1 * dh]
+    k = x @ p["wk"][:, k0 * dh:k1 * dh]
+    v = x @ p["wv"][:, k0 * dh:k1 * dh]
+    if cfg.qkv_bias:
+        q = q + p["bq"][q0 * dh:q1 * dh]
+        k = k + p["bk"][k0 * dh:k1 * dh]
+        v = v + p["bv"][k0 * dh:k1 * dh]
+    return (q.reshape(b, s, q1 - q0, dh), k.reshape(b, s, k1 - k0, dh),
+            v.reshape(b, s, k1 - k0, dh))
+
+
+def _merge_ranks(st: SoftmaxState, group) -> SoftmaxState:
+    """The model ranks' partial states over their positions, all-gathered
+    (one call) and merged in rank order: the state over every position."""
+    packed = torch.cat([st.acc, st.m[..., None], st.l[..., None]], dim=-1)
+    parts = P.gather_state(packed, group)
+    out = None
+    for part in parts:
+        s_ = SoftmaxState(part[..., :-2], part[..., -2], part[..., -1])
+        out = s_ if out is None else merge(out, s_)
+    return out
+
+
+def _out(cfg: ModelConfig, p: Params, o: torch.Tensor, heads, sh: Optional[Shard]):
+    """The attention output [b, s, heads' width] through ``wo``: the model
+    ranks' heads gathered first when the KV splits by heads."""
+    if heads is not None:
+        o = P.gather_heads(o, sh.par.sp_group)
+    return o @ p["wo"]
 
 
 def pool_leaves(cache: Params):
@@ -345,21 +562,26 @@ def _default_bounds(b: int, S: int):
 
 def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params,
                       x: torch.Tensor, cache: Params, pos: torch.Tensor, *, window: int = 0,
-                      n_host_chunks: int = 0, bounds=None):
+                      n_host_chunks: int = 0, bounds=None, sh: Optional[Shard] = None):
     """x [b, 1, d]; pos int64 [b]; writes the token into ``cache`` in place.
     With ``n_host_chunks`` (full attention only) the KV streams from the
     host in slabs (``_stream_kv``); ``bounds`` are the rows' host-known
-    position spans.  Returns attn_out [b, 1, d]."""
+    position spans.  On a mesh (``sh``) the rank attends over its heads
+    or its positions (``kpos`` is whole, so S is the global length).
+    Returns attn_out [b, 1, d]."""
     b = x.shape[0]
-    q, k, v = L.qkv_proj(cfg, p, x)  # [b, 1, h, dh]
+    heads = sh.heads(cfg) if _on_mesh(sh) else None
+    q, k, v = _qkv(cfg, p, x, heads)  # [b, 1, h, dh]
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
-    S = ck.shape[1]
+    S, S_loc = kpos.shape[1], ck.shape[1]
+    base = sh.par.sp_rank * S_loc if S_loc < S else 0
     slot = pos % S if window > 0 else torch.clamp(pos, max=S - 1)  # [b]
     bi = torch.arange(b, device=x.device)
     kpos[bi, slot] = pos.to(kpos.dtype)
 
+    hq = q.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     qf = q[:, 0].float()  # [b, hq, dh]
     scale = cfg.head_dim ** -0.5
@@ -380,12 +602,17 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
                             qf.new_zeros(qf.shape[:2]))
         st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
                         writes=(slot[:, None], k, v, ones), write_first=True)
+    elif S_loc < S:  # positions over model: the owner writes, every rank attends its own
+        ones = torch.ones((b, 1), dtype=torch.bool, device=x.device)
+        _write_rows(ck, base, slot[:, None], k, ones)
+        _write_rows(cv, base, slot[:, None], v, ones)
+        st = _merge_ranks(attend(ck, cv, kpos[:, base:base + S_loc]), sh.par.sp_group)
     else:
         ck[bi, slot] = k[:, 0].to(ck.dtype)
         cv[bi, slot] = v[:, 0].to(cv.dtype)
         st = attend(ck, cv, kpos)
-    o = finalize(st).reshape(b, 1, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"]
+    o = finalize(st).reshape(b, 1, hq * cfg.head_dim).to(x.dtype)
+    return _out(cfg, p, o, heads, sh)
 
 
 def _paged_write_ids(table: torch.Tensor, pos: torch.Tensor, page_size: int, trash: int,
@@ -406,7 +633,8 @@ def _paged_write_ids(table: torch.Tensor, pos: torch.Tensor, page_size: int, tra
 def _paged_gather(cache: Params, table: torch.Tensor):
     """The mapped range of every row, one index per leaf: k and v [b,
     max_pages * ps, hkv, dh], their positions and the mapped mask [b,
-    max_pages * ps] (an unmapped entry reads page 0, masked out here)."""
+    max_pages * ps] (an unmapped entry reads page 0, masked out here).  On
+    a mesh ps and hkv are the rank's."""
     b, max_pages = table.shape
     ps = cache["pkpos"].shape[1]
     safe = torch.clamp(table, min=0)
@@ -425,27 +653,82 @@ def _paged_write(cache: Params, pid: torch.Tensor, off: torch.Tensor, k: torch.T
     cache["pkpos"][pid, off] = pos.to(torch.int32)
 
 
+def _gather_writes(sh: Shard, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
+                   live: torch.Tensor):
+    """Every data rank's pool writes (k, v [b, w, h, dh], positions and
+    live [b, w]), all rows in row order, through ONE all-gather over data:
+    the bytes of k, v and the positions (-1 where dead) side by side."""
+    b, w = qpos.shape
+    pos = torch.where(live, qpos, -1).to(torch.int32)
+    parts = [t.reshape(b, -1).contiguous().view(torch.uint8) for t in (k, v, pos)]
+    sizes = [t.shape[1] for t in parts]
+    full = P.gather_rows(torch.cat(parts, dim=1), sh.par.dp_group)
+    kb, vb, pb = torch.split(full, sizes, dim=1)
+    B = full.shape[0]
+    k = kb.contiguous().view(k.dtype).reshape(B, *k.shape[1:])
+    v = vb.contiguous().view(v.dtype).reshape(B, *v.shape[1:])
+    pos = pb.contiguous().view(torch.int32).reshape(B, w).long()
+    return k, v, torch.clamp(pos, min=0), pos >= 0
+
+
+def _pool_write(cache: Params, table: torch.Tensor, qpos: torch.Tensor,
+                live: Optional[torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                sh: Optional[Shard]):
+    """Write the rows' K/V at ``qpos`` [b, w] (``live`` [b, w] or None:
+    every column) into the pool through ``table``; dead and unmapped
+    writes go to the trash page.  On a mesh with the rows split over data
+    the writes of every row are gathered first (``table`` is then every
+    row's), and with the pool split by in-page position a rank writes the
+    offsets it holds and sends the rest to the trash page."""
+    n_phys, ps_loc = cache["pkpos"].shape
+    trash = n_phys - 1
+    if _on_mesh(sh) and sh.rows_split:
+        if live is None:
+            live = torch.ones(qpos.shape, dtype=torch.bool, device=qpos.device)
+        k, v, qpos, live = _gather_writes(sh, k, v, qpos, live)
+    if _by_page(cache, sh):  # in-page positions over model: the owner writes
+        pid, off = _paged_write_ids(table, qpos, sh.page_size, trash, live)
+        pid = torch.where(off // ps_loc == sh.par.sp_rank, pid, trash)
+        off = off % ps_loc
+    else:
+        pid, off = _paged_write_ids(table, qpos, ps_loc, trash, live)
+    _paged_write(cache, pid, off, k, v, qpos)
+
+
+def _by_page(cache: Params, sh: Optional[Shard]) -> bool:
+    """Does the pool split its in-page positions over model?"""
+    return _on_mesh(sh) and cache["pkpos"].shape[1] < sh.page_size
+
+
+def _rows(table: torch.Tensor, sh: Optional[Shard]) -> torch.Tensor:
+    """This rank's rows of the page table (all rows off a mesh)."""
+    return table[sh.r0:sh.r1] if _on_mesh(sh) else table
+
+
 def _decode_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
-                            pos: torch.Tensor, table: torch.Tensor):
+                            pos: torch.Tensor, table: torch.Tensor, sh: Optional[Shard] = None):
     """Paged twin of ``_decode_attention``: the token's K/V go into its
     page (the trash page for a row whose position is unmapped), then it
     attends to its row's gathered pages.  x [b, 1, d]; pos int64 [b];
-    table [b, max_pages].  Returns attn_out [b, 1, d]."""
+    table [b, max_pages] (on a mesh every row's: the rank's are [r0, r1)).
+    Returns attn_out [b, 1, d]."""
     b = x.shape[0]
-    q, k, v = L.qkv_proj(cfg, p, x)  # [b, 1, h, dh]
+    heads = sh.heads(cfg) if _on_mesh(sh) else None
+    q, k, v = _qkv(cfg, p, x, heads)  # [b, 1, h, dh]
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
-    n_phys, ps = cache["pkpos"].shape
-    pid, off = _paged_write_ids(table, pos, ps, n_phys - 1)
-    _paged_write(cache, pid, off, k[:, 0], v[:, 0], pos)
-    kall, vall, kpall, mapped = _paged_gather(cache, table)
+    _pool_write(cache, table, pos[:, None], None, k, v, sh)
+    kall, vall, kpall, mapped = _paged_gather(cache, _rows(table, sh))
+    hq = q.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     qf = q[:, 0].float()  # [b, hq, dh]
     s = torch.einsum("bhd,bshd->bhs", qf, _expand(kall, g)) * cfg.head_dim ** -0.5
     ok = mapped & (kpall >= 0) & (kpall <= pos[:, None])
     st = _masked_state(s, ok[:, None, :], _expand(vall, g), "bhs,bshd->bhd")
-    o = finalize(st).reshape(b, 1, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"]
+    if _by_page(cache, sh):
+        st = _merge_ranks(st, sh.par.sp_group)
+    o = finalize(st).reshape(b, 1, hq * cfg.head_dim).to(x.dtype)
+    return _out(cfg, p, o, heads, sh)
 
 
 def _keep_state(cache: Params, state: Params):
@@ -454,16 +737,22 @@ def _keep_state(cache: Params, state: Params):
         cache[k].copy_(v)
 
 
-def _ffn(cfg, p, h):
+def _ffn(cfg, p, h, sh: Optional[Shard] = None):
     """The attention block's second half: norm2, then the MoE FFN (unchunked,
-    as the JAX package's decode and chunk steps run it) or the MLP."""
+    as the JAX package's decode and chunk steps run it) or the MLP.  With
+    the rows split over data the MoE FFN runs on every row (gathered): its
+    groups and capacity are the whole batch's."""
     hn2 = L.apply_norm(cfg, p["norm2"], h)
     if "moe" in p:
+        if _on_mesh(sh) and sh.rows_split:
+            y = MOE.moe_ffn(cfg, p["moe"], P.gather_rows(hn2, sh.par.dp_group))[0]
+            return h + y[sh.r0:sh.r1]
         return h + MOE.moe_ffn(cfg, p["moe"], hn2)[0]
     return h + L.mlp_block(cfg, p["mlp"], hn2)
 
 
-def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None, table=None):
+def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None, table=None,
+                  sh=None):
     if kind == "ssm":
         y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache)
         _keep_state(cache, st)
@@ -474,13 +763,13 @@ def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None
         _keep_state(cache, st)
         h = h + y
     elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
-        h = h + _decode_attention_paged(cfg, p["attn"], hn, cache, pos, table)
+        h = h + _decode_attention_paged(cfg, p["attn"], hn, cache, pos, table, sh)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window,
                                   n_host_chunks=0 if window else n_host_chunks,
-                                  bounds=bounds)
-    return _ffn(cfg, p, h)
+                                  bounds=bounds, sh=sh)
+    return _ffn(cfg, p, h, sh)
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -490,14 +779,25 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 def _check_table(table, n_host_chunks: int):
     if table is not None and n_host_chunks:
         raise ValueError("the host-streamed page pool (a page table with n_host_chunks > 0) "
-                         "is not ported; ROADMAP Queue A item 2 keeps it with serving over "
-                         "a mesh")
+                         "is not ported (ROADMAP Queue A item 2)")
+
+
+def _check_shard(cfg: ModelConfig, par, sh: Optional[Shard], n_host_chunks: int,
+                 table) -> None:
+    if P.distributed(par) and not _on_mesh(sh):
+        raise ValueError("a serve step on a mesh takes its Shard (shard=): the cache is the "
+                         "rank's and the inputs its rows")
+    if _on_mesh(sh):
+        check_mesh(cfg, n_host_chunks)
+        if table is not None and not sh.page_size:
+            raise ValueError("a paged step on a mesh needs the pool's page_size in its Shard")
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                 cache: Params, inp: Dict[str, torch.Tensor], pos, n_host_chunks: int = 0,
-                bounds=None, table: Optional[torch.Tensor] = None):
+                bounds=None, table: Optional[torch.Tensor] = None,
+                shard: Optional[Shard] = None):
     """One decode step: advance every sequence in the batch by one token.
 
     Contract:
@@ -523,9 +823,13 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
       table  — optional integer [b, max_pages] page table on the cache's
                device: the attention blocks read and write the paged pool
                (``init_paged_cache``) through it.
+      shard  — on a serve mesh, the step's ``Shard``: ``cache`` is the
+               rank's (``init_cache(..., par=)``), the inputs are its rows
+               [r0, r1) and ``table`` holds every row.
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
     _check_table(table, n_host_chunks)
+    _check_shard(cfg, par, shard, n_host_chunks, table)
     if cfg.frontend == "audio_frames":
         h = inp["frame_embeds"]
         pos = _positions(pos, h.shape[0], h.device)
@@ -540,10 +844,10 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _decode_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], pos,
-                              n_host_chunks, bounds, table)
+                              n_host_chunks, bounds, table, shard)
     for i, kind in enumerate(tail):
         h = _decode_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], pos,
-                          n_host_chunks, bounds, table)
+                          n_host_chunks, bounds, table, shard)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = (h[:, 0] @ T.head_matrix(cfg, params)).float()
     return logits, cache
@@ -556,7 +860,8 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
 
 def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params,
                      x: torch.Tensor, cache: Params, qpos: torch.Tensor, live: torch.Tensor,
-                     *, window: int = 0, n_host_chunks: int = 0, bounds=None):
+                     *, window: int = 0, n_host_chunks: int = 0, bounds=None,
+                     sh: Optional[Shard] = None):
     """Chunk-window attention against the cache at per-row offsets.
 
     x [b, cp, d]; qpos [b, cp] int64 the position of each window token;
@@ -565,15 +870,19 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
     ``kpos`` (host-streamed in slabs under ``n_host_chunks``) and (b) the
     window against its own live keys under an intra-window causal mask;
     then the live keys are written (ring buffers keep only the last S
-    live tokens).  Returns attn out [b, cp, d]; the cache is updated in
-    place."""
+    live tokens).  On a mesh (``sh``) the rank attends over its heads or
+    its positions as ``_decode_attention`` does.  Returns attn out [b, cp,
+    d]; the cache is updated in place."""
     b, cp, _ = x.shape
-    q, k, v = L.qkv_proj(cfg, p, x)  # [b, cp, h, dh]
+    heads = sh.heads(cfg) if _on_mesh(sh) else None
+    q, k, v = _qkv(cfg, p, x, heads)  # [b, cp, h, dh]
     q = L.apply_rope(q, qpos, cfg.rope_theta)
     k = L.apply_rope(k, qpos, cfg.rope_theta)
-    S = cache["k"].shape[1]
+    S, S_loc = cache["kpos"].shape[1], cache["k"].shape[1]
+    base = sh.par.sp_rank * S_loc if S_loc < S else 0
     if window:
         window = min(window, S)  # ring capacity bounds the visible window
+    hq = q.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     qt = q.float().transpose(1, 2)  # [b, hq, cp, dh]
     scale = cfg.head_dim ** -0.5
@@ -601,13 +910,15 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
                           zero_state((b, cfg.num_heads, cp, cfg.head_dim), device=x.device),
                           writes=(slot, k, v, wmask))
     else:
-        hist = attend(cache["k"], cache["v"], cache["kpos"])
-        _write_rows(cache["k"], 0, slot, k, wmask)
-        _write_rows(cache["v"], 0, slot, v, wmask)
+        hist = attend(cache["k"], cache["v"], cache["kpos"][:, base:base + S_loc])
+        if S_loc < S:  # positions over model: every rank's partial state, merged
+            hist = _merge_ranks(hist, sh.par.sp_group)
+        _write_rows(cache["k"], base, slot, k, wmask)
+        _write_rows(cache["v"], base, slot, v, wmask)
     _write_rows(cache["kpos"], 0, slot, qpos.to(torch.int32), wmask)
     o = finalize(merge(hist, _intra_state(cfg, qt, k, v, qpos, key_live, window)))
-    o = o.transpose(1, 2).reshape(b, cp, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"]
+    o = o.transpose(1, 2).reshape(b, cp, hq * cfg.head_dim).to(x.dtype)
+    return _out(cfg, p, o, heads, sh)
 
 
 def _intra_state(cfg: ModelConfig, qt, k, v, qpos, key_live, window: int = 0) -> SoftmaxState:
@@ -624,34 +935,38 @@ def _intra_state(cfg: ModelConfig, qt, k, v, qpos, key_live, window: int = 0) ->
 
 
 def _chunk_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
-                           qpos: torch.Tensor, live: torch.Tensor, table: torch.Tensor):
+                           qpos: torch.Tensor, live: torch.Tensor, table: torch.Tensor,
+                           sh: Optional[Shard] = None):
     """Paged twin of ``_chunk_attention``: the window against its rows'
     gathered pages of the PRE-write pool, merged with the window against
     its own live keys; then the live keys go into their pages and the dead
     columns to the trash page.  Pages a row shares (radix prefixes) are
-    only read: the manager gives every written page one owner.  Returns
-    attn out [b, cp, d]; the pool is updated in place."""
+    only read: the manager gives every written page one owner.  On a mesh
+    ``table`` holds every row (the rank's are [r0, r1)).  Returns attn out
+    [b, cp, d]; the pool is updated in place."""
     b, cp, _ = x.shape
-    q, k, v = L.qkv_proj(cfg, p, x)  # [b, cp, h, dh]
+    heads = sh.heads(cfg) if _on_mesh(sh) else None
+    q, k, v = _qkv(cfg, p, x, heads)  # [b, cp, h, dh]
     q = L.apply_rope(q, qpos, cfg.rope_theta)
     k = L.apply_rope(k, qpos, cfg.rope_theta)
+    hq = q.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     qt = q.float().transpose(1, 2)  # [b, hq, cp, dh]
     key_live = torch.arange(cp, device=x.device)[None, :] < live[:, None]  # [b, cp]
-    kall, vall, kpall, mapped = _paged_gather(cache, table)
+    kall, vall, kpall, mapped = _paged_gather(cache, _rows(table, sh))
     s_ = torch.einsum("bhqd,bshd->bhqs", qt, _expand(kall, g)) * cfg.head_dim ** -0.5
     ok = (mapped & (kpall >= 0))[:, None, :] & (kpall[:, None, :] <= qpos[:, :, None])
     hist = _masked_state(s_, ok[:, None], _expand(vall, g), "bhqs,bshd->bhqd")
-    n_phys, ps = cache["pkpos"].shape
-    pid, off = _paged_write_ids(table, qpos, ps, n_phys - 1, key_live)
-    _paged_write(cache, pid, off, k, v, qpos)
+    if _by_page(cache, sh):  # in-page positions over model: the ranks' states, merged
+        hist = _merge_ranks(hist, sh.par.sp_group)
+    _pool_write(cache, table, qpos, key_live, k, v, sh)
     o = finalize(merge(hist, _intra_state(cfg, qt, k, v, qpos, key_live)))
-    o = o.transpose(1, 2).reshape(b, cp, cfg.q_dim).to(x.dtype)
-    return o @ p["wo"]
+    o = o.transpose(1, 2).reshape(b, cp, hq * cfg.head_dim).to(x.dtype)
+    return _out(cfg, p, o, heads, sh)
 
 
 def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bounds=None,
-                 table=None):
+                 table=None, sh=None):
     if kind == "ssm":
         y, st = M.mamba_chunk_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache,
                                    live)
@@ -663,18 +978,20 @@ def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bound
         _keep_state(cache, st)
         h = h + y
     elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
-        h = h + _chunk_attention_paged(cfg, p["attn"], hn, cache, qpos, live, table)
+        h = h + _chunk_attention_paged(cfg, p["attn"], hn, cache, qpos, live, table, sh)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _chunk_attention(cfg, par, p["attn"], hn, cache, qpos, live, window=window,
-                                 n_host_chunks=0 if window else n_host_chunks, bounds=bounds)
-    return _ffn(cfg, p, h)
+                                 n_host_chunks=0 if window else n_host_chunks, bounds=bounds,
+                                 sh=sh)
+    return _ffn(cfg, p, h, sh)
 
 
 @torch.no_grad()
 def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                cache: Params, toks: torch.Tensor, offset, live, n_host_chunks: int = 0,
-               bounds=None, table: Optional[torch.Tensor] = None):
+               bounds=None, table: Optional[torch.Tensor] = None,
+               shard: Optional[Shard] = None):
     """One fused mixed step: every batch row processes a ``cp``-token window.
 
     Contract (the JAX package's):
@@ -692,6 +1009,7 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                ``bounds`` per row the span of positions its live window
                covers.
       table  — optional page table for the paged pool, as ``decode_step``'s.
+      shard  — on a serve mesh, the step's ``Shard``, as ``decode_step``'s.
 
     Recurrent blocks (ssm, rglru, the local_attn ring) take the
     state-at-length gather (``mamba.mamba_chunk_step`` /
@@ -702,6 +1020,7 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
         raise ValueError("chunk_step feeds token ids; the audio_frames "
                          "frontend consumes frame embeddings")
     _check_table(table, n_host_chunks)
+    _check_shard(cfg, par, shard, n_host_chunks, table)
     b, cp = toks.shape
     device = toks.device
     offset = _positions(offset, b, device)
@@ -714,10 +1033,10 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _chunk_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], qpos,
-                             live, n_host_chunks, bounds, table)
+                             live, n_host_chunks, bounds, table, shard)
     for i, kind in enumerate(tail):
         h = _chunk_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], qpos, live,
-                         n_host_chunks, bounds, table)
+                         n_host_chunks, bounds, table, shard)
     h = L.apply_norm(cfg, params["final_norm"], h)
     last = h[torch.arange(b, device=device), torch.clamp(live - 1, 0, cp - 1)]
     logits = (last @ T.head_matrix(cfg, params)).float()

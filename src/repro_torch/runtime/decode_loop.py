@@ -36,6 +36,19 @@ is its only device-to-host copy (``chip_smoke.py`` runs a segment under
 held to the JAX bits.  Every entry point takes ``n_host_chunks``
 (host-streamed decode KV, ``models/serve.py``): the per-row position
 spans it needs come from what the host knows.
+
+On a serve mesh (``ServeEngine(par=...)``, ``launch/mesh.py::serve_mesh``;
+the JAX ``segment_shardings`` written out) every rank runs the same host
+scheduler over all slots; the cache is the rank's shard
+(``SV.cache_shardings``), and with the rows split over data a rank steps
+its own rows [r0, r1) of the state.  Every rank takes the same step kind
+(the schedule is over all slots), so the collectives line up; the harvest
+all-gathers each slot's tok, pos, mode, rem, pfill and outputs over data
+(one call), so every rank's scheduler decides the same.  Greedy sampling
+gathers nothing; under a temperature every rank samples the batch's
+logits, gathered over data, from one generator state and keeps its rows,
+so the tokens are the one-rank engine's.  ``BlockingServeEngine`` and
+``decode_tokens`` stay on one rank.
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core import parallel as PAR
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import serve as SV
 from repro_torch.runtime import telemetry as TM
@@ -120,6 +134,12 @@ def as_request(r: Union[Request, Sequence[int]]) -> Request:
     return Request(tokens=tuple(int(t) for t in r))
 
 
+def _one_rank(par: Optional[ParallelContext], what: str) -> None:
+    if PAR.distributed(par):
+        raise ValueError(f"{what} runs on one rank; over a mesh, serve through ServeEngine "
+                         "or PagedServeEngine")
+
+
 def _host_positions(pos, b: int) -> Optional[List[int]]:
     """Each row's position as host ints when ``pos`` is on the host (an int,
     a sequence, a numpy array, a CPU tensor); None for a tensor on a card,
@@ -178,6 +198,7 @@ def decode_tokens(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
         raise ValueError("decode_tokens feeds token ids; the audio_frames "
                          "frontend consumes frame embeddings — drive "
                          "decode_step directly for frame synthesis")
+    _one_rank(par, "decode_tokens")
     b = tok.shape[0]
     device = tok.device
     pos0 = _host_positions(pos, b)
@@ -304,6 +325,18 @@ def segment_schedule(mode, pos, pfill, plen, *, num_steps: int, prefill_chunk: i
     return steps
 
 
+def _sample(logits: torch.Tensor, generator, sc: SamplingConfig,
+            shard: Optional[SV.Shard]) -> torch.Tensor:
+    """``sample_token`` of this rank's rows; with the rows split over data
+    and a temperature, from every row's logits (gathered) and the one
+    generator state every rank holds, so every row draws what it draws on
+    one rank."""
+    if sc.temperature > 0 and shard is not None and shard.rows_split:
+        full = PAR.gather_rows(logits.contiguous(), shard.par.dp_group)
+        return sample_token(full, generator, sc)[shard.r0:shard.r1]
+    return sample_token(logits, generator, sc)
+
+
 @torch.no_grad()
 def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                   cache: Params, mode: torch.Tensor, tok: torch.Tensor, pos: torch.Tensor,
@@ -311,7 +344,7 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
                   pend: torch.Tensor, plen: torch.Tensor, *, schedule, prefill_chunk: int,
                   n_host_chunks: int = 0, sampling: SamplingConfig = GREEDY,
                   stop: Optional[torch.Tensor] = None, pad_id: int = 0,
-                  table: Optional[torch.Tensor] = None):
+                  table: Optional[torch.Tensor] = None, shard: Optional[SV.Shard] = None):
     """Run ``len(schedule)`` fused mixed steps (the JAX package's one
     ``lax.scan``; here a loop that reads nothing on the host).
 
@@ -334,12 +367,13 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
     (mode, tok [b, 1], pos, rem, pfill int32; the staged prompts pend [b,
     P] and plen; the paged pool's page ``table`` [b, max_pages], which
     both step bodies read and write K/V through) live on the cache's
-    device.  Returns ``(emit [b, steps],
-    valid [b, steps], aux)`` with ``aux`` the final state {cache, mode,
-    tok, pos, rem, pfill}."""
+    device.  On a mesh (``shard``) the state is the rank's rows and
+    ``table`` every row's.  Returns ``(emit [b, steps], valid [b, steps],
+    aux)`` with ``aux`` the final state {cache, mode, tok, pos, rem,
+    pfill}."""
     b = tok.shape[0]
     cp = int(prefill_chunk)
-    P = pend.shape[1]
+    P_ = pend.shape[1]
     V = cfg.vocab_size
     device = tok.device
     cols = torch.arange(cp, device=device)[None, :]
@@ -352,16 +386,16 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
             off = torch.where(is_pf, pfill, pos)
             live = torch.where(is_pf, torch.clamp(plen - pfill, 0, cp),
                                (mode == DECODE).to(torch.int32))
-            idx = torch.clamp(off[:, None].long() + cols, 0, P - 1)
+            idx = torch.clamp(off[:, None].long() + cols, 0, P_ - 1)
             toks = torch.where(is_pf[:, None], torch.gather(pend, 1, idx), tok)
             logits, cache = SV.chunk_step(cfg, par, params, cache, toks, off, live,
                                           n_host_chunks=n_host_chunks, bounds=spans,
-                                          table=table)
+                                          table=table, shard=shard)
         else:
             logits, cache = SV.decode_step(cfg, par, params, cache, {"tokens": tok}, pos,
                                            n_host_chunks=n_host_chunks, bounds=spans,
-                                           table=table)
-        nxt = sample_token(logits[:, :V], generator, sampling)
+                                           table=table, shard=shard)
+        nxt = _sample(logits[:, :V], generator, sampling, shard)
         pfill = torch.where(is_pf, torch.minimum(pfill + cp, plen), pfill)
         fin_pf = is_pf & (pfill >= plen)  # prompt exhausted this step
         is_dec = mode == DECODE
@@ -381,18 +415,22 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
             torch.stack(valids, dim=1) if valids else empty.bool(), aux)
 
 
-def harvest(aux, emits: torch.Tensor, valids: torch.Tensor):
+def harvest(aux, emits: torch.Tensor, valids: torch.Tensor,
+            shard: Optional[SV.Shard] = None):
     """A segment's one device-to-host copy: its final state and outputs as
     numpy (mode, tok [b, 1], pos, rem, pfill, emit [b, steps], valid [b,
-    steps])."""
-    B = emits.shape[0]
-    flat = torch.cat([aux["mode"], aux["tok"][:, 0], aux["pos"], aux["rem"], aux["pfill"],
-                      emits.flatten().to(torch.int32),
-                      valids.flatten().to(torch.int32)]).cpu().numpy()
-    mode, tok0, pos, rem, pfill = (flat[k * B:(k + 1) * B].copy() for k in range(5))
-    em = flat[5 * B:5 * B + emits.numel()].reshape(B, -1)
-    va = flat[5 * B + emits.numel():].reshape(B, -1).astype(bool)
-    return mode, tok0[:, None], pos, rem, pfill, em, va
+    steps]).  With the rows split over data (``shard``) every rank's rows
+    are all-gathered first (one call), so the arrays hold every slot."""
+    rows = torch.cat([aux["mode"][:, None], aux["tok"], aux["pos"][:, None],
+                      aux["rem"][:, None], aux["pfill"][:, None], emits.to(torch.int32),
+                      valids.to(torch.int32)], dim=1).to(torch.int32)
+    if shard is not None and shard.rows_split:
+        rows = PAR.gather_rows(rows, shard.par.dp_group, "gather_harvest")
+    flat = rows.cpu().numpy()
+    n = emits.shape[1]
+    mode, tok0, pos, rem, pfill = (flat[:, k].copy() for k in range(5))
+    return mode, tok0[:, None], pos, rem, pfill, flat[:, 5:5 + n].copy(), \
+        flat[:, 5 + n:].astype(bool)
 
 
 def _sync(device: torch.device):
@@ -418,6 +456,12 @@ class ServeEngine:
     the dense per-slot cache for a shared pool.  ``_segment`` is the
     segment function the dispatch calls (``mixed_segment`` bound to this
     engine's model and settings).
+
+    With ``par`` a serve mesh (``launch/mesh.py::serve_mesh``) the engine
+    is one rank of a sharded replica (``shard``): every rank of the mesh
+    calls ``generate`` with the same prompts and returns the same outputs.
+    Attention-only layouts (the MoE FFN too) serve on a mesh; a recurrent
+    block or ``n_host_chunks`` raises ValueError.
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *, slots: int,
@@ -425,6 +469,8 @@ class ServeEngine:
                  n_host_chunks: int = 0, sampling: SamplingConfig = GREEDY,
                  stop_tokens: Sequence[int] = (), pad_id: int = 0,
                  segment: int = 8, par: Optional[ParallelContext] = None):
+        if PAR.distributed(par):
+            SV.check_mesh(cfg, n_host_chunks)
         self.cfg, self.params, self.par = cfg, params, par
         self.slots, self.bucket = slots, bucket
         self.max_new = max_new_tokens
@@ -435,16 +481,18 @@ class ServeEngine:
         self.device = tree_leaves(params)[0].device
         self.telemetry = TM.Telemetry(component="engine")
         self.last_stats: Dict[str, Any] = self.telemetry.stats_view()
+        self.shard = SV.Shard(par, slots) if PAR.distributed(par) else None
         cp = self.cp
         stop = torch.as_tensor(tuple(stop_tokens), dtype=torch.int32, device=self.device)
 
         # closes over the settings, not the engine: no reference cycle keeps
         # an engine (and its weights) alive after its last user drops it
-        def seg(cache, mode, tok, pos, gen, rem, pfill, pend, plen, schedule, table=None):
+        def seg(cache, mode, tok, pos, gen, rem, pfill, pend, plen, schedule, table=None,
+                shard=None):
             return mixed_segment(cfg, par, params, cache, mode, tok, pos, gen, rem, pfill,
                                  pend, plen, schedule=schedule, prefill_chunk=cp,
                                  n_host_chunks=n_host_chunks, sampling=sampling,
-                                 stop=stop, pad_id=pad_id, table=table)
+                                 stop=stop, pad_id=pad_id, table=table, shard=shard)
 
         self._segment = seg
 
@@ -468,11 +516,19 @@ class ServeEngine:
             S = -(-S // self.n_host_chunks) * self.n_host_chunks
         return P, S
 
+    def _local_slot(self, s: int) -> Optional[int]:
+        """Slot ``s``'s row in this rank's cache (None: another data rank's)."""
+        if self.shard is None:
+            return s
+        r0, r1 = self.shard.r0, self.shard.r1
+        return s - r0 if r0 <= s < r1 else None
+
     # -- slot-lifecycle hooks --------------------------------------------
     def _begin(self, B: int, P: int, S: int):
         """Start a workload: return the cache the segments will carry (its
-        full-attention KV in pinned host memory under ``n_host_chunks``)."""
-        cache = SV.init_cache(self.cfg, B, S, self.device)
+        full-attention KV in pinned host memory under ``n_host_chunks``;
+        on a mesh this rank's shard)."""
+        cache = SV.init_cache(self.cfg, B, S, self.device, par=self.par)
         if self.n_host_chunks:
             SV.offload_kv(self.cfg, cache, self.device)
         return cache
@@ -485,7 +541,8 @@ class ServeEngine:
         defer the request while other slots are ``active``.  ``budget`` is
         the decode-token reservation (``None``: ``max_new_tokens``)."""
         self.last_stats["resets"] += 1
-        return reset_slot(cache, s), 0
+        i = self._local_slot(s)
+        return (cache if i is None else reset_slot(cache, i)), 0
 
     def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None):
         """One segment: the state's integers (numpy, the host's) go to the
@@ -495,12 +552,15 @@ class ServeEngine:
         plen_dev, plen_host = plen
         schedule = segment_schedule(mode, pos, pfill, plen_host, num_steps=self.segment,
                                     prefill_chunk=self.cp)
+        # on a mesh this rank's rows; the schedule's step kinds are every slot's
+        r0, r1 = (self.shard.r0, self.shard.r1) if self.shard is not None else (0, len(mode))
+        schedule = [(any_pf, spans[r0:r1]) for any_pf, spans in schedule]
 
         def up(x):
-            return torch.as_tensor(x, dtype=torch.int32, device=self.device)
+            return torch.as_tensor(np.asarray(x)[r0:r1], dtype=torch.int32, device=self.device)
 
         return self._segment(cache, up(mode), up(tok), up(pos), gen, up(rem), up(pfill),
-                             pend, plen_dev, schedule, table)
+                             pend[r0:r1], plen_dev[r0:r1], schedule, table, self.shard)
 
     def _stage(self, pend: torch.Tensor, plen: torch.Tensor, s: int, prompt) -> None:
         """Stage slot ``s``'s prompt on the device at admission: its pending
@@ -580,7 +640,7 @@ class ServeEngine:
                 emits, valids, aux = self._dispatch(
                     cache, mode, tok, pos, generator, rem, pfill, pend_dev, (plen_dev, plen))
                 cache = aux["cache"]
-                mode, tok, pos, rem, pfill, em, va = harvest(aux, emits, valids)
+                mode, tok, pos, rem, pfill, em, va = harvest(aux, emits, valids, self.shard)
                 td.emitted = int(va.sum())
             self._post_dispatch(mode, pfill, plen, pend_dev, owner)
             for s in range(B):
@@ -632,6 +692,7 @@ class BlockingServeEngine:
         self.n_host_chunks = n_host_chunks
         self._stop = tuple(stop_tokens)
         self._stop_set = frozenset(int(t) for t in self._stop)
+        _one_rank(par, "BlockingServeEngine")
         self.device = tree_leaves(params)[0].device
         self.telemetry = TM.Telemetry(component="blocking-engine", program_limit=2)
         self.last_stats: Dict[str, Any] = self.telemetry.stats_view()

@@ -35,8 +35,20 @@ init_paged_cache``), read through per-slot page tables:
 Everything but the engines' segments is pure Python and numpy on the
 host; the page programs and the demotion read run at admission, outside a
 segment.  The spill tier keeps its payloads as CPU tensors (the pool's
-dtype, bf16 included).  The host-streamed pool (``n_host_chunks > 0``)
-and the mesh placement are not ported (ROADMAP Queue A item 2).
+dtype, bf16 included).
+
+On a serve mesh (``par``; ``models/serve.py::cache_shardings``) every rank
+runs the same host metadata (tables, tree, spill slots: the same
+decisions), and holds its slice of the pool (kv heads, or in-page
+positions, over ``model``; whole over ``data``): the page programs and
+the demotion read work on the rank's slice, and the spill tier keeps the
+rank's slice of a demoted page.  ``save_kv_store`` all-gathers the slices
+over ``model`` and the replica's first rank writes whole pages in the
+JAX layout; ``restore_kv_store`` gives each rank its slice of the file's
+pages, so a store written on any mesh (or by the JAX package) restores on
+any other.  The host-streamed pool (``n_host_chunks > 0``) is not ported
+(ROADMAP Queue A item 2); ``SLOPagedServeEngine`` stays on one rank, as
+the JAX CLI keeps ``--sched`` off a mesh.
 """
 from __future__ import annotations
 
@@ -46,8 +58,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core import parallel as PAR
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import serve as SV
 from repro_torch.models.transformer import layout_of
@@ -346,14 +360,18 @@ class RadixTree:
         return freed
 
     # -- persistence -----------------------------------------------------
-    def save(self, path: str, read_page: Optional[Callable[[int], Rows]] = None) -> int:
+    def save(self, path: str, read_page: Optional[Callable[[int], Rows]] = None,
+             whole: Optional[Callable[[Rows], Rows]] = None, write: bool = True) -> int:
         """Write the prefix cache to one ``.npz``, the JAX package's format:
         ``page_size``; ``parent`` [N] int64 node indices (-1: root; parents
         before children); ``tokens`` [N, ps] int32 page keys; ``last_used``
         [N] int64; one ``rows/<leaf key>`` [N, ...] a pool leaf (spilled
         payloads from the tier, resident ones through ``read_page``), a
         dtype numpy lacks bit-cast to an unsigned int of its width with
-        its name in ``dtype/<leaf key>``.  Returns the pages saved."""
+        its name in ``dtype/<leaf key>``.  ``whole`` maps the stacked rows
+        to whole pages (a mesh rank's slices, gathered); ``write=False``
+        skips the file (a rank that only gathers).  Returns the pages
+        saved."""
         read_page = read_page or self.read_page
         order: List[_Node] = []
         index: Dict[int, int] = {id(self.root): -1}
@@ -376,9 +394,14 @@ class RadixTree:
                 rows = self.spill.read(nd.spill)
             for k, v in rows.items():
                 payload.setdefault(k, []).append(v)
+        rows = {k: torch.stack(v) for k, v in payload.items()}
+        if whole is not None:
+            rows = whole(rows)
+        if not write:
+            return len(order)
         stacks: Dict[str, np.ndarray] = {}
-        for k, v in payload.items():
-            _to_numpy(torch.stack(v), k, stacks)
+        for k, v in rows.items():
+            _to_numpy(v, k, stacks)
         np.savez(
             path, page_size=np.int64(ps),
             parent=np.array([index[id(nd.parent)] for nd in order], np.int64),
@@ -388,11 +411,14 @@ class RadixTree:
             **stacks)
         return len(order)
 
-    def restore(self, path: str) -> int:
+    def restore(self, path: str, part: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> int:
         """Load a saved prefix cache into the spill tier (no device page is
         touched; payloads promote at their first hit).  A live entry wins
         over its saved twin; entries past the tier's free slots are
-        dropped, their descendants with them.  Returns the pages restored."""
+        dropped, their descendants with them.  ``part(key, row)`` cuts a
+        whole page's row to what this rank holds (a mesh rank's slice).
+        Returns the pages restored."""
         if self.spill is None:
             raise ValueError("restore needs a spill tier (spill_pages > 0): restored "
                              "pages are host-resident until their first prefix hit")
@@ -419,7 +445,9 @@ class RadixTree:
             sid = self.spill.alloc()
             if sid < 0:
                 continue  # tier full: drop (descendants follow)
-            self.spill.write(sid, {k: _from_numpy(a[i], dtypes.get(k)) for k, a in rows.items()})
+            page = {k: _from_numpy(a[i], dtypes.get(k)) for k, a in rows.items()}
+            self.spill.write(sid, page if part is None else
+                             {k: part(k, row) for k, row in page.items()})
             child = _Node(parent=pnode, key=key)
             child.spill = sid
             child.last_used = int(stamps[i])
@@ -600,17 +628,18 @@ class PagedCacheManager:
         return self.spill.used_count if self.spill is not None else 0
 
     # -- persistence -----------------------------------------------------
-    def save(self, path: str, read_page: Optional[Callable[[int], Rows]] = None) -> int:
-        """Persist the prefix cache (``RadixTree.save``'s format)."""
+    def save(self, path: str, read_page: Optional[Callable[[int], Rows]] = None,
+             **kw) -> int:
+        """Persist the prefix cache (``RadixTree.save``'s format and hooks)."""
         if self.radix is None:
             raise ValueError("save: this pool has no radix prefix cache (use_radix=False)")
-        return self.radix.save(path, read_page)
+        return self.radix.save(path, read_page, **kw)
 
-    def restore(self, path: str) -> int:
+    def restore(self, path: str, **kw) -> int:
         """Load a persisted prefix cache into the spill tier."""
         if self.radix is None:
             raise ValueError("restore: this pool has no radix prefix cache (use_radix=False)")
-        return self.radix.restore(path)
+        return self.radix.restore(path, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -618,12 +647,14 @@ class PagedCacheManager:
 # ---------------------------------------------------------------------------
 
 
-def paged_reset(cache: Params, i: int, page_ids: Sequence[int]) -> Params:
+def paged_reset(cache: Params, i: Optional[int], page_ids: Sequence[int]) -> Params:
     """Slot ``i``'s per-slot rows reset as ``reset_slot`` does (dense
-    ``kpos`` -1, recurrent states 0) and the pool's ``pkpos`` at
-    ``page_ids`` (the real fresh pages) to -1: a new page may hold a former
-    owner's entries, which must not alias the new sequence's positions."""
-    DL.reset_slot(cache, i)
+    ``kpos`` -1, recurrent states 0; None: a row another data rank holds)
+    and the pool's ``pkpos`` at ``page_ids`` (the real fresh pages) to -1:
+    a new page may hold a former owner's entries, which must not alias the
+    new sequence's positions."""
+    if i is not None:
+        DL.reset_slot(cache, i)
     for key, leaf, stacked in SV.pool_leaves(cache):
         if key.endswith("pkpos"):
             ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=leaf.device)
@@ -634,35 +665,39 @@ def paged_reset(cache: Params, i: int, page_ids: Sequence[int]) -> Params:
     return cache
 
 
-def _masked_row(row: torch.Tensor, key: str, keep_below: int) -> torch.Tensor:
-    """A page's row with its ``pkpos`` entries at offsets ``>= keep_below``
-    invalidated (k and v rows as they are)."""
+def _masked_row(row: torch.Tensor, key: str, keep_below: int, base: int) -> torch.Tensor:
+    """A page's row with its ``pkpos`` entries at in-page offsets ``>=
+    keep_below`` invalidated (k and v rows as they are); the row's first
+    entry sits at offset ``base``."""
     if not key.endswith("pkpos"):
         return row
-    keep = torch.arange(row.shape[-1], device=row.device) < keep_below
+    keep = base + torch.arange(row.shape[-1], device=row.device) < keep_below
     return torch.where(keep, row, torch.full_like(row, -1))
 
 
-def copy_page(cache: Params, src: int, dst: int, drop_from: int) -> Params:
+def copy_page(cache: Params, src: int, dst: int, drop_from: int, base: int = 0) -> Params:
     """Copy physical page ``src`` into ``dst`` in every attention layer
     (the COW primitive).  Entries at offsets ``>= drop_from`` are
     invalidated in the copy: the resumed prefill recomputes and rewrites
     them, and a valid stale entry would count twice against the chunk's
-    own keys."""
+    own keys.  ``base`` is the in-page offset of the pool's first entry
+    (a model rank's when the pool splits its in-page positions)."""
     for key, leaf, stacked in SV.pool_leaves(cache):
-        row = _masked_row(SV.page_of(leaf, stacked, src), key, drop_from)
+        row = _masked_row(SV.page_of(leaf, stacked, src), key, drop_from, base)
         SV.page_of(leaf, stacked, dst).copy_(row)
     return cache
 
 
-def promote_page(cache: Params, dst: int, rows: Rows, keep_below: int) -> Params:
+def promote_page(cache: Params, dst: int, rows: Rows, keep_below: int,
+                 base: int = 0) -> Params:
     """Scatter one spilled page's host rows (keyed as ``page_rows``'s) into
     physical page ``dst``, the inverse of the demotion read; ``pkpos``
     entries at offsets ``>= keep_below`` are invalidated (a plain promote
     keeps the whole page, the spilled-COW case drops the tail the resumed
-    prefill recomputes, as ``copy_page``'s ``drop_from``)."""
+    prefill recomputes, as ``copy_page``'s ``drop_from``; ``base`` as
+    there)."""
     for key, leaf, stacked in SV.pool_leaves(cache):
-        row = _masked_row(rows[key].to(leaf.device), key, keep_below)
+        row = _masked_row(rows[key].to(leaf.device), key, keep_below, base)
         SV.page_of(leaf, stacked, dst).copy_(row)
     return cache
 
@@ -695,7 +730,9 @@ class PagedServeEngine(DL.ServeEngine):
     local_attn ring) folds the whole prefix into per-slot state that a
     mapped page cannot restore, so those get the pool with ``resume = 0``.
     The pool and its radix-indexed pages persist across ``generate``
-    calls.  The host-streamed pool (``n_host_chunks > 0``) is not ported.
+    calls.  On a serve mesh (``par``) the engine is one rank of a sharded
+    replica: its pool is the rank's slice (module docstring).  The
+    host-streamed pool (``n_host_chunks > 0``) is not ported.
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *, slots: int, bucket: int,
@@ -708,8 +745,7 @@ class PagedServeEngine(DL.ServeEngine):
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if n_host_chunks:
             raise ValueError("the host-streamed page pool (n_host_chunks > 0) is not "
-                             "ported; ROADMAP Queue A item 2 keeps it with serving over "
-                             "a mesh")
+                             "ported (ROADMAP Queue A item 2)")
         super().__init__(cfg, params, slots=slots, bucket=bucket,
                          max_new_tokens=max_new_tokens, prefill_chunk=prefill_chunk,
                          sampling=sampling, stop_tokens=stop_tokens, pad_id=pad_id,
@@ -732,9 +768,26 @@ class PagedServeEngine(DL.ServeEngine):
                 f"at a page boundary, and only a mutually-dividing grid "
                 f"keeps every chunk window inside the slot's allocated page "
                 f"reserve")
-        # the one pool, updated in place by every segment and page program:
-        # demotion and save read it live
-        self._pool = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, self.device)
+        if self.shard is not None:
+            self.shard = SV.Shard(par, slots, self.page_size)
+        # the one pool (on a mesh the rank's slice), updated in place by
+        # every segment and page program: demotion and save read it live
+        self._pool = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, self.device,
+                                         par=par)
+        # on a mesh, each pool leaf's model dim (None: whole), by leaf key
+        self._pool_dims: Dict[str, Optional[int]] = {}
+        if self.shard is not None:
+            meta = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, "meta")
+            plan = SV.cache_shardings(cfg, par.dp, par.sp, meta)
+            for key, _, _ in SV.pool_leaves(meta):
+                dims = plan
+                for k in key.split("/"):
+                    dims = dims[int(k)] if isinstance(dims, list) else dims[k]
+                self._pool_dims[key] = dims[1]
+        # the in-page offset of this rank's first pool entry: its share of
+        # the page when the pool splits the in-page positions over model
+        split = any(d is not None for k, d in self._pool_dims.items() if k.endswith("pkpos"))
+        self._page_base = par.sp_rank * (self.page_size // par.sp) if split else 0
         self._table_dev: Optional[torch.Tensor] = None  # device copy, None when stale
         self._inserted = [True] * slots
         self._prompts: List[List[int]] = [[] for _ in range(slots)]
@@ -744,9 +797,45 @@ class PagedServeEngine(DL.ServeEngine):
         return SV.page_rows(self._pool, int(pid))
 
     # -- prefix-cache persistence ----------------------------------------
+    def _whole_pages(self, rows: Rows) -> Rows:
+        """Stacked page rows [N, ...] of this rank's slices -> whole pages:
+        each leaf split over model all-gathered (one call a leaf) and put
+        together along its split dim, in rank order."""
+        sp, out = self.par.sp, {}
+        for key, t in rows.items():
+            dim = self._pool_dims[key]
+            if dim is None or not len(t):
+                out[key] = t
+                continue
+            parts = PAR.gather_rows(t.to(self.device), self.par.sp_group, "gather_pages")
+            out[key] = torch.cat(parts.view(sp, *t.shape).unbind(0), dim=dim).cpu()
+        return out
+
+    def _part(self, key: str, row: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of one whole page's row (dims without N)."""
+        dim = self._pool_dims[key]
+        if dim is None:
+            return row
+        n = row.shape[dim - 1] // self.par.sp
+        return row.narrow(dim - 1, self.par.sp_rank * n, n).clone()
+
+    def _replica_barrier(self) -> None:
+        """Every rank of the replica waits for every other (the model group,
+        then the data group, reach all of them)."""
+        dist.barrier(group=self.par.sp_group)
+        dist.barrier(group=self.par.dp_group)
+
     def save_kv_store(self, path: str) -> int:
-        """Persist the radix tree and every cached page's payload to ``path``."""
-        n = self.kv.save(path, self._read_page)
+        """Persist the radix tree and every cached page's payload to ``path``.
+        On a mesh every rank of the replica calls it: the slices are
+        gathered, the replica's first rank writes and every rank returns
+        once the file is whole."""
+        if self.shard is not None:
+            n = self.kv.save(path, self._read_page, whole=self._whole_pages,
+                             write=self.par.rank == 0)
+            self._replica_barrier()
+        else:
+            n = self.kv.save(path, self._read_page)
         self.kv_store_saved_pages = getattr(self, "kv_store_saved_pages", 0) + n
         self.telemetry.registry.counter("kvstore_saved_pages").inc(n)
         self.telemetry.event("kvstore.save", pages=n)
@@ -754,8 +843,9 @@ class PagedServeEngine(DL.ServeEngine):
 
     def restore_kv_store(self, path: str) -> int:
         """Load a persisted prefix cache into the spill tier (pages promote
-        to the device at their first radix hit)."""
-        n = self.kv.restore(path)
+        to the device at their first radix hit); on a mesh each rank keeps
+        its slice of every page."""
+        n = self.kv.restore(path, part=self._part if self.shard is not None else None)
         self.kv_store_restored_pages = getattr(self, "kv_store_restored_pages", 0) + n
         self.telemetry.registry.counter("kvstore_restored_pages").inc(n)
         self.telemetry.event("kvstore.restore", pages=n)
@@ -791,16 +881,16 @@ class PagedServeEngine(DL.ServeEngine):
                 self.telemetry.event("pool.defer", request=idx, slot=s)
                 return None
             raise ValueError(str(e)) from None
-        paged_reset(cache, s, plan.fresh_pages)
+        paged_reset(cache, self._local_slot(s), plan.fresh_pages)
         for sid, dst, keep in plan.promote:
-            promote_page(cache, dst, self.kv.spill.read(sid), keep)
+            promote_page(cache, dst, self.kv.spill.read(sid), keep, self._page_base)
             st["spill_promotes"] += 1
         if plan.promote:
             self.telemetry.event("pool.promote", request=idx, slot=s, n=len(plan.promote))
         for sid in plan.free_spill:  # the copies are made: the slots are free
             self.kv.spill.free(sid)
         for src, dst in plan.cow:
-            copy_page(cache, src, dst, plan.resume % self.page_size)
+            copy_page(cache, src, dst, plan.resume % self.page_size, self._page_base)
             st["cow_copies"] += 1
             self.telemetry.event("pool.cow", request=idx, slot=s, src=int(src), dst=int(dst))
         self._table_dev = None  # the table changed: ship it at the next dispatch
@@ -875,6 +965,10 @@ class SLOPagedServeEngine(PagedServeEngine):
         if policy not in ("slo", "fifo"):
             raise ValueError(f"policy must be 'slo' or 'fifo', got {policy!r}")
         kw.setdefault("radix", True)
+        if PAR.distributed(kw.get("par")):
+            raise ValueError("SLOPagedServeEngine runs on one rank (the JAX CLI keeps --sched "
+                             "off a mesh): route QoS requests to sharded replicas through "
+                             "launch/router.py")
         super().__init__(cfg, params, **kw)
         if not self.radix_enabled:
             pat, _, tail = layout_of(cfg)

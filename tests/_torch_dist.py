@@ -26,6 +26,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
 JOIN_TIMEOUT = 240  # seconds a spawn may take, its ranks' start included
+# the serve mesh's collectives (core/parallel.py), which no training task calls
+SERVE_COLLECTIVES = ("gather_heads", "gather_state", "gather_rows", "gather_harvest",
+                     "gather_pages")
 
 
 def _env(**extra) -> dict:
@@ -192,7 +195,8 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
                         "reduce_scatter_seq": 1, "all_reduce_sum": 1, "all_reduce_max": 1,
                         "gather_spans": 1,
                         "reduce_scatter_spans": 1, "gather_counts": 1, "gather_params": 1,
-                        "reduce_scatter_grads": 1, "dispatch_slots": 2, "combine_slots": 2}
+                        "reduce_scatter_grads": 1, "dispatch_slots": 2, "combine_slots": 2,
+                        **dict.fromkeys(SERVE_COLLECTIVES, 0)}
             and P.nbytes == {"seq_to_heads": sent, "heads_to_seq": sent, "gather_seq": sent,
                              "reduce_scatter_seq": sp * sent, "all_reduce_sum": sent,
                              "all_reduce_max": sent, "gather_spans": sent,
@@ -200,7 +204,8 @@ def task_parallel(rank: int, world: int, tmp: Path) -> dict:
                              "gather_counts": 24, "gather_params": sent,
                              "reduce_scatter_grads": sp * sent,
                              "dispatch_slots": (sp + 1) * sent,
-                             "combine_slots": (sp + 1) * sent})
+                             "combine_slots": (sp + 1) * sent,
+                             **dict.fromkeys(SERVE_COLLECTIVES, 0)})
     return out
 
 
@@ -1130,9 +1135,259 @@ def task_fpdt_cuda(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+
+# label, arch, config overrides, engine ("paged" or "dense"), engine keywords,
+# workload: the cells of tests/distributed/check_serve_mesh.py on a 2 x 2 mesh
+SERVE_CELLS = (
+    ("paged-heads", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 24}, "twice"),
+    ("paged-inpage", "llama3.2-1b", {"num_kv_heads": 1}, "paged",
+     {"page_size": 4, "n_pages": 48}, "twice"),
+    ("dense-heads", "llama3.2-1b", {}, "dense", {}, "once"),
+    ("dense-seq", "llama3.2-1b", {"num_kv_heads": 1}, "dense", {}, "once"),
+    ("spill", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 8, "spill_pages": 16},
+     "spill"),
+    ("granite", "granite-moe-1b-a400m", {}, "paged", {"page_size": 8, "n_pages": 24}, "once"),
+    ("sampled", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 24}, "sampled"),
+)
+SERVE_KW = {"slots": 2, "bucket": 16, "max_new_tokens": 4, "prefill_chunk": 8, "segment": 2}
+SERVE_STEP_TOKENS = 8  # the direct steps' prefill chunk a row
+SERVE_TEMPERATURE = 0.8
+STORE_SPILL = 32  # the spill tier a restored store lands in
+# the replica tier on 2 replicas of 1 x 2: tests/test_faults.py's engines
+FAULT_KW = {"slots": 2, "bucket": 24, "max_new_tokens": 4, "page_size": 4, "segment": 1,
+            "spill_pages": 32}
+
+
+def serve_cfg(cfgs, arch: str, over=()):
+    """A serve cell's config from ``cfgs`` (either package's): reduced, fp32."""
+    import dataclasses
+
+    return dataclasses.replace(cfgs.reduced(cfgs.get_config(arch)), param_dtype="float32",
+                               remat="none", **dict(over))
+
+
+def serve_prompts(vocab: int, workload: str = "once"):
+    """check_serve_mesh.py's prompts (two sharing a 12-token prefix, one
+    apart); for the spill workload also its three evictors."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(2, vocab - 1, 12).tolist()
+    out = [shared + rng.integers(2, vocab - 1, 4).tolist(),
+           shared + rng.integers(2, vocab - 1, 4).tolist(),
+           rng.integers(2, vocab - 1, 9).tolist()]
+    if workload != "spill":
+        return out, []
+    rng = np.random.default_rng(7)
+    return out, [rng.integers(2, vocab - 1, 16).tolist() for _ in range(3)]
+
+
+def serve_step_inputs(vocab: int, page_size: int):
+    """The direct steps' inputs: a chunk of SERVE_STEP_TOKENS tokens a row
+    from offset 0, and a page table mapping each row's pages apart."""
+    import numpy as np
+
+    k = SERVE_STEP_TOKENS // page_size + 1  # the chunk's pages and the decode token's
+    table = np.array([[s * k + j for j in range(k)] + [-1] for s in range(2)], np.int64)
+    toks = np.random.default_rng(3).integers(2, vocab - 1, (2, SERVE_STEP_TOKENS))
+    return toks, table
+
+
+def fault_workload(vocab: int, seed: int = 0):
+    """tests/test_faults.py's session_workload."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = [int(t) for t in rng.integers(0, vocab, 8)]
+    return ([shared + [int(t) for t in rng.integers(0, vocab, 8)] for _ in range(4)],
+            [f"tenant-{s}" for s in range(4)])
+
+
+def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
+    """The SERVE_CELLS on a 2 x 2 mesh (weights and JAX's tokens from
+    ``serve_mesh.npz``/``serve_mesh.json``): each engine's tokens, its
+    cache's leaves (shapes, bytes) on this rank, the serve collectives'
+    calls and bytes with the chunk and decode steps taken, the direct
+    steps' logits of this rank's rows; the paged cells' store saved on the
+    mesh and a JAX-written one restored; then 2 replicas of 1 x 2 with
+    rank 0 routing through the CLI's proxies: the seeded crash."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import parallel as P
+    from repro_torch.launch import faults as F
+    from repro_torch.launch import kvstore as KV
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import router as R
+    from repro_torch.launch import serve as CLI
+    from repro_torch.models import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import decode_loop as DL
+    from repro_torch.runtime import paged as PG
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_unflatten
+
+    ref = np.load(tmp / "serve_mesh.npz")
+    want = json.loads((tmp / "serve_mesh.json").read_text())
+    steps = {"chunk": 0, "decode": 0}
+    chunk_step, decode_step = SV.chunk_step, SV.decode_step
+    log = {"on": False, "steps": []}  # the chunk steps' logits of their live rows
+
+    def counted(fn, kind):
+        def run(*a, **k):
+            steps[kind] += 1
+            out = fn(*a, **k)
+            if log["on"] and kind == "chunk":
+                sh, live = k.get("shard"), a[6]
+                r0 = sh.r0 if sh is not None else 0
+                log["steps"].append({str(r0 + i): out[0][i].tolist()
+                                     for i in range(live.shape[0]) if live[i] > 0})
+            return out
+        return run
+
+    def logged(fn):
+        """``fn()``'s result and its chunk steps' logits, by global row."""
+        log.update(on=True, steps=[])
+        try:
+            res = fn()
+        finally:
+            log["on"] = False
+        return res, log["steps"]
+
+    SV.chunk_step, SV.decode_step = counted(chunk_step, "chunk"), counted(decode_step, "decode")
+
+    def params_of(label, cfg):
+        like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        n = len(tree_leaves(like))
+        return tree_unflatten(like, [torch.from_numpy(ref[f"{label}/p{i}"].copy())
+                                     for i in range(n)])
+
+    def leaves(cache):
+        return {"/".join(p): [list(x.shape), x.numel() * x.element_size()]
+                for p, x in tree_leaves_with_path(cache)}
+
+    par = MESH.serve_mesh(2, 2)
+    out = {}
+    for label, arch, over, kind, ekw, workload in SERVE_CELLS:
+        cfg = serve_cfg(configs, arch, over)
+        params = params_of(label, cfg)
+        prompts, evictors = serve_prompts(cfg.vocab_size, workload)
+        kw = dict(SERVE_KW)
+        sampled = workload == "sampled"
+        if sampled:
+            kw["sampling"] = DL.SamplingConfig(temperature=SERVE_TEMPERATURE)
+
+        def engine(p=par, **extra):
+            return (PG.PagedServeEngine(cfg, params, par=p, **kw, **ekw, **extra)
+                    if kind == "paged" else DL.ServeEngine(cfg, params, par=p, **kw))
+
+        def gen():
+            return torch.Generator().manual_seed(0) if sampled else None
+
+        eng = engine()
+        P.reset_counts()
+        steps.update(chunk=0, decode=0)
+        work = {"twice": [prompts] * 2, "spill": [prompts, evictors, prompts]}.get(workload,
+                                                                                [prompts])
+
+        def serve(e):
+            runs, dispatches = [], 0
+            for w in work:
+                runs.append(e.generate(w, generator=gen()))
+                dispatches += e.last_stats["dispatches"]
+            return runs, dispatches
+
+        (runs, dispatches), logits = logged(lambda: serve(eng))
+        cell = {"tokens": runs, "steps": dict(steps), "dispatches": dispatches,
+                "counts": {k: [P.calls[k], P.nbytes[k]] for k in SERVE_COLLECTIVES},
+                "stats": {k: v for k, v in eng.last_stats.items() if isinstance(v, (int, float))}}
+        if kind == "paged":
+            cell["cache"] = leaves(eng._pool)
+        else:
+            P_, S_ = eng._capacity(prompts)
+            cell["cache"] = leaves(eng._begin(SERVE_KW["slots"], P_, S_))
+            cell["capacity"] = S_
+        if sampled:  # the one-rank port engine from the same generator state
+            cell["one_rank"] = engine(None).generate(prompts, generator=gen())
+        if kind == "paged" and workload in ("twice", "once") and label != "granite":
+            n = eng.save_kv_store(str(tmp / f"{label}-mesh.npz"))
+            fresh = engine(spill_pages=STORE_SPILL)
+            cell["store"] = {"saved": n,
+                             "restored": fresh.restore_kv_store(str(tmp / f"{label}-jax.npz"))}
+            cell["store"]["tokens"], restored = logged(lambda: fresh.generate(prompts))
+            cell["store"]["hits"] = fresh.last_stats["prefix_hit_tokens"]
+            # the runs (the second a full cover) and the restored run beside
+            # a one-rank engine's: every chunk step's logits
+            one = engine(None, spill_pages=STORE_SPILL)
+            one.restore_kv_store(str(tmp / f"{label}-jax.npz"))
+            cell["logits"] = {"mesh": [logits, restored],
+                              "one": [logged(lambda: serve(engine(None)))[1],
+                                      logged(lambda: one.generate(prompts))[1]]}
+        # the direct steps, this rank's rows against JAX's at 1e-5
+        ps = ekw.get("page_size", 0)
+        sh = SV.Shard(par, 2, ps)
+        toks, table = serve_step_inputs(cfg.vocab_size, ps or SERVE_STEP_TOKENS)
+        r0, r1 = sh.r0, sh.r1
+        tab = torch.from_numpy(table) if ps else None
+        cache = (SV.init_paged_cache(cfg, 2, 8, ps, "cpu", par=par) if ps else
+                 SV.init_cache(cfg, 2, SERVE_STEP_TOKENS + 4, "cpu", par=par))
+        live = torch.full((r1 - r0,), SERVE_STEP_TOKENS)
+        lg, cache = SV.chunk_step(cfg, par, params, cache, torch.from_numpy(toks[r0:r1]),
+                                  torch.zeros(r1 - r0, dtype=torch.long), live, table=tab,
+                                  shard=sh)
+        lg2, _ = SV.decode_step(cfg, par, params, cache,
+                                {"tokens": lg.argmax(-1, keepdim=True)},
+                                torch.full((r1 - r0,), SERVE_STEP_TOKENS), table=tab, shard=sh)
+        cell["step"] = {"rows": [r0, r1], "chunk": lg.tolist(), "decode": lg2.tolist()}
+        out[label] = cell
+
+    # a recurrent layout refuses the mesh
+    try:
+        rcfg = serve_cfg(configs, "falcon-mamba-7b")
+        DL.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0), "cpu"),
+                       par=par, **SERVE_KW)
+        out["recurrent"] = "served"
+    except ValueError as e:
+        out["recurrent"] = str(e)
+    except Exception as e:  # noqa: BLE001 - what raised is the reading
+        out["recurrent"] = f"{type(e).__name__}: {e}"
+
+    # the replica tier: 2 replicas of 1 x 2, rank 0 routing
+    cfg = serve_cfg(configs, "llama3.2-1b")
+    params = params_of("paged-heads", cfg)
+    rpar = MESH.serve_mesh(1, 2, replicas=2)
+    ctl = [dist.new_group(sorted({0, *range(r * 2, (r + 1) * 2)})) for r in range(2)]
+    rep = CLI.MeshReplica(PG.PagedServeEngine(cfg, params, par=rpar, **FAULT_KW))
+    me = rank // 2
+    if rank != 0:
+        CLI._serve_commands(rep, ctl[me], me * 2)
+        return out
+    prompts, sessions = fault_workload(cfg.vocab_size)
+    proxies = [CLI.RankProxy(ctl[r], r * 2, rep if r == 0 else None) for r in range(2)]
+    rt = R.ReplicaRouter(proxies, max_retries=1, kv_store=KV.SharedKVStore(str(tmp / "shared")),
+                         warn=lambda m: None)
+    victim = rt.home_of(prompts[0], sessions[0])
+    rt.replicas[victim] = F.FaultyReplica(proxies[victim], [F.Fault("raise", 1)])
+    rounds = [rt.generate(prompts, sessions=sessions) for _ in range(2)]
+    fo = rt.last_stats["failover"]
+    for px in proxies:
+        px.stop()
+    out["replicas"] = {"victim": victim, "rounds": rounds,
+                       "failover": {k: fo[k] for k in ("deaths", "rehomed_requests",
+                                                       "rehomed_sessions", "recovered_pages",
+                                                       "recovered_prefix_tokens")},
+                       "telemetry": [px.telemetry.component for px in proxies]}
+    return out
+
+
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
          "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe,
-         "zero": task_zero, "ckpt": task_ckpt, "compress": task_compress}
+         "zero": task_zero, "ckpt": task_ckpt, "compress": task_compress,
+         "serve_mesh": task_serve_mesh}
 
 
 def main() -> None:

@@ -176,7 +176,9 @@ def test_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--engine", "--paged", "--host-kv-chunks", "4"],
-                                  ["--engine", "--mesh", "1x2"], ["--engine", "--replicas", "2"]])
+                                  ["--engine", "--mesh", "1x2", "--host-kv-chunks", "4"],
+                                  ["--engine", "--paged", "--mesh", "2x1", "--replicas", "2",
+                                   "--host-kv-chunks", "2"]])
 def test_cli_refuses_unported(capsys, flag):
     with pytest.raises(SystemExit) as ex:
         CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *flag])
