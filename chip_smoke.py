@@ -123,7 +123,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 every admission hitting the restored prefix; (e)
                 SLOPagedServeEngine: a decoding priority-1 request
                 preempted by a priority-0 arrival and fifo, both the solo
-                tokens, and a prefill-budget pause, the solo tokens;
+                tokens, and a prefill-budget pause, the solo tokens; (f)
+                (b)'s workload with the pool parked in pinned host memory
+                (n_host_chunks): (b)'s tokens, (n_pages + 1) x 1048576 B
+                pinned and no pool k or v on the card, the peak within 10%
+                of its reckoning, the bytes fetched and written back as
+                reckoned from the replayed schedule, segment 1 under
+                set_sync_debug_mode("error"), flash_fwd 0;
   5d. mesh    — serving over a mesh: (a) 5c's (b) workload on a 1 x 2
                 serve mesh of two gloo ranks sharing the card (llama3.2-1b,
                 16 layers, fp32, its 8 kv heads split 4 a rank): 5c's
@@ -136,7 +142,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 the gathers' share of the run; then its prefix store saved
                 on the mesh (gather_pages at its reckoned calls and bytes)
                 and restored on one rank: 5c's tokens, every admission a
-                hit; (b) after the ranks, the replica tier in this process:
+                hit; (a') in the same spawn, falcon-mamba-7b (8 layers) and
+                recurrentgemma-9b (6) at full width, fp32, on 5b's
+                recurrent requests, d_inner over model, then llama3.2-1b
+                (4 layers) on (a)'s prompts with the pool parked and with
+                dense host KV at one kv head (its positions over model,
+                the ranks' states merged): each one rank's tokens (this
+                process, after (b)), the recurrent state leaves at half of
+                d_inner to the byte, gather_channels and the dense case's
+                gather_state as reckoned, linear_scan launched on each
+                rank, a rank's pinned bytes as reckoned; (b) after
+                the ranks, the replica tier in this process:
                 tests/test_faults.py's seeded crash at full depth (two 1 x 1
                 paged replicas, two rounds of four sessions, the first
                 session's home replica dying on its second dispatch, a
@@ -174,9 +190,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 memory, one profiled step, u = 4 vs u = 1 in fp32 weights;
                 both trainings' losses are held to those of an earlier
                 commit (EARLIER_LOSSES);
-  6c. gpt     — gpt-2.7b (the paper's GPT) at full width and depth, 32
-                layers, B1-B3 at head_dim 80: the same as 6b (u = 4 vs u = 1 at
-                all 32 layers), its losses held to EARLIER_LOSSES;
+  6c. gpt     — gpt-2.7b (the paper's GPT) at full width and 8 of its 32
+                layers (GPT_TRAIN_LAYERS), B1-B3 at head_dim 80: the same as 6b
+                (u = 4 vs u = 1 at all 8 layers), its losses held to
+                EARLIER_LOSSES (taken at 8 layers with commit b137e8f's
+                training code, whose 32-layer losses met 0fd5e81's);
   6d. falcon  — falcon-mamba-7b at full width and 8 of its 64 layers, the
                 selective scan on linear_scan in 256-token blocks: remat
                 offload == remat full bit for bit, then 3 steps through
@@ -308,6 +326,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -370,14 +389,16 @@ FP32_LOGIT_RTOL = 1e-4
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6): llama3.2-1b's and
 # recurrentgemma-9b's from this script at commit 6a7ca09 (whose bf16
 # flash_bwd_dq still ran on the CUDA cores), run from a git archive in one
-# chip call with its child; gpt-2.7b's from this script at commit 0fd5e81,
-# where it was first trained; musicgen-medium's, internvl2-2b's and
+# chip call with its child; gpt-2.7b's (at GPT_TRAIN_LAYERS, 8 layers) from
+# this script's first card run at that depth, on a tree whose training code was
+# commit b137e8f's, where gpt's 32-layer losses still met those taken at commit
+# 0fd5e81 (the anchor before the cut); musicgen-medium's, internvl2-2b's and
 # qwen1.5-4b's (8 layers) from this script's first card run of them, where
 # their frontends and registration were added.  Each step is held within
 # LOSS_RTOL of them.
 EARLIER_LOSSES = {"llama3.2-1b": (12.1212, 10.8319, 14.2329),
                   "recurrentgemma-9b": (12.8542, 10.5876, 9.7271),
-                  "gpt-2.7b": (11.5631, 19.6821, 19.4709),
+                  "gpt-2.7b": (11.4793, 18.8279, 17.4778),
                   "musicgen-medium": (8.0948, 15.8543, 12.9916),
                   "internvl2-2b": (12.1181, 9.8164, 14.4724),
                   "qwen1.5-4b": (12.5033, 12.8573, 16.1957)}
@@ -1881,10 +1902,17 @@ def phase_train_hybrid(torch, M, card):
     return _train_run(torch, M, _train_cfg(M, "recurrentgemma-9b", num_layers=8), card)
 
 
+# gpt-2.7b's training depth: 8 of its 32 layers (its full depth runs in the
+# long-context phase 6g).  Cut from 32 to make room for the serve mesh's
+# recurrent and host-streamed cases (5d (a')) and the parked pool (5c (f));
+# every check of the phase runs at this depth.
+GPT_TRAIN_LAYERS = 8
+
+
 def phase_train_gpt(torch, M, card):
-    """gpt-2.7b (the paper's GPT) at full width and full depth (32 layers),
+    """gpt-2.7b (the paper's GPT) at full width and GPT_TRAIN_LAYERS layers,
     B1-B3 at head_dim 80."""
-    return _train_run(torch, M, _train_cfg(M, "gpt-2.7b"), card)
+    return _train_run(torch, M, _train_cfg(M, "gpt-2.7b", num_layers=GPT_TRAIN_LAYERS), card)
 
 
 GRANITE = "granite-moe-1b-a400m"
@@ -2498,8 +2526,10 @@ def phase_paged(torch, M, card, base):
       (e) SLOPagedServeEngine at SLO_SEGMENT: one slot, a priority-1 request
           decoding preempted by a priority-0 arrival, both the solo tokens;
           fifo the same tokens without preempting; two slots and a prefill
-          budget of 1: a pause, the solo tokens.
-    Launches are read around (a) and around (e)."""
+          budget of 1: a pause, the solo tokens;
+      (f) (b)'s workload, radix on, with the pool parked in pinned host
+          memory (``_paged_host``).
+    Launches are read around (a), (e) and (f)."""
     import tempfile
 
     cfg, params = base["cfg"], base["params"]
@@ -2605,6 +2635,10 @@ def phase_paged(torch, M, card, base):
     if d["outs"] != ref or restored != saved or min(hits) < SHARED_PREFIX:
         raise AssertionError("the restored store does not serve (b)'s prefix and tokens")
     del runs, fresh, d
+    torch.cuda.empty_cache()
+
+    # (f)
+    counts["paged-host"] = _paged_host(torch, M, card, cfg, params, shared_prompts, kw_b, ref)
 
     # (e)
     _reset_counts(M.K, M.SK)
@@ -2642,6 +2676,125 @@ def phase_paged(torch, M, card, base):
     del e
     counts["mesh_inputs"] = {"cfg": cfg, "params": base.pop("params"), "prompts": shared_prompts,
                              "lens": sorted(lens.tolist()), "tokens": ref}
+    return counts
+
+
+# (f): the host-streamed pool's slab count (a flag: the pool streams page by
+# page whatever it is; the JAX engines round S to whole slabs of it)
+HOST_POOL_CHUNKS = 2
+
+
+def _pool_traffic(cfg, schedules, tables, n_pages):
+    """Bytes the parked pool moves over a run (to the card, back to the
+    host), reckoned from the replayed schedules and the tables dispatched
+    with them: a step, in every attention layer and for k and v, fetches
+    each row's page at every logical page up to the rows' highest position
+    (clipped to the table's pages), then each page a row's span touches
+    that holds a real page (not unmapped, not the trash page), and writes
+    back the span's positions of those pages."""
+    layers = sum(k == "attn" for k in cfg.layer_kinds())
+    row = cfg.num_kv_heads * cfg.head_dim * 4
+    page = PAGE_SIZE * row
+    to_card = to_host = 0
+    for sched, tab in zip(schedules, tables):
+        rows, max_pages = tab.shape
+        last = max_pages * PAGE_SIZE - 1
+        for _, spans in sched:
+            spans = [(a, min(e, last)) for a, e in spans]
+            hi = max((e for a, e in spans if a <= e), default=-1)
+            pages = rows * (hi // PAGE_SIZE + 1) if hi >= 0 else 0
+            written = 0
+            for i, (a, e) in enumerate(spans):
+                for j in range(a // PAGE_SIZE, e // PAGE_SIZE + 1) if a <= e else ():
+                    if 0 <= tab[i, j] < n_pages:
+                        pages += 1
+                        written += min(e, j * PAGE_SIZE + PAGE_SIZE - 1) - max(a, j * PAGE_SIZE) + 1
+            to_card += 2 * layers * pages * page
+            to_host += 2 * layers * written * row
+    return to_card, to_host
+
+
+def _paged_host(torch, M, card, cfg, params, prompts, kw, ref):
+    """(f): (b)'s workload (radix on) through PagedServeEngine with
+    n_host_chunks: the pool's k and v parked in pinned host memory from
+    the start and streamed, the live pages a layer in one fetch.  Held:
+    (b)'s tokens; the pinned bytes (n_pages + 1) x a page of k and v over
+    every layer, to the byte (HostOffload's held bytes), no pool k or v
+    on the card and the peak within 10% of the weights, the device's
+    pkpos, a layer's staging of the live pages (k and v) and a step's
+    transient (the staged k and v expanded to the q heads and the scores,
+    or the MLP's); the bytes fetched and written back as
+    ``_pool_traffic`` reckons them from the replayed schedule; the first
+    segment under set_sync_debug_mode("error"); flash_fwd 0.  The ms a
+    step beside the bytes fetched over the host link's rate."""
+    dev = torch.device("cuda")
+    policy = M.PL.host_offload(dev)
+    layers = sum(k == "attn" for k in cfg.layer_kinds())
+    kv_page = 2 * layers * PAGE_SIZE * cfg.num_kv_heads * cfg.head_dim * 4
+    gbps = _h2d_gbps(torch)
+    torch.cuda.synchronize()
+    policy.reset_counts()
+    held0 = policy.held_bytes
+    eng = M.CLI.make_engine(cfg, params, paged=dict(page_size=PAGE_SIZE),
+                            n_host_chunks=HOST_POOL_CHUNKS, **kw)
+    pinned = policy.held_bytes - held0
+    kv = [leaf for key, leaf, _ in M.SV.pool_leaves(eng._pool) if not key.endswith("pkpos")]
+    on_card = sum(t.numel() * t.element_size() for t in kv if t.device.type == "cuda")
+    want_pinned = (eng.n_pages + 1) * kv_page
+    print(f"(f) the pool parked: {eng.n_pages} + 1 pages x {kv_page} B of k and v = "
+          f"{want_pinned} B reckoned; {pinned} B pinned (HostOffload), {on_card} B of the pool's "
+          f"k and v on the card")
+    if pinned != want_pinned or on_card or not all(t.is_pinned() for t in kv):
+        raise AssertionError("the parked pool is not (n_pages + 1) pages of pinned k and v")
+    tables, real = [], eng._dispatch
+
+    def recorded(*a, **k):  # the table each segment plans from
+        tables.append(eng.kv.table.copy())
+        return real(*a, **k)
+
+    eng._dispatch = recorded
+    gc.collect()  # the earlier cases' engines (reference cycles) and their pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    policy.reset_counts()
+    M.SV.reset_host_kv()
+    _reset_counts(M.K, M.SK)
+    with _engine_probe(torch, M) as rec, _sync_checked_first_segment(torch, M) as checked:
+        run = M.CLI.run_engine(cfg, params, prompts, engine=eng)
+    counts = _counts(M.K, M.SK)
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.last_stats
+    steps = sum(len(sc) for sc in rec["schedules"])
+    want_card, want_host = _pool_traffic(cfg, rec["schedules"], tables, eng.n_pages)
+    b, cp, hq, dh = kw["slots"], kw["prefill_chunk"], cfg.num_heads, cfg.head_dim
+    pkpos = (eng.n_pages + 1) * layers * PAGE_SIZE * 4
+    span = st["max_pages"] * PAGE_SIZE  # the live pages at most
+    staging = 2 * b * span * cfg.num_kv_heads * dh * 4  # k and v
+    attn = 4 * b * span * hq * (2 * dh + 2 * cp)
+    mlp = 3 * 4 * b * cp * cfg.d_ff
+    want_peak = cfg.num_params() * 4 + pkpos + staging + max(attn, mlp)
+    fetched = policy.to_device_bytes
+    _paged_line("(f) parked pool", run, card)
+    print(f"  {steps} steps, {run['ms'] / steps:.2f} ms a step; fetched {fetched} B "
+          f"({fetched / steps / 1e6:.2f} MB a step: {fetched / steps / gbps / 1e6:.3f} ms at the "
+          f"host link's {gbps:.2f} GB/s), written back {policy.to_host_bytes} B (reckoned "
+          f"{want_card} and {want_host}); {M.SV.host_pages['fetched']} pages; peak "
+          f"{peak / 2**30:.3f} GiB (reckoned {want_peak / 2**30:.3f}; {base / 2**30:.3f} "
+          f"allocated before the run); launches {counts} [{card}]")
+    if run["outs"] != ref:
+        raise AssertionError("the parked pool's tokens differ from (b)'s")
+    if checked["segments"] != 1 or counts["flash_fwd"]:
+        raise AssertionError("the sync check did not run, or flash_fwd launched")
+    if (fetched, policy.to_host_bytes) != (want_card, want_host):
+        raise AssertionError("the parked pool's traffic is not as reckoned")
+    if not 0.9 <= peak / want_peak <= 1.1:
+        raise AssertionError(f"peak {peak / 2**30:.3f} GiB not within 10% of the reckoned "
+                             f"{want_peak / 2**30:.3f}")
+    if (st["host_kv_bytes"], st["host_kv_pages"]) != (want_pinned, M.SV.host_pages["fetched"]):
+        raise AssertionError("the engine's host KV figures are not the pool's")
+    del eng, run, rec
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2769,7 +2922,7 @@ def _mesh_rank(rank, world, tmp, spawned_at):
                "summary": run["summary"], "launches": _counts(M.K, M.SK),
                "collectives": {k: [M.P.calls[k], M.P.nbytes[k]] for k in M.P.COLLECTIVES
                                if M.P.calls[k]},
-               "steps": steps, "checked": checked["segments"], "gathers": gathers,
+               "steps": dict(steps), "checked": checked["segments"], "gathers": gathers,
                "peak": torch.cuda.max_memory_allocated(),
                "pool": sum(x.numel() * x.element_size()
                            for _, x, _ in M.SV.pool_leaves(eng._pool)),
@@ -2781,10 +2934,145 @@ def _mesh_rank(rank, world, tmp, spawned_at):
         out["store"] = {"saved": saved, "ms": (time.perf_counter() - t0) * 1e3,
                         "collectives": {k: [M.P.calls[k], M.P.nbytes[k]]
                                         for k in M.P.COLLECTIVES if M.P.calls[k]}}
+        del eng, params, run
+        torch.cuda.empty_cache()
+        for label, (cfg, prompts, kw) in _mesh_cases(M, inp).items():
+            t0 = time.perf_counter()
+            out[label] = _mesh_case(torch, M, par, dev, cfg, prompts, steps, kw)
+            out[label]["s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     Path(tmp, f"rank{rank}.part").write_text(json.dumps(out))
     os.replace(Path(tmp, f"rank{rank}.part"), Path(tmp, f"rank{rank}.json"))
+
+
+# (a'): after the llama case, in the same spawn: the recurrent archs at full
+# width (falcon-mamba-7b at FALCON_LAYERS, recurrentgemma-9b at two cycles)
+# on ENGINE_RECURRENT's requests, their d_inner over model; llama3.2-1b at
+# MESH_HOST_LAYERS with host-streamed KV (the pool parked, then the dense
+# engine's at one kv head, so that its positions split over model)
+# engine's), on (a)'s prompts
+MESH_RECURRENT = (("falcon-mamba-7b", FALCON_LAYERS), ("recurrentgemma-9b", 6))
+MESH_HOST_LAYERS = 4
+
+
+def _mesh_cases(M, inp):
+    """label -> (config, prompts, make_engine's keywords but ``par``) of the
+    1 x MESH_RANKS spawn's cases after its llama one (the parent runs each
+    again on one rank)."""
+    n_req, plen, gen = ENGINE_RECURRENT
+    common = dict(slots=ENGINE_SLOTS, segment=ENGINE_SEGMENT, prefill_chunk=ENGINE_CHUNK)
+    cases = {}
+    for arch, layers in MESH_RECURRENT:
+        cfg = _fp32_cfg(M, arch, num_layers=layers)
+        prompts, _ = M.CLI.engine_prompts(cfg, n_req, plen)
+        cases[arch] = (cfg, [list(p) for p in prompts], dict(common, bucket=plen, gen=gen))
+    cfg = _fp32_cfg(M, "llama3.2-1b", num_layers=MESH_HOST_LAYERS)
+    host = dict(common, bucket=inp["bucket"], gen=inp["gen"], n_host_chunks=HOST_POOL_CHUNKS)
+    cases["paged-host"] = (cfg, inp["prompts"], dict(host, paged=dict(page_size=PAGE_SIZE)))
+    cases["dense-host"] = (dataclasses.replace(cfg, num_kv_heads=1), inp["prompts"], host)
+    return cases
+
+
+def _mesh_case(torch, M, par, dev, cfg, prompts, steps, kw):
+    """One of ``_mesh_cases`` on this rank of ``par``: its seeded weights,
+    an engine (``make_engine``) run over ``prompts``; the tokens, launches,
+    serve collectives, steps, the recurrent state leaves' shapes and bytes
+    and the pinned bytes the run held."""
+    params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    policy = M.PL.host_offload(dev)
+    torch.cuda.synchronize()
+    policy.reset_counts()
+    held0 = policy.held_bytes
+    eng = M.CLI.make_engine(cfg, params, par=par, **kw)
+    caches, begin = [], eng._begin
+    eng._begin = lambda *a: caches.append(begin(*a)) or caches[-1]
+    steps.update(chunk=0, decode=0)
+    _reset_counts(M.K, M.SK)
+    M.P.reset_counts()
+    run = M.CLI.run_engine(cfg, params, prompts, engine=eng)
+    out = {"tokens": run["outs"], "ms": run["ms"], "launches": _counts(M.K, M.SK),
+           "collectives": {k: [M.P.calls[k], M.P.nbytes[k]] for k in M.P.COLLECTIVES
+                           if M.P.calls[k]},
+           "steps": dict(steps), "pinned": policy.peak_held_bytes - held0,
+           "states": {n: [list(x.shape), x.numel() * x.element_size()]
+                      for n, x, _ in _state_leaves(caches[0])},
+           "stats": {k: v for k, v in eng.last_stats.items() if isinstance(v, (int, float))}}
+    del eng, params, caches, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_mesh_cases(torch, M, card, ranks, inp):
+    """The spawn's extra cases against one rank's run of each (this
+    process, the same seeded weights): the tokens; for the recurrent archs
+    each rank's state leaves at half of d_inner to the byte, its
+    gather_channels calls and bytes (two a recurrent layer and step, a
+    step's rows x window x d_inner / 2 in fp32) and linear_scan launched;
+    for host-streamed KV each rank's pinned bytes (its half of the pool's
+    n_pages + 1 pages, 4 of the 8 kv heads, or of the dense cache's
+    positions at one kv head) as reckoned, and for the dense case its
+    gather_state calls and bytes (a layer and step: the rows' [hq, w,
+    dh + 2] states in fp32).
+    Returns each case's rank-0 launches."""
+    sp, dev = MESH_RANKS, torch.device("cuda")
+    out = {}
+    for label, (cfg, prompts, kw) in _mesh_cases(M, inp).items():
+        params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        one = M.CLI.run_engine(cfg, params, prompts, **{k: v for k, v in kw.items()
+                                                         if k != "n_host_chunks"})
+        del params
+        torch.cuda.empty_cache()
+        kinds = cfg.layer_kinds()
+        rec = sum(k in ("ssm", "rglru") for k in kinds)
+        b, cp, half = kw["slots"], kw["prefill_chunk"], cfg.d_inner // sp
+        for r, got in enumerate(ranks):
+            c = got[label]
+            n_chunk, n_dec = c["steps"]["chunk"], c["steps"]["decode"]
+            print(f"  rank {r} {label} ({cfg.num_layers} layers): "
+                  f"{sum(len(o) for o in c['tokens'])} tokens in {c['ms']:.1f} ms ({n_chunk} "
+                  f"chunk, {n_dec} decode steps; the case {c['s']:.1f} s with its weights), "
+                  f"one rank's run {one['ms']:.1f} ms; "
+                  f"collectives {c['collectives']}; pinned {c['pinned']} B; launches "
+                  f"{c['launches']} [{card}]")
+            if c["tokens"] != one["outs"]:
+                raise AssertionError(f"rank {r} {label}: the 1 x {sp} tokens differ from one "
+                                     "rank's")
+            if rec:
+                meta = M.SV.init_cache(cfg, b, c["stats"]["capacity"], "meta")
+                want = {}
+                for name, leaf, _ in _state_leaves(meta):
+                    shape = list(leaf.shape)
+                    shape[-2 if name.endswith("ssm") else -1] //= sp  # d_inner's dim
+                    want[name] = [shape, math.prod(shape) * leaf.element_size()]
+                calls = 2 * rec * (n_chunk + n_dec)
+                nbytes = 2 * rec * (n_chunk * b * cp + n_dec * b) * half * 4
+                print(f"    state leaves {c['states']} (reckoned {want}); gather_channels "
+                      f"reckoned [{calls}, {nbytes}]")
+                if c["states"] != want:
+                    raise AssertionError(f"rank {r} {label}: the state leaves are not half of "
+                                         "d_inner")
+                if c["collectives"].get("gather_channels") != [calls, nbytes]:
+                    raise AssertionError(f"rank {r} {label}: gather_channels not as reckoned")
+                if c["launches"]["linear_scan"] <= 0:
+                    raise AssertionError(f"rank {r} {label}: linear_scan launched no time")
+            else:
+                layers = sum(k == "attn" for k in kinds)
+                row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 4 // sp  # a rank's half
+                want = ((c["stats"]["n_pages"] + 1) * PAGE_SIZE * row if "paged" in kw else
+                        b * c["stats"]["capacity"] * row)
+                print(f"    pinned reckoned {want} B; the engine's host KV "
+                      f"{c['stats']['host_kv_bytes']} B")
+                if c["pinned"] != want or c["stats"]["host_kv_bytes"] != want:
+                    raise AssertionError(f"rank {r} {label}: pinned bytes not as reckoned")
+                if cfg.num_kv_heads % sp:  # positions over model: the ranks' states merged
+                    merged = [layers * (n_chunk + n_dec), layers * (n_chunk * b * cp + n_dec * b)
+                              * cfg.num_heads * (cfg.head_dim + 2) * 4]
+                    print(f"    gather_state reckoned {merged}")
+                    if c["collectives"].get("gather_state") != merged:
+                        raise AssertionError(f"rank {r} {label}: gather_state not as reckoned")
+        out[label] = ranks[0][label]["launches"]
+    return out
 
 
 def _replica_tier(torch, M, card, cfg, params):
@@ -2906,9 +3194,12 @@ def phase_serve_mesh(torch, M, card, base):
           then the prefix store saved on the mesh (gather_pages at its
           reckoned calls and bytes, rank 0 writing whole pages) restored
           into a one-rank engine: the tokens, every admission a hit;
+      (a') in the same spawn, ``_mesh_cases``: the recurrent archs and
+          host-streamed KV on 1 x MESH_RANKS, held by
+          ``_check_mesh_cases`` to one rank's runs after (b);
       (b) the replica tier (``_replica_tier``), once the ranks are done;
       (c) the serve CLI (``_mesh_cli``).
-    Returns rank 0's launches of (a)."""
+    Returns rank 0's launches of (a) and of each (a') case."""
     import multiprocessing
     import tempfile
 
@@ -2916,9 +3207,9 @@ def phase_serve_mesh(torch, M, card, base):
     n_req, plen, gen = ENGINE_LLAMA
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
+    inputs = {"prompts": base["prompts"], "bucket": plen + SHARED_PREFIX, "gen": gen}
     with tempfile.TemporaryDirectory() as tmp:
-        Path(tmp, "inputs.json").write_text(json.dumps(
-            {"prompts": base["prompts"], "bucket": plen + SHARED_PREFIX, "gen": gen}))
+        Path(tmp, "inputs.json").write_text(json.dumps(inputs))
         procs = [ctx.Process(target=_mesh_rank, args=(r, MESH_RANKS, tmp, time.time()))
                  for r in range(MESH_RANKS)]
         for p in procs:
@@ -2994,8 +3285,17 @@ def phase_serve_mesh(torch, M, card, base):
             min(hits) < SHARED_PREFIX):
         raise AssertionError("the store saved on the mesh does not serve (b)'s prefix and tokens "
                              "on one rank")
+    del d
+    t0 = time.perf_counter()
+    archs = ", ".join(f"{a} ({n} layers)" for a, n in MESH_RECURRENT)
+    print(f"(a') after (a), in the same spawn: {archs} at full width over "
+          f"{ENGINE_RECURRENT[0]} requests, d_inner over model; llama3.2-1b "
+          f"({MESH_HOST_LAYERS} layers) on (a)'s prompts with host-streamed KV, the pool parked "
+          "and the dense engine's at one kv head (positions over model)")
+    cases = _check_mesh_cases(torch, M, card, ranks, inputs)
+    print(f"  one rank's runs and the checks {time.perf_counter() - t0:.1f} s")
     cli = _mesh_cli(M, card)
-    return {"launches": ranks[0]["launches"], "tier": tier, "cli": cli,
+    return {"launches": ranks[0]["launches"], "cases": cases, "tier": tier, "cli": cli,
             "ranks_s": secs, "rank0": {k: ranks[0][k] for k in ("ms", "summary", "peak", "pool",
                                                                 "collectives", "start-up",
                                                                 "gathers", "store")}}
@@ -5116,7 +5416,11 @@ def main():
     serve_paths = {"engine llama3.2-1b": engines["engine"],
                    "blocking llama3.2-1b": engines["blocking"],
                    "paged llama3.2-1b": paged["paged"], "slo llama3.2-1b": paged["slo"],
+                   "paged-host llama3.2-1b": paged["paged-host"],
                    "mesh 1x2 llama3.2-1b": mesh["launches"],
+                   **{f"mesh 1x2 {label}" + ("" if label in dict(MESH_RECURRENT) else
+                                             " llama3.2-1b"): counts
+                      for label, counts in mesh["cases"].items()},
                    **{f"engine {arch}": phase(f"engine {arch}", phase_engine_recurrent, torch,
                                               M, card, arch)
                       for arch in ("recurrentgemma-9b", "falcon-mamba-7b")},
@@ -5124,7 +5428,9 @@ def main():
                                                 phase_host_kv, torch, M, card)}
     for path, kname in (("blocking llama3.2-1b", "flash_fwd"), ("host-kv llama3.2-1b", "flash_fwd"),
                         ("engine recurrentgemma-9b", "linear_scan"),
-                        ("engine falcon-mamba-7b", "linear_scan")):
+                        ("engine falcon-mamba-7b", "linear_scan"),
+                        ("mesh 1x2 recurrentgemma-9b", "linear_scan"),
+                        ("mesh 1x2 falcon-mamba-7b", "linear_scan")):
         if serve_paths[path][kname] <= 0:
             fail(f"the {path} path launched {kname} no time")
     train_ref = {}

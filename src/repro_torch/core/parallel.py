@@ -62,6 +62,8 @@ concatenating along dim 0 in rank order:
 
   gather_heads        [b, s, w] -> [b, s, sp*w]: every model rank's heads'
                       attention outputs (an exact concatenation)
+  gather_channels     [..., c] -> [..., sp*c]: every model rank's channels of
+                      a recurrent mixer's activations (an exact concatenation)
   gather_state        [n, ...] -> [sp, n, ...]: every model rank's partial
                       online-softmax state over its positions
   gather_rows         [b, ...] -> [dp*b, ...]: every data rank's rows (the
@@ -91,8 +93,8 @@ import torch.distributed as dist
 COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq",
                "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
                "gather_counts", "gather_params", "reduce_scatter_grads", "dispatch_slots",
-               "combine_slots", "gather_heads", "gather_state", "gather_rows", "gather_harvest",
-               "gather_pages")
+               "combine_slots", "gather_heads", "gather_channels", "gather_state", "gather_rows",
+               "gather_harvest", "gather_pages")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -370,6 +372,15 @@ def gather_heads(x: torch.Tensor, group) -> torch.Tensor:
     b, s, w = x.shape
     out = _all_gather0(x, group, "gather_heads")
     return out.view(sp, b, s, w).permute(1, 2, 0, 3).reshape(b, s, sp * w)
+
+
+def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """[..., c] (this rank's channels of the last dim) -> [..., sp*c]: every
+    rank's in rank order, which is channel order."""
+    sp = dist.get_world_size(group)
+    lead, c = x.shape[:-1], x.shape[-1]
+    out = _all_gather0(x.reshape(1, -1, c), group, "gather_channels")
+    return out.view(sp, -1, c).permute(1, 0, 2).reshape(*lead, sp * c)
 
 
 def gather_state(x: torch.Tensor, group) -> torch.Tensor:

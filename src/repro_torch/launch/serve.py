@@ -27,7 +27,10 @@ Every registered arch serves.
 
 ``--host-kv-chunks N`` keeps the full-attention KV cache in pinned host
 memory and streams it through decode in N slabs (FPDT's pipeline applied
-to inference, ``models/serve.py``); N must divide the cache length.
+to inference, ``models/serve.py``); N must divide the cache length.  With
+``--paged`` the page pool is parked there and streams its live pages; with
+``--mesh`` each rank parks its own shard.  An engine run prints the bytes
+parked and the slabs merged or pages fetched.
 ``--engine`` serves ``--requests`` prompts of ``--prompt-len // 4`` to
 ``--prompt-len`` tokens (``numpy.random.default_rng(seed)``, as the JAX
 CLI draws them, after a ``--shared-prefix`` common to all) over
@@ -74,9 +77,9 @@ each command (generate, save_kv_store, restore_kv_store, stop) to their
 replica's ranks; the replica's first rank answers, and at stop hands over
 its telemetry.  The run prints each replica's requests and prefix hits,
 the spills, the failover line, and the tokens' digest.  ``--layers N``
-cuts the model to N layers (0: the config's).  The host-streamed pool
-(``--paged --host-kv-chunks``, and ``--host-kv-chunks`` with ``--mesh``)
-is not yet ported: the CLI exits 2.
+cuts the model to N layers (0: the config's).  Every arch serves on a
+mesh (the recurrent states over channels, ``Shard.channels``), with
+``--host-kv-chunks`` too.
 """
 from __future__ import annotations
 
@@ -308,6 +311,13 @@ def _paged_report(args, engine):
                       f"prefix-hit")
 
 
+def _host_kv_words(st, paged: bool) -> str:
+    """The engine's host-streamed KV figures (``--host-kv-chunks``)."""
+    moved = (f"{st['host_kv_pages']} pages fetched" if paged else
+             f"{st['host_kv_slabs']} slabs merged")
+    return f"host KV: {st['host_kv_bytes']} B parked on the host, {moved}"
+
+
 def _export_telemetry(args, telemetries):
     """--trace-out / --metrics-out: dump the run's telemetry to disk."""
     if args.trace_out:
@@ -362,6 +372,8 @@ def _engine_main(args, cfg: ModelConfig, params, device: torch.device, gen: torc
         print(f"  dispatch wall-clock: steady p50 {sm['steady_p50_ms']:.2f} ms, refill-active "
               f"p95 {sm['refill_p95_ms']:.2f} ms ({sm['refill_dispatches']}/"
               f"{sm['dispatches']} dispatches overlapped a refill) on {name}")
+    if args.host_kv_chunks and not args.blocking:
+        print("  " + _host_kv_words(engine.last_stats, args.paged))
     if args.paged:
         _paged_report(args, engine)
         if args.kv_store:
@@ -515,6 +527,9 @@ def _route(args, cfg: ModelConfig, replicas: List[Any], name: str, mesh):
             hit = rs.get("prefix_hit_tokens", 0)
             line += (f", {rs['prompt_tokens']} prompt tokens"
                      + (f", {hit} prefix-hit" if args.paged else ""))
+        eng = getattr(replicas[rs["replica"]], "last_stats", None) or {}
+        if "host_kv_bytes" in eng:  # its last dispatch's, on its first rank
+            line += "; " + _host_kv_words(eng, args.paged)
         print(line)
     if args.router == "affine" and st["spilled"]:
         print(f"  {st['spilled']} requests spilled off their home replica")
@@ -560,8 +575,6 @@ def _mesh_engine_main(args, argv, mesh):
         raise SystemExit("--shared-kv-store needs --paged (the prefix cache lives in the "
                          "radix tree)")
     cfg = _serve_cfg(args)
-    if per > 1:  # before any rank starts
-        SV.check_mesh(cfg)
     if per == 1:  # every replica an engine in this process
         cards = torch.cuda.device_count() if args.device == "cuda" else 0
         devices = [torch.device("cuda", r % cards) if cards else torch.device("cpu")
@@ -698,12 +711,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or, when asked, on the CPU")
     args = ap.parse_args(argv)
-    if args.paged and args.host_kv_chunks:
-        ap.exit(2, "--paged --host-kv-chunks: the host-streamed page pool is not yet ported "
-                   "(ROADMAP Queue A item 2)\n")
-    if args.mesh and args.host_kv_chunks:
-        ap.exit(2, "--mesh --host-kv-chunks: host-streamed KV on a serve mesh is not yet "
-                   "ported (ROADMAP Queue A item 2, the next slice)\n")
     if args.mesh and not args.engine:
         ap.error("--mesh requires --engine")
     if args.paged and not args.engine:

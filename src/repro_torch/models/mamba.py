@@ -38,6 +38,14 @@ are real, pad positions made identity transitions (dt = 0) so the scan's
 last state (through ``selective_scan`` with the cached state as h0: the
 CUDA ``linear_scan`` on the card) is the state after exactly ``live``
 tokens, and the conv carry gathered at ``live`` (``_conv_state_at``).
+
+On a serve mesh (``models/serve.py::Shard.channels``) the decode and chunk
+steps take ``chan``, a rank's channels [c0, c1) of d_inner: its columns of
+``w_in`` (x and z), of the conv and of ``w_dt``, its rows of A_log and D,
+and its slice of the conv and ssm states; the activations are gathered
+over the model group (``gather_channels``, an exact concatenation) before
+the whole ``w_x`` and ``w_out``, so B, C and dt's rank are whole on every
+rank and the scan runs over the rank's [b, s, (c1 - c0) * ds].
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.layers import _dense_init
 
 Params = Dict[str, Any]
+# a serve mesh rank's channels of d_inner and its model group: (c0, c1, group)
+Chan = Optional[Tuple[int, int, Any]]
 
 BLOCK_S = 256  # tokens of one block of ``selective_scan``, as in the JAX package
 
@@ -236,15 +246,45 @@ def _conv(cfg: ModelConfig, p: Params, x, conv_state, par):
     return causal_conv1d(x, p["conv_w"], p["conv_b"], conv_state)
 
 
-def _in_proj(cfg: ModelConfig, p: Params, x: torch.Tensor, conv_state, par=None):
+def channels(p: Params, chan: Chan, di: int) -> Params:
+    """The parameters a rank of a serve mesh uses for its channels [c0, c1)
+    of ``chan`` (views; None: ``p`` itself): the columns of ``w_in``'s x
+    and z halves (``w_xin``, ``w_z``), of the conv and of ``w_dt``, and the
+    rows of b_dt, A_log and D.  ``w_x`` and ``w_out`` stay whole: their
+    inputs are gathered first."""
+    if chan is None:
+        return p
+    c0, c1, _ = chan
+    return {"w_xin": p["w_in"][:, c0:c1], "w_z": p["w_in"][:, di + c0:di + c1],
+            "conv_w": p["conv_w"][:, c0:c1], "conv_b": p["conv_b"][c0:c1],
+            "w_dt": p["w_dt"][:, c0:c1], "b_dt": p["b_dt"][c0:c1],
+            "A_log": p["A_log"][c0:c1], "D": p["D"][c0:c1]}
+
+
+def gathered(t: torch.Tensor, chan: Chan) -> torch.Tensor:
+    """``t``'s last dim, a rank's channels, gathered over ``chan``'s model
+    group (``gather_channels``; None: ``t`` as it is)."""
+    return t if chan is None else P.gather_channels(t, chan[2])
+
+
+def _xz(p: Params, q: Params, x: torch.Tensor, chan: Chan):
+    """(xc, z) before the conv: the rank's channels under ``chan``."""
+    if chan is None:
+        return (x @ p["w_in"]).chunk(2, dim=-1)
+    return x @ q["w_xin"], x @ q["w_z"]
+
+
+def _in_proj(cfg: ModelConfig, p: Params, x: torch.Tensor, conv_state, par=None,
+             chan: Chan = None):
     """The mixer up to the scan: (xc after conv and silu, z, conv state, dt
-    fp32, B, C)."""
+    fp32, B, C); xc, z and dt of the rank's channels under ``chan``."""
     dtr, ds = cfg.dt_rank_actual, cfg.ssm_state
-    xc, z = (x @ p["w_in"]).chunk(2, dim=-1)
-    xc, conv_state = _conv(cfg, p, xc, conv_state, par)
+    q = channels(p, chan, cfg.d_inner)
+    xc, z = _xz(p, q, x, chan)
+    xc, conv_state = _conv(cfg, q, xc, conv_state, par)
     xc = F.silu(xc)
-    dbc = xc @ p["w_x"]
-    dt = _softplus(dbc[..., :dtr] @ p["w_dt"] + p["b_dt"])
+    dbc = gathered(xc, chan) @ p["w_x"]
+    dt = _softplus(dbc[..., :dtr] @ q["w_dt"] + q["b_dt"])
     return xc, z, conv_state, dt, dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:]
 
 
@@ -286,7 +326,7 @@ def _dead(live: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def mamba_chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
-                     live: torch.Tensor):
+                     live: torch.Tensor, chan: Chan = None):
     """Chunked prefill step with state-at-length gather.
 
     x [b, cp, d]; state {"conv": [b, k-1, di], "ssm": [b, di, ds]}; live
@@ -296,32 +336,40 @@ def mamba_chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
     identity transitions (dt = 0 -> a = exp(0) = 1, b-term = 0), so the
     scan's last state is the state at the true length, and the conv carry
     is gathered at ``live``.  Outputs at pad positions are garbage for
-    the caller to mask."""
+    the caller to mask.  Under ``chan`` (a serve mesh rank's channels
+    [c0, c1) and its model group) the state holds those channels, the scan
+    runs over [b, cp, (c1 - c0) * ds], and xc and y * silu(z) are
+    gathered before ``w_x`` and ``w_out``."""
     dtr, ds = cfg.dt_rank_actual, cfg.ssm_state
     s, k = x.shape[1], cfg.d_conv
-    xin, z = (x @ p["w_in"]).chunk(2, dim=-1)
+    q = channels(p, chan, cfg.d_inner)
+    xin, z = _xz(p, q, x, chan)
     xp = torch.cat([state["conv"].to(xin.dtype), xin], dim=1)
-    xc = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+    xc = sum(xp[:, i:i + s] * q["conv_w"][i] for i in range(k)) + q["conv_b"]
     new_conv = _conv_state_at(xp, live, k)
     xc = F.silu(xc)
-    dbc = xc @ p["w_x"]
-    dt = _softplus(dbc[..., :dtr] @ p["w_dt"] + p["b_dt"])
+    dbc = gathered(xc, chan) @ p["w_x"]
+    dt = _softplus(dbc[..., :dtr] @ q["w_dt"] + q["b_dt"])
     dt = torch.where(_dead(live, s)[..., None], torch.zeros_like(dt), dt)
-    y, h_last = selective_scan(xc, dt, p["A_log"], dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:],
+    y, h_last = selective_scan(xc, dt, q["A_log"], dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:],
                                state["ssm"])
-    y = y + p["D"] * xc.float()
-    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"], {"conv": new_conv, "ssm": h_last}
+    y = y + q["D"] * xc.float()
+    return gathered(y.to(x.dtype) * F.silu(z), chan) @ p["w_out"], {"conv": new_conv,
+                                                                   "ssm": h_last}
 
 
-def mamba_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):
+def mamba_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
+                      chan: Chan = None):
     """Single-token decode. x [b, 1, d]; ``state`` {conv, ssm}.  Returns
     (y [b, 1, d], new_state); the casts are the reference's, dt * xc
-    included."""
-    xc, z, conv_state, dt, B, C = _in_proj(cfg, p, x, state["conv"])
-    A = -torch.exp(p["A_log"].float())
+    included.  Under ``chan`` the state holds the rank's channels, as in
+    ``mamba_chunk_step``."""
+    xc, z, conv_state, dt, B, C = _in_proj(cfg, p, x, state["conv"], chan=chan)
+    q = channels(p, chan, cfg.d_inner)
+    A = -torch.exp(q["A_log"].float())
     a = torch.exp(dt[:, 0, :, None].float() * A)  # [b, di, ds]
     bb = (dt * xc)[:, 0, :, None].float() * B[:, 0, None, :].float()
     h = a * state["ssm"] + bb
-    y = torch.einsum("bdn,bn->bd", h, C[:, 0].float()) + p["D"] * xc[:, 0].float()
+    y = torch.einsum("bdn,bn->bd", h, C[:, 0].float()) + q["D"] * xc[:, 0].float()
     y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ p["w_out"], {"conv": conv_state, "ssm": h}
+    return gathered(y, chan) @ p["w_out"], {"conv": conv_state, "ssm": h}

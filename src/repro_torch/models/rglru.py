@@ -25,6 +25,14 @@ and a gated input of 0, so the scan from the cached h (``linear_scan``
 with h0: the CUDA kernel on the card, the plain version on the CPU) ends
 at the state after exactly ``live`` tokens, and the conv carry is
 gathered at ``live`` (``mamba._conv_state_at``).
+
+On a serve mesh the decode and chunk steps take ``chan``, a rank's
+channels [c0, c1) of d_inner (``rglru.channels``): its columns of ``w_y``,
+``w_gate``, the conv and the gates' ``w_a`` and ``w_i``, and its slice of
+the conv and h states.  A gate reads every channel, so the conv output is
+gathered over the model group (``gather_channels``) before the gates, and
+h * gate before the whole ``w_out``; the scan runs over the rank's
+channels.
 """
 from __future__ import annotations
 
@@ -37,8 +45,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.parallel import ParallelContext
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.layers import _dense_init
-from repro_torch.models.mamba import (_conv, _conv_state_at, _dead, _softplus, _spans,
-                                      causal_conv1d, sharded, span_entry_states)
+from repro_torch.models.mamba import (Chan, _conv, _conv_state_at, _dead, _softplus, _spans,
+                                      causal_conv1d, gathered, sharded, span_entry_states)
 
 Params = Dict[str, Any]
 C_FACTOR = 8.0
@@ -67,10 +75,28 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
     }
 
 
-def _gates(p: Params, x: torch.Tensor):
-    """(a, gated input, log a) of the recurrence, fp32 [b, s, di]."""
-    r = torch.sigmoid((x @ p["w_a"]).float() + p["b_a"])
-    i = torch.sigmoid((x @ p["w_i"]).float() + p["b_i"])
+def channels(p: Params, chan: Chan) -> Params:
+    """The parameters a rank of a serve mesh uses for its channels [c0, c1)
+    of ``chan`` (views; None: ``p`` itself): the columns of ``w_y``,
+    ``w_gate``, the conv, ``w_a`` and ``w_i`` (whole [di, di] matrices: a
+    gate reads every channel, gathered first), the rows of the gate biases
+    and Lambda.  ``w_out`` stays whole: its input is gathered first."""
+    if chan is None:
+        return p
+    c0, c1, _ = chan
+    return {"w_y": p["w_y"][:, c0:c1], "w_gate": p["w_gate"][:, c0:c1],
+            "conv_w": p["conv_w"][:, c0:c1], "conv_b": p["conv_b"][c0:c1],
+            "w_a": p["w_a"][:, c0:c1], "b_a": p["b_a"][c0:c1],
+            "w_i": p["w_i"][:, c0:c1], "b_i": p["b_i"][c0:c1], "lam": p["lam"][c0:c1]}
+
+
+def _gates(p: Params, x: torch.Tensor, chan: Chan = None):
+    """(a, gated input, log a) of the recurrence, fp32 [b, s, di]: under
+    ``chan`` of the rank's channels (``p`` its ``channels``), the gates
+    read ``x`` gathered."""
+    xa = gathered(x, chan)
+    r = torch.sigmoid((xa @ p["w_a"]).float() + p["b_a"])
+    i = torch.sigmoid((xa @ p["w_i"]).float() + p["b_i"])
     log_a = -C_FACTOR * _softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * x.float())
@@ -120,35 +146,40 @@ def rglru_mixer(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def rglru_chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
-                     live: torch.Tensor):
+                     live: torch.Tensor, chan: Chan = None):
     """Chunked prefill step with state-at-length gather (the contract of
     ``mamba.mamba_chunk_step``): x [b, cp, d], state {conv, h}, live [b].
     Pad positions are identity transitions (a = 1, gated input = 0), so
     the scan's last state is the state after exactly ``live`` real tokens;
     the conv carry is gathered at ``live``.  Pad-position outputs are
-    garbage."""
+    garbage.  Under ``chan`` (a serve mesh rank's channels and its model
+    group) the state and the scan are the rank's channels, the conv output
+    is gathered before the gates and h * gate before ``w_out``."""
     s, k = x.shape[1], cfg.d_conv
-    y = x @ p["w_y"]
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    q = channels(p, chan)
+    y = x @ q["w_y"]
+    gate = F.gelu(x @ q["w_gate"], approximate="tanh")
     xp = torch.cat([state["conv"].to(y.dtype), y], dim=1)
-    y = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+    y = sum(xp[:, i:i + s] * q["conv_w"][i] for i in range(k)) + q["conv_b"]
     new_conv = _conv_state_at(xp, live, k)
-    a, gated, _ = _gates(p, y)
+    a, gated, _ = _gates(q, y, chan)
     dead = _dead(live, s)[..., None]  # [b, cp, 1]
     a = torch.where(dead, torch.ones_like(a), a)
     gated = torch.where(dead, torch.zeros_like(gated), gated)
     h = scan_ops.linear_scan(a, gated, state["h"])  # [b, cp, di] fp32
-    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    out = gathered(h.to(x.dtype) * gate, chan) @ p["w_out"]
     return out, {"conv": new_conv, "h": h[:, -1]}
 
 
-def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict):
+def rglru_decode_step(cfg: ModelConfig, p: Params, x: torch.Tensor, state: dict,
+                      chan: Chan = None):
     """Single-token decode. x [b, 1, d]; ``state`` {conv, h}.  Returns
-    (y [b, 1, d], new_state)."""
-    y = x @ p["w_y"]
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    y, conv_state = causal_conv1d(y, p["conv_w"], p["conv_b"], state["conv"])
-    a, gated, _ = _gates(p, y)
+    (y [b, 1, d], new_state); under ``chan`` as ``rglru_chunk_step``."""
+    q = channels(p, chan)
+    y = x @ q["w_y"]
+    gate = F.gelu(x @ q["w_gate"], approximate="tanh")
+    y, conv_state = causal_conv1d(y, q["conv_w"], q["conv_b"], state["conv"])
+    a, gated, _ = _gates(q, y, chan)
     h = a[:, 0] * state["h"] + gated[:, 0]
-    out = (h[:, None].to(x.dtype) * gate) @ p["w_out"]
+    out = gathered(h[:, None].to(x.dtype) * gate, chan) @ p["w_out"]
     return out, {"conv": conv_state, "h": h}

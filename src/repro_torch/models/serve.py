@@ -73,8 +73,28 @@ unmapped writes (``mode="drop"``, an out-of-bounds index); here they go
 to the trash page, which only FREE or paused rows map and whose outputs
 are thrown away, so an index never leaves the pool and no mask is read
 on the host; two live writes never share a page (copy-on-write).  The
-local_attn rings and the recurrent states stay dense per slot.  The
-host-streamed pool (``n_host_chunks`` with a table) is not ported.
+local_attn rings and the recurrent states stay dense per slot.
+
+The host-streamed pool (``n_host_chunks > 0`` with a table: the JAX
+package's two-tier pool) keeps ``pk``/``pv`` parked in pinned host memory
+from the start (``init_paged_cache(..., host=True)``; ``pkpos`` and the
+table stay on the device).  A step's plan (``_pool_plan``) comes from the
+table as the host holds it (``host_table``) and the rows' host-known
+spans (``bounds``), never from a device read: the live logical pages
+(up to the rows' highest position; the rest are the merge's identity)
+are fetched (``HostOffload.fetch_pages``, one copy a row's run of
+consecutive physical pages) and merged at once: the merge differs from
+JAX's page-by-page order in the last bits, and a step issues ~30 host ops
+a layer instead of ~30 a page and layer.  The step's new keys reach
+their host pages by a read-modify-write of the pages the rows' spans
+touch (``_host_pool_write``: fetched, written at the device-side
+positions, their spans copied back), every copy on the copy stream, so a
+later fetch sees them with no host wait: a decode step writes before it
+streams (JAX writes before it attends), a chunk step after (its history
+is the pre-write pool).  Dead and unmapped writes, and the trash page,
+never reach the host.  On the CPU the pool is an ordinary tensor but the
+page loop and the write pass run.  ``host_pages`` counts the pages
+fetched.
 
 On a mesh (``Shard``: a replica's ``data`` x ``model`` ranks, every rank
 holding the whole weight tree as the JAX serve programs do) a rank holds
@@ -94,8 +114,16 @@ split, a rank steps its own rows; the pool's writes of every row reach
 every data rank's copy through one all-gather over ``data`` a layer, and
 the MoE FFN runs on every row (gathered), as its groups and capacity are
 the batch's.  Norms, the FFN, logits and sampling are replicated over
-``model``, so every rank holds the same tokens.  The recurrent blocks and
-host-streamed KV are not ported to a mesh (ValueError).
+``model``, so every rank holds the same tokens.  The recurrent blocks
+split d_inner over ``model`` where the model ranks divide it
+(``Shard.channels``, JAX's ``sp_if``): a rank holds its channels of the
+conv and ssm or h states and runs the mixer on them, its activations
+all-gathered (``gather_channels``) before the projections that read every
+channel (``models/mamba.py``, ``models/rglru.py``).  Host-streamed KV
+parks a rank's own shard: dense KV streams the rank's heads, or its own
+positions from ``base`` with the ranks' states merged in rank order; the
+parked pool is the rank's slice of every page (whole over ``data``, so
+each data rank parks its own copy and writes every row's keys into it).
 """
 from __future__ import annotations
 
@@ -115,17 +143,20 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 from repro_torch.runtime import placement as PL
-from repro_torch.tree import tree_leaves_with_path, tree_map
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 Params = Dict[str, Any]
 
 # slabs of host-streamed KV merged ("fetched") and skipped by the live
-# bound, over every attention layer, since the last ``reset_host_kv``
+# bound, and pages of a parked pool fetched (a row's page, its k and
+# v one each), over every attention layer, since the last ``reset_host_kv``
 host_kv = {"fetched": 0, "skipped": 0}
+host_pages = {"fetched": 0}
 
 
 def reset_host_kv():
     host_kv.update(fetched=0, skipped=0)
+    host_pages.update(fetched=0)
 
 
 # ---------------------------------------------------------------------------
@@ -171,33 +202,46 @@ def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda",
     return cache
 
 
-def _paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype, device, lead=()):
+def _pool_zeros(shape, dtype, device, host: bool) -> torch.Tensor:
+    """A zeroed pool ``pk``/``pv`` leaf: parked in pinned host memory from
+    the start with ``host`` (``HostOffload.host_zeros``), else on ``device``."""
+    if host:
+        return PL.host_offload(device).host_zeros(shape, dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _paged_attn_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype, device, lead=(),
+                      host: bool = False):
     """Slot-shared page pool of one attention layer: ``n_pages + 1``
     physical pages, the last one the trash page; ``pkpos = -1`` marks
     unfilled entries, as the dense ``kpos`` does."""
     shape = (*lead, n_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"pk": torch.zeros(shape, dtype=dtype, device=device),
-            "pv": torch.zeros(shape, dtype=dtype, device=device),
+    return {"pk": _pool_zeros(shape, dtype, device, host),
+            "pv": _pool_zeros(shape, dtype, device, host),
             "pkpos": torch.full(shape[:-2], -1, dtype=torch.int32, device=device)}
 
 
 def init_paged_cache(cfg: ModelConfig, b: int, n_pages: int, page_size: int,
-                     device="cuda", par: Optional[ParallelContext] = None) -> Params:
+                     device="cuda", par: Optional[ParallelContext] = None,
+                     host: bool = False) -> Params:
     """Paged twin of ``init_cache``: the full-attention blocks share one
     page pool across the ``b`` slots (bytes scale with the pages mapped,
     not ``slots x worst-case length``); the local_attn rings and the
     recurrent states keep their per-slot layouts, a ring bounded by the
-    pool's token capacity.  On ``par``'s mesh only this rank's shard."""
+    pool's token capacity.  On ``par``'s mesh only this rank's shard.
+    With ``host`` the pool's ``pk``/``pv`` are parked in pinned host memory
+    (the host-streamed pool, ``n_host_chunks > 0``) and never allocated on
+    ``device``."""
     if P.distributed(par):
         return _local_cache(cfg, par, init_paged_cache(cfg, b, n_pages, page_size, "meta"),
-                            device)
+                            device, host)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = T.layout_of(cfg)
     cap = n_pages * page_size
 
     def make(kind, lead):
         if kind == "attn":
-            return _paged_attn_cache(cfg, n_pages, page_size, dtype, device, lead)
+            return _paged_attn_cache(cfg, n_pages, page_size, dtype, device, lead, host)
         return _block_cache(cfg, kind, b, cap, dtype, device, lead)
 
     cache = {f"pos{i}": make(kind, (n_cycles,)) for i, kind in enumerate(pat)}
@@ -272,14 +316,7 @@ def cache_shardings(cfg: ModelConfig, dp: int, sp: int, cache) -> Any:
             return at(rows, 1 if _splits(shape[1], sp) else None)
         return None, None
 
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
-        return spec(path, tree)
-
-    return walk(cache, ())
+    return tree_map_with_path(spec, cache)
 
 
 def local_shape(shape, dims, dp: int, sp: int) -> Tuple[int, ...]:
@@ -293,26 +330,21 @@ def local_shape(shape, dims, dp: int, sp: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def _local_cache(cfg: ModelConfig, par: ParallelContext, meta: Params, device) -> Params:
+def _local_cache(cfg: ModelConfig, par: ParallelContext, meta: Params, device,
+                 host: bool = False) -> Params:
     """This rank's shard of the cache ``meta`` describes: each leaf at its
-    local shape, positions -1 and the rest 0, as ``init_cache`` fills them."""
+    local shape, positions -1 and the rest 0, as ``init_cache`` fills them;
+    with ``host`` the pool's ``pk``/``pv`` parked (``init_paged_cache``)."""
     plan = cache_shardings(cfg, par.dp, par.sp, meta)
-    return tree_map(lambda leaf, dims: torch.full(
-        local_shape(leaf.shape, dims, par.dp, par.sp), -1 if leaf.dtype == torch.int32 else 0,
-        dtype=leaf.dtype, device=device), meta, plan)
 
+    def make(path, leaf, dims):
+        shape = local_shape(leaf.shape, dims, par.dp, par.sp)
+        if host and path[-1] in ("pk", "pv"):
+            return _pool_zeros(shape, leaf.dtype, device, True)
+        return torch.full(shape, -1 if leaf.dtype == torch.int32 else 0, dtype=leaf.dtype,
+                          device=device)
 
-def check_mesh(cfg: ModelConfig, n_host_chunks: int = 0) -> None:
-    """Raise ValueError for what a serve mesh does not run yet: a
-    recurrent block (its states split over channels, which needs split
-    mixer projections) and host-streamed KV."""
-    kinds = sorted({k for k in cfg.layer_kinds() if k not in ("attn", "local_attn")})
-    if kinds:
-        raise ValueError(f"serving {cfg.name} over a mesh: its {kinds} blocks are not ported "
-                         "to a serve mesh (ROADMAP Queue A item 2); serve it on one rank")
-    if n_host_chunks:
-        raise ValueError("host-streamed KV (n_host_chunks > 0) on a serve mesh is not ported "
-                         "(ROADMAP Queue A item 2)")
+    return tree_map_with_path(make, meta, plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,6 +379,17 @@ class Shard:
             return None
         m, kl, ql = self.par.sp_rank, cfg.num_kv_heads // sp, cfg.num_heads // sp
         return m * ql, (m + 1) * ql, m * kl, (m + 1) * kl
+
+    def channels(self, cfg: ModelConfig):
+        """This model rank's channels [c0, c1) of d_inner and the model
+        group, the recurrent mixers' ``chan``, where the model ranks divide
+        d_inner (the JAX package's ``sp_if``), else None: every rank runs
+        every channel."""
+        sp = self.par.sp
+        if sp == 1 or not _splits(cfg.d_inner, sp):
+            return None
+        n, m = cfg.d_inner // sp, self.par.sp_rank
+        return m * n, (m + 1) * n, self.par.sp_group
 
 
 def _on_mesh(sh: Optional[Shard]) -> bool:
@@ -436,6 +479,15 @@ def offload_kv(cfg: ModelConfig, cache: Params, device) -> Params:
     return cache
 
 
+def parked_bytes(cfg: ModelConfig, cache: Params) -> int:
+    """Bytes of the KV that host-streaming keeps in host memory: the page
+    pool's ``pk``/``pv``, else the full-attention blocks' ``k`` and ``v``."""
+    leaves = [leaf for key, leaf, _ in pool_leaves(cache) if not key.endswith("pkpos")]
+    if not leaves:
+        leaves = [bc[n] for bc in _full_attn_blocks(cfg, cache) for n in ("k", "v")]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
 def _write_rows(buf: torch.Tensor, base: int, slot: torch.Tensor, val: torch.Tensor,
                 mask: torch.Tensor):
     """``buf[i, slot[i, j] - base] = val[i, j]`` wherever ``mask[i, j]`` and
@@ -488,7 +540,7 @@ def _spans(bounds, lo: int, hi: int):
 
 
 def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
-               writes=None, write_first: bool = False) -> SoftmaxState:
+               writes=None, write_first: bool = False, base: int = 0) -> SoftmaxState:
     """FPDT-for-inference: the merge of ``attend(k slab, v slab, kpos
     slab)`` over the live slabs of ``cache``'s [b, S] rows in order, each
     slab's host copy started one slab ahead (``double_buffered``).
@@ -499,12 +551,13 @@ def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
     go into each slab's device copy before its attend (``write_first``:
     decode) or after it (a chunk's pre-write history), and the rows' spans
     of that slab are copied back to the host cache.  ``zero`` is the
-    merge's identity."""
+    merge's identity.  The rows hold positions [base, base + S) (a model
+    rank's share when the positions split over model)."""
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
     S = ck.shape[1]
     cs = S // n_host_chunks
     hi = max((e for a, e in bounds if a <= e), default=-1)
-    live = [c for c in range(n_host_chunks) if c * cs <= hi]
+    live = [c for c in range(n_host_chunks) if base + c * cs <= hi]
     host_kv["fetched"] += len(live)
     host_kv["skipped"] += n_host_chunks - len(live)
     policy = PL.host_offload(device)
@@ -519,9 +572,10 @@ def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
 
     def write(c, kc, vc):
         slot, k, v, mask = writes
-        _write_rows(kc, c * cs, slot, k, mask)
-        _write_rows(vc, c * cs, slot, v, mask)
-        spans = _spans(bounds, c * cs, (c + 1) * cs)
+        _write_rows(kc, base + c * cs, slot, k, mask)
+        _write_rows(vc, base + c * cs, slot, v, mask)
+        spans = [(i, a - base, e - base)
+                 for i, a, e in _spans(bounds, base + c * cs, base + (c + 1) * cs)]
         if spans and not resident:
             policy.write_rows(ck, kc, spans, c * cs)
             policy.write_rows(cv, vc, spans, c * cs)
@@ -530,7 +584,7 @@ def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
     for c, (kc, vc) in zip(live, PL.double_buffered(live, fetch)):
         if writes is not None and write_first:
             write(c, kc, vc)
-        state = merge(state, attend(kc, vc, kpos[:, c * cs:(c + 1) * cs]))
+        state = merge(state, attend(kc, vc, kpos[:, base + c * cs:base + (c + 1) * cs]))
         if writes is not None and not write_first:
             write(c, kc, vc)
     return state
@@ -553,6 +607,11 @@ def _streams(cache: Params, n_host_chunks: int, window: int, device) -> bool:
 def _default_bounds(b: int, S: int):
     """Every position of every row: no slab skipped, whole rows written back."""
     return [(0, S - 1)] * b
+
+
+def _mine(bounds, sh: Optional[Shard]):
+    """This rank's rows of ``bounds`` (every row's on a mesh)."""
+    return bounds[sh.r0:sh.r1] if _on_mesh(sh) else bounds
 
 
 # ---------------------------------------------------------------------------
@@ -596,12 +655,14 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
 
     if _streams(cache, n_host_chunks, window, x.device):
         bounds = _default_bounds(b, S) if bounds is None else [
-            (min(a, S - 1), min(e, S - 1)) for a, e in bounds]
+            (min(a, S - 1), min(e, S - 1)) for a, e in _mine(bounds, sh)]
         ones = torch.ones((b, 1), dtype=torch.bool, device=x.device)
         zero = SoftmaxState(qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF),
                             qf.new_zeros(qf.shape[:2]))
         st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
-                        writes=(slot[:, None], k, v, ones), write_first=True)
+                        writes=(slot[:, None], k, v, ones), write_first=True, base=base)
+        if S_loc < S:  # positions over model: the ranks' states, merged
+            st = _merge_ranks(st, sh.par.sp_group)
     elif S_loc < S:  # positions over model: the owner writes, every rank attends its own
         ones = torch.ones((b, 1), dtype=torch.bool, device=x.device)
         _write_rows(ck, base, slot[:, None], k, ones)
@@ -673,13 +734,15 @@ def _gather_writes(sh: Shard, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tens
 
 def _pool_write(cache: Params, table: torch.Tensor, qpos: torch.Tensor,
                 live: Optional[torch.Tensor], k: torch.Tensor, v: torch.Tensor,
-                sh: Optional[Shard]):
+                sh: Optional[Shard], plan: Optional["PoolPlan"] = None):
     """Write the rows' K/V at ``qpos`` [b, w] (``live`` [b, w] or None:
     every column) into the pool through ``table``; dead and unmapped
     writes go to the trash page.  On a mesh with the rows split over data
     the writes of every row are gathered first (``table`` is then every
     row's), and with the pool split by in-page position a rank writes the
-    offsets it holds and sends the rest to the trash page."""
+    offsets it holds and sends the rest to the trash page.  With ``plan``
+    (the parked pool) the positions go into the device's ``pkpos`` and the
+    keys to their host pages (``_host_pool_write``)."""
     n_phys, ps_loc = cache["pkpos"].shape
     trash = n_phys - 1
     if _on_mesh(sh) and sh.rows_split:
@@ -692,7 +755,139 @@ def _pool_write(cache: Params, table: torch.Tensor, qpos: torch.Tensor,
         off = off % ps_loc
     else:
         pid, off = _paged_write_ids(table, qpos, ps_loc, trash, live)
-    _paged_write(cache, pid, off, k, v, qpos)
+    if plan is None:
+        _paged_write(cache, pid, off, k, v, qpos)
+        return
+    cache["pkpos"][pid, off] = qpos.to(torch.int32)
+    _host_pool_write(cache, plan, k, v, qpos, live, sh)
+
+
+@dataclasses.dataclass
+class PoolPlan:
+    """One step of the host-streamed pool, the same in every attention
+    layer, made on the host from its copy of the table and the rows'
+    spans: ``live`` the logical pages [0, live) fetched and merged,
+    ``rows`` this rank's (logical page, page id) pairs a row
+    (``HostOffload.fetch_pages``); the write pass's buffer of
+    ``wslots`` pages a row, logical page j in slot j mod ``wslots``,
+    ``wrows`` its (slot, page id) pairs a row (every row that writes into
+    this rank's pool) and ``wspans`` the (row, buffer offset, page id,
+    in-page offset, n) slices copied back."""
+
+    live: int
+    rows: list
+    wslots: int
+    wrows: list
+    wspans: list
+
+
+def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
+               sh: Optional[Shard], device) -> Optional[PoolPlan]:
+    """The step's ``PoolPlan`` when the pool streams from the host
+    (``n_host_chunks`` and a page table), else None.  ``host_table`` is
+    ``table`` as the host holds it (numpy; a streaming step reads no
+    table from the device); ``bounds`` every row's span of positions it
+    may write (None: every position).  A pool on the card must be parked
+    to stream, and a parked pool must stream (ValueError)."""
+    pk = next((leaf for key, leaf, _ in pool_leaves(cache) if key.endswith("pk")), None)
+    if table is None or pk is None:
+        return None
+    if torch.device(device).type == "cuda" and bool(n_host_chunks) != (pk.device.type == "cpu"):
+        raise ValueError("the page pool streams from the host only when it is parked there: "
+                         "n_host_chunks > 0 with init_paged_cache(..., host=True), "
+                         f"0 with a device pool (n_host_chunks={n_host_chunks}, pool on "
+                         f"{pk.device})")
+    if not n_host_chunks:
+        return None
+    if host_table is None:
+        raise ValueError("the parked pool plans its step from the host's copy of the page "
+                         "table: pass host_table")
+    tab = host_table
+    B, max_pages = tab.shape
+    n_phys, ps_loc = pk.shape[-4], pk.shape[-3]
+    trash = n_phys - 1
+    ps = sh.page_size if _on_mesh(sh) else ps_loc
+    m0 = sh.par.sp_rank * ps_loc if ps_loc < ps else 0  # the rank's in-page slice
+    S = max_pages * ps
+    bounds = _default_bounds(B, S) if bounds is None else [(a, min(e, S - 1)) for a, e in bounds]
+    r0, r1 = (sh.r0, sh.r1) if _on_mesh(sh) else (0, B)
+    hi = max((e for a, e in bounds[r0:r1] if a <= e), default=-1)
+    live = hi // ps + 1 if hi >= 0 else 0
+    rows = [[(j, int(t) if t >= 0 else trash) for j, t in enumerate(row[:live])]
+            for row in tab[r0:r1]]
+    pages = [range(a // ps, e // ps + 1) if a <= e else range(0) for a, e in bounds]
+    wslots = max((len(r) for r in pages), default=0)
+    wrows, wspans = [], []
+    for i, ((a, e), js) in enumerate(zip(bounds, pages)):
+        pairs = []
+        for j in js:
+            pid = int(tab[i, j])
+            lo = max(max(a, j * ps) - j * ps, m0)
+            end = min(min(e, j * ps + ps - 1) - j * ps + 1, m0 + ps_loc)
+            if pid < 0 or pid == trash or lo >= end:
+                continue
+            if any(q == pid for _, q in pairs):
+                raise ValueError(f"row {i} maps page {pid} at two logical pages it may write: a "
+                                 "parked pool writes a page through one table entry")
+            slot = j % wslots
+            pairs.append((slot, pid))
+            wspans.append((i, slot * ps_loc + lo - m0, pid, lo - m0, end - lo))
+        wrows.append(sorted(pairs))
+    return PoolPlan(live, rows, wslots, wrows, wspans)
+
+
+def _stream_pages(cache: Params, plan: PoolPlan, table: torch.Tensor, attend,
+                  zero: SoftmaxState) -> SoftmaxState:
+    """The parked pool's history pass: ``attend(k, v, kpos, mapped)`` over
+    the live logical pages ``plan.live``, fetched in one pass (a row's run
+    of consecutive pages is one copy) and merged into ``zero``; ``table``
+    is this rank's rows of the page table on the device (``pkpos`` stays
+    there)."""
+    if not plan.live:
+        return zero
+    policy = PL.host_offload(table.device)
+    b, ps = table.shape[0], cache["pkpos"].shape[1]
+    host_pages["fetched"] += 2 * sum(len(r) for r in plan.rows)
+    kc, vc = (policy.fetch_pages(cache[key], plan.rows, plan.live) for key in ("pk", "pv"))
+    kc, vc = kc.wait(), vc.wait()
+    tab = table[:, : plan.live]
+    n = plan.live * ps
+    kp = cache["pkpos"][torch.clamp(tab, min=0)].reshape(b, n)
+    okp = (tab >= 0)[:, :, None].expand(b, plan.live, ps).reshape(b, n)
+    return merge(zero, attend(kc, vc, kp, okp))
+
+
+def _host_pool_write(cache: Params, plan: PoolPlan, k: torch.Tensor, v: torch.Tensor,
+                     qpos: torch.Tensor, live: Optional[torch.Tensor], sh: Optional[Shard]):
+    """The rows' new K/V (k, v [B, w, h, dh] at ``qpos`` [B, w], ``live``
+    or None: every column) into their host pages: the pages the rows'
+    spans touch are fetched into a buffer (``plan.wrows``), the keys
+    scattered into it at their device-side positions (a column that is
+    dead, or whose offset another model rank holds, goes to the buffer's
+    last row, never read), and the spans copied back (``plan.wspans``),
+    every copy on the copy stream.  The spans are upper bounds: a
+    position not written goes back as it came."""
+    if not plan.wspans:
+        return
+    policy = PL.host_offload(k.device)
+    ps_loc = cache["pkpos"].shape[1]
+    ps = sh.page_size if _on_mesh(sh) else ps_loc
+    m0 = sh.par.sp_rank * ps_loc if ps_loc < ps else 0
+    host_pages["fetched"] += 2 * sum(len(r) for r in plan.wrows)
+    kb = policy.fetch_pages(cache["pk"], plan.wrows, plan.wslots, pad=1)
+    vb = policy.fetch_pages(cache["pv"], plan.wrows, plan.wslots, pad=1)
+    off = qpos % ps - m0
+    idx = torch.remainder(torch.div(qpos, ps, rounding_mode="floor"), plan.wslots) * ps_loc + off
+    ok = (off >= 0) & (off < ps_loc)
+    if live is not None:
+        ok = ok & live
+    idx = torch.where(ok, idx, plan.wslots * ps_loc)
+    bi = torch.arange(qpos.shape[0], device=qpos.device)[:, None]
+    kb, vb = kb.wait(), vb.wait()
+    kb[bi, idx] = k.to(kb.dtype)
+    vb[bi, idx] = v.to(vb.dtype)
+    policy.write_pages(cache["pk"], kb, plan.wspans)
+    policy.write_pages(cache["pv"], vb, plan.wspans)
 
 
 def _by_page(cache: Params, sh: Optional[Shard]) -> bool:
@@ -706,25 +901,34 @@ def _rows(table: torch.Tensor, sh: Optional[Shard]) -> torch.Tensor:
 
 
 def _decode_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
-                            pos: torch.Tensor, table: torch.Tensor, sh: Optional[Shard] = None):
+                            pos: torch.Tensor, table: torch.Tensor, sh: Optional[Shard] = None,
+                            plan: Optional[PoolPlan] = None):
     """Paged twin of ``_decode_attention``: the token's K/V go into its
     page (the trash page for a row whose position is unmapped), then it
-    attends to its row's gathered pages.  x [b, 1, d]; pos int64 [b];
-    table [b, max_pages] (on a mesh every row's: the rank's are [r0, r1)).
-    Returns attn_out [b, 1, d]."""
+    attends to its row's gathered pages (with ``plan``, the parked pool's,
+    fetched from the host).  x [b, 1, d]; pos int64 [b]; table [b,
+    max_pages] (on a mesh every row's: the rank's are [r0, r1)).  Returns
+    attn_out [b, 1, d]."""
     b = x.shape[0]
     heads = sh.heads(cfg) if _on_mesh(sh) else None
     q, k, v = _qkv(cfg, p, x, heads)  # [b, 1, h, dh]
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
-    _pool_write(cache, table, pos[:, None], None, k, v, sh)
-    kall, vall, kpall, mapped = _paged_gather(cache, _rows(table, sh))
+    _pool_write(cache, table, pos[:, None], None, k, v, sh, plan)
     hq = q.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     qf = q[:, 0].float()  # [b, hq, dh]
-    s = torch.einsum("bhd,bshd->bhs", qf, _expand(kall, g)) * cfg.head_dim ** -0.5
-    ok = mapped & (kpall >= 0) & (kpall <= pos[:, None])
-    st = _masked_state(s, ok[:, None, :], _expand(vall, g), "bhs,bshd->bhd")
+
+    def attend(kc, vc, kp, okp):
+        s = torch.einsum("bhd,bshd->bhs", qf, _expand(kc, g)) * cfg.head_dim ** -0.5
+        ok = okp & (kp >= 0) & (kp <= pos[:, None])
+        return _masked_state(s, ok[:, None, :], _expand(vc, g), "bhs,bshd->bhd")
+
+    if plan is None:
+        st = attend(*_paged_gather(cache, _rows(table, sh)))
+    else:
+        st = _stream_pages(cache, plan, _rows(table, sh), attend, SoftmaxState(
+            qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF), qf.new_zeros(qf.shape[:2])))
     if _by_page(cache, sh):
         st = _merge_ranks(st, sh.par.sp_group)
     o = finalize(st).reshape(b, 1, hq * cfg.head_dim).to(x.dtype)
@@ -751,19 +955,25 @@ def _ffn(cfg, p, h, sh: Optional[Shard] = None):
     return h + L.mlp_block(cfg, p["mlp"], hn2)
 
 
+def _chan(cfg: ModelConfig, sh: Optional[Shard]):
+    """The recurrent mixers' ``chan`` on a mesh (``Shard.channels``)."""
+    return sh.channels(cfg) if _on_mesh(sh) else None
+
+
 def _decode_block(cfg, par, kind, p, h, cache, pos, n_host_chunks=0, bounds=None, table=None,
-                  sh=None):
+                  sh=None, plan=None):
     if kind == "ssm":
-        y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache)
+        y, st = M.mamba_decode_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache,
+                                    _chan(cfg, sh))
         _keep_state(cache, st)
         return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
-        y, st = R.rglru_decode_step(cfg, p["mixer"], hn, cache)
+        y, st = R.rglru_decode_step(cfg, p["mixer"], hn, cache, _chan(cfg, sh))
         _keep_state(cache, st)
         h = h + y
     elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
-        h = h + _decode_attention_paged(cfg, p["attn"], hn, cache, pos, table, sh)
+        h = h + _decode_attention_paged(cfg, p["attn"], hn, cache, pos, table, sh, plan)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _decode_attention(cfg, par, p["attn"], hn, cache, pos, window=window,
@@ -776,28 +986,19 @@ def _positions(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int64, device=device).expand(b)
 
 
-def _check_table(table, n_host_chunks: int):
-    if table is not None and n_host_chunks:
-        raise ValueError("the host-streamed page pool (a page table with n_host_chunks > 0) "
-                         "is not ported (ROADMAP Queue A item 2)")
-
-
-def _check_shard(cfg: ModelConfig, par, sh: Optional[Shard], n_host_chunks: int,
-                 table) -> None:
+def _check_shard(par, sh: Optional[Shard], table) -> None:
     if P.distributed(par) and not _on_mesh(sh):
         raise ValueError("a serve step on a mesh takes its Shard (shard=): the cache is the "
                          "rank's and the inputs its rows")
-    if _on_mesh(sh):
-        check_mesh(cfg, n_host_chunks)
-        if table is not None and not sh.page_size:
-            raise ValueError("a paged step on a mesh needs the pool's page_size in its Shard")
+    if _on_mesh(sh) and table is not None and not sh.page_size:
+        raise ValueError("a paged step on a mesh needs the pool's page_size in its Shard")
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                 cache: Params, inp: Dict[str, torch.Tensor], pos, n_host_chunks: int = 0,
                 bounds=None, table: Optional[torch.Tensor] = None,
-                shard: Optional[Shard] = None):
+                shard: Optional[Shard] = None, host_table=None):
     """One decode step: advance every sequence in the batch by one token.
 
     Contract:
@@ -816,20 +1017,27 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
       n_host_chunks — stream each full-attention layer's KV in this many
                slabs (0 = on-device attention; a count that does not divide
                the cache length attends on the device, as in the JAX
-               package, and raises if the KV is on the host).
+               package, and raises if the KV is on the host); with a table,
+               stream the parked pool's live pages.
       bounds — with n_host_chunks: per row (lo, hi), host ints, the span
-               its ``pos`` lies in; slabs past every hi are skipped and
-               each row's span is written back.  None: every position.
+               its ``pos`` lies in; slabs (pages) past every hi are skipped
+               and each row's span is written back.  None: every position.
+               On a mesh every row's, as ``table``.
       table  — optional integer [b, max_pages] page table on the cache's
                device: the attention blocks read and write the paged pool
                (``init_paged_cache``) through it.
       shard  — on a serve mesh, the step's ``Shard``: ``cache`` is the
                rank's (``init_cache(..., par=)``), the inputs are its rows
                [r0, r1) and ``table`` holds every row.
+      host_table — with n_host_chunks and a table, the table as the host
+               holds it (numpy), which the step plans its fetches from
+               (required: a step reads nothing from the device); a row's
+               run of consecutive pages is one copy and every live page
+               is merged at once (the merge order differs from JAX's
+               page-by-page one in the last bits).
 
     Returns (logits [b, padded_vocab] fp32, cache)."""
-    _check_table(table, n_host_chunks)
-    _check_shard(cfg, par, shard, n_host_chunks, table)
+    _check_shard(par, shard, table)
     if cfg.frontend == "audio_frames":
         h = inp["frame_embeds"]
         pos = _positions(pos, h.shape[0], h.device)
@@ -838,16 +1046,17 @@ def decode_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params
         tokens = inp["tokens"]
         pos = _positions(pos, tokens.shape[0], tokens.device)
         h = params["embed"][tokens].to(getattr(torch, cfg.param_dtype))
+    plan = _pool_plan(cache, table, host_table, bounds, n_host_chunks, shard, h.device)
     pat, n_cycles, tail = T.layout_of(cfg)
     for c in range(n_cycles):
         cyc_p, cyc_cache = T.cycle(params["cycles"], c), T.cycle(
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _decode_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], pos,
-                              n_host_chunks, bounds, table, shard)
+                              n_host_chunks, bounds, table, shard, plan)
     for i, kind in enumerate(tail):
         h = _decode_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], pos,
-                          n_host_chunks, bounds, table, shard)
+                          n_host_chunks, bounds, table, shard, plan)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = (h[:, 0] @ T.head_matrix(cfg, params)).float()
     return logits, cache
@@ -905,10 +1114,12 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
         wmask = key_live & (qpos < S)
     slot = qpos % S
     if _streams(cache, n_host_chunks, window, x.device):
-        bounds = _default_bounds(b, S) if bounds is None else bounds
+        bounds = _default_bounds(b, S) if bounds is None else _mine(bounds, sh)
         hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend,
-                          zero_state((b, cfg.num_heads, cp, cfg.head_dim), device=x.device),
-                          writes=(slot, k, v, wmask))
+                          zero_state((b, hq, cp, cfg.head_dim), device=x.device),
+                          writes=(slot, k, v, wmask), base=base)
+        if S_loc < S:  # positions over model: the ranks' states, merged
+            hist = _merge_ranks(hist, sh.par.sp_group)
     else:
         hist = attend(cache["k"], cache["v"], cache["kpos"][:, base:base + S_loc])
         if S_loc < S:  # positions over model: every rank's partial state, merged
@@ -936,14 +1147,15 @@ def _intra_state(cfg: ModelConfig, qt, k, v, qpos, key_live, window: int = 0) ->
 
 def _chunk_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Params,
                            qpos: torch.Tensor, live: torch.Tensor, table: torch.Tensor,
-                           sh: Optional[Shard] = None):
+                           sh: Optional[Shard] = None, plan: Optional[PoolPlan] = None):
     """Paged twin of ``_chunk_attention``: the window against its rows'
     gathered pages of the PRE-write pool, merged with the window against
     its own live keys; then the live keys go into their pages and the dead
     columns to the trash page.  Pages a row shares (radix prefixes) are
     only read: the manager gives every written page one owner.  On a mesh
-    ``table`` holds every row (the rank's are [r0, r1)).  Returns attn out
-    [b, cp, d]; the pool is updated in place."""
+    ``table`` holds every row (the rank's are [r0, r1)).  With ``plan`` the
+    parked pool streams its live pages.  Returns attn out [b, cp, d]; the
+    pool is updated in place."""
     b, cp, _ = x.shape
     heads = sh.heads(cfg) if _on_mesh(sh) else None
     q, k, v = _qkv(cfg, p, x, heads)  # [b, cp, h, dh]
@@ -953,32 +1165,39 @@ def _chunk_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: 
     g = cfg.num_heads // cfg.num_kv_heads
     qt = q.float().transpose(1, 2)  # [b, hq, cp, dh]
     key_live = torch.arange(cp, device=x.device)[None, :] < live[:, None]  # [b, cp]
-    kall, vall, kpall, mapped = _paged_gather(cache, _rows(table, sh))
-    s_ = torch.einsum("bhqd,bshd->bhqs", qt, _expand(kall, g)) * cfg.head_dim ** -0.5
-    ok = (mapped & (kpall >= 0))[:, None, :] & (kpall[:, None, :] <= qpos[:, :, None])
-    hist = _masked_state(s_, ok[:, None], _expand(vall, g), "bhqs,bshd->bhqd")
+
+    def attend(kc, vc, kp, okp):
+        s_ = torch.einsum("bhqd,bshd->bhqs", qt, _expand(kc, g)) * cfg.head_dim ** -0.5
+        ok = (okp & (kp >= 0))[:, None, :] & (kp[:, None, :] <= qpos[:, :, None])
+        return _masked_state(s_, ok[:, None], _expand(vc, g), "bhqs,bshd->bhqd")
+
+    if plan is None:
+        hist = attend(*_paged_gather(cache, _rows(table, sh)))
+    else:
+        hist = _stream_pages(cache, plan, _rows(table, sh), attend,
+                             zero_state((b, hq, cp, cfg.head_dim), device=x.device))
     if _by_page(cache, sh):  # in-page positions over model: the ranks' states, merged
         hist = _merge_ranks(hist, sh.par.sp_group)
-    _pool_write(cache, table, qpos, key_live, k, v, sh)
+    _pool_write(cache, table, qpos, key_live, k, v, sh, plan)
     o = finalize(merge(hist, _intra_state(cfg, qt, k, v, qpos, key_live)))
     o = o.transpose(1, 2).reshape(b, cp, hq * cfg.head_dim).to(x.dtype)
     return _out(cfg, p, o, heads, sh)
 
 
 def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bounds=None,
-                 table=None, sh=None):
+                 table=None, sh=None, plan=None):
     if kind == "ssm":
         y, st = M.mamba_chunk_step(cfg, p["mixer"], L.apply_norm(cfg, p["norm"], h), cache,
-                                   live)
+                                   live, _chan(cfg, sh))
         _keep_state(cache, st)
         return h + y
     hn = L.apply_norm(cfg, p["norm1"], h)
     if kind == "rglru":
-        y, st = R.rglru_chunk_step(cfg, p["mixer"], hn, cache, live)
+        y, st = R.rglru_chunk_step(cfg, p["mixer"], hn, cache, live, _chan(cfg, sh))
         _keep_state(cache, st)
         h = h + y
     elif table is not None and "pk" in cache:  # the paged pool (attn blocks only)
-        h = h + _chunk_attention_paged(cfg, p["attn"], hn, cache, qpos, live, table, sh)
+        h = h + _chunk_attention_paged(cfg, p["attn"], hn, cache, qpos, live, table, sh, plan)
     else:
         window = cfg.window if kind == "local_attn" else 0
         h = h + _chunk_attention(cfg, par, p["attn"], hn, cache, qpos, live, window=window,
@@ -991,7 +1210,7 @@ def _chunk_block(cfg, par, kind, p, h, cache, qpos, live, n_host_chunks=0, bound
 def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
                cache: Params, toks: torch.Tensor, offset, live, n_host_chunks: int = 0,
                bounds=None, table: Optional[torch.Tensor] = None,
-               shard: Optional[Shard] = None):
+               shard: Optional[Shard] = None, host_table=None):
     """One fused mixed step: every batch row processes a ``cp``-token window.
 
     Contract (the JAX package's):
@@ -1008,7 +1227,8 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
       n_host_chunks, bounds — host-streamed KV, as ``decode_step``'s;
                ``bounds`` per row the span of positions its live window
                covers.
-      table  — optional page table for the paged pool, as ``decode_step``'s.
+      table, host_table — the page table for the paged
+               pool and the parked pool's fetch, as ``decode_step``'s.
       shard  — on a serve mesh, the step's ``Shard``, as ``decode_step``'s.
 
     Recurrent blocks (ssm, rglru, the local_attn ring) take the
@@ -1019,24 +1239,24 @@ def chunk_step(cfg: ModelConfig, par: Optional[ParallelContext], params: Params,
     if cfg.frontend == "audio_frames":
         raise ValueError("chunk_step feeds token ids; the audio_frames "
                          "frontend consumes frame embeddings")
-    _check_table(table, n_host_chunks)
-    _check_shard(cfg, par, shard, n_host_chunks, table)
+    _check_shard(par, shard, table)
     b, cp = toks.shape
     device = toks.device
     offset = _positions(offset, b, device)
     live = _positions(live, b, device)
     qpos = offset[:, None] + torch.arange(cp, device=device)[None, :]  # [b, cp]
     h = params["embed"][toks].to(getattr(torch, cfg.param_dtype))
+    plan = _pool_plan(cache, table, host_table, bounds, n_host_chunks, shard, device)
     pat, n_cycles, tail = T.layout_of(cfg)
     for c in range(n_cycles):
         cyc_p, cyc_cache = T.cycle(params["cycles"], c), T.cycle(
             {k: cache[k] for k in cache if k != "tail"}, c)
         for i, kind in enumerate(pat):
             h = _chunk_block(cfg, par, kind, cyc_p[f"pos{i}"], h, cyc_cache[f"pos{i}"], qpos,
-                             live, n_host_chunks, bounds, table, shard)
+                             live, n_host_chunks, bounds, table, shard, plan)
     for i, kind in enumerate(tail):
         h = _chunk_block(cfg, par, kind, params["tail"][i], h, cache["tail"][i], qpos, live,
-                         n_host_chunks, bounds, table, shard)
+                         n_host_chunks, bounds, table, shard, plan)
     h = L.apply_norm(cfg, params["final_norm"], h)
     last = h[torch.arange(b, device=device), torch.clamp(live - 1, 0, cp - 1)]
     logits = (last @ T.head_matrix(cfg, params)).float()

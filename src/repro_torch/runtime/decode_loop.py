@@ -47,8 +47,10 @@ all-gathers each slot's tok, pos, mode, rem, pfill and outputs over data
 (one call), so every rank's scheduler decides the same.  Greedy sampling
 gathers nothing; under a temperature every rank samples the batch's
 logits, gathered over data, from one generator state and keeps its rows,
-so the tokens are the one-rank engine's.  ``BlockingServeEngine`` and
-``decode_tokens`` stay on one rank.
+so the tokens are the one-rank engine's.  Every layout serves on a mesh:
+the recurrent states are rows like the KV (over data) and channels over
+model, and host-streamed KV parks the rank's shard.  ``BlockingServeEngine``
+and ``decode_tokens`` stay on one rank.
 """
 from __future__ import annotations
 
@@ -344,7 +346,8 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
                   pend: torch.Tensor, plen: torch.Tensor, *, schedule, prefill_chunk: int,
                   n_host_chunks: int = 0, sampling: SamplingConfig = GREEDY,
                   stop: Optional[torch.Tensor] = None, pad_id: int = 0,
-                  table: Optional[torch.Tensor] = None, shard: Optional[SV.Shard] = None):
+                  table: Optional[torch.Tensor] = None, shard: Optional[SV.Shard] = None,
+                  host_table=None):
     """Run ``len(schedule)`` fused mixed steps (the JAX package's one
     ``lax.scan``; here a loop that reads nothing on the host).
 
@@ -367,10 +370,11 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
     (mode, tok [b, 1], pos, rem, pfill int32; the staged prompts pend [b,
     P] and plen; the paged pool's page ``table`` [b, max_pages], which
     both step bodies read and write K/V through) live on the cache's
-    device.  On a mesh (``shard``) the state is the rank's rows and
-    ``table`` every row's.  Returns ``(emit [b, steps], valid [b, steps],
-    aux)`` with ``aux`` the final state {cache, mode, tok, pos, rem,
-    pfill}."""
+    device; ``host_table`` is the host's copy of it (numpy), which a parked
+    pool's steps plan from.  On a mesh (``shard``) the state is the rank's
+    rows, ``table`` and ``schedule``'s spans every row's.  Returns ``(emit
+    [b, steps], valid [b, steps], aux)`` with ``aux`` the final state
+    {cache, mode, tok, pos, rem, pfill}."""
     b = tok.shape[0]
     cp = int(prefill_chunk)
     P_ = pend.shape[1]
@@ -390,11 +394,11 @@ def mixed_segment(cfg: ModelConfig, par: Optional[ParallelContext], params: Para
             toks = torch.where(is_pf[:, None], torch.gather(pend, 1, idx), tok)
             logits, cache = SV.chunk_step(cfg, par, params, cache, toks, off, live,
                                           n_host_chunks=n_host_chunks, bounds=spans,
-                                          table=table, shard=shard)
+                                          table=table, shard=shard, host_table=host_table)
         else:
             logits, cache = SV.decode_step(cfg, par, params, cache, {"tokens": tok}, pos,
                                            n_host_chunks=n_host_chunks, bounds=spans,
-                                           table=table, shard=shard)
+                                           table=table, shard=shard, host_table=host_table)
         nxt = _sample(logits[:, :V], generator, sampling, shard)
         pfill = torch.where(is_pf, torch.minimum(pfill + cp, plen), pfill)
         fin_pf = is_pf & (pfill >= plen)  # prompt exhausted this step
@@ -459,9 +463,8 @@ class ServeEngine:
 
     With ``par`` a serve mesh (``launch/mesh.py::serve_mesh``) the engine
     is one rank of a sharded replica (``shard``): every rank of the mesh
-    calls ``generate`` with the same prompts and returns the same outputs.
-    Attention-only layouts (the MoE FFN too) serve on a mesh; a recurrent
-    block or ``n_host_chunks`` raises ValueError.
+    calls ``generate`` with the same prompts and returns the same outputs,
+    for every layout and with ``n_host_chunks`` too.
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *, slots: int,
@@ -469,8 +472,6 @@ class ServeEngine:
                  n_host_chunks: int = 0, sampling: SamplingConfig = GREEDY,
                  stop_tokens: Sequence[int] = (), pad_id: int = 0,
                  segment: int = 8, par: Optional[ParallelContext] = None):
-        if PAR.distributed(par):
-            SV.check_mesh(cfg, n_host_chunks)
         self.cfg, self.params, self.par = cfg, params, par
         self.slots, self.bucket = slots, bucket
         self.max_new = max_new_tokens
@@ -488,11 +489,12 @@ class ServeEngine:
         # closes over the settings, not the engine: no reference cycle keeps
         # an engine (and its weights) alive after its last user drops it
         def seg(cache, mode, tok, pos, gen, rem, pfill, pend, plen, schedule, table=None,
-                shard=None):
+                shard=None, host_table=None):
             return mixed_segment(cfg, par, params, cache, mode, tok, pos, gen, rem, pfill,
                                  pend, plen, schedule=schedule, prefill_chunk=cp,
                                  n_host_chunks=n_host_chunks, sampling=sampling,
-                                 stop=stop, pad_id=pad_id, table=table, shard=shard)
+                                 stop=stop, pad_id=pad_id, table=table, shard=shard,
+                                 host_table=host_table)
 
         self._segment = seg
 
@@ -508,13 +510,17 @@ class ServeEngine:
     def _capacity(self, prompts: Sequence[Sequence[int]]) -> Tuple[int, int]:
         """(P, S): pending-buffer length and cache capacity for a workload —
         the bucket floor or the longest prompt, rounded up to whole prefill
-        chunks (and S to whole host-KV slabs when streaming)."""
+        chunks (and S to whole host-KV slabs when streaming, on a mesh
+        whole slabs of each model rank's positions)."""
         longest = max((len(p) for p in prompts), default=1)
         P = -(-max(self.bucket, longest) // self.cp) * self.cp
-        S = P + self.max_new
-        if self.n_host_chunks:
-            S = -(-S // self.n_host_chunks) * self.n_host_chunks
-        return P, S
+        return P, self._slabs(P + self.max_new)
+
+    def _slabs(self, S: int) -> int:
+        """``S`` rounded up to whole host-KV slabs (``n_host_chunks``; on a
+        mesh slabs of every model rank's share of the positions)."""
+        n = self.n_host_chunks * (self.par.sp if self.shard is not None else 1)
+        return -(-S // n) * n if n else S
 
     def _local_slot(self, s: int) -> Optional[int]:
         """Slot ``s``'s row in this rank's cache (None: another data rank's)."""
@@ -544,23 +550,25 @@ class ServeEngine:
         i = self._local_slot(s)
         return (cache if i is None else reset_slot(cache, i)), 0
 
-    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None):
+    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None,
+                  host_table=None):
         """One segment: the state's integers (numpy, the host's) go to the
         device, the segment runs on it (``_segment``).  ``pend`` is the
         device's staged prompts, ``plen`` their lengths as (device, host);
-        ``table`` the paged pool's page table on the device."""
+        ``table`` the paged pool's page table on the device, ``host_table``
+        the host's copy."""
         plen_dev, plen_host = plen
+        # every slot's step kinds and spans (a step reads its rank's rows)
         schedule = segment_schedule(mode, pos, pfill, plen_host, num_steps=self.segment,
                                     prefill_chunk=self.cp)
-        # on a mesh this rank's rows; the schedule's step kinds are every slot's
         r0, r1 = (self.shard.r0, self.shard.r1) if self.shard is not None else (0, len(mode))
-        schedule = [(any_pf, spans[r0:r1]) for any_pf, spans in schedule]
 
         def up(x):
             return torch.as_tensor(np.asarray(x)[r0:r1], dtype=torch.int32, device=self.device)
 
         return self._segment(cache, up(mode), up(tok), up(pos), gen, up(rem), up(pfill),
-                             pend[r0:r1], plen_dev[r0:r1], schedule, table, self.shard)
+                             pend[r0:r1], plen_dev[r0:r1], schedule, table, self.shard,
+                             host_table)
 
     def _stage(self, pend: torch.Tensor, plen: torch.Tensor, s: int, prompt) -> None:
         """Stage slot ``s``'s prompt on the device at admission: its pending
@@ -578,6 +586,20 @@ class ServeEngine:
 
     def _end(self, cache) -> None:
         """Workload drained (every slot released)."""
+
+    @staticmethod
+    def _mark():
+        """The host-streamed KV counters now (``_host_kv_stats``'s mark)."""
+        return SV.host_kv["fetched"], SV.host_pages["fetched"]
+
+    def _host_kv_stats(self, stats, cache, mark) -> None:
+        """Under ``n_host_chunks``: the KV bytes parked on the host and the
+        slabs merged and pages fetched since ``mark`` (``_mark()``
+        then), into ``stats``."""
+        if self.n_host_chunks:
+            stats.update(host_kv_bytes=SV.parked_bytes(self.cfg, cache),
+                         host_kv_slabs=SV.host_kv["fetched"] - mark[0],
+                         host_kv_pages=SV.host_pages["fetched"] - mark[1])
 
     # -- the scheduler ---------------------------------------------------
     def generate(self, prompts: Sequence[Union[Request, Sequence[int]]],
@@ -602,6 +624,7 @@ class ServeEngine:
              "resets": 0, "capacity": S, "pending_len": P})
         self.last_stats = stats
         cache = self._begin(B, P, S)
+        mark = self._mark()
         mode = np.full(B, FREE, np.int32)
         tok = np.zeros((B, 1), np.int32)
         pos = np.zeros(B, np.int32)
@@ -658,6 +681,7 @@ class ServeEngine:
                         "request.complete", request=owner[s], slot=s,
                         step=stats["dispatches"], n=len(out[owner[s]]))
                     owner[s] = None
+        self._host_kv_stats(stats, cache, mark)
         self._end(cache)
         return out
 

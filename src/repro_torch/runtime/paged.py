@@ -46,9 +46,19 @@ rank's slice of a demoted page.  ``save_kv_store`` all-gathers the slices
 over ``model`` and the replica's first rank writes whole pages in the
 JAX layout; ``restore_kv_store`` gives each rank its slice of the file's
 pages, so a store written on any mesh (or by the JAX package) restores on
-any other.  The host-streamed pool (``n_host_chunks > 0``) is not ported
-(ROADMAP Queue A item 2); ``SLOPagedServeEngine`` stays on one rank, as
-the JAX CLI keeps ``--sched`` off a mesh.
+any other.  ``SLOPagedServeEngine`` stays on one rank, as the JAX CLI keeps
+``--sched`` off a mesh.
+
+With ``n_host_chunks > 0`` the pool is the JAX package's two-tier pool:
+its ``pk``/``pv`` are parked in pinned host memory from the start and the
+segments stream their live pages (``models/serve.py``); ``pkpos`` and the
+table stay on the device.  On a mesh each rank parks its own slice, as
+``cache_shardings`` places it, so a pool whole over data is parked once a
+data rank (the JAX package shards a parked pool over every mesh axis
+instead, which XLA's host placement asks and a rank's pinned buffer does
+not).  The page programs and the demotion read work on the parked pool as
+on a device one, after ``HostOffload.settle`` has waited for the
+segment's write-backs.
 """
 from __future__ import annotations
 
@@ -66,6 +76,7 @@ from repro_torch.core.parallel import ParallelContext
 from repro_torch.models import serve as SV
 from repro_torch.models.transformer import layout_of
 from repro_torch.runtime import decode_loop as DL
+from repro_torch.runtime import placement as PL
 from repro_torch.runtime import telemetry as TM
 
 Params = Dict[str, Any]
@@ -731,8 +742,9 @@ class PagedServeEngine(DL.ServeEngine):
     mapped page cannot restore, so those get the pool with ``resume = 0``.
     The pool and its radix-indexed pages persist across ``generate``
     calls.  On a serve mesh (``par``) the engine is one rank of a sharded
-    replica: its pool is the rank's slice (module docstring).  The
-    host-streamed pool (``n_host_chunks > 0``) is not ported.
+    replica: its pool is the rank's slice (module docstring).  With
+    ``n_host_chunks > 0`` the pool is parked in pinned host memory and
+    its live pages stream through the steps (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, params: Params, *, slots: int, bucket: int,
@@ -743,13 +755,10 @@ class PagedServeEngine(DL.ServeEngine):
                  par: Optional[ParallelContext] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if n_host_chunks:
-            raise ValueError("the host-streamed page pool (n_host_chunks > 0) is not "
-                             "ported (ROADMAP Queue A item 2)")
         super().__init__(cfg, params, slots=slots, bucket=bucket,
                          max_new_tokens=max_new_tokens, prefill_chunk=prefill_chunk,
-                         sampling=sampling, stop_tokens=stop_tokens, pad_id=pad_id,
-                         segment=segment, par=par)
+                         n_host_chunks=n_host_chunks, sampling=sampling,
+                         stop_tokens=stop_tokens, pad_id=pad_id, segment=segment, par=par)
         self.page_size = int(page_size)
         if n_pages <= 0:  # dense-equivalent capacity
             n_pages = slots * -(-(bucket + max_new_tokens) // self.page_size)
@@ -773,7 +782,7 @@ class PagedServeEngine(DL.ServeEngine):
         # the one pool (on a mesh the rank's slice), updated in place by
         # every segment and page program: demotion and save read it live
         self._pool = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, self.device,
-                                         par=par)
+                                         par=par, host=bool(n_host_chunks))
         # on a mesh, each pool leaf's model dim (None: whole), by leaf key
         self._pool_dims: Dict[str, Optional[int]] = {}
         if self.shard is not None:
@@ -792,8 +801,15 @@ class PagedServeEngine(DL.ServeEngine):
         self._inserted = [True] * slots
         self._prompts: List[List[int]] = [[] for _ in range(slots)]
 
+    def _settle(self) -> None:
+        """A parked pool: wait for the write-backs still on the copy stream
+        before the host reads or writes the pool itself."""
+        if self.n_host_chunks:
+            PL.host_offload(self.device).settle()
+
     def _read_page(self, pid: int) -> Rows:
         """One physical page's rows on the host (demotion, save)."""
+        self._settle()
         return SV.page_rows(self._pool, int(pid))
 
     # -- prefix-cache persistence ----------------------------------------
@@ -903,14 +919,16 @@ class PagedServeEngine(DL.ServeEngine):
         self._prompts[s] = prompt  # what complete_prefill publishes: pend is on the device
         return cache, plan.resume
 
-    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None):
+    def _dispatch(self, cache, mode, tok, pos, gen, rem, pfill, pend, plen, table=None,
+                  host_table=None):
         if self._table_dev is None:
             self._table_dev = torch.as_tensor(self.kv.table, dtype=torch.long,
                                               device=self.device)
         return super()._dispatch(cache, mode, tok, pos, gen, rem, pfill, pend, plen,
-                                 self._table_dev)
+                                 self._table_dev, self.kv.table)
 
     def _post_dispatch(self, mode, pfill, plen, pend, owner) -> None:
+        self._settle()
         for s in range(self.slots):
             if owner[s] is None or self._inserted[s] or pfill[s] < plen[s]:
                 continue
@@ -990,10 +1008,11 @@ class SLOPagedServeEngine(PagedServeEngine):
 
     def _capacity(self, prompts: Sequence[Sequence[int]]) -> Tuple[int, int]:
         """A preempted request re-admits ``prompt + emitted``, so the
-        pending buffer covers ``longest + max_new``."""
+        pending buffer covers ``longest + max_new`` (S whole host-KV slabs
+        under ``n_host_chunks``, as the JAX engine rounds it)."""
         longest = max((len(p) for p in prompts), default=1)
         P = -(-max(self.bucket, longest + self.max_new) // self.cp) * self.cp
-        return P, P + self.max_new
+        return P, self._slabs(P + self.max_new)
 
     def _key(self, r: DL.Request, seq: int, ridx: int) -> Tuple:
         if self.policy == "slo":
@@ -1030,6 +1049,7 @@ class SLOPagedServeEngine(PagedServeEngine):
         self.last_stats = stats
         rstat = stats["requests"]
         cache = self._begin(B, P, S)
+        mark = self._mark()
         mode = np.full(B, DL.FREE, np.int32)
         tok = np.zeros((B, 1), np.int32)
         pos = np.zeros(B, np.int32)
@@ -1196,6 +1216,7 @@ class SLOPagedServeEngine(PagedServeEngine):
                         self.telemetry.event("request.pause", request=owner[s], slot=s,
                                              step=step, session=r.session)
             step += 1
+        self._host_kv_stats(stats, cache, mark)
         self._end(cache)
         for i in range(n):
             rstat[i]["n_emitted"] = len(emitted[i])

@@ -40,6 +40,15 @@ DMA from pinned memory and never a staged host copy), and
 ``write_rows`` copies spans of a device slab back into the pinned rows
 after the compute stream's writes to it.  Both run on the copy stream,
 so a span written back is ordered before any later fetch of it.
+
+The host-streamed page pool (``runtime/paged.py``) is parked from the
+start (``host_zeros``: pinned, never on the device) and read and written
+by pages: ``fetch_pages`` starts copying a set of page ids into one
+device buffer (a copy a run of consecutive pages), ``write_pages`` copies
+page slices of a device buffer back into their host pages.  Both run on
+the copy stream, so a fetch is ordered after every earlier write-back
+with no host wait; ``settle`` is the one host wait, between segments,
+before the host touches the pool itself (a page program, a demotion).
 """
 from __future__ import annotations
 
@@ -233,6 +242,82 @@ class HostOffload:
                 self._count("to_host_bytes", dst[i, a:e])
         src.record_stream(copy)
 
+    def host_zeros(self, shape, dtype) -> torch.Tensor:
+        """A zeroed host tensor to park a leaf in from the start (a page pool
+        that never lives on the device): pinned on a card and counted in
+        ``held_bytes`` as ``to_host``'s copies are; on the CPU a plain one."""
+        if not self.on_card:
+            return torch.zeros(shape, dtype=dtype)
+        dst = torch.zeros(shape, dtype=dtype, pin_memory=True)
+        if not dst.is_pinned():
+            raise RuntimeError("host_zeros could not pin its host buffer")
+        n = dst.numel() * dst.element_size()
+        self._held(n)
+        weakref.finalize(dst, self._held, -n)
+        return dst
+
+    def fetch_pages(self, pool: torch.Tensor, rows, n_slots: int, pad: int = 0) -> Pending:
+        """Starts copying pages of the pinned page pool ``pool`` [n_phys, ps,
+        ...] to the device as one [b, n_slots * ps + pad, ...] tensor:
+        ``rows[i]`` lists (slot, page id) pairs, page ``pool[pid]`` landing
+        at positions [slot * ps, (slot + 1) * ps) of row i.  A run of
+        consecutive slots holding consecutive pages is one copy (a DMA
+        from pinned memory, never a staged host gather: a host-side read of
+        the pool would not be ordered after the write-backs queued on the
+        copy stream).  Positions no pair names are left unset.  On the CPU
+        plain copies into a new tensor, as ``fetch_rows``."""
+        ps, tail = pool.shape[1], pool.shape[2:]
+        shape = (len(rows), n_slots * ps + pad, *tail)
+        if not self.on_card:
+            out = torch.empty(shape, dtype=pool.dtype)
+            for i, pairs in enumerate(rows):
+                for s0, p0, n in _runs(pairs):
+                    out[i, s0 * ps:(s0 + n) * ps].copy_(pool[p0:p0 + n].flatten(0, 1))
+            return Pending(out)
+        if pool.device.type != "cpu" or not pool.is_pinned():
+            raise ValueError("fetch_pages takes a pinned host pool (host_zeros)")
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream()
+        n_pages = 0
+        with torch.cuda.stream(copy):
+            out = torch.empty(shape, dtype=pool.dtype, device=self.device)
+            for i, pairs in enumerate(rows):
+                for s0, p0, n in _runs(pairs):
+                    out[i, s0 * ps:(s0 + n) * ps].copy_(pool[p0:p0 + n].flatten(0, 1),
+                                                          non_blocking=True)
+                    n_pages += n
+            done = torch.cuda.Event()
+            done.record(copy)
+        out.record_stream(compute)
+        with self._lock:
+            self.to_device_bytes += n_pages * pool[0].numel() * pool.element_size()
+        return Pending(out, done)
+
+    def write_pages(self, pool: torch.Tensor, src: torch.Tensor, spans):
+        """``pool[pid, a:a + n] = src[i, o:o + n]`` for each (i, o, pid, a, n)
+        of ``spans``: ``pool`` the pinned page pool, ``src`` a device buffer
+        of page slices, copied on the copy stream after what the compute
+        stream has queued (its writes to ``src``).  On the CPU plain copies."""
+        if not self.on_card:
+            for i, o, pid, a, n in spans:
+                pool[pid, a:a + n].copy_(src[i, o:o + n])
+            return
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream()
+        copy.wait_stream(compute)
+        with torch.cuda.stream(copy):
+            for i, o, pid, a, n in spans:
+                pool[pid, a:a + n].copy_(src[i, o:o + n], non_blocking=True)
+                self._count("to_host_bytes", src[i, o:o + n])
+        src.record_stream(copy)
+
+    def settle(self):
+        """Waits on the host for every copy queued on the copy stream, so
+        that the host may read and write the pinned buffers they touch (a
+        parked page pool's page programs); on the CPU nothing."""
+        if self.on_card and self._stream is not None:
+            self._stream.synchronize()
+
     def copy_to_host(self, dst: torch.Tensor, src: torch.Tensor):
         """``dst.copy_(src)``: ``dst`` a contiguous view of a pinned host
         tensor, ``src`` a device tensor, copied on the copy stream after
@@ -246,6 +331,18 @@ class HostOffload:
             dst.copy_(src, non_blocking=True)
         src.record_stream(copy)
         self._count("to_host_bytes", src)
+
+
+def _runs(pairs):
+    """(first slot, first page, length) of each run of ``pairs`` ((slot,
+    page) in slot order) whose slots and pages both step by one."""
+    out = []
+    for s, p in pairs:
+        if out and out[-1][0] + out[-1][2] == s and out[-1][1] + out[-1][2] == p:
+            out[-1][2] += 1
+        else:
+            out.append([s, p, 1])
+    return out
 
 
 _POLICIES: Dict[torch.device, HostOffload] = {}

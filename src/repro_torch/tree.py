@@ -16,6 +16,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any, path: tuple = ()) -> Any:
+    """``tree_map`` with the leaf's path (as ``tree_leaves_with_path``
+    gives it) as ``fn``'s first argument."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, *(r[i] for r in rest), path=path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)
+
+
 def _iter_leaves(tree: Any) -> Iterator[Any]:
     if isinstance(tree, dict):
         for k in sorted(tree):

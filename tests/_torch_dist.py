@@ -27,8 +27,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
 JOIN_TIMEOUT = 240  # seconds a spawn may take, its ranks' start included
 # the serve mesh's collectives (core/parallel.py), which no training task calls
-SERVE_COLLECTIVES = ("gather_heads", "gather_state", "gather_rows", "gather_harvest",
-                     "gather_pages")
+SERVE_COLLECTIVES = ("gather_heads", "gather_channels", "gather_state", "gather_rows",
+                     "gather_harvest", "gather_pages")
 
 
 def _env(**extra) -> dict:
@@ -1151,7 +1151,15 @@ SERVE_CELLS = (
      "spill"),
     ("granite", "granite-moe-1b-a400m", {}, "paged", {"page_size": 8, "n_pages": 24}, "once"),
     ("sampled", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 24}, "sampled"),
+    # d_inner over model; the hybrid's local_attn ring (hkv 1) by position
+    ("ssm-paged", "falcon-mamba-7b", {}, "paged", {"page_size": 8, "n_pages": 24}, "once"),
+    ("hybrid-dense", "recurrentgemma-9b", {}, "dense", {}, "once"),
+    # the pool parked (kv heads over model), dense host KV by position
+    ("paged-host", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 24, "n_host_chunks": 2},
+     "once"),
+    ("dense-host", "llama3.2-1b", {"num_kv_heads": 1}, "dense", {"n_host_chunks": 2}, "once"),
 )
+SERVE_STORES = ("paged-heads", "paged-inpage")  # the cells whose prefix store crosses meshes
 SERVE_KW = {"slots": 2, "bucket": 16, "max_new_tokens": 4, "prefill_chunk": 8, "segment": 2}
 SERVE_STEP_TOKENS = 8  # the direct steps' prefill chunk a row
 SERVE_TEMPERATURE = 0.8
@@ -1283,7 +1291,7 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
 
         def engine(p=par, **extra):
             return (PG.PagedServeEngine(cfg, params, par=p, **kw, **ekw, **extra)
-                    if kind == "paged" else DL.ServeEngine(cfg, params, par=p, **kw))
+                    if kind == "paged" else DL.ServeEngine(cfg, params, par=p, **kw, **ekw))
 
         def gen():
             return torch.Generator().manual_seed(0) if sampled else None
@@ -1313,7 +1321,7 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
             cell["capacity"] = S_
         if sampled:  # the one-rank port engine from the same generator state
             cell["one_rank"] = engine(None).generate(prompts, generator=gen())
-        if kind == "paged" and workload in ("twice", "once") and label != "granite":
+        if label in SERVE_STORES:
             n = eng.save_kv_store(str(tmp / f"{label}-mesh.npz"))
             fresh = engine(spill_pages=STORE_SPILL)
             cell["store"] = {"saved": n,
@@ -1328,33 +1336,28 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
                               "one": [logged(lambda: serve(engine(None)))[1],
                                       logged(lambda: one.generate(prompts))[1]]}
         # the direct steps, this rank's rows against JAX's at 1e-5
-        ps = ekw.get("page_size", 0)
+        ps, nh = ekw.get("page_size", 0), ekw.get("n_host_chunks", 0)
         sh = SV.Shard(par, 2, ps)
         toks, table = serve_step_inputs(cfg.vocab_size, ps or SERVE_STEP_TOKENS)
         r0, r1 = sh.r0, sh.r1
         tab = torch.from_numpy(table) if ps else None
-        cache = (SV.init_paged_cache(cfg, 2, 8, ps, "cpu", par=par) if ps else
+        cache = (SV.init_paged_cache(cfg, 2, 8, ps, "cpu", par=par, host=bool(nh)) if ps else
                  SV.init_cache(cfg, 2, SERVE_STEP_TOKENS + 4, "cpu", par=par))
         live = torch.full((r1 - r0,), SERVE_STEP_TOKENS)
         lg, cache = SV.chunk_step(cfg, par, params, cache, torch.from_numpy(toks[r0:r1]),
-                                  torch.zeros(r1 - r0, dtype=torch.long), live, table=tab,
-                                  shard=sh)
+                                  torch.zeros(r1 - r0, dtype=torch.long), live, n_host_chunks=nh,
+                                  table=tab, shard=sh, host_table=table)
         lg2, _ = SV.decode_step(cfg, par, params, cache,
                                 {"tokens": lg.argmax(-1, keepdim=True)},
-                                torch.full((r1 - r0,), SERVE_STEP_TOKENS), table=tab, shard=sh)
+                                torch.full((r1 - r0,), SERVE_STEP_TOKENS), n_host_chunks=nh,
+                                table=tab, shard=sh, host_table=table)
         cell["step"] = {"rows": [r0, r1], "chunk": lg.tolist(), "decode": lg2.tolist()}
         out[label] = cell
 
-    # a recurrent layout refuses the mesh
-    try:
-        rcfg = serve_cfg(configs, "falcon-mamba-7b")
-        DL.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0), "cpu"),
-                       par=par, **SERVE_KW)
-        out["recurrent"] = "served"
-    except ValueError as e:
-        out["recurrent"] = str(e)
-    except Exception as e:  # noqa: BLE001 - what raised is the reading
-        out["recurrent"] = f"{type(e).__name__}: {e}"
+    # a recurrent layout on the dense engine (ssm-paged's weights and prompts)
+    rcfg = serve_cfg(configs, "falcon-mamba-7b")
+    out["recurrent"] = DL.ServeEngine(rcfg, params_of("ssm-paged", rcfg), par=par,
+                                      **SERVE_KW).generate(serve_prompts(rcfg.vocab_size)[0])
 
     # the replica tier: 2 replicas of 1 x 2, rank 0 routing
     cfg = serve_cfg(configs, "llama3.2-1b")

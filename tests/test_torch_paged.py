@@ -16,10 +16,14 @@ with the same (converted) parameters:
 * ``PagedServeEngine`` greedy tokens and ``last_stats`` equal to JAX's:
   three layouts on the staggered workload with a stop token, prefix
   reuse, COW, deferral, demote and promote, the store round trip;
+* the host-streamed pool (``n_host_chunks > 0``, the pool parked): its
+  steps and engine against JAX's page-by-page pass (a JAX engine or step
+  with ``n_host_chunks`` and no ``ParallelContext`` runs that pass with
+  nothing parked: ROADMAP Queue C), the parked pool against the device
+  pool bit for bit, demotion, promotion and the store through it;
 * the serve CLI's paged flags.
 
-JAX engines run with ``n_host_chunks=0``: the JAX host-streamed pool
-fails on this box (ROADMAP Queue C) and the port does not have one."""
+The other JAX engines run with ``n_host_chunks=0``."""
 import dataclasses
 import functools
 
@@ -502,23 +506,177 @@ def test_pool_pressure_defers_as_jax():
 
 def test_paged_engine_refusals():
     """JAX's refusals (chunk and page size that do not divide, page size
-    0) and the unported host-streamed pool."""
+    0); the host-streamed pool, once refused, runs: its engine gives the
+    device pool's tokens and a decode step through it the device pool's
+    logits (within 1e-5: page by page against one gather)."""
     _, tc, _, tparams = _model("llama3.2-1b")
     kw = dict(slots=2, bucket=8, max_new_tokens=4, segment=2)
     with pytest.raises(ValueError, match="prefill_chunk=6 and page_size=4"):
         PG.PagedServeEngine(tc, tparams, prefill_chunk=6, page_size=4, **kw)
     with pytest.raises(ValueError, match="page_size must be >= 1"):
         PG.PagedServeEngine(tc, tparams, prefill_chunk=4, page_size=0, **kw)
-    with pytest.raises(ValueError, match="host-streamed page pool"):
-        PG.PagedServeEngine(tc, tparams, prefill_chunk=4, page_size=4, n_host_chunks=2, **kw)
-    with pytest.raises(ValueError, match="host-streamed page pool"):
-        SV.decode_step(tc, None, tparams, SV.init_paged_cache(tc, 1, 2, 4, "cpu"),
+    prompts = _prompts(tc.vocab_size, (3, 7, 5), 4)
+    assert (PG.PagedServeEngine(tc, tparams, prefill_chunk=4, page_size=4, n_host_chunks=2,
+                                **kw).generate(prompts)
+            == PG.PagedServeEngine(tc, tparams, prefill_chunk=4, page_size=4,
+                                   **kw).generate(prompts))
+    lg = [SV.decode_step(tc, None, tparams, SV.init_paged_cache(tc, 1, 2, 4, "cpu", host=nh > 0),
+                         {"tokens": torch.zeros((1, 1), dtype=torch.long)}, 0, n_host_chunks=nh,
+                         table=torch.tensor([[0, 1]]), host_table=np.array([[0, 1]]))[0]
+          for nh in (2, 0)]
+    np.testing.assert_allclose(lg[0].numpy(), lg[1].numpy(), rtol=TOL, atol=TOL)
+    # a table no manager makes: one page at two logical pages a row may write
+    with pytest.raises(ValueError, match="two logical pages"):
+        SV.decode_step(tc, None, tparams, SV.init_paged_cache(tc, 1, 2, 4, "cpu", host=True),
                        {"tokens": torch.zeros((1, 1), dtype=torch.long)}, 0, n_host_chunks=2,
-                       table=torch.zeros((1, 2), dtype=torch.long))
+                       table=torch.zeros((1, 2), dtype=torch.long),
+                       host_table=np.zeros((1, 2), np.int64))
+    # the plan comes from the host's table, never from a device read
+    with pytest.raises(ValueError, match="host_table"):
+        SV.decode_step(tc, None, tparams, SV.init_paged_cache(tc, 1, 2, 4, "cpu", host=True),
+                       {"tokens": torch.zeros((1, 1), dtype=torch.long)}, 0, n_host_chunks=2,
+                       table=torch.tensor([[0, 1]]))
+
+
+# ---------------------------------------------------------------------------
+# the host-streamed pool
+# ---------------------------------------------------------------------------
+
+
+def _pool_pages(cache):
+    """Every pool leaf but its trash page (the last), by key, as numpy."""
+    return {k: (leaf[:, :-1] if stacked else leaf[:-1]).numpy()
+            for k, leaf, stacked in SV.pool_leaves(cache)}
+
+
+def test_host_pool_engine_matches_jax():
+    """The staggered workload (a stop token: a row goes FREE mid-segment
+    and goes on writing at its frozen position) on the parked pool:
+    JAX's PagedServeEngine(n_host_chunks=2) tokens and stats (its
+    page-by-page pass; the port's engine fetches the live pages at once),
+    the device
+    pool's tokens; the parked pool then holds the device pool's positions
+    exactly and its keys within 1e-5 on every page but the trash page;
+    the engine reports the pool's bytes and the pages it fetched."""
+    jc, tc, jparams, tparams = _model("llama3.2-1b")
+    prompts = _prompts(jc.vocab_size, (3, 8, 5, 12, 6), 0)
+    kw = dict(STAGGERED, n_pages=24)
+    dev = PG.PagedServeEngine(tc, tparams, **kw)
+    stop = dev.generate(prompts)[0][2]
+    dev = PG.PagedServeEngine(tc, tparams, stop_tokens=(stop,), **kw)
+    eng = PG.PagedServeEngine(tc, tparams, stop_tokens=(stop,), n_host_chunks=2, **kw)
+    jeng = JPG.PagedServeEngine(jc, jparams, stop_tokens=(stop,), n_host_chunks=2, **kw)
+    got = eng.generate(prompts)
+    assert got == jeng.generate(prompts) == dev.generate(prompts)
+    assert _stats(eng) == _stats(jeng)
+    assert any(len(g) < kw["max_new_tokens"] for g in got)  # the stop fired
+    want, have = _pool_pages(dev._pool), _pool_pages(eng._pool)
+    assert sorted(want) == sorted(have) and want
+    for k in want:  # a later layer's keys carry the merge order's last bits
+        tol = 0 if k.endswith("pkpos") else TOL
+        np.testing.assert_allclose(have[k], want[k], rtol=tol, atol=tol, err_msg=k)
+    st = eng.last_stats
+    page = tc.num_layers * 4 * 2 * tc.num_kv_heads * tc.head_dim * 4
+    assert st["host_kv_bytes"] == (eng.n_pages + 1) * page and st["host_kv_pages"] > 0
+
+
+@pytest.mark.parametrize("ps", [2, 8])
+def test_host_pool_steps_match_jax(ps):
+    """test_paged_steps_match_jax_and_dense's steps with n_host_chunks=2,
+    the pool parked and each step given its rows' spans and the host's
+    table (every live page fetched and merged at once): JAX's
+    host-streamed (page-by-page) logits and the device pool's within
+    1e-5, and the parked pool JAX's (every page but the trash page)."""
+    jc, tc, jparams, tparams = _model("llama3.2-1b")
+    rng = np.random.default_rng(3)
+    b, cp, lens = 2, 4, [9, 6]
+    toks = rng.integers(0, jc.vocab_size, size=(b, 9)).astype(np.int32)
+    mgr = PG.PagedCacheManager(16, ps, use_radix=False)
+    mgr.begin(b, max_pages=-(-16 // ps))
+    for s, n in enumerate(lens):
+        mgr.admit(s, toks[s, :n].tolist(), 16 - n)
+    jtable = jnp.asarray(mgr.table)
+    table = torch.as_tensor(mgr.table, dtype=torch.long)
+    jpaged = JSV.init_paged_cache(jc, b, 16, ps)
+    parked = SV.init_paged_cache(tc, b, 16, ps, "cpu", host=True)
+    paged = SV.init_paged_cache(tc, b, 16, ps, "cpu")
+    pfill, plen = np.zeros(b, np.int64), np.asarray(lens)
+    host = dict(n_host_chunks=2, table=table, host_table=mgr.table)
+    while (pfill < plen).any():
+        live = np.clip(plen - pfill, 0, cp)
+        chunk = toks[np.arange(b)[:, None], np.clip(pfill[:, None] + np.arange(cp), 0, 8)]
+        jl, jpaged = JSV.chunk_step(jc, None, jparams, jpaged, jnp.asarray(chunk),
+                                    jnp.asarray(pfill, jnp.int32), jnp.asarray(live, jnp.int32),
+                                    n_host_chunks=2, table=jtable)
+        args = (torch.from_numpy(chunk), torch.from_numpy(pfill), torch.from_numpy(live))
+        spans = [(int(a), int(a + n - 1)) for a, n in zip(pfill, live)]
+        lh, _ = SV.chunk_step(tc, None, tparams, parked, *args, bounds=spans, **host)
+        lp, _ = SV.chunk_step(tc, None, tparams, paged, *args, table=table)
+        np.testing.assert_allclose(lh.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(lh.numpy(), lp.numpy(), rtol=TOL, atol=TOL)
+        pfill += live
+    nxt = torch.argmax(lp[:, : tc.vocab_size], -1)[:, None]
+    jl, jpaged = JSV.decode_step(jc, None, jparams, jpaged, {"tokens": jnp.asarray(nxt.numpy())},
+                                 jnp.asarray(plen, jnp.int32), n_host_chunks=2, table=jtable)
+    lh, _ = SV.decode_step(tc, None, tparams, parked, {"tokens": nxt}, torch.from_numpy(plen),
+                           bounds=[(int(p), int(p)) for p in plen], **host)
+    np.testing.assert_allclose(lh.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    for (k, got), (_, want) in zip(_flat(parked), _flat(jpaged)):
+        tol = 0 if k.endswith("pkpos") else TOL
+        np.testing.assert_allclose(got.numpy()[:, :-1], np.asarray(want)[:, :-1], rtol=tol,
+                                   atol=tol, err_msg=k)
+
+
+def test_page_programs_on_the_parked_pool():
+    """paged_reset, copy_page with a dropped tail, promote_page with a kept
+    prefix and page_rows on a parked pool (``host=True``) and on a device
+    one filled alike: the same bits."""
+    tc = dataclasses.replace(reduced(get_config("llama3.2-1b")), param_dtype="float32",
+                             **TAIL_LAYOUT)
+    pools = [SV.init_paged_cache(tc, 2, 5, 2, "cpu", host=host) for host in (True, False)]
+    g = torch.Generator().manual_seed(0)
+    for pool in pools:
+        g.manual_seed(0)
+        for _, leaf, _ in SV.pool_leaves(pool):
+            leaf.copy_(torch.randint(-1, 20, leaf.shape, generator=g) if leaf.dtype == torch.int32
+                       else torch.randn(leaf.shape, generator=g))
+        PG.paged_reset(pool, 1, [3, 1])
+        PG.copy_page(pool, 3, 0, 1)
+        PG.promote_page(pool, 2, SV.page_rows(pool, 4), 1)
+    rows = [SV.page_rows(pool, 2) for pool in pools]
+    assert sorted(rows[0]) == sorted(rows[1])
+    for k in rows[0]:
+        np.testing.assert_array_equal(rows[0][k].numpy(), rows[1][k].numpy(), err_msg=k)
+    for (k, a), (_, b) in zip(_flat(pools[0]), _flat(pools[1])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
 
 
 SPILL_KW = dict(slots=2, bucket=24, max_new_tokens=4, segment=2, prefill_chunk=4,
                 page_size=4, n_pages=16)
+
+
+def test_host_pool_spill_and_store(tmp_path):
+    """test_demote_promote_matches_jax's workloads on the parked pool: the
+    dense engine's tokens, demotions and promotions; the store saved from
+    the parked pool restores into a JAX engine and into a port engine
+    with a parked pool, which serve workload A alike from its prefix."""
+    jc, tc, jparams, tparams = _model("llama3.2-1b")
+    wl_a, wl_b = _spill_workloads(jc.vocab_size)
+    kw = {k: v for k, v in SPILL_KW.items() if k not in ("page_size", "n_pages")}
+    dense = DL.ServeEngine(tc, tparams, **kw)
+    eng = PG.PagedServeEngine(tc, tparams, spill_pages=32, n_host_chunks=2, **SPILL_KW)
+    refs = {}
+    for i, wl in enumerate((wl_a, wl_b, wl_a)):
+        refs.setdefault(i % 2, dense.generate(wl))
+        assert eng.generate(wl) == refs[i % 2]
+    assert eng.last_stats["spill_promotes"] > 0 and eng.kv.spilled_pages > 0
+    store = str(tmp_path / "kv.npz")
+    saved = eng.save_kv_store(store)
+    fresh = PG.PagedServeEngine(tc, tparams, spill_pages=64, n_host_chunks=2, **SPILL_KW)
+    jfresh = JPG.PagedServeEngine(jc, jparams, spill_pages=64, **SPILL_KW)
+    assert fresh.restore_kv_store(store) == jfresh.restore_kv_store(store) == saved > 0
+    assert fresh.generate(wl_a) == jfresh.generate(wl_a) == refs[0]
+    assert _stats(fresh) == _stats(jfresh) and fresh.last_stats["spill_promotes"] > 0
 
 
 def _spill_workloads(vocab):
@@ -627,6 +785,17 @@ def test_cli_paged_on_cpu(tmp_path, capsys):
     (["--paged", "--host-kv-chunks", "4"], 2, "host-streamed page pool is not yet ported"),
     (["--sched", "slo"], 2, "--sched requires --paged")])
 def test_cli_paged_refusals(capsys, argv, code, msg):
+    """--sched without --paged exits as the JAX CLI does; --paged
+    --host-kv-chunks, once refused, serves the device pool's tokens and
+    prints the parked pool's bytes and the pages fetched."""
+    if "--host-kv-chunks" in argv:
+        run = CLI.main([*PAGED_ARGV, *argv])
+        text = capsys.readouterr().out
+        assert run["outs"] == CLI.main([*PAGED_ARGV, "--paged"])["outs"]
+        st = run["engine"].last_stats
+        assert (f"host KV: {st['host_kv_bytes']} B parked on the host, {st['host_kv_pages']} "
+                "pages fetched") in text and st["host_kv_pages"] > 0
+        return
     with pytest.raises(SystemExit) as ex:
         CLI.main([*PAGED_ARGV, *argv])
     assert ex.value.code == code

@@ -7,6 +7,8 @@ falcon-mamba-7b (Mamba-1): prefill logits and every cache leaf (conv, h,
 ssm, k, v, kpos), greedy tokens, per-step logits and the cache after
 decode, bf16 prefill, and the CLI."""
 import dataclasses
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist import _env
 from repro.configs import get_config as j_get_config, reduced as j_reduced
 from repro.models import serve as JSV
 from repro.models import transformer as JT
@@ -175,15 +178,38 @@ def test_cli_on_cpu(capsys):
     assert len(timed) == 2 and all(ln.endswith("on cpu") for ln in timed)
 
 
+_SMALL = ["--requests", "3", "--batch", "2", "--prompt-len", "8", "--gen", "2",
+          "--prefill-chunk", "4", "--page-size", "4"]
+
+
+def _digest(text: str) -> str:
+    return next(ln for ln in text.splitlines() if "tokens sha256" in ln)
+
+
 @pytest.mark.parametrize("flag", [["--engine", "--paged", "--host-kv-chunks", "4"],
                                   ["--engine", "--mesh", "1x2", "--host-kv-chunks", "4"],
                                   ["--engine", "--paged", "--mesh", "2x1", "--replicas", "2",
                                    "--host-kv-chunks", "2"]])
 def test_cli_refuses_unported(capsys, flag):
-    with pytest.raises(SystemExit) as ex:
-        CLI.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *flag])
-    assert ex.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """Once refused, now served: each combination with --host-kv-chunks
+    (the parked pool; dense host KV on 1 x 2 ranks; the parked pool on 2
+    replicas of 2 x 1) gives the tokens of the same run without it, and
+    prints the KV parked on the host."""
+    base = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", *_SMALL]
+    i = flag.index("--host-kv-chunks")
+    plain = flag[:i] + flag[i + 2:]
+    if "--mesh" not in flag:
+        got, want = CLI.main([*base, *flag]), CLI.main([*base, *plain])
+        assert got["outs"] == want["outs"]
+        assert "host KV: " in capsys.readouterr().out
+        return
+    m = flag.index("--mesh")  # the plain run on one rank a replica, in this process
+    CLI.main([*base, *plain[:m + 1], "1x1", *plain[m + 2:]])
+    want = _digest(capsys.readouterr().out)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *base, *flag],
+                          env=_env(), capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert _digest(proc.stdout) == want and "host KV: " in proc.stdout, proc.stdout
 
 
 _ENGINE_OUTS = {}  # the first mode's tokens, which every other mode must give

@@ -12,7 +12,12 @@ model; the two slots over data) from the same weights, then 2 replicas of
 * every cell's tokens equal JAX's (paged with heads split, its second run
   a radix hit; the in-page fallback at hkv 1, page_size 4; the dense
   engine with heads and with positions split; a tight pool that demotes
-  and promotes; granite's MoE FFN), the step logits within 1e-5, and a
+  and promotes; granite's MoE FFN; falcon-mamba's states over channels
+  on the paged engine; recurrentgemma's rglru channels and its local_attn
+  ring split by position on the dense engine; the pool parked on the
+  host, held to JAX's page-by-page pass (``n_host_chunks=2`` with no
+  ``ParallelContext``); dense host KV split by position, held to JAX's
+  host-chunked engine likewise), the step logits within 1e-5, and a
   temperature's samples equal the one-rank port engine's;
 * each rank's cache leaves have the shapes and bytes of the port's
   ``cache_shardings`` plan, and that plan equals JAX's ``cache_shardings``
@@ -26,9 +31,9 @@ model; the two slots over data) from the same weights, then 2 replicas of
 * the replica tier: the first session's home replica dies on its second
   dispatch, a shared store: every request the no-fault tokens, one death,
   recovered prefix tokens;
-* a recurrent layout refuses the mesh; the CLI's mesh checks exit as the
-  JAX CLI's; the CLI runs ``--mesh 1x2 --replicas 2 --fault-plan`` on the
-  CPU to the tokens of ``--mesh 1x1``.
+* a recurrent layout on the dense engine gives JAX's tokens on the mesh;
+  the CLI's mesh checks exit as the JAX CLI's; the CLI runs ``--mesh 1x2
+  --replicas 2 --fault-plan`` on the CPU to the tokens of ``--mesh 1x1``.
 """
 import contextlib
 import io
@@ -44,8 +49,8 @@ import pytest
 import torch
 
 from _torch_dist import (FAULT_KW, SERVE_CELLS, SERVE_COLLECTIVES, SERVE_KW, SERVE_STEP_TOKENS,
-                         STORE_SPILL, _env, fault_workload, run_ranks, serve_cfg, serve_prompts,
-                         serve_step_inputs)
+                         SERVE_STORES, STORE_SPILL, _env, fault_workload, run_ranks, serve_cfg,
+                         serve_prompts, serve_step_inputs)
 from repro import configs as jconfigs
 from repro.launch import serve as JCLI
 from repro.models import serve as JSV
@@ -64,27 +69,31 @@ TOL = 1e-5
 DP, SP = 2, 2
 CELLS = {c[0]: c for c in SERVE_CELLS}
 GREEDY = [c[0] for c in SERVE_CELLS if c[5] != "sampled"]
-STORES = ("paged-heads", "paged-inpage")
+STORES = SERVE_STORES
 
 
 def _jax_engine(jc, params, kind, ekw):
+    """JAX's single-device engine of a cell; with ``n_host_chunks`` and no
+    ``ParallelContext`` its host-streamed passes run (slab by slab, page by
+    page) with nothing parked."""
     return (JPG.PagedServeEngine(jc, params, **SERVE_KW, **ekw) if kind == "paged"
-            else JDL.ServeEngine(jc, params, **SERVE_KW))
+            else JDL.ServeEngine(jc, params, **SERVE_KW, **ekw))
 
 
-def _jax_steps(jc, params, ps):
+def _jax_steps(jc, params, ps, nh=0):
     """JAX's direct steps on one device: a chunk from offset 0, then a
-    decode of its argmax."""
+    decode of its argmax (``nh``: host-streamed, as ``_jax_engine``)."""
     toks, table = serve_step_inputs(jc.vocab_size, ps or SERVE_STEP_TOKENS)
     tab = jnp.asarray(table, jnp.int32) if ps else None
     cache = (JSV.init_paged_cache(jc, 2, 8, ps) if ps else
              JSV.init_cache(jc, 2, SERVE_STEP_TOKENS + 4))
     lg, cache = JSV.chunk_step(jc, None, params, cache, jnp.asarray(toks, jnp.int32),
                                jnp.zeros(2, jnp.int32), jnp.full(2, SERVE_STEP_TOKENS, jnp.int32),
-                               table=tab)
+                               n_host_chunks=nh, table=tab)
     lg2, _ = JSV.decode_step(jc, None, params, cache,
                              {"tokens": jnp.argmax(lg, -1, keepdims=True)},
-                             jnp.full(2, SERVE_STEP_TOKENS, jnp.int32), table=tab)
+                             jnp.full(2, SERVE_STEP_TOKENS, jnp.int32), n_host_chunks=nh,
+                             table=tab)
     return np.asarray(lg), np.asarray(lg2)
 
 
@@ -108,7 +117,7 @@ def readings(tmp_path_factory):
         params = JT.init_params(jc, jax.random.PRNGKey(0))
         ref.update({f"{label}/p{i}": np.asarray(x)
                     for i, x in enumerate(jax.tree.leaves(params))})
-        lg, lg2 = _jax_steps(jc, params, ekw.get("page_size", 0))
+        lg, lg2 = _jax_steps(jc, params, ekw.get("page_size", 0), ekw.get("n_host_chunks", 0))
         want[label] = {"chunk": lg.tolist(), "decode": lg2.tolist()}
         if workload == "sampled":
             continue
@@ -231,9 +240,16 @@ def test_plan_equals_jax_cache_shardings(arch, mesh):
 
 def _reckon(cfg, cell, got):
     """The serve collectives of a cell's runs on 2 x 2, from the steps
-    taken: a rank steps one of the two slots."""
+    taken: a rank steps one of the two slots.  An attention layer gathers
+    its heads or its positions' states (and a pool layer its writes); a
+    recurrent layer gathers its channels twice (before the projections
+    that read every channel and before ``w_out``)."""
     _, _, _, kind, ekw, workload = CELLS[cell]
-    L, b, cp, dh = cfg.num_layers, 1, SERVE_KW["prefill_chunk"], cfg.head_dim
+    kinds = cfg.layer_kinds()
+    L = sum(k in ("attn", "local_attn") for k in kinds)
+    rec = sum(k in ("ssm", "rglru") for k in kinds)
+    pool = sum(k == "attn" for k in kinds)
+    b, cp, dh = 1, SERVE_KW["prefill_chunk"], cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     heads = hkv % SP == 0
     n = {"chunk": got["steps"]["chunk"], "decode": got["steps"]["decode"]}
@@ -249,9 +265,10 @@ def _reckon(cfg, cell, got):
             add("gather_heads", L * k, L * k * b * w * (hq // SP) * dh * 4)
         else:
             add("gather_state", L * k, L * k * b * hq * w * (dh + 2) * 4)
+        add("gather_channels", 2 * rec * k, 2 * rec * k * b * w * (cfg.d_inner // SP) * 4)
         if kind == "paged":  # the pool's writes of every row
             hl = hkv // SP if heads else hkv
-            add("gather_rows", L * k, L * k * b * w * (2 * hl * dh + 1) * 4)
+            add("gather_rows", pool * k, pool * k * b * w * (2 * hl * dh + 1) * 4)
         if cfg.num_experts:  # the MoE FFN on every row
             add("gather_rows", L * k, L * k * b * w * cfg.d_model * 4)
         if workload == "sampled":  # the batch's logits, for one generator
@@ -372,9 +389,12 @@ def test_replica_tier_seeded_crash(readings):
 
 
 def test_recurrent_layout_refuses_the_mesh(readings):
-    ranks, _, _, _ = readings
+    """No longer refused: falcon-mamba on the dense engine over 2 x 2 (its
+    d_inner over model, the slots over data) gives JAX's tokens, those of
+    its paged engine (radix off: per-slot states)."""
+    ranks, want, _, _ = readings
     for got in ranks:
-        assert "not ported to a serve mesh" in got["recurrent"], got["recurrent"]
+        assert got["recurrent"] == want["ssm-paged"]["tokens"][0]
 
 
 ARGS = ["--arch", "llama3.2-1b", "--reduced", "--requests", "3", "--batch", "2",

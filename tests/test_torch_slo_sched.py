@@ -4,8 +4,10 @@ against the JAX package's, on reduced llama3.2-1b in fp32 with the same
 mid-prefill, prefill-budget pauses, the fifo and slo policies and a pool
 under sustained pressure give JAX's tokens and per-request records, and
 the tokens of uninterrupted solo runs; the three refusals are JAX's.  The
-JAX engines run with ``n_host_chunks=0`` (the JAX host-streamed pool
-fails on this box, ROADMAP Queue C; the port does not have one)."""
+JAX engines run with ``n_host_chunks=0``, but for the port's parked pool's
+case, held to JAX's engine with ``n_host_chunks=2`` and no
+``ParallelContext`` (its page-by-page pass with nothing parked: JAX's
+parked pool fails on this box, ROADMAP Queue C)."""
 import dataclasses
 import functools
 
@@ -89,6 +91,20 @@ def test_preempt_resume_matches_jax_and_solo():
     _assert_as_jax(eng, got, jeng, want)
     assert eng.last_stats["preemptions"] >= 1
     assert eng.last_stats["requests"][0]["preemptions"] >= 1
+    assert got == [_solo(r["tokens"]) for r in reqs]
+
+
+def test_preempt_resume_on_the_host_pool():
+    """tests/test_slo_sched.py's host case (which fails on this box: JAX
+    parks nothing here, ROADMAP Queue C) on the port's parked pool
+    (n_host_chunks=2): slo preempts and resumes with JAX's tokens, stats
+    and records (JAX's engine with n_host_chunks=2 and no
+    ParallelContext: its page-by-page pass, S rounded to whole slabs) and
+    every request's solo tokens."""
+    reqs, _ = _policies()
+    eng, got, jeng, want = _both(reqs, policy="slo", n_host_chunks=2, **ONE_SLOT)
+    _assert_as_jax(eng, got, jeng, want)
+    assert eng.last_stats["preemptions"] >= 1 and eng.last_stats["host_kv_pages"] > 0
     assert got == [_solo(r["tokens"]) for r in reqs]
 
 
