@@ -16,6 +16,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 bf16 (tensor-core) instantiation (flash_fwd_tc,
                 flash_bwd_dq_tc, flash_bwd_dkv_tc) must have some and spill
                 nothing;
+  2b. dryrun  — the port's dry-run (launch/dryrun.py --all --mesh both) in
+                this process into a temp directory: every arch x shape cell
+                on JAX's production meshes reckoned from meta-device shapes
+                (no card), 66 records all ok within DRYRUN_S seconds;
   3. kernel   — flash_fwd against its plain PyTorch version (ref.attend_chunk)
                 on the card: fp32 and bf16, head_dim 16/64/80/128/256, GQA and
                 MQA (MHA at 80, gpt-2.7b's), ragged lengths, carry-in with
@@ -151,7 +155,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 process, after (b)), the recurrent state leaves at half of
                 d_inner to the byte, gather_channels and the dense case's
                 gather_state as reckoned, linear_scan launched on each
-                rank, a rank's pinned bytes as reckoned; (b) after
+                rank, a rank's pinned bytes as reckoned and as the dry-run
+                reckons a rank's host_cache_bytes (SV.rank_cache_bytes);
+                (b) after
                 the ranks, the replica tier in this process:
                 tests/test_faults.py's seeded crash at full depth (two 1 x 1
                 paged replicas, two rounds of four sessions, the first
@@ -455,6 +461,41 @@ def phase(name, fn, *args):
         fail(f"phase {name!r} failed")
     print(f"({name}: {time.perf_counter() - t0:.1f} s)", flush=True)
     return out
+
+
+DRYRUN_CELLS = 66  # 10 archs x 3 shapes + 3 long_500k archs, on 2 meshes
+DRYRUN_S = 30.0
+
+
+def phase_dryrun(M, card):
+    """The dry-run sweep on the card's machine (which has no JAX): every
+    cell's record written, all ok, in under DRYRUN_S seconds; the status
+    lines go to a buffer, the count and the seconds are printed."""
+    import io
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            try:
+                M.D.main(["--all", "--mesh", "both", "--out", d])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        recs = [json.loads(p.read_text()) for p in Path(d).glob("*.json")]
+    seconds = time.perf_counter() - t0
+    ok = sum(r["ok"] for r in recs)
+    host = {r["mesh"]: r["reckoned"]["host_cache_bytes"] for r in recs
+            if (r["arch"], r["shape"]) == ("llama3.2-1b", "long_500k") and r["ok"]}
+    print(f"dry-run sweep: {ok} ok of {len(recs)} cells in {seconds:.2f} s (exit {code}); "
+          f"llama3.2-1b long_500k host_cache_bytes a rank {host} [{card}]")
+    if code != 0 or len(recs) != DRYRUN_CELLS or ok != DRYRUN_CELLS:
+        raise AssertionError(f"the dry-run sweep gave {ok} ok of {len(recs)} records "
+                             f"(exit {code}); want {DRYRUN_CELLS} ok\n" + lines.getvalue())
+    if seconds > DRYRUN_S:
+        raise AssertionError(f"the dry-run sweep took {seconds:.1f} s, over {DRYRUN_S} s")
+    return seconds
 
 
 def phase_device(torch):
@@ -1374,23 +1415,6 @@ def phase_serve(torch, M, arch, card):
     return counts
 
 
-def _model_flops(cfg, b, s):
-    """Model FLOPs of one training step: 6 N per token for the weights that
-    a token touches (N = ``cfg.num_active_params()``: for an MoE model the
-    router and the experts_per_token experts a token is routed to, not all
-    of them, the model FLOPs convention; the dense models' N is all of
-    ``num_params``), plus, in each attention layer, 12 d per live (q, k)
-    pair and q-head (4 d forward, 8 d backward) under that layer's causal
-    mask and window (none for attn, ``cfg.window`` for local_attn).  RG-LRU
-    layers have no pairs: their weights are in N."""
-    attn = 0
-    for kind in cfg.layer_kinds():
-        if kind in ("attn", "local_attn"):
-            window = cfg.window if kind == "local_attn" else 0
-            attn += 12 * cfg.head_dim * cfg.num_heads * _live_pairs(s, s, 0, 0, window) * b
-    return 6 * cfg.num_active_params() * b * s + attn
-
-
 def _leaf_rels(TR, got, want):
     """Each leaf's largest |got - want| relative to its largest magnitude."""
     return [float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
@@ -1643,7 +1667,7 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     params, opt_state, *_ = M.TRAIN.train_steps(cfg, params, oc, tc, batch_fn, dev,
                                                 on_step=on_step)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    flops = _model_flops(cfg, batch, seq)
+    flops = M.D.model_flops(cfg, batch, seq)
     want = _launches_per_step(cfg, M.F, M.T, M.MB, seq)
     for rec in records:
         mfu = flops / (rec["dt"] * PEAK_BF16_FLOPS)
@@ -1664,7 +1688,7 @@ def _train_run(torch, M, cfg, card, *, profile_offload=(True,), extra_check=None
     print(f"train {cfg.name} ({cfg.num_layers} layers) b={batch} seq={seq} u={cfg.fpdt_chunks} "
           f"mlp_chunks={cfg.mlp_chunks} remat={cfg.remat} offload="
           f"{'on' if cfg.fpdt_offload else 'off'}: peak device memory "
-          f"{peak_gib:.2f} GiB (reckoned {_reckoned_peak_gib(M, cfg, 1, seq):.2f}); host offload "
+          f"{peak_gib:.2f} GiB (reckoned {M.D.reckoned_peak_gib(cfg, 1, seq):.2f}); host offload "
           f"moved {off.to_host_bytes / 2**30:.2f} GiB to pinned "
           f"host memory and {off.to_device_bytes / 2**30:.2f} GiB back over {steps} steps; model "
           f"FLOPs/step {flops:.4e} [{card}]")
@@ -2154,7 +2178,7 @@ def phase_long_context(torch, M, card):
             M.TRAIN.train_steps(cfg, params, oc, M.TL.TrainConfig(steps=2, log_every=3),
                                 batch_fn, dev, on_step=on_step)
             rec = recs[-1]
-            rec["flops"] = _model_flops(cfg, 1, seq)
+            rec["flops"] = M.D.model_flops(cfg, 1, seq)
             runs[name, seq] = rec
             print(f"long context {name} ({'FPDT offload ' + ('on' if cfg.fpdt_offload else 'off')}"
                   f", remat {cfg.remat}) gpt-2.7b b1 seq {seq} u={u} mlp_chunks={2 * u}: step 2 "
@@ -3061,9 +3085,13 @@ def _check_mesh_cases(torch, M, card, ranks, inp):
                 row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 4 // sp  # a rank's half
                 want = ((c["stats"]["n_pages"] + 1) * PAGE_SIZE * row if "paged" in kw else
                         b * c["stats"]["capacity"] * row)
-                print(f"    pinned reckoned {want} B; the engine's host KV "
-                      f"{c['stats']['host_kv_bytes']} B")
-                if c["pinned"] != want or c["stats"]["host_kv_bytes"] != want:
+                meta = (M.SV.init_paged_cache(cfg, b, c["stats"]["n_pages"], PAGE_SIZE, "meta")
+                        if "paged" in kw else
+                        M.SV.init_cache(cfg, b, c["stats"]["capacity"], "meta"))
+                host = M.SV.rank_cache_bytes(cfg, 1, sp, meta, kw["n_host_chunks"])[1]
+                print(f"    pinned reckoned {want} B, the dry-run's host_cache_bytes {host} B; "
+                      f"the engine's host KV {c['stats']['host_kv_bytes']} B")
+                if c["pinned"] != want or c["stats"]["host_kv_bytes"] != want or host != want:
                     raise AssertionError(f"rank {r} {label}: pinned bytes not as reckoned")
                 if cfg.num_kv_heads % sp:  # positions over model: the ranks' states merged
                     merged = [layers * (n_chunk + n_dec), layers * (n_chunk * b * cp + n_dec * b)
@@ -3525,7 +3553,7 @@ DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
 # step and nothing this phase does not already show.
 # It runs expert-parallel (its 32 experts split over the two model ranks):
 # every layer moves its chunks' [e, G, cap, d] slots through gloo
-# (``_slot_collectives``: 11.9 GB a bf16 step at 6 layers, twice that for
+# (``dryrun.slot_collectives``: 11.9 GB a bf16 step at 6 layers, twice that for
 # the fp32 first batch), so it takes one step (with two, the script read
 # 848 s on an H100 80GB HBM3 at 700 W, past its 800 s aim).  The step's
 # seconds predicted before the first run on the card, printed beside the
@@ -3558,11 +3586,6 @@ DIST_MIXER_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (TOL["bfloat16"], TOL["bf
 # rank's peak must lie within ZERO_PEAK_BAND of its reckoning.
 ZERO_BATCH, ZERO_SEQ, ZERO_U, ZERO_STEPS = DIST_RANKS, 8192, 4, 2
 ZERO_PEAK_BAND = (0.8, 1.2)
-# adamw.apply's fp32 temporaries an element of the slice it updates
-# (``UPDATE_SLICE``): g, m1, v1, m-hat, v-hat, the step and the operands
-# of each, 36 bytes at their most (tools/adamw_temporaries.py counts them;
-# tests/test_torch_adamw.py holds this constant to that count)
-ADAMW_BYTES, ADAMW_SLICE = 36, 1 << 26
 # the caching allocator rounds a small tensor up to 512 bytes and hands a
 # large one its block unsplit where no more than 1 MiB would remain
 ALLOC_SLACK = 1 << 20
@@ -3593,278 +3616,6 @@ def _dist_cfg(M, arch="llama3.2-1b", layers=None, **over):
     cut = {} if layers is None else {"num_layers": layers}
     return dataclasses.replace(M.cfg_mod.get_config(arch, **cut), fpdt_chunks=DIST_U,
                                mlp_chunks=2 * DIST_U, remat="full", fpdt_offload=True, **over)
-
-
-def _adamw_slice(shape) -> int:
-    """Elements of the largest slice ``adamw.apply`` updates at once of a
-    leaf of ``shape`` (its leading-axis slices of about UPDATE_SLICE)."""
-    n = math.prod(shape)
-    if not shape or n <= ADAMW_SLICE:
-        return n
-    row = n // shape[0]
-    return max(1, ADAMW_SLICE // row) * row
-
-
-def _reckoned_peak_gib(M, cfg, sp, seq=None, dp=1, batch=1):
-    """A rank's peak device memory in a training step over ``batch`` rows
-    of ``seq`` tokens (DIST_SEQ) on a dp x sp mesh, reckoned from the
-    shapes before the run: the training state (the rank's shards of the
-    weights, their gradients and the AdamW moments, ``launch/shardings.py``;
-    on one rank bf16 weights and gradients and fp32 moments, 12 bytes a
-    parameter) and the larger of two phases.  AdamW: ADAMW_BYTES a element
-    of the largest slice it updates at once.  The backward: every cycle's
-    saved input (remat full) and the largest of the tail layers'
-    activations, one cycle's recompute (under a mesh with its gathered
-    weights and their whole gradients, the expert stacks under expert
-    parallelism the rank's e/sp experts) and the loss's (the head's gradient
-    and a chunk's next one, under a mesh with the gathered table); with per
-    token and layer the tensors a block keeps for its backward (counted
-    from the code: RG-LRU 4d + 48 di + 6 d_ff bytes, attention 4d + 6 hq dh
-    + 6 d_ff, with the MoE FFN 4d + 6 hq dh + 2d, Mamba 2d + 30 di), for an
-    ssm layer the selective scan's block in its backward (a, b, the states
-    and their gradients: six fp32 [rows, 256, di, ds], rows = u under sp >
-    1) and for an MoE layer one chunk's backward (its routing's four int64
-    [T, k, e], the [e, g, cap] slots at 4d + 8 d_ff bytes, the k gathered
-    outputs, twice for their gradients).  Not measured: an estimate to
-    print beside the reading (and, for the ZeRO-3 case, the band it is
-    held to)."""
-    import torch
-
-    tokens = batch * (seq or DIST_SEQ) // (sp * dp)
-    d, di, ff = cfg.d_model, cfg.d_inner, cfg.d_ff
-    attn = 4 * d + 6 * cfg.num_heads * cfg.head_dim
-    per_token = {"rglru": 4 * d + 48 * di + 6 * ff, "local_attn": attn + 6 * ff,
-                 "ssm": 2 * d + 30 * di, "attn": attn + (2 * d if cfg.num_experts else 6 * ff)}
-    rows = cfg.fpdt_chunks if sp > 1 else 1
-    block = 6 * rows * M.MB.BLOCK_S * di * cfg.ssm_state * 4
-    if cfg.num_experts:  # one chunk of the MoE FFN in its backward
-        e, k, n = cfg.num_experts, cfg.experts_per_token, max(1, cfg.mlp_chunks)
-        t = tokens // n
-        tg = min(M.MOE.GROUP_TOKENS, t)
-        slots = e * (t // tg) * M.MOE.capacity(tg, cfg)
-        block = 2 * (4 * t * k * e * 8 + slots * (4 * d + 8 * ff) + t * k * d * 2)
-
-    def layers(kinds):
-        return sum(tokens * per_token[k] + (block if k == "ssm" or cfg.num_experts else 0)
-                   for k in kinds)
-
-    pat, n_cycles, tail = M.T.layout_of(cfg)
-    plans = M.SH.param_plans(cfg, dp, sp)
-    leaves = M.TR.tree_leaves(plans)
-    state = M.SH.state_bytes(plans, getattr(torch, cfg.opt_state_dtype)) + sum(
-        p.local_bytes() for p in leaves)
-    adamw = ADAMW_BYTES * max(_adamw_slice(p.local_shape()) for p in leaves)
-    meshed = dp * sp > 1
-    table = cfg.padded_vocab * d * getattr(torch, cfg.param_dtype).itemsize
-    ep = sp > 1 and cfg.num_experts and cfg.num_experts % sp == 0
-
-    def used(names, p):  # a cycle stack's bytes as the model gathers it
-        whole = math.prod(p.shape) * p.dtype.itemsize
-        return whole // sp if ep and M.SH.is_expert_leaf(names) else whole
-
-    cycle = (2 * sum(used(n, p) for n, p in M.TR.tree_leaves_with_path(plans["cycles"]))
-             // n_cycles if meshed else 0)
-    backward = n_cycles * tokens * d * 2 + max(layers(pat) + cycle, layers(tail),
-                                               (3 if meshed else 2) * table)
-    return (state + max(adamw, backward)) / 2**30
-
-
-def _live_off_diagonal(M, cfg, seq, window):
-    """The live (i, j < i) chunk pairs of an FPDT layer over ``seq`` tokens."""
-    u = cfg.fpdt_chunks
-    return sum(M.F.pair_live(i, j, cq=seq // u, window=window, sparsity=cfg.attn_sparsity)
-               for i in range(u) for j in range(i))
-
-
-def _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes, window=0):
-    """(calls, bytes) of each collective that one FPDT attention layer hands
-    in on a rank over ``passes`` forwards and one backward, as
-    ``core/fpdt.py`` issues them: per chunk, ulysses sends q (and k, v where
-    hkv % sp == 0) through seq_to_heads and o back, and in the backward do
-    out and dq (dk, dv) back as each chunk finishes, in x's dtype; gathered
-    KV (ulysses with hkv % sp != 0, and cp) goes through gather_seq in x's
-    dtype and its dk, dv come back through reduce_scatter_seq in fp32 over
-    the chunk's tokens and every kv head.  A forward that offloads (the
-    last, the recompute under remat, when ``cfg.fpdt_offload`` and u > 1)
-    keeps the rank's own slice of gathered KV on the host, so it gathers
-    each k and v again for every live off-diagonal pair that fetches it,
-    and the backward gathers each chunk's once after its fetch."""
-    P = M.P
-    u = cfg.fpdt_chunks
-    c = seq // u // sp
-    q = b * cfg.num_heads * c * cfg.head_dim * x_bytes  # a rank's q, o, do or dq of a chunk
-    kv = b * cfg.num_kv_heads * c * cfg.head_dim * x_bytes  # its k, v, dk or dv
-    kv32 = b * cfg.num_kv_heads * c * sp * cfg.head_dim * 4  # a chunk's dk or dv, fp32
-    calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
-
-    def add(name, n, size):
-        calls[name] += n
-        nbytes[name] += n * size
-
-    if kind == "ulysses":
-        add("seq_to_heads", passes * u + u, q)  # q in each forward, do in the backward
-        add("heads_to_seq", passes * u + u, q)  # o, dq
-    if kind == "ulysses" and cfg.num_kv_heads % sp == 0:
-        add("seq_to_heads", 2 * passes * u, kv)
-        add("heads_to_seq", 2 * u, kv)
-    else:
-        fetches = (_live_off_diagonal(M, cfg, seq, window) + u
-                   if cfg.fpdt_offload and u > 1 else 0)
-        add("gather_seq", 2 * passes * u + 2 * fetches, kv)
-        add("reduce_scatter_seq", 2 * u, kv32)
-    return calls, nbytes
-
-
-def _mixer_collectives(cfg, kind, sp, b, passes, x_bytes):
-    """(calls, bytes) of gather_spans and reduce_scatter_spans that one
-    recurrent layer (rglru or ssm) hands in on a rank over ``passes``
-    forwards and one backward under sp > 1 (``models/mamba.py``): each
-    forward gathers the [b, u, d_conv - 1, di] conv tails in x's dtype and
-    the fp32 span summaries ([b, u, 2 di] for RG-LRU, [b, u, di (1 + ds)]
-    for Mamba); the backward reduce-scatters both, sp times the bytes."""
-    u, di = cfg.fpdt_chunks, cfg.d_inner
-    width = 2 * di if kind == "rglru" else di * (1 + cfg.ssm_state)
-    sent = b * u * ((cfg.d_conv - 1) * di * x_bytes + width * 4)
-    return ({"gather_spans": 2 * passes, "reduce_scatter_spans": 2},
-            {"gather_spans": passes * sent, "reduce_scatter_spans": sp * sent})
-
-
-def _zero_collectives(M, cfg, dp, sp, compress=False):
-    """(calls, bytes) of gather_params, reduce_scatter_grads and the
-    gradients' all_reduce_sum in one training step's value_and_grad and
-    reduce_grads on a rank of a dp x sp mesh under remat full (with
-    ``compress``, and the int8 compression's all_reduce_max), as
-    ``launch/shardings.py`` places the leaves: a gather sends the rank's
-    shard over data, then what it has over model; its adjoint sends the
-    whole gradient over model, then what is left over data.  A cycle's leaf
-    is gathered twice a cycle (the checkpoint's pass and its recompute: its
-    cycle's view, or the whole stack where its cycles axis is split) and
-    reduce-scattered once; the tied table twice (lookup and head), every
-    other leaf once.  An MoE expert stack (wu, wg, wd) whose e splits over
-    model (expert parallelism, sp > 1) is gathered and reduce-scattered
-    over data only: the rank runs its e/sp experts.  Each leaf replicated
-    on an axis with ranks is summed once (over the world where it is split
-    on neither).  Compression
-    reduces the block maxima of every leaf whose shards' runs of the whole
-    flat leaf (``SH.run_length``) are not whole 2048-element blocks with
-    MAX, one call for each of the data, model and both groups such leaves
-    are split over, 4 bytes a block of those leaves."""
-    _, n_cycles, _ = M.T.layout_of(cfg)
-    names = ("gather_params", "reduce_scatter_grads", "all_reduce_sum", "all_reduce_max")
-    calls, nbytes = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
-    groups = set()
-    ep = sp > 1 and cfg.num_experts and cfg.num_experts % sp == 0
-    for path, plan in M.SH.by_path(M.SH.param_plans(cfg, dp, sp)).items():
-        full, local = math.prod(plan.shape) * plan.dtype.itemsize, plan.local_bytes()
-        expert = ep and M.SH.is_expert_leaf(path.split("/"))
-        uses, passes = 1, 1
-        if path.startswith("cycles/"):
-            uses, passes = n_cycles, 2
-            if not plan.splits_cycles:
-                full, local = full // n_cycles, local // n_cycles
-        elif path == "embed" and cfg.tie_embeddings:
-            uses = 2
-        if plan.data_split:
-            calls["gather_params"] += passes * uses
-            nbytes["gather_params"] += passes * uses * local
-            calls["reduce_scatter_grads"] += uses
-            nbytes["reduce_scatter_grads"] += uses * (full // sp if plan.model_split else full)
-        if plan.model_split and not expert:
-            calls["gather_params"] += passes * uses
-            nbytes["gather_params"] += passes * uses * local * (dp if plan.data_split else 1)
-            calls["reduce_scatter_grads"] += uses
-            nbytes["reduce_scatter_grads"] += uses * full
-        if (dp > 1 and not plan.data_split) or (sp > 1 and not plan.model_split):
-            calls["all_reduce_sum"] += 1
-            nbytes["all_reduce_sum"] += plan.local_bytes()
-        if (compress and (plan.data_split or plan.model_split)
-                and M.SH.run_length(plan) % M.C.BLOCK):
-            groups.add((plan.data_split, plan.model_split))
-            nbytes["all_reduce_max"] += 4 * -(-math.prod(plan.shape) // M.C.BLOCK)
-    calls["all_reduce_max"] = len(groups)
-    return calls, nbytes
-
-
-def _train_collectives(M, cfg, kind, dp, sp, b, seq, compress=False):
-    """(calls, bytes) of each collective a training step hands in on a rank
-    of a dp x sp mesh under remat full (``b`` rows of ``seq`` tokens a data
-    rank): every attention or recurrent layer of a cycle runs two forwards
-    (the checkpoint's pass and its recompute), a tail layer one; an MoE
-    layer's forward gathers its counts once where a group or a chunk spans
-    ranks (``MOE.mesh_plan``: rows x e int32), and under expert
-    parallelism moves its slots (``_slot_collectives``); loss_fn sums (loss, count)
-    over the world once (8 bytes; 12 with an MoE model's aux); the ZeRO-3
-    gathers, reduce-scatters and gradient sums (``_zero_collectives``); the
-    global norm sums 8 bytes over data and 4 over model where the axis has
-    ranks; the loop sums its two stop flags once (8 bytes).  A data-only
-    mesh attends locally (``T.attn_kind``): no FPDT collective.
-    ``compress``: and the compression's block maxima
-    (``_zero_collectives``)."""
-    P = M.P
-    pat, n_cycles, tail = M.T.layout_of(cfg)
-    calls, nbytes = dict.fromkeys(P.COLLECTIVES, 0), dict.fromkeys(P.COLLECTIVES, 0)
-    x_bytes = 2 if cfg.param_dtype == "bfloat16" else 4
-    moe_rows = 0
-    if cfg.num_experts:
-        n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
-        moe_rows = M.MOE.mesh_plan(cfg, seq, b * dp, sp, dp, n, 0).rows
-    layers = [(k, 2, i == len(pat) - 1) for _ in range(n_cycles) for i, k in enumerate(pat)]
-    for k, passes, last in layers + [(k, 1, False) for k in tail]:
-        if k in ("attn", "local_attn") and moe_rows:
-            calls["gather_counts"] += passes
-            nbytes["gather_counts"] += passes * moe_rows * cfg.num_experts * 4
-        if k in ("attn", "local_attn") and cfg.num_experts:
-            for name, (n, size) in _slot_collectives(cfg, dp, sp, b, seq, passes, last).items():
-                calls[name] += n
-                nbytes[name] += size
-        if k in ("attn", "local_attn") and kind != "local":
-            c, n = _fpdt_collectives(M, cfg, kind, sp, b, seq, passes, x_bytes,
-                                     cfg.window if k == "local_attn" else 0)
-        elif k in ("attn", "local_attn"):
-            continue
-        elif sp > 1:
-            c, n = _mixer_collectives(cfg, k, sp, b, passes, x_bytes)
-        else:
-            continue
-        for name in c:
-            calls[name] += c[name]
-            nbytes[name] += n[name]
-    c, n = _zero_collectives(M, cfg, dp, sp, compress)
-    for name in c:
-        calls[name] += c[name]
-        nbytes[name] += n[name]
-    calls["all_reduce_sum"] += 2 + (dp > 1) + (sp > 1)
-    nbytes["all_reduce_sum"] += (12 if cfg.num_experts else 8) + 8 + 8 * (dp > 1) + 4 * (sp > 1)
-    return calls, nbytes
-
-
-def _slot_collectives(cfg, dp, sp, b, seq, passes, last):
-    """{name: (calls, bytes)} of dispatch_slots and combine_slots that one
-    MoE layer hands in on a rank of data rank 0 under expert parallelism
-    (e % sp == 0, sp > 1; none else), ``b`` rows of ``seq`` tokens a data
-    rank (``models/moe.py``): every rank runs every chunk.  A forward
-    dispatches a chunk's slots [e, G, cap, d] in the weights' dtype (G the
-    groups of GROUP_TOKENS (or the chunk's B L tokens) that the model
-    group's rows of the chunk touch; sent whole) and combines its e/sp
-    experts' (a sp-th); the backward goes the other way round.  A chunk
-    runs ``passes`` forwards of the layer plus its own checkpoint's
-    recompute, and one backward; in a remat-full cycle (``passes`` 2) the
-    cycle's recompute (a non-reentrant checkpoint, which stops early) ends
-    once it has saved the inputs of the last chunk of the cycle's last
-    layer (``last``), so that chunk runs one forward less."""
-    out = {"dispatch_slots": (0, 0), "combine_slots": (0, 0)}
-    e = cfg.num_experts
-    if sp == 1 or e % sp:
-        return out
-    n = cfg.mlp_chunks if cfg.mlp_chunks > 1 and seq % cfg.mlp_chunks == 0 else 1
-    L, B = seq // n, b * dp
-    tg = min(512, B * L)
-    groups = (b * L - 1) // tg + 1
-    cap = max(4, min(math.ceil(tg * cfg.experts_per_token / e * cfg.moe_capacity_factor), tg))
-    full = e * groups * cap * cfg.d_model * (4 if cfg.param_dtype == "float32" else 2)
-    fwd = n * (passes + 1) - (passes == 2 and last)
-    return {"dispatch_slots": (fwd + n, fwd * full + n * full // sp),
-            "combine_slots": (fwd + n, fwd * full // sp + n * full)}
 
 
 def _collective_counts(P):
@@ -3936,7 +3687,7 @@ def _dist_nccl_one_rank(torch, M, card):
     parts = [("o", got[0], want[0]), ("dx", got[1], want[1])] + [
         ("d" + n, got[2][n], want[2][n]) for n in want[2]]
     differ = [name for name, a, b in parts if not torch.equal(a, b)]
-    c, n = _fpdt_collectives(M, cfg, "ulysses", 1, 1, DIST_NCCL_SEQ, 1, 2)
+    c, n = M.D.fpdt_collectives(cfg, "ulysses", 1, 1, DIST_NCCL_SEQ, 1, 2)
     want_counts = {k: [c[k], n[k]] for k in M.P.COLLECTIVES}
     print(f"nccl, world size 1 (device to device): ulysses vs local, llama3.2-1b attention "
           f"(d_model 2048, hq 32, hkv 8, dh 64) bf16 b1 s{DIST_NCCL_SEQ} u={DIST_NCCL_U} offload "
@@ -4241,7 +3992,7 @@ def _dist_maverick(torch, M, par, dev, tmp):
     del shards, p, x, dy
     torch.cuda.empty_cache()
     want = dict.fromkeys(M.P.COLLECTIVES, (0, 0))
-    want.update(_slot_collectives(cfg, par.dp, par.sp, 1, MAVERICK_SEQ, 1, False))
+    want.update(M.D.slot_collectives(cfg, par.dp, par.sp, 1, MAVERICK_SEQ, 1, False))
     ep, gathered = _maverick_peaks_gib(cfg, par.sp)
     return {**out, "experts": [mine.start, mine.stop], "counts": counts,
             "want_counts": {k: list(v) for k, v in want.items()}, "peak_gib": peak,
@@ -4325,7 +4076,7 @@ def _dist_mixers(torch, M, par, dev):
             for n, gr in got[2].items():
                 errs["d" + n] = _leaf_rel(torch, M.P.all_reduce_sum(gr.float().contiguous()),
                                           want[2][n])
-            c, nb = _mixer_collectives(cfg, "rglru" if mixer == "rglru" else "ssm", par.sp, 1,
+            c, nb = M.D.mixer_collectives(cfg, "rglru" if mixer == "rglru" else "ssm", par.sp, 1,
                                        1, 2 if dtype == "bfloat16" else 4)
             out[f"{mixer} ({arch} width) {dtype}"] = {
                 "errs": errs, "counts": counts, "want_counts": {k: [c[k], nb[k]] for k in c}}
@@ -4377,8 +4128,8 @@ def _dist_attention(torch, M, par, dev):
             for n, g in got[2].items():
                 errs["d" + n] = _leaf_rel(torch, M.P.all_reduce_sum(g.float().contiguous()),
                                           want[2][n])
-            c, nb = _fpdt_collectives(M, cfg, kind, par.sp, 1, DIST_SEQ, 1, x_bytes)
-            c0, nb0 = _fpdt_collectives(M, dataclasses.replace(cfg, fpdt_offload=False), kind,
+            c, nb = M.D.fpdt_collectives(cfg, kind, par.sp, 1, DIST_SEQ, 1, x_bytes)
+            c0, nb0 = M.D.fpdt_collectives(dataclasses.replace(cfg, fpdt_offload=False), kind,
                                         par.sp, 1, DIST_SEQ, 1, x_bytes)
             out[f"{label} {dtype}"] = {
                 "errs": errs, "counts": counts, "counts_off": counts_off, "host": host,
@@ -4411,7 +4162,7 @@ def _host_bytes(M, cfg, kind, par, x_bytes):
     elif cfg.num_kv_heads % sp:
         read = len(M.F.kv_heads_read(cfg.num_heads, cfg.num_kv_heads, sp, par.sp_rank)) \
             * c * sp * cfg.head_dim * x_bytes
-    pairs = _live_off_diagonal(M, cfg, DIST_SEQ, 0) + u
+    pairs = M.D.live_off_diagonal(cfg, DIST_SEQ, 0) + u
     return {"want_peak_held": u * (q + 2 * own), "want_to_device": pairs * (q + 2 * own),
             "gathered_peak_held": u * (q + 2 * read), "gathered_to_device": pairs * (q + 2 * read)}
 
@@ -4427,7 +4178,7 @@ def _dist_train(torch, M, par, dev, cfg, steps, batch=1, seq=DIST_SEQ):
     import torch.distributed as dist
 
     kind = M.T.attn_kind(cfg, par)
-    reckoned = _reckoned_peak_gib(M, cfg, par.sp, seq, par.dp, batch)
+    reckoned = M.D.reckoned_peak_gib(cfg, par.sp, seq, par.dp, batch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
@@ -4448,7 +4199,7 @@ def _dist_train(torch, M, par, dev, cfg, steps, batch=1, seq=DIST_SEQ):
              "init_peak_gib": (torch.cuda.max_memory_allocated() - before) / 2**30}
     del held
     batch_fn = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("dist", seq, batch, "train"))
-    c, nb = _train_collectives(M, cfg, kind, par.dp, par.sp, batch // par.dp, seq)
+    c, nb = M.D.train_collectives(cfg, kind, par.dp, par.sp, batch // par.dp, seq)
     records = []
 
     def on_step(rec):
@@ -4633,7 +4384,7 @@ def _dist_compress(torch, M, zpar, par, dev):
         param_rel = [abs(norm(a) - norm(b)) / norm(b) for a, b in zip(got, want)]
         update_rel = [norm(a.float() - b.float()) / max(norm(b.float() - c.float()), 1e-30)
                       for a, b, c in zip(got, want, init)]
-    c, nb = _train_collectives(M, cfg, M.T.attn_kind(cfg, zpar), zpar.dp, zpar.sp,
+    c, nb = M.D.train_collectives(cfg, M.T.attn_kind(cfg, zpar), zpar.dp, zpar.sp,
                                ZERO_BATCH // zpar.dp, ZERO_SEQ, compress=True)
     out["step"] = {
         "mesh": f"{zpar.dp}x1", "loss": mesh.history[0]["loss"],
@@ -5079,7 +4830,9 @@ def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry, window=0)
     """Least time on the card: (ms, "bytes"|"operations").  Operations count
     4*d per live causal (q, k) pair (q.k and p.v) under the window; bytes
     count q, k, v (and a carry) read once and (acc, m, l) written once."""
-    live = _live_pairs(sq, sk, q_offset, k_offset, window)
+    from repro_torch.launch.dryrun import live_pairs
+
+    live = live_pairs(sq, sk, q_offset, k_offset, window)
     flops = 4 * d * live * b * hq
     nbytes = in_bytes * (b * hq * sq * d + 2 * b * hkv * sk * d) + 4 * (b * hq * sq * (d + 2))
     if carry:
@@ -5088,24 +4841,14 @@ def _bound(b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, carry, window=0)
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _live_pairs(sq, sk, q_offset, k_offset, window=0):
-    """Causal (q, k) pairs these offsets leave live; with window > 0 only
-    keys with qpos - kpos < window."""
-    live = 0
-    for r in range(sq):
-        qpos = q_offset + r
-        hi = min(sk - 1, qpos - k_offset)  # last key index the row sees
-        lo = max(0, qpos - window + 1 - k_offset) if window > 0 else 0
-        live += max(0, hi - lo + 1)
-    return live
-
-
 def _bwd_bound(which, b, hq, hkv, sq, sk, d, in_bytes, q_offset, k_offset, window=0):
     """Least time of flash_bwd_dq ("dq") or flash_bwd_dkv ("dkv") on the card:
     (ms, "bytes"|"operations").  Operations: 6 d (dq) or 8 d (dkv) per live
     causal pair and q-head; bytes: q, k, v, do, L, delta read once, the
     outputs written once."""
-    live = _live_pairs(sq, sk, q_offset, k_offset, window)
+    from repro_torch.launch.dryrun import live_pairs
+
+    live = live_pairs(sq, sk, q_offset, k_offset, window)
     flops = (6 if which == "dq" else 8) * d * live * b * hq
     nbytes = in_bytes * (b * hq * sq * d + 2 * b * hkv * sk * d) + 4 * b * hq * sq * (d + 2)
     nbytes += 4 * (b * hq * sq * d if which == "dq" else 2 * b * hkv * sk * d)
@@ -5140,6 +4883,8 @@ def _sdpa_flash_bwd(torch, q, k, v, do, causal):
 
 def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
     import torch.nn.functional as F
+
+    from repro_torch.launch.dryrun import live_pairs
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -5192,7 +4937,7 @@ def phase_timing(torch, K, R, SK, SR, lse, finalize, card):
             return F.scaled_dot_product_attention(q, k, v, is_causal=qo == ko, enable_gqa=True)
 
         bound_ms, bound_by = _bound(b, hq, hkv, sq, sk, d, 2, qo, ko, carry, window)
-        live = _live_pairs(sq, sk, qo, ko, window)
+        live = live_pairs(sq, sk, qo, ko, window)
         row = {"kernel": "flash_fwd", "shape": label, "ms": _device_ms(torch, kern),
                "plain_ms": _device_ms(torch, plain), "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": _device_ms(torch, library),
@@ -5354,6 +5099,7 @@ def _modules():
     from repro_torch.data import pipeline as DP
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.linear_scan import kernel as SK
+    from repro_torch.launch import dryrun as D
     from repro_torch.launch import mesh as MESH
     from repro_torch.checkpoint import manager as CKPT
     from repro_torch.launch import serve as CLI
@@ -5373,7 +5119,7 @@ def _modules():
 
     return types.SimpleNamespace(K=K, SK=SK, cfg_mod=cfg_mod, T=T, F=F, TR=TR, TL=TL, PL=PL, DL=DL,
                                  DP=DP, TRAIN=TRAIN, CLI=CLI, SV=SV, MB=MB, R=R, L=L, P=P,
-                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C, PG=PG)
+                                 MESH=MESH, MOE=MOE, SH=SH, CKPT=CKPT, C=C, PG=PG, D=D)
 
 
 def main():
@@ -5401,6 +5147,7 @@ def main():
     K, SK, F = M.K, M.SK, M.F
     card, name = phase("device", phase_device, torch)
     phase("build", phase_build, B, K.SOURCES + SK.SOURCES)
+    phase("dry-run sweep (launch/dryrun.py --all --mesh both)", phase_dryrun, M, card)
     errs = phase("kernel vs plain", phase_kernel, torch, K, R, SoftmaxState, finalize)
     bwd = phase("backward kernels vs plain", phase_kernel_bwd, torch, K, R, F, SoftmaxState, lse,
                 finalize)

@@ -1,8 +1,10 @@
 """Model configs and the registry of ported architectures.
 
 A copy of the JAX package's ``ModelConfig``/``ShapeConfig``/``get_config``/
-``reduced`` (the port imports nothing from it).  The JAX package's 16
-architectures are registered, its ten and the paper's models
+``reduced``, and of its assigned shape set (``SHAPES``, ``shape_applicable``,
+``ASSIGNED_ARCHS``: the dry-run's cells), as the port imports nothing from
+it.  The JAX package's 16 architectures are registered, its ten and the
+paper's models
 (``PAPER_ARCHS``); ``get_config`` raises for any other name.  Some fit one
 card only cut in depth or reduced (llama4-maverick-400b-a17b's 778 B
 parameters, yi-34b's and mistral-nemo-12b's training state).
@@ -121,6 +123,26 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+# the JAX package's assigned shape set (every arch takes the first three)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Pure full-attention archs skip long_500k (sub-quadratic required).
+LONG_CTX_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
+# Beyond-spec extra cell: FPDT host-offloaded KV decode on a dense arch.
+EXTRA_LONG_CTX_ARCHS = ("llama3.2-1b",)
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CTX_ARCHS or arch in EXTRA_LONG_CTX_ARCHS
+    return True
+
+
 def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     d, dff = cfg.d_model, cfg.d_ff
     n_mlp_mats = 3 if cfg.mlp_act == "swiglu" else 2
@@ -164,6 +186,19 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # --------------------------------------------------------------------------
 # Registry: the JAX package's architectures
 # --------------------------------------------------------------------------
+
+ASSIGNED_ARCHS = (
+    "falcon-mamba-7b",
+    "granite-moe-1b-a400m",
+    "llama4-maverick-400b-a17b",
+    "musicgen-medium",
+    "llama3.2-1b",
+    "yi-34b",
+    "qwen1.5-4b",
+    "mistral-nemo-12b",
+    "recurrentgemma-9b",
+    "internvl2-2b",
+)
 
 PAPER_ARCHS = (
     "gpt-2.7b",

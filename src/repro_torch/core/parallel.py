@@ -70,7 +70,11 @@ concatenating along dim 0 in rank order:
                       pool writes, the MoE FFN's input, the logits)
   gather_harvest      the same, a segment's harvest
   gather_pages        [n, ...] -> [sp*n, ...]: every model rank's slice of
-                      a prefix cache's pages (the store's save)
+                      a prefix cache's pages (the store's save; and every
+                      data rank's share of a parked pool's, over data)
+  gather_parked       [2, ...] -> [dp*2, ...]: every data rank's share of a
+                      parked slab's or pages' k and v, fetched from the host
+                      (``models/serve.py``; an exact concatenation)
 
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``; the
@@ -94,7 +98,7 @@ COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq
                "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
                "gather_counts", "gather_params", "reduce_scatter_grads", "dispatch_slots",
                "combine_slots", "gather_heads", "gather_channels", "gather_state", "gather_rows",
-               "gather_harvest", "gather_pages")
+               "gather_harvest", "gather_pages", "gather_parked")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -391,5 +395,6 @@ def gather_state(x: torch.Tensor, group) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, group, name: str = "gather_rows") -> torch.Tensor:
     """[b, ...] (this data rank's rows) -> [dp*b, ...]: every data rank's
     rows in rank order, which is row order; counted as ``name``
-    (``gather_rows``, ``gather_harvest`` or ``gather_pages``)."""
+    (``gather_rows``, ``gather_harvest``, ``gather_pages`` or
+    ``gather_parked``)."""
     return _all_gather0(x, group, name)

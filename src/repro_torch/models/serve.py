@@ -120,14 +120,23 @@ split d_inner over ``model`` where the model ranks divide it
 conv and ssm or h states and runs the mixer on them, its activations
 all-gathered (``gather_channels``) before the projections that read every
 channel (``models/mamba.py``, ``models/rglru.py``).  Host-streamed KV
-parks a rank's own shard: dense KV streams the rank's heads, or its own
-positions from ``base`` with the ranks' states merged in rank order; the
-parked pool is the rank's slice of every page (whole over ``data``, so
-each data rank parks its own copy and writes every row's keys into it).
+parks a rank's share of the parked tier as the JAX package shards it over
+every mesh axis (``host_shardings``): dense KV streams the rank's heads,
+or its own positions from ``base`` with the ranks' states merged in rank
+order, and where its rows are whole over ``data`` and a slab divides over
+the mesh (``slab_share``) the rank parks only its data share of each
+slab's positions; the parked pool is the rank's data share (in-page
+positions, kv heads or pages: ``pool_share_dim``) of its model slice.  A
+step fetches the rank's shares of the live slabs or pages and all-gathers
+them over ``data`` (``gather_parked``: an exact concatenation, or each
+page from the rank that parks it) before it attends as on the whole
+slice, and writes back only what the rank parks: every row's new keys
+reach every data rank through the writes' all-gather.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -143,7 +152,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 from repro_torch.runtime import placement as PL
-from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map_with_path
 
 Params = Dict[str, Any]
 
@@ -283,6 +292,65 @@ def paged_pool_spec(sp: int, page_size: int, hkv: int) -> Optional[int]:
     return None
 
 
+def pool_share_dim(dp: int, sp: int, page_size: int, hkv: int, n_phys: int) -> Optional[int]:
+    """The dim of a pool K/V leaf [n_phys, page_size, hkv, dh] along which a
+    rank of a dp x sp mesh parks only its 1/dp share of its model slice
+    (``paged_pool_spec``), None with one data rank: the dim the JAX
+    ``_offload_pool`` shards over every axis, the first of the in-page
+    positions, the kv heads and the pages that dp * sp divides (so the
+    model slice divides it over dp).  Where none does, JAX keeps the pool
+    on the device with a warning: the port refuses it (ValueError)."""
+    n = dp * sp
+    dims = [d for d, x in ((1, page_size), (2, hkv), (0, n_phys)) if x % n == 0]
+    if n > 1 and not dims:
+        raise ValueError(f"the parked pool splits over no dim of a {dp} x {sp} mesh: none of "
+                         f"page_size={page_size}, kv_heads={hkv} and pages+1={n_phys} divides "
+                         f"{n} (the JAX package keeps such a pool on the device)")
+    return dims[0] if dp > 1 else None
+
+
+def slab_share(dp: int, sp: int, b: int, S: int, n_host_chunks: int) -> bool:
+    """Does a rank of a dp x sp mesh park only its 1/dp share of each host
+    slab's positions (dense host KV of ``b`` rows of ``S``)?  Where its rows
+    are whole over data and a slab of S / n_host_chunks positions divides
+    over every rank (the JAX ``slab_spec``; else JAX parks the slab whole,
+    and a rank its shard as ``cache_shardings`` places it)."""
+    return (dp > 1 and not _splits(b, dp) and n_host_chunks > 0 and S % n_host_chunks == 0
+            and (S // n_host_chunks) % (dp * sp) == 0)
+
+
+def host_shardings(cfg: ModelConfig, dp: int, sp: int, cache, n_host_chunks: int) -> Any:
+    """``cache_shardings`` with the parked leaves as a rank parks them under
+    ``n_host_chunks`` (the full-attention blocks' dense ``k`` and ``v``,
+    the pool's ``pk`` and ``pv``): where a leaf's shard is whole over data,
+    its data dim becomes the one along which the rank keeps its 1/dp
+    share (``slab_share``: a slab's positions, ``pool_share_dim``), so
+    that ``local_shape`` gives the parked share (a dim split over both
+    axes divides by dp * sp).  The JAX package's host layout: every data
+    rank parks a different share, as XLA shards a parked tier over every
+    mesh axis."""
+    plan = cache_shardings(cfg, dp, sp, cache)
+    pat, _, tail = T.layout_of(cfg)
+    full = {f"pos{i}" for i, kind in enumerate(pat) if kind == "attn"}
+    full |= {str(i) for i, kind in enumerate(tail) if kind == "attn"}
+
+    def spec(path, leaf, dims):
+        stacked = path[0] != "tail"
+        off = 1 if stacked else 0
+        shape, name = tuple(leaf.shape[off:]), path[-1]
+        if not n_host_chunks or dims[0] is not None:
+            return dims
+        if name in ("pk", "pv"):
+            d = pool_share_dim(dp, sp, shape[1], shape[2], shape[0])
+            return dims if d is None else (d + off, dims[1])
+        if (name in ("k", "v") and path[-2] in full
+                and slab_share(dp, sp, shape[0], shape[1], n_host_chunks)):
+            return 1 + off, dims[1]
+        return dims
+
+    return tree_map_with_path(spec, cache, plan)
+
+
 def cache_shardings(cfg: ModelConfig, dp: int, sp: int, cache) -> Any:
     """(data dim, model dim) of every leaf of ``cache`` (global shapes; a
     ``device="meta"`` cache will do) on a dp x sp mesh, in ``cache``'s
@@ -334,8 +402,11 @@ def _local_cache(cfg: ModelConfig, par: ParallelContext, meta: Params, device,
                  host: bool = False) -> Params:
     """This rank's shard of the cache ``meta`` describes: each leaf at its
     local shape, positions -1 and the rest 0, as ``init_cache`` fills them;
-    with ``host`` the pool's ``pk``/``pv`` parked (``init_paged_cache``)."""
-    plan = cache_shardings(cfg, par.dp, par.sp, meta)
+    with ``host`` the pool's ``pk``/``pv`` parked, the rank's share of them
+    (``init_paged_cache``; ``host_shardings``, whose pool share does not
+    depend on the slab count)."""
+    plan = (host_shardings(cfg, par.dp, par.sp, meta, 1) if host
+            else cache_shardings(cfg, par.dp, par.sp, meta))
 
     def make(path, leaf, dims):
         shape = local_shape(leaf.shape, dims, par.dp, par.sp)
@@ -468,24 +539,63 @@ def _full_attn_blocks(cfg: ModelConfig, cache: Params):
     yield from (c for c, kind in zip(cache.get("tail", []), tail) if kind == "attn")
 
 
-def offload_kv(cfg: ModelConfig, cache: Params, device) -> Params:
+def _slab_part(t: torch.Tensor, n_host_chunks: int, d: int, dp: int) -> torch.Tensor:
+    """Data rank ``d``'s share of each of the ``n_host_chunks`` slabs of a
+    dense K/V leaf [..., b, S, hkv, dh]: positions [c cs + d q, c cs + (d +
+    1) q) of slab c (cs = S / n_host_chunks, q = cs / dp), at [c q, (c + 1)
+    q) of the result."""
+    S = t.shape[-3]
+    parts = t.unflatten(-3, (n_host_chunks, dp, S // n_host_chunks // dp))
+    return parts.select(-4, d).flatten(-4, -3).contiguous()
+
+
+def offload_kv(cfg: ModelConfig, cache: Params, device, shard: Optional[Shard] = None,
+               n_host_chunks: int = 0) -> Params:
     """Move the full-attention blocks' ``k`` and ``v`` to pinned host memory
     (``HostOffload.to_host``; the identity on the CPU), in place in
     ``cache``, for host-streamed decode (``n_host_chunks``).  ``kpos`` and
-    every recurrent state stay on ``device``."""
+    every recurrent state stay on ``device``.  On a mesh (``shard``), where
+    the rank's rows are whole over data and a slab divides over the mesh
+    (``slab_share``), the rank parks only its data share of each slab's
+    positions (``_slab_part``), as ``host_shardings`` places it."""
     policy = PL.host_offload(device)
     for bc in _full_attn_blocks(cfg, cache):
-        bc["k"], bc["v"] = policy.to_host(bc["k"]), policy.to_host(bc["v"])
+        share = _on_mesh(shard) and slab_share(shard.par.dp, shard.par.sp, shard.slots,
+                                               bc["kpos"].shape[-1], n_host_chunks)
+        for name in ("k", "v"):
+            t = bc[name]
+            if share:
+                t = _slab_part(t, n_host_chunks, shard.par.dp_rank, shard.par.dp)
+            bc[name] = policy.to_host(t)
     return cache
 
 
-def parked_bytes(cfg: ModelConfig, cache: Params) -> int:
-    """Bytes of the KV that host-streaming keeps in host memory: the page
-    pool's ``pk``/``pv``, else the full-attention blocks' ``k`` and ``v``."""
+def _parked_leaves(cfg: ModelConfig, cache: Params) -> list:
+    """The leaves host-streaming keeps in host memory: the page pool's
+    ``pk``/``pv``, else the full-attention blocks' ``k`` and ``v``."""
     leaves = [leaf for key, leaf, _ in pool_leaves(cache) if not key.endswith("pkpos")]
-    if not leaves:
-        leaves = [bc[n] for bc in _full_attn_blocks(cfg, cache) for n in ("k", "v")]
-    return sum(t.numel() * t.element_size() for t in leaves)
+    return leaves or [bc[n] for bc in _full_attn_blocks(cfg, cache) for n in ("k", "v")]
+
+
+def parked_bytes(cfg: ModelConfig, cache: Params) -> int:
+    """Bytes of the KV that host-streaming keeps in host memory (on a mesh
+    this rank's share)."""
+    return sum(t.numel() * t.element_size() for t in _parked_leaves(cfg, cache))
+
+
+def rank_cache_bytes(cfg: ModelConfig, dp: int, sp: int, cache: Params,
+                     n_host_chunks: int = 0) -> Tuple[int, int]:
+    """(device bytes, pinned host bytes) of one rank's shard of ``cache``
+    (global shapes; a ``device="meta"`` cache will do) on a dp x sp mesh:
+    ``cache_shardings``, with the parked leaves under ``n_host_chunks`` as
+    ``host_shardings`` places them."""
+    plan = host_shardings(cfg, dp, sp, cache, n_host_chunks)
+    parked = {id(t) for t in _parked_leaves(cfg, cache)} if n_host_chunks else set()
+    out = [0, 0]
+    for leaf, dims in zip(tree_leaves(cache), tree_leaves(plan)):
+        n = math.prod(local_shape(leaf.shape, dims, dp, sp)) * leaf.element_size()
+        out[id(leaf) in parked] += n
+    return out[0], out[1]
 
 
 def _write_rows(buf: torch.Tensor, base: int, slot: torch.Tensor, val: torch.Tensor,
@@ -539,8 +649,19 @@ def _spans(bounds, lo: int, hi: int):
     return out
 
 
+def _gather_parked(parts, dim: int, sh: Shard) -> list:
+    """Every data rank's share of the fetched tensors ``parts`` (one shape),
+    through ONE all-gather over data, each put together along ``dim`` in
+    data-rank order: an exact concatenation."""
+    dp = sh.par.dp
+    full = P.gather_rows(torch.stack(parts), sh.par.dp_group, "gather_parked")
+    full = full.view(dp, len(parts), *parts[0].shape)
+    return [torch.cat(full[:, i].unbind(0), dim=dim) for i in range(len(parts))]
+
+
 def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
-               writes=None, write_first: bool = False, base: int = 0) -> SoftmaxState:
+               writes=None, write_first: bool = False, base: int = 0,
+               share: Optional[Shard] = None) -> SoftmaxState:
     """FPDT-for-inference: the merge of ``attend(k slab, v slab, kpos
     slab)`` over the live slabs of ``cache``'s [b, S] rows in order, each
     slab's host copy started one slab ahead (``double_buffered``).
@@ -552,10 +673,16 @@ def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
     decode) or after it (a chunk's pre-write history), and the rows' spans
     of that slab are copied back to the host cache.  ``zero`` is the
     merge's identity.  The rows hold positions [base, base + S) (a model
-    rank's share when the positions split over model)."""
+    rank's share when the positions split over model).  With ``share``
+    (the step's ``Shard``) the host holds only this data rank's share of
+    each slab (``offload_kv``): the shares are fetched, all-gathered over
+    data into the slab (``_gather_parked``) and only the rank's share of a
+    span goes back."""
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
-    S = ck.shape[1]
+    dp, d = (share.par.dp, share.par.dp_rank) if share is not None else (1, 0)
+    S = ck.shape[1] * dp
     cs = S // n_host_chunks
+    q = cs // dp  # positions of a slab this rank holds
     hi = max((e for a, e in bounds if a <= e), default=-1)
     live = [c for c in range(n_host_chunks) if base + c * cs <= hi]
     host_kv["fetched"] += len(live)
@@ -568,20 +695,22 @@ def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
     def fetch(c):
         if resident:
             return ck[:, c * cs:(c + 1) * cs], cv[:, c * cs:(c + 1) * cs]
-        return policy.fetch_rows(ck, c * cs, cs), policy.fetch_rows(cv, c * cs, cs)
+        return policy.fetch_rows(ck, c * q, q), policy.fetch_rows(cv, c * q, q)
 
     def write(c, kc, vc):
         slot, k, v, mask = writes
         _write_rows(kc, base + c * cs, slot, k, mask)
         _write_rows(vc, base + c * cs, slot, v, mask)
-        spans = [(i, a - base, e - base)
-                 for i, a, e in _spans(bounds, base + c * cs, base + (c + 1) * cs)]
+        lo = base + c * cs + d * q  # the first position this rank holds of the slab
+        spans = [(i, a - lo + c * q, e - lo + c * q) for i, a, e in _spans(bounds, lo, lo + q)]
         if spans and not resident:
-            policy.write_rows(ck, kc, spans, c * cs)
-            policy.write_rows(cv, vc, spans, c * cs)
+            policy.write_rows(ck, kc[:, d * q:(d + 1) * q], spans, c * q)
+            policy.write_rows(cv, vc[:, d * q:(d + 1) * q], spans, c * q)
 
     state = zero
     for c, (kc, vc) in zip(live, PL.double_buffered(live, fetch)):
+        if share is not None:
+            kc, vc = _gather_parked([kc, vc], 1, share)
         if writes is not None and write_first:
             write(c, kc, vc)
         state = merge(state, attend(kc, vc, kpos[:, base + c * cs:base + (c + 1) * cs]))
@@ -614,6 +743,19 @@ def _mine(bounds, sh: Optional[Shard]):
     return bounds[sh.r0:sh.r1] if _on_mesh(sh) else bounds
 
 
+def _dense_layout(cfg: ModelConfig, cache: Params, sh: Optional[Shard]):
+    """(S, S_loc, base, share) of a dense attention block on this rank: the
+    rows' global positions, this model rank's [base, base + S_loc) of them
+    (all where the KV splits by heads or not at all) and the step's
+    ``Shard`` where the rank parks only its data share of each slab
+    (``offload_kv``), else None."""
+    S, S_loc, base = cache["kpos"].shape[1], cache["kpos"].shape[1], 0
+    if _on_mesh(sh) and sh.heads(cfg) is None and _splits(S, sh.par.sp):
+        S_loc = S // sh.par.sp
+        base = sh.par.sp_rank * S_loc
+    return S, S_loc, base, (sh if cache["k"].shape[1] < S_loc else None)
+
+
 # ---------------------------------------------------------------------------
 # decode attention (single new token against the cache)
 # ---------------------------------------------------------------------------
@@ -634,8 +776,7 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
-    S, S_loc = kpos.shape[1], ck.shape[1]
-    base = sh.par.sp_rank * S_loc if S_loc < S else 0
+    S, S_loc, base, share = _dense_layout(cfg, cache, sh)
     slot = pos % S if window > 0 else torch.clamp(pos, max=S - 1)  # [b]
     bi = torch.arange(b, device=x.device)
     kpos[bi, slot] = pos.to(kpos.dtype)
@@ -660,7 +801,8 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
         zero = SoftmaxState(qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF),
                             qf.new_zeros(qf.shape[:2]))
         st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
-                        writes=(slot[:, None], k, v, ones), write_first=True, base=base)
+                        writes=(slot[:, None], k, v, ones), write_first=True, base=base,
+                        share=share)
         if S_loc < S:  # positions over model: the ranks' states, merged
             st = _merge_ranks(st, sh.par.sp_group)
     elif S_loc < S:  # positions over model: the owner writes, every rank attends its own
@@ -767,18 +909,31 @@ class PoolPlan:
     """One step of the host-streamed pool, the same in every attention
     layer, made on the host from its copy of the table and the rows'
     spans: ``live`` the logical pages [0, live) fetched and merged,
-    ``rows`` this rank's (logical page, page id) pairs a row
-    (``HostOffload.fetch_pages``); the write pass's buffer of
-    ``wslots`` pages a row, logical page j in slot j mod ``wslots``,
-    ``wrows`` its (slot, page id) pairs a row (every row that writes into
-    this rank's pool) and ``wspans`` the (row, buffer offset, page id,
-    in-page offset, n) slices copied back."""
+    ``rows`` the fetched rows' (logical page, page id) pairs
+    (``HostOffload.fetch_pages``: this rank's rows, or with ``share``
+    every row); the write pass's buffer of ``wslots`` pages a row, logical
+    page j in slot j mod ``wslots``, ``wrows`` its (slot, page id) pairs a
+    row (every row that writes into this rank's pool) and ``wspans`` the
+    (row, buffer offset, page id, in-page offset, n) slices copied back.
+    ``share``: where the rank parks only its data share of its model slice
+    (``pool_share_dim``), the pool leaf's dim the shares split (0 pages,
+    1 in-page positions, 2 kv heads), else None; the rank parks the
+    in-page entries [p0, p0 + ps_park) of a page and kv heads [h0, h0 +
+    h_park) of its model slice's, and with the pages split the pages of
+    data rank ``owners[i][j]`` holds row i's logical page j (``rows`` and
+    the write pass name this rank's pages by their index in its share)."""
 
     live: int
     rows: list
     wslots: int
     wrows: list
     wspans: list
+    share: Optional[int] = None
+    p0: int = 0
+    ps_park: int = 0
+    h0: int = 0
+    h_park: int = 0
+    owners: Optional[list] = None
 
 
 def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
@@ -789,7 +944,8 @@ def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
     table from the device); ``bounds`` every row's span of positions it
     may write (None: every position).  A pool on the card must be parked
     to stream, and a parked pool must stream (ValueError)."""
-    pk = next((leaf for key, leaf, _ in pool_leaves(cache) if key.endswith("pk")), None)
+    leaves = {key.rsplit("/", 1)[-1]: leaf for key, leaf, _ in pool_leaves(cache)}
+    pk = leaves.get("pk")
     if table is None or pk is None:
         return None
     if torch.device(device).type == "cuda" and bool(n_host_chunks) != (pk.device.type == "cpu"):
@@ -804,45 +960,64 @@ def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
                          "table: pass host_table")
     tab = host_table
     B, max_pages = tab.shape
-    n_phys, ps_loc = pk.shape[-4], pk.shape[-3]
+    n_phys, ps_loc = leaves["pkpos"].shape[-2:]  # the model slice's in-page entries
+    ps_park, h_park = pk.shape[-3], pk.shape[-2]  # the entries and heads parked
     trash = n_phys - 1
     ps = sh.page_size if _on_mesh(sh) else ps_loc
     m0 = sh.par.sp_rank * ps_loc if ps_loc < ps else 0  # the rank's in-page slice
+    share, d = None, 0
+    npl = pk.shape[-4]  # the pages this rank parks: [g npl, (g + 1) npl) of the pool
+    if _on_mesh(sh) and sh.par.dp > 1:  # a share of the model slice (host_shardings)
+        d = sh.par.dp_rank
+        share = 0 if npl < n_phys else 1 if ps_park < ps_loc else 2
+    g = d if share == 0 else 0
+    p0 = m0 + (d * ps_park if share == 1 else 0)
+    h0 = d * h_park if share == 2 else 0
     S = max_pages * ps
     bounds = _default_bounds(B, S) if bounds is None else [(a, min(e, S - 1)) for a, e in bounds]
-    r0, r1 = (sh.r0, sh.r1) if _on_mesh(sh) else (0, B)
+    # with a share every data rank fetches its share of every row's pages
+    r0, r1 = (sh.r0, sh.r1) if _on_mesh(sh) and share is None else (0, B)
     hi = max((e for a, e in bounds[r0:r1] if a <= e), default=-1)
     live = hi // ps + 1 if hi >= 0 else 0
     rows = [[(j, int(t) if t >= 0 else trash) for j, t in enumerate(row[:live])]
             for row in tab[r0:r1]]
+    owners = None
+    if share == 0:  # a rank fetches the pages it parks; the gather picks each page's owner
+        owners = [[pid // npl for _, pid in row] for row in rows]
+        rows = [[(j, pid - g * npl) for j, pid in row if pid // npl == g] for row in rows]
     pages = [range(a // ps, e // ps + 1) if a <= e else range(0) for a, e in bounds]
     wslots = max((len(r) for r in pages), default=0)
     wrows, wspans = [], []
     for i, ((a, e), js) in enumerate(zip(bounds, pages)):
-        pairs = []
+        pairs, seen = [], set()
         for j in js:
             pid = int(tab[i, j])
-            lo = max(max(a, j * ps) - j * ps, m0)
-            end = min(min(e, j * ps + ps - 1) - j * ps + 1, m0 + ps_loc)
+            lo = max(max(a, j * ps) - j * ps, p0)
+            end = min(min(e, j * ps + ps - 1) - j * ps + 1, p0 + ps_park)
             if pid < 0 or pid == trash or lo >= end:
                 continue
-            if any(q == pid for _, q in pairs):
+            if pid in seen:
                 raise ValueError(f"row {i} maps page {pid} at two logical pages it may write: a "
                                  "parked pool writes a page through one table entry")
+            seen.add(pid)
+            if pid // npl != g:  # another data rank parks the page
+                continue
             slot = j % wslots
-            pairs.append((slot, pid))
-            wspans.append((i, slot * ps_loc + lo - m0, pid, lo - m0, end - lo))
+            pairs.append((slot, pid - g * npl))
+            wspans.append((i, slot * ps_park + lo - p0, pid - g * npl, lo - p0, end - lo))
         wrows.append(sorted(pairs))
-    return PoolPlan(live, rows, wslots, wrows, wspans)
+    return PoolPlan(live, rows, wslots, wrows, wspans, share, p0, ps_park, h0, h_park, owners)
 
 
 def _stream_pages(cache: Params, plan: PoolPlan, table: torch.Tensor, attend,
-                  zero: SoftmaxState) -> SoftmaxState:
+                  zero: SoftmaxState, sh: Optional[Shard] = None) -> SoftmaxState:
     """The parked pool's history pass: ``attend(k, v, kpos, mapped)`` over
     the live logical pages ``plan.live``, fetched in one pass (a row's run
     of consecutive pages is one copy) and merged into ``zero``; ``table``
     is this rank's rows of the page table on the device (``pkpos`` stays
-    there)."""
+    there).  With ``plan.share`` every row's shares are fetched,
+    all-gathered over data into the model slice's pages
+    (``_gather_parked``) and this rank's rows kept."""
     if not plan.live:
         return zero
     policy = PL.host_offload(table.device)
@@ -850,6 +1025,19 @@ def _stream_pages(cache: Params, plan: PoolPlan, table: torch.Tensor, attend,
     host_pages["fetched"] += 2 * sum(len(r) for r in plan.rows)
     kc, vc = (policy.fetch_pages(cache[key], plan.rows, plan.live) for key in ("pk", "pv"))
     kc, vc = kc.wait(), vc.wait()
+    if plan.share == 0:  # each page from the data rank that parks it
+        B = len(plan.rows)
+        full = P.gather_rows(torch.stack([kc, vc]), sh.par.dp_group, "gather_parked")
+        full = full.view(sh.par.dp, 2, B, plan.live, ps, *kc.shape[2:])
+        own = torch.as_tensor(plan.owners, dtype=torch.long, device=kc.device)
+        pick = full[own, :, torch.arange(B, device=kc.device)[:, None],
+                    torch.arange(plan.live, device=kc.device)]  # [B, live, 2, ps, h, dh]
+        kc, vc = (pick[sh.r0:sh.r1, :, i].flatten(1, 2) for i in range(2))
+    elif plan.share is not None:
+        B = len(plan.rows)
+        kc, vc = _gather_parked([x.view(B, plan.live, plan.ps_park, *x.shape[2:])
+                                 for x in (kc, vc)], plan.share + 1, sh)
+        kc, vc = (x[sh.r0:sh.r1].flatten(1, 2) for x in (kc, vc))
     tab = table[:, : plan.live]
     n = plan.live * ps
     kp = cache["pkpos"][torch.clamp(tab, min=0)].reshape(b, n)
@@ -863,25 +1051,27 @@ def _host_pool_write(cache: Params, plan: PoolPlan, k: torch.Tensor, v: torch.Te
     or None: every column) into their host pages: the pages the rows'
     spans touch are fetched into a buffer (``plan.wrows``), the keys
     scattered into it at their device-side positions (a column that is
-    dead, or whose offset another model rank holds, goes to the buffer's
+    dead, or whose offset this rank does not park, goes to the buffer's
     last row, never read), and the spans copied back (``plan.wspans``),
     every copy on the copy stream.  The spans are upper bounds: a
-    position not written goes back as it came."""
+    position not written goes back as it came.  With a share of the kv
+    heads only the parked heads' keys are written."""
     if not plan.wspans:
         return
     policy = PL.host_offload(k.device)
-    ps_loc = cache["pkpos"].shape[1]
-    ps = sh.page_size if _on_mesh(sh) else ps_loc
-    m0 = sh.par.sp_rank * ps_loc if ps_loc < ps else 0
+    ps = sh.page_size if _on_mesh(sh) else cache["pkpos"].shape[1]
     host_pages["fetched"] += 2 * sum(len(r) for r in plan.wrows)
     kb = policy.fetch_pages(cache["pk"], plan.wrows, plan.wslots, pad=1)
     vb = policy.fetch_pages(cache["pv"], plan.wrows, plan.wslots, pad=1)
-    off = qpos % ps - m0
-    idx = torch.remainder(torch.div(qpos, ps, rounding_mode="floor"), plan.wslots) * ps_loc + off
-    ok = (off >= 0) & (off < ps_loc)
+    if plan.share == 2:
+        k, v = (x[:, :, plan.h0:plan.h0 + plan.h_park] for x in (k, v))
+    off = qpos % ps - plan.p0
+    idx = (torch.remainder(torch.div(qpos, ps, rounding_mode="floor"), plan.wslots)
+           * plan.ps_park + off)
+    ok = (off >= 0) & (off < plan.ps_park)
     if live is not None:
         ok = ok & live
-    idx = torch.where(ok, idx, plan.wslots * ps_loc)
+    idx = torch.where(ok, idx, plan.wslots * plan.ps_park)
     bi = torch.arange(qpos.shape[0], device=qpos.device)[:, None]
     kb, vb = kb.wait(), vb.wait()
     kb[bi, idx] = k.to(kb.dtype)
@@ -928,7 +1118,8 @@ def _decode_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache:
         st = attend(*_paged_gather(cache, _rows(table, sh)))
     else:
         st = _stream_pages(cache, plan, _rows(table, sh), attend, SoftmaxState(
-            qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF), qf.new_zeros(qf.shape[:2])))
+            qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF), qf.new_zeros(qf.shape[:2])),
+            sh)
     if _by_page(cache, sh):
         st = _merge_ranks(st, sh.par.sp_group)
     o = finalize(st).reshape(b, 1, hq * cfg.head_dim).to(x.dtype)
@@ -1087,8 +1278,7 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
     q, k, v = _qkv(cfg, p, x, heads)  # [b, cp, h, dh]
     q = L.apply_rope(q, qpos, cfg.rope_theta)
     k = L.apply_rope(k, qpos, cfg.rope_theta)
-    S, S_loc = cache["kpos"].shape[1], cache["k"].shape[1]
-    base = sh.par.sp_rank * S_loc if S_loc < S else 0
+    S, S_loc, base, share = _dense_layout(cfg, cache, sh)
     if window:
         window = min(window, S)  # ring capacity bounds the visible window
     hq = q.shape[2]
@@ -1117,7 +1307,7 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
         bounds = _default_bounds(b, S) if bounds is None else _mine(bounds, sh)
         hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend,
                           zero_state((b, hq, cp, cfg.head_dim), device=x.device),
-                          writes=(slot, k, v, wmask), base=base)
+                          writes=(slot, k, v, wmask), base=base, share=share)
         if S_loc < S:  # positions over model: the ranks' states, merged
             hist = _merge_ranks(hist, sh.par.sp_group)
     else:
@@ -1175,7 +1365,7 @@ def _chunk_attention_paged(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: 
         hist = attend(*_paged_gather(cache, _rows(table, sh)))
     else:
         hist = _stream_pages(cache, plan, _rows(table, sh), attend,
-                             zero_state((b, hq, cp, cfg.head_dim), device=x.device))
+                             zero_state((b, hq, cp, cfg.head_dim), device=x.device), sh)
     if _by_page(cache, sh):  # in-page positions over model: the ranks' states, merged
         hist = _merge_ranks(hist, sh.par.sp_group)
     _pool_write(cache, table, qpos, key_live, k, v, sh, plan)

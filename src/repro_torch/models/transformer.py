@@ -222,16 +222,24 @@ def has_attention(cfg: ModelConfig) -> bool:
 
 
 def attn_kind(cfg: ModelConfig, par: Optional[ParallelContext]) -> str:
-    """FPDT's kind: local without a mesh or on a data-only mesh (sp 1: a
-    rank holds its rows' whole sequence, and ulysses or cp over one model
-    rank would compute local's function through collectives); else
-    ``attn_impl`` where it names ulysses or cp, ulysses where the heads
-    split over the model ranks, cp where they do not."""
-    if par is None or par.mesh is None or par.sp == 1:
+    """FPDT's kind: local without a mesh, else ``attn_kind_on`` its model
+    ranks."""
+    if par is None or par.mesh is None:
+        return "local"
+    return attn_kind_on(cfg, par.sp)
+
+
+def attn_kind_on(cfg: ModelConfig, sp: int) -> str:
+    """FPDT's kind on a mesh of ``sp`` model ranks: local on a data-only
+    mesh (sp 1: a rank holds its rows' whole sequence, and ulysses or cp
+    over one model rank would compute local's function through
+    collectives); else ``attn_impl`` where it names ulysses or cp, ulysses
+    where the heads split over the model ranks, cp where they do not."""
+    if sp == 1:
         return "local"
     if cfg.attn_impl in ("ulysses", "cp"):
         return cfg.attn_impl
-    return "ulysses" if cfg.num_heads % par.sp == 0 else "cp"
+    return "ulysses" if cfg.num_heads % sp == 0 else "cp"
 
 
 def block_apply(cfg: ModelConfig, par: Optional[ParallelContext], kind: str,

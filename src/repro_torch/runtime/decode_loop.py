@@ -49,7 +49,8 @@ gathers nothing; under a temperature every rank samples the batch's
 logits, gathered over data, from one generator state and keeps its rows,
 so the tokens are the one-rank engine's.  Every layout serves on a mesh:
 the recurrent states are rows like the KV (over data) and channels over
-model, and host-streamed KV parks the rank's shard.  ``BlockingServeEngine``
+model, and host-streamed KV parks the rank's shard (where its rows are
+whole over data, its data share of each slab: ``SV.offload_kv``).  ``BlockingServeEngine``
 and ``decode_tokens`` stay on one rank.
 """
 from __future__ import annotations
@@ -536,7 +537,7 @@ class ServeEngine:
         on a mesh this rank's shard)."""
         cache = SV.init_cache(self.cfg, B, S, self.device, par=self.par)
         if self.n_host_chunks:
-            SV.offload_kv(self.cfg, cache, self.device)
+            SV.offload_kv(self.cfg, cache, self.device, self.shard, self.n_host_chunks)
         return cache
 
     def _admit(self, cache, s: int, idx: int, prompt, active: bool,

@@ -52,13 +52,18 @@ any other.  ``SLOPagedServeEngine`` stays on one rank, as the JAX CLI keeps
 With ``n_host_chunks > 0`` the pool is the JAX package's two-tier pool:
 its ``pk``/``pv`` are parked in pinned host memory from the start and the
 segments stream their live pages (``models/serve.py``); ``pkpos`` and the
-table stay on the device.  On a mesh each rank parks its own slice, as
-``cache_shardings`` places it, so a pool whole over data is parked once a
-data rank (the JAX package shards a parked pool over every mesh axis
-instead, which XLA's host placement asks and a rank's pinned buffer does
-not).  The page programs and the demotion read work on the parked pool as
-on a device one, after ``HostOffload.settle`` has waited for the
-segment's write-backs.
+table stay on the device.  On a mesh each rank parks only its data
+share of its model slice (``SV.host_shardings``: the slice's in-page
+positions, else its kv heads, else its pages, split over data), so the
+replica parks the pool once over all its ranks, as the JAX package shards
+a parked pool over every mesh axis; a step all-gathers the shares of the
+pages it reads over data.  The page programs and the demotion read work on
+the rank's share as on a device slice, after ``HostOffload.settle`` has
+waited for the segment's write-backs; the spill tier keeps the share, and
+the store's save gathers the shares over data before the slices over
+model.  A pool split by pages reads a page from the rank that parks it
+(an all-gather over data, ``_read_page``), so a COW copy is a read and a
+promote, and only the owner writes a page.
 """
 from __future__ import annotations
 
@@ -700,16 +705,22 @@ def copy_page(cache: Params, src: int, dst: int, drop_from: int, base: int = 0) 
 
 
 def promote_page(cache: Params, dst: int, rows: Rows, keep_below: int,
-                 base: int = 0) -> Params:
+                 base: int = 0, local: Optional[Callable[[str, int], Optional[int]]] = None
+                 ) -> Params:
     """Scatter one spilled page's host rows (keyed as ``page_rows``'s) into
     physical page ``dst``, the inverse of the demotion read; ``pkpos``
     entries at offsets ``>= keep_below`` are invalidated (a plain promote
     keeps the whole page, the spilled-COW case drops the tail the resumed
     prefill recomputes, as ``copy_page``'s ``drop_from``; ``base`` as
-    there)."""
+    there).  ``local(key, pid)``, where a leaf holds only some pages (a
+    parked pool split by pages over data), is page ``pid``'s index in the
+    leaf, None where another rank holds it."""
     for key, leaf, stacked in SV.pool_leaves(cache):
+        pid = dst if local is None else local(key, dst)
+        if pid is None:
+            continue
         row = _masked_row(rows[key].to(leaf.device), key, keep_below, base)
-        SV.page_of(leaf, stacked, dst).copy_(row)
+        SV.page_of(leaf, stacked, pid).copy_(row)
     return cache
 
 
@@ -783,16 +794,25 @@ class PagedServeEngine(DL.ServeEngine):
         # every segment and page program: demotion and save read it live
         self._pool = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, self.device,
                                          par=par, host=bool(n_host_chunks))
-        # on a mesh, each pool leaf's model dim (None: whole), by leaf key
+        # on a mesh, each pool leaf's model dim (None: whole) and the dim of a
+        # page's data share a rank parks (None: none), by leaf key; the keys
+        # of the leaves a parked pool splits by pages over data instead
         self._pool_dims: Dict[str, Optional[int]] = {}
+        self._share_dims: Dict[str, Optional[int]] = {}
+        self._by_pages: set = set()
         if self.shard is not None:
             meta = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, "meta")
-            plan = SV.cache_shardings(cfg, par.dp, par.sp, meta)
-            for key, _, _ in SV.pool_leaves(meta):
+            plan = SV.host_shardings(cfg, par.dp, par.sp, meta, self.n_host_chunks)
+            for key, _, stacked in SV.pool_leaves(meta):
                 dims = plan
                 for k in key.split("/"):
                     dims = dims[int(k)] if isinstance(dims, list) else dims[k]
-                self._pool_dims[key] = dims[1]
+                self._share_dims[key], self._pool_dims[key] = dims
+                if dims[0] is not None and dims[0] == int(stacked):  # the page dim
+                    self._share_dims[key] = None
+                    self._by_pages.add(key)
+        # the pages of a leaf split by pages that this rank parks
+        self._pages_local = (self.n_pages + 1) // par.dp if self._by_pages else 0
         # the in-page offset of this rank's first pool entry: its share of
         # the page when the pool splits the in-page positions over model
         split = any(d is not None for k, d in self._pool_dims.items() if k.endswith("pkpos"))
@@ -807,33 +827,59 @@ class PagedServeEngine(DL.ServeEngine):
         if self.n_host_chunks:
             PL.host_offload(self.device).settle()
 
+    def _local_page(self, key: str, pid: int) -> Optional[int]:
+        """Physical page ``pid``'s index in this rank's pool leaf ``key``
+        (None: another data rank parks it)."""
+        if key not in self._by_pages:
+            return pid
+        owner, i = divmod(pid, self._pages_local)
+        return i if owner == self.par.dp_rank else None
+
     def _read_page(self, pid: int) -> Rows:
-        """One physical page's rows on the host (demotion, save)."""
+        """One physical page's rows on the host (demotion, save, and the
+        COW read of a pool split by pages): a leaf split by pages over data
+        gathers the page from the rank that parks it (one call a leaf)."""
         self._settle()
-        return SV.page_rows(self._pool, int(pid))
+        if not self._by_pages:
+            return SV.page_rows(self._pool, int(pid))
+        rows = {}
+        for key, leaf, stacked in SV.pool_leaves(self._pool):
+            if key not in self._by_pages:
+                rows[key] = SV.page_of(leaf, stacked, int(pid)).to("cpu", copy=True)
+                continue
+            mine = self._local_page(key, int(pid))
+            page = SV.page_of(leaf, stacked, 0 if mine is None else mine)
+            parts = PAR.gather_rows(page[None].to(self.device), self.par.dp_group,
+                                    "gather_pages")
+            rows[key] = parts[int(pid) // self._pages_local].to("cpu", copy=True)
+        return rows
 
     # -- prefix-cache persistence ----------------------------------------
     def _whole_pages(self, rows: Rows) -> Rows:
         """Stacked page rows [N, ...] of this rank's slices -> whole pages:
-        each leaf split over model all-gathered (one call a leaf) and put
-        together along its split dim, in rank order."""
-        sp, out = self.par.sp, {}
+        each leaf's data shares (a parked pool's) all-gathered over data,
+        then each leaf split over model over model (one call a leaf and
+        axis), put together along the split dim in rank order."""
+        out = {}
         for key, t in rows.items():
-            dim = self._pool_dims[key]
-            if dim is None or not len(t):
-                out[key] = t
-                continue
-            parts = PAR.gather_rows(t.to(self.device), self.par.sp_group, "gather_pages")
-            out[key] = torch.cat(parts.view(sp, *t.shape).unbind(0), dim=dim).cpu()
+            for dim, n, group in ((self._share_dims[key], self.par.dp, self.par.dp_group),
+                                  (self._pool_dims[key], self.par.sp, self.par.sp_group)):
+                if dim is None or not len(t):
+                    continue
+                parts = PAR.gather_rows(t.to(self.device), group, "gather_pages")
+                t = torch.cat(parts.view(n, *t.shape).unbind(0), dim=dim).cpu()
+            out[key] = t
         return out
 
     def _part(self, key: str, row: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of one whole page's row (dims without N)."""
-        dim = self._pool_dims[key]
-        if dim is None:
-            return row
-        n = row.shape[dim - 1] // self.par.sp
-        return row.narrow(dim - 1, self.par.sp_rank * n, n).clone()
+        """This rank's slice of one whole page's row (dims without N): its
+        model slice, then its data share of that where it parks one."""
+        for dim, n, i in ((self._pool_dims[key], self.par.sp, self.par.sp_rank),
+                          (self._share_dims[key], self.par.dp, self.par.dp_rank)):
+            if dim is not None:
+                size = row.shape[dim - 1] // n
+                row = row.narrow(dim - 1, i * size, size)
+        return row.clone()
 
     def _replica_barrier(self) -> None:
         """Every rank of the replica waits for every other (the model group,
@@ -898,15 +944,20 @@ class PagedServeEngine(DL.ServeEngine):
                 return None
             raise ValueError(str(e)) from None
         paged_reset(cache, self._local_slot(s), plan.fresh_pages)
+        local = self._local_page if self._by_pages else None
         for sid, dst, keep in plan.promote:
-            promote_page(cache, dst, self.kv.spill.read(sid), keep, self._page_base)
+            promote_page(cache, dst, self.kv.spill.read(sid), keep, self._page_base, local)
             st["spill_promotes"] += 1
         if plan.promote:
             self.telemetry.event("pool.promote", request=idx, slot=s, n=len(plan.promote))
         for sid in plan.free_spill:  # the copies are made: the slots are free
             self.kv.spill.free(sid)
         for src, dst in plan.cow:
-            copy_page(cache, src, dst, plan.resume % self.page_size, self._page_base)
+            if self._by_pages:  # the source may be another data rank's: read it over data
+                promote_page(cache, dst, self._read_page(src), plan.resume % self.page_size,
+                             self._page_base, local)
+            else:
+                copy_page(cache, src, dst, plan.resume % self.page_size, self._page_base)
             st["cow_copies"] += 1
             self.telemetry.event("pool.cow", request=idx, slot=s, src=int(src), dst=int(dst))
         self._table_dev = None  # the table changed: ship it at the next dispatch

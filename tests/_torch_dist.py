@@ -28,7 +28,7 @@ SRC = ROOT / "src"
 JOIN_TIMEOUT = 240  # seconds a spawn may take, its ranks' start included
 # the serve mesh's collectives (core/parallel.py), which no training task calls
 SERVE_COLLECTIVES = ("gather_heads", "gather_channels", "gather_state", "gather_rows",
-                     "gather_harvest", "gather_pages")
+                     "gather_harvest", "gather_pages", "gather_parked")
 
 
 def _env(**extra) -> dict:
@@ -1154,12 +1154,23 @@ SERVE_CELLS = (
     # d_inner over model; the hybrid's local_attn ring (hkv 1) by position
     ("ssm-paged", "falcon-mamba-7b", {}, "paged", {"page_size": 8, "n_pages": 24}, "once"),
     ("hybrid-dense", "recurrentgemma-9b", {}, "dense", {}, "once"),
-    # the pool parked (kv heads over model), dense host KV by position
+    # the pool parked (kv heads over model, a rank's share of the in-page
+    # positions over data), dense host KV by position (its rows over data)
     ("paged-host", "llama3.2-1b", {}, "paged", {"page_size": 8, "n_pages": 24, "n_host_chunks": 2},
      "once"),
     ("dense-host", "llama3.2-1b", {"num_kv_heads": 1}, "dense", {"n_host_chunks": 2}, "once"),
+    # one slot, whole over data: a rank parks its data share of each slab
+    # (24 positions in 2 slabs of 12, which divide over the 4 ranks)
+    ("dense-host-1slot", "llama3.2-1b", {"num_kv_heads": 1}, "dense",
+     {"n_host_chunks": 2, "slots": 1, "max_new_tokens": 8}, "once"),
+    # a one-entry page and a rank's one kv head split over neither: the
+    # parked pool's 48 pages split over data (JAX's last resort), a COW
+    # copy reads its source page from the rank that parks it
+    ("paged-host-pages", "llama3.2-1b", {}, "paged",
+     {"page_size": 1, "n_pages": 47, "n_host_chunks": 2}, "twice"),
 )
-SERVE_STORES = ("paged-heads", "paged-inpage")  # the cells whose prefix store crosses meshes
+# the cells whose prefix store crosses meshes
+SERVE_STORES = ("paged-heads", "paged-inpage", "paged-host-pages")
 SERVE_KW = {"slots": 2, "bucket": 16, "max_new_tokens": 4, "prefill_chunk": 8, "segment": 2}
 SERVE_STEP_TOKENS = 8  # the direct steps' prefill chunk a row
 SERVE_TEMPERATURE = 0.8
@@ -1191,6 +1202,13 @@ def serve_prompts(vocab: int, workload: str = "once"):
         return out, []
     rng = np.random.default_rng(7)
     return out, [rng.integers(2, vocab - 1, 16).tolist() for _ in range(3)]
+
+
+def serve_step_pages(page_size: int) -> int:
+    """The direct steps' pool: 8 pages, or the pages the two rows' tables
+    map (``serve_step_inputs``) and one more (19 at page_size 1: the 20
+    physical pages split over a 2 x 2 mesh)."""
+    return max(8, 2 * (SERVE_STEP_TOKENS // page_size + 1) + 1)
 
 
 def serve_step_inputs(vocab: int, page_size: int):
@@ -1267,6 +1285,13 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
         return res, log["steps"]
 
     SV.chunk_step, SV.decode_step = counted(chunk_step, "chunk"), counted(decode_step, "decode")
+    stream_pages, parked = SV._stream_pages, {"live": 0}
+
+    def pages(cache, plan, *a, **k):  # the logical pages whose shares are gathered
+        parked["live"] += plan.live if plan.share is not None else 0
+        return stream_pages(cache, plan, *a, **k)
+
+    SV._stream_pages = pages
 
     def params_of(label, cfg):
         like = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -1289,9 +1314,11 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
         if sampled:
             kw["sampling"] = DL.SamplingConfig(temperature=SERVE_TEMPERATURE)
 
+        kw.update(ekw)
+
         def engine(p=par, **extra):
-            return (PG.PagedServeEngine(cfg, params, par=p, **kw, **ekw, **extra)
-                    if kind == "paged" else DL.ServeEngine(cfg, params, par=p, **kw, **ekw))
+            return (PG.PagedServeEngine(cfg, params, par=p, **kw, **extra)
+                    if kind == "paged" else DL.ServeEngine(cfg, params, par=p, **kw))
 
         def gen():
             return torch.Generator().manual_seed(0) if sampled else None
@@ -1299,25 +1326,28 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
         eng = engine()
         P.reset_counts()
         steps.update(chunk=0, decode=0)
+        parked.update(live=0)
         work = {"twice": [prompts] * 2, "spill": [prompts, evictors, prompts]}.get(workload,
                                                                                 [prompts])
 
         def serve(e):
-            runs, dispatches = [], 0
+            runs, dispatches, cows = [], 0, 0
             for w in work:
                 runs.append(e.generate(w, generator=gen()))
                 dispatches += e.last_stats["dispatches"]
-            return runs, dispatches
+                cows += e.last_stats.get("cow_copies", 0)
+            return runs, dispatches, cows
 
-        (runs, dispatches), logits = logged(lambda: serve(eng))
-        cell = {"tokens": runs, "steps": dict(steps), "dispatches": dispatches,
+        (runs, dispatches, cows), logits = logged(lambda: serve(eng))
+        cell = {"tokens": runs, "steps": dict(steps), "dispatches": dispatches, "cows": cows,
+                "parked_pages": parked["live"],
                 "counts": {k: [P.calls[k], P.nbytes[k]] for k in SERVE_COLLECTIVES},
                 "stats": {k: v for k, v in eng.last_stats.items() if isinstance(v, (int, float))}}
         if kind == "paged":
             cell["cache"] = leaves(eng._pool)
         else:
             P_, S_ = eng._capacity(prompts)
-            cell["cache"] = leaves(eng._begin(SERVE_KW["slots"], P_, S_))
+            cell["cache"] = leaves(eng._begin(eng.slots, P_, S_))
             cell["capacity"] = S_
         if sampled:  # the one-rank port engine from the same generator state
             cell["one_rank"] = engine(None).generate(prompts, generator=gen())
@@ -1341,7 +1371,8 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
         toks, table = serve_step_inputs(cfg.vocab_size, ps or SERVE_STEP_TOKENS)
         r0, r1 = sh.r0, sh.r1
         tab = torch.from_numpy(table) if ps else None
-        cache = (SV.init_paged_cache(cfg, 2, 8, ps, "cpu", par=par, host=bool(nh)) if ps else
+        cache = (SV.init_paged_cache(cfg, 2, serve_step_pages(ps), ps, "cpu", par=par,
+                                     host=bool(nh)) if ps else
                  SV.init_cache(cfg, 2, SERVE_STEP_TOKENS + 4, "cpu", par=par))
         live = torch.full((r1 - r0,), SERVE_STEP_TOKENS)
         lg, cache = SV.chunk_step(cfg, par, params, cache, torch.from_numpy(toks[r0:r1]),

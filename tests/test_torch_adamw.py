@@ -131,18 +131,19 @@ def test_global_norm_in_slices_is_the_whole_norm(monkeypatch):
 
 
 def test_update_temporaries_are_the_peak_reckoning():
-    """``chip_smoke.py`` reckons AdamW's share of a step's peak as
-    ADAMW_BYTES an element of the largest slice it updates: the bytes of
-    temporaries ``apply`` holds at once, as tools/adamw_temporaries.py
-    counts them."""
+    """``launch/dryrun.py`` (whose reckoning ``chip_smoke.py`` prints and
+    gates with) reckons AdamW's share of a step's peak as ADAMW_BYTES an
+    element of the largest slice it updates: the bytes of temporaries
+    ``apply`` holds at once, as tools/adamw_temporaries.py counts them."""
     import importlib.util
     from pathlib import Path
 
+    from repro_torch.launch import dryrun as D
+
     root = Path(__file__).resolve().parent.parent
-    mods = {}
-    for name in ("chip_smoke", "tools/adamw_temporaries"):
-        spec = importlib.util.spec_from_file_location(name.replace("/", "_"), root / f"{name}.py")
-        mods[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mods[name])
-    assert mods["tools/adamw_temporaries"].bytes_per_element() == mods["chip_smoke"].ADAMW_BYTES
-    assert mods["chip_smoke"].ADAMW_SLICE == A.UPDATE_SLICE
+    spec = importlib.util.spec_from_file_location("adamw_temporaries",
+                                                  root / "tools" / "adamw_temporaries.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.bytes_per_element() == D.ADAMW_BYTES
+    assert D.ADAMW_SLICE == A.UPDATE_SLICE

@@ -800,3 +800,40 @@ def test_cli_paged_refusals(capsys, argv, code, msg):
         CLI.main([*PAGED_ARGV, *argv])
     assert ex.value.code == code
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("page_size, hkv, n_pages, dim", [
+    (2, 1, 4, None),  # no dim divides the 4 ranks: refused
+    (2, 1, 7, 0),  # the model slice's one entry and one head: its 8 pages over data
+    (4, 1, 4, 1),  # 4 entries, 2 a model rank: 1 a data rank
+    (2, 4, 4, 2),  # 4 heads, 2 a model rank: 1 a data rank
+])
+def test_parked_pool_share_on_a_mesh(page_size, hkv, n_pages, dim):
+    """On a 2 x 2 mesh a rank parks its data share of its model slice of the
+    pool along the in-page positions, else the kv heads, else the pages (the
+    JAX ``_offload_pool``'s order; ``pool_share_dim``); a pool none of whose
+    dims divides the mesh's 4 ranks (which the JAX package keeps on the
+    device) is refused at the engine's construction, naming the dims."""
+    from repro_torch.core.parallel import ParallelContext
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-1b")), param_dtype="float32",
+                              num_kv_heads=hkv)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    par = ParallelContext(Mesh(2, 2, 0, "gloo", None, None))
+    kw = dict(slots=2, bucket=4, max_new_tokens=2, page_size=page_size, n_pages=n_pages,
+              prefill_chunk=2, n_host_chunks=2, par=par)
+    if dim is None:
+        with pytest.raises(ValueError, match="splits over no dim") as e:
+            PG.PagedServeEngine(cfg, params, **kw)
+        assert "page_size" in str(e.value) and "kv_heads" in str(e.value)
+        return
+    pool = PG.PagedServeEngine(cfg, params, **kw)._pool
+    whole = (n_pages + 1, page_size, hkv, cfg.head_dim)
+    model = 2 if hkv % 2 == 0 else 1  # kv heads over model, else in-page positions
+    want = list(whole)
+    want[model] //= 2
+    want[dim] //= 2
+    assert tuple(pool["pos0"]["pk"].shape[1:]) == tuple(want)
+    assert SV.pool_share_dim(2, 2, page_size, hkv, n_pages + 1) == dim

@@ -17,8 +17,12 @@ model; the two slots over data) from the same weights, then 2 replicas of
   ring split by position on the dense engine; the pool parked on the
   host, held to JAX's page-by-page pass (``n_host_chunks=2`` with no
   ``ParallelContext``); dense host KV split by position, held to JAX's
-  host-chunked engine likewise), the step logits within 1e-5, and a
-  temperature's samples equal the one-rank port engine's;
+  host-chunked engine likewise, with its rows over data and with one slot,
+  whole over data, whose slabs' shares are parked), the step logits within
+  1e-5, and a temperature's samples equal the one-rank port engine's;
+* a rank's pinned bytes of the parked pool and of the one-slot dense host
+  KV equal JAX's per-device host bytes (its parked tier sharded over every
+  mesh axis), a data share of what a rank parked before;
 * each rank's cache leaves have the shapes and bytes of the port's
   ``cache_shardings`` plan, and that plan equals JAX's ``cache_shardings``
   specs (called with a stub context, as tests/test_torch_shardings.py
@@ -50,7 +54,7 @@ import torch
 
 from _torch_dist import (FAULT_KW, SERVE_CELLS, SERVE_COLLECTIVES, SERVE_KW, SERVE_STEP_TOKENS,
                          SERVE_STORES, STORE_SPILL, _env, fault_workload, run_ranks, serve_cfg,
-                         serve_prompts, serve_step_inputs)
+                         serve_prompts, serve_step_inputs, serve_step_pages)
 from repro import configs as jconfigs
 from repro.launch import serve as JCLI
 from repro.models import serve as JSV
@@ -76,8 +80,9 @@ def _jax_engine(jc, params, kind, ekw):
     """JAX's single-device engine of a cell; with ``n_host_chunks`` and no
     ``ParallelContext`` its host-streamed passes run (slab by slab, page by
     page) with nothing parked."""
-    return (JPG.PagedServeEngine(jc, params, **SERVE_KW, **ekw) if kind == "paged"
-            else JDL.ServeEngine(jc, params, **SERVE_KW, **ekw))
+    kw = {**SERVE_KW, **ekw}
+    return (JPG.PagedServeEngine(jc, params, **kw) if kind == "paged"
+            else JDL.ServeEngine(jc, params, **kw))
 
 
 def _jax_steps(jc, params, ps, nh=0):
@@ -85,7 +90,7 @@ def _jax_steps(jc, params, ps, nh=0):
     decode of its argmax (``nh``: host-streamed, as ``_jax_engine``)."""
     toks, table = serve_step_inputs(jc.vocab_size, ps or SERVE_STEP_TOKENS)
     tab = jnp.asarray(table, jnp.int32) if ps else None
-    cache = (JSV.init_paged_cache(jc, 2, 8, ps) if ps else
+    cache = (JSV.init_paged_cache(jc, 2, serve_step_pages(ps), ps) if ps else
              JSV.init_cache(jc, 2, SERVE_STEP_TOKENS + 4))
     lg, cache = JSV.chunk_step(jc, None, params, cache, jnp.asarray(toks, jnp.int32),
                                jnp.zeros(2, jnp.int32), jnp.full(2, SERVE_STEP_TOKENS, jnp.int32),
@@ -166,20 +171,28 @@ def test_sampled_tokens_equal_one_rank(readings):
         assert len({tuple(t) for t in got["sampled"]["one_rank"]}) > 1
 
 
+def _slots(ekw) -> int:
+    return ekw.get("slots", SERVE_KW["slots"])
+
+
 def _meta(cfg, kind, ekw, S):
     if kind == "paged":
-        return SV.init_paged_cache(cfg, SERVE_KW["slots"], ekw["n_pages"], ekw["page_size"],
-                                   "meta")
-    return SV.init_cache(cfg, SERVE_KW["slots"], S, "meta")
+        return SV.init_paged_cache(cfg, _slots(ekw), ekw["n_pages"], ekw["page_size"], "meta")
+    return SV.init_cache(cfg, _slots(ekw), S, "meta")
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_cache_bytes_are_the_plan(readings, cell):
+    """Each rank's cache leaves have the shapes and bytes of the port's
+    plan: ``cache_shardings``, with the parked leaves of the host cells as
+    ``host_shardings`` places them (a rank's data share where its shard is
+    whole over data)."""
     ranks, _, _, _ = readings
     _, arch, over, kind, ekw, _ = CELLS[cell]
     cfg = serve_cfg(configs, arch, over)
     meta = _meta(cfg, kind, ekw, ranks[0][cell].get("capacity"))
-    plans = {"/".join(p): d for p, d in _dims(SV.cache_shardings(cfg, DP, SP, meta))}
+    plans = {"/".join(p): d for p, d in _dims(
+        SV.host_shardings(cfg, DP, SP, meta, ekw.get("n_host_chunks", 0)))}
     want = {}
     for path, leaf in tree_leaves_with_path(meta):
         key = "/".join(path)
@@ -240,10 +253,14 @@ def test_plan_equals_jax_cache_shardings(arch, mesh):
 
 def _reckon(cfg, cell, got):
     """The serve collectives of a cell's runs on 2 x 2, from the steps
-    taken: a rank steps one of the two slots.  An attention layer gathers
-    its heads or its positions' states (and a pool layer its writes); a
-    recurrent layer gathers its channels twice (before the projections
-    that read every channel and before ``w_out``)."""
+    taken: a rank steps one of the two slots (or the one slot, whole over
+    data).  An attention layer gathers its heads or its positions' states
+    (and, with the rows split, a pool layer its writes); a recurrent layer
+    gathers its channels twice (before the projections that read every
+    channel and before ``w_out``).  A parked tier's shares are gathered
+    over data once a live slab (the engine's ``host_kv_slabs``) or a pool
+    layer and step, the slab's or every slot's live pages' (the steps'
+    ``plan.live``, summed in ``parked_pages``)."""
     _, _, _, kind, ekw, workload = CELLS[cell]
     kinds = cfg.layer_kinds()
     L = sum(k in ("attn", "local_attn") for k in kinds)
@@ -252,6 +269,8 @@ def _reckon(cfg, cell, got):
     b, cp, dh = 1, SERVE_KW["prefill_chunk"], cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     heads = hkv % SP == 0
+    hl = hkv // SP if heads else hkv  # a rank's kv heads
+    split = _slots(ekw) % DP == 0  # the rows over data
     n = {"chunk": got["steps"]["chunk"], "decode": got["steps"]["decode"]}
     want = dict.fromkeys(SERVE_COLLECTIVES, (0, 0))
 
@@ -266,16 +285,77 @@ def _reckon(cfg, cell, got):
         else:
             add("gather_state", L * k, L * k * b * hq * w * (dh + 2) * 4)
         add("gather_channels", 2 * rec * k, 2 * rec * k * b * w * (cfg.d_inner // SP) * 4)
-        if kind == "paged":  # the pool's writes of every row
-            hl = hkv // SP if heads else hkv
+        if kind == "paged" and split:  # the pool's writes of every row
             add("gather_rows", pool * k, pool * k * b * w * (2 * hl * dh + 1) * 4)
-        if cfg.num_experts:  # the MoE FFN on every row
+        if cfg.num_experts and split:  # the MoE FFN on every row
             add("gather_rows", L * k, L * k * b * w * cfg.d_model * 4)
-        if workload == "sampled":  # the batch's logits, for one generator
+        if workload == "sampled" and split:  # the batch's logits, for one generator
             add("gather_rows", k, k * b * cfg.vocab_size * 4)
-    d = got["dispatches"]  # a harvest a segment, every row's state and outputs
-    add("gather_harvest", d, d * b * (5 + 2 * SERVE_KW["segment"]) * 4)
+    if kind == "paged" and ekw.get("n_host_chunks"):  # every slot's page shares, k and v
+        ps = ekw["page_size"] // (1 if heads else SP)  # the model slice's in-page entries
+        pages = ps % DP and hl % DP  # the pool split by pages: every page whole
+        share = ps * hl // (1 if pages else DP)  # in-page positions (or kv heads) over data
+        add("gather_parked", pool * sum(n.values()),
+            2 * _slots(ekw) * share * dh * 4 * got["parked_pages"])
+        if pages:  # a COW copy reads its source page over data, k and v
+            add("gather_pages", 2 * got["cows"], 2 * got["cows"] * pool * share * dh * 4)
+    if kind == "dense" and not split and ekw.get("n_host_chunks"):  # a live slab's shares
+        S = got["capacity"]
+        q = S // (1 if heads else SP) // ekw["n_host_chunks"] // DP  # a slab's share
+        slabs = got["stats"]["host_kv_slabs"]
+        add("gather_parked", slabs, slabs * 2 * b * q * hl * dh * 4)
+    if split:  # a harvest a segment, every row's state and outputs
+        d = got["dispatches"]
+        add("gather_harvest", d, d * b * (5 + 2 * SERVE_KW["segment"]) * 4)
     return {k: list(v) for k, v in want.items()}
+
+
+HOST = [c[0] for c in SERVE_CELLS if c[4].get("n_host_chunks")]
+
+
+def _jax_host_bytes(jc, kind, ekw, S):
+    """(a device's bytes of the parked tier, whether the tier is sharded)
+    under the JAX package's host layout on a DP x SP mesh: the pool's pk and
+    pv over every axis where one of their dims divides the mesh
+    (``src/repro/runtime/paged.py:914 _offload_pool``), a dense slab over
+    every axis where it divides (``src/repro/models/serve.py:302-314``),
+    else whole."""
+    n = DP * SP
+    if kind == "paged":
+        cache = jax.eval_shape(lambda: JSV.init_paged_cache(jc, _slots(ekw), ekw["n_pages"],
+                                                            ekw["page_size"]))
+        names = ("pk", "pv")
+        sharded = any(x % n == 0 for x in (ekw["page_size"], jc.num_kv_heads,
+                                          ekw["n_pages"] + 1))
+    else:
+        cache = jax.eval_shape(lambda: JSV.init_cache(jc, _slots(ekw), S))
+        names = ("k", "v")  # every block of the reduced llama is full attention
+        sharded = (S // ekw["n_host_chunks"]) % n == 0
+    leaves = [x for path, x in jax.tree_util.tree_flatten_with_path(cache)[0]
+              if str(getattr(path[-1], "key", "")) in names]
+    total = sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in leaves)
+    return (total // n if sharded else total), sharded
+
+
+@pytest.mark.parametrize("cell", HOST)
+def test_pinned_bytes_are_jax_host_bytes(readings, cell):
+    """A rank's pinned bytes of the parked pool and of dense host KV are its
+    share under ``host_shardings``, and, where JAX shards the parked tier
+    over every axis, JAX's per-device host bytes: the pool's 1/(DP SP) (a
+    rank parks its data share of its model slice) and, with the rows whole
+    over data (one slot), a slab's.  Where JAX parks a slab whole (it does
+    not divide the mesh) a rank parks its shard, rows over data."""
+    ranks, _, _, _ = readings
+    _, arch, over, kind, ekw, _ = CELLS[cell]
+    cfg, jc = serve_cfg(configs, arch, over), serve_cfg(jconfigs, arch, over)
+    S = ranks[0][cell].get("capacity")
+    jax_bytes, sharded = _jax_host_bytes(jc, kind, ekw, S)
+    plan = SV.rank_cache_bytes(cfg, DP, SP, _meta(cfg, kind, ekw, S), ekw["n_host_chunks"])[1]
+    for got in ranks:
+        pinned = got[cell]["stats"]["host_kv_bytes"]
+        assert pinned == plan
+        assert pinned == jax_bytes if sharded else pinned < jax_bytes
+    assert sharded or cell == "dense-host"
 
 
 @pytest.mark.parametrize("cell", list(CELLS))

@@ -6,8 +6,8 @@ once, per element of the slice it updates, on the CPU.
 A ``TorchDispatchMode`` adds the bytes of every tensor an operator returns
 in fresh storage and subtracts them when the tensor is freed, over one
 ``apply`` on a bf16 leaf with fp32 moments, and prints the largest total
-over the leaf's elements.  ``chip_smoke.py``'s peak reckoning
-(``ADAMW_BYTES``) takes this count for the update's share of a step's
+over the leaf's elements.  The peak reckoning of ``launch/dryrun.py``
+(``ADAMW_BYTES``), which ``chip_smoke.py`` prints, takes this count for the update's share of a step's
 peak, a function of the code alone, not of the device.
 """
 from __future__ import annotations
