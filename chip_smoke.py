@@ -157,6 +157,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 gather_state as reckoned, linear_scan launched on each
                 rank, a rank's pinned bytes as reckoned and as the dry-run
                 reckons a rank's host_cache_bytes (SV.rank_cache_bytes);
+                then llama3.2-1b (4 layers, one kv head) with a pool no
+                dim of which 2 divides (3-entry pages, an odd page count):
+                the pool on the card whole at its reckoned bytes, nothing
+                pinned, one warning; then the same ranks as a 2 x 1 mesh
+                (the data axis), at 8 kv heads: the pool parked by in-page positions
+                over data, one slot's dense host KV by a slab's positions
+                over data (gather_parked at its reckoned calls and bytes)
+                and dense host KV of 783 positions, which 2 does not
+                divide, parked whole on each rank (gather_written at its
+                reckoned calls and bytes): one rank's tokens in each;
                 (b) after
                 the ranks, the replica tier in this process:
                 tests/test_faults.py's seeded crash at full depth (two 1 x 1
@@ -164,10 +174,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 session's home replica dying on its second dispatch, a
                 shared store): the no-fault tokens, one death, pages and
                 prefix tokens recovered through the store; (c) the serve
-                CLI, --mesh 1x2 --replicas 2 --paged --fault-plan R:raise@0
-                --shared-kv-store at 4 layers, R a replica the workload
-                routes to: every request's tokens, one death, R's requests
-                re-homed;
+                CLI, --mesh 1x2 --replicas 3 --paged --fault-plan
+                "V:hang@0~T" --dispatch-timeout T --retry 0
+                --shared-kv-store --batch 1 --prefill-chunk 16 (the page
+                size) at 4 layers, V the replica most requests
+                route to (it prefills and runs them, then times out and
+                dies), beside the same CLI without a fault: the clean
+                run's tokens (their sha256), one death, V's requests
+                re-homed, V's pages saved and restored into the survivors
+                through the proxies and prefix tokens of the re-homed
+                requests read from them;
   6. train    — llama3.2-1b at full width (random bf16 weights from a seeded
                 generator, fp32 AdamW state): 3 steps at batch 1, seq 8192,
                 fpdt_chunks 4, mlp_chunks 8, remat full, host offload on,
@@ -255,8 +271,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 1 x 2, b1 s 16384 u 8 remat full offload on, 1 AdamW
                 step under ulysses and 1 under cp, then recurrentgemma-9b
                 (3 layers: one rglru, rglru, local_attn cycle) and
-                falcon-mamba-7b (4 layers), 1 step each, and
-                granite-moe-1b-a400m (3 layers, ulysses), 1 step,
+                falcon-mamba-7b (2 layers), 1 step each, and
+                granite-moe-1b-a400m (2 layers, ulysses), 1 step,
                 through train_steps, every weight and AdamW moment a
                 ZeRO-3 shard (launch/shardings.py: the tables' d and
                 granite's experts and router stack split over model;
@@ -344,6 +360,7 @@ import sys
 import time
 import traceback
 import types
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2827,15 +2844,27 @@ def _paged_host(torch, M, card, cfg, params, prompts, kw, ref):
 # card, kv heads over model; (b) the replica tier in this process,
 # tests/test_faults.py's engines (make_engine) and two-round session
 # workload at full depth; (c) the serve CLI over MESH_CLI_REPLICAS replicas
-# of 1 x MESH_RANKS at MESH_CLI_LAYERS layers (full width, bf16), a fault
-# on a replica the workload routes to.
+# of 1 x MESH_RANKS at MESH_CLI_LAYERS layers (full width, bf16), a shared
+# store: one replica runs its requests but answers past the dispatch timeout
+# (a hang of MESH_CLI_HANG s), and dies, so that the survivors restore the
+# pages of those very requests through the proxies and read them when the
+# requests land there; beside it the same CLI with no fault on one replica
+# (run at once), whose tokens the failover's must equal bit for bit.
 MESH_RANKS = 2
 MESH_JOIN_S = 300  # the ranks' whole run, start-up included
 FAULT_ENGINE = dict(slots=2, bucket=24, max_new_tokens=4, page_size=4, segment=1,
                     spill_pages=32)
-MESH_CLI_REPLICAS, MESH_CLI_LAYERS = 2, 4
-MESH_CLI = (8, 256, 16)  # requests, --prompt-len, --gen (over --batch 4, chunk 64)
+MESH_CLI_REPLICAS, MESH_CLI_LAYERS = 3, 4
+MESH_CLI = (8, 256, 8)  # requests, --prompt-len, --gen
 MESH_CLI_S = 300
+MESH_CLI_HANG = 10  # s: --dispatch-timeout and the hang; a dispatch takes ~1-3 s
+# so that the failover's bf16 tokens are the clean run's bit for bit: one slot
+# (a request's steps then do not depend on the requests beside it: a step that
+# mixes prefill and decode rows takes its decode rows through the chunk path)
+# and --prefill-chunk at the page size (a prefix hit, whole pages, then leaves
+# the chunk windows where a cold prefill puts them, so a window's merge of the
+# cache's history and its own keys splits at the same position)
+MESH_CLI_SLOTS, MESH_CLI_CHUNK = 1, 16
 
 
 def _mesh_page_bytes(cfg, sp: int) -> int:
@@ -2960,9 +2989,11 @@ def _mesh_rank(rank, world, tmp, spawned_at):
                                         for k in M.P.COLLECTIVES if M.P.calls[k]}}
         del eng, params, run
         torch.cuda.empty_cache()
-        for label, (cfg, prompts, kw) in _mesh_cases(M, inp).items():
+        # the same ranks re-formed as a world x 1 mesh too: the data axis
+        meshes = {(1, world): par, (world, 1): M.MESH.serve_mesh(world, 1)}
+        for label, (cfg, prompts, kw, mesh) in _mesh_cases(M, inp).items():
             t0 = time.perf_counter()
-            out[label] = _mesh_case(torch, M, par, dev, cfg, prompts, steps, kw)
+            out[label] = _mesh_case(torch, M, meshes[mesh], dev, cfg, prompts, steps, kw)
             out[label]["s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -2974,57 +3005,114 @@ def _mesh_rank(rank, world, tmp, spawned_at):
 # width (falcon-mamba-7b at FALCON_LAYERS, recurrentgemma-9b at two cycles)
 # on ENGINE_RECURRENT's requests, their d_inner over model; llama3.2-1b at
 # MESH_HOST_LAYERS with host-streamed KV (the pool parked, then the dense
-# engine's at one kv head, so that its positions split over model)
-# engine's), on (a)'s prompts
+# engine's at one kv head, so that its positions split over model), on
+# (a)'s prompts; then the pool none of whose dims divides the ranks (one kv
+# head, DEVICE_POOL_PAGE in-page positions, an odd page count: it stays on
+# the card, as the JAX package keeps it); then on the same ranks as a
+# MESH_RANKS x 1 mesh (the data axis), at llama's 8 kv heads: the pool
+# parked by in-page positions over data (the first ENGINE_SLOTS prompts),
+# one slot's dense host KV by each slab's positions over data (the first
+# prompt), and a dense cache of DATA_WHOLE_GEN new tokens in 3 slabs (783
+# positions, which 2 ranks do not divide: every rank parks the whole leaf
+# and takes every row's new keys; the first DATA_WHOLE_PROMPTS prompts).
+# One kv head only where a case needs it: an indivisible pool, positions
+# over model.  The prompt counts are small: over gloo on one card the data
+# shares' all-gathers cost ~1 s a prompt
 MESH_RECURRENT = (("falcon-mamba-7b", FALCON_LAYERS), ("recurrentgemma-9b", 6))
 MESH_HOST_LAYERS = 4
+DEVICE_POOL_PAGE, DEVICE_POOL_CHUNK = 3, 48  # the chunk a multiple of the page
+DATA_WHOLE_PROMPTS, DATA_WHOLE_GEN, DATA_WHOLE_CHUNKS = 2, 15, 3
 
 
 def _mesh_cases(M, inp):
-    """label -> (config, prompts, make_engine's keywords but ``par``) of the
-    1 x MESH_RANKS spawn's cases after its llama one (the parent runs each
-    again on one rank)."""
+    """label -> (config, prompts, make_engine's keywords but ``par``, the
+    (data, model) mesh) of the MESH_RANKS spawn's cases after its llama one
+    (the parent runs each again on one rank)."""
     n_req, plen, gen = ENGINE_RECURRENT
     common = dict(slots=ENGINE_SLOTS, segment=ENGINE_SEGMENT, prefill_chunk=ENGINE_CHUNK)
+    model, data = (1, MESH_RANKS), (MESH_RANKS, 1)
     cases = {}
     for arch, layers in MESH_RECURRENT:
         cfg = _fp32_cfg(M, arch, num_layers=layers)
         prompts, _ = M.CLI.engine_prompts(cfg, n_req, plen)
-        cases[arch] = (cfg, [list(p) for p in prompts], dict(common, bucket=plen, gen=gen))
+        cases[arch] = (cfg, [list(p) for p in prompts], dict(common, bucket=plen, gen=gen), model)
     cfg = _fp32_cfg(M, "llama3.2-1b", num_layers=MESH_HOST_LAYERS)
+    one_head = dataclasses.replace(cfg, num_kv_heads=1)
     host = dict(common, bucket=inp["bucket"], gen=inp["gen"], n_host_chunks=HOST_POOL_CHUNKS)
-    cases["paged-host"] = (cfg, inp["prompts"], dict(host, paged=dict(page_size=PAGE_SIZE)))
-    cases["dense-host"] = (dataclasses.replace(cfg, num_kv_heads=1), inp["prompts"], host)
+    cases["paged-host"] = (cfg, inp["prompts"], dict(host, paged=dict(page_size=PAGE_SIZE)),
+                           model)
+    cases["dense-host"] = (one_head, inp["prompts"], host, model)
+    pages = ENGINE_SLOTS * -(-(inp["bucket"] + inp["gen"]) // DEVICE_POOL_PAGE)
+    pages += pages % 2  # an odd count of physical pages (pages + 1)
+    cases["paged-device"] = (one_head, inp["prompts"], dict(
+        host, prefill_chunk=DEVICE_POOL_CHUNK,
+        paged=dict(page_size=DEVICE_POOL_PAGE, n_pages=pages)), model)
+    cases["paged-host-data"] = (cfg, inp["prompts"][:ENGINE_SLOTS],
+                                dict(host, paged=dict(page_size=PAGE_SIZE)), data)
+    cases["dense-host-1slot-data"] = (cfg, inp["prompts"][:1], dict(host, slots=1), data)
+    cases["dense-host-whole-data"] = (cfg, inp["prompts"][:DATA_WHOLE_PROMPTS], dict(
+        host, gen=DATA_WHOLE_GEN, n_host_chunks=DATA_WHOLE_CHUNKS), data)
     return cases
 
 
 def _mesh_case(torch, M, par, dev, cfg, prompts, steps, kw):
     """One of ``_mesh_cases`` on this rank of ``par``: its seeded weights,
     an engine (``make_engine``) run over ``prompts``; the tokens, launches,
-    serve collectives, steps, the recurrent state leaves' shapes and bytes
-    and the pinned bytes the run held."""
+    serve collectives, steps, the recurrent state leaves' shapes and bytes,
+    the pinned bytes the run held, a paged engine's pool bytes on the card,
+    the parked pool's share fetches (calls with pages live, and the live
+    pages summed) and the warnings that a pool stays on the device."""
     params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     policy = M.PL.host_offload(dev)
     torch.cuda.synchronize()
     policy.reset_counts()
     held0 = policy.held_bytes
-    eng = M.CLI.make_engine(cfg, params, par=par, **kw)
-    caches, begin = [], eng._begin
-    eng._begin = lambda *a: caches.append(begin(*a)) or caches[-1]
-    steps.update(chunk=0, decode=0)
-    _reset_counts(M.K, M.SK)
-    M.P.reset_counts()
-    run = M.CLI.run_engine(cfg, params, prompts, engine=eng)
+    shares, real_pages = {"calls": 0, "live": 0}, M.SV._stream_pages
+
+    def pages(cache, plan, *a, **k):
+        if plan.share is not None and plan.live:
+            shares["calls"] += 1
+            shares["live"] += plan.live
+        return real_pages(cache, plan, *a, **k)
+
+    M.SV._stream_pages = pages
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = M.CLI.make_engine(cfg, params, par=par, **kw)
+            caches, begin = [], eng._begin
+            eng._begin = lambda *a: caches.append(begin(*a)) or caches[-1]
+            steps.update(chunk=0, decode=0)
+            _reset_counts(M.K, M.SK)
+            M.P.reset_counts()
+            run = M.CLI.run_engine(cfg, params, prompts, engine=eng)
+    finally:
+        M.SV._stream_pages = real_pages
+    pool = [x for _, x, _ in M.SV.pool_leaves(caches[0])]
     out = {"tokens": run["outs"], "ms": run["ms"], "launches": _counts(M.K, M.SK),
            "collectives": {k: [M.P.calls[k], M.P.nbytes[k]] for k in M.P.COLLECTIVES
                            if M.P.calls[k]},
            "steps": dict(steps), "pinned": policy.peak_held_bytes - held0,
            "states": {n: [list(x.shape), x.numel() * x.element_size()]
                       for n, x, _ in _state_leaves(caches[0])},
+           "pool_on_card": sum(x.numel() * x.element_size() for x in pool
+                               if x.device.type == "cuda"),
+           "shares": shares,
+           "warned": [str(w.message) for w in caught if "device memory" in str(w.message)],
            "stats": {k: v for k, v in eng.last_stats.items() if isinstance(v, (int, float))}}
-    del eng, params, caches, run
+    del eng, params, caches, run, pool
     torch.cuda.empty_cache()
     return out
+
+
+def _parked_whole(cfg, kw, stats) -> int:
+    """The bytes of a host case's whole parked tier: the pool's k and v, or
+    the dense cache's, over every attention layer (fp32)."""
+    layers = sum(k == "attn" for k in cfg.layer_kinds())
+    row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 4  # a position's k and v
+    if "paged" in kw:
+        return (stats["n_pages"] + 1) * kw["paged"]["page_size"] * row
+    return kw["slots"] * stats["capacity"] * row
 
 
 def _check_mesh_cases(torch, M, card, ranks, inp):
@@ -3033,15 +3121,22 @@ def _check_mesh_cases(torch, M, card, ranks, inp):
     each rank's state leaves at half of d_inner to the byte, its
     gather_channels calls and bytes (two a recurrent layer and step, a
     step's rows x window x d_inner / 2 in fp32) and linear_scan launched;
-    for host-streamed KV each rank's pinned bytes (its half of the pool's
-    n_pages + 1 pages, 4 of the 8 kv heads, or of the dense cache's
-    positions at one kv head) as reckoned, and for the dense case its
-    gather_state calls and bytes (a layer and step: the rows' [hq, w,
-    dh + 2] states in fp32).
+    for host-streamed KV each rank's pinned bytes as the JAX package parks
+    the tier on a D x M mesh of n ranks (the whole tier over n where one of
+    the pool's dims, or the dense cache's positions, divides n; a dense
+    cache whole where they do not; nothing where no pool dim does: that
+    pool stays on the card, whole, with one warning), held to the dry-run's
+    reckoner (``rank_cache_bytes``) and the engine's ``host_kv_bytes``; with
+    the positions over model gather_state (a layer and step: the rows'
+    [hq, w, dh + 2] states in fp32); over data the parked shares'
+    gather_parked (a pool layer and step with pages live: 2 x every row's
+    live pages x its share of a page; a live slab of each layer: 2 x its
+    share of the slab) and a whole leaf's gather_written (a layer and
+    step: the rank's rows x window x (2 hkv dh fp32 + an int32 slot)).
     Returns each case's rank-0 launches."""
-    sp, dev = MESH_RANKS, torch.device("cuda")
+    dev = torch.device("cuda")
     out = {}
-    for label, (cfg, prompts, kw) in _mesh_cases(M, inp).items():
+    for label, (cfg, prompts, kw, (dp, sp)) in _mesh_cases(M, inp).items():
         params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
         one = M.CLI.run_engine(cfg, params, prompts, **{k: v for k, v in kw.items()
                                                          if k != "n_host_chunks"})
@@ -3050,17 +3145,18 @@ def _check_mesh_cases(torch, M, card, ranks, inp):
         kinds = cfg.layer_kinds()
         rec = sum(k in ("ssm", "rglru") for k in kinds)
         b, cp, half = kw["slots"], kw["prefill_chunk"], cfg.d_inner // sp
+        n, hkv, dh = dp * sp, cfg.num_kv_heads, cfg.head_dim
         for r, got in enumerate(ranks):
             c = got[label]
             n_chunk, n_dec = c["steps"]["chunk"], c["steps"]["decode"]
-            print(f"  rank {r} {label} ({cfg.num_layers} layers): "
+            print(f"  rank {r} {label} ({cfg.num_layers} layers, {dp} x {sp}): "
                   f"{sum(len(o) for o in c['tokens'])} tokens in {c['ms']:.1f} ms ({n_chunk} "
                   f"chunk, {n_dec} decode steps; the case {c['s']:.1f} s with its weights), "
                   f"one rank's run {one['ms']:.1f} ms; "
                   f"collectives {c['collectives']}; pinned {c['pinned']} B; launches "
                   f"{c['launches']} [{card}]")
             if c["tokens"] != one["outs"]:
-                raise AssertionError(f"rank {r} {label}: the 1 x {sp} tokens differ from one "
+                raise AssertionError(f"rank {r} {label}: the {dp} x {sp} tokens differ from one "
                                      "rank's")
             if rec:
                 meta = M.SV.init_cache(cfg, b, c["stats"]["capacity"], "meta")
@@ -3080,25 +3176,55 @@ def _check_mesh_cases(torch, M, card, ranks, inp):
                     raise AssertionError(f"rank {r} {label}: gather_channels not as reckoned")
                 if c["launches"]["linear_scan"] <= 0:
                     raise AssertionError(f"rank {r} {label}: linear_scan launched no time")
+                continue
+            st = c["stats"]
+            layers = sum(k == "attn" for k in kinds)
+            paged = "paged" in kw
+            ps = kw["paged"]["page_size"] if paged else 0
+            whole = _parked_whole(cfg, kw, st)
+            if paged:
+                on_card = not any(x % n == 0 for x in (ps, hkv, st["n_pages"] + 1))
+                want = 0 if on_card else whole // n
             else:
-                layers = sum(k == "attn" for k in kinds)
-                row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 4 // sp  # a rank's half
-                want = ((c["stats"]["n_pages"] + 1) * PAGE_SIZE * row if "paged" in kw else
-                        b * c["stats"]["capacity"] * row)
-                meta = (M.SV.init_paged_cache(cfg, b, c["stats"]["n_pages"], PAGE_SIZE, "meta")
-                        if "paged" in kw else
-                        M.SV.init_cache(cfg, b, c["stats"]["capacity"], "meta"))
-                host = M.SV.rank_cache_bytes(cfg, 1, sp, meta, kw["n_host_chunks"])[1]
-                print(f"    pinned reckoned {want} B, the dry-run's host_cache_bytes {host} B; "
-                      f"the engine's host KV {c['stats']['host_kv_bytes']} B")
-                if c["pinned"] != want or c["stats"]["host_kv_bytes"] != want or host != want:
-                    raise AssertionError(f"rank {r} {label}: pinned bytes not as reckoned")
-                if cfg.num_kv_heads % sp:  # positions over model: the ranks' states merged
-                    merged = [layers * (n_chunk + n_dec), layers * (n_chunk * b * cp + n_dec * b)
-                              * cfg.num_heads * (cfg.head_dim + 2) * 4]
-                    print(f"    gather_state reckoned {merged}")
-                    if c["collectives"].get("gather_state") != merged:
-                        raise AssertionError(f"rank {r} {label}: gather_state not as reckoned")
+                on_card, want = False, (whole // n if st["capacity"] % n == 0 else whole)
+            meta = (M.SV.init_paged_cache(cfg, b, st["n_pages"], ps, "meta") if paged else
+                    M.SV.init_cache(cfg, b, st["capacity"], "meta"))
+            device, host = M.SV.rank_cache_bytes(cfg, dp, sp, meta, kw["n_host_chunks"])
+            print(f"    pinned reckoned {want} B (the whole tier {whole} B), the dry-run's "
+                  f"host_cache_bytes {host} B; the engine's host KV {st['host_kv_bytes']} B")
+            if c["pinned"] != want or st["host_kv_bytes"] != want or host != want:
+                raise AssertionError(f"rank {r} {label}: pinned bytes not as reckoned")
+            if on_card:  # the whole pool on the card: its k and v and pkpos
+                pool = (st["n_pages"] + 1) * ps * layers * (2 * hkv * dh * 4 + 4)
+                print(f"    the pool on the card {c['pool_on_card']} B (reckoned {pool}, the "
+                      f"dry-run's cache_bytes {device}); warned {len(c['warned'])} time(s): "
+                      f"{c['warned'][:1]}")
+                if c["pool_on_card"] != pool or device != pool or len(c["warned"]) != 1:
+                    raise AssertionError(f"rank {r} {label}: the pool is not on the card whole, "
+                                         "or the warning was not given once")
+            if sp > 1 and hkv % sp and (not paged or ps % sp == 0):  # positions over model
+                merged = [layers * (n_chunk + n_dec), layers * (n_chunk * b * cp + n_dec * b)
+                          * cfg.num_heads * (cfg.head_dim + 2) * 4]
+                print(f"    gather_state reckoned {merged}")
+                if c["collectives"].get("gather_state") != merged:
+                    raise AssertionError(f"rank {r} {label}: gather_state not as reckoned")
+            if dp == 1:
+                continue
+            rows = b // dp if b % dp == 0 else b  # a rank's rows
+            if paged:  # every row's live pages, the rank's in-page share of each
+                sh = c["shares"]
+                wants = {"gather_parked": [sh["calls"],
+                                           2 * b * sh["live"] * (ps // dp) * hkv * dh * 4]}
+            elif want < whole:  # one slot: a live slab's share, each layer
+                slabs, q = st["host_kv_slabs"], st["capacity"] // kw["n_host_chunks"] // dp
+                wants = {"gather_parked": [slabs, slabs * 2 * b * q * hkv * dh * 4]}
+            else:  # the whole leaf: every rank's rows' new keys, a layer and step
+                wants = {"gather_written": [layers * (n_chunk + n_dec), layers * (
+                    n_chunk * rows * cp + n_dec * rows) * (2 * hkv * dh * 4 + 4)]}
+            print(f"    reckoned {wants}")
+            for k, v in wants.items():
+                if c["collectives"].get(k) != v or v[0] <= 0:
+                    raise AssertionError(f"rank {r} {label}: {k} not as reckoned")
         out[label] = ranks[0][label]["launches"]
     return out
 
@@ -3154,10 +3280,45 @@ def _replica_tier(torch, M, card, cfg, params):
     return {"ms": t_got * 1e3, "no_fault_ms": t_ref * 1e3, **fo}
 
 
+def _run_cli(argv, tmp):
+    """Start the serve CLI with ``argv`` in ``tmp`` (its own session)."""
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                            env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=tmp,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def _cli_output(proc, label):
+    """(stdout, seconds to its end) of a ``_run_cli`` process; raises if it
+    outlives MESH_CLI_S or exits with another code than 0."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=MESH_CLI_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"the {label} CLI did not end within {MESH_CLI_S} s:\n{err[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    for line in out.splitlines():
+        print(f"  {label} | " + line)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {label} CLI exited with {proc.returncode}:\n{err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
 def _mesh_cli(M, card):
     """(c): the serve CLI, MESH_CLI_REPLICAS replicas of 1 x MESH_RANKS
-    (gloo ranks sharing the card), --paged, a permanent raise on its first
-    dispatch for a replica the workload routes to, a shared store."""
+    (gloo ranks sharing the card), --paged, a shared store, the replica
+    most requests route to running them but answering past the dispatch
+    timeout (no retry: it dies), against the same CLI with no fault on one
+    replica (at one slot a request's tokens are the same on any replica),
+    both at once: the clean run's tokens (the sha256 each prints), one death and
+    one timeout, the victim's requests re-homed, its pages saved and
+    restored into the survivors through the proxies, and prefix tokens of
+    the re-homed requests read from them (prompts of their own: a hit is a
+    restored page, whose bytes the tokens then check: MESH_CLI_SLOTS)."""
     import tempfile
 
     from repro_torch.launch import router as RT
@@ -3166,45 +3327,56 @@ def _mesh_cli(M, card):
     cfg = M.cfg_mod.get_config("llama3.2-1b", num_layers=MESH_CLI_LAYERS)
     prompts, _ = M.CLI.engine_prompts(cfg, n_req, plen)
     homes = [RT.ReplicaRouter([None] * MESH_CLI_REPLICAS).home_of(p) for p in prompts]
-    victim = homes[0]
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--arch", "llama3.2-1b", "--layers", str(MESH_CLI_LAYERS), "--engine", "--paged",
-                "--mesh", f"1x{MESH_RANKS}", "--replicas", str(MESH_CLI_REPLICAS),
-                "--fault-plan", f"{victim}:raise@0", "--shared-kv-store", tmp,
-                "--dist-backend", "gloo", "--requests", str(n_req), "--batch",
-                str(ENGINE_SLOTS), "--prompt-len", str(plen), "--gen", str(gen),
-                "--prefill-chunk", str(ENGINE_CHUNK)]
-        print("(c) python -m repro_torch.launch.serve " + " ".join(argv))
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv],
-                                env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=tmp,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=MESH_CLI_S)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            out, err = proc.communicate()
-            raise AssertionError(f"the CLI did not end within {MESH_CLI_S} s:\n{err[-3000:]}")
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-        secs = time.perf_counter() - t0
-    for line in out.splitlines():
-        print("  | " + line)
-    if proc.returncode != 0:
-        raise AssertionError(f"the CLI exited with {proc.returncode}:\n{err[-3000:]}")
-    total = next((ln for ln in out.splitlines() if "mesh replicas" in ln), "")
-    fo = next((ln for ln in out.splitlines() if "failover:" in ln), "")
+    victim = max(range(MESH_CLI_REPLICAS), key=homes.count)
     moved = homes.count(victim)
-    if not (f"{n_req} requests: {n_req * gen} tokens" in total and "1 deaths" in fo
-            and f"dead=[{victim}]" in fo
-            and f"{moved} requests re-homed" in fo):
+    argv = ["--arch", "llama3.2-1b", "--layers", str(MESH_CLI_LAYERS), "--engine", "--paged",
+            "--mesh", f"1x{MESH_RANKS}", "--dist-backend", "gloo", "--requests", str(n_req), "--batch", str(MESH_CLI_SLOTS),
+            "--prompt-len", str(plen), "--gen", str(gen), "--prefill-chunk", str(MESH_CLI_CHUNK)]
+    faulty = ["--replicas", str(MESH_CLI_REPLICAS), "--fault-plan",
+              f"{victim}:hang@0~{MESH_CLI_HANG}", "--dispatch-timeout", str(MESH_CLI_HANG),
+              "--retry", "0"]
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as clean_tmp:
+        print("(c) python -m repro_torch.launch.serve " + " ".join(
+            argv + faulty + ["--shared-kv-store", tmp]) + ", and without the fault on one "
+            "replica")
+        t0 = time.perf_counter()
+        procs = [_run_cli(argv + faulty + ["--shared-kv-store", tmp], tmp),
+                 _run_cli(argv + ["--replicas", "1", "--shared-kv-store", clean_tmp],
+                          clean_tmp)]
+        try:
+            out, secs = _cli_output(procs[0], "fault")
+            clean, _ = _cli_output(procs[1], "clean")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+        both = time.perf_counter() - t0
+
+    def line(text, key):
+        return next((ln for ln in text.splitlines() if key in ln), "")
+
+    fo = line(out, "failover:")
+    found = re.search(r"(\d+) prefix tokens recovered via the shared store \((\d+) pages", fo)
+    hit, pages = (int(found.group(1)), int(found.group(2))) if found else (0, 0)
+    sha, clean_sha = line(out, "tokens sha256"), line(clean, "tokens sha256")
+    if not (f"{n_req} requests: {n_req * gen} tokens" in line(out, "mesh replicas")
+            and f"1 deaths (dead=[{victim}])" in fo and "1 timeouts" in fo
+            and f"{moved} requests re-homed" in fo and pages > 0 and hit > 0
+            and "clean run" in line(clean, "failover:")):
         raise AssertionError(f"the CLI's run is not as reckoned ({n_req * gen} tokens, replica "
-                             f"{victim} dead, its {moved} requests re-homed)")
-    print(f"  the CLI ran {secs:.1f} s (its ranks' start-up included): every request's {gen} "
-          f"tokens, replica {victim} dead and its {moved} requests re-homed [{card}]")
-    return {"s": secs, "victim": victim, "rehomed": moved}
+                             f"{victim} dead, {moved} requests re-homed, its pages restored "
+                             f"through the store and read: prefix tokens recovered > 0)")
+    if not sha or sha.split()[2] != clean_sha.split()[2]:
+        raise AssertionError(f"the failover run's tokens differ from the clean run's: {sha!r} "
+                             f"against {clean_sha!r}")
+    print(f"  the CLI ran {secs:.1f} s (its ranks' start-up and the {MESH_CLI_HANG} s hang "
+          f"included; both runs {both:.1f} s): the clean run's tokens, replica {victim} dead "
+          f"past the timeout, {moved} requests re-homed, {pages} pages restored into the "
+          f"survivors through the proxies, {hit} prefix tokens of the re-homed requests "
+          f"read from them [{card}]")
+    return {"s": secs, "both_s": both, "victim": victim, "rehomed": moved, "pages": pages,
+            "recovered_prefix_tokens": hit}
 
 
 def phase_serve_mesh(torch, M, card, base):
@@ -3223,8 +3395,9 @@ def phase_serve_mesh(torch, M, card, base):
           reckoned calls and bytes, rank 0 writing whole pages) restored
           into a one-rank engine: the tokens, every admission a hit;
       (a') in the same spawn, ``_mesh_cases``: the recurrent archs and
-          host-streamed KV on 1 x MESH_RANKS, held by
-          ``_check_mesh_cases`` to one rank's runs after (b);
+          host-streamed KV on 1 x MESH_RANKS (a pool kept on the card
+          too) and on MESH_RANKS x 1, held by ``_check_mesh_cases`` to
+          one rank's runs after (b);
       (b) the replica tier (``_replica_tier``), once the ranks are done;
       (c) the serve CLI (``_mesh_cli``).
     Returns rank 0's launches of (a) and of each (a') case."""
@@ -3319,7 +3492,11 @@ def phase_serve_mesh(torch, M, card, base):
     print(f"(a') after (a), in the same spawn: {archs} at full width over "
           f"{ENGINE_RECURRENT[0]} requests, d_inner over model; llama3.2-1b "
           f"({MESH_HOST_LAYERS} layers) on (a)'s prompts with host-streamed KV, the pool parked "
-          "and the dense engine's at one kv head (positions over model)")
+          "and the dense engine's at one kv head (positions over model), a pool no dim of which "
+          f"{MESH_RANKS} divides (kept on the card); on {MESH_RANKS} x 1 (8 kv heads) the pool "
+          "parked by "
+          "in-page positions over data, one slot's dense KV by a slab's positions, and a dense "
+          "leaf parked whole")
     cases = _check_mesh_cases(torch, M, card, ranks, inputs)
     print(f"  one rank's runs and the checks {time.perf_counter() - t0:.1f} s")
     cli = _mesh_cli(M, card)
@@ -3542,12 +3719,13 @@ DIST_EXIT_S = 60  # from a rank's readings written to its exit
 # The recurrent families trained on 1 x DIST_RANKS (b1, DIST_SEQ, u = DIST_U,
 # remat full, offload on): arch, layers, AdamW steps.  Each rank holds the
 # whole model and its AdamW state: recurrentgemma-9b's one (rglru, rglru,
-# local_attn) cycle is 2.60 B parameters, 29 GiB of state; falcon-mamba-7b's
-# 4 layers 0.95 B, 11 GiB.  Their fp32-weight checks run at the same depth.
-DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
+# local_attn) cycle is 2.60 B parameters, 29 GiB of state; falcon-mamba-7b
+# at 2 layers (4, 0.95 B and 11 GiB, until the serve mesh's phase 5d needed
+# the room).  Their fp32-weight checks run at the same depth.
+DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 2, 1))
 # granite-moe-1b-a400m trained on 1 x DIST_RANKS the same way (ulysses: 8 q
-# / 4 kv heads a rank), cut to 3 of its 24 layers (6 until the serve mesh's
-# phase 5d needed the room): each MoE chunk (mlp_chunks
+# / 4 kv heads a rank), cut to 2 of its 24 layers (6, then 3, until the serve
+# mesh's phase 5d needed the room): each MoE chunk (mlp_chunks
 # 2u) is one rank's 1024-token span, so every group is local and no counts
 # are gathered; full depth would add ~2 GB of gloo gradient all-reduce a
 # step and nothing this phase does not already show.
@@ -3558,7 +3736,7 @@ DIST_RECURRENT = (("recurrentgemma-9b", 3, 1), ("falcon-mamba-7b", 4, 1))
 # 848 s on an H100 80GB HBM3 at 700 W, past its 800 s aim).  The step's
 # seconds predicted before the first run on the card, printed beside the
 # reading, not gated.
-DIST_MOE = (("granite-moe-1b-a400m", 3, 1),)
+DIST_MOE = (("granite-moe-1b-a400m", 2, 1),)
 DIST_MOE_PREDICTED_S = (12.0, 30.0)
 # One llama4-maverick-400b-a17b MoE FFN layer at its published width (d
 # 5120, 128 experts of d_ff 8192, top-1; bf16 with the fp32 router) on
@@ -5165,8 +5343,8 @@ def main():
                    "paged llama3.2-1b": paged["paged"], "slo llama3.2-1b": paged["slo"],
                    "paged-host llama3.2-1b": paged["paged-host"],
                    "mesh 1x2 llama3.2-1b": mesh["launches"],
-                   **{f"mesh 1x2 {label}" + ("" if label in dict(MESH_RECURRENT) else
-                                             " llama3.2-1b"): counts
+                   **{f"mesh {'2x1' if label.endswith('-data') else '1x2'} {label}"
+                      + ("" if label in dict(MESH_RECURRENT) else " llama3.2-1b"): counts
                       for label, counts in mesh["cases"].items()},
                    **{f"engine {arch}": phase(f"engine {arch}", phase_engine_recurrent, torch,
                                               M, card, arch)

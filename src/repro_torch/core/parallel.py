@@ -75,6 +75,10 @@ concatenating along dim 0 in rank order:
   gather_parked       [2, ...] -> [dp*2, ...]: every data rank's share of a
                       parked slab's or pages' k and v, fetched from the host
                       (``models/serve.py``; an exact concatenation)
+  gather_written      [b, ...] -> [n*b, ...]: every rank's new k and v
+                      entries (its rows, its kv heads) of a step, over the
+                      ranks that do not compute them, for a dense leaf that
+                      every rank parks whole (``models/serve.py``)
 
 Each adds one to its call count and the bytes it hands to the collective
 (the tensor it sends) to its byte count, in ``calls`` and ``nbytes``; the
@@ -98,7 +102,7 @@ COLLECTIVES = ("seq_to_heads", "heads_to_seq", "gather_seq", "reduce_scatter_seq
                "all_reduce_sum", "all_reduce_max", "gather_spans", "reduce_scatter_spans",
                "gather_counts", "gather_params", "reduce_scatter_grads", "dispatch_slots",
                "combine_slots", "gather_heads", "gather_channels", "gather_state", "gather_rows",
-               "gather_harvest", "gather_pages", "gather_parked")
+               "gather_harvest", "gather_pages", "gather_parked", "gather_written")
 # calls and bytes handed in since the last reset_counts()
 calls = dict.fromkeys(COLLECTIVES, 0)
 nbytes = dict.fromkeys(COLLECTIVES, 0)
@@ -176,6 +180,10 @@ class ParallelContext:
     @property
     def dp_group(self):
         return None if self.mesh is None else self.mesh.data_group
+
+    @property
+    def mesh_group(self):
+        return None if self.mesh is None else self.mesh.group
 
 
 def distributed(par: Optional[ParallelContext]) -> bool:
@@ -395,6 +403,6 @@ def gather_state(x: torch.Tensor, group) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, group, name: str = "gather_rows") -> torch.Tensor:
     """[b, ...] (this data rank's rows) -> [dp*b, ...]: every data rank's
     rows in rank order, which is row order; counted as ``name``
-    (``gather_rows``, ``gather_harvest``, ``gather_pages`` or
-    ``gather_parked``)."""
+    (``gather_rows``, ``gather_harvest``, ``gather_pages``,
+    ``gather_parked`` or ``gather_written``)."""
     return _all_gather0(x, group, name)

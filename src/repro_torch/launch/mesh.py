@@ -4,8 +4,11 @@
 ``make_compat_mesh((data, model), ("data", "model"))``: rank r = d * model
 + m, model fastest, which is that mesh's device order.  It builds one
 ``model`` group per data rank (the sequence-parallel group: FPDT's
-all-to-all and gathers) and one ``data`` group per model rank, every rank
-calling ``new_group`` for every group in the same order, as
+all-to-all and gathers) and one ``data`` group per model rank (and, for
+a serve mesh, the group of the whole mesh: a serve rank's writes to a
+leaf every rank parks whole and a pool split by pages over every rank,
+``models/serve.py``; the world's own group where there is one block),
+every rank calling ``new_group`` for every group in the same order, as
 ``torch.distributed`` requires.  With ``replicas > 1`` the world is that
 many blocks of ``data * model`` ranks, block r the ranks ``[r * data *
 model, (r + 1) * data * model)``, each its own mesh with its own groups
@@ -43,7 +46,8 @@ INIT_METHOD_ENV = "DIST_INIT_METHOD"
 class Mesh:
     """This rank's view of a ``data`` x ``model`` mesh: ``rank`` is its
     place in the mesh, ``first`` the world rank of the mesh's rank 0 (a
-    block of a larger world), ``block`` the block's index."""
+    block of a larger world), ``block`` the block's index, ``group`` the
+    group of every rank of the mesh (a serve mesh's; None elsewhere)."""
 
     data: int
     model: int
@@ -53,6 +57,7 @@ class Mesh:
     model_group: Any
     first: int = 0
     block: int = 0
+    group: Any = None
 
     @property
     def data_rank(self) -> int:
@@ -67,9 +72,10 @@ class Mesh:
         return self.first + np.arange(self.data * self.model).reshape(self.data, self.model)
 
 
-def make_mesh(data: int, model: int, replicas: int = 1) -> Mesh:
+def make_mesh(data: int, model: int, replicas: int = 1, whole: bool = False) -> Mesh:
     """This rank's mesh over the initialised world, whose size must be
-    replicas * data * model: the ``data`` x ``model`` mesh of its block."""
+    replicas * data * model: the ``data`` x ``model`` mesh of its block;
+    with ``whole`` the group of the block's every rank too."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed world "
                            "(init_from_env or init_process_group)")
@@ -80,8 +86,13 @@ def make_mesh(data: int, model: int, replicas: int = 1) -> Mesh:
                          f"the world has {world}")
     rank = dist.get_rank()
     block, model_group, data_group = rank // per, None, None
+    group = dist.group.WORLD if whole and replicas == 1 else None
     for b in range(replicas):  # every rank creates every group, in one order
         grid = b * per + np.arange(per).reshape(data, model)
+        if whole and replicas > 1:
+            g = dist.new_group(grid.ravel().tolist())
+            if b == block:
+                group = g
         for row in grid:
             g = dist.new_group(row.tolist())
             if rank in row:
@@ -91,7 +102,7 @@ def make_mesh(data: int, model: int, replicas: int = 1) -> Mesh:
             if rank in col:
                 data_group = g
     return Mesh(data, model, rank - block * per, dist.get_backend(), data_group, model_group,
-                first=block * per, block=block)
+                first=block * per, block=block, group=group)
 
 
 def serve_mesh(data: int, model: int, replicas: int = 1):
@@ -100,7 +111,7 @@ def serve_mesh(data: int, model: int, replicas: int = 1):
     ``models/serve.py::cache_shardings`` then splits the attention KV over
     ``model`` (kv heads, else positions) and the per-slot rows over
     ``data``."""
-    return ParallelContext(make_mesh(data, model, replicas))
+    return ParallelContext(make_mesh(data, model, replicas, whole=True))
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:

@@ -313,6 +313,9 @@ def _paged_report(args, engine):
 
 def _host_kv_words(st, paged: bool) -> str:
     """The engine's host-streamed KV figures (``--host-kv-chunks``)."""
+    if st.get("pool_on_device"):
+        return ("host KV: the pool stays in device memory (no pool dim divides the mesh), "
+                f"{st['host_kv_bytes']} B parked on the host")
     moved = (f"{st['host_kv_pages']} pages fetched" if paged else
              f"{st['host_kv_slabs']} slabs merged")
     return f"host KV: {st['host_kv_bytes']} B parked on the host, {moved}"

@@ -120,18 +120,27 @@ split d_inner over ``model`` where the model ranks divide it
 conv and ssm or h states and runs the mixer on them, its activations
 all-gathered (``gather_channels``) before the projections that read every
 channel (``models/mamba.py``, ``models/rglru.py``).  Host-streamed KV
-parks a rank's share of the parked tier as the JAX package shards it over
-every mesh axis (``host_shardings``): dense KV streams the rank's heads,
-or its own positions from ``base`` with the ranks' states merged in rank
-order, and where its rows are whole over ``data`` and a slab divides over
-the mesh (``slab_share``) the rank parks only its data share of each
-slab's positions; the parked pool is the rank's data share (in-page
-positions, kv heads or pages: ``pool_share_dim``) of its model slice.  A
-step fetches the rank's shares of the live slabs or pages and all-gathers
-them over ``data`` (``gather_parked``: an exact concatenation, or each
-page from the rank that parks it) before it attends as on the whole
-slice, and writes back only what the rank parks: every row's new keys
-reach every data rank through the writes' all-gather.
+parks what the JAX package parks on each device (``host_shardings``): a
+tier sharded over every mesh axis as the rank's share, a dense leaf whose
+positions the mesh does not divide whole on every rank, and a pool none of
+whose dims the mesh divides not at all (it stays on the device, at its
+``cache_shardings`` slice: ``pool_share_dim``).  Dense KV streams the
+JAX package's slabs (the engines round S to whole slabs as its engine
+does): the rank's heads of each, or its own positions of each slab that
+meets them (from ``base``), with the ranks' states merged in rank order;
+where its rows are whole over ``data`` the rank parks only its data share
+of its positions (``slab_share``: every dp-th one).
+The parked pool is the rank's data share (in-page positions, kv heads or
+pages) of its model slice, or its share of the pages over the whole mesh
+where its model slice is the whole pool.  A step fetches the rank's
+shares of the live slabs or pages and all-gathers them (``gather_parked``:
+an exact concatenation, or each page from the rank that parks it) before
+it attends as on the whole slice, and writes back only what the rank
+parks: every row's new keys reach every data rank through the writes'
+all-gather.  A rank that parks a dense leaf whole fetches JAX's whole
+slabs and takes every row's and kv head's new keys through one
+all-gather a layer and step (``gather_written``), so its copy stays the
+whole tier.
 """
 from __future__ import annotations
 
@@ -152,7 +161,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 from repro_torch.runtime import placement as PL
-from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map_with_path
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 Params = Dict[str, Any]
 
@@ -197,11 +206,15 @@ def _block_cache(cfg: ModelConfig, kind: str, b: int, max_len: int, dtype, devic
 
 
 def init_cache(cfg: ModelConfig, b: int, max_len: int, device="cuda",
-               par: Optional[ParallelContext] = None) -> Params:
+               par: Optional[ParallelContext] = None, n_host_chunks: int = 0) -> Params:
     """The dense cache of ``b`` rows of ``max_len`` positions; on ``par``'s
-    mesh only this rank's shard (``cache_shardings``)."""
+    mesh only this rank's shard (``cache_shardings``), and there with
+    ``n_host_chunks`` the full-attention blocks' ``k`` and ``v`` parked in
+    pinned host memory from the start, as ``host_shardings`` places them
+    (off a mesh ``offload_kv`` parks them)."""
     if P.distributed(par):
-        return _local_cache(cfg, par, init_cache(cfg, b, max_len, "meta"), device)
+        return _local_cache(cfg, par, init_cache(cfg, b, max_len, "meta"), device,
+                            n_host_chunks)
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = T.layout_of(cfg)
     cache = {f"pos{i}": _block_cache(cfg, kind, b, max_len, dtype, device, lead=(n_cycles,))
@@ -240,10 +253,12 @@ def init_paged_cache(cfg: ModelConfig, b: int, n_pages: int, page_size: int,
     pool's token capacity.  On ``par``'s mesh only this rank's shard.
     With ``host`` the pool's ``pk``/``pv`` are parked in pinned host memory
     (the host-streamed pool, ``n_host_chunks > 0``) and never allocated on
-    ``device``."""
+    ``device``; on a mesh none of whose pool dims divides its ranks they
+    stay on ``device``, as the JAX package keeps such a pool
+    (``pool_share_dim``)."""
     if P.distributed(par):
         return _local_cache(cfg, par, init_paged_cache(cfg, b, n_pages, page_size, "meta"),
-                            device, host)
+                            device, int(host))
     dtype = getattr(torch, cfg.param_dtype)
     pat, n_cycles, tail = T.layout_of(cfg)
     cap = n_pages * page_size
@@ -292,63 +307,125 @@ def paged_pool_spec(sp: int, page_size: int, hkv: int) -> Optional[int]:
     return None
 
 
-def pool_share_dim(dp: int, sp: int, page_size: int, hkv: int, n_phys: int) -> Optional[int]:
+POOL_ON_DEVICE = "device"  # a parked pool JAX keeps on the device instead
+WHOLE = "whole"  # a parked dense leaf every rank holds whole
+
+
+def pool_host_dim(n: int, page_size: int, hkv: int, n_phys: int):
+    """The dim of a pool K/V leaf [n_phys, page_size, hkv, dh] that the JAX
+    ``_offload_pool`` (``src/repro/runtime/paged.py:914-955``) shards over
+    every axis of a mesh of ``n`` ranks to park it: the in-page positions
+    where n divides them (``:932``), else the kv heads (``:934``), else the
+    pages (``:936``); where none does, ``POOL_ON_DEVICE``: the pool stays in
+    device memory (``:938-946``)."""
+    for d, x in ((1, page_size), (2, hkv), (0, n_phys)):
+        if x % n == 0:
+            return d
+    return POOL_ON_DEVICE
+
+
+def pool_share_dim(dp: int, sp: int, page_size: int, hkv: int, n_phys: int):
     """The dim of a pool K/V leaf [n_phys, page_size, hkv, dh] along which a
-    rank of a dp x sp mesh parks only its 1/dp share of its model slice
-    (``paged_pool_spec``), None with one data rank: the dim the JAX
-    ``_offload_pool`` shards over every axis, the first of the in-page
-    positions, the kv heads and the pages that dp * sp divides (so the
-    model slice divides it over dp).  Where none does, JAX keeps the pool
-    on the device with a warning: the port refuses it (ValueError)."""
-    n = dp * sp
-    dims = [d for d, x in ((1, page_size), (2, hkv), (0, n_phys)) if x % n == 0]
-    if n > 1 and not dims:
-        raise ValueError(f"the parked pool splits over no dim of a {dp} x {sp} mesh: none of "
-                         f"page_size={page_size}, kv_heads={hkv} and pages+1={n_phys} divides "
-                         f"{n} (the JAX package keeps such a pool on the device)")
-    return dims[0] if dp > 1 else None
+    rank of a dp x sp mesh parks only a share of its model slice
+    (``paged_pool_spec``): the dim ``pool_host_dim`` shards over every
+    axis (dp * sp divides it, so the model slice divides it over dp), the
+    rank's 1/dp share of it, or where the model slice is the whole pool
+    (no kv-head or in-page split over model) its 1/(dp sp) of the pages;
+    None where the model slice is already the rank's part (one data rank),
+    and ``POOL_ON_DEVICE`` where no dim divides dp * sp (the pool stays on
+    the device, at its ``cache_shardings`` slice)."""
+    d = pool_host_dim(dp * sp, page_size, hkv, n_phys)
+    whole = sp > 1 and paged_pool_spec(sp, page_size, hkv) is None
+    return d if d == POOL_ON_DEVICE or dp > 1 or whole else None
+
+
+def dense_host_dim(dp: int, sp: int, S: int):
+    """Where the JAX decode program parks a dense host-streamed K/V leaf
+    [b, S, hkv, dh] on a dp x sp mesh (``host_spec``,
+    ``src/repro/launch/steps.py:103-113``): its positions over every axis
+    (1) where dp * sp divides S (``:109-112``), else ``WHOLE``: the whole
+    leaf on every device (``:113``)."""
+    return 1 if S % (dp * sp) == 0 else WHOLE
 
 
 def slab_share(dp: int, sp: int, b: int, S: int, n_host_chunks: int) -> bool:
-    """Does a rank of a dp x sp mesh park only its 1/dp share of each host
-    slab's positions (dense host KV of ``b`` rows of ``S``)?  Where its rows
-    are whole over data and a slab of S / n_host_chunks positions divides
-    over every rank (the JAX ``slab_spec``; else JAX parks the slab whole,
-    and a rank its shard as ``cache_shardings`` places it)."""
+    """Does a rank of a dp x sp mesh park only its 1/dp share of its model
+    slice's positions (dense host KV of ``b`` rows of ``S`` that streams in
+    ``n_host_chunks`` slabs)?  Where JAX parks the positions over every
+    axis (``dense_host_dim``) and the rank's rows are whole over data.  The
+    share is every dp-th position of the slice (``_owned``), so each slab
+    splits over the data ranks to within a position, whether or not it
+    divides over every rank (the JAX ``slab_spec``,
+    ``src/repro/models/serve.py:310-314``: then JAX fetches the slab
+    sharded over every axis, else whole)."""
     return (dp > 1 and not _splits(b, dp) and n_host_chunks > 0 and S % n_host_chunks == 0
-            and (S // n_host_chunks) % (dp * sp) == 0)
+            and dense_host_dim(dp, sp, S) == 1)
+
+
+def _full_attn_names(cfg: ModelConfig) -> set:
+    """The cache keys of the full-attention blocks (``pos<i>`` and the
+    tail's indices): the blocks whose dense K/V host-streaming parks."""
+    pat, _, tail = T.layout_of(cfg)
+    full = {f"pos{i}" for i, kind in enumerate(pat) if kind == "attn"}
+    return full | {str(i) for i, kind in enumerate(tail) if kind == "attn"}
 
 
 def host_shardings(cfg: ModelConfig, dp: int, sp: int, cache, n_host_chunks: int) -> Any:
     """``cache_shardings`` with the parked leaves as a rank parks them under
     ``n_host_chunks`` (the full-attention blocks' dense ``k`` and ``v``,
-    the pool's ``pk`` and ``pv``): where a leaf's shard is whole over data,
-    its data dim becomes the one along which the rank keeps its 1/dp
-    share (``slab_share``: a slab's positions, ``pool_share_dim``), so
-    that ``local_shape`` gives the parked share (a dim split over both
-    axes divides by dp * sp).  The JAX package's host layout: every data
-    rank parks a different share, as XLA shards a parked tier over every
-    mesh axis."""
+    the pool's ``pk`` and ``pv``), so that ``local_shape`` gives what the
+    rank parks (a dim split over both axes divides by dp * sp), as the JAX
+    package parks a tier over every mesh axis or whole:
+
+    * the pool, where its shard is whole over data, keeps its 1/dp share
+      along ``pool_share_dim`` (where its model slice is the whole pool,
+      its 1/(dp sp) of the pages: the page dim as both dims); where that
+      is ``POOL_ON_DEVICE`` it keeps its ``cache_shardings`` dims (on the
+      device, parked nowhere);
+    * a dense leaf JAX parks whole (``dense_host_dim``) is whole on every
+      rank: (None, None); else, where its rows are whole over data
+      (``slab_share``), its data dim becomes the positions; else its
+      ``cache_shardings`` shard (then 1/(dp sp) of the leaf, as JAX's)."""
     plan = cache_shardings(cfg, dp, sp, cache)
-    pat, _, tail = T.layout_of(cfg)
-    full = {f"pos{i}" for i, kind in enumerate(pat) if kind == "attn"}
-    full |= {str(i) for i, kind in enumerate(tail) if kind == "attn"}
+    full = _full_attn_names(cfg)
 
     def spec(path, leaf, dims):
         stacked = path[0] != "tail"
         off = 1 if stacked else 0
         shape, name = tuple(leaf.shape[off:]), path[-1]
-        if not n_host_chunks or dims[0] is not None:
+        if not n_host_chunks:
             return dims
-        if name in ("pk", "pv"):
+        if name in ("pk", "pv") and dims[0] is None:
             d = pool_share_dim(dp, sp, shape[1], shape[2], shape[0])
-            return dims if d is None else (d + off, dims[1])
-        if (name in ("k", "v") and path[-2] in full
-                and slab_share(dp, sp, shape[0], shape[1], n_host_chunks)):
-            return 1 + off, dims[1]
+            if d is None or d == POOL_ON_DEVICE:
+                return dims
+            return d + off, (d + off if dims[1] is None and sp > 1 else dims[1])
+        if name in ("k", "v") and path[-2] in full:
+            if dense_host_dim(dp, sp, shape[1]) == WHOLE:
+                return None, None
+            if dims[0] is None and slab_share(dp, sp, shape[0], shape[1], n_host_chunks):
+                return 1 + off, dims[1]
         return dims
 
     return tree_map_with_path(spec, cache, plan)
+
+
+def parked_paths(cfg: ModelConfig, dp: int, sp: int, cache) -> set:
+    """The paths of the leaves host-streaming parks in host memory, in
+    ``cache`` (global shapes): the pool's ``pk``/``pv``, unless JAX keeps
+    the pool on the device (``pool_share_dim``), else the full-attention
+    blocks' dense ``k`` and ``v``."""
+    full = _full_attn_names(cfg)
+    out = set()
+    for path, leaf in tree_leaves_with_path(cache):
+        off = 1 if path[0] != "tail" else 0
+        if path[-1] in ("pk", "pv"):
+            shape = leaf.shape[off:]
+            if pool_share_dim(dp, sp, shape[1], shape[2], shape[0]) != POOL_ON_DEVICE:
+                out.add(path)
+        elif path[-1] in ("k", "v") and path[-2] in full:
+            out.add(path)
+    return out
 
 
 def cache_shardings(cfg: ModelConfig, dp: int, sp: int, cache) -> Any:
@@ -399,18 +476,20 @@ def local_shape(shape, dims, dp: int, sp: int) -> Tuple[int, ...]:
 
 
 def _local_cache(cfg: ModelConfig, par: ParallelContext, meta: Params, device,
-                 host: bool = False) -> Params:
+                 n_host_chunks: int = 0) -> Params:
     """This rank's shard of the cache ``meta`` describes: each leaf at its
     local shape, positions -1 and the rest 0, as ``init_cache`` fills them;
-    with ``host`` the pool's ``pk``/``pv`` parked, the rank's share of them
-    (``init_paged_cache``; ``host_shardings``, whose pool share does not
-    depend on the slab count)."""
-    plan = (host_shardings(cfg, par.dp, par.sp, meta, 1) if host
-            else cache_shardings(cfg, par.dp, par.sp, meta))
+    with ``n_host_chunks`` the leaves host-streaming parks
+    (``parked_paths``) zeroed in pinned host memory, at their
+    ``host_shardings`` shapes."""
+    dp, sp = par.dp, par.sp
+    plan = (host_shardings(cfg, dp, sp, meta, n_host_chunks) if n_host_chunks
+            else cache_shardings(cfg, dp, sp, meta))
+    parked = parked_paths(cfg, dp, sp, meta) if n_host_chunks else set()
 
     def make(path, leaf, dims):
-        shape = local_shape(leaf.shape, dims, par.dp, par.sp)
-        if host and path[-1] in ("pk", "pv"):
+        shape = local_shape(leaf.shape, dims, dp, sp)
+        if path in parked:
             return _pool_zeros(shape, leaf.dtype, device, True)
         return torch.full(shape, -1 if leaf.dtype == torch.int32 else 0, dtype=leaf.dtype,
                           device=device)
@@ -539,34 +618,16 @@ def _full_attn_blocks(cfg: ModelConfig, cache: Params):
     yield from (c for c, kind in zip(cache.get("tail", []), tail) if kind == "attn")
 
 
-def _slab_part(t: torch.Tensor, n_host_chunks: int, d: int, dp: int) -> torch.Tensor:
-    """Data rank ``d``'s share of each of the ``n_host_chunks`` slabs of a
-    dense K/V leaf [..., b, S, hkv, dh]: positions [c cs + d q, c cs + (d +
-    1) q) of slab c (cs = S / n_host_chunks, q = cs / dp), at [c q, (c + 1)
-    q) of the result."""
-    S = t.shape[-3]
-    parts = t.unflatten(-3, (n_host_chunks, dp, S // n_host_chunks // dp))
-    return parts.select(-4, d).flatten(-4, -3).contiguous()
-
-
-def offload_kv(cfg: ModelConfig, cache: Params, device, shard: Optional[Shard] = None,
-               n_host_chunks: int = 0) -> Params:
+def offload_kv(cfg: ModelConfig, cache: Params, device) -> Params:
     """Move the full-attention blocks' ``k`` and ``v`` to pinned host memory
     (``HostOffload.to_host``; the identity on the CPU), in place in
-    ``cache``, for host-streamed decode (``n_host_chunks``).  ``kpos`` and
-    every recurrent state stay on ``device``.  On a mesh (``shard``), where
-    the rank's rows are whole over data and a slab divides over the mesh
-    (``slab_share``), the rank parks only its data share of each slab's
-    positions (``_slab_part``), as ``host_shardings`` places it."""
+    ``cache``, for host-streamed decode.  ``kpos`` and every recurrent
+    state stay on ``device``.  One rank's cache: on a mesh ``init_cache``
+    parks them (``n_host_chunks``), as ``host_shardings`` places them."""
     policy = PL.host_offload(device)
     for bc in _full_attn_blocks(cfg, cache):
-        share = _on_mesh(shard) and slab_share(shard.par.dp, shard.par.sp, shard.slots,
-                                               bc["kpos"].shape[-1], n_host_chunks)
         for name in ("k", "v"):
-            t = bc[name]
-            if share:
-                t = _slab_part(t, n_host_chunks, shard.par.dp_rank, shard.par.dp)
-            bc[name] = policy.to_host(t)
+            bc[name] = policy.to_host(bc[name])
     return cache
 
 
@@ -587,14 +648,16 @@ def rank_cache_bytes(cfg: ModelConfig, dp: int, sp: int, cache: Params,
                      n_host_chunks: int = 0) -> Tuple[int, int]:
     """(device bytes, pinned host bytes) of one rank's shard of ``cache``
     (global shapes; a ``device="meta"`` cache will do) on a dp x sp mesh:
-    ``cache_shardings``, with the parked leaves under ``n_host_chunks`` as
+    ``cache_shardings``, with the parked leaves under ``n_host_chunks``
+    (``parked_paths``: not a pool JAX keeps on the device) as
     ``host_shardings`` places them."""
     plan = host_shardings(cfg, dp, sp, cache, n_host_chunks)
-    parked = {id(t) for t in _parked_leaves(cfg, cache)} if n_host_chunks else set()
+    parked = parked_paths(cfg, dp, sp, cache) if n_host_chunks else set()
+    dims = dict(tree_leaves_with_path(plan))
     out = [0, 0]
-    for leaf, dims in zip(tree_leaves(cache), tree_leaves(plan)):
-        n = math.prod(local_shape(leaf.shape, dims, dp, sp)) * leaf.element_size()
-        out[id(leaf) in parked] += n
+    for path, leaf in tree_leaves_with_path(cache):
+        n = math.prod(local_shape(leaf.shape, dims[path], dp, sp)) * leaf.element_size()
+        out[path in parked] += n
     return out[0], out[1]
 
 
@@ -649,6 +712,15 @@ def _spans(bounds, lo: int, hi: int):
     return out
 
 
+def _page_owners(sh: Shard, n_own: int):
+    """(group, this rank's index in it) of the ``n_own`` ranks a parked
+    pool's pages split over: the data ranks, or every rank of the mesh
+    where the model slice is the whole pool (``pool_share_dim``)."""
+    if n_own == sh.par.dp:
+        return sh.par.dp_group, sh.par.dp_rank
+    return sh.par.mesh_group, sh.par.rank
+
+
 def _gather_parked(parts, dim: int, sh: Shard) -> list:
     """Every data rank's share of the fetched tensors ``parts`` (one shape),
     through ONE all-gather over data, each put together along ``dim`` in
@@ -659,71 +731,117 @@ def _gather_parked(parts, dim: int, sh: Shard) -> list:
     return [torch.cat(full[:, i].unbind(0), dim=dim) for i in range(len(parts))]
 
 
+def _owned(a: int, e: int, dp: int, r: int) -> Tuple[int, int]:
+    """[j0, j1): where data rank ``r`` parks its positions of [a, e) of a
+    model slice whose data ranks share its positions round robin (position
+    i is rank i mod dp's, at i // dp of its share; ``slab_share``)."""
+    return -(-(a - r) // dp), -(-(e - r) // dp)
+
+
 def _stream_kv(cache: Params, n_host_chunks: int, device, bounds, attend, zero,
                writes=None, write_first: bool = False, base: int = 0,
-               share: Optional[Shard] = None) -> SoftmaxState:
+               share: Optional[Shard] = None,
+               whole: Optional[DenseLayout] = None) -> SoftmaxState:
     """FPDT-for-inference: the merge of ``attend(k slab, v slab, kpos
     slab)`` over the live slabs of ``cache``'s [b, S] rows in order, each
     slab's host copy started one slab ahead (``double_buffered``).
 
-    ``bounds`` holds per row the span [lo, hi] of positions the step may
-    write (host ints; lo > hi for none): a slab starting past every hi is
-    skipped.  ``writes`` (slot [b, w], k, v [b, w, hkv, d], mask [b, w])
-    go into each slab's device copy before its attend (``write_first``:
-    decode) or after it (a chunk's pre-write history), and the rows' spans
-    of that slab are copied back to the host cache.  ``zero`` is the
-    merge's identity.  The rows hold positions [base, base + S) (a model
-    rank's share when the positions split over model).  With ``share``
+    The slabs are the JAX package's, S / n_host_chunks of the rows' S
+    positions each; the rank holds positions [base, base + n) of them (a
+    model rank's share when the positions split over model) and streams
+    its part of each slab that meets them.  ``bounds`` holds per row the
+    span [lo, hi] of positions the step may write (host ints; lo > hi for
+    none): a slab starting past every hi is skipped.  ``writes`` (slot [b,
+    w], k, v [b, w, hkv, d], mask [b, w]) go into each slab's device copy
+    before its attend (``write_first``: decode) or after it (a chunk's
+    pre-write history), and the rows' spans of that slab are copied back
+    to the host cache.  ``zero`` is the merge's identity.  With ``share``
     (the step's ``Shard``) the host holds only this data rank's share of
-    each slab (``offload_kv``): the shares are fetched, all-gathered over
-    data into the slab (``_gather_parked``) and only the rank's share of a
-    span goes back."""
+    the positions, every dp-th (``_owned``): each rank's positions of a
+    slab are fetched (one copy a row), all-gathered over data
+    (``gather_parked``, padded to the longest) and interleaved into the
+    slab, and only the rank's positions of a span go back.  With
+    ``whole`` (the rank's ``DenseLayout``) the rows are the whole leaf the
+    rank parks (every row, kv head and position, as JAX parks it where S
+    does not divide the mesh; JAX's ``slab_spec`` then fetches each slab
+    whole too): ``bounds`` and ``writes`` are every row's
+    (``_gather_whole_writes``), so every row's span goes back and the copy
+    stays the whole tier, and the rank attends over its rows, kv heads and
+    positions of each slab."""
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
     dp, d = (share.par.dp, share.par.dp_rank) if share is not None else (1, 0)
-    S = ck.shape[1] * dp
-    cs = S // n_host_chunks
-    q = cs // dp  # positions of a slab this rank holds
+    n, cs = ck.shape[1] * dp, kpos.shape[1] // n_host_chunks
+    parts = [(max(c * cs, base), min((c + 1) * cs, base + n)) for c in range(n_host_chunks)]
+    parts = [(a, e) for a, e in parts if a < e]  # global positions of each slab's part
     hi = max((e for a, e in bounds if a <= e), default=-1)
-    live = [c for c in range(n_host_chunks) if base + c * cs <= hi]
+    live = [(a, e) for a, e in parts if a <= hi]
     host_kv["fetched"] += len(live)
-    host_kv["skipped"] += n_host_chunks - len(live)
+    host_kv["skipped"] += len(parts) - len(live)
     policy = PL.host_offload(device)
     # a cache resident on the card streams as views of itself, written in
     # place; a host cache (and on the CPU any cache) through the policy
     resident = ck.device.type == "cuda"
 
-    def fetch(c):
+    def fetch(part):
+        a, e = part[0] - base, part[1] - base
         if resident:
-            return ck[:, c * cs:(c + 1) * cs], cv[:, c * cs:(c + 1) * cs]
-        return policy.fetch_rows(ck, c * q, q), policy.fetch_rows(cv, c * q, q)
+            return ck[:, a:e], cv[:, a:e]
+        j0, j1 = _owned(a, e, dp, d)
+        return policy.fetch_rows(ck, j0, j1 - j0), policy.fetch_rows(cv, j0, j1 - j0)
 
-    def write(c, kc, vc):
+    def gather(part, kc, vc):
+        """Every data rank's positions of the slab part, interleaved: the
+        ranks in the order of the part's first dp positions' owners."""
+        a, e = part[0] - base, part[1] - base
+        width = max(j1 - j0 for j0, j1 in (_owned(a, e, dp, r) for r in range(dp)))
+        pad = [0, 0] * (kc.dim() - 2) + [0, width - kc.shape[1]]
+        sent = torch.stack([torch.nn.functional.pad(x, pad) for x in (kc, vc)])
+        full = P.gather_rows(sent, share.par.dp_group, "gather_parked").view(dp, *sent.shape)
+        full = torch.roll(full, -(a % dp), dims=0).movedim(0, 3)  # [2, b, width, dp, ...]
+        full = full.flatten(2, 3)[:, :, :e - a]
+        return full[0], full[1]
+
+    def write(part, kc, vc):
         slot, k, v, mask = writes
-        _write_rows(kc, base + c * cs, slot, k, mask)
-        _write_rows(vc, base + c * cs, slot, v, mask)
-        lo = base + c * cs + d * q  # the first position this rank holds of the slab
-        spans = [(i, a - lo + c * q, e - lo + c * q) for i, a, e in _spans(bounds, lo, lo + q)]
-        if spans and not resident:
-            policy.write_rows(ck, kc[:, d * q:(d + 1) * q], spans, c * q)
-            policy.write_rows(cv, vc[:, d * q:(d + 1) * q], spans, c * q)
+        _write_rows(kc, part[0], slot, k, mask)
+        _write_rows(vc, part[0], slot, v, mask)
+        if resident:
+            return
+        a = part[0] - base
+        j0 = _owned(a, part[1] - base, dp, d)[0]
+        spans = [(i, *_owned(x - base, y - base, dp, d)) for i, x, y in _spans(bounds, *part)]
+        spans = [(i, x, y) for i, x, y in spans if x < y]
+        if spans:  # this rank's positions of the part, in the order it parks them
+            first = j0 * dp + d - a
+            policy.write_rows(ck, kc[:, first::dp].contiguous(), spans, j0)
+            policy.write_rows(cv, vc[:, first::dp].contiguous(), spans, j0)
 
     state = zero
-    for c, (kc, vc) in zip(live, PL.double_buffered(live, fetch)):
+    for part, (kc, vc) in zip(live, PL.double_buffered(live, fetch)):
         if share is not None:
-            kc, vc = _gather_parked([kc, vc], 1, share)
+            kc, vc = gather(part, kc, vc)
         if writes is not None and write_first:
-            write(c, kc, vc)
-        state = merge(state, attend(kc, vc, kpos[:, base + c * cs:base + (c + 1) * cs]))
+            write(part, kc, vc)
+        a, e = part
+        if whole is None:
+            state = merge(state, attend(kc, vc, kpos[:, a:e]))
+        else:  # the rank's rows, kv heads and positions of the slab
+            lo, up = max(a, whole.base), min(e, whole.base + whole.S_loc)
+            if lo < up:
+                sub = (slice(whole.r0, whole.r1), slice(lo - a, up - a),
+                       slice(whole.k0, whole.k1))
+                state = merge(state, attend(kc[sub], vc[sub], kpos[:, lo:up]))
         if writes is not None and not write_first:
-            write(c, kc, vc)
+            write(part, kc, vc)
     return state
 
 
 def _streams(cache: Params, n_host_chunks: int, window: int, device) -> bool:
     """Does this attention block stream its KV from the host?  As in the
-    JAX package: a full-attention block whose S the chunk count divides;
-    a cache held on the host must (ValueError otherwise)."""
-    S = cache["k"].shape[1]
+    JAX package: a full-attention block whose S (its rows' positions,
+    ``kpos``'s: a rank's parked share of ``k`` may hold fewer) the chunk
+    count divides; a cache held on the host must (ValueError otherwise)."""
+    S = cache.get("kpos", cache["k"]).shape[1]
     on_host = cache["k"].device != torch.device(device)
     if n_host_chunks and not window and S % n_host_chunks == 0:
         return True
@@ -743,17 +861,74 @@ def _mine(bounds, sh: Optional[Shard]):
     return bounds[sh.r0:sh.r1] if _on_mesh(sh) else bounds
 
 
-def _dense_layout(cfg: ModelConfig, cache: Params, sh: Optional[Shard]):
-    """(S, S_loc, base, share) of a dense attention block on this rank: the
-    rows' global positions, this model rank's [base, base + S_loc) of them
-    (all where the KV splits by heads or not at all) and the step's
-    ``Shard`` where the rank parks only its data share of each slab
-    (``offload_kv``), else None."""
-    S, S_loc, base = cache["kpos"].shape[1], cache["kpos"].shape[1], 0
-    if _on_mesh(sh) and sh.heads(cfg) is None and _splits(S, sh.par.sp):
+@dataclasses.dataclass(frozen=True)
+class DenseLayout:
+    """A dense attention block on this rank: ``S`` the rows' global
+    positions, this model rank's [base, base + S_loc) of them (all where
+    the KV splits by heads or not at all), ``share`` the step's ``Shard``
+    where the rank parks only its data share of its positions, else None,
+    and ``whole`` where it parks the whole leaf (``host_shardings``): then
+    the rank attends over rows [r0, r1) and kv heads [k0, k1) of it."""
+
+    S: int
+    S_loc: int
+    base: int
+    share: Optional[Shard] = None
+    whole: bool = False
+    r0: int = 0
+    r1: int = 0
+    k0: int = 0
+    k1: int = 0
+
+
+def _dense_layout(cfg: ModelConfig, cache: Params, sh: Optional[Shard]) -> DenseLayout:
+    """This rank's ``DenseLayout`` of the dense block ``cache``: the parked
+    leaf is whole where it holds more rows, kv heads or positions than the
+    rank's shard."""
+    k, S = cache["k"], cache["kpos"].shape[1]
+    if not _on_mesh(sh):
+        return DenseLayout(S, S, 0)
+    heads = sh.heads(cfg)
+    S_loc, base = S, 0
+    if heads is None and _splits(S, sh.par.sp):
         S_loc = S // sh.par.sp
         base = sh.par.sp_rank * S_loc
-    return S, S_loc, base, (sh if cache["k"].shape[1] < S_loc else None)
+    k0, k1 = heads[2:] if heads is not None else (0, cfg.num_kv_heads)
+    if (k.shape[0] > cache["kpos"].shape[0] or k.shape[2] > k1 - k0
+            or (S_loc < S and k.shape[1] == S)):
+        return DenseLayout(S, S_loc, base, whole=True, r0=sh.r0, r1=sh.r1, k0=k0, k1=k1)
+    return DenseLayout(S, S_loc, base, share=sh if k.shape[1] < S_loc else None)
+
+
+def _gather_whole_writes(cfg: ModelConfig, sh: Shard, slot: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, mask: torch.Tensor):
+    """A step's writes (slot and mask [b, w], k and v [b, w, h, dh]: this
+    rank's rows and kv heads) as every rank's whole parked leaf takes them:
+    every row's and every kv head's, through ONE all-gather
+    (``gather_written``) over the ranks that compute the others (the data
+    group with the rows split, the model group with the heads split, the
+    mesh with both; none with neither).  The bytes of k, v and the slots
+    go side by side, a masked slot s as -1 - s: it keeps its place, so a
+    window's slots stay consecutive (``_write_rows``)."""
+    rows, heads = sh.rows_split, sh.heads(cfg) is not None
+    if not (rows or heads):
+        return slot, k, v, mask
+    group = (sh.par.mesh_group if rows and heads else
+             sh.par.dp_group if rows else sh.par.sp_group)
+    b, w, h, dh = k.shape
+    pos = torch.where(mask, slot, -1 - slot).to(torch.int32)
+    parts = [t.reshape(b, -1).contiguous().view(torch.uint8) for t in (k, v, pos)]
+    full = P.gather_rows(torch.cat(parts, dim=1), group, "gather_written")
+    kb, vb, pb = torch.split(full, [t.shape[1] for t in parts], dim=1)
+    dp, sp = (sh.par.dp if rows else 1), (sh.par.sp if heads else 1)
+
+    def kv(t):  # [dp, sp, b, w, h, dh] -> [dp b, w, sp h, dh]
+        t = t.contiguous().view(k.dtype).view(dp, sp, b, w, h, dh)
+        return t.permute(0, 2, 3, 1, 4, 5).reshape(dp * b, w, sp * h, dh)
+
+    pos = pb.contiguous().view(torch.int32).view(dp, sp, b, w)[:, 0].reshape(dp * b, w)
+    mask = pos >= 0
+    return torch.where(mask, pos, -1 - pos).to(slot.dtype), kv(kb), kv(vb), mask
 
 
 # ---------------------------------------------------------------------------
@@ -776,7 +951,8 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
-    S, S_loc, base, share = _dense_layout(cfg, cache, sh)
+    lay = _dense_layout(cfg, cache, sh)
+    S, S_loc, base = lay.S, lay.S_loc, lay.base
     slot = pos % S if window > 0 else torch.clamp(pos, max=S - 1)  # [b]
     bi = torch.arange(b, device=x.device)
     kpos[bi, slot] = pos.to(kpos.dtype)
@@ -795,14 +971,21 @@ def _decode_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Param
         return _masked_state(s, ok[:, None, :], _expand(vc, g), "bhs,bshd->bhd")
 
     if _streams(cache, n_host_chunks, window, x.device):
-        bounds = _default_bounds(b, S) if bounds is None else [
-            (min(a, S - 1), min(e, S - 1)) for a, e in _mine(bounds, sh)]
         ones = torch.ones((b, 1), dtype=torch.bool, device=x.device)
         zero = SoftmaxState(qf.new_zeros(qf.shape), qf.new_full(qf.shape[:2], NEG_INF),
                             qf.new_zeros(qf.shape[:2]))
-        st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
-                        writes=(slot[:, None], k, v, ones), write_first=True, base=base,
-                        share=share)
+        if lay.whole:  # every row's writes into the whole tier
+            bounds = _default_bounds(sh.slots, S) if bounds is None else [
+                (min(a, S - 1), min(e, S - 1)) for a, e in bounds]
+            st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
+                            writes=_gather_whole_writes(cfg, sh, slot[:, None], k, v, ones),
+                            write_first=True, whole=lay)
+        else:
+            bounds = _default_bounds(b, S) if bounds is None else [
+                (min(a, S - 1), min(e, S - 1)) for a, e in _mine(bounds, sh)]
+            st = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
+                            writes=(slot[:, None], k, v, ones), write_first=True, base=base,
+                            share=lay.share)
         if S_loc < S:  # positions over model: the ranks' states, merged
             st = _merge_ranks(st, sh.par.sp_group)
     elif S_loc < S:  # positions over model: the owner writes, every rank attends its own
@@ -919,9 +1102,10 @@ class PoolPlan:
     (``pool_share_dim``), the pool leaf's dim the shares split (0 pages,
     1 in-page positions, 2 kv heads), else None; the rank parks the
     in-page entries [p0, p0 + ps_park) of a page and kv heads [h0, h0 +
-    h_park) of its model slice's, and with the pages split the pages of
-    data rank ``owners[i][j]`` holds row i's logical page j (``rows`` and
-    the write pass name this rank's pages by their index in its share)."""
+    h_park) of its model slice's, and with the pages split (over data, or
+    over the mesh: ``_page_owners``) rank ``owners[i][j]`` of them holds
+    row i's logical page j (``rows`` and the write pass name this rank's
+    pages by their index in its share)."""
 
     live: int
     rows: list
@@ -967,9 +1151,11 @@ def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
     m0 = sh.par.sp_rank * ps_loc if ps_loc < ps else 0  # the rank's in-page slice
     share, d = None, 0
     npl = pk.shape[-4]  # the pages this rank parks: [g npl, (g + 1) npl) of the pool
-    if _on_mesh(sh) and sh.par.dp > 1:  # a share of the model slice (host_shardings)
+    if _on_mesh(sh) and npl < n_phys:  # the pages split (host_shardings)
+        share, d = 0, _page_owners(sh, n_phys // npl)[1]
+    elif _on_mesh(sh) and sh.par.dp > 1:  # a data share of the model slice
         d = sh.par.dp_rank
-        share = 0 if npl < n_phys else 1 if ps_park < ps_loc else 2
+        share = 1 if ps_park < ps_loc else 2
     g = d if share == 0 else 0
     p0 = m0 + (d * ps_park if share == 1 else 0)
     h0 = d * h_park if share == 2 else 0
@@ -1000,7 +1186,7 @@ def _pool_plan(cache: Params, table, host_table, bounds, n_host_chunks: int,
                 raise ValueError(f"row {i} maps page {pid} at two logical pages it may write: a "
                                  "parked pool writes a page through one table entry")
             seen.add(pid)
-            if pid // npl != g:  # another data rank parks the page
+            if pid // npl != g:  # another rank parks the page
                 continue
             slot = j % wslots
             pairs.append((slot, pid - g * npl))
@@ -1025,10 +1211,12 @@ def _stream_pages(cache: Params, plan: PoolPlan, table: torch.Tensor, attend,
     host_pages["fetched"] += 2 * sum(len(r) for r in plan.rows)
     kc, vc = (policy.fetch_pages(cache[key], plan.rows, plan.live) for key in ("pk", "pv"))
     kc, vc = kc.wait(), vc.wait()
-    if plan.share == 0:  # each page from the data rank that parks it
+    if plan.share == 0:  # each page from the rank that parks it
         B = len(plan.rows)
-        full = P.gather_rows(torch.stack([kc, vc]), sh.par.dp_group, "gather_parked")
-        full = full.view(sh.par.dp, 2, B, plan.live, ps, *kc.shape[2:])
+        n_own = cache["pkpos"].shape[-2] // cache["pk"].shape[-4]  # the pages' parkers
+        group = _page_owners(sh, n_own)[0]
+        full = P.gather_rows(torch.stack([kc, vc]), group, "gather_parked")
+        full = full.view(n_own, 2, B, plan.live, ps, *kc.shape[2:])
         own = torch.as_tensor(plan.owners, dtype=torch.long, device=kc.device)
         pick = full[own, :, torch.arange(B, device=kc.device)[:, None],
                     torch.arange(plan.live, device=kc.device)]  # [B, live, 2, ps, h, dh]
@@ -1278,7 +1466,8 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
     q, k, v = _qkv(cfg, p, x, heads)  # [b, cp, h, dh]
     q = L.apply_rope(q, qpos, cfg.rope_theta)
     k = L.apply_rope(k, qpos, cfg.rope_theta)
-    S, S_loc, base, share = _dense_layout(cfg, cache, sh)
+    lay = _dense_layout(cfg, cache, sh)
+    S, S_loc, base = lay.S, lay.S_loc, lay.base
     if window:
         window = min(window, S)  # ring capacity bounds the visible window
     hq = q.shape[2]
@@ -1304,10 +1493,16 @@ def _chunk_attention(cfg: ModelConfig, par: Optional[ParallelContext], p: Params
         wmask = key_live & (qpos < S)
     slot = qpos % S
     if _streams(cache, n_host_chunks, window, x.device):
-        bounds = _default_bounds(b, S) if bounds is None else _mine(bounds, sh)
-        hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend,
-                          zero_state((b, hq, cp, cfg.head_dim), device=x.device),
-                          writes=(slot, k, v, wmask), base=base, share=share)
+        zero = zero_state((b, hq, cp, cfg.head_dim), device=x.device)
+        if lay.whole:  # every row's writes into the whole tier
+            bounds = _default_bounds(sh.slots, S) if bounds is None else bounds
+            hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
+                              writes=_gather_whole_writes(cfg, sh, slot, k, v, wmask),
+                              whole=lay)
+        else:
+            bounds = _default_bounds(b, S) if bounds is None else _mine(bounds, sh)
+            hist = _stream_kv(cache, n_host_chunks, x.device, bounds, attend, zero,
+                              writes=(slot, k, v, wmask), base=base, share=lay.share)
         if S_loc < S:  # positions over model: the ranks' states, merged
             hist = _merge_ranks(hist, sh.par.sp_group)
     else:

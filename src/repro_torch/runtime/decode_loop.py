@@ -49,9 +49,10 @@ gathers nothing; under a temperature every rank samples the batch's
 logits, gathered over data, from one generator state and keeps its rows,
 so the tokens are the one-rank engine's.  Every layout serves on a mesh:
 the recurrent states are rows like the KV (over data) and channels over
-model, and host-streamed KV parks the rank's shard (where its rows are
-whole over data, its data share of each slab: ``SV.offload_kv``).  ``BlockingServeEngine``
-and ``decode_tokens`` stay on one rank.
+model, and host-streamed KV parks what ``SV.host_shardings`` gives the
+rank: its shard, its data share of each slab where its rows are whole over
+data, or the whole leaf where the JAX package parks it whole.
+``BlockingServeEngine`` and ``decode_tokens`` stay on one rank.
 """
 from __future__ import annotations
 
@@ -479,6 +480,7 @@ class ServeEngine:
         self.sampling, self.pad_id = sampling, pad_id
         self.segment = segment
         self.n_host_chunks = n_host_chunks
+        self.slab_chunks = n_host_chunks  # the slabs S rounds to (``_slabs``)
         self.cp = int(prefill_chunk) if prefill_chunk else min(bucket, 64)
         self.device = tree_leaves(params)[0].device
         self.telemetry = TM.Telemetry(component="engine")
@@ -511,16 +513,15 @@ class ServeEngine:
     def _capacity(self, prompts: Sequence[Sequence[int]]) -> Tuple[int, int]:
         """(P, S): pending-buffer length and cache capacity for a workload —
         the bucket floor or the longest prompt, rounded up to whole prefill
-        chunks (and S to whole host-KV slabs when streaming, on a mesh
-        whole slabs of each model rank's positions)."""
+        chunks (and S to whole host-KV slabs when streaming, as the JAX
+        engine rounds it)."""
         longest = max((len(p) for p in prompts), default=1)
         P = -(-max(self.bucket, longest) // self.cp) * self.cp
         return P, self._slabs(P + self.max_new)
 
     def _slabs(self, S: int) -> int:
-        """``S`` rounded up to whole host-KV slabs (``n_host_chunks``; on a
-        mesh slabs of every model rank's share of the positions)."""
-        n = self.n_host_chunks * (self.par.sp if self.shard is not None else 1)
+        """``S`` rounded up to whole host-KV slabs (``slab_chunks``)."""
+        n = self.slab_chunks
         return -(-S // n) * n if n else S
 
     def _local_slot(self, s: int) -> Optional[int]:
@@ -535,9 +536,12 @@ class ServeEngine:
         """Start a workload: return the cache the segments will carry (its
         full-attention KV in pinned host memory under ``n_host_chunks``;
         on a mesh this rank's shard)."""
-        cache = SV.init_cache(self.cfg, B, S, self.device, par=self.par)
+        if self.shard is not None:  # the parked leaves parked from the start
+            return SV.init_cache(self.cfg, B, S, self.device, par=self.par,
+                                 n_host_chunks=self.n_host_chunks)
+        cache = SV.init_cache(self.cfg, B, S, self.device)
         if self.n_host_chunks:
-            SV.offload_kv(self.cfg, cache, self.device, self.shard, self.n_host_chunks)
+            SV.offload_kv(self.cfg, cache, self.device)
         return cache
 
     def _admit(self, cache, s: int, idx: int, prompt, active: bool,

@@ -52,18 +52,23 @@ any other.  ``SLOPagedServeEngine`` stays on one rank, as the JAX CLI keeps
 With ``n_host_chunks > 0`` the pool is the JAX package's two-tier pool:
 its ``pk``/``pv`` are parked in pinned host memory from the start and the
 segments stream their live pages (``models/serve.py``); ``pkpos`` and the
-table stay on the device.  On a mesh each rank parks only its data
-share of its model slice (``SV.host_shardings``: the slice's in-page
-positions, else its kv heads, else its pages, split over data), so the
+table stay on the device.  On a mesh each rank parks only its data share
+of its model slice (``SV.host_shardings``: the slice's in-page positions,
+else its kv heads, else its pages, split over data; where the model slice
+is the whole pool, its pages split over every rank of the mesh), so the
 replica parks the pool once over all its ranks, as the JAX package shards
 a parked pool over every mesh axis; a step all-gathers the shares of the
-pages it reads over data.  The page programs and the demotion read work on
-the rank's share as on a device slice, after ``HostOffload.settle`` has
+pages it reads.  The page programs and the demotion read work on the
+rank's share as on a device slice, after ``HostOffload.settle`` has
 waited for the segment's write-backs; the spill tier keeps the share, and
 the store's save gathers the shares over data before the slices over
 model.  A pool split by pages reads a page from the rank that parks it
-(an all-gather over data, ``_read_page``), so a COW copy is a read and a
-promote, and only the owner writes a page.
+(an all-gather over the ranks the pages split over, ``_read_page``), so a
+COW copy is a read and a promote, and only the owner writes a page.  On a
+mesh none of whose pool dims (in-page positions, kv heads, pages) its
+ranks divide, the JAX package keeps the pool in device memory and warns
+once: so does the engine (``pool_on_device``; ``SV.pool_share_dim``), at
+its ``cache_shardings`` slice, streaming nothing (``host_kv_bytes`` 0).
 """
 from __future__ import annotations
 
@@ -713,7 +718,7 @@ def promote_page(cache: Params, dst: int, rows: Rows, keep_below: int,
     keeps the whole page, the spilled-COW case drops the tail the resumed
     prefill recomputes, as ``copy_page``'s ``drop_from``; ``base`` as
     there).  ``local(key, pid)``, where a leaf holds only some pages (a
-    parked pool split by pages over data), is page ``pid``'s index in the
+    parked pool split by pages), is page ``pid``'s index in the
     leaf, None where another rank holds it."""
     for key, leaf, stacked in SV.pool_leaves(cache):
         pid = dst if local is None else local(key, dst)
@@ -766,13 +771,24 @@ class PagedServeEngine(DL.ServeEngine):
                  par: Optional[ParallelContext] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if n_pages <= 0:  # dense-equivalent capacity
+            n_pages = slots * -(-(bucket + max_new_tokens) // page_size)
+        # a mesh none of whose pool dims its ranks divide: the pool stays in
+        # device memory, as the JAX package keeps it, and streams nothing
+        self.pool_on_device = bool(n_host_chunks) and PAR.distributed(par) and (
+            SV.pool_share_dim(par.dp, par.sp, page_size, cfg.num_kv_heads, n_pages + 1)
+            == SV.POOL_ON_DEVICE)
+        if self.pool_on_device:
+            PL.warn_once(f"pool offload skipped: no pool dim (page_size={page_size}, "
+                         f"kv_heads={cfg.num_kv_heads}, pages+1={n_pages + 1}) divides mesh "
+                         f"size {par.dp * par.sp}; the pool stays in device memory")
         super().__init__(cfg, params, slots=slots, bucket=bucket,
                          max_new_tokens=max_new_tokens, prefill_chunk=prefill_chunk,
-                         n_host_chunks=n_host_chunks, sampling=sampling,
-                         stop_tokens=stop_tokens, pad_id=pad_id, segment=segment, par=par)
+                         n_host_chunks=0 if self.pool_on_device else n_host_chunks,
+                         sampling=sampling, stop_tokens=stop_tokens, pad_id=pad_id,
+                         segment=segment, par=par)
+        self.slab_chunks = n_host_chunks  # S rounds as the JAX engine's, the pool kept too
         self.page_size = int(page_size)
-        if n_pages <= 0:  # dense-equivalent capacity
-            n_pages = slots * -(-(bucket + max_new_tokens) // self.page_size)
         self.n_pages = int(n_pages)
         pat, _, tail = layout_of(cfg)
         self.radix_enabled = bool(radix) and all(k == "attn" for k in (*pat, *tail))
@@ -793,14 +809,18 @@ class PagedServeEngine(DL.ServeEngine):
         # the one pool (on a mesh the rank's slice), updated in place by
         # every segment and page program: demotion and save read it live
         self._pool = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, self.device,
-                                         par=par, host=bool(n_host_chunks))
+                                         par=par, host=bool(self.n_host_chunks))
         # on a mesh, each pool leaf's model dim (None: whole) and the dim of a
         # page's data share a rank parks (None: none), by leaf key; the keys
-        # of the leaves a parked pool splits by pages over data instead
+        # of the leaves a parked pool splits by pages instead, over the data
+        # ranks or, where the model slice is the whole pool, over the mesh
+        # (the group, this rank's index in it and the pages it parks)
         self._pool_dims: Dict[str, Optional[int]] = {}
         self._share_dims: Dict[str, Optional[int]] = {}
         self._by_pages: set = set()
+        self._page_group, self._page_rank, owners = None, 0, 1
         if self.shard is not None:
+            self._page_group, self._page_rank, owners = par.dp_group, par.dp_rank, par.dp
             meta = SV.init_paged_cache(cfg, slots, self.n_pages, self.page_size, "meta")
             plan = SV.host_shardings(cfg, par.dp, par.sp, meta, self.n_host_chunks)
             for key, _, stacked in SV.pool_leaves(meta):
@@ -811,8 +831,11 @@ class PagedServeEngine(DL.ServeEngine):
                 if dims[0] is not None and dims[0] == int(stacked):  # the page dim
                     self._share_dims[key] = None
                     self._by_pages.add(key)
-        # the pages of a leaf split by pages that this rank parks
-        self._pages_local = (self.n_pages + 1) // par.dp if self._by_pages else 0
+                    if dims[1] == dims[0]:  # the pages over the mesh
+                        self._pool_dims[key] = None
+                        self._page_group, self._page_rank = par.mesh_group, par.rank
+                        owners = par.dp * par.sp
+        self._pages_local = (self.n_pages + 1) // owners if self._by_pages else 0
         # the in-page offset of this rank's first pool entry: its share of
         # the page when the pool splits the in-page positions over model
         split = any(d is not None for k, d in self._pool_dims.items() if k.endswith("pkpos"))
@@ -827,18 +850,24 @@ class PagedServeEngine(DL.ServeEngine):
         if self.n_host_chunks:
             PL.host_offload(self.device).settle()
 
+    def _host_kv_stats(self, stats, cache, mark) -> None:
+        super()._host_kv_stats(stats, cache, mark)
+        if self.pool_on_device:  # asked to park, kept on the device: nothing parked
+            stats.update(host_kv_bytes=0, host_kv_slabs=0, host_kv_pages=0,
+                         pool_on_device=True)
+
     def _local_page(self, key: str, pid: int) -> Optional[int]:
         """Physical page ``pid``'s index in this rank's pool leaf ``key``
-        (None: another data rank parks it)."""
+        (None: another rank parks it)."""
         if key not in self._by_pages:
             return pid
         owner, i = divmod(pid, self._pages_local)
-        return i if owner == self.par.dp_rank else None
+        return i if owner == self._page_rank else None
 
     def _read_page(self, pid: int) -> Rows:
         """One physical page's rows on the host (demotion, save, and the
-        COW read of a pool split by pages): a leaf split by pages over data
-        gathers the page from the rank that parks it (one call a leaf)."""
+        COW read of a pool split by pages): a leaf split by pages gathers
+        the page from the rank that parks it (one call a leaf)."""
         self._settle()
         if not self._by_pages:
             return SV.page_rows(self._pool, int(pid))
@@ -849,7 +878,7 @@ class PagedServeEngine(DL.ServeEngine):
                 continue
             mine = self._local_page(key, int(pid))
             page = SV.page_of(leaf, stacked, 0 if mine is None else mine)
-            parts = PAR.gather_rows(page[None].to(self.device), self.par.dp_group,
+            parts = PAR.gather_rows(page[None].to(self.device), self._page_group,
                                     "gather_pages")
             rows[key] = parts[int(pid) // self._pages_local].to("cpu", copy=True)
         return rows
@@ -953,7 +982,7 @@ class PagedServeEngine(DL.ServeEngine):
         for sid in plan.free_spill:  # the copies are made: the slots are free
             self.kv.spill.free(sid)
         for src, dst in plan.cow:
-            if self._by_pages:  # the source may be another data rank's: read it over data
+            if self._by_pages:  # the source may be another rank's: read it from there
                 promote_page(cache, dst, self._read_page(src), plan.resume % self.page_size,
                              self._page_base, local)
             else:

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import warnings
 import weakref
 from typing import Callable, Dict, Iterable, Iterator, Optional, TypeVar
 
@@ -105,6 +106,15 @@ def double_buffered(items: Iterable[T], fetch: Callable[[T], U]) -> Iterator[U]:
 
 
 _offload_off = threading.local()
+_WARNED: set = set()
+
+
+def warn_once(msg: str) -> None:
+    """A ``RuntimeWarning`` of ``msg``, the first time this process gives it
+    (the JAX package's placement layer logs such a message once)."""
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
 @contextlib.contextmanager

@@ -28,7 +28,7 @@ SRC = ROOT / "src"
 JOIN_TIMEOUT = 240  # seconds a spawn may take, its ranks' start included
 # the serve mesh's collectives (core/parallel.py), which no training task calls
 SERVE_COLLECTIVES = ("gather_heads", "gather_channels", "gather_state", "gather_rows",
-                     "gather_harvest", "gather_pages", "gather_parked")
+                     "gather_harvest", "gather_pages", "gather_parked", "gather_written")
 
 
 def _env(**extra) -> dict:
@@ -1168,9 +1168,28 @@ SERVE_CELLS = (
     # copy reads its source page from the rank that parks it
     ("paged-host-pages", "llama3.2-1b", {}, "paged",
      {"page_size": 1, "n_pages": 47, "n_host_chunks": 2}, "twice"),
+    # one kv head and a one-entry page: nothing splits over model, so the
+    # 48 pages split over all 4 ranks; a COW copy reads its source page from
+    # the rank that parks it
+    ("paged-host-mesh-pages", "llama3.2-1b", {"num_kv_heads": 1}, "paged",
+     {"page_size": 1, "n_pages": 47, "n_host_chunks": 2}, "twice"),
+    # no pool dim (3 in-page positions, one kv head, 23 pages) divides the 4
+    # ranks: the pool stays on the device, as JAX keeps it
+    ("paged-host-device", "llama3.2-1b", {"num_kv_heads": 1}, "paged",
+     {"page_size": 3, "n_pages": 22, "n_host_chunks": 2, "prefill_chunk": 6}, "once"),
+    # 18 positions (3 slabs of 6) do not divide the 4 ranks: every rank
+    # parks the whole leaf, its rows over data and its positions (one kv
+    # head) or kv heads over model, and takes every row's new keys
+    ("dense-host-whole", "llama3.2-1b", {"num_kv_heads": 1}, "dense",
+     {"n_host_chunks": 3, "max_new_tokens": 2}, "once"),
+    ("dense-host-whole-heads", "llama3.2-1b", {}, "dense",
+     {"n_host_chunks": 3, "max_new_tokens": 2}, "once"),
 )
+# the direct steps' cache length a dense cell's rows hold (else
+# SERVE_STEP_TOKENS + 4): 18, which the 4 ranks do not divide
+SERVE_STEP_LEN = {"dense-host-whole": 18, "dense-host-whole-heads": 18}
 # the cells whose prefix store crosses meshes
-SERVE_STORES = ("paged-heads", "paged-inpage", "paged-host-pages")
+SERVE_STORES = ("paged-heads", "paged-inpage", "paged-host-pages", "paged-host-mesh-pages")
 SERVE_KW = {"slots": 2, "bucket": 16, "max_new_tokens": 4, "prefill_chunk": 8, "segment": 2}
 SERVE_STEP_TOKENS = 8  # the direct steps' prefill chunk a row
 SERVE_TEMPERATURE = 0.8
@@ -1365,15 +1384,20 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
             cell["logits"] = {"mesh": [logits, restored],
                               "one": [logged(lambda: serve(engine(None)))[1],
                                       logged(lambda: one.generate(prompts))[1]]}
-        # the direct steps, this rank's rows against JAX's at 1e-5
+        # the direct steps, this rank's rows against JAX's at 1e-5 (a pool
+        # that stays on the device streams nothing, as in the engine)
         ps, nh = ekw.get("page_size", 0), ekw.get("n_host_chunks", 0)
+        if ps and SV.pool_share_dim(2, 2, ps, cfg.num_kv_heads, serve_step_pages(ps) + 1) == (
+                SV.POOL_ON_DEVICE):
+            nh = 0
         sh = SV.Shard(par, 2, ps)
         toks, table = serve_step_inputs(cfg.vocab_size, ps or SERVE_STEP_TOKENS)
         r0, r1 = sh.r0, sh.r1
         tab = torch.from_numpy(table) if ps else None
         cache = (SV.init_paged_cache(cfg, 2, serve_step_pages(ps), ps, "cpu", par=par,
                                      host=bool(nh)) if ps else
-                 SV.init_cache(cfg, 2, SERVE_STEP_TOKENS + 4, "cpu", par=par))
+                 SV.init_cache(cfg, 2, SERVE_STEP_LEN.get(label, SERVE_STEP_TOKENS + 4), "cpu",
+                               par=par, n_host_chunks=nh))
         live = torch.full((r1 - r0,), SERVE_STEP_TOKENS)
         lg, cache = SV.chunk_step(cfg, par, params, cache, torch.from_numpy(toks[r0:r1]),
                                   torch.zeros(r1 - r0, dtype=torch.long), live, n_host_chunks=nh,

@@ -803,7 +803,7 @@ def test_cli_paged_refusals(capsys, argv, code, msg):
 
 
 @pytest.mark.parametrize("page_size, hkv, n_pages, dim", [
-    (2, 1, 4, None),  # no dim divides the 4 ranks: refused
+    (2, 1, 4, None),  # no dim divides the 4 ranks: kept on the device
     (2, 1, 7, 0),  # the model slice's one entry and one head: its 8 pages over data
     (4, 1, 4, 1),  # 4 entries, 2 a model rank: 1 a data rank
     (2, 4, 4, 2),  # 4 heads, 2 a model rank: 1 a data rank
@@ -812,11 +812,13 @@ def test_parked_pool_share_on_a_mesh(page_size, hkv, n_pages, dim):
     """On a 2 x 2 mesh a rank parks its data share of its model slice of the
     pool along the in-page positions, else the kv heads, else the pages (the
     JAX ``_offload_pool``'s order; ``pool_share_dim``); a pool none of whose
-    dims divides the mesh's 4 ranks (which the JAX package keeps on the
-    device) is refused at the engine's construction, naming the dims."""
+    dims divides the mesh's 4 ranks stays on the device at its model slice,
+    as the JAX package keeps it, with one warning naming the dims, and
+    parks nothing."""
     from repro_torch.core.parallel import ParallelContext
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as T
+    from repro_torch.runtime import placement as PL
 
     cfg = dataclasses.replace(reduced(get_config("llama3.2-1b")), param_dtype="float32",
                               num_kv_heads=hkv)
@@ -824,16 +826,24 @@ def test_parked_pool_share_on_a_mesh(page_size, hkv, n_pages, dim):
     par = ParallelContext(Mesh(2, 2, 0, "gloo", None, None))
     kw = dict(slots=2, bucket=4, max_new_tokens=2, page_size=page_size, n_pages=n_pages,
               prefill_chunk=2, n_host_chunks=2, par=par)
-    if dim is None:
-        with pytest.raises(ValueError, match="splits over no dim") as e:
-            PG.PagedServeEngine(cfg, params, **kw)
-        assert "page_size" in str(e.value) and "kv_heads" in str(e.value)
-        return
-    pool = PG.PagedServeEngine(cfg, params, **kw)._pool
     whole = (n_pages + 1, page_size, hkv, cfg.head_dim)
     model = 2 if hkv % 2 == 0 else 1  # kv heads over model, else in-page positions
     want = list(whole)
     want[model] //= 2
-    want[dim] //= 2
-    assert tuple(pool["pos0"]["pk"].shape[1:]) == tuple(want)
-    assert SV.pool_share_dim(2, 2, page_size, hkv, n_pages + 1) == dim
+    if dim is None:
+        PL._WARNED.clear()
+        with pytest.warns(RuntimeWarning, match="the pool stays in device memory") as rec:
+            eng = PG.PagedServeEngine(cfg, params, **kw)
+            PG.PagedServeEngine(cfg, params, **kw)  # once a process
+        assert len(rec) == 1 and "page_size=2" in str(rec[0].message)
+        assert "kv_heads=1" in str(rec[0].message) and "pages+1=5" in str(rec[0].message)
+        assert eng.pool_on_device and eng.n_host_chunks == 0 and eng.slab_chunks == 2
+        meta = SV.init_paged_cache(cfg, 2, n_pages, page_size, "meta")
+        assert SV.rank_cache_bytes(cfg, 2, 2, meta, 2)[1] == 0
+    else:
+        want[dim] //= 2
+        eng = PG.PagedServeEngine(cfg, params, **kw)
+        assert not eng.pool_on_device
+    assert tuple(eng._pool["pos0"]["pk"].shape[1:]) == tuple(want)
+    assert SV.pool_share_dim(2, 2, page_size, hkv, n_pages + 1) == (
+        SV.POOL_ON_DEVICE if dim is None else dim)

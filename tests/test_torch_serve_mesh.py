@@ -18,11 +18,17 @@ model; the two slots over data) from the same weights, then 2 replicas of
   host, held to JAX's page-by-page pass (``n_host_chunks=2`` with no
   ``ParallelContext``); dense host KV split by position, held to JAX's
   host-chunked engine likewise, with its rows over data and with one slot,
-  whole over data, whose slabs' shares are parked), the step logits within
-  1e-5, and a temperature's samples equal the one-rank port engine's;
-* a rank's pinned bytes of the parked pool and of the one-slot dense host
-  KV equal JAX's per-device host bytes (its parked tier sharded over every
-  mesh axis), a data share of what a rank parked before;
+  whole over data, whose slabs' shares are parked; the pool split by pages
+  over the whole mesh; a pool none of whose dims divides the 4 ranks, kept
+  on the device; dense host KV whose 18 positions the 4 ranks do not
+  divide, parked whole on every rank), the step logits within 1e-5, and a
+  temperature's samples equal the one-rank port engine's;
+* in every host cell a rank's pinned bytes equal JAX's per-device host
+  bytes, from JAX's own ``_offload_pool`` (driven on a stub engine) and
+  decode ``host_spec`` (compiled from its source): a share of the tier
+  sharded over every mesh axis, the whole dense leaf, or none for a pool
+  kept on the device; and the port's placement rules choose JAX's dim,
+  ``POOL_ON_DEVICE`` or ``WHOLE`` over a grid of meshes and shapes;
 * each rank's cache leaves have the shapes and bytes of the port's
   ``cache_shardings`` plan, and that plan equals JAX's ``cache_shardings``
   specs (called with a stub context, as tests/test_torch_shardings.py
@@ -39,12 +45,14 @@ model; the two slots over data) from the same weights, then 2 replicas of
   the CLI's mesh checks exit as the JAX CLI's; the CLI runs ``--mesh 1x2
   --replicas 2 --fault-plan`` on the CPU to the tokens of ``--mesh 1x1``.
 """
+import ast
 import contextlib
 import io
 import json
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -52,9 +60,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import (FAULT_KW, SERVE_CELLS, SERVE_COLLECTIVES, SERVE_KW, SERVE_STEP_TOKENS,
-                         SERVE_STORES, STORE_SPILL, _env, fault_workload, run_ranks, serve_cfg,
-                         serve_prompts, serve_step_inputs, serve_step_pages)
+from _torch_dist import (FAULT_KW, SERVE_CELLS, SERVE_COLLECTIVES, SERVE_KW, SERVE_STEP_LEN,
+                         SERVE_STEP_TOKENS, SERVE_STORES, STORE_SPILL, _env, fault_workload,
+                         run_ranks, serve_cfg, serve_prompts, serve_step_inputs, serve_step_pages)
 from repro import configs as jconfigs
 from repro.launch import serve as JCLI
 from repro.models import serve as JSV
@@ -85,13 +93,14 @@ def _jax_engine(jc, params, kind, ekw):
             else JDL.ServeEngine(jc, params, **kw))
 
 
-def _jax_steps(jc, params, ps, nh=0):
+def _jax_steps(jc, params, ps, nh=0, S=SERVE_STEP_TOKENS + 4):
     """JAX's direct steps on one device: a chunk from offset 0, then a
-    decode of its argmax (``nh``: host-streamed, as ``_jax_engine``)."""
+    decode of its argmax (``nh``: host-streamed, as ``_jax_engine``; a
+    dense cache of ``S`` positions)."""
     toks, table = serve_step_inputs(jc.vocab_size, ps or SERVE_STEP_TOKENS)
     tab = jnp.asarray(table, jnp.int32) if ps else None
     cache = (JSV.init_paged_cache(jc, 2, serve_step_pages(ps), ps) if ps else
-             JSV.init_cache(jc, 2, SERVE_STEP_TOKENS + 4))
+             JSV.init_cache(jc, 2, S))
     lg, cache = JSV.chunk_step(jc, None, params, cache, jnp.asarray(toks, jnp.int32),
                                jnp.zeros(2, jnp.int32), jnp.full(2, SERVE_STEP_TOKENS, jnp.int32),
                                n_host_chunks=nh, table=tab)
@@ -122,7 +131,8 @@ def readings(tmp_path_factory):
         params = JT.init_params(jc, jax.random.PRNGKey(0))
         ref.update({f"{label}/p{i}": np.asarray(x)
                     for i, x in enumerate(jax.tree.leaves(params))})
-        lg, lg2 = _jax_steps(jc, params, ekw.get("page_size", 0), ekw.get("n_host_chunks", 0))
+        lg, lg2 = _jax_steps(jc, params, ekw.get("page_size", 0), ekw.get("n_host_chunks", 0),
+                             SERVE_STEP_LEN.get(label, SERVE_STEP_TOKENS + 4))
         want[label] = {"chunk": lg.tolist(), "decode": lg2.tolist()}
         if workload == "sampled":
             continue
@@ -200,7 +210,12 @@ def test_cache_bytes_are_the_plan(readings, cell):
         want[key] = [list(shape), int(np.prod(shape)) * leaf.element_size()]
     for got in ranks:
         assert got[cell]["cache"] == want
-    assert any(m is not None for _, m in plans.values()), "no leaf splits over model"
+    # a leaf splits over model where it is parked or where the rank computes
+    # on it (a pool none of whose dims divides the model ranks, kept on the
+    # device, is whole on every rank)
+    split = any(m is not None for _, (_, m) in _dims(SV.cache_shardings(cfg, DP, SP, meta)))
+    split = split or any(m is not None for _, m in plans.values())
+    assert split == (cell != "paged-host-device"), "a leaf splits over model: " + str(split)
 
 
 def _dims(tree, path=()):
@@ -255,7 +270,9 @@ def _reckon(cfg, cell, got):
     """The serve collectives of a cell's runs on 2 x 2, from the steps
     taken: a rank steps one of the two slots (or the one slot, whole over
     data).  An attention layer gathers its heads or its positions' states
-    (and, with the rows split, a pool layer its writes); a recurrent layer
+    (neither where its pool splits over neither), with the rows split a
+    pool layer its writes, and a dense leaf every rank parks whole every
+    rank's new keys (``gather_written``); a recurrent layer
     gathers its channels twice (before the projections that read every
     channel and before ``w_out``).  A parked tier's shares are gathered
     over data once a live slab (the engine's ``host_kv_slabs``) or a pool
@@ -266,9 +283,12 @@ def _reckon(cfg, cell, got):
     L = sum(k in ("attn", "local_attn") for k in kinds)
     rec = sum(k in ("ssm", "rglru") for k in kinds)
     pool = sum(k == "attn" for k in kinds)
-    b, cp, dh = 1, SERVE_KW["prefill_chunk"], cfg.head_dim
+    b, cp, dh = 1, ekw.get("prefill_chunk", SERVE_KW["prefill_chunk"]), cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     heads = hkv % SP == 0
+    # else the positions split over model, but for a pool whose in-page
+    # positions the model ranks do not divide: every rank attends over it
+    seq = not heads and (kind == "dense" or ekw["page_size"] % SP == 0)
     hl = hkv // SP if heads else hkv  # a rank's kv heads
     split = _slots(ekw) % DP == 0  # the rows over data
     n = {"chunk": got["steps"]["chunk"], "decode": got["steps"]["decode"]}
@@ -282,7 +302,7 @@ def _reckon(cfg, cell, got):
         k = n[step]
         if heads:
             add("gather_heads", L * k, L * k * b * w * (hq // SP) * dh * 4)
-        else:
+        elif seq:
             add("gather_state", L * k, L * k * b * hq * w * (dh + 2) * 4)
         add("gather_channels", 2 * rec * k, 2 * rec * k * b * w * (cfg.d_inner // SP) * 4)
         if kind == "paged" and split:  # the pool's writes of every row
@@ -291,19 +311,28 @@ def _reckon(cfg, cell, got):
             add("gather_rows", L * k, L * k * b * w * cfg.d_model * 4)
         if workload == "sampled" and split:  # the batch's logits, for one generator
             add("gather_rows", k, k * b * cfg.vocab_size * 4)
-    if kind == "paged" and ekw.get("n_host_chunks"):  # every slot's page shares, k and v
-        ps = ekw["page_size"] // (1 if heads else SP)  # the model slice's in-page entries
+    nh = ekw.get("n_host_chunks", 0)
+    parks = nh and (kind == "dense" or _jax_pool_spec(DP * SP, ekw["page_size"], hkv,
+                                                       ekw["n_pages"] + 1) is not None)
+    if kind == "paged" and parks:  # every slot's page shares, k and v
+        ps = ekw["page_size"] // (SP if seq else 1)  # the model slice's in-page entries
         pages = ps % DP and hl % DP  # the pool split by pages: every page whole
         share = ps * hl // (1 if pages else DP)  # in-page positions (or kv heads) over data
         add("gather_parked", pool * sum(n.values()),
             2 * _slots(ekw) * share * dh * 4 * got["parked_pages"])
         if pages:  # a COW copy reads its source page over data, k and v
             add("gather_pages", 2 * got["cows"], 2 * got["cows"] * pool * share * dh * 4)
-    if kind == "dense" and not split and ekw.get("n_host_chunks"):  # a live slab's shares
-        S = got["capacity"]
-        q = S // (1 if heads else SP) // ekw["n_host_chunks"] // DP  # a slab's share
+    S = got.get("capacity", 0)
+    whole = kind == "dense" and parks and S % (DP * SP)  # every rank parks the whole leaf
+    if kind == "dense" and parks and not whole and not split:  # a live slab's shares
+        part = min(S // nh, S // (1 if heads else SP))  # a slab's part on a model rank
+        q = -(-part // DP)  # a data rank's positions of it (the longest)
         slabs = got["stats"]["host_kv_slabs"]
         add("gather_parked", slabs, slabs * 2 * b * q * hl * dh * 4)
+    if whole and (split or heads):  # every rank's new keys, a layer and step
+        for step, w in (("chunk", cp), ("decode", 1)):
+            k = n[step]
+            add("gather_written", pool * k, pool * k * b * w * (2 * hl * dh * 4 + 4))
     if split:  # a harvest a segment, every row's state and outputs
         d = got["dispatches"]
         add("gather_harvest", d, d * b * (5 + 2 * SERVE_KW["segment"]) * 4)
@@ -311,51 +340,160 @@ def _reckon(cfg, cell, got):
 
 
 HOST = [c[0] for c in SERVE_CELLS if c[4].get("n_host_chunks")]
+MESH_AXES = ("data", "model")
+
+
+def _jax_pool_spec(n: int, page_size: int, hkv: int, n_phys: int):
+    """The spec (without the layer dim) that JAX's own
+    ``PagedServeEngine._offload_pool`` (src/repro/runtime/paged.py:914)
+    hands ``to_host`` for a pool leaf on a mesh of ``n`` ranks, driven on a
+    stub engine; None where it keeps the pool on the device."""
+    par = types.SimpleNamespace(mesh=types.SimpleNamespace(size=n, axis_names=MESH_AXES),
+                                to_host=lambda leaf, *spec: spec)
+    eng = types.SimpleNamespace(par=par, n_host_chunks=2, page_size=page_size,
+                                n_pages=n_phys - 1,
+                                cfg=types.SimpleNamespace(num_kv_heads=hkv))
+    leaf = object()
+    got = JPG.PagedServeEngine._offload_pool(eng, {"pos0": {"pk": leaf}})["pos0"]["pk"]
+    return None if got is leaf else got[1:]
+
+
+def _jax_host_spec_fn():
+    """JAX's ``host_spec`` (src/repro/launch/steps.py:103-113, nested in
+    ``build``), compiled from its source with a stub mesh and placement
+    policy whose ``ns`` returns the spec it is given."""
+    src = (Path(JSV.__file__).parents[1] / "launch" / "steps.py").read_text()
+    build = next(n for n in ast.parse(src).body
+                 if isinstance(n, ast.FunctionDef) and n.name == "build")
+    fn = next(n for n in ast.walk(build) if isinstance(n, ast.FunctionDef)
+              and n.name == "host_spec")
+
+    def compiled(n: int):
+        ns = {"par": types.SimpleNamespace(mesh=None, pol=types.SimpleNamespace(
+            ns=lambda mesh, *spec, on_host: spec)), "all_axes": MESH_AXES, "ndev": n,
+            "on_host": True}
+        exec(compile(ast.Module(body=[fn], type_ignores=[]), "steps.py", "exec"), ns)
+        return ns["host_spec"]
+
+    return compiled
+
+
+JAX_HOST_SPEC = _jax_host_spec_fn()
+
+
+def _jax_dense_spec(n: int, shape):
+    """JAX's ``host_spec`` of a stacked dense K/V leaf ``shape`` [C, b, S,
+    hkv, dh] on a mesh of ``n`` ranks, without the layer dim."""
+    path = (types.SimpleNamespace(key="pos0"), types.SimpleNamespace(key="k"))
+    leaf = types.SimpleNamespace(shape=tuple(shape), ndim=len(shape))
+    return JAX_HOST_SPEC(n)(path, leaf)[1:]
 
 
 def _jax_host_bytes(jc, kind, ekw, S):
-    """(a device's bytes of the parked tier, whether the tier is sharded)
-    under the JAX package's host layout on a DP x SP mesh: the pool's pk and
-    pv over every axis where one of their dims divides the mesh
-    (``src/repro/runtime/paged.py:914 _offload_pool``), a dense slab over
-    every axis where it divides (``src/repro/models/serve.py:302-314``),
-    else whole."""
+    """A device's bytes of the parked tier under the JAX package's own
+    placement on a DP x SP mesh: the pool's pk and pv as
+    ``_offload_pool`` hands them to ``to_host`` (none where it keeps the
+    pool on the device), the dense k and v as the decode program's
+    ``host_spec`` places them (src/repro/launch/steps.py:93-113: S over
+    every axis where the mesh divides it, else the whole leaf)."""
     n = DP * SP
     if kind == "paged":
         cache = jax.eval_shape(lambda: JSV.init_paged_cache(jc, _slots(ekw), ekw["n_pages"],
                                                             ekw["page_size"]))
         names = ("pk", "pv")
-        sharded = any(x % n == 0 for x in (ekw["page_size"], jc.num_kv_heads,
-                                          ekw["n_pages"] + 1))
+        spec = _jax_pool_spec(n, ekw["page_size"], jc.num_kv_heads, ekw["n_pages"] + 1)
     else:
         cache = jax.eval_shape(lambda: JSV.init_cache(jc, _slots(ekw), S))
         names = ("k", "v")  # every block of the reduced llama is full attention
-        sharded = (S // ekw["n_host_chunks"]) % n == 0
+        spec = _jax_dense_spec(n, cache["pos0"]["k"].shape)
     leaves = [x for path, x in jax.tree_util.tree_flatten_with_path(cache)[0]
               if str(getattr(path[-1], "key", "")) in names]
     total = sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in leaves)
-    return (total // n if sharded else total), sharded
+    if spec is None:
+        return 0
+    return total // n if MESH_AXES in spec else total
 
 
 @pytest.mark.parametrize("cell", HOST)
 def test_pinned_bytes_are_jax_host_bytes(readings, cell):
     """A rank's pinned bytes of the parked pool and of dense host KV are its
-    share under ``host_shardings``, and, where JAX shards the parked tier
-    over every axis, JAX's per-device host bytes: the pool's 1/(DP SP) (a
-    rank parks its data share of its model slice) and, with the rows whole
-    over data (one slot), a slab's.  Where JAX parks a slab whole (it does
-    not divide the mesh) a rank parks its shard, rows over data."""
+    share under ``host_shardings`` and JAX's per-device host bytes in
+    every host cell: the pool's 1/(DP SP) (a rank parks its data share of
+    its model slice), none where JAX keeps the pool on the device (then
+    the rank's pool bytes are its device bytes), a dense leaf's 1/(DP SP)
+    where DP SP divides its positions and the whole leaf where it does
+    not."""
     ranks, _, _, _ = readings
     _, arch, over, kind, ekw, _ = CELLS[cell]
     cfg, jc = serve_cfg(configs, arch, over), serve_cfg(jconfigs, arch, over)
     S = ranks[0][cell].get("capacity")
-    jax_bytes, sharded = _jax_host_bytes(jc, kind, ekw, S)
-    plan = SV.rank_cache_bytes(cfg, DP, SP, _meta(cfg, kind, ekw, S), ekw["n_host_chunks"])[1]
+    jax_bytes = _jax_host_bytes(jc, kind, ekw, S)
+    device, plan = SV.rank_cache_bytes(cfg, DP, SP, _meta(cfg, kind, ekw, S), ekw["n_host_chunks"])
     for got in ranks:
         pinned = got[cell]["stats"]["host_kv_bytes"]
-        assert pinned == plan
-        assert pinned == jax_bytes if sharded else pinned < jax_bytes
-    assert sharded or cell == "dense-host"
+        assert pinned == plan == jax_bytes
+        assert sum(nb for _, nb in got[cell]["cache"].values()) == device + plan
+    if cell == "paged-host-device":
+        assert plan == 0 and all(got[cell]["stats"]["pool_on_device"] for got in ranks)
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1), (2, 2), (1, 4), (4, 1), (3, 1), (2, 3)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_pool_rule_is_jax_offload_pool(mesh):
+    """Over page sizes, kv-head counts and page counts: the dim the port's
+    ``pool_host_dim`` parks a pool over every axis along (or
+    ``POOL_ON_DEVICE``) is the one JAX's ``_offload_pool`` shards, and a
+    rank's ``pool_share_dim`` (a data share of its model slice, or of the
+    pages where its model slice is the whole pool) and pinned bytes
+    (``rank_cache_bytes``) follow it."""
+    dp, sp = mesh
+    n = dp * sp
+    for ps in (1, 2, 3, 4, 6):
+        for hkv in (1, 2, 3, 4):
+            cfg = serve_cfg(configs, "llama3.2-1b", {"num_kv_heads": hkv})
+            for n_phys in (5, 6, 8, 9, 12):
+                spec = _jax_pool_spec(n, ps, hkv, n_phys)
+                want = SV.POOL_ON_DEVICE if spec is None else spec.index(MESH_AXES)
+                assert SV.pool_host_dim(n, ps, hkv, n_phys) == want, (ps, hkv, n_phys)
+                share = SV.pool_share_dim(dp, sp, ps, hkv, n_phys)
+                slice_whole = sp > 1 and hkv % sp and ps % sp  # nothing splits over model
+                assert share == (want if dp > 1 or want == SV.POOL_ON_DEVICE or slice_whole
+                                 else None)
+                meta = SV.init_paged_cache(cfg, 2, n_phys - 1, ps, "meta")
+                whole = sum(x.numel() * x.element_size() for p, x in tree_leaves_with_path(meta)
+                            if p[-1] in ("pk", "pv"))
+                device, host = SV.rank_cache_bytes(cfg, dp, sp, meta, 2)
+                assert host == (0 if spec is None else whole // n)
+                if spec is None:  # the pool's device bytes: its cache_shardings slice
+                    assert device == SV.rank_cache_bytes(cfg, dp, sp, meta)[0]
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1), (2, 2), (1, 4), (4, 1), (3, 1), (2, 3)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_dense_rule_is_jax_host_spec(mesh):
+    """Over cache lengths, slab counts, row counts and kv-head counts: the
+    port's ``dense_host_dim`` is JAX's ``host_spec`` (positions over every
+    axis, or ``WHOLE``), and a rank's pinned bytes (``rank_cache_bytes``)
+    are JAX's per-device bytes wherever an engine holds such a cache (its
+    length whole slabs, as the JAX engine and the port's round it)."""
+    dp, sp = mesh
+    n = dp * sp
+    for S in range(6, 49, 3):
+        spec = _jax_dense_spec(n, (2, 2, S, 2, 16))
+        want = 1 if MESH_AXES in spec else SV.WHOLE
+        assert spec in ((None, MESH_AXES, None, None), ())
+        assert SV.dense_host_dim(dp, sp, S) == want, S
+        for nh in (1, 2, 3):
+            if S % nh:
+                continue
+            for b in (1, 2, 3):
+                for hkv in (1, 2):
+                    cfg = serve_cfg(configs, "llama3.2-1b", {"num_kv_heads": hkv})
+                    meta = SV.init_cache(cfg, b, S, "meta")
+                    leaf = meta["pos0"]["k"]
+                    whole = 2 * cfg.num_layers * leaf[0].numel() * leaf.element_size()
+                    host = SV.rank_cache_bytes(cfg, dp, sp, meta, nh)[1]
+                    assert host == (whole // n if want == 1 else whole), (S, nh, b, hkv)
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
