@@ -217,7 +217,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (u = 4 vs u = 1 at all 8 layers), its losses held to
                 EARLIER_LOSSES (taken at 8 layers with commit b137e8f's
                 training code, whose 32-layer losses met 0fd5e81's);
-  6d. falcon  — falcon-mamba-7b at full width and 8 of its 64 layers, the
+  6d. falcon  — falcon-mamba-7b at full width and 4 of its 64 layers, the
                 selective scan on linear_scan in 256-token blocks: remat
                 offload == remat full bit for bit, then 3 steps through
                 train_steps (remat full, no attention so no FPDT offload) with
@@ -229,7 +229,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 8192 tokens, mlp_chunks 8, bf16): forward and backward under
                 torch.cuda.set_sync_debug_mode("error") (no host read of a
                 device value), a second run the same bits, its device time;
-  6f. granite — granite-moe-1b-a400m at full width and 12 of its 24 layers
+  6f. granite — granite-moe-1b-a400m at full width and 6 of its 24 layers
                 (32 experts, top-8): as 6b, with two runs of the first step and
                 remat offload == remat full bit for bit, the steps' aux
                 printed, MFU over the active parameters, and in the u = 4
@@ -245,6 +245,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 gradients printed in the u = 4 vs u = 1 comparison, held
                 with every other leaf), their losses held to
                 EARLIER_LOSSES;
+  6x. examples — B1-B3 at quickstart's head layout (b2 hq10 hkv5 d64,
+                128 x 128, causal) in fp32 and bf16 against their plain
+                versions; then each example of src/repro_torch/examples
+                through its main at its JAX script's defaults, the launch
+                counts reset before each and read after: quickstart (the
+                ~100M-param model, 100 steps at b2 s128: finite losses that
+                fall, checkpoints at 50 and 100; its launches a step),
+                convergence_fpdt (40 steps, the Fig. 14 curves within 5e-3),
+                fault_tolerance_demo (preempted after step 12, resumed to 30
+                on the same bits, the straggler alert), serve_batched (the
+                fused default, --paged --shared-prefix 128 --page-size 16
+                and --arch falcon-mamba-7b --requests 4: every request
+                served) and long_context_fpdt --mesh 1x2 on two gloo ranks
+                (FPDT == Ulysses at 1e-4 and 1e-3; each rank's main run as
+                a rank of a spawned world, its launch counts read in the
+                rank); each example's seconds; quickstart's step profiled
+                (as 6b's);
   6g. long    — gpt-2.7b at full depth, b1, FPDT chunk 4096 (u = s / 4096,
                 mlp_chunks 2u) at s = 16384 and 32768 under A (FPDT offload
                 off, remat full), B (offload on, remat full) and C (offload
@@ -338,7 +355,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                 (launches_by_path: the six serve paths, the five engine and
                 host-KV paths, the paged and SLO paths, eight trainings,
                 the CLI's compressed training and the distributed
-                trainings, per rank), the new head layouts' errors;
+                trainings, per rank, the examples, the long-context
+                example's per rank),
+                the new head layouts' and quickstart's layout's errors;
   9. last line: {"ok": true, "device": {...}}.
 
 It imports only the port (``src/repro_torch``), torch and the standard
@@ -1959,10 +1978,10 @@ def phase_train_gpt(torch, M, card):
 GRANITE = "granite-moe-1b-a400m"
 
 
-# granite's training depth: 12 of its 24 layers (served at 24 in phase 5).
-# Cut from 24 to make room for the serve engines' phases (5b); every check
-# of the phase runs at this depth.
-GRANITE_TRAIN_LAYERS = 12
+# granite's training depth: 6 of its 24 layers (served at 24 in phase 5).
+# Cut from 24 to 12 to make room for the serve engines' phases (5b), and to
+# 6 for the examples phase; every check of the phase runs at this depth.
+GRANITE_TRAIN_LAYERS = 6
 
 
 def phase_train_granite(torch, M, card):
@@ -2074,15 +2093,18 @@ def phase_moe_layer(torch, M, card):
 
 
 # of 64: 1.375 B parameters (16 layers, 2.218 B, ran until the serve
-# engines' phases needed the room; every check runs at this depth)
+# engines' phases needed the room; every check runs at this depth); the
+# training phase runs 4 since the examples phase (every check at that depth)
 FALCON_LAYERS = 8
+FALCON_TRAIN_LAYERS = 4
 
 
 def phase_train_falcon(torch, M, card):
-    """falcon-mamba-7b at full width, FALCON_LAYERS of its 64 layers (64 need
-    ~87 GB of state): remat offload == remat full bit for bit at this depth,
-    then the training run (no attention: no FPDT offload, profiled once)."""
-    cfg = dataclasses.replace(_train_cfg(M, "falcon-mamba-7b", num_layers=FALCON_LAYERS),
+    """falcon-mamba-7b at full width, FALCON_TRAIN_LAYERS of its 64 layers (64
+    need ~87 GB of state): remat offload == remat full bit for bit at this
+    depth, then the training run (no attention: no FPDT offload, profiled
+    once)."""
+    cfg = dataclasses.replace(_train_cfg(M, "falcon-mamba-7b", num_layers=FALCON_TRAIN_LAYERS),
                               fpdt_offload=False)
     return _train_run(torch, M, cfg, card, profile_offload=(False,),
                       same_bits=[("remat offload", {"remat": "offload"})])
@@ -2247,6 +2269,224 @@ def phase_long_context(torch, M, card):
                                 "pinned_held_bytes": r["held"], "loss": r["loss"]}
                  for (k, seq), r in runs.items()},
         "fit": fit, "card_bytes": card_bytes, "host_bytes": host_bytes, "card": card}))
+
+
+# ---------------------------------------------------------------------------
+# the examples (src/repro_torch/examples/), each through its main
+# ---------------------------------------------------------------------------
+
+# quickstart_config's attention at its default batch: b, hq, hkv, tokens
+# (u = 1: 128 queries against 128 keys), head_dim
+QUICKSTART_LAYOUT = (2, 10, 5, 128, 64)
+QUICKSTART_STEPS = 100
+# each example's flags: the JAX scripts' defaults (convergence at 40 steps,
+# quickstart at 100 steps of b2 s128, the whole fault-tolerance demo); the
+# long-context demo on two gloo ranks sharing the card.  The kernels each
+# must launch: B1-B3 in the three trainings and on every long-context rank;
+# in serve_batched B4 for
+# falcon-mamba-7b's scans, none for the fused and paged engines, which
+# attend in plain PyTorch (the JAX package's chunk and paged attention are
+# jnp, no Pallas kernel; phases 5b and 5c read 0 there too)
+ATTENTION_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+EXAMPLE_SERVE = (("fused", [], ()),
+                 ("paged", ["--paged", "--shared-prefix", "128", "--page-size", "16"], ()),
+                 ("falcon-mamba-7b", ["--arch", "falcon-mamba-7b", "--requests", "4"],
+                  ("linear_scan",)))
+EXAMPLE_LONG = ["--mesh", "1x2", "--dist-backend", "gloo"]
+EXAMPLES_S = 60.0  # the phase's aim; printed beside its seconds, not a check
+
+
+def _quickstart_layout(torch, K, R, SoftmaxState, finalize, lse):
+    """B1-B3 at quickstart's head layout (QUICKSTART_LAYOUT, a kv group of
+    2 at 10 q heads, causal), fp32 and bf16: flash_fwd against
+    ref.attend_chunk at TOL, flash_bwd_dq and flash_bwd_dkv against
+    ref.chunk_bwd_dq / chunk_bwd_dkv from the rows' own L and delta (fp32:
+    TOL_BWD, dq elementwise, dk and dv relative to 1 + max|ref|; bf16:
+    TOL_BWD_BF16 relative to 1 + max|ref|)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, hq, hkv, s, d = QUICKSTART_LAYOUT
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        errs = {}
+        check = _fwd_checker(torch, K, R, SoftmaxState, finalize, errs, {})
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv))
+        label = f"quickstart layout b{b} hq{hq} hkv{hkv} d{d} {s} x {s} {key}"
+        st = check(f"flash_fwd {label}", dtype, q, k, v, None, causal=True)
+        do, L, delta = _bwd_inputs(torch, R, lse, finalize, q, None, None, g, states=st)
+        got = (K.flash_bwd_dq(q, k, v, do, L, delta, causal=True),
+               *K.flash_bwd_dkv(q, k, v, do, L, delta, causal=True))
+        want = (R.chunk_bwd_dq(q, k, v, do, L, delta, causal=True),
+                *R.chunk_bwd_dkv(q, k, v, do, L, delta, causal=True))
+        torch.cuda.synchronize()
+        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD
+        row = {"fwd": errs[key]}
+        for part, a, w in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{label}: non-finite {part}")
+            rel = float((a - w).abs().max()) / (1.0 + float(w.abs().max()))
+            if part == "dq" and dtype == torch.float32:
+                if _max_violation(a, w, TOL_BWD)[1]:
+                    raise AssertionError(f"{label}: dq beyond tol {TOL_BWD} elementwise")
+            elif rel > tol:
+                raise AssertionError(f"{label}: {part} err / (1 + max|ref|) {rel:.3e} beyond "
+                                     f"tol {tol}")
+            row[part] = rel
+        out[key] = row
+    print(f"quickstart head layout (b{b} hq{hq} hkv{hkv} d{d}, {s} x {s}, causal): "
+          + "; ".join(f"{k} flash_fwd max abs err of out, m, l {r['fwd']:.3e}, dq, dk, dv err "
+                      f"/ (1 + max|ref|) {r['dq']:.3e}, {r['dk']:.3e}, {r['dv']:.3e}"
+                      for k, r in out.items())
+          + f" (tol fwd {TOL['float32']} / {TOL['bfloat16']}, bwd {TOL_BWD} / {TOL_BWD_BF16})")
+    return out
+
+
+def _example_rank(out_dir, argv):
+    """One rank of the long-context example (``launch/mesh.py::spawn`` sets
+    its RANK and WORLD_SIZE, so the example's main runs as one rank of that
+    world): the launch counts reset just before main and read just after,
+    written with its results to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.examples import long_context_fpdt as LC
+
+    M = _modules()
+    _reset_counts(M.K, M.SK)
+    results = LC.main(argv)
+    Path(out_dir, f"rank{os.environ['RANK']}.json").write_text(
+        json.dumps({"launches": _counts(M.K, M.SK), "results": results}))
+
+
+def _long_context_ranks(M, card):
+    """long_context_fpdt at EXAMPLE_LONG, its ranks spawned here so that
+    each reads its own launch counts: (seconds, rank 0's counts), after
+    every rank launched B1-B3, each as often as its two variants reckon
+    (``_launches_per_step`` at the model axis's sequence split)."""
+    import functools
+    import tempfile
+
+    from repro_torch.examples import long_context_fpdt as LC
+
+    args = LC.parse_args(EXAMPLE_LONG)
+    world = args.shape[0] * args.shape[1]
+    reckoned = {}
+    for cfg in LC.variant_configs(LC.base_config(), args.chunks).values():
+        for k, n in _launches_per_step(cfg, M.F, M.T, M.MB, args.seq, sp=args.shape[1]).items():
+            reckoned[k] = reckoned.get(k, 0) + n
+    label = "long_context_fpdt " + " ".join(EXAMPLE_LONG)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        code = M.MESH.spawn(functools.partial(_example_rank, tmp), EXAMPLE_LONG, world)
+        seconds = time.perf_counter() - t0
+        if code:
+            raise AssertionError(f"example {label}: a rank exited with {code}")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(world)]
+    for r, rank in enumerate(ranks):
+        print(f"example {label} rank {r}: launches {rank['launches']}; "
+              + "; ".join(f"{name} loss {loss:.5f} sum |g| {gsum:.2f} peak "
+                          f"{peak / 2**20:.0f} MiB" for name, (loss, gsum, peak)
+                          in rank["results"].items()) + f" [{card}]")
+        missing = [k for k in ATTENTION_KERNELS if rank["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"example {label}: rank {r} launched {missing} no time")
+        if rank["launches"] != reckoned:
+            raise AssertionError(f"example {label}: rank {r} launches {rank['launches']}, "
+                                 f"reckoned {reckoned}")
+    print(f"example {label}: {seconds:.1f} s (the ranks' start-up included) [{card}]",
+          flush=True)
+    return seconds, ranks[0]["launches"]
+
+
+def phase_examples(torch, M, card, R, SoftmaxState, finalize, lse):
+    """Each example's main on the card at its JAX script's defaults, the
+    launch counts reset just before each and read just after: quickstart
+    (100 steps: finite losses that fall, checkpoints at 50 and 100), the
+    Fig. 14 curves (the example asserts they coincide within 5e-3), the
+    fault-tolerance demo (preempted after step 12, resumed to 30 on the same
+    bits, the straggler alert; the example asserts each), serve_batched's
+    fused default, paged shared-prefix and falcon-mamba-7b runs (every
+    request served, prefix hits on the paged run), and the long-context
+    demo on 1 x 2 gloo ranks (its ranks assert FPDT == Ulysses at 1e-4 and
+    1e-3; each rank reads its own launch counts, ``_long_context_ranks``).
+    First B1-B3 at quickstart's head layout against their plain versions;
+    after quickstart, one more of its steps profiled (``_profile_step``)."""
+    from repro_torch.examples import convergence_fpdt as CV
+    from repro_torch.examples import fault_tolerance_demo as FT
+    from repro_torch.examples import quickstart as QS
+    from repro_torch.examples import serve_batched as SB
+
+    import tempfile
+
+    K, SK = M.K, M.SK
+    t_phase = time.perf_counter()
+    out = {"layout": _quickstart_layout(torch, K, R, SoftmaxState, finalize, lse),
+           "seconds": {}, "launches": {}}
+
+    def drive(label, main, argv):
+        _reset_counts(K, SK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = main(argv)
+        torch.cuda.synchronize()
+        out["seconds"][label] = time.perf_counter() - t0
+        out["launches"][label] = _counts(K, SK)
+        print(f"example {label}: {out['seconds'][label]:.1f} s, launches "
+              f"{out['launches'][label]} [{card}]", flush=True)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        qs = drive("quickstart", QS.main, ["--steps", str(QUICKSTART_STEPS),
+                                           "--ckpt-dir", os.path.join(tmp, "quickstart")])
+        losses = [h["loss"] for h in qs["history"]]
+        if len(losses) != QUICKSTART_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"quickstart: {len(losses)} losses, finite "
+                                 f"{all(math.isfinite(x) for x in losses)}")
+        if not qs["last"] < qs["first"]:
+            raise AssertionError(f"quickstart: loss {qs['first']:.4f} -> {qs['last']:.4f}")
+        if qs["checkpoints"] != [50, 100]:
+            raise AssertionError(f"quickstart wrote checkpoints {qs['checkpoints']}")
+        per_step = {k: n / QUICKSTART_STEPS for k, n in out["launches"]["quickstart"].items()}
+        print(f"quickstart: loss {qs['first']:.4f} -> {qs['last']:.4f}, "
+              f"{qs['seconds'] / QUICKSTART_STEPS * 1e3:.1f} ms a step (host clock, the "
+              f"checkpoints included); launches a step {per_step} [{card}]")
+        cfg, dev = QS.quickstart_config(), torch.device("cuda")
+        params = M.T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        oc = M.TRAIN.adamw.OptConfig(lr=6e-4, warmup_steps=10, total_steps=QUICKSTART_STEPS)
+        b, _, _, seq, _ = QUICKSTART_LAYOUT
+        bf = M.DP.make_batch_fn(cfg, M.cfg_mod.ShapeConfig("quickstart", seq, b, "train"))
+        print("quickstart's step, profiled: ", end="")
+        out["profile"] = _profile_step(torch, M.TRAIN, M.TL, cfg, params, oc, bf, dev,
+                                       M.TRAIN.adamw.init(oc, params), M.PL.host_offload(dev),
+                                       card)
+        del params
+        cv = drive("convergence_fpdt", CV.main, ["--steps", "40"])
+        print("convergence max |loss - baseline|: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in cv["deviations"].items()))
+        ft = drive("fault_tolerance_demo", FT.main, ["--ckpt-dir", os.path.join(tmp, "ft")])
+        print(f"fault tolerance: preempted at {ft['reached']}, ended at {ft['end']}, "
+              f"checkpoints {ft['checkpoints']}, last loss {ft['losses'][-1]:.4f}")
+    want = {label: ATTENTION_KERNELS for label in out["launches"]}
+    for label, argv, kernels in EXAMPLE_SERVE:
+        want[f"serve_batched {label}"] = kernels
+        run = drive(f"serve_batched {label}", SB.main, argv)
+        args = SB.parse_args(argv)
+        if len(run["outs"]) != args.requests or not all(0 < len(o) <= args.gen
+                                                        for o in run["outs"]):
+            raise AssertionError(f"serve_batched {label}: {[len(o) for o in run['outs']]} "
+                                 f"tokens for {args.requests} requests")
+        if args.paged and not run["stats"]["prefix_hit_tokens"] > 0:
+            raise AssertionError(f"serve_batched {label}: no prefix hit")
+    label = "long_context_fpdt " + " ".join(EXAMPLE_LONG) + " (per rank)"
+    out["seconds"][label], out["launches"][label] = _long_context_ranks(M, card)
+    for label, kernels in want.items():
+        missing = [k for k in kernels if out["launches"][label][k] <= 0]
+        if missing:
+            raise AssertionError(f"example {label} launched {missing} no time")
+    total = time.perf_counter() - t_phase
+    print(f"examples: {total:.1f} s (aim {EXAMPLES_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["seconds"].items()) + f" [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5364,13 +5604,14 @@ def main():
                 phase_train_cli, torch, M, card, train_ref)
     hybrid = phase("train recurrentgemma-9b (8 layers)", phase_train_hybrid, torch, M, card)
     gpt = phase("train gpt-2.7b", phase_train_gpt, torch, M, card)
-    falcon = phase(f"train falcon-mamba-7b ({FALCON_LAYERS} layers)", phase_train_falcon, torch,
-                   M, card)
+    falcon = phase(f"train falcon-mamba-7b ({FALCON_TRAIN_LAYERS} layers)", phase_train_falcon,
+                   torch, M, card)
     phase("granite MoE layer under set_sync_debug_mode('error')", phase_moe_layer, torch, M, card)
     granite = phase(f"train {GRANITE}", phase_train_granite, torch, M, card)
     frontends = {arch: phase(f"train {arch}", phase_train_frontend, torch, M, card, arch)
                  for arch in FRONTEND_ARCHS}
     qwen = phase(f"train {QWEN} ({QWEN_LAYERS} layers)", phase_train_qwen, torch, M, card)
+    examples = phase("examples", phase_examples, torch, M, card, R, SoftmaxState, finalize, lse)
     phase("long context gpt-2.7b", phase_long_context, torch, M, card)
     dist = phase("distribution (ulysses, cp, the recurrent mixers)", phase_dist, torch, M, card)
     timing = phase("timing", phase_timing, torch, K, R, SK, SR, lse, finalize, card)
@@ -5384,6 +5625,7 @@ def main():
     replaces = "src/repro/kernels/flash_attention/kernel.py:"
     pairs = bwd["pairs"]
     layouts = {arch: row["bfloat16"] for arch, row in bwd["layouts"].items()}  # the path's dtype
+    qs_layout = examples["layout"]
     entries = [
         ("flash_fwd", flash + "flash_fwd.cu", replaces + "134",
          max(*errs.values(), *(p["fwd"] for p in pairs.values())),
@@ -5393,6 +5635,7 @@ def main():
           **{f"tc_rel_err_acc_{m}_pairs": p["fwd_tc"]["acc"] for m, p in pairs.items()},
           **{f"max_err_dist_pairs_{k}": w["fwd"] for k, w in bwd["dist"].items()},
           **{f"max_err_{a}_layout_pair": w["fwd"] for a, w in layouts.items()},
+          **{f"max_err_quickstart_layout_{k}": w["fwd"] for k, w in qs_layout.items()},
           **{f"tc_rel_err_acc_{a}_layout_pair": w["fwd_tc"] for a, w in layouts.items()},
           "library": timing["flash_fwd"]["library"],
           **at("flash_fwd_gpt_diagonal", "gpt_diagonal_pair"),
@@ -5400,6 +5643,7 @@ def main():
           **at("flash_fwd_serve", "serve")}),
         ("flash_bwd_dq", flash + "flash_bwd.cu", replaces + "273", bwd["abs"]["dq"],
          {"max_rel_err": bwd["rel"]["dq"],
+          **{f"max_rel_err_quickstart_layout_{k}": w["dq"] for k, w in qs_layout.items()},
           **{f"max_rel_err_dist_pairs_{k}": w["dq"] for k, w in bwd["dist"].items()},
           **{f"max_rel_err_{m}_pairs": p["worst"]["dq"] for m, p in pairs.items()},
           **{f"tc_rel_err_{m}_pairs": p["tc"]["dq"] for m, p in pairs.items()},
@@ -5410,6 +5654,8 @@ def main():
         ("flash_bwd_dkv", flash + "flash_bwd.cu", replaces + "367",
          max(bwd["abs"]["dk"], bwd["abs"]["dv"]),
          {"max_rel_err_dk": bwd["rel"]["dk"], "max_rel_err_dv": bwd["rel"]["dv"],
+          **{f"max_rel_err_{p}_quickstart_layout_{k}": w[p] for k, w in qs_layout.items()
+             for p in ("dk", "dv")},
           **{f"max_rel_err_{p}_dist_pairs_{k}": w[p] for k, w in bwd["dist"].items()
              for p in ("dk", "dv")},
           **{f"max_rel_err_dk_{m}_pairs": p["worst"]["dk"] for m, p in pairs.items()},
@@ -5447,6 +5693,7 @@ def main():
                    f"train {GRANITE}": granite[kname],
                    **{f"train {arch}": d[kname] for arch, d in frontends.items()},
                    f"train {QWEN}": qwen[kname],
+                   **{f"example {label}": d[kname] for label, d in examples["launches"].items()},
                    **{path: d[kname] for path, d in dist.items()}}
         # each kernel's own path: gpt-2.7b's training for the attention
         # kernels, this slice's falcon-mamba-7b training for the scan

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing.connection
 import os
+import sys
 import tempfile
 from typing import Any, Callable, List, Tuple
 
@@ -150,6 +151,48 @@ def rank_device(kind: str, local_rank: int) -> torch.device:
     if kind == "cpu":
         return torch.device("cpu")
     return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def replica_devices(kind: str, n: int) -> List[torch.device]:
+    """The devices of ``n`` replicas served by one process: the cards in
+    turn, else the CPU."""
+    cards = torch.cuda.device_count() if kind == "cuda" else 0
+    return [torch.device("cuda", r % cards) if cards else torch.device("cpu") for r in range(n)]
+
+
+def take_device(kind: str, local_rank: int, world: int) -> torch.device:
+    """This rank's ``rank_device``, made current; on the CPU the ranks
+    share the host's cores, so each takes its share of the threads."""
+    device = rank_device(kind, local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    return device
+
+
+def default_backend(requested, device_kind: str) -> str:
+    """``requested`` (a ``--dist-backend``), else nccl on the card and gloo
+    on the CPU."""
+    return requested or ("nccl" if device_kind == "cuda" else "gloo")
+
+
+def run_ranks(world: int, backend: str, main: Callable, argv: List[str], as_rank: Callable):
+    """A CLI's run over ``world`` ranks.  In a world started outside
+    (torchrun, or ``spawn``: ``WORLD_SIZE`` is set) this process is one rank
+    and returns ``as_rank()``; otherwise it spawns ``world`` ranks of
+    ``main(argv)``, exits with a failed rank's code and returns None.  NCCL
+    needs one card a rank; gloo ranks can share one."""
+    if "WORLD_SIZE" in os.environ:
+        return as_rank()
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise SystemExit(f"nccl needs one card a rank: {world} ranks, "
+                         f"{torch.cuda.device_count()} cards (gloo can share a card: "
+                         "--dist-backend gloo)")
+    code = spawn(main, argv, world)
+    if code:
+        sys.exit(code)
+    return None
 
 
 def _spawned_rank(main: Callable, argv: List[str], rank: int, world: int, init_method: str):

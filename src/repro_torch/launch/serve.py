@@ -498,27 +498,38 @@ def _replica(args, cfg: ModelConfig, device: torch.device, par=None) -> MeshRepl
                                    **_engine_kw(args, args.shared_kv_store)), gen)
 
 
-def _route(args, cfg: ModelConfig, replicas: List[Any], name: str, mesh):
-    """Rank 0's part of a mesh run: the router over ``replicas`` (engines
-    or proxies, fault-wrapped by ``--fault-plan``) serves the workload and
-    the run's figures print as the JAX CLI prints them."""
+def route(replicas: List[Any], prompts, sessions=None, *, policy: str = "affine",
+          fault_plan: str = "", retry: int = 1, dispatch_timeout: float = 0.0,
+          shared_kv_store: str = ""):
+    """The router over ``replicas`` (engines or proxies, fault-wrapped by
+    ``fault_plan``, with a shared prefix store when ``shared_kv_store``
+    names one) serves ``prompts`` (with ``sessions``, their affinity keys).
+    Returns (router, outputs, the store or None, host-clock seconds)."""
     from repro_torch.launch.faults import FaultyReplica, parse_fault_plan
     from repro_torch.launch.kvstore import SharedKVStore
     from repro_torch.launch.router import ReplicaRouter
 
-    data, model = mesh
-    n = args.replicas
-    plan = parse_fault_plan(args.fault_plan) if args.fault_plan else {}
+    plan = parse_fault_plan(fault_plan) if fault_plan else {}
     seats = [FaultyReplica(rep, plan[r], name=f"replica{r}") if r in plan else rep
              for r, rep in enumerate(replicas)]
-    kv_store = SharedKVStore(args.shared_kv_store) if args.shared_kv_store else None
-    router = ReplicaRouter(seats, policy=args.router, max_retries=args.retry,
-                           dispatch_timeout=args.dispatch_timeout or None, kv_store=kv_store)
+    kv_store = SharedKVStore(shared_kv_store) if shared_kv_store else None
+    router = ReplicaRouter(seats, policy=policy, max_retries=retry,
+                           dispatch_timeout=dispatch_timeout or None, kv_store=kv_store)
+    t0 = time.perf_counter()
+    outs = router.generate(prompts, sessions)
+    return router, outs, kv_store, time.perf_counter() - t0
+
+
+def _route(args, cfg: ModelConfig, replicas: List[Any], name: str, mesh):
+    """Rank 0's part of a mesh run: ``route`` serves the CLI's workload and
+    the run's figures print as the JAX CLI prints them."""
+    data, model = mesh
+    n = args.replicas
     prompts, _ = engine_prompts(cfg, args.requests, args.prompt_len, args.shared_prefix,
                                 args.seed)
-    t0 = time.perf_counter()
-    outs = router.generate(prompts)
-    dt = time.perf_counter() - t0
+    router, outs, kv_store, dt = route(
+        replicas, prompts, policy=args.router, fault_plan=args.fault_plan, retry=args.retry,
+        dispatch_timeout=args.dispatch_timeout, shared_kv_store=args.shared_kv_store)
     total = sum(len(o) for o in outs)
     st = router.last_stats
     print(f"[{n} x ({data} data x {model} model) mesh replicas, router={args.router}] "
@@ -579,56 +590,52 @@ def _mesh_engine_main(args, argv, mesh):
                          "radix tree)")
     cfg = _serve_cfg(args)
     if per == 1:  # every replica an engine in this process
-        cards = torch.cuda.device_count() if args.device == "cuda" else 0
-        devices = [torch.device("cuda", r % cards) if cards else torch.device("cpu")
-                   for r in range(n)]
+        devices = MESH.replica_devices(args.device, n)
         reps = [_replica(args, cfg, d) for d in devices]
         router, outs, store = _route(args, cfg, reps, device_name(devices[0]), mesh)
         _export_mesh_telemetry(args, router, [rep.telemetry for rep in reps], store)
         return outs
-    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, spawn)
-        return _mesh_rank(args, cfg, mesh)
-    world = n * per
-    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
-    if backend == "nccl" and world > torch.cuda.device_count():
-        raise SystemExit(f"nccl needs one card a rank: {world} ranks, "
-                         f"{torch.cuda.device_count()} cards (gloo can share a card: "
-                         "--dist-backend gloo)")
-    code = MESH.spawn(main, argv, world)
-    if code:
-        sys.exit(code)
-    return None
+    backend = MESH.default_backend(args.dist_backend, args.device)
+    return MESH.run_ranks(n * per, backend, main, argv,
+                          lambda: _mesh_rank(args, cfg, mesh, backend))
 
 
-def _mesh_rank(args, cfg: ModelConfig, mesh):
+def serve_ranks(mesh, replicas: int, backend: str, device_kind: str, make_replica, lead):
     """One rank of a multi-rank mesh run: join the world, build every
-    replica's (data, model) ``mesh`` and the control groups, then route
-    (world rank 0) or serve its replica's commands."""
+    replica's (data, model) ``mesh`` and the control groups and this rank's
+    replica (``make_replica(device, par)``, a ``MeshReplica``); then world
+    rank 0 returns ``lead(proxies, device)`` (``lead`` routes over the
+    replicas' ``RankProxy`` seats and stops each at the end) and every other
+    rank serves its replica's commands until stop, returning None."""
     data, model = mesh
-    per, n = data * model, args.replicas
-    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    per, n = data * model, replicas
     rank, world, local_rank = MESH.init_from_env(backend)
     try:
-        device = MESH.rank_device(args.device, local_rank)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        else:  # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        device = MESH.take_device(device_kind, local_rank, world)
         par = MESH.serve_mesh(data, model, replicas=n)
         ctl = [dist.new_group(sorted({0, *range(r * per, (r + 1) * per)})) for r in range(n)]
-        rep = _replica(args, cfg, device, par)
+        rep = make_replica(device, par)
         me = rank // per
         if rank != 0:
             _serve_commands(rep, ctl[me], me * per)
             return None
-        proxies = [RankProxy(ctl[r], r * per, rep if r == 0 else None) for r in range(n)]
+        return lead([RankProxy(ctl[r], r * per, rep if r == 0 else None) for r in range(n)],
+                    device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank(args, cfg: ModelConfig, mesh, backend: str):
+    """One rank of the CLI's multi-rank mesh run (``serve_ranks``)."""
+    def lead(proxies, device):
         router, outs, store = _route(args, cfg, proxies, device_name(device), mesh)
         for px in proxies:
             px.stop()
         _export_mesh_telemetry(args, router, [px.telemetry for px in proxies], store)
         return outs
-    finally:
-        dist.destroy_process_group()
+
+    return serve_ranks(mesh, args.replicas, backend, args.device,
+                       lambda device, par: _replica(args, cfg, device, par), lead)
 
 
 def main(argv=None):

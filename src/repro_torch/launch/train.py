@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 from typing import Any, Callable, List, NamedTuple, Optional
 
@@ -152,30 +151,19 @@ def main(argv=None):
         shape = MESH.parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
-    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    backend = MESH.default_backend(args.dist_backend, args.device)
     if args.device == "cpu" and backend == "nccl":
         ap.error("nccl runs on the card: --device cpu takes --dist-backend gloo")
-    if "WORLD_SIZE" in os.environ:  # a rank of a world started outside (torchrun, spawn)
-        return _rank_main(args, shape, backend)
-    world = shape[0] * shape[1]
-    if backend == "nccl" and world > torch.cuda.device_count():
-        ap.exit(2, f"nccl needs one card a rank: {world} ranks, {torch.cuda.device_count()} "
-                   "cards (gloo can share a card: --dist-backend gloo)\n")
-    code = MESH.spawn(main, list(argv if argv is not None else sys.argv[1:]), world)
-    if code:
-        sys.exit(code)
-    return None
+    return MESH.run_ranks(shape[0] * shape[1], backend, main,
+                          list(argv if argv is not None else sys.argv[1:]),
+                          lambda: _rank_main(args, shape, backend))
 
 
 def _rank_main(args, shape, backend):
     """One rank of a ``--mesh`` run: join the world, build the mesh, train."""
     _, world, local_rank = MESH.init_from_env(backend)
     try:
-        device = MESH.rank_device(args.device, local_rank)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        else:  # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        device = MESH.take_device(args.device, local_rank, world)
         par = ParallelContext(MESH.make_mesh(*shape))
         return _train(args, par, device)
     finally:

@@ -1442,10 +1442,40 @@ def task_serve_mesh(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
+def task_long_context(rank: int, world: int, tmp: Path) -> dict:
+    """The long-context example on a 2 x 2 mesh from the JAX weights in
+    ``long_context.npz`` (bf16 leaves as their 16-bit patterns) and its
+    batch: each variant's loss and sum |g| (the example's own check
+    passing on every rank)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.parallel import ParallelContext
+    from repro_torch.examples import long_context_fpdt as LC
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    ref = np.load(tmp / "long_context.npz")
+    base = LC.base_config()
+    par = ParallelContext(make_mesh(2, 2))
+    like = T.init_params(base, torch.Generator().manual_seed(0), "cpu")
+    leaves = [torch.from_numpy(ref[f"p{i}"].copy()).view(x.dtype)
+              for i, x in enumerate(tree_leaves(like))]
+    params = SH.shard_params(base, par, tree_unflatten(like, leaves))
+    toks = ref["tokens"]
+    results = LC.run(base, par, params, {"tokens": toks, "labels": toks.copy()},
+                     int(ref["chunks"]), torch.device("cpu"))
+    LC.check(results)
+    return {name: [loss, gsum] for name, (loss, gsum, _) in results.items()}
+
+
 TASKS = {"parallel": task_parallel, "fpdt": task_fpdt, "train": task_train,
          "recurrent": task_recurrent, "fpdt_cuda": task_fpdt_cuda, "moe": task_moe,
          "zero": task_zero, "ckpt": task_ckpt, "compress": task_compress,
-         "serve_mesh": task_serve_mesh}
+         "serve_mesh": task_serve_mesh,
+         "long_context": task_long_context}
 
 
 def main() -> None:

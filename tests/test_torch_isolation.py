@@ -46,7 +46,9 @@ def test_port_has_modules():
                  "models/mamba.py", "models/rglru.py", "configs/recurrentgemma_9b.py",
                  "configs/falcon_mamba_7b.py", "core/parallel.py", "launch/mesh.py",
                  "models/moe.py", "configs/granite_moe_1b_a400m.py", "optim/compression.py",
-                 "runtime/telemetry.py"):
+                 "runtime/telemetry.py", "examples/quickstart.py",
+                 "examples/convergence_fpdt.py", "examples/long_context_fpdt.py",
+                 "examples/fault_tolerance_demo.py", "examples/serve_batched.py"):
         assert want in names
     assert os.path.exists(SMOKE)
     for kernel, src in (("flash_attention", "flash_fwd.cu"), ("flash_attention", "flash_bwd.cu"),
